@@ -1,0 +1,494 @@
+"""Decoder subset of the zoo transformer (counterpart of
+``models/zoo/transformer.py``): the config, seeded weights, the weight
+loader, the cached prefill and ragged decode steps, and the paged KV
+cache with its two attention implementations.
+
+Layouts are the JAX package's at every public function — (B, H, S, hd)
+activations, (N, H, page, hd) page pools, a params dict with the same
+keys — so the port and the reference compare like with like. Matrices
+are cast to ``cfg.dtype`` once, in :func:`params_from_numpy`, which is
+numerically the same as the reference's per-use ``.astype(dt)``.
+
+The paged functions update the page pools IN PLACE and return the same
+list (the JAX package returns fresh, donated buffers; a caller that
+rebinds sees the same thing).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...ops.paged_attention import paged_attention_window
+from ...utils.device import resolve_device
+
+__all__ = ["TransformerConfig", "init_transformer", "params_from_numpy",
+           "prefill_cache", "decode_step_ragged", "decode_window_ragged",
+           "init_paged_cache", "paged_gather",
+           "paged_scatter_rows", "decode_step_paged", "decode_window_paged",
+           "gelu"]
+
+_NEG = -1e30
+
+
+class TransformerConfig(NamedTuple):
+    vocab: int = 30522
+    layers: int = 12
+    d_model: int = 768
+    heads: int = 12
+    d_ff: int = 3072
+    max_len: int = 512
+    dtype: Any = torch.bfloat16
+    causal: bool = False
+    norm: str = "layernorm"        # "layernorm" | "rmsnorm"
+    position: str = "learned"      # "learned" | "rope"
+    rope_theta: float = 10000.0
+
+
+def init_transformer(cfg: TransformerConfig, seed: int = 0) -> Dict:
+    """Seeded numpy weights — the reference's draw order verbatim, so the
+    same seed gives bitwise the same arrays (dense layers only)."""
+    rng = np.random.default_rng(seed)
+
+    def dense(din, dout, scale=None):
+        s = scale or np.sqrt(2.0 / (din + dout))
+        return rng.normal(0, s, (din, dout)).astype(np.float32)
+
+    def norm_p():
+        p = {"scale": np.ones(cfg.d_model, np.float32)}
+        if cfg.norm != "rmsnorm":       # RMSNorm has no bias
+            p["bias"] = np.zeros(cfg.d_model, np.float32)
+        return p
+
+    params: Dict = {
+        "embed": {"tok": dense(cfg.vocab, cfg.d_model, 0.02)},
+        "layers": [],
+        "final_ln": norm_p(),
+        "lm_head": {"w": dense(cfg.d_model, cfg.vocab, 0.02)},
+    }
+    if cfg.position == "learned":
+        params["embed"]["pos"] = dense(cfg.max_len, cfg.d_model, 0.02)
+    for _ in range(cfg.layers):
+        layer = {
+            "ln1": norm_p(),
+            "qkv": {"w": dense(cfg.d_model, 3 * cfg.d_model),
+                    "b": np.zeros(3 * cfg.d_model, np.float32)},
+            "out": {"w": dense(cfg.d_model, cfg.d_model),
+                    "b": np.zeros(cfg.d_model, np.float32)},
+            "ln2": norm_p(),
+            "w1": {"w": dense(cfg.d_model, cfg.d_ff),
+                   "b": np.zeros(cfg.d_ff, np.float32)},
+            "w2": {"w": dense(cfg.d_ff, cfg.d_model),
+                   "b": np.zeros(cfg.d_model, np.float32)},
+        }
+        params["layers"].append(layer)
+    return params
+
+
+def params_from_numpy(params: Dict, cfg: TransformerConfig,
+                      device=None) -> Dict:
+    """The reference's param pytree (numpy arrays, or ``np.asarray`` of
+    jax arrays) → the port's tensors on ``device`` (None = the card).
+
+    Embeddings, projection matrices and biases are cast ONCE to
+    ``cfg.dtype``; norm scales/biases stay f32 (the norms run in f32) and
+    ``lm_head`` stays f32 (the reference multiplies f32 hidden by an f32
+    head)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=dtype)
+
+    def norm(p):
+        return {k: t(v, torch.float32) for k, v in p.items()}
+
+    dt = cfg.dtype
+    out = {"embed": {k: t(v, dt) for k, v in params["embed"].items()},
+           "final_ln": norm(params["final_ln"]),
+           "lm_head": {"w": t(params["lm_head"]["w"], torch.float32)},
+           "layers": []}
+    for lp in params["layers"]:
+        if "moe" in lp:
+            raise ValueError("the port's decoder has no MoE layers")
+        out["layers"].append({
+            "ln1": norm(lp["ln1"]), "ln2": norm(lp["ln2"]),
+            **{name: {"w": t(lp[name]["w"], dt), "b": t(lp[name]["b"], dt)}
+               for name in ("qkv", "out", "w1", "w2")}})
+    return out
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default form: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _ln(x, p, eps=1e-5):
+    m = x.mean(dim=-1, keepdim=True)
+    v = x.var(dim=-1, keepdim=True, unbiased=False)
+    return (x - m) * torch.rsqrt(v + eps) * p["scale"] + p["bias"]
+
+
+def _rms(x, p, eps=1e-6):
+    inv = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return x * inv * p["scale"]
+
+
+def _norm(x, p, cfg):
+    """Norm in f32 (callers pass ``h.float()``)."""
+    return _rms(x, p) if cfg.norm == "rmsnorm" else _ln(x, p)
+
+
+def _rope_tables(positions, D: int, theta: float, dtype):
+    """cos/sin tables for split-half rotation at ``positions`` (any
+    shape), in the activation dtype."""
+    if D % 2:
+        raise ValueError(f"rotary embeddings need an even head dim, got {D} "
+                         f"(d_model/heads)")
+    half = D // 2
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def _rot_half(t, cos, sin):
+    half = t.shape[-1] // 2
+    t0, t1 = t[..., :half], t[..., half:]
+    return torch.cat([t0 * cos - t1 * sin, t0 * sin + t1 * cos], dim=-1)
+
+
+def _rope(q, k, theta: float):
+    """Rotary position embeddings on (B, H, S, D) q/k (split-half form)."""
+    cos, sin = _rope_tables(torch.arange(q.shape[2], device=q.device),
+                            q.shape[-1], theta, q.dtype)
+    cos, sin = cos[None, None], sin[None, None]
+    return _rot_half(q, cos, sin), _rot_half(k, cos, sin)
+
+
+def _dense(x, p):
+    return x @ p["w"] + p["b"]
+
+
+def _qkv_heads(x, lp, cfg, B, S):
+    hd = cfg.d_model // cfg.heads
+    q, k, v = _dense(x, lp["qkv"]).split(cfg.d_model, dim=-1)
+
+    def heads(t):
+        return t.reshape(B, S, cfg.heads, hd).transpose(1, 2)
+
+    return heads(q), heads(k), heads(v)
+
+
+def _ffn_residual(h, lp, cfg, ctx, B, S):
+    """Output projection + residual, then the norm/FFN/residual half."""
+    dt = cfg.dtype
+    ctx = ctx.transpose(1, 2).reshape(B, S, cfg.d_model)
+    h = h + _dense(ctx, lp["out"])
+    x = _norm(h.float(), lp["ln2"], cfg).to(dt)
+    y = gelu(_dense(x, lp["w1"]))
+    return h + _dense(y, lp["w2"])
+
+
+def _attend(q, k, v, ok, dt):
+    """Dense masked attention: f32 scores, ``-1e30`` outside ``ok``, f32
+    softmax, probabilities cast to the activation dtype before ``p·v``."""
+    hd = q.shape[-1]
+    s = (q.float() @ k.float().transpose(-1, -2)) / np.float32(np.sqrt(hd))
+    s = torch.where(ok, s, _NEG)
+    p = torch.softmax(s, dim=-1).to(dt)
+    return p @ v
+
+
+def _embed(params, ids, cfg, positions):
+    h = params["embed"]["tok"][ids]
+    if cfg.position == "learned":
+        h = h + params["embed"]["pos"][positions]
+    return h
+
+
+def prefill_cache(params: Dict, ids: torch.Tensor, length,
+                  cfg: TransformerConfig, max_len: int):
+    """Batched prompt prefill: ONE causal forward over the (padded) prompt
+    (dense attention in plain torch, as the reference leaves it to XLA),
+    capturing every layer's K/V into ``max_len`` buffers, plus the logits
+    at the last real token.
+
+    ``ids`` (B, P) right-padded, ``length`` (B,) real lengths → (logits
+    (B, vocab) f32, cache list of {"k","v"} (B, H, max_len, hd))."""
+    dt = cfg.dtype
+    B, P = ids.shape
+    if P > max_len:
+        raise ValueError(f"prompt {P} exceeds cache max_len {max_len}")
+    dev = ids.device
+    length = length.to(torch.int64)
+    valid = torch.arange(P, device=dev)[None] < length[:, None]    # (B, P)
+    h = _embed(params, ids, cfg, torch.arange(P, device=dev)[None])
+    tri = torch.tril(torch.ones(P, P, dtype=torch.bool, device=dev))
+    attn_ok = tri[None, None] & valid[:, None, None, :]
+    cache = []
+    for lp in params["layers"]:
+        x = _norm(h.float(), lp["ln1"], cfg).to(dt)
+        q, k, v = _qkv_heads(x, lp, cfg, B, P)
+        if cfg.position == "rope":
+            q, k = _rope(q, k, cfg.rope_theta)
+        pad = (0, 0, 0, max_len - P)
+        cache.append({"k": F.pad(k.to(dt), pad), "v": F.pad(v.to(dt), pad)})
+        ctx = _attend(q, k, v, attn_ok, dt)
+        h = _ffn_residual(h, lp, cfg, ctx, B, P)
+    hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
+    last = hidden[torch.arange(B, device=dev), length - 1]
+    logits = last.float() @ params["lm_head"]["w"]
+    return logits, cache
+
+
+def decode_window_ragged(params: Dict, tokens: torch.Tensor,
+                         pos: torch.Tensor, cache, cfg: TransformerConfig,
+                         active: Optional[torch.Tensor] = None):
+    """Cached forward over a window of W tokens per row at per-row start
+    positions: ``tokens`` (B, W), ``pos`` (B,) → (logits (B, W, vocab)
+    f32, new cache). Row b's query j sits at ``pos[b] + j``, attends
+    cached keys ``<= pos[b] + j``, and the window's K/V land at
+    ``pos[b]..pos[b]+W-1``. Inactive rows keep their cache untouched.
+    Functional: the input cache is not modified."""
+    dt = cfg.dtype
+    B, W = tokens.shape
+    L = cache[0]["k"].shape[2]
+    hd = cfg.d_model // cfg.heads
+    dev = tokens.device
+    pos = pos.to(torch.int64)
+    wpos = pos[:, None] + torch.arange(W, device=dev)             # (B, W)
+    h = _embed(params, tokens, cfg, wpos)
+    if cfg.position == "rope":
+        cos, sin = _rope_tables(wpos, hd, cfg.rope_theta, dt)
+        cos, sin = cos[:, None], sin[:, None]                      # B,1,W,·
+    key_ok = (torch.arange(L, device=dev)[None, None, :]
+              <= wpos[:, :, None])[:, None]                        # B,1,W,L
+    keep = None if active is None else active[:, None, None, None]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, W)
+    new_cache = []
+    for lp, c in zip(params["layers"], cache):
+        x = _norm(h.float(), lp["ln1"], cfg).to(dt)
+        q, k, v = _qkv_heads(x, lp, cfg, B, W)
+        if cfg.position == "rope":
+            q = _rot_half(q, cos, sin)
+            k = _rot_half(k, cos, sin)
+        kc, vc = c["k"].clone(), c["v"].clone()
+        kc[rows, :, wpos] = k.to(dt).transpose(1, 2)
+        vc[rows, :, wpos] = v.to(dt).transpose(1, 2)
+        if keep is not None:
+            kc = torch.where(keep, kc, c["k"])
+            vc = torch.where(keep, vc, c["v"])
+        new_cache.append({"k": kc, "v": vc})
+        ctx = _attend(q, kc, vc, key_ok, dt)
+        h = _ffn_residual(h, lp, cfg, ctx, B, W)
+    hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
+    logits = hidden.float() @ params["lm_head"]["w"]
+    return logits, new_cache
+
+
+def decode_step_ragged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+                       cache, cfg: TransformerConfig,
+                       active: Optional[torch.Tensor] = None):
+    """One incremental decode step at per-row positions: ``tokens`` (B,),
+    ``pos`` (B,) → (logits (B, vocab) f32, new cache) — the W = 1 case of
+    :func:`decode_window_ragged` (one layer loop keeps the two paths
+    identical)."""
+    logits, new = decode_window_ragged(params, tokens[:, None], pos, cache,
+                                       cfg, active)
+    return logits[:, 0], new
+
+
+# ---- paged KV cache ---------------------------------------------------------
+# Per layer a (num_pages, H, page_size, hd) pool pair; each row owns a block
+# table row mapping logical pages to physical ones. Physical page 0 is the
+# trash page: unallocated block-table entries point at it and inactive rows'
+# writebacks land there. impl="kernel" reads the pages in place through the
+# hand-written CUDA kernel (ops/paged_attention.py); impl="gather" gathers a
+# contiguous copy, runs the ragged math and writes the fresh rows back — the
+# oracle the kernel path is held against.
+
+def init_paged_cache(cfg: TransformerConfig, num_pages: int, page_size: int,
+                     device=None):
+    """Per-layer zeroed (num_pages, H, page_size, hd) k/v pools in
+    ``cfg.dtype`` (zeros, not empty: a pool slot never written holds a
+    finite value)."""
+    dev = resolve_device(device)
+    hd = cfg.d_model // cfg.heads
+    shape = (num_pages, cfg.heads, page_size, hd)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for _ in range(cfg.layers)]
+
+
+def paged_gather(cache_pages, block_tables, length: int, out_dtype=None):
+    """Assemble each row's pages into contiguous (B, H, length, hd) k/v."""
+    bt = block_tables.long()
+    out = []
+    for c in cache_pages:
+        row = {}
+        for kk in ("k", "v"):
+            g = c[kk][bt]                              # (B, P, H, page, hd)
+            if out_dtype is not None:
+                g = g.to(out_dtype)
+            B, Pp, H, pg, hd = g.shape
+            g = g.permute(0, 2, 1, 3, 4).reshape(B, H, Pp * pg, hd)
+            row[kk] = g[:, :, :length]
+        out.append(row)
+    return out
+
+
+def paged_scatter_rows(cache_pages, rows, block_tables, page_size: int):
+    """Write full contiguous (B, H, L, hd) k/v rows (a prefill output) into
+    the pools through each row's block table, in place. Logical pages past
+    a row's allocation must map to the trash page."""
+    L = rows[0]["k"].shape[2]
+    n_pages = (L + page_size - 1) // page_size
+    dest = block_tables[:, :n_pages].reshape(-1).long()
+    for c, rc in zip(cache_pages, rows):
+        for kk in ("k", "v"):
+            r = rc[kk]
+            B, H, _, hd = r.shape
+            r = F.pad(r, (0, 0, 0, n_pages * page_size - L))
+            r = r.reshape(B, H, n_pages, page_size, hd).permute(
+                0, 2, 1, 3, 4).reshape(B * n_pages, H, page_size, hd)
+            c[kk][dest] = r.to(c[kk].dtype)
+    return cache_pages
+
+
+def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
+                     page_size: int, active):
+    """Scatter the freshly written positions ``wpos`` (B, W) of an updated
+    gathered cache back into the pools, in place. Inactive rows (and only
+    they) are redirected to trash page 0."""
+    B, W = wpos.shape
+    wpos = wpos.long()
+    phys = torch.gather(block_tables.long(), 1,
+                        torch.div(wpos, page_size, rounding_mode="floor"))
+    if active is not None:
+        phys = torch.where(active[:, None], phys, torch.zeros_like(phys))
+    pf = phys.reshape(-1)
+    of = (wpos % page_size).reshape(-1)
+    rows = torch.arange(B, device=wpos.device)[:, None].expand(B, W)
+    for c, nc in zip(cache_pages, new_cache):
+        for kk in ("k", "v"):
+            vals = nc[kk][rows, :, wpos]                    # (B, W, H, hd)
+            H, hd = vals.shape[2], vals.shape[3]
+            c[kk][pf, :, of] = vals.reshape(B * W, H, hd).to(c[kk].dtype)
+    return cache_pages
+
+
+def _decode_window_paged_kernel(params: Dict, tokens: torch.Tensor,
+                                pos: torch.Tensor, cache_pages,
+                                block_tables, cfg: TransformerConfig,
+                                active: Optional[torch.Tensor]):
+    """The kernel layer loop: the same embedding / rope / projection / FFN
+    math as :func:`decode_window_ragged`, with attention reading the pages
+    in place and writing the window's fresh rows in the same launch."""
+    dt = cfg.dtype
+    B, W = tokens.shape
+    hd = cfg.d_model // cfg.heads
+    dev = tokens.device
+    pos = pos.to(torch.int32)
+    wpos = pos.long()[:, None] + torch.arange(W, device=dev)
+    bt = block_tables.to(torch.int32)
+    h = _embed(params, tokens, cfg, wpos)
+    if cfg.position == "rope":
+        cos, sin = _rope_tables(wpos, hd, cfg.rope_theta, dt)
+        cos, sin = cos[:, None], sin[:, None]
+    for lp, c in zip(params["layers"], cache_pages):
+        x = _norm(h.float(), lp["ln1"], cfg).to(dt)
+        q, k, v = _qkv_heads(x, lp, cfg, B, W)
+        if cfg.position == "rope":
+            q = _rot_half(q, cos, sin)
+            k = _rot_half(k, cos, sin)
+        ctx, _, _ = paged_attention_window(
+            q.contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous(),
+            c["k"], c["v"], bt, pos, active=active)
+        h = _ffn_residual(h, lp, cfg, ctx, B, W)
+    hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
+    logits = hidden.float() @ params["lm_head"]["w"]
+    return logits, cache_pages
+
+
+def _check_impl(impl: str) -> str:
+    if impl not in ("kernel", "gather"):
+        raise ValueError(f"unknown paged-attention impl {impl!r} "
+                         f"(choose 'kernel' or 'gather')")
+    return impl
+
+
+def decode_step_paged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+                      cache_pages, block_tables, cfg: TransformerConfig, *,
+                      page_size: int, length: int,
+                      active: Optional[torch.Tensor] = None,
+                      impl: str = "kernel"):
+    """One paged decode step → (logits (B, vocab) f32, pools updated in
+    place). ``impl="kernel"`` (default) attends through the hand-written
+    kernel; ``impl="gather"`` gathers to contiguous (``length`` keys),
+    runs :func:`decode_step_ragged` and writes the one new position per
+    row back — the oracle. Nothing else selects the implementation."""
+    if _check_impl(impl) == "kernel":
+        logits, pages = _decode_window_paged_kernel(
+            params, tokens[:, None], pos, cache_pages, block_tables, cfg,
+            active)
+        return logits[:, 0], pages
+    gathered = paged_gather(cache_pages, block_tables, length,
+                            out_dtype=cfg.dtype)
+    logits, new = decode_step_ragged(params, tokens, pos, gathered, cfg,
+                                     active)
+    pages = _paged_writeback(cache_pages, new, block_tables,
+                             pos.long()[:, None], page_size, active)
+    return logits, pages
+
+
+def decode_window_paged(params: Dict, tokens: torch.Tensor,
+                        pos: torch.Tensor, cache_pages, block_tables,
+                        cfg: TransformerConfig, *, page_size: int,
+                        length: int, active: Optional[torch.Tensor] = None,
+                        impl: str = "kernel"):
+    """Paged window decode — the chunked-prefill and prefix-extend
+    primitive. Row b's window writes positions ``pos[b]..pos[b]+W-1``
+    into its pages (each must be < ``length``). ``impl`` as in
+    :func:`decode_step_paged`."""
+    if _check_impl(impl) == "kernel":
+        return _decode_window_paged_kernel(params, tokens, pos, cache_pages,
+                                           block_tables, cfg, active)
+    W = tokens.shape[1]
+    wpos = pos.long()[:, None] + torch.arange(W, device=tokens.device)
+    gathered = paged_gather(cache_pages, block_tables, length,
+                            out_dtype=cfg.dtype)
+    logits, new = decode_window_ragged(params, tokens, pos, gathered, cfg,
+                                       active)
+    pages = _paged_writeback(cache_pages, new, block_tables, wpos,
+                             page_size, active)
+    return logits, pages
+
+
+def _warp_scaled_rows(scaled, top_k, top_p):
+    """Top-k then nucleus filtering on temperature-scaled (S, V) logit rows
+    with PER-ROW parameters (-inf outside the kept set); neutral values
+    (top_k=0, top_p>=1) are no-ops — the reference's HF convention."""
+    S, V = scaled.shape
+    sorted_l = torch.sort(scaled, dim=-1, descending=True).values
+    k = torch.where(top_k > 0, torch.clamp(top_k, max=V),
+                    torch.full_like(top_k, V)).long()
+    kth = torch.gather(sorted_l, 1, (k - 1)[:, None])
+    filtered = torch.where(scaled < kth, -math.inf, scaled)
+    posn = torch.arange(V, device=scaled.device)[None]
+    sorted_f = torch.where(posn >= k[:, None], -math.inf, sorted_l)
+    probs = torch.softmax(sorted_f, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    eff_p = torch.where((top_p > 0.0) & (top_p < 1.0), top_p,
+                        torch.ones_like(top_p))
+    # an index of V (cum short of 1.0 by rounding) keeps everything, as the
+    # reference's out-of-range take does; clamping to V-1 keeps everything too
+    cutoff_idx = torch.clamp((cum < eff_p[:, None]).sum(-1), max=V - 1)
+    cutoff = torch.gather(sorted_f, 1, cutoff_idx[:, None])
+    return torch.where(filtered < cutoff, -math.inf, filtered)

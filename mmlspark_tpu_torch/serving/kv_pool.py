@@ -1,0 +1,261 @@
+"""Paged KV pool — page-granular cache management for serving
+(counterpart of ``serving/kv_pool.py:98-563``).
+
+* **pages** — the physical cache is ``(num_pages, H, page_size, hd)`` per
+  layer (``models/zoo/transformer.init_paged_cache``); requests are sized
+  in pages for the tokens they can actually produce;
+* **block tables** — each slot owns a row of physical page ids; attention
+  reads through it;
+* **copy-on-write prefix sharing** — whole pages of a cached prompt prefix
+  are shared across requests by bumping a refcount; only the boundary
+  page is copied, and shared pages are never written;
+* **defrag on retire** — frees go back to a min-heap (lowest index first);
+  :meth:`compact` returns a permutation the engine applies with one
+  gather.
+
+Physical page 0 is the **trash page**: never allocated, the redirect
+target for inactive-row writes and for block-table entries past a row's
+allocation. The pool is host bookkeeping plus a handle to the device
+buffers; the caller serializes access.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+__all__ = ["PagedKVPool", "PoolExhausted", "prefix_hash"]
+
+
+def prefix_hash(tokens: Sequence[int]) -> str:
+    """Stable content hash for a prompt prefix (the prefix-registry key) —
+    the same bytes the reference hashes, so both give the same key."""
+    h = hashlib.sha1()
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.hexdigest()
+
+
+class PoolExhausted(RuntimeError):
+    """No free pages left — the engine requeues or evicts prefixes."""
+
+
+class PagedKVPool:
+    """Page allocator + device buffer handle for one model's KV cache.
+
+    ``buffers`` is the per-layer list of ``{"k","v"}`` page tensors, zeroed
+    at construction and updated in place by the engine's steps (``compact``
+    and ``reset`` rebind them). Everything else is host bookkeeping: a free
+    min-heap over pages ``[1, num_pages)``, per-page refcounts, and the
+    shared-prefix registry."""
+
+    def __init__(self, cfg, *, num_pages: int, page_size: int,
+                 device=None):
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        if page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        hd = cfg.d_model // cfg.heads
+        self._shape = (self.num_pages, cfg.heads, self.page_size, hd)
+        self.buffers = self._make_buffers()
+        self._free: List[int] = list(range(1, self.num_pages))
+        heapq.heapify(self._free)
+        self._refs = np.zeros(self.num_pages, np.int32)
+        # phash -> (pages tuple, prefix length in tokens)
+        self._prefixes: Dict[str, Tuple[Tuple[int, ...], int]] = {}
+        # phash -> registration count: token-identical prefixes under two
+        # engine keys share one entry, which lives until both release it
+        self._prefix_regs: Dict[str, int] = {}
+        self.high_water = 0
+        self.stats = {"prefix_share_hits": 0, "defrag_moves": 0,
+                      "prefill_chunks": 0, "alloc_failures": 0,
+                      "gather_bytes": 0, "attn_ticks_kernel": 0,
+                      "attn_ticks_gather": 0}
+
+    def _make_buffers(self):
+        return [{kk: torch.zeros(self._shape, dtype=self.cfg.dtype,
+                                 device=self.device) for kk in ("k", "v")}
+                for _ in range(self.cfg.layers)]
+
+    def device_bytes(self) -> int:
+        """Exact device bytes of the pool's K+V buffers."""
+        itemsize = torch.empty((), dtype=self.cfg.dtype).element_size()
+        return 2 * self.cfg.layers * int(np.prod(self._shape)) * itemsize
+
+    def bytes_per_position(self) -> int:
+        """Device bytes one cached position costs across K+V and layers."""
+        itemsize = torch.empty((), dtype=self.cfg.dtype).element_size()
+        return 2 * self.cfg.layers * self.cfg.d_model * itemsize
+
+    # -- allocation ----------------------------------------------------------
+
+    def pages_per_slot(self, length: int) -> int:
+        """Pages needed to hold ``length`` cache positions."""
+        return -(-int(length) // self.page_size)
+
+    @property
+    def pages_in_use(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def alloc(self, n: int, *, count_failure: bool = True) -> List[int]:
+        """Take ``n`` free pages, lowest physical index first. Raises
+        :class:`PoolExhausted` without partial effects;
+        ``count_failure=False`` leaves the failure stat to a caller that
+        retries after evicting prefixes."""
+        if n < 0:
+            raise ValueError("alloc() needs n >= 0")
+        if n > len(self._free):
+            if count_failure:
+                self.note_alloc_failure()
+            raise PoolExhausted(
+                f"need {n} pages, {len(self._free)} free "
+                f"({self.pages_in_use}/{self.num_pages - 1} in use)")
+        pages = [heapq.heappop(self._free) for _ in range(n)]
+        self._refs[pages] += 1
+        self.high_water = max(self.high_water, self.pages_in_use)
+        return pages
+
+    def note_alloc_failure(self) -> None:
+        """Record a terminal allocation failure."""
+        self.stats["alloc_failures"] += 1
+
+    def incref(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            if self._refs[p] <= 0:
+                raise ValueError(f"incref of free page {p}")
+        self._refs[list(pages)] += 1
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Drop one reference per page; refcount-0 pages return to the
+        free heap. Freeing an already-free page raises."""
+        for p in pages:
+            p = int(p)
+            if p <= 0 or p >= self.num_pages or self._refs[p] <= 0:
+                raise ValueError(f"free of unallocated page {p}")
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                heapq.heappush(self._free, p)
+
+    # -- prefix sharing ------------------------------------------------------
+
+    def register_prefix(self, phash: str, pages: Sequence[int],
+                        plen: int) -> None:
+        """Retain ``pages`` as the cached content of a ``plen``-token
+        prompt prefix; a re-registration adds one release obligation."""
+        if phash in self._prefixes:
+            self._prefix_regs[phash] += 1
+            return
+        pages = tuple(int(p) for p in pages)
+        self.incref(pages)
+        self._prefixes[phash] = (pages, int(plen))
+        self._prefix_regs[phash] = 1
+
+    def lookup_prefix(self, phash: str):
+        """``(pages, plen)`` or None."""
+        return self._prefixes.get(phash)
+
+    def acquire_prefix(self, phash: str,
+                       n_shared: int) -> Tuple[Tuple[int, ...], int]:
+        """Share the first ``n_shared`` pages of a registered prefix into
+        a request (incref — copy-on-write). Returns the full entry."""
+        pages, plen = self._prefixes[phash]
+        shared = pages[:n_shared]
+        self.incref(shared)
+        self.stats["prefix_share_hits"] += len(shared)
+        return pages, plen
+
+    def release_prefix(self, phash: str) -> None:
+        """Drop one registration; the pages fall with the last one."""
+        regs = self._prefix_regs.get(phash)
+        if regs is None:
+            return
+        if regs > 1:
+            self._prefix_regs[phash] = regs - 1
+            return
+        del self._prefix_regs[phash]
+        pages, _ = self._prefixes.pop(phash)
+        self.free(pages)
+
+    # -- defrag --------------------------------------------------------------
+
+    def fragmentation(self) -> int:
+        """Pages of dead space inside the live span."""
+        live = np.nonzero(self._refs[1:] > 0)[0]
+        if live.size == 0:
+            return 0
+        return int(live[-1] + 1) - int(live.size)
+
+    def should_compact(self, threshold: int) -> bool:
+        return self.fragmentation() >= max(1, int(threshold))
+
+    def compact(self) -> Optional[np.ndarray]:
+        """Pack live pages down to ``[1, n_live]``. Returns ``remap`` (old
+        physical id -> new, a full permutation with ``remap[0] == 0``) for
+        the engine to gather the buffers with and rewrite its page lists —
+        or None when nothing would move. Refcounts, the free heap and the
+        prefix registry are rewritten here."""
+        live = np.nonzero(self._refs > 0)[0].astype(np.int64)
+        remap = np.zeros(self.num_pages, np.int64)
+        nxt = 1
+        moved = 0
+        for old in live:
+            if old == 0:
+                continue
+            remap[old] = nxt
+            if old != nxt:
+                moved += 1
+            nxt += 1
+        if moved == 0:
+            return None
+        dead = [p for p in range(1, self.num_pages) if self._refs[p] == 0]
+        for old in dead:
+            remap[old] = nxt
+            nxt += 1
+        new_refs = np.zeros_like(self._refs)
+        new_refs[remap] = self._refs
+        self._refs = new_refs
+        self._free = [int(remap[p]) for p in dead]
+        heapq.heapify(self._free)
+        self._prefixes = {
+            h: (tuple(int(remap[p]) for p in pages), plen)
+            for h, (pages, plen) in self._prefixes.items()}
+        self.stats["defrag_moves"] += moved
+        return remap
+
+    # -- misc ----------------------------------------------------------------
+
+    def note_prefill_chunk(self, ntok: int) -> None:
+        self.stats["prefill_chunks"] += 1
+
+    def note_attn_tick(self, impl: str, *, calls: int = 1,
+                       gather_bytes: int = 0) -> None:
+        """Account ``calls`` paged-attention invocations under ``impl``
+        ("kernel" or "gather") and the bytes the gather impl moved
+        materializing contiguous K/V (0 under the kernel)."""
+        self.stats[f"attn_ticks_{impl}"] += calls
+        self.stats["gather_bytes"] += gather_bytes
+
+    @staticmethod
+    def kernel_aligned_page_size(page_size: int) -> int:
+        """The page size the Hopper kernel runs at: any size >= 1, as
+        given — the kernel looks every key's page up on its own, so the
+        TPU's sublane rounding has no counterpart (ops/paged_attention)."""
+        return max(1, int(page_size))
+
+    def reset(self) -> None:
+        """Forget every allocation and re-zero the device buffers."""
+        self.buffers = self._make_buffers()
+        self._free = list(range(1, self.num_pages))
+        heapq.heapify(self._free)
+        self._refs[:] = 0
+        self._prefixes.clear()
+        self._prefix_regs.clear()
