@@ -1,40 +1,66 @@
-// Fused paged decode-window attention + page scatter for Hopper (sm_90a).
+// Paged attention over the KV page pool for Hopper (sm_90a): one kernel
+// body, instantiated four ways.
 //
-// Replaces the TPU kernel `_pa_fused_kernel` (mmlspark_tpu/ops/
-// paged_attention.py, launched by `_pa_fused_call`), the single-device
-// bf16 branch of `paged_attention_window`.
+//   K1  fused window + scatter, pages in the query dtype. Replaces the TPU
+//       kernel `_pa_fused_kernel` (mmlspark_tpu/ops/paged_attention.py,
+//       launched by `_pa_fused_call`).
+//   K2  fused window + scatter, int8 or fp8-e4m3 pages with one bf16 scale
+//       per (page, head, position). Replaces `_pa_fused_kernel_q`
+//       (launched by `_pa_fused_call_q`).
+//   K3  read-only sweep, pages in the query dtype. Replaces
+//       `_pa_read_kernel` (launched by `_pa_read_call`).
+//   K4  read-only sweep over int8 or fp8 pages. Replaces
+//       `_pa_read_kernel_q` (launched by `_pa_read_call_q`).
 //
-// What it computes. Row b's W queries sit at absolute positions
-// pos[b] .. pos[b]+W-1. Query j attends
+// What they compute. Fused (K1, K2): row b's W queries sit at absolute
+// positions pos[b] .. pos[b]+W-1. Query j attends
 //   * every cached key strictly below pos[b], read in place from the
 //     (N, H, page, hd) pools through block_tables[b, key / page], and
-//   * the window's own fresh keys k_new[b, :, j'] for j' <= j,
-// with an online softmax in f32 (masked logits -1e30, l == 0 -> 0).
-// In the same launch the fresh K/V rows are written into their pages in
-// the pool dtype (no f32 round trip, so the bytes equal the gather
-// path's writeback). A row with wlo[b] > whi[b] (inactive) writes
-// nothing.
+//   * the window's own fresh keys k_new[b, :, j'] for j' <= j (as given,
+//     never quantized),
+// with an online softmax in f32 (masked logits -1e30, l == 0 -> 0). In
+// the same launch the fresh K/V rows are written into their pages: K1
+// copies them in the pool dtype, K2 quantizes each (position, head) row
+// by the rules of ops/kv_quant.py `quantize_kv` and writes its codes and
+// scale. A row with wlo[b] > whi[b] (inactive) writes nothing.
+// Read-only (K3, K4): row b's W queries all attend its first lengths[b]
+// cached keys; no window, no causal mask, no writes; lengths[b] == 0
+// gives zeros.
 //
-// What bounds it on this card: bytes. A decode tick (W = 1) does about
-// 4 flops per byte of K/V it reads, far below the ~295 flops/byte at
-// which the H100's compute would be the limit, so the least time is the
-// live pages (each read once) over the 3.35 TB/s of HBM.
+// Dequant (K2, K4): a key row is f32(code) * f32(scale); the product is
+// exact in f32 (an int8 or e4m3 code times a bf16 scale fits in 24 bits),
+// so the kernels and their plain versions differ only in summation order.
 //
-// What the design does about that. The TPU kernel swept a sequential
+// Quantizing (K2's scatter), bitwise as `quantize_kv`: amax over hd of
+// the f32 row (a warp reduction), scale = bf16_rn(amax / qmax) or 1 when
+// amax == 0, y = x / f32(scale) as an IEEE division (this file must never
+// build with --use_fast_math), then int8: rint and clamp to +-127; fp8:
+// clamp to +-448 and round to nearest even with saturation.
+//
+// What bounds them on this card: bytes. A decode tick (W = 1) does about
+// 4 flops per byte of K/V it reads, far below the ~295 flops/byte at which
+// the H100's compute would be the limit, so the least time is the live
+// pages and their scales (each read once) over the 3.35 TB/s of HBM.
+// Quantized pages halve those bytes: at hd 64 a key row is 64 bytes of
+// codes plus a 2-byte scale against 128 bytes of bf16.
+//
+// What the design does about that. The TPU kernels swept a sequential
 // (b, page) grid with scratch carried across grid steps; here one block
 // owns (query tile, head, row) and loops only over the row's LIVE keys
-// (ceil(pos / 32) tiles of 32 keys, never the block table's full width).
-// The block's warps split the key tiles between them so that a W = 1
-// tick still keeps four warps per (row, head) reading, each warp keeps
-// its own running (m, l, acc) in registers, and the partial softmax
-// states merge once through shared memory at the end. A tile's K and V
-// rows arrive as 16-byte vector loads, all issued before the first is
-// used, after one block-table read per key: one memory round trip per
-// tile, not one per element. Keys at or past pos[b] are never loaded
-// (their tile slots are zero-filled), so garbage in unwritten page slots
-// cannot reach p * v, and the reads never touch the slots this launch
-// writes. The math is plain f32 FMA loops; tensor cores, TMA, loads
-// pipelined across tiles and CUDA graphs are later work.
+// (ceil(bound / 32) tiles of 32 keys, never the block table's full
+// width). The block's warps split the key tiles between them so that a
+// W = 1 tick still keeps four warps per (row, head) reading, each warp
+// keeps its own running (m, l, acc) in registers, and the partial softmax
+// states merge once through shared memory at the end. Each lane looks its
+// key's page up once (and, quantized, loads that key's K and V scales
+// beside it); then the tile's K and V rows arrive as 16-byte vector loads,
+// all issued before the first is used: one memory round trip per tile,
+// not one per element. Keys at or past the bound are never loaded (their
+// tile slots are zero-filled and their scales never read), so garbage
+// codes or scales in unwritten page slots cannot reach p * v, and the
+// reads never touch the slots this launch writes. The math is plain f32
+// FMA loops; tensor cores, TMA, loads pipelined across tiles and CUDA
+// graphs are later work.
 //
 // Page-size rule: none. Tiles are 32 keys wide in the logical key space
 // and each key's page is looked up on its own, so any page size >= 1
@@ -42,11 +68,15 @@
 //
 // Build: mmlspark_tpu_torch/utils/cuda_build.py runs nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC on this file.
-// Interface: plain C, loaded with ctypes; returns cudaGetLastError().
+// Interface: plain C, loaded with ctypes; every entry returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,15 +84,43 @@ constexpr int kWarps = 4;     // warps per block
 constexpr int kTile = 32;     // keys per tile (one per lane)
 constexpr float kNeg = -1e30f;
 
+using bf16 = __nv_bfloat16;
+using fp8 = __nv_fp8_e4m3;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(fp8 x) {
+  return static_cast<float>(x);
 }
 
 __device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) {
+__device__ __forceinline__ void from_f32(float v, bf16* dst) {
   *dst = __float2bfloat16(v);
 }
+
+// the quantized store types: clip bound and the code of y = x / scale
+template <typename S>
+struct Quant;
+template <>
+struct Quant<int8_t> {
+  static constexpr float qmax = 127.f;
+  __device__ static int8_t code(float y) {
+    return static_cast<int8_t>(fminf(fmaxf(rintf(y), -qmax), qmax));
+  }
+};
+template <>
+struct Quant<fp8> {
+  static constexpr float qmax = 448.f;
+  __device__ static fp8 code(float y) {
+    fp8 r;
+    r.__x = __nv_cvt_float_to_fp8(fminf(fmaxf(y, -qmax), qmax),
+                                  __NV_SATFINITE, __NV_E4M3);
+    return r;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -79,15 +137,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One warp loads a 32-key tile of K (or V) rows into shared memory as
 // f32. Lane t owns key t and passes its row offset (`row`, in elements;
-// -1 = past the limit, zero-filled). Rows are read as 16-byte vectors
-// (HD * sizeof(T) is a multiple of 16; the wrapper checks the base
-// pointers' alignment), and every load of the tile is issued before any
-// is used, so a tile costs one memory round trip, not one per element.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          long long row, int lane,
+// -1 = past the limit, zero-filled) and, when SCALED, its key's scale
+// (0 past the limit, so a zero-filled slot stays 0). Rows are read as
+// 16-byte vectors (HD * sizeof(S) is a multiple of 16; the wrapper checks
+// the base pointers' alignment), and every load of the tile is issued
+// before any is used, so a tile costs one memory round trip, not one per
+// element.
+template <typename S, int HD, bool SCALED>
+__device__ __forceinline__ void load_tile(const S* __restrict__ src,
+                                          long long row, float sc, int lane,
                                           float* __restrict__ dst) {
-  constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte chunk
+  constexpr int EPC = 16 / sizeof(S);     // elements per 16-byte chunk
   constexpr int CPR = HD / EPC;           // chunks per key row
   constexpr int CPL = kTile * CPR / 32;   // chunks per lane
   constexpr int LD = HD + 1;
@@ -102,10 +162,82 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const int c = lane + 32 * i;
-    const T* v = reinterpret_cast<const T*>(&buf[i]);
+    const S* v = reinterpret_cast<const S*>(&buf[i]);
     float* d = dst + (c / CPR) * LD + (c % CPR) * EPC;
+    if constexpr (SCALED) {
+      const float s = __shfl_sync(0xffffffffu, sc, c / CPR);
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) d[e] = to_f32(v[e]);
+      for (int e = 0; e < EPC; ++e) d[e] = to_f32(v[e]) * s;
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) d[e] = to_f32(v[e]);
+    }
+  }
+}
+
+// Quantize one (position, head) row of HD values with one warp and write
+// its codes and its scale (see the header for the rules).
+template <typename T, typename S, int HD>
+__device__ __forceinline__ void quant_row(const T* __restrict__ x,
+                                          S* __restrict__ dst,
+                                          bf16* __restrict__ sdst,
+                                          int lane) {
+  constexpr int DPL = HD / 32;
+  float v[DPL];
+  float amax = 0.f;
+#pragma unroll
+  for (int r = 0; r < DPL; ++r) {
+    v[r] = to_f32(x[lane + 32 * r]);
+    amax = fmaxf(amax, fabsf(v[r]));
+  }
+  amax = warp_max(amax);
+  const bf16 s16 = __float2bfloat16_rn(amax > 0.f ? amax / Quant<S>::qmax
+                                                  : 1.f);
+  const float s = __bfloat162float(s16);
+#pragma unroll
+  for (int r = 0; r < DPL; ++r) dst[lane + 32 * r] = Quant<S>::code(v[r] / s);
+  if (lane == 0) *sdst = s16;
+}
+
+// The fused kernels' in-launch scatter of one query tile's fresh rows
+// (rows of an inactive row, wlo > whi, write nothing).
+template <typename T, typename S, int HD, int QT>
+__device__ __forceinline__ void fused_scatter(
+    const T* __restrict__ kn, const T* __restrict__ vn, S* __restrict__ kpool,
+    S* __restrict__ vpool, bf16* __restrict__ kscale,
+    bf16* __restrict__ vscale, const int32_t* __restrict__ bt, int pos,
+    int wlo, int whi, size_t row_off, int q0, int h, int H, int W, int P,
+    int page, int warp, int lane, int tid) {
+  constexpr bool kQuant = !std::is_same<S, T>::value;
+  if (wlo > whi) return;   // inactive row: writes nothing
+  if constexpr (kQuant) {
+    // one warp per fresh row: quantize K and V, write codes and scales
+    for (int i = warp; i < QT; i += kWarps) {
+      const int j = q0 + i;
+      if (j >= W) break;
+      const int t = pos + j;
+      const int lp = t / page;
+      if (lp < wlo || lp > whi || lp >= P) continue;
+      const long long slot = ((long long)bt[lp] * H + h) * page + t % page;
+      const size_t src = (row_off + j) * HD;
+      quant_row<T, S, HD>(kn + src, kpool + slot * HD, kscale + slot, lane);
+      quant_row<T, S, HD>(vn + src, vpool + slot * HD, vscale + slot, lane);
+    }
+  } else {
+    // copies in the pool dtype (no f32 round trip, so the bytes equal the
+    // gather path's writeback)
+    for (int e = tid; e < QT * HD; e += blockDim.x) {
+      int i = e / HD, d = e % HD;
+      int j = q0 + i;
+      if (j >= W) continue;
+      int t = pos + j;
+      int lp = t / page;
+      if (lp < wlo || lp > whi || lp >= P) continue;
+      size_t dst = ((size_t(bt[lp]) * H + h) * page + t % page) * HD + d;
+      size_t src = (row_off + j) * HD + d;
+      kpool[dst] = kn[src];
+      vpool[dst] = vn[src];
+    }
   }
 }
 
@@ -120,17 +252,39 @@ constexpr size_t smem_bytes() {
           size_t(kWarps) * QT * (HD + 2));
 }
 
-template <typename T, int HD, int QT>
+struct Args {
+  const void* q;
+  const void* kn;         // fused only: the window's fresh K / V rows
+  const void* vn;
+  void* kp;               // (N, H, page, hd) pools, store type S
+  void* vp;
+  void* ks;               // (N, H, page) bf16 scales, quantized only
+  void* vs;
+  const int32_t* bt;      // (B, P)
+  const int32_t* bound;   // (B,): pos (fused) or lengths (read-only)
+  const int32_t* wlo;     // (B,), fused only
+  const int32_t* whi;
+  void* out;
+  int B, H, W, P, page;
+  float scale;
+};
+
+// T: query / k_new / v_new / output type (float or bf16). S: page store
+// type: T itself (K1, K3), int8_t or fp8 (K2, K4). READ: read-only sweep
+// bounded by lengths (K3, K4) instead of the fused window + scatter
+// bounded by pos (K1, K2). QT: queries per block.
+template <typename T, typename S, bool READ, int HD, int QT>
 __global__ void __launch_bounds__(kWarps * 32)
-pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                       const T* __restrict__ vn, T* __restrict__ kpool,
-                       T* __restrict__ vpool,
-                       const int32_t* __restrict__ block_tables,
-                       const int32_t* __restrict__ pos_v,
-                       const int32_t* __restrict__ wlo_v,
-                       const int32_t* __restrict__ whi_v,
-                       T* __restrict__ out, int H, int W, int P, int page,
-                       float scale) {
+pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
+          const T* __restrict__ vn, S* __restrict__ kpool,
+          S* __restrict__ vpool, bf16* __restrict__ kscale,
+          bf16* __restrict__ vscale,
+          const int32_t* __restrict__ block_tables,
+          const int32_t* __restrict__ bound_v,
+          const int32_t* __restrict__ wlo_v,
+          const int32_t* __restrict__ whi_v, T* __restrict__ out, int H,
+          int W, int P, int page, float scale) {
+  constexpr bool kQuant = !std::is_same<S, T>::value;
   constexpr int DPL = HD / 32;   // output dims owned by each lane
   constexpr int LD = HD + 1;     // padded row: conflict-free column reads
   extern __shared__ float smem[];
@@ -146,7 +300,9 @@ pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int pos = pos_v[b];
+  // cached keys [0, bound) are visible: pos (fused) or lengths (read-only,
+  // held inside the block table's width)
+  const int bound = READ ? min(bound_v[b], P * page) : bound_v[b];
   const int32_t* bt = block_tables + size_t(b) * P;
   const size_t row_off = (size_t(b) * H + h) * W;   // (b, h, 0, 0) / HD
 
@@ -167,10 +323,10 @@ pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int r = 0; r < DPL; ++r) acc[i][r] = 0.f;
   }
 
-  // the live key tiles: cached keys [0, pos), then the window keys this
-  // query tile can see, [0, min(q0 + QT, W))
-  const int n_page_tiles = (pos + kTile - 1) / kTile;
-  const int w_end = min(q0 + QT, W);
+  // the live key tiles: cached keys [0, bound), then (fused only) the
+  // window keys this query tile can see, [0, min(q0 + QT, W))
+  const int n_page_tiles = (bound + kTile - 1) / kTile;
+  const int w_end = READ ? 0 : min(q0 + QT, W);
   const int n_win_tiles = (w_end + kTile - 1) / kTile;
   float* k_t = kv_s + warp * 2 * kTile * LD;
   float* v_t = k_t + kTile * LD;
@@ -178,17 +334,38 @@ pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   for (int tile = warp; tile < n_page_tiles + n_win_tiles; tile += kWarps) {
     const bool win = tile >= n_page_tiles;
     const int base = (win ? tile - n_page_tiles : tile) * kTile;
-    const int limit = win ? w_end : pos;
+    const int limit = win ? w_end : bound;
     const int key = base + lane;
     // each lane looks up its own key's row once (one block-table read)
+    // and, quantized, that key's K and V scales beside it
     long long row = -1;   // element offset of this lane's key row
+    float sk = 0.f, sv = 0.f;
     if (key < limit) {
-      row = win ? (long long)(row_off + key) * HD
-                : ((long long)bt[key / page] * H + h) * page * HD +
-                      (long long)(key % page) * HD;
+      if (win) {
+        row = (long long)(row_off + key) * HD;
+      } else {
+        const long long slot =
+            ((long long)bt[key / page] * H + h) * page + key % page;
+        row = slot * HD;
+        if constexpr (kQuant) {
+          sk = __bfloat162float(kscale[slot]);
+          sv = __bfloat162float(vscale[slot]);
+        }
+      }
     }
-    load_tile<T, HD>(win ? kn : kpool, row, lane, k_t);
-    load_tile<T, HD>(win ? vn : vpool, row, lane, v_t);
+    if constexpr (kQuant) {
+      // warp-uniform: a tile is either all window keys or all page keys
+      if (win) {
+        load_tile<T, HD, false>(kn, row, 0.f, lane, k_t);
+        load_tile<T, HD, false>(vn, row, 0.f, lane, v_t);
+      } else {
+        load_tile<S, HD, true>(kpool, row, sk, lane, k_t);
+        load_tile<S, HD, true>(vpool, row, sv, lane, v_t);
+      }
+    } else {
+      load_tile<T, HD, false>(win ? kn : kpool, row, 0.f, lane, k_t);
+      load_tile<T, HD, false>(win ? vn : vpool, row, 0.f, lane, v_t);
+    }
     __syncwarp();
 #pragma unroll
     for (int i = 0; i < QT; ++i) {
@@ -197,9 +374,9 @@ pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) s = fmaf(qi[d], k_t[lane * LD + d], s);
       s *= scale;
-      // cached keys are all visible (key < pos); a window key j is
+      // cached keys are all visible (key < bound); a window key j is
       // visible to query q0 + i when j <= q0 + i (and j < W)
-      const bool valid = win ? (key < W && key <= q0 + i) : (key < pos);
+      const bool valid = win ? (key < W && key <= q0 + i) : (key < bound);
       s = valid ? s : kNeg;
       const float m_new = fmaxf(m[i], warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
@@ -248,32 +425,19 @@ pa_window_fused_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     from_f32(aa / (ll == 0.f ? 1.f : ll), &out[(row_off + j) * HD + d]);
   }
 
-  // scatter this tile's fresh rows into their pages, in the pool dtype.
-  // Writes land at positions >= pos; every read above was < pos.
-  const int wlo = wlo_v[b], whi = whi_v[b];
-  if (wlo > whi) return;   // inactive row: writes nothing
-  for (int e = tid; e < QT * HD; e += blockDim.x) {
-    int i = e / HD, d = e % HD;
-    int j = q0 + i;
-    if (j >= W) continue;
-    int t = pos + j;
-    int lp = t / page;
-    if (lp < wlo || lp > whi || lp >= P) continue;
-    size_t dst = ((size_t(bt[lp]) * H + h) * page + t % page) * HD + d;
-    size_t src = (row_off + j) * HD + d;
-    kpool[dst] = kn[src];
-    vpool[dst] = vn[src];
+  if constexpr (!READ) {
+    // scatter this tile's fresh rows into their pages. Writes land at
+    // positions >= pos; every read above was < pos.
+    fused_scatter<T, S, HD, QT>(kn, vn, kpool, vpool, kscale, vscale, bt,
+                                bound, wlo_v[b], whi_v[b], row_off, q0, h,
+                                H, W, P, page, warp, lane, tid);
   }
 }
 
-template <typename T, int HD, int QT>
-cudaError_t launch(const void* q, const void* kn, const void* vn,
-                   void* kpool, void* vpool, const int32_t* bt,
-                   const int32_t* pos, const int32_t* wlo,
-                   const int32_t* whi, void* out, int B, int H, int W,
-                   int P, int page, float scale, cudaStream_t stream) {
+template <typename T, typename S, bool READ, int HD, int QT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, QT>();
-  auto kern = pa_window_fused_kernel<T, HD, QT>;
+  auto kern = pa_kernel<T, S, READ, HD, QT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -281,40 +445,49 @@ cudaError_t launch(const void* q, const void* kn, const void* vn,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((W + QT - 1) / QT, H, B);
+  dim3 grid((a.W + QT - 1) / QT, a.H, a.B);
   kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), static_cast<T*>(kpool),
-      static_cast<T*>(vpool), bt, pos, wlo, whi, static_cast<T*>(out), H,
-      W, P, page, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kn),
+      static_cast<const T*>(a.vn), static_cast<S*>(a.kp),
+      static_cast<S*>(a.vp), static_cast<bf16*>(a.ks),
+      static_cast<bf16*>(a.vs), a.bt, a.bound, a.wlo, a.whi,
+      static_cast<T*>(a.out), a.H, a.W, a.P, a.page, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dispatch_qt(const void* q, const void* kn, const void* vn,
-                        void* kp, void* vp, const int32_t* bt,
-                        const int32_t* pos, const int32_t* wlo,
-                        const int32_t* whi, void* out, int B, int H, int W,
-                        int P, int page, float scale, cudaStream_t s) {
-  if (W == 1)
-    return launch<T, HD, 1>(q, kn, vn, kp, vp, bt, pos, wlo, whi, out, B, H,
-                            W, P, page, scale, s);
-  return launch<T, HD, 8>(q, kn, vn, kp, vp, bt, pos, wlo, whi, out, B, H,
-                          W, P, page, scale, s);
-}
-
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* kn,
-                        const void* vn, void* kp, void* vp,
-                        const int32_t* bt, const int32_t* pos,
-                        const int32_t* wlo, const int32_t* whi, void* out,
-                        int B, int H, int W, int P, int page, float scale,
-                        cudaStream_t s) {
+template <typename T, typename S, bool READ>
+cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
+  if (a.B <= 0 || a.H <= 0 || a.W <= 0 || a.P <= 0 || a.page <= 0)
+    return cudaErrorInvalidValue;
   // only the head dim of the models served so far; another one is
   // instantiated with the slice that brings a model needing it
-  if (hd == 64)
-    return dispatch_qt<T, 64>(q, kn, vn, kp, vp, bt, pos, wlo, whi, out, B,
-                              H, W, P, page, scale, s);
+  if (hd != 64) return cudaErrorInvalidValue;
+  if (a.W == 1) return launch<T, S, READ, 64, 1>(a, s);
+  return launch<T, S, READ, 64, 8>(a, s);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out)
+template <typename S, bool READ>
+cudaError_t by_dtype(int dtype, int hd, const Args& a, cudaStream_t s) {
+  if (dtype == 0) return dispatch<float, S, READ>(hd, a, s);
+  if (dtype == 1) return dispatch<bf16, S, READ>(hd, a, s);
+  return cudaErrorInvalidValue;
+}
+
+// pools in the query dtype (K1, K3)
+template <bool READ>
+cudaError_t plain_pools(int dtype, int hd, const Args& a, cudaStream_t s) {
+  if (dtype == 0) return dispatch<float, float, READ>(hd, a, s);
+  if (dtype == 1) return dispatch<bf16, bf16, READ>(hd, a, s);
+  return cudaErrorInvalidValue;
+}
+
+// store: 0 = int8, 1 = float8_e4m3fn (K2, K4)
+template <bool READ>
+cudaError_t quant_pools(int dtype, int store, int hd, const Args& a,
+                        cudaStream_t s) {
+  if (store == 0) return by_dtype<int8_t, READ>(dtype, hd, a, s);
+  if (store == 1) return by_dtype<fp8, READ>(dtype, hd, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -322,9 +495,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* kn,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, pools and out share
-// it). All int32 arrays are (B,) except block_tables (B, P). Returns the
-// launch's cudaError_t (0 on success).
+// K1. dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, pools and out
+// share it). All int32 arrays are (B,) except block_tables (B, P).
+// Returns the launch's cudaError_t (0 on success).
 int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              const void* k_new, const void* v_new,
                              void* k_pages, void* v_pages,
@@ -333,21 +506,55 @@ int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              const int32_t* whi, void* out, int B, int H,
                              int W, int P, int page, float scale,
                              void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || P <= 0 || page <= 0)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k_new, v_new, k_pages, v_pages,
-                             block_tables, pos, wlo, whi, out, B, H, W, P,
-                             page, scale, s);
-  else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k_new, v_new, k_pages, v_pages,
-                                     block_tables, pos, wlo, whi, out, B, H,
-                                     W, P, page, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return int(err);
+  Args a{q, k_new, v_new, k_pages, v_pages, nullptr, nullptr, block_tables,
+         pos, wlo, whi, out, B, H, W, P, page, scale};
+  return int(plain_pools<false>(dtype, hd, a,
+                                static_cast<cudaStream_t>(stream)));
+}
+
+// K2. As K1, with int8 (store 0) or fp8-e4m3 (store 1) pools and their
+// (N, H, page) bf16 scale pools, all updated in place.
+int mmlspark_pa_window_fused_q(int dtype, int store, int hd, const void* q,
+                               const void* k_new, const void* v_new,
+                               void* k_pages, void* v_pages, void* k_scale,
+                               void* v_scale, const int32_t* block_tables,
+                               const int32_t* pos, const int32_t* wlo,
+                               const int32_t* whi, void* out, int B, int H,
+                               int W, int P, int page, float scale,
+                               void* stream) {
+  Args a{q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, block_tables,
+         pos, wlo, whi, out, B, H, W, P, page, scale};
+  return int(quant_pools<false>(dtype, store, hd, a,
+                                static_cast<cudaStream_t>(stream)));
+}
+
+// K3. Read-only: q (B, H, W, hd) attends the first lengths[b] keys; pools
+// in q's dtype; nothing is written but out.
+int mmlspark_pa_read(int dtype, int hd, const void* q, const void* k_pages,
+                     const void* v_pages, const int32_t* block_tables,
+                     const int32_t* lengths, void* out, int B, int H, int W,
+                     int P, int page, float scale, void* stream) {
+  Args a{q, nullptr, nullptr, const_cast<void*>(k_pages),
+         const_cast<void*>(v_pages), nullptr, nullptr, block_tables,
+         lengths, nullptr, nullptr, out, B, H, W, P, page, scale};
+  return int(plain_pools<true>(dtype, hd, a,
+                               static_cast<cudaStream_t>(stream)));
+}
+
+// K4. K3 over int8 (store 0) or fp8-e4m3 (store 1) pools with their
+// (N, H, page) bf16 scale pools.
+int mmlspark_pa_read_q(int dtype, int store, int hd, const void* q,
+                       const void* k_pages, const void* v_pages,
+                       const void* k_scale, const void* v_scale,
+                       const int32_t* block_tables, const int32_t* lengths,
+                       void* out, int B, int H, int W, int P, int page,
+                       float scale, void* stream) {
+  Args a{q, nullptr, nullptr, const_cast<void*>(k_pages),
+         const_cast<void*>(v_pages), const_cast<void*>(k_scale),
+         const_cast<void*>(v_scale), block_tables, lengths, nullptr,
+         nullptr, out, B, H, W, P, page, scale};
+  return int(quant_pools<true>(dtype, store, hd, a,
+                               static_cast<cudaStream_t>(stream)));
 }
 
 const char* mmlspark_cuda_error_string(int err) {

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...ops.paged_attention import paged_attention_window
+from ...ops.kv_quant import (SCALE_DTYPE, dequantize_kv, kv_store_dtype,
+                             quantize_kv)
+from ...ops.paged_attention import _bits, paged_attention_window
 from ...utils.device import resolve_device
 
 __all__ = ["TransformerConfig", "init_transformer", "params_from_numpy",
@@ -315,33 +317,65 @@ def decode_step_ragged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
 # oracle the kernel path is held against.
 
 def init_paged_cache(cfg: TransformerConfig, num_pages: int, page_size: int,
-                     device=None):
+                     device=None, kv_dtype=None):
     """Per-layer zeroed (num_pages, H, page_size, hd) k/v pools in
     ``cfg.dtype`` (zeros, not empty: a pool slot never written holds a
-    finite value)."""
+    finite value). With ``kv_dtype`` ("int8"/"fp8") the pools hold
+    quantized codes (zeros) and each layer dict gains (num_pages, H,
+    page_size) bf16 ``k_scale``/``v_scale`` pools of ones."""
     dev = resolve_device(device)
     hd = cfg.d_model // cfg.heads
     shape = (num_pages, cfg.heads, page_size, hd)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    store = kv_store_dtype(kv_dtype)
+    if store is None:
+        return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+                for _ in range(cfg.layers)]
+    return [{"k": torch.zeros(shape, dtype=store, device=dev),
+             "v": torch.zeros(shape, dtype=store, device=dev),
+             "k_scale": torch.ones(shape[:3], dtype=SCALE_DTYPE, device=dev),
+             "v_scale": torch.ones(shape[:3], dtype=SCALE_DTYPE, device=dev)}
             for _ in range(cfg.layers)]
 
 
+def _is_quant_cache(c) -> bool:
+    """A quantized page-pool layer dict carries its scale pools."""
+    return "k_scale" in c
+
+
 def paged_gather(cache_pages, block_tables, length: int, out_dtype=None):
-    """Assemble each row's pages into contiguous (B, H, length, hd) k/v."""
+    """Assemble each row's pages into contiguous (B, H, length, hd) k/v.
+    Quantized pools dequantize through their gathered scales, in
+    ``out_dtype`` (default f32)."""
     bt = block_tables.long()
     out = []
     for c in cache_pages:
+        quant = _is_quant_cache(c)
         row = {}
         for kk in ("k", "v"):
-            g = c[kk][bt]                              # (B, P, H, page, hd)
-            if out_dtype is not None:
+            g = _bits(c[kk])[bt].view(c[kk].dtype)     # (B, P, H, page, hd)
+            if quant:
+                g = dequantize_kv(g, c[kk + "_scale"][bt],
+                                  out_dtype or torch.float32)
+            elif out_dtype is not None:
                 g = g.to(out_dtype)
             B, Pp, H, pg, hd = g.shape
             g = g.permute(0, 2, 1, 3, 4).reshape(B, H, Pp * pg, hd)
             row[kk] = g[:, :, :length]
         out.append(row)
     return out
+
+
+def _write_rows(c, kk, idx, vals):
+    """``c[kk][idx] = vals`` for one layer's pool — quantized through
+    :func:`quantize_kv`, with the scales written beside the codes, when
+    the layer is quantized. ``idx`` indexes the pool's leading axes."""
+    if _is_quant_cache(c):
+        codes, sc = quantize_kv(vals, c[kk].dtype)
+        _bits(c[kk])[idx] = _bits(codes)
+        c[kk + "_scale"][idx] = sc
+    else:
+        c[kk][idx] = vals.to(c[kk].dtype)
 
 
 def paged_scatter_rows(cache_pages, rows, block_tables, page_size: int):
@@ -358,7 +392,7 @@ def paged_scatter_rows(cache_pages, rows, block_tables, page_size: int):
             r = F.pad(r, (0, 0, 0, n_pages * page_size - L))
             r = r.reshape(B, H, n_pages, page_size, hd).permute(
                 0, 2, 1, 3, 4).reshape(B * n_pages, H, page_size, hd)
-            c[kk][dest] = r.to(c[kk].dtype)
+            _write_rows(c, kk, (dest,), r)
     return cache_pages
 
 
@@ -366,7 +400,8 @@ def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
                      page_size: int, active):
     """Scatter the freshly written positions ``wpos`` (B, W) of an updated
     gathered cache back into the pools, in place. Inactive rows (and only
-    they) are redirected to trash page 0."""
+    they) are redirected to trash page 0. Quantized pools get the
+    quantized codes and their scales."""
     B, W = wpos.shape
     wpos = wpos.long()
     phys = torch.gather(block_tables.long(), 1,
@@ -380,7 +415,8 @@ def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
         for kk in ("k", "v"):
             vals = nc[kk][rows, :, wpos]                    # (B, W, H, hd)
             H, hd = vals.shape[2], vals.shape[3]
-            c[kk][pf, :, of] = vals.reshape(B * W, H, hd).to(c[kk].dtype)
+            _write_rows(c, kk, (pf, slice(None), of),
+                        vals.reshape(B * W, H, hd))
     return cache_pages
 
 
@@ -408,9 +444,12 @@ def _decode_window_paged_kernel(params: Dict, tokens: torch.Tensor,
         if cfg.position == "rope":
             q = _rot_half(q, cos, sin)
             k = _rot_half(k, cos, sin)
-        ctx, _, _ = paged_attention_window(
+        # pools (and scale pools) are updated in place
+        scales = ({"k_scale": c["k_scale"], "v_scale": c["v_scale"]}
+                  if _is_quant_cache(c) else {})
+        ctx = paged_attention_window(
             q.contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous(),
-            c["k"], c["v"], bt, pos, active=active)
+            c["k"], c["v"], bt, pos, active=active, **scales)[0]
         h = _ffn_residual(h, lp, cfg, ctx, B, W)
     hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
     logits = hidden.float() @ params["lm_head"]["w"]

@@ -1,26 +1,42 @@
-"""Fused paged attention over the KV page pool (counterpart of
-``ops/paged_attention.py:944-1045``, the single-device non-quantized
-branch of ``paged_attention_window``).
+"""Paged attention over the KV page pool (counterpart of
+``ops/paged_attention.py``, single device): the fused decode-window
+kernel with its in-launch page scatter, on plain or quantized pages, and
+the read-only sweep, on plain or quantized pages.
 
-Three parts, as for every kernel of the port:
+Four kernels, each with its plain PyTorch version beside it and its own
+launch count; all are written by hand in ``csrc/paged_attention.cu``:
 
-* :func:`paged_attention_window_plain` — the plain PyTorch version of
-  the function. CPU tensors take it; the card's kernel is held against it.
-* ``csrc/paged_attention.cu`` — the hand-written Hopper kernel that
-  replaces the TPU's ``_pa_fused_kernel``: queries attend the cached keys
-  read in place through the block table plus the window's own keys, and
-  the fresh K/V rows are written into their pages in the same launch.
-* :func:`paged_attention_window` — the wrapper: the plain version for
-  CPU tensors, the kernel for CUDA tensors (or an error; there is no
-  fallback), with a launch count in ``paged_attention_window.launches``.
+============  ==============================  ================================
+kernel        wrapper (launch count)          replaces (``mmlspark_tpu/ops/
+                                              paged_attention.py``)
+============  ==============================  ================================
+K1            :func:`paged_attention_window`  ``_pa_fused_kernel``
+              (``.launches``)
+K2            :func:`paged_attention_window`  ``_pa_fused_kernel_q``
+              with scales (``.launches_q``)
+K3            :func:`paged_attention`         ``_pa_read_kernel``
+              (``.launches``)
+K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
+              scales (``.launches_q``)
+============  ==============================  ================================
 
-The page pools are updated IN PLACE (the JAX package aliases them onto
-its outputs, which is the same thing for a caller that rebinds).
+* :func:`paged_attention_window_plain` and :func:`paged_attention_plain`
+  are the plain versions. CPU tensors take them; the card's kernels are
+  held against them.
+* The wrappers run the plain version for CPU tensors and the kernel for
+  CUDA tensors, or raise; there is no fallback.
 
-Page-size rule on Hopper: none. The kernel tiles the logical key space
-in 32-key tiles and looks each key's page up on its own, so any
+The page pools (and scale pools) are updated IN PLACE (the JAX package
+aliases them onto its outputs, which is the same thing for a caller that
+rebinds). Quantized pools hold int8 or ``float8_e4m3fn`` codes with one
+bf16 scale per (page, head, position); reads dequantize as
+``f32(code) * f32(scale)`` and the fused scatter quantizes each fresh row
+by the rules of :func:`~mmlspark_tpu_torch.ops.kv_quant.quantize_kv`.
+
+Page-size rule on Hopper: none. The kernels tile the logical key space
+in 32-key tiles and look each key's page up on its own, so any
 ``page_size >= 1`` runs; the TPU's sublane rounding
-(``aligned_page_size``) has no counterpart here.
+(``aligned_page_size``) and window padding (``Wp``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -31,12 +47,24 @@ from typing import Optional
 
 import torch
 
-__all__ = ["paged_attention_window", "paged_attention_window_plain",
+from .kv_quant import SCALE_DTYPE, quantize_kv
+
+__all__ = ["paged_attention", "paged_attention_plain",
+           "paged_attention_window", "paged_attention_window_plain",
            "write_range"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_STORES = {torch.int8: 0}
+if hasattr(torch, "float8_e4m3fn"):
+    _STORES[torch.float8_e4m3fn] = 1
 _HEAD_DIMS = (64,)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A quantized pool as its raw bytes: gathers and scatters of fp8
+    codes go through a uint8 view, which every device indexes."""
+    return t.view(torch.uint8) if t.dtype in _STORES else t
 
 
 def write_range(pos: torch.Tensor, W: int, page: int,
@@ -52,13 +80,39 @@ def write_range(pos: torch.Tensor, W: int, page: int,
     return wlo.to(torch.int32), whi.to(torch.int32)
 
 
-def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
-                                 block_tables, pos, wlo, whi, scale: float):
-    """Plain PyTorch version of the fused kernel, same arguments and the
-    same in-place page update. Returns ctx (B, H, W, hd) in ``q.dtype``.
+def _gather_rows(pages, scales, bt):
+    """Each row's cached keys (or values) as (B, H, P * page, hd) f32,
+    dequantized through their scales when ``scales`` is given."""
+    B, P = bt.shape
+    _, H, page, hd = pages.shape
+    g = _bits(pages)[bt].view(pages.dtype).float()     # (B, P, H, page, hd)
+    if scales is not None:
+        g = g * scales[bt].float()[..., None]
+    return g.permute(0, 2, 1, 3, 4).reshape(B, H, P * page, hd)
 
-    Cached keys at or past ``pos[b]`` are masked AND zeroed before use,
-    so garbage in unwritten page slots never reaches ``p · v``."""
+
+def _softmax_ctx(s, valid, v, out_dtype):
+    """Masked f32 softmax over the last axis and ``p · v``; a row with no
+    valid key gives zeros (-1e30 masks, l == 0 guarded)."""
+    s = torch.where(valid, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l_ = p.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhwk,bhkd->bhwd", p, v)
+    return (ctx / torch.where(l_ == 0, 1.0, l_)).to(out_dtype)
+
+
+def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
+                                 block_tables, pos, wlo, whi, scale: float,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch version of the fused kernels (K1; K2 with scales),
+    same arguments and the same in-place page (and scale) update.
+    Returns ctx (B, H, W, hd) in ``q.dtype``.
+
+    Cached keys at or past ``pos[b]`` are masked AND zeroed after the
+    dequant, so garbage codes or scales in unwritten slots never reach
+    ``p · v``. The window's own rows are attended unquantized; they are
+    quantized only on their way into the pool."""
     B, H, W, hd = q.shape
     page = k_pages.shape[2]
     P = block_tables.shape[1]
@@ -66,25 +120,19 @@ def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
     bt = block_tables.long()
     posl = pos.long()
     L = P * page
-    # (B, P, H, page, hd) -> (B, H, L, hd)
-    kc = k_pages[bt].permute(0, 2, 1, 3, 4).reshape(B, H, L, hd).float()
-    vc = v_pages[bt].permute(0, 2, 1, 3, 4).reshape(B, H, L, hd).float()
     key_ok = torch.arange(L, device=dev)[None] < posl[:, None]      # (B, L)
-    kc = torch.where(key_ok[:, None, :, None], kc, 0.0)
-    vc = torch.where(key_ok[:, None, :, None], vc, 0.0)
+    kc = torch.where(key_ok[:, None, :, None],
+                     _gather_rows(k_pages, k_scale, bt), 0.0)
+    vc = torch.where(key_ok[:, None, :, None],
+                     _gather_rows(v_pages, v_scale, bt), 0.0)
     qf = q.float()
     s_c = torch.einsum("bhwd,bhkd->bhwk", qf, kc) * scale
     s_w = torch.einsum("bhwd,bhkd->bhwk", qf, k_new.float()) * scale
     causal = torch.tril(torch.ones(W, W, dtype=torch.bool, device=dev))
     valid = torch.cat([key_ok[:, None, None, :].expand(B, 1, W, L),
                        causal[None, None].expand(B, 1, W, W)], dim=-1)
-    s = torch.where(valid, torch.cat([s_c, s_w], dim=-1), _NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * valid
-    l_ = p.sum(dim=-1, keepdim=True)
-    v_all = torch.cat([vc, v_new.float()], dim=2)
-    ctx = torch.einsum("bhwk,bhkd->bhwd", p, v_all)
-    ctx = (ctx / torch.where(l_ == 0, 1.0, l_)).to(q.dtype)
+    ctx = _softmax_ctx(torch.cat([s_c, s_w], dim=-1), valid,
+                       torch.cat([vc, v_new.float()], dim=2), q.dtype)
     # the scatter: window row j of an active row lands at position pos+j
     t = posl[:, None] + torch.arange(W, device=dev)[None]            # (B, W)
     lp = torch.div(t, page, rounding_mode="floor")
@@ -93,32 +141,72 @@ def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
     if rows.numel():
         phys = bt[rows, lp[rows, cols]]
         off = t[rows, cols] % page
-        k_pages[phys, :, off] = k_new[rows, :, cols].to(k_pages.dtype)
-        v_pages[phys, :, off] = v_new[rows, :, cols].to(v_pages.dtype)
+        for pages, scales, new in ((k_pages, k_scale, k_new),
+                                   (v_pages, v_scale, v_new)):
+            vals = new[rows, :, cols]                                # (n, H, hd)
+            if scales is None:
+                pages[phys, :, off] = vals.to(pages.dtype)
+            else:
+                codes, sc = quantize_kv(vals, pages.dtype)
+                _bits(pages)[phys, :, off] = _bits(codes)
+                scales[phys, :, off] = sc
     return ctx
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
+                          scale: float, k_scale=None, v_scale=None):
+    """Plain PyTorch version of the read-only sweep (K3; K4 with scales):
+    row ``b``'s W queries all attend its first ``lengths[b]`` cached keys
+    (no window, no causal mask among the queries). ``lengths[b] == 0``
+    gives zeros. Returns (B, H, W, hd) in ``q.dtype``."""
+    B, H, W, hd = q.shape
+    L = block_tables.shape[1] * k_pages.shape[2]
+    bt = block_tables.long()
+    key_ok = (torch.arange(L, device=q.device)[None]
+              < lengths.long()[:, None])                            # (B, L)
+    kc = torch.where(key_ok[:, None, :, None],
+                     _gather_rows(k_pages, k_scale, bt), 0.0)
+    vc = torch.where(key_ok[:, None, :, None],
+                     _gather_rows(v_pages, v_scale, bt), 0.0)
+    s = torch.einsum("bhwd,bhkd->bhwk", q.float(), kc) * scale
+    return _softmax_ctx(s, key_ok[:, None, None, :], vc, q.dtype)
 
 
 def _library():
     from ..utils.cuda_build import load_library
     lib = load_library("paged_attention")
-    fn = lib.mmlspark_pa_window_fused
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        ci = ctypes.c_int
-        fn.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                       ci, ci, ci, ci, ci, ctypes.c_float, vp]
-        fn.restype = ci
+    if lib.mmlspark_pa_window_fused.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        shape = [ci, ci, ci, ci, ci, cf, vp]      # B, H, W, P, page, scale, stream
+        lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 10 + shape
+        lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 12 \
+            + shape
+        lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
+        lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
+        for fn in (lib.mmlspark_pa_window_fused, lib.mmlspark_pa_window_fused_q,
+                   lib.mmlspark_pa_read, lib.mmlspark_pa_read_q):
+            fn.restype = ci
         lib.mmlspark_cuda_error_string.argtypes = [ci]
         lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k_new, v_new, k_pages, v_pages, block_tables, pos):
+def _check(q, k_pages, v_pages, block_tables, ints, *, k_new=None,
+           v_new=None, k_scale=None, v_scale=None):
+    """What every wrapper checks before its plain version or kernel runs:
+    shapes, dtypes, one device, contiguity, 16-byte alignment on the card.
+    ``ints`` is ``pos`` (fused) or ``lengths`` (read-only)."""
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, H, W, hd)")
     B, H, W, hd = q.shape
+    if k_pages.dim() != 4:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} must be "
+                         f"(N, H, page, hd)")
     N, Hp, page, hdp = k_pages.shape
-    if k_new.shape != q.shape or v_new.shape != q.shape:
-        raise ValueError(f"k_new {tuple(k_new.shape)} / v_new "
-                         f"{tuple(v_new.shape)} must match q {tuple(q.shape)}")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t is not None and t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must match q "
+                             f"{tuple(q.shape)}")
     if v_pages.shape != k_pages.shape:
         raise ValueError("k_pages and v_pages differ in shape")
     if (Hp, hdp) != (H, hd):
@@ -127,30 +215,69 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, pos):
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} must be "
                          f"(B={B}, P)")
-    if pos.shape != (B,):
-        raise ValueError(f"pos {tuple(pos.shape)} must be (B={B},)")
-    dts = {t.dtype for t in (q, k_new, v_new, k_pages, v_pages)}
+    if ints.shape != (B,):
+        raise ValueError(f"pos / lengths {tuple(ints.shape)} must be "
+                         f"(B={B},)")
+    acts = [t for t in (q, k_new, v_new) if t is not None]
+    dts = {t.dtype for t in acts}
     if len(dts) != 1 or q.dtype not in _DTYPES:
-        raise TypeError(f"q, k_new, v_new and the pools must share one "
-                        f"dtype in (float32, bfloat16); got {dts}")
-    devs = {t.device for t in (q, k_new, v_new, k_pages, v_pages,
-                               block_tables, pos)}
+        raise TypeError(f"q, k_new and v_new must share one dtype in "
+                        f"(float32, bfloat16); got {dts}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    pools = [k_pages, v_pages]
+    if k_scale is None:
+        if {k_pages.dtype, v_pages.dtype} != {q.dtype}:
+            raise TypeError(f"unquantized pools must be in q's dtype "
+                            f"{q.dtype}; got {k_pages.dtype}/{v_pages.dtype}"
+                            f" (quantized pools need k_scale/v_scale)")
+    else:
+        if k_pages.dtype not in _STORES or v_pages.dtype != k_pages.dtype:
+            raise TypeError(f"quantized pools must share one dtype in "
+                            f"{sorted(map(str, _STORES))}; got "
+                            f"{k_pages.dtype}/{v_pages.dtype}")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != SCALE_DTYPE or s.shape != (N, H, page):
+                raise TypeError(f"{name} must be {SCALE_DTYPE} "
+                                f"(N={N}, H={H}, page={page}); got "
+                                f"{s.dtype} {tuple(s.shape)}")
+            if not s.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        pools += [k_scale, v_scale]
+    devs = {t.device for t in acts + pools + [block_tables, ints]}
     if len(devs) != 1:
         raise ValueError(f"all tensors must lie on one device; got {devs}")
     if block_tables.dtype not in (torch.int32, torch.int64) or \
-            pos.dtype not in (torch.int32, torch.int64):
-        raise TypeError("block_tables and pos must be integer tensors")
+            ints.dtype not in (torch.int32, torch.int64):
+        raise TypeError("block_tables and pos / lengths must be integer "
+                        "tensors")
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
                     ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t is None:
+            continue
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.is_cuda and t.data_ptr() % 16:
-            # the kernel reads key rows as 16-byte vectors
+            # the kernels read key rows as 16-byte vectors
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+def _cuda_ready(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head dims {_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.mmlspark_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+
+
 def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
-                           pos, *, active=None,
+                           pos, *, active=None, k_scale=None, v_scale=None,
                            scale: Optional[float] = None):
     """Fused decode-window attention + page scatter.
 
@@ -159,50 +286,122 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     below ``pos[b]`` (read in place from the (N, H, page, hd) pools
     through ``block_tables`` (B, P)) plus the window's own keys
     ``k_new``/``v_new`` under the in-window causal mask. The fresh K/V
-    rows are written into their pages — **in place**, ``k_pages`` and
-    ``v_pages`` are mutated — except for rows where ``active`` is False,
-    which write nothing. Returns ``(ctx, k_pages, v_pages)``; ctx is
-    (B, H, W, hd) in ``q.dtype``, the pools are the same tensors that
-    were passed in.
+    rows are written into their pages — **in place**, the pools are
+    mutated — except for rows where ``active`` is False, which write
+    nothing. Returns ``(ctx, k_pages, v_pages)``; ctx is (B, H, W, hd)
+    in ``q.dtype``, the pools are the tensors that were passed in.
+
+    With ``k_scale``/``v_scale`` (the (N, H, page) bf16 scale pools) the
+    pools hold int8 or fp8 codes: reads dequantize, the fresh rows are
+    quantized (codes and scales written in place) and the return grows to
+    ``(ctx, k_pages, v_pages, k_scale, v_scale)``.
 
     CPU tensors run :func:`paged_attention_window_plain`. CUDA tensors
-    launch the hand-written kernel (``csrc/paged_attention.cu``) on the
-    current stream and count the launch in
-    ``paged_attention_window.launches``; anything the kernel does not
-    take raises."""
-    _check(q, k_new, v_new, k_pages, v_pages, block_tables, pos)
+    launch the hand-written kernel (K1, or K2 with scales) on the current
+    stream and count the launch in ``paged_attention_window.launches``
+    (K1) or ``.launches_q`` (K2); anything the kernel does not take
+    raises."""
+    _check(q, k_pages, v_pages, block_tables, pos, k_new=k_new, v_new=v_new,
+           k_scale=k_scale, v_scale=v_scale)
     B, H, W, hd = q.shape
     page = k_pages.shape[2]
+    quant = k_scale is not None
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    pos = pos.to(torch.int32)
+    pos = pos.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     wlo, whi = write_range(pos, W, page, active)
+    pools = (k_pages, v_pages) + ((k_scale, v_scale) if quant else ())
     if q.device.type == "cpu":
         ctx = paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
-                                           bt, pos, wlo, whi, float(scale))
-        return ctx, k_pages, v_pages
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {_HEAD_DIMS}, "
-                         f"got {hd}")
+                                           bt, pos, wlo, whi, float(scale),
+                                           k_scale, v_scale)
+        return (ctx,) + pools
+    _cuda_ready(q)
     lib = _library()
     out = torch.empty_like(q)
+    shape = (B, H, W, bt.shape[1], page, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mmlspark_pa_window_fused(
-            _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            bt.data_ptr(), pos.contiguous().data_ptr(), wlo.data_ptr(),
-            whi.data_ptr(), out.data_ptr(), B, H, W, bt.shape[1], page,
-            float(scale), stream)
-    if err != 0:
-        msg = lib.mmlspark_cuda_error_string(err).decode()
-        raise RuntimeError(f"paged attention kernel launch failed: {msg}")
-    paged_attention_window.launches += 1
-    return out, k_pages, v_pages
+        if quant:
+            err = lib.mmlspark_pa_window_fused_q(
+                _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
+                whi.data_ptr(), out.data_ptr(), *shape, stream)
+        else:
+            err = lib.mmlspark_pa_window_fused(
+                _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
+                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
+                whi.data_ptr(), out.data_ptr(), *shape, stream)
+    _raise_on(lib, err, "fused paged attention")
+    if quant:
+        paged_attention_window.launches_q += 1
+    else:
+        paged_attention_window.launches += 1
+    return (out,) + pools
 
 
-#: kernel launches since the last reset (the plain CPU path never counts)
+#: kernel launches since the last reset: K1 (``launches``) and K2
+#: (``launches_q``); the plain CPU path never counts
 paged_attention_window.launches = 0
+paged_attention_window.launches_q = 0
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    k_scale=None, v_scale=None,
+                    scale: Optional[float] = None):
+    """Read-only paged attention: queries ``q`` (B, H, W, hd) attend the
+    first ``lengths[b]`` cached keys of row ``b``, read in place from the
+    (N, H, page, hd) pools through ``block_tables`` (B, P); every query of
+    a row sees the same keys. A row with ``lengths[b] == 0`` gives zeros.
+    With ``k_scale``/``v_scale`` the pools hold quantized codes and are
+    dequantized as they are read. Returns (B, H, W, hd) in ``q.dtype``;
+    nothing is written.
+
+    CPU tensors run :func:`paged_attention_plain`. CUDA tensors launch
+    the hand-written kernel (K3, or K4 with scales) and count it in
+    ``paged_attention.launches`` (K3) or ``.launches_q`` (K4)."""
+    _check(q, k_pages, v_pages, block_tables, lengths, k_scale=k_scale,
+           v_scale=v_scale)
+    B, H, W, hd = q.shape
+    page = k_pages.shape[2]
+    quant = k_scale is not None
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    lengths = lengths.to(torch.int32).contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, bt, lengths,
+                                     float(scale), k_scale, v_scale)
+    _cuda_ready(q)
+    lib = _library()
+    out = torch.empty_like(q)
+    shape = (B, H, W, bt.shape[1], page, float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if quant:
+            err = lib.mmlspark_pa_read_q(
+                _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), *shape, stream)
+        else:
+            err = lib.mmlspark_pa_read(
+                _DTYPES[q.dtype], hd, q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), *shape, stream)
+    _raise_on(lib, err, "read-only paged attention")
+    if quant:
+        paged_attention.launches_q += 1
+    else:
+        paged_attention.launches += 1
+    return out
+
+
+#: kernel launches since the last reset: K3 (``launches``) and K4
+#: (``launches_q``)
+paged_attention.launches = 0
+paged_attention.launches_q = 0

@@ -1,13 +1,14 @@
 """Continuous batching for autoregressive decoding (counterpart of
-``serving/continuous.py:110-2180``, single device, bf16/f32 pages, no
-speculation).
+``serving/continuous.py:110-2180``, single device, no speculation).
 
 * a **static slot pool** — every occupied slot advances at its own
   position in the same decode step, so requests join mid-flight;
 * **batched bucketed prefill** — same-bucket prompts admitted in one tick
   prefill as one dense causal forward, then drop into their slots;
 * a **paged KV cache** (``serving/kv_pool.py``) with copy-on-write prefix
-  sharing and defrag on retire;
+  sharing and defrag on retire, in the model dtype or quantized
+  (``kv_dtype="int8"|"fp8"``: codes plus per-(page, head, position) bf16
+  scales, dequantized inside the paged kernel);
 * **chunked prefill** — prompts longer than ``prefill_chunk`` prefill in
   budget-bounded windows through the extend path, one per engine tick,
   interleaved with decode;
@@ -44,7 +45,10 @@ from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
                                       decode_step_paged, decode_window_paged,
                                       paged_scatter_rows, params_from_numpy,
                                       prefill_cache)
+from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
+                            resolve_kv_dtype)
 from ..ops.padding import bucket_size
+from ..ops.paged_attention import _bits
 from ..utils.device import resolve_device
 from .kv_pool import PagedKVPool, PoolExhausted, prefix_hash as _prefix_hash
 
@@ -99,6 +103,19 @@ def _sample_rows(logits, temp, top_k, top_p, uniform):
     return torch.where(temp <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def _quant_probe(rows: torch.Tensor, store_dtype):
+    """Write-time quantization error: the relative RMS between the rows a
+    quantized insert is about to scatter and their
+    ``dequantize(quantize(.))`` round trip — the delta between what the
+    quantized kernel reads back and what unquantized pages would hold."""
+    x = rows.float()
+    q, s = quantize_kv(x, store_dtype)
+    d = dequantize_kv(q, s) - x
+    err = torch.sqrt(torch.mean(d * d))
+    ref = torch.sqrt(torch.mean(x * x))
+    return float(err) / max(float(ref), 1e-12)
+
+
 class ContinuousDecoder:
     """Slot-pool continuous-batching engine over the zoo decoder.
 
@@ -111,7 +128,11 @@ class ContinuousDecoder:
     ``params`` is a numpy param tree (``init_transformer``, or
     ``np.asarray`` of the reference's jax arrays), loaded once through
     ``params_from_numpy``; ``device=None`` means the CUDA card and raises
-    without one."""
+    without one.
+
+    ``kv_dtype="int8"|"fp8"`` stores the pages quantized; every
+    ``quant_probe``-th insert of prefill rows (0 = never) measures their
+    round-trip error into the pool's ``quant_error_*`` stats."""
 
     def __init__(self, params: Dict, cfg: TransformerConfig, *,
                  device=None,
@@ -128,13 +149,12 @@ class ContinuousDecoder:
                  paged_attn: str = "kernel",
                  draft_params: Optional[Dict] = None,
                  kv_dtype: Optional[str] = None,
+                 quant_probe: int = 64,
                  mesh=None, journal=None):
         if draft_params is not None:
             raise _not_ported("speculative decoding (draft_params)")
         if mesh is not None:
             raise _not_ported("the meshed decoder (mesh)")
-        if kv_dtype is not None:
-            raise _not_ported("quantized KV pages (kv_dtype)")
         if prefill_ahead:
             raise _not_ported("prefill-ahead staging (prefill_ahead > 0)")
         if journal is not None:
@@ -156,6 +176,12 @@ class ContinuousDecoder:
             raise ValueError("page_size must be >= 1")
         if prefill_chunk < 8:
             raise ValueError("prefill_chunk must be >= 8")
+        if quant_probe < 0:
+            raise ValueError("quant_probe must be >= 0")
+        #: "int8" / "fp8" quantized pages, or None
+        self._kv_dtype = resolve_kv_dtype(kv_dtype)
+        self._quant_probe = int(quant_probe) if self._kv_dtype else 0
+        self._quant_inserts = 0
         self._dev = resolve_device(device)
         self._cfg = cfg
         self._S = int(max_slots)
@@ -179,7 +205,8 @@ class ContinuousDecoder:
                 f"kv_pages {kv_pages} cannot hold one full-length slot "
                 f"({self._P_max} pages + the trash page)")
         self._kv = PagedKVPool(cfg, num_pages=int(kv_pages),
-                               page_size=self._page, device=self._dev)
+                               page_size=self._page, kv_dtype=self._kv_dtype,
+                               device=self._dev)
         self._chunk = int(prefill_chunk)
         self._defrag_thr = (max(1, self._kv.num_pages // 4)
                             if defrag_threshold is None
@@ -467,6 +494,13 @@ class ContinuousDecoder:
                 if r.temperature > 0.0 else None)
         firsts = self._pick(logits[:g].float(), temps_v, topks_v, topps_v,
                             [self._gens[s] for s in slots])
+        if rows_t and self._quant_probe:
+            # sampled write-time probe: every quant_probe'th insert of
+            # prefill rows round-trips layer 0's keys (one host sync)
+            self._quant_inserts += 1
+            if self._quant_inserts % self._quant_probe == 0:
+                self._kv.note_quant_error(_quant_probe(
+                    rows_t[0]["k"], kv_store_dtype(self._kv_dtype)))
         if rows_t:
             n_pages = -(-rows_t[0]["k"].shape[2] // self._page)
             page_rows = self._h2d(self._bt_host[slots, :n_pages], np.int64)
@@ -555,11 +589,13 @@ class ContinuousDecoder:
             shared = list(pages_stored[:s0])
             n_copy = -(-plen // self._page) - s0
             if n_copy > 0:
+                # every buffer of the layer: a quantized page is copied
+                # with its scales
                 src = self._h2d(pages_stored[s0:s0 + n_copy], np.int64)
                 dst = self._h2d(private[:n_copy], np.int64)
                 for c in self._kv.buffers:
-                    for kk in ("k", "v"):
-                        c[kk][dst] = c[kk][src]
+                    for buf in c.values():
+                        _bits(buf)[dst] = _bits(buf)[src]
             self._slot_pages[slot] = shared + private
             self._set_bt_row(slot, shared + private)
             self.stats["prefix_hits"] += 1
@@ -662,7 +698,8 @@ class ContinuousDecoder:
 
     def _maybe_compact(self):
         """Defrag on retire: pack live pages dense with one gather per
-        buffer and remap every host page reference."""
+        buffer (scale pools move with their pages) and remap every host
+        page reference."""
         if not self._kv.should_compact(self._defrag_thr):
             return
         remap = self._kv.compact()
@@ -672,8 +709,8 @@ class ContinuousDecoder:
         perm[remap] = np.arange(remap.size)
         perm_d = self._h2d(perm, np.int64)
         for c in self._kv.buffers:
-            for kk in ("k", "v"):
-                c[kk] = c[kk][perm_d]
+            for kk, buf in c.items():
+                c[kk] = _bits(buf)[perm_d].view(buf.dtype)
         self._bt_host = remap[self._bt_host].astype(np.int32)
         self._slot_pages = [
             None if p is None else [int(remap[x]) for x in p]

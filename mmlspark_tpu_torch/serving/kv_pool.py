@@ -3,7 +3,10 @@
 
 * **pages** — the physical cache is ``(num_pages, H, page_size, hd)`` per
   layer (``models/zoo/transformer.init_paged_cache``); requests are sized
-  in pages for the tokens they can actually produce;
+  in pages for the tokens they can actually produce. With ``kv_dtype``
+  ("int8"/"fp8") pages hold quantized codes and each layer carries
+  ``(num_pages, H, page_size)`` bf16 ``k_scale``/``v_scale`` pools that
+  move with their pages (CoW copy, ``compact()``, ``reset()``);
 * **block tables** — each slot owns a row of physical page ids; attention
   reads through it;
 * **copy-on-write prefix sharing** — whole pages of a cached prompt prefix
@@ -28,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
+                            kv_store_dtype, resolve_kv_dtype)
 from ..utils.device import resolve_device
 
 __all__ = ["PagedKVPool", "PoolExhausted", "prefix_hash"]
@@ -48,14 +53,15 @@ class PoolExhausted(RuntimeError):
 class PagedKVPool:
     """Page allocator + device buffer handle for one model's KV cache.
 
-    ``buffers`` is the per-layer list of ``{"k","v"}`` page tensors, zeroed
-    at construction and updated in place by the engine's steps (``compact``
-    and ``reset`` rebind them). Everything else is host bookkeeping: a free
-    min-heap over pages ``[1, num_pages)``, per-page refcounts, and the
+    ``buffers`` is the per-layer list of ``{"k","v"}`` page tensors (plus
+    ``{"k_scale","v_scale"}`` when quantized), zeroed at construction and
+    updated in place by the engine's steps (``compact`` and ``reset``
+    rebind them). Everything else is host bookkeeping: a free min-heap
+    over pages ``[1, num_pages)``, per-page refcounts, and the
     shared-prefix registry."""
 
     def __init__(self, cfg, *, num_pages: int, page_size: int,
-                 device=None):
+                 kv_dtype: Optional[str] = None, device=None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1:
@@ -66,6 +72,13 @@ class PagedKVPool:
         self.page_size = int(page_size)
         hd = cfg.d_model // cfg.heads
         self._shape = (self.num_pages, cfg.heads, self.page_size, hd)
+        self._scale_shape = self._shape[:3]
+        #: canonical quantized-page dtype name ("int8"/"fp8") or None
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        store = kv_store_dtype(self.kv_dtype)
+        #: the dtype K/V values are stored in
+        self.value_dtype = cfg.dtype if store is None else store
+        self.scale_dtype = None if store is None else SCALE_DTYPE
         self.buffers = self._make_buffers()
         self._free: List[int] = list(range(1, self.num_pages))
         heapq.heapify(self._free)
@@ -79,22 +92,53 @@ class PagedKVPool:
         self.stats = {"prefix_share_hits": 0, "defrag_moves": 0,
                       "prefill_chunks": 0, "alloc_failures": 0,
                       "gather_bytes": 0, "attn_ticks_kernel": 0,
-                      "attn_ticks_gather": 0}
+                      "attn_ticks_gather": 0, "quant_error_probes": 0,
+                      "quant_error_last": None, "quant_error_sum": 0.0,
+                      "quant_error_max": 0.0}
 
     def _make_buffers(self):
-        return [{kk: torch.zeros(self._shape, dtype=self.cfg.dtype,
+        """Fresh zeroed per-layer buffers: ``{"k","v"}`` in the value dtype,
+        plus ``{"k_scale","v_scale"}`` when quantized."""
+        layers = []
+        for _ in range(self.cfg.layers):
+            c = {kk: torch.zeros(self._shape, dtype=self.value_dtype,
                                  device=self.device) for kk in ("k", "v")}
-                for _ in range(self.cfg.layers)]
+            if self.scale_dtype is not None:
+                for kk in ("k_scale", "v_scale"):
+                    c[kk] = torch.zeros(self._scale_shape,
+                                        dtype=self.scale_dtype,
+                                        device=self.device)
+            layers.append(c)
+        return layers
 
     def device_bytes(self) -> int:
-        """Exact device bytes of the pool's K+V buffers."""
-        itemsize = torch.empty((), dtype=self.cfg.dtype).element_size()
-        return 2 * self.cfg.layers * int(np.prod(self._shape)) * itemsize
+        """Exact device bytes of the pool's buffers: K+V values in the
+        (possibly quantized) value dtype plus the scale pools."""
+        nbytes = (2 * self.cfg.layers * int(np.prod(self._shape))
+                  * torch.empty((), dtype=self.value_dtype).element_size())
+        if self.scale_dtype is not None:
+            nbytes += (2 * self.cfg.layers * int(np.prod(self._scale_shape))
+                       * torch.empty((), dtype=self.scale_dtype).element_size())
+        return nbytes
 
     def bytes_per_position(self) -> int:
-        """Device bytes one cached position costs across K+V and layers."""
-        itemsize = torch.empty((), dtype=self.cfg.dtype).element_size()
-        return 2 * self.cfg.layers * self.cfg.d_model * itemsize
+        """Device bytes one cached position costs across K+V and all
+        layers, values and scales."""
+        hd = self.cfg.d_model // self.cfg.heads
+        return self.cfg.layers * kv_bytes_per_position(
+            self.cfg.heads, hd, self.value_dtype,
+            self.scale_dtype is not None)
+
+    def note_quant_error(self, rms: float) -> None:
+        """Record one sampled write-time round-trip error: the relative RMS
+        of ``dequantize(quantize(rows))`` against the rows a quantized
+        insert wrote."""
+        rms = float(rms)
+        self.stats["quant_error_probes"] += 1
+        self.stats["quant_error_last"] = rms
+        self.stats["quant_error_sum"] += rms
+        self.stats["quant_error_max"] = max(self.stats["quant_error_max"],
+                                            rms)
 
     # -- allocation ----------------------------------------------------------
 
@@ -252,7 +296,8 @@ class PagedKVPool:
         return max(1, int(page_size))
 
     def reset(self) -> None:
-        """Forget every allocation and re-zero the device buffers."""
+        """Forget every allocation and re-zero the device buffers (scale
+        pools included)."""
         self.buffers = self._make_buffers()
         self._free = list(range(1, self.num_pages))
         heapq.heapify(self._free)

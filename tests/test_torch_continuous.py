@@ -194,7 +194,7 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("kw", [{"draft_params": {}}, {"mesh": object()},
-                                {"kv_dtype": "int8"}, {"prefill_ahead": 2},
+                                {"prefill_ahead": 1}, {"prefill_ahead": 2},
                                 {"journal": object()}])
 def test_unported_options_raise(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,3 +240,156 @@ def test_jax_params_tree_accepted(params):
     req = eng.submit([4, 5, 6], 3)
     _drain(eng, [req])
     assert eng.result(req) == _want(params, [4, 5, 6], 3)
+
+
+# ---- quantized pages: the port's int8 engine against the reference's ----
+
+def _quant_case(eng, case):
+    """Drive one engine (the reference's or the port's: same client API)
+    through a plain prompt, a chunked prompt beside a live request, or a
+    copy-on-write prefix-sharing pair; returns every request's tokens."""
+    rng = np.random.default_rng(21)
+
+    def run(reqs):
+        for _ in range(400):
+            if all(r.done for r in reqs):
+                break
+            eng.step()
+        assert all(r.done for r in reqs)
+
+    def prompt(n):
+        return rng.integers(0, 128, n).astype(np.int32)
+
+    if case == "plain":
+        reqs = [eng.submit(prompt(7), max_new_tokens=9)]
+        run(reqs)
+    elif case == "chunked":
+        live = eng.submit(prompt(4), max_new_tokens=12)
+        eng.step()
+        reqs = [live, eng.submit(prompt(29), max_new_tokens=6)]
+        run(reqs)
+    else:
+        prefix = prompt(10)
+        reqs = [eng.submit(prefix, max_new_tokens=6, prefix_key="sys")]
+        run(reqs)
+        reqs.append(eng.submit(np.concatenate([prefix, prompt(3)]),
+                               max_new_tokens=6, prefix_key="sys"))
+        run(reqs[1:])
+    return [[int(t) for t in r.tokens] for r in reqs]
+
+
+_QUANT_ENGINE = dict(max_slots=2, max_len=48, page_size=4, prefill_chunk=8,
+                     quant_probe=1)
+
+
+@pytest.mark.parametrize("case", ["plain", "chunked", "prefix"])
+def test_int8_tokens_match_reference_engine(params, case):
+    """Greedy tokens of the int8 engine equal the reference int8 engine's.
+    The prefix case copies a boundary page: its scales must move with its
+    codes, or the sharer decodes from wrongly scaled keys."""
+    from mmlspark_tpu.serving.continuous import ContinuousDecoder as RefEngine
+    ref = RefEngine(params, REF_CFG, kv_dtype="int8", **_QUANT_ENGINE)
+    want = _quant_case(ref, case)
+    eng = _engine(params, kv_dtype="int8", **_QUANT_ENGINE)
+    assert _quant_case(eng, case) == want
+    assert eng._kv.stats["attn_ticks_kernel"] > 0
+    assert eng._kv.stats["gather_bytes"] == 0
+    if case == "prefix":
+        assert eng.stats["prefix_hits"] == 1
+        assert eng._kv.stats["prefix_share_hits"] == 2
+    if case == "chunked":
+        assert eng._kv.stats["prefill_chunks"] > 1
+
+
+def test_quant_probe_feeds_error_stats(params):
+    """Every quant_probe'th insert of prefill rows measures their
+    round-trip error; on one plain request it matches the reference's
+    measurement of the same rows (summation order aside)."""
+    from mmlspark_tpu.serving.continuous import ContinuousDecoder as RefEngine
+    stats = {}
+    for name, eng in (
+            ("ref", RefEngine(params, REF_CFG, kv_dtype="int8",
+                              **_QUANT_ENGINE)),
+            ("port", _engine(params, kv_dtype="int8", **_QUANT_ENGINE))):
+        _quant_case(eng, "plain")
+        stats[name] = eng._kv.stats
+    got, want = stats["port"], stats["ref"]
+    assert got["quant_error_probes"] == want["quant_error_probes"] == 1
+    assert 0.0 < got["quant_error_max"] < 0.02
+    np.testing.assert_allclose(got["quant_error_last"],
+                               want["quant_error_last"], rtol=1e-3)
+    # sampled: with quant_probe=2 the first insert is skipped
+    eng = _engine(params, kv_dtype="fp8", **{**_QUANT_ENGINE,
+                                             "quant_probe": 2})
+    reqs = [eng.submit(np.arange(1, 6), 3)]
+    _drain(eng, reqs)
+    assert eng._kv.stats["quant_error_probes"] == 0
+    reqs = [eng.submit(np.arange(2, 9), 3)]
+    _drain(eng, reqs)
+    assert eng._kv.stats["quant_error_probes"] == 1
+    assert 0.0 < eng._kv.stats["quant_error_last"] < 0.1
+
+
+@pytest.mark.parametrize("probe", [1, 0])
+def test_unquantized_engine_never_probes(params, probe):
+    eng = _engine(params, quant_probe=probe)
+    prompt = np.random.default_rng(22).integers(0, 128, 6)
+    req = eng.submit(prompt, 4)
+    _drain(eng, [req])
+    assert eng.result(req) == _want(params, prompt, 4)
+    assert eng._kv.kv_dtype is None and set(eng._kv.buffers[0]) == {"k", "v"}
+    assert eng._kv.stats["quant_error_probes"] == 0
+    assert eng._kv.stats["quant_error_last"] is None
+
+
+@pytest.mark.parametrize("kw", [{"kv_dtype": "int4"}, {"quant_probe": -1},
+                                {"kv_dtype": "int8", "quant_probe": -1}])
+def test_quant_options_validated(params, kw):
+    with pytest.raises(ValueError):
+        _engine(params, **kw)
+
+
+def test_int8_defrag_keeps_survivor_tokens(params):
+    """Defrag on retire moves the survivor's pages and their scales
+    through one permutation; its greedy tokens stay the reference's."""
+    from mmlspark_tpu.serving.continuous import ContinuousDecoder as RefEngine
+    rng = np.random.default_rng(23)
+    p_short = rng.integers(1, 128, 5).astype(np.int32)
+    p_long = rng.integers(1, 128, 9).astype(np.int32)
+    outs = []
+    for eng in (RefEngine(params, REF_CFG, max_slots=2, max_len=48,
+                          page_size=4, kv_dtype="int8", defrag_threshold=1),
+                _engine(params, page_size=4, kv_dtype="int8",
+                        defrag_threshold=1)):
+        rs = eng.submit(p_short, max_new_tokens=3)
+        rl = eng.submit(p_long, max_new_tokens=24)
+        for _ in range(400):
+            if rs.done and rl.done:
+                break
+            eng.step()
+        assert eng._kv.stats["defrag_moves"] > 0
+        outs.append([int(t) for t in rl.tokens])
+    assert outs[0] == outs[1] and len(outs[1]) == 24
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_prefix_boundary_copy_carries_scales(params, kv_dtype):
+    """A prefix hit copies the stored prefix's boundary page into a private
+    page: the prefix positions there must arrive with their scales, not
+    with whatever scales the reused page held."""
+    eng = _engine(params, page_size=4, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(24)
+    prefix = rng.integers(0, 128, 10)
+    _drain(eng, [eng.submit(prefix, 6, prefix_key="sys")])
+    rb = eng.submit(np.concatenate([prefix, rng.integers(0, 128, 3)]), 6,
+                    prefix_key="sys")
+    eng.step()                 # admits rb: 2 shared pages + 1 copied
+    stored, plen = eng._kv.lookup_prefix(eng._prefix_store["sys"][1])
+    pages = eng._slot_pages[eng._slot_req.index(rb)]
+    assert pages[:2] == list(stored[:2]) and pages[2] != stored[2]
+    n = plen - 2 * 4           # prefix positions on the boundary page
+    for c in eng._kv.buffers:
+        for kk, t in c.items():
+            raw = t.view(torch.uint8) if t.element_size() == 1 else t
+            assert torch.equal(raw[pages[2], :, :n], raw[stored[2], :, :n]), kk
+    _drain(eng, [rb])

@@ -31,6 +31,7 @@ def _port_modules():
 def test_every_port_module_is_listed():
     names = _port_modules()
     for want in ("mmlspark_tpu_torch.ops.paged_attention",
+                 "mmlspark_tpu_torch.ops.kv_quant",
                  "mmlspark_tpu_torch.serving.generation",
                  "mmlspark_tpu_torch.utils.cuda_build"):
         assert want in names
@@ -75,7 +76,9 @@ def _no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_paged_cache",
-                                   "pool", "decoder", "engine"])
+                                   "pool", "decoder", "engine",
+                                   "quant_cache", "quant_pool",
+                                   "quant_decoder"])
 def test_entry_points_default_to_cuda_and_raise(entry):
     _no_cuda()
     from mmlspark_tpu_torch.models.zoo.transformer import (
@@ -91,7 +94,13 @@ def test_entry_points_default_to_cuda_and_raise(entry):
              "init_paged_cache": lambda: init_paged_cache(cfg, 4, 4),
              "pool": lambda: PagedKVPool(cfg, num_pages=4, page_size=4),
              "decoder": lambda: ContinuousDecoder(init_transformer(cfg), cfg),
-             "engine": lambda: GenerationEngine(init_transformer(cfg), cfg)}
+             "engine": lambda: GenerationEngine(init_transformer(cfg), cfg),
+             "quant_cache": lambda: init_paged_cache(cfg, 4, 4,
+                                                     kv_dtype="int8"),
+             "quant_pool": lambda: PagedKVPool(cfg, num_pages=4, page_size=4,
+                                               kv_dtype="fp8"),
+             "quant_decoder": lambda: ContinuousDecoder(
+                 init_transformer(cfg), cfg, kv_dtype="int8")}
     with pytest.raises(RuntimeError, match="CUDA"):
         build[entry]()
     assert resolve_device("cpu").type == "cpu"
@@ -122,3 +131,18 @@ def test_padding_matches_reference():
     with pytest.raises(ValueError):
         port.bucket_size(5000, [4, 16])
     assert np.all(np.diff(port.default_buckets()) > 0)
+
+
+def test_kv_quant_matches_reference_constants():
+    """``ops/kv_quant.py`` is the port's own copy: its constants and
+    byte accounting equal the reference module's."""
+    import jax.numpy as jnp
+    from mmlspark_tpu.ops import kv_quant as ref
+    from mmlspark_tpu_torch.ops import kv_quant as port
+    assert port._CANON == ref._CANON
+    assert (port._QMAX_INT8, port._QMAX_FP8) == (ref._QMAX_INT8,
+                                                 ref._QMAX_FP8)
+    assert port.SCALE_DTYPE == torch.bfloat16 and \
+        ref.SCALE_DTYPE == jnp.bfloat16
+    assert port.supports_fp8() and ref.supports_fp8()
+    assert port.__all__ == ref.__all__

@@ -126,3 +126,92 @@ def test_stats_keys_kept():
     p.note_attn_tick("kernel", calls=3)
     assert (p.stats["attn_ticks_gather"], p.stats["attn_ticks_kernel"],
             p.stats["gather_bytes"]) == (2, 3, 64)
+
+
+# ---- quantized pools ----
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quant_pool_bytes_match_reference(kv_dtype):
+    cfg_r = REF_CFG._replace(d_model=256, dtype=jnp.bfloat16)
+    cfg_p = CFG._replace(d_model=256, dtype=torch.bfloat16)  # hd 64
+    r = ref.PagedKVPool(cfg_r, num_pages=9, page_size=4, kv_dtype=kv_dtype,
+                        residency=False)
+    p = port.PagedKVPool(cfg_p, num_pages=9, page_size=4, kv_dtype=kv_dtype,
+                         device="cpu")
+    assert p.kv_dtype == r.kv_dtype == kv_dtype
+    assert p.device_bytes() == r.device_bytes()
+    assert p.bytes_per_position() == r.bytes_per_position()
+    # what the buffers hold, and 66/128 of the bf16 layout per position
+    assert p.device_bytes() == sum(t.numel() * t.element_size()
+                                   for c in p.buffers for t in c.values())
+    bf16 = port.PagedKVPool(cfg_p, num_pages=9, page_size=4, device="cpu")
+    assert p.bytes_per_position() * 128 == bf16.bytes_per_position() * 66
+    assert bf16.bytes_per_position() == ref.PagedKVPool(
+        cfg_r, num_pages=9, page_size=4, residency=False).bytes_per_position()
+    # the engine's pool makes its scale pools as zeros, like the reference's
+    assert set(p.buffers[0]) == {"k", "v", "k_scale", "v_scale"}
+    for c_p, c_r in zip(p.buffers, r.buffers):
+        for kk in c_r:
+            assert np.array_equal(c_p[kk].float().numpy(),
+                                  np.asarray(c_r[kk], np.float32))
+
+
+def test_quant_pool_reset_rebuilds_scales():
+    p = port.PagedKVPool(CFG, num_pages=8, page_size=4, kv_dtype="int8",
+                         device="cpu")
+    p.buffers[0]["k_scale"].fill_(3.0)
+    p.buffers[1]["v"].fill_(7)
+    p.alloc(3)
+    p.reset()
+    assert p.pages_in_use == 0
+    assert set(p.buffers[0]) == {"k", "v", "k_scale", "v_scale"}
+    assert p.buffers[0]["k"].dtype == torch.int8
+    assert p.buffers[0]["k_scale"].dtype == torch.bfloat16
+    assert all(float(t.float().abs().sum()) == 0.0
+               for c in p.buffers for t in c.values())
+
+
+def test_quant_pool_error_stats():
+    p = port.PagedKVPool(CFG, num_pages=4, page_size=4, kv_dtype="fp8",
+                         device="cpu")
+    r = ref.PagedKVPool(REF_CFG, num_pages=4, page_size=4, kv_dtype="fp8",
+                        residency=False)
+    for pool in (p, r):
+        for e in (0.01, 0.03, 0.02):
+            pool.note_quant_error(e)
+    keys = ("quant_error_probes", "quant_error_last", "quant_error_sum",
+            "quant_error_max")
+    assert [p.stats[k] for k in keys] == [r.stats[k] for k in keys]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_compact_remaps_scales_with_pages(kv_dtype):
+    """The engine's defrag gathers every buffer of a layer through the
+    ``compact()`` permutation: a page's codes and its scales land
+    together."""
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    eng = ContinuousDecoder(init_transformer(CFG), CFG, device="cpu",
+                            max_slots=2, max_len=16, page_size=4,
+                            kv_dtype=kv_dtype, defrag_threshold=1)
+    pool = eng._kv
+    for c in pool.buffers:
+        for kk, t in c.items():
+            # mark every page with its own id (codes through byte views)
+            ids = torch.arange(pool.num_pages, dtype=torch.float32)
+            if t.dtype == torch.bfloat16:
+                t.copy_(ids[:, None, None].expand_as(t))
+            else:
+                t.view(torch.uint8).copy_(
+                    ids.to(torch.uint8)[:, None, None, None].expand_as(t))
+    a = pool.alloc(3)
+    b = pool.alloc(3)
+    pool.free(a)
+    eng._maybe_compact()
+    assert pool.stats["defrag_moves"] == 3
+    for c in pool.buffers:
+        for kk, t in c.items():
+            v = t.float() if t.dtype == torch.bfloat16 else \
+                t.view(torch.uint8).float()
+            for new, old in zip((1, 2, 3), b):
+                assert bool((v[new] == old).all()), (kk, new, old)

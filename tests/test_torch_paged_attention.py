@@ -255,3 +255,258 @@ def test_cuda_kernel_matches_plain_version():
                                want.float().cpu().numpy(),
                                rtol=1e-2, atol=4e-3)
     assert torch.equal(kp1[1:], kp2[1:]) and torch.equal(vp1[1:], vp2[1:])
+
+
+# ---- quantized pages (kv_quant, K2) and the read-only sweep (K3, K4) ----
+
+from mmlspark_tpu.ops import kv_quant as ref_q  # noqa: E402
+from mmlspark_tpu_torch.ops import kv_quant as port_q  # noqa: E402
+
+KV_DTYPES = ["int8", "fp8"]
+
+
+def _to_torch(a):
+    """A numpy / jax array → torch, bit for bit (bf16 and fp8 included)."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _bits_np(a):
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.itemsize])
+
+
+def _bits_t(t):
+    return _bits_np(t.view({1: torch.uint8, 2: torch.int16,
+                            4: torch.int32}[t.element_size()]).numpy())
+
+
+def _quant_rows(kind, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 2, (64, 3, 16)).astype(np.float32)
+    if kind == "zero":
+        x[::2] = 0.0
+    elif kind == "qmax":
+        # rows whose absmax element maps exactly onto the clip bound
+        x[:, :, 5] = 127.0 * 2.0
+        x[:, :, 6] = -448.0
+    return x
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "qmax"])
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quantize_kv_bitwise(kv_dtype, kind):
+    x = _quant_rows(kind, 7)
+    q_r, s_r = ref_q.quantize_kv(jnp.asarray(x), ref_q.kv_store_dtype(kv_dtype))
+    q_p, s_p = port_q.quantize_kv(torch.from_numpy(x),
+                                  port_q.kv_store_dtype(kv_dtype))
+    assert q_p.dtype == port_q.kv_store_dtype(kv_dtype)
+    assert s_p.dtype == port_q.SCALE_DTYPE and s_p.shape == x.shape[:-1]
+    assert np.array_equal(_bits_t(q_p), _bits_np(q_r))
+    assert np.array_equal(_bits_t(s_p), _bits_np(s_r))
+    # the same rows given in bf16 quantize the same too
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    q_r, s_r = ref_q.quantize_kv(xb, ref_q.kv_store_dtype(kv_dtype))
+    q_p, s_p = port_q.quantize_kv(_to_torch(xb),
+                                  port_q.kv_store_dtype(kv_dtype))
+    assert np.array_equal(_bits_t(q_p), _bits_np(q_r))
+    assert np.array_equal(_bits_t(s_p), _bits_np(s_r))
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_dequantize_kv_bitwise(kv_dtype):
+    q_r, s_r = ref_q.quantize_kv(jnp.asarray(_quant_rows("random", 8)),
+                                 ref_q.kv_store_dtype(kv_dtype))
+    for dt_r, dt_p in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        want = ref_q.dequantize_kv(q_r, s_r, dt_r)
+        got = port_q.dequantize_kv(_to_torch(q_r), _to_torch(s_r), dt_p)
+        assert np.array_equal(_bits_t(got), _bits_np(want))
+
+
+@pytest.mark.parametrize("name", [None, "", "none", "bf16", "BFloat16",
+                                  "int8", " INT8 ", "fp8", "float8",
+                                  "float8_e4m3fn", "e4m3", "int4", "fp16",
+                                  "e5m2"])
+def test_resolve_kv_dtype_same_names(name):
+    def outcome(mod):
+        try:
+            return mod.resolve_kv_dtype(name)
+        except ValueError:
+            return "rejected"
+    assert outcome(port_q) == outcome(ref_q)
+    canon = outcome(port_q)
+    if canon in ("int8", "fp8"):
+        store_p, store_r = port_q.kv_store_dtype(canon), \
+            ref_q.kv_store_dtype(canon)
+        assert port_q.kv_qmax(store_p) == ref_q.kv_qmax(store_r)
+        assert (port_q.kv_bytes_per_position(12, 64, store_p, True)
+                == ref_q.kv_bytes_per_position(12, 64, store_r, True))
+    assert (port_q.kv_bytes_per_position(12, 64, torch.bfloat16, False)
+            == ref_q.kv_bytes_per_position(12, 64, jnp.bfloat16, False))
+
+
+def _quant_pools(seed, N, H, page, hd, kv_dtype):
+    """Quantized pools made by the reference quantizer: (codes, scales)
+    for K and V as jax arrays."""
+    rng = np.random.default_rng(seed)
+    store = ref_q.kv_store_dtype(kv_dtype)
+    out = []
+    for _ in range(2):
+        x = jnp.asarray(rng.normal(0, 1, (N, H, page, hd)), jnp.float32)
+        out.extend(ref_q.quantize_kv(x, store))
+    kp, ks, vp, vs = out
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("W", [1, 4, 16])
+def test_plain_quant_window_matches_reference(W, kv_dtype):
+    B, H, hd, page, P = 3, 2, 8, 8, 5
+    q, kn, vn, _, _, bt = _inputs(W, B, H, W, hd, page, P)
+    kp, vp, ks, vs = _quant_pools(W + 1, 1 + B * P, H, page, hd, kv_dtype)
+    # mid-page, exact page boundary, and a fresh row at 0 (inactive)
+    pos = np.array([7, 16, 0], np.int32)
+    active = np.array([True, True, False])
+    want = ref_pa.paged_attention_window(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), kp, vp,
+        jnp.asarray(bt), jnp.asarray(pos), active=jnp.asarray(active),
+        k_scale=ks, v_scale=vs, interpret=True)
+    pools = [_to_torch(a) for a in (kp, vp, ks, vs)]
+    before = [t.clone() for t in pools]
+    got = port_pa.paged_attention_window(
+        torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn),
+        pools[0], pools[1], torch.from_numpy(bt), torch.from_numpy(pos),
+        active=torch.from_numpy(active), k_scale=pools[2], v_scale=pools[3])
+    assert len(got) == 5 and all(g is p for g, p in zip(got[1:], pools))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(_bits_t(g)[1:], _bits_np(w)[1:])
+    # the inactive row touched nothing but (perhaps) the trash page
+    rows = bt[2]
+    for g, b in zip(pools, before):
+        assert np.array_equal(_bits_t(g)[rows], _bits_t(b)[rows])
+    # the fresh rows landed quantized, with their scales
+    for g, b in zip(pools, before):
+        assert not np.array_equal(_bits_t(g)[bt[0]], _bits_t(b)[bt[0]])
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_garbage_past_pos_never_reaches_ctx(kv_dtype):
+    """NaN scales (and NaN fp8 codes) at or past pos must not leak."""
+    B, H, W, hd, page, P = 1, 2, 1, 8, 4, 3
+    q, kn, vn, _, _, bt = _inputs(11, B, H, W, hd, page, P)
+    pools = [_to_torch(a) for a in _quant_pools(3, 1 + B * P, H, page, hd,
+                                                 kv_dtype)]
+    kp, vp, ks, vs = pools
+    for s in (ks, vs):
+        s[bt[0, 1], :, 1:] = float("nan")           # positions 5..7
+        s[bt[0, 2]] = float("nan")
+    if kv_dtype == "fp8":
+        for c in (kp, vp):
+            c.view(torch.uint8)[bt[0, 1], :, 1:] = 0x7F
+    ctx = port_pa.paged_attention_window(
+        torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn),
+        kp, vp, torch.from_numpy(bt), torch.tensor([5], dtype=torch.int32),
+        k_scale=ks, v_scale=vs)[0]
+    assert torch.isfinite(ctx).all()
+    lens = torch.tensor([5], dtype=torch.int32)
+    out = port_pa.paged_attention(torch.from_numpy(q), kp, vp,
+                                  torch.from_numpy(bt), lens,
+                                  k_scale=ks, v_scale=vs)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+@pytest.mark.parametrize("W", [1, 5])
+def test_plain_read_matches_reference(W, kv_dtype):
+    B, H, hd, page, P = 4, 2, 8, 4, 6
+    q, _, _, kp, vp, bt = _inputs(20 + W, B, H, W, hd, page, P)
+    lengths = np.array([0, 1, 9, 24], np.int32)      # 0 gives zeros
+    if kv_dtype is None:
+        pools_j = [jnp.asarray(kp), jnp.asarray(vp)]
+        kw_j = {}
+    else:
+        kp_j, vp_j, ks, vs = _quant_pools(W, 1 + B * P, H, page, hd,
+                                          kv_dtype)
+        pools_j = [kp_j, vp_j]
+        kw_j = {"k_scale": ks, "v_scale": vs}
+    want = ref_pa.paged_attention(jnp.asarray(q), *pools_j, jnp.asarray(bt),
+                                  jnp.asarray(lengths), interpret=True,
+                                  **kw_j)
+    kw_t = {k: _to_torch(v) for k, v in kw_j.items()}
+    pools_t = [_to_torch(a) for a in pools_j]
+    got = port_pa.paged_attention(torch.from_numpy(q), *pools_t,
+                                  torch.from_numpy(bt),
+                                  torch.from_numpy(lengths), **kw_t)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bad", ["one_scale", "scale_dtype", "scale_shape",
+                                 "pool_dtype", "unscaled_int8"])
+def test_quant_wrapper_checks_inputs(bad):
+    q, kn, vn, _, _, bt = (torch.from_numpy(a) for a in
+                           _inputs(1, 2, 2, 3, 8, 4, 3))
+    kp, vp, ks, vs = (_to_torch(a) for a in _quant_pools(1, 7, 2, 4, 8,
+                                                         "int8"))
+    pos = torch.tensor([1, 2], dtype=torch.int32)
+    kw = {"k_scale": ks, "v_scale": vs}
+    if bad == "one_scale":
+        kw = {"k_scale": ks}
+    elif bad == "scale_dtype":
+        kw["v_scale"] = vs.float()
+    elif bad == "scale_shape":
+        kw["k_scale"] = ks[:, :, :2].contiguous()
+    elif bad == "pool_dtype":
+        kp = kp.float()
+    else:
+        kw = {}
+    with pytest.raises((TypeError, ValueError)):
+        port_pa.paged_attention_window(q, kn, vn, kp, vp, bt, pos, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_cuda_quant_kernels_match_plain_version(kv_dtype):
+    """On the card: K2 and K4 against their plain versions at a full-width
+    head shape, pages and scales bitwise, ctx within bf16 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    B, H, W, hd, page, P = 4, 12, 8, 64, 16, 8
+    q, kn, vn, _, _, bt = _inputs(0, B, H, W, hd, page, P)
+    dev = torch.device("cuda")
+    act = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kn, vn)]
+    pools = [_to_torch(a).to(dev) for a in
+             _quant_pools(0, 1 + B * P, H, page, hd, kv_dtype)]
+    bt_d = torch.from_numpy(bt).to(dev)
+    pos = torch.tensor([0, 17, 63, 100], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, False, True], device=dev)
+    wlo, whi = port_pa.write_range(pos, W, page, active)
+    plain = [t.clone() for t in pools]
+    want = port_pa.paged_attention_window_plain(
+        *act, plain[0], plain[1], bt_d, pos, wlo, whi, 1.0 / np.sqrt(hd),
+        plain[2], plain[3])
+    got = port_pa.paged_attention_window(
+        *act, pools[0], pools[1], bt_d, pos, active=active,
+        k_scale=pools[2], v_scale=pools[3])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=1e-2, atol=4e-3)
+    for g, w in zip(pools, plain):
+        assert np.array_equal(_bits_t(g.cpu())[1:], _bits_t(w.cpu())[1:])
+    want = port_pa.paged_attention_plain(act[0], *pools[:2], bt_d, pos,
+                                         1.0 / np.sqrt(hd), *pools[2:])
+    got = port_pa.paged_attention(act[0], *pools[:2], bt_d, pos,
+                                  k_scale=pools[2], v_scale=pools[3])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=1e-2, atol=4e-3)

@@ -220,3 +220,164 @@ def test_paged_gather_matches():
         torch.from_numpy(bt), 10)
     for g, w in zip(got, want):
         assert np.array_equal(g["k"].numpy(), np.asarray(w["k"]))
+
+
+# ---- quantized page pools ----
+
+KV_DTYPES = ["int8", "fp8"]
+
+
+def _bits(a):
+    """Raw bits of a numpy / jax array or a torch tensor (any dtype)."""
+    if isinstance(a, torch.Tensor):
+        a = a.view({1: torch.uint8, 2: torch.int16,
+                    4: torch.int32}[a.element_size()]).numpy()
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.itemsize])
+
+
+def _quant_caches(kv_dtype, num_pages, page, seed):
+    """The same quantized pools for both packages: the reference's empty
+    cache with random codes and scales written by its quantizer."""
+    from mmlspark_tpu.ops.kv_quant import kv_store_dtype, quantize_kv
+    rng = np.random.default_rng(seed)
+    ref_c = ref.init_paged_cache(REF_CFG, num_pages, page, kv_dtype=kv_dtype)
+    for c in ref_c:
+        for kk in ("k", "v"):
+            q, s = quantize_kv(jnp.asarray(rng.normal(0, 1, c[kk].shape),
+                                           jnp.float32),
+                               kv_store_dtype(kv_dtype))
+            c[kk], c[kk + "_scale"] = q, s
+    return ref_c, _to_port(ref_c, kv_dtype)
+
+
+def port_cache_dtype(kv_dtype):
+    return torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
+
+
+def _to_port(ref_c, kv_dtype):
+    """The reference's quantized pools as the port's, bit for bit."""
+    return [{kk: torch.from_numpy(_bits(a).copy()).view(
+                torch.bfloat16 if kk.endswith("_scale")
+                else port_cache_dtype(kv_dtype))
+             for kk, a in c.items()} for c in ref_c]
+
+
+def _same_pools(got, want, skip_trash=True):
+    lo = 1 if skip_trash else 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for kk in w:
+            assert np.array_equal(_bits(g[kk])[lo:], _bits(w[kk])[lo:]), kk
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_init_paged_cache_matches(kv_dtype):
+    want = ref.init_paged_cache(REF_CFG, 5, 4, kv_dtype=kv_dtype)
+    got = port.init_paged_cache(CFG, 5, 4, device="cpu", kv_dtype=kv_dtype)
+    assert got[0]["k"].dtype == port_cache_dtype(kv_dtype)
+    assert got[0]["k_scale"].dtype == torch.bfloat16
+    assert got[0]["k_scale"].shape == (5, CFG.heads, 4)
+    _same_pools(got, want, skip_trash=False)     # code zeros, scale ones
+    assert set(port.init_paged_cache(CFG, 5, 4, device="cpu")[0]) == {"k",
+                                                                       "v"}
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_paged_scatter_rows_bitwise(kv_dtype):
+    rng = np.random.default_rng(12)
+    page, B, L = 4, 2, 10
+    ref_c, port_c = _quant_caches(kv_dtype, 9, page, 0)
+    rows = [{kk: rng.normal(0, 1, (B, 4, L, 16)).astype(np.float32)
+             for kk in ("k", "v")} for _ in range(2)]
+    bt = np.array([[3, 1, 5, 0], [2, 7, 0, 0]], np.int32)
+    want = ref.paged_scatter_rows(
+        ref_c, [{k: jnp.asarray(v) for k, v in c.items()} for c in rows],
+        jnp.asarray(bt), page)
+    got = port.paged_scatter_rows(
+        port_c, [{k: torch.from_numpy(v) for k, v in c.items()} for c in rows],
+        torch.from_numpy(bt), page)
+    _same_pools(got, want)
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_paged_writeback_bitwise(kv_dtype):
+    rng = np.random.default_rng(13)
+    page, B, W, L = 4, 3, 3, 12
+    ref_c, port_c = _quant_caches(kv_dtype, 10, page, 1)
+    before = [{kk: t.clone() for kk, t in c.items()} for c in port_c]
+    new = [{kk: rng.normal(0, 1, (B, 4, L, 16)).astype(np.float32)
+            for kk in ("k", "v")} for _ in range(2)]
+    bt = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9]], np.int32)
+    wpos = np.array([[2, 3, 4], [5, 6, 7], [0, 1, 2]], np.int32)
+    active = np.array([True, True, False])
+    want = ref._paged_writeback(
+        ref_c, [{k: jnp.asarray(v) for k, v in c.items()} for c in new],
+        jnp.asarray(bt), jnp.asarray(wpos), page, jnp.asarray(active))
+    got = port._paged_writeback(
+        port_c, [{k: torch.from_numpy(v) for k, v in c.items()} for c in new],
+        torch.from_numpy(bt), torch.from_numpy(wpos), page,
+        torch.from_numpy(active))
+    _same_pools(got, want)
+    for g, b in zip(got, before):
+        for kk in b:       # the inactive row's pages (7..9) are untouched
+            assert np.array_equal(_bits(g[kk])[7:], _bits(b[kk])[7:])
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_paged_gather_matches(kv_dtype):
+    ref_c, port_c = _quant_caches(kv_dtype, 7, 4, 2)
+    bt = np.array([[3, 1, 5], [2, 6, 0]], np.int32)
+    for out_r, out_p in ((None, None), (jnp.bfloat16, torch.bfloat16)):
+        want = ref.paged_gather(ref_c, jnp.asarray(bt), 10, out_dtype=out_r)
+        got = port.paged_gather(port_c, torch.from_numpy(bt), 10,
+                                out_dtype=out_p)
+        for g, w in zip(got, want):
+            for kk in ("k", "v"):
+                assert np.array_equal(_bits(g[kk]), _bits(w[kk]))
+
+
+_ref_step_paged = jax.jit(ref.decode_step_paged,
+                          static_argnames=("cfg", "page_size", "length",
+                                           "impl"))
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quant_decode_step_paged_kernel_vs_gather(kv_dtype):
+    """Template ``tests/test_kv_quant.py:284-354``: a quantized cache
+    filled by prefill, then one paged step through the kernel wrapper
+    and through the gather path gives the same argmax — and the
+    reference's quantized kernel step the same argmax too."""
+    jp, tp = _params(REF_CFG, CFG)
+    rng = np.random.default_rng(14)
+    B, L, page, steps = 3, 16, 4, 8
+    ids = rng.integers(0, 128, (B, steps)).astype(np.int32)
+    _, rows_j = jax.jit(ref.prefill_cache, static_argnums=(3, 4))(
+        jp, jnp.asarray(ids), jnp.full((B,), steps, jnp.int32), REF_CFG, L)
+    n_pages = L // page
+    bt = (1 + np.arange(B)[:, None] * n_pages
+          + np.arange(n_pages)).astype(np.int32)
+    pages_j = ref.paged_scatter_rows(
+        ref.init_paged_cache(REF_CFG, 1 + B * n_pages, page,
+                             kv_dtype=kv_dtype), rows_j, jnp.asarray(bt), page)
+    tok = rng.integers(0, 128, B).astype(np.int32)
+    pos = np.full(B, steps, np.int32)
+    want, want_pages = _ref_step_paged(
+        jp, jnp.asarray(tok), jnp.asarray(pos), pages_j, jnp.asarray(bt),
+        cfg=REF_CFG, page_size=page, length=L, impl="kernel")
+    outs = {}
+    for impl in ("kernel", "gather"):
+        # the port's pools hold the reference's bytes
+        outs[impl] = port.decode_step_paged(
+            tp, torch.from_numpy(tok), torch.from_numpy(pos),
+            _to_port(pages_j, kv_dtype),
+            torch.from_numpy(bt), CFG, page_size=page, length=L, impl=impl)
+    lk, pk = outs["kernel"]
+    lg, pg = outs["gather"]
+    np.testing.assert_allclose(lk.numpy(), lg.numpy(), rtol=1e-4, atol=1e-4)
+    assert np.array_equal(lk.numpy().argmax(-1), lg.numpy().argmax(-1))
+    assert np.array_equal(lk.numpy().argmax(-1), np.asarray(want).argmax(-1))
+    # layer 0's writes: codes and scales bitwise between the port's kernel
+    # and gather paths (same inputs, one quantizer)
+    for kk in pk[0]:
+        assert np.array_equal(_bits(pk[0][kk])[1:], _bits(pg[0][kk])[1:])
