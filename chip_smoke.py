@@ -28,7 +28,19 @@ Phases (any failure exits non-zero and prints no result line):
    (then a shorter fp8 run); K2 must have launched and K1 not, with the
    pool at 66/128 of the bf16 layout's bytes per position;
 7. read-only sweep — the public ``paged_attention`` over bf16 and int8
-   pools the model filled, every layer: K3, then K4.
+   pools the model filled, every layer: K3, then K4;
+8. GBDT — (a) the histogram kernel K6 against its plain version at the
+   level shapes of an 11M x 28 run (1 ... 16 nodes), at 256 nodes on
+   ragged rows, on uint16 bins, bf16-rounded stats, bagged-out rows and
+   a 2-bin feature: counts bitwise, g/h within 2e-6 * sum|stat| + 1e-7
+   of a float64 sum; times beside the plain version, one ``index_add_``
+   and the bound; (b) one full-size tree (depth 5) through K6 and
+   through the plain version: the same splits, or a recorded tie; (c)
+   ``train()`` on the repo's HIGGS-shaped 11,000,000 x 28 matrix, 100
+   iterations after a 1-iteration warm-up: exactly 5 K6 launches per
+   iteration and no plain call, train AUC above 0.75, a bitwise model
+   string round trip; bin, upload and boosting seconds, sec/iter and
+   K6's share of an iteration.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -47,9 +59,12 @@ import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: data-sheet peaks by card name: (HBM bytes/s, dense bf16 FLOP/s)
-PEAKS = [("H200", 4.8e12, 989e12), ("H100 NVL", 3.9e12, 835e12),
-         ("H100 PCIe", 2.0e12, 756e12), ("H100", 3.35e12, 989e12)]
+#: data-sheet peaks by card name: (HBM bytes/s, dense bf16 FLOP/s,
+#: float32 FLOP/s outside the tensor cores)
+PEAKS = [("H200", 4.8e12, 989e12, 67e12),
+         ("H100 NVL", 3.9e12, 835e12, 60e12),
+         ("H100 PCIe", 2.0e12, 756e12, 51e12),
+         ("H100", 3.35e12, 989e12, 67e12)]
 
 # full width: the repo's GPT-2-small-class decoder (scripts/bench_decode.py)
 FULL = dict(vocab=32000, layers=12, d_model=768, heads=12, d_ff=3072,
@@ -73,13 +88,14 @@ def phase_device():
         raise RuntimeError("nvidia-smi did not report the power limit")
     smi = f"{smi_name}, {power}"
     name = torch.cuda.get_device_name(0)
-    bw, flops = next((b, f) for key, b, f in PEAKS if key in name) \
-        if any(k in name for k, _, _ in PEAKS) else (3.35e12, 989e12)
+    bw, flops, f32 = next(((b, f, f32) for key, b, f, f32 in PEAKS
+                           if key in name), PEAKS[-1][1:])
     log(f"[device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | count {torch.cuda.device_count()}")
     log(f"[device] data-sheet peaks used for bounds: {bw / 1e12} TB/s, "
-        f"{flops / 1e12} TFLOP/s bf16")
-    return {"smi": smi, "name": name, "bw": bw, "flops": flops}
+        f"{flops / 1e12} TFLOP/s bf16, {f32 / 1e12} TFLOP/s f32")
+    return {"smi": smi, "name": name, "bw": bw, "flops": flops,
+            "flops_f32": f32}
 
 
 def phase_build():
@@ -182,9 +198,9 @@ def _check_ctx(what, got, want):
     return err
 
 
-def _bound(dev_info, nbytes, flops):
+def _bound(dev_info, nbytes, flops, peak="flops"):
     t_bytes = nbytes / dev_info["bw"] * 1e3
-    t_ops = flops / dev_info["flops"] * 1e3
+    t_ops = flops / dev_info[peak] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -711,6 +727,266 @@ def phase_read_sweep(params_np, dev_info):
     return rec
 
 
+def make_higgs_like(n, f=28, seed=0):
+    """The repo's HIGGS-shaped generator (``scripts/bench_gbdt_higgs.py``):
+    53% positives, standard-normal features, a correlated shift on the
+    positives."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y = (rng.random(n) < 0.53).astype(np.float64)
+    X = rng.normal(0, 1, (n, f)).astype(np.float32)
+    shift = (0.3 * rng.normal(1, 0.2, f)).astype(np.float32)
+    X[y == 1] += shift
+    return X, y
+
+
+def _auc(y, p):
+    import numpy as np
+    order = np.argsort(p)
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    pos = y == 1
+    n1, n0 = pos.sum(), (~pos).sum()
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def check_hist(what, got, plain, ref, mag):
+    """K6 against its plain version: counts bitwise equal to the f32 plain
+    version's; g/h within 2e-6 * sum|stat| + 1e-7 of the float64 plain
+    version (``ref``; ``mag`` is the same on |g|, |h|): the kernel adds in
+    atomic order, the reference sums exactly. Returns (max_abs_err,
+    max error over its bound)."""
+    import torch
+    if got.shape != plain.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or "
+                             f"non-finite values")
+    if not torch.equal(got[..., 2], plain[..., 2]):
+        raise AssertionError(f"{what}: counts differ from the plain version")
+    err = (got[..., :2].double() - ref[..., :2]).abs()
+    bound = 2e-6 * mag[..., :2] + 1e-7
+    if bool((err > bound).any()):
+        raise AssertionError(f"{what}: g/h off by more than 2e-6 * "
+                             f"sum|stat| + 1e-7 at {int((err > bound).sum())}"
+                             f" slots (max_abs_err {err.max().item()})")
+    return err.max().item(), (err / bound).max().item()
+
+
+def _hist_case(dev_info, label, n, F, n_nodes, n_bins, seed,
+               bin_dtype=None, stats_dtype=None, bagged=0.0, two_bin=False,
+               reps=20):
+    """K6 at one level shape against its plain version, then its time, the
+    plain version's, one ``index_add_`` over the whole output with
+    precomputed flat ids (the library yardstick) and its bound."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hm
+
+    dev = torch.device("cuda")
+    bin_dtype = bin_dtype or torch.uint8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, n_bins, (F, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if two_bin:                                  # a binary flag column
+        bins[0] = torch.randint(1, 3, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    bins = bins.to(bin_dtype)
+    node = torch.randint(0, n_nodes, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    w = torch.ones(n, device=dev)
+    if bagged:
+        w = (torch.rand(n, generator=gen, device=dev) >= bagged).float()
+        g, h = g * w, h * w
+    args = (bins, node, g, h, w)
+    kw = {"stats_dtype": stats_dtype}
+    got = hm.level_histogram(*args, n_nodes, n_bins, **kw)
+    torch.cuda.synchronize()
+    plain = hm.level_histogram_plain(*args, n_nodes, n_bins, **kw)
+    gs, hs, ws = (t.to(stats_dtype).float() if stats_dtype else t
+                  for t in (g, h, w))
+    ref = hm.level_histogram_plain(bins, node, gs.double(), hs.double(),
+                                   ws.double(), n_nodes, n_bins)
+    mag = hm.level_histogram_plain(bins, node, gs.abs().double(),
+                                   hs.abs().double(), ws.double(), n_nodes,
+                                   n_bins)
+    err, ratio = check_hist(f"K6 {label}", got, plain, ref, mag)
+    del plain, ref, mag
+    itemsize = 1 if bin_dtype == torch.uint8 else 2
+    nbytes = hm.hist_bytes(n, F, itemsize, n_nodes, n_bins)
+    copies = [[t.clone() for t in args]
+              for _ in range(_copies(nbytes))]
+    ms = _cuda_ms([lambda c=c: hm.level_histogram(*c, n_nodes, n_bins, **kw)
+                   for c in copies], reps)
+    plain_ms = _cuda_ms([lambda c=c: hm.level_histogram_plain(
+        *c, n_nodes, n_bins, **kw) for c in copies], 3)
+    del copies
+    # library yardstick: one index_add_ of every (row, feature) pair's
+    # stats into the flattened (n_nodes * F * n_bins, 3) output
+    data = torch.stack([gs, hs, ws], -1)
+    ids = ((node.long()[None] * F + torch.arange(F, device=dev)[:, None])
+           * n_bins + hm.bins_as_int(bins).long()).reshape(-1)
+    src = data.repeat(F, 1)
+    out = torch.zeros(n_nodes * F * n_bins, 3, device=dev)
+    library_ms = _cuda_ms([lambda: out.index_add_(0, ids, src)], 3)
+    del ids, src, out
+    torch.cuda.empty_cache()
+    rec = {"max_abs_err": err, "err_over_bound": ratio, "ms": ms,
+           "plain_ms": plain_ms,
+           **_bound(dev_info, nbytes, 3 * n * F, peak="flops_f32"),
+           "library_ms": library_ms,
+           "shape": {"n": n, "F": F, "n_nodes": n_nodes, "n_bins": n_bins,
+                     "bins": str(bin_dtype).split(".")[-1],
+                     "stats": str(stats_dtype or torch.float32).split(".")[-1],
+                     "bagged": bagged, "two_bin_feature": two_bin}}
+    log(f"[k6 {label}] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+#: phase 8 at HIGGS's published size (scripts/bench_gbdt_higgs.py)
+GBDT = dict(rows=11_000_000, features=28, iters=100, ragged=1_000_003)
+
+
+def phase_hist_kernel(dev_info):
+    """8a: K6 against its plain version at the level shapes of the HIGGS
+    run (1 ... 16 nodes), several slot chunks (256 nodes, ragged rows),
+    uint16 bins, bf16-rounded stats, bagged-out rows and a 2-bin
+    feature."""
+    import torch
+    n, F = GBDT["rows"], GBDT["features"]
+    recs = {}
+    for i, nodes in enumerate((1, 2, 4, 8, 16)):
+        recs[f"nodes{nodes}"] = _hist_case(dev_info, f"nodes{nodes}", n, F,
+                                           nodes, 255, 10 + i)
+    recs["ragged_nodes256"] = _hist_case(dev_info, "ragged_nodes256",
+                                         GBDT["ragged"], F, 256, 255, 20)
+    recs["uint16_bins1024"] = _hist_case(dev_info, "uint16_bins1024",
+                                         GBDT["ragged"], F, 4, 1024, 21,
+                                         bin_dtype=torch.int16)
+    recs["bf16_stats"] = _hist_case(dev_info, "bf16_stats", n, F, 16, 255, 22,
+                                    stats_dtype=torch.bfloat16)
+    recs["bagged10"] = _hist_case(dev_info, "bagged10", n, F, 16, 255, 23,
+                                  bagged=0.1)
+    recs["two_bin_feature"] = _hist_case(dev_info, "two_bin_feature", n, F,
+                                         1, 255, 24, two_bin=True)
+    return recs
+
+
+def phase_tree_parity(X, y, dev_info, depth=5):
+    """8b: one full-size tree (num_leaves 31, depth 5) at the binary
+    objective's first-iteration g/h, built through K6 and through the
+    plain version on the card: the same split at every node, or a tie
+    (gains within 1e-5 relative) that is recorded. Nodes below a tie are
+    not compared (their rows differ)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.models.gbdt.objectives import get_objective
+    from mmlspark_tpu_torch.models.gbdt.train import bins_on_device
+    from mmlspark_tpu_torch.models.gbdt.trees import build_tree
+    from mmlspark_tpu_torch.utils.device import resolve_device
+    dev = resolve_device()
+    mapper = BinMapper(max_bin=255, seed=0).fit(X)
+    bins = bins_on_device(mapper, X, dev)[0]
+    obj = get_objective("binary")
+    w = np.ones(len(y))
+    base = torch.tensor(obj.init_score(y, w), dtype=torch.float32, device=dev)
+    y_d = torch.as_tensor(y, dtype=torch.float32).to(dev)
+    live = torch.ones(len(y), dtype=torch.float32, device=dev)
+    g, h = obj.grad_hess(torch.zeros_like(y_d) + base, y_d, live)
+    kw = dict(depth=depth, n_bins=mapper.n_bins, lam=1e-10, alpha=0.0,
+              min_gain=0.0, min_child_weight=1e-3, min_data_in_leaf=20.0)
+    outs = {impl: [t.cpu().numpy() for t in build_tree(
+        bins, g, h, live, hist_impl=impl, **kw)]
+        for impl in ("kernel", "plain")}
+    (fk, tk, lk, _, gk, _), (fp, tp, lp, _, gp, _) = (outs["kernel"],
+                                                      outs["plain"])
+    ties, tied = [], set()
+    for i in range(len(fk)):
+        anc, a = False, i
+        while a > 0:
+            a = (a - 1) // 2
+            anc = anc or a in tied
+        if anc or (fk[i], tk[i]) == (fp[i], tp[i]):
+            continue
+        gap = abs(float(gk[i]) - float(gp[i])) / max(abs(float(gp[i])), 1e-30)
+        log(f"[tree parity] node {i}: kernel ({fk[i]}, {tk[i]}) gain "
+            f"{gk[i]!r} vs plain ({fp[i]}, {tp[i]}) gain {gp[i]!r}")
+        if gap > 1e-5:
+            raise AssertionError(f"tree parity: node {i} splits differ with "
+                                 f"a gain gap of {gap:.3g} relative")
+        ties.append({"node": i, "kernel": [int(fk[i]), int(tk[i])],
+                     "plain": [int(fp[i]), int(tp[i])],
+                     "gain_kernel": float(gk[i]), "gain_plain": float(gp[i])})
+        tied.add(i)
+    rec = {"rows": len(y), "depth": depth, "nodes": len(fk),
+           "stub_nodes": int((fk < 0).sum()),
+           "identical": not ties, "ties": ties,
+           "leaf_max_abs_diff": float(np.abs(lk - lp).max()) if not ties
+           else None}
+    log(f"[tree parity] {json.dumps(rec)} | {dev_info['smi']}")
+    del bins
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gbdt(X, y, dev_info, hist_recs):
+    """8c: ``train()`` at ``device=None`` on the HIGGS-shaped matrix, after
+    a 1-iteration warm-up: K6 must launch exactly 5 times per iteration
+    and the plain version never; train AUC above 0.75; the model string
+    round trip predicts bitwise the same on the card."""
+    import numpy as np
+    from mmlspark_tpu_torch.models.gbdt import Booster, train
+    from mmlspark_tpu_torch.ops.histogram import (level_histogram,
+                                                  level_histogram_plain)
+    from mmlspark_tpu_torch.utils.device import resolve_device
+    iters = GBDT["iters"]
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "num_iterations": iters}
+    t0 = time.perf_counter()
+    train({**params, "num_iterations": 1}, X, y)
+    warm = time.perf_counter() - t0
+    level_histogram.launches = 0
+    level_histogram_plain.calls = 0
+    t0 = time.perf_counter()
+    b = train(params, X, y)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = (level_histogram.launches,
+                             level_histogram_plain.calls)
+    if launches != 5 * iters or plain_calls != 0:
+        raise AssertionError(f"K6 launches {launches} (want {5 * iters}), "
+                             f"plain calls {plain_calls} (want 0)")
+    if b.num_trees != iters or b.device != resolve_device():
+        raise AssertionError(f"{b.num_trees} trees on {b.device}")
+    t0 = time.perf_counter()
+    p = b.predict(X)
+    predict_s = time.perf_counter() - t0
+    if p.shape != (len(y),) or not np.isfinite(p).all():
+        raise AssertionError(f"predictions {p.shape}, finite "
+                             f"{np.isfinite(p).all()}")
+    auc = _auc(y, p)
+    if auc <= 0.75:
+        raise AssertionError(f"train AUC {auc} <= 0.75")
+    p2 = Booster.from_string(b.to_string()).predict(X)
+    if not np.array_equal(p, p2):
+        raise AssertionError("the model string round trip predicts "
+                             "differently")
+    ph = b.phase_seconds
+    sec_iter = ph["boost"] / iters
+    k6_ms = sum(hist_recs[f"nodes{k}"]["ms"] for k in (1, 2, 4, 8, 16))
+    rec = {"rows": len(y), "features": X.shape[1], "iterations": iters,
+           "num_leaves": 31, "bin_fit_s": ph["bin_fit"],
+           "bin_transform_s": ph["bin_transform"], "upload_s": ph["upload"],
+           "boost_s": ph["boost"], "sec_per_iter": sec_iter,
+           "train_wall_s": wall, "warmup_wall_s": warm,
+           "predict_s": predict_s, "train_auc": auc,
+           "k6_launches": launches, "k6_ms_per_iter": k6_ms,
+           "k6_share_of_iter": k6_ms / (sec_iter * 1e3),
+           "stub_nodes": int((b.feats < 0).sum())}
+    log(f"[gbdt] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
 def main():
     sys.path.insert(0, HERE)
     try:
@@ -731,6 +1007,11 @@ def main():
                              [32, 128, 384] * 3)
     f8 = phase_quant_serving(params_np, dev_info, "fp8", [32, 384])
     sweep = phase_read_sweep(params_np, dev_info)
+    del params_np
+    hist_recs = phase_hist_kernel(dev_info)
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    parity = phase_tree_parity(X, y, dev_info)
+    gbdt = phase_gbdt(X, y, dev_info, hist_recs)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
@@ -749,7 +1030,17 @@ def main():
         {"name": "paged_attention (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:356",
          "launches": sweep["k4_launches"],
-         **{k: recs["K4"][k] for k in keys}, "read": recs["K4"]}]
+         **{k: recs["K4"][k] for k in keys}, "read": recs["K4"]},
+        {"name": "level_histogram", "route": "cuda",
+         "source": "mmlspark_tpu_torch/csrc/histogram.cu",
+         "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
+         "launches": gbdt["k6_launches"],
+         **{k: hist_recs["nodes16"][k] for k in keys},
+         "max_abs_err_all_cases": max(r["max_abs_err"]
+                                      for r in hist_recs.values()),
+         "cases": hist_recs, "tree_parity": parity,
+         "sec_per_iter": gbdt["sec_per_iter"],
+         "share_of_iter": gbdt["k6_share_of_iter"]}]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev_info["smi"])

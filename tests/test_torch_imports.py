@@ -33,7 +33,14 @@ def test_every_port_module_is_listed():
     for want in ("mmlspark_tpu_torch.ops.paged_attention",
                  "mmlspark_tpu_torch.ops.kv_quant",
                  "mmlspark_tpu_torch.serving.generation",
-                 "mmlspark_tpu_torch.utils.cuda_build"):
+                 "mmlspark_tpu_torch.utils.cuda_build",
+                 "mmlspark_tpu_torch.ops.histogram",
+                 "mmlspark_tpu_torch.models.gbdt",
+                 "mmlspark_tpu_torch.models.gbdt.binning",
+                 "mmlspark_tpu_torch.models.gbdt.objectives",
+                 "mmlspark_tpu_torch.models.gbdt.trees",
+                 "mmlspark_tpu_torch.models.gbdt.booster",
+                 "mmlspark_tpu_torch.models.gbdt.train"):
         assert want in names
 
 
@@ -116,6 +123,7 @@ def test_device_info_raises_without_cuda():
 def test_cuda_build_is_lazy_and_names_its_sources():
     from mmlspark_tpu_torch.utils import cuda_build
     assert (cuda_build.CSRC / "paged_attention.cu").exists()
+    assert (cuda_build.CSRC / "histogram.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build._libs == {}         # nothing built at import
 
