@@ -40,7 +40,25 @@ Phases (any failure exits non-zero and prints no result line):
    iterations after a 1-iteration warm-up: exactly 5 K6 launches per
    iteration and no plain call, train AUC above 0.75, a bitwise model
    string round trip; bin, upload and boosting seconds, sec/iter and
-   K6's share of an iteration.
+   K6's share of an iteration;
+9. flash attention — (a) K7 (with and without stats), K8a and K8b
+   against their plain versions at BERT-base (B=8, H=12, S=512, D=64,
+   ragged padding masks with one fully padded row, NaN planted in every
+   masked key row), the causal decoder (B=2, S=2048), an unaligned S=200
+   at D=32 and D=128, each in bf16 and f32: f32 within 1e-5 * max|ref|,
+   bf16 within 2 bf16 ulps (+ 1e-5 * max|ref|) of the plain f32 result,
+   the fully padded row exactly 0; times at the first two shapes beside
+   the plain versions, SDPA (forward and its autograd backward) and the
+   bounds; (b) BERT-base f32 ``transformer_apply(use_flash=True)`` and
+   the gradients of ``loss_fn`` through the kernels against the same
+   through the plain versions, and dense against flash on the rows that
+   are not fully padded; (c) bf16 encoder inference at B=32, S=512:
+   sequences/s with exactly 12 K7 launches per forward; (d) bf16 training
+   at B=16, S=512: 10 ``train_step``s after a warm-up, 12 launches each
+   of K7, K8a and K8b per step, the loss lower at the end, step seconds
+   and tokens/s; then one step of the causal decoder at B=4, S=2048 with
+   flash and with dense attention: flash's peak device memory below
+   dense's.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -987,6 +1005,480 @@ def phase_gbdt(X, y, dev_info, hist_recs):
     return rec
 
 
+# ---- phase 9: flash attention (K7, K8a, K8b) -------------------------------
+
+#: the repo's BERT_BASE (models/zoo/transformer.py:74): the published
+#: BERT-base widths, LayerNorm, learned positions, non-causal
+BERT = dict(vocab=30522, layers=12, d_model=768, heads=12, d_ff=3072,
+            max_len=512)
+#: 9a shapes: label -> (B, H, S, D, causal, mask): mask "padded" is
+#: ``_ragged_mask`` (one fully padded row), "lengths" is 9c's
+#: ``_lengths_mask``, None is no mask. The last three are the main paths'
+#: own: 9c's inference, 9d's training and 9d's causal decoder.
+FLASH_CASES = {"bert": (8, 12, 512, 64, False, "padded"),
+               "causal": (2, 12, 2048, 64, True, None),
+               "unaligned": (2, 4, 200, 32, False, "padded"),
+               "d128": (2, 8, 512, 128, True, "padded"),
+               "infer": (32, 12, 512, 64, False, "lengths"),
+               "train": (16, 12, 512, 64, False, None),
+               "decoder": (4, 12, 2048, 64, True, None)}
+#: the 9a shapes timed (in bf16), beside their plain versions and SDPA
+FLASH_TIMED = ("bert", "causal", "infer", "train", "decoder")
+
+
+def _ragged_mask(B, S, gen, dev):
+    """BERT padding masks: row b keeps a random prefix of its keys, row 1
+    keeps none (a fully padded sequence)."""
+    import torch
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lengths[0] = S
+    lengths[1] = 0
+    return torch.arange(S, device=dev)[None] < lengths[:, None]
+
+
+def _lengths_mask(B, S, gen, dev):
+    """9c's padding masks: row b keeps its first 64 ... S keys."""
+    import torch
+    lengths = torch.randint(64, S + 1, (B,), generator=gen, device=dev)
+    return torch.arange(S, device=dev)[None] < lengths[:, None]
+
+
+def _ulp_check(what, got, want):
+    """``got`` against the plain version's result ``want`` (f32, computed
+    from the same inputs). f32 output: within 1e-5 * max|want| (the sums
+    run in another order). bf16 output: within 2 bf16 ulps of ``want``
+    plus 1e-5 * max|want| (the rounding to bf16, and near-zero entries
+    whose ulp is below the f32 summation error). Returns max_abs_err."""
+    import torch
+    want = want.float()
+    diff = (got.float() - want).abs()
+    floor = 1e-5 * want.abs().max().item()
+    if got.dtype == torch.bfloat16:
+        mag = want.abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bad = diff > 2 * ulp + floor
+    else:
+        bad = diff > floor
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()) or \
+            bad.any():
+        raise AssertionError(f"{what}: off by more than the stated bound at "
+                             f"{int(bad.sum())} elements, or not finite "
+                             f"(max_abs_err {diff.max().item()})")
+    return diff.max().item()
+
+
+def _flash_inputs(B, H, S, D, mask_kind, dtype, seed):
+    """Random q/k/v/dO on the card, the mask (or None) and NaN planted in
+    every key/value row past the mask."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    make = {"padded": _ragged_mask, "lengths": _lengths_mask}.get(mask_kind)
+    mask = None if make is None else make(B, S, gen, dev)
+    if mask is not None:
+        dead = ~mask[:, None, :, None].expand(B, H, S, D)
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+    return q, k, v, do, mask
+
+
+def _flash_case(dev_info, label, dtype, seed, timed):
+    """K7 (with and without stats), K8a and K8b against their plain
+    versions at one 9a shape; then, when ``timed``, their times beside
+    the plain versions', one SDPA call (forward, and its autograd
+    backward) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    B, H, S, D, causal, mask_kind = FLASH_CASES[label]
+    q, k, v, do, mask = _flash_inputs(B, H, S, D, mask_kind, dtype, seed)
+    scale = D ** -0.5
+    name = f"{label} {str(dtype).split('.')[-1]}"
+    o0 = fa.flash_attention(q, k, v, kv_mask=mask, causal=causal)
+    o, l, m = fa._fwd_kernel(q, k, v, mask, causal, scale, True)
+    dq, dk, dv = fa._bwd_kernel(q, k, v, mask, o, l, m, do, causal, scale)
+    torch.cuda.synchronize()
+    # the plain versions in f32 on the same inputs (the kernel's o, l, m
+    # feed both backwards, as the autograd function feeds them)
+    f32 = [t.float() for t in (q, k, v)]
+    wo, wl, wm = fa.flash_attention_plain(*f32, mask, causal=causal)
+    wq, wk, wv = fa.flash_attention_bwd_plain(*f32, mask, o.float(), l, m,
+                                              do.float(), causal=causal)
+    err = {"K7": _ulp_check(f"K7 {name}", o0, wo),
+           "K7 stats": _ulp_check(f"K7 stats {name}", o, wo),
+           "K8a": max(_ulp_check(f"K8a dK {name}", dk, wk),
+                      _ulp_check(f"K8a dV {name}", dv, wv)),
+           "K8b": _ulp_check(f"K8b dQ {name}", dq, wq)}
+    if not torch.equal(o0, o):
+        raise AssertionError(f"K7 {name}: with and without stats differ")
+    live = wl > 0
+    if not torch.equal(live, l > 0) or \
+            (l[live] - wl[live]).abs().max().item() > 1e-5 * \
+            wl.max().item() or \
+            (m[live] - wm[live]).abs().max().item() > 1e-5 * \
+            wm[live].abs().max().item():
+        raise AssertionError(f"K7 stats {name}: l/m off by more than "
+                             f"1e-5 of their largest value")
+    dead = None if mask is None else ~mask.any(-1)
+    if dead is not None and bool(dead.any()):
+        outs = (o, l, dq, dk, dv)
+        if not all(t[dead].abs().max().item() == 0.0 for t in outs) or \
+                not bool((m[dead] == -1e30).all()):
+            raise AssertionError(f"{name}: the fully masked row is not "
+                                 f"exactly 0 (l = 0, m = -1e30, grads 0)")
+    rec = {k2: {"max_abs_err": e} for k2, e in err.items()}
+    log(f"[flash {name}] max_abs_err {json.dumps(err)}")
+    if not timed:
+        return rec
+    lib = fa._library()
+    code = fa._DTYPES[dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    it = q.element_size()
+    slab = B * H * S * D * it
+    mptr = None if mask is None else mask.data_ptr()
+    delta = fa._delta(do, o)
+    n_in = _copies(4 * slab)
+    copies = [[t.clone() for t in (q, k, v, do)] for _ in range(n_in)]
+    rc = []
+
+    def fwd(c, stats):
+        outs = (o.data_ptr(), l.data_ptr() if stats else None,
+                m.data_ptr() if stats else None)
+        return lambda: rc.append(lib.mmlspark_fa_fwd(
+            code, D, c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(),
+            mptr, *outs, B * H, H, S, scale, int(causal), stream))
+
+    def bwd(c, which):
+        common = (c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), mptr,
+                  c[3].data_ptr(), m.data_ptr(), l.data_ptr(),
+                  delta.data_ptr())
+        if which == "dkv":
+            return lambda: rc.append(lib.mmlspark_fa_bwd_dkv(
+                code, D, *common, dk.data_ptr(), dv.data_ptr(), B * H, H, S,
+                scale, int(causal), stream))
+        return lambda: rc.append(lib.mmlspark_fa_bwd_dq(
+            code, D, *common, dq.data_ptr(), B * H, H, S, scale,
+            int(causal), stream))
+
+    ms = {"K7": _cuda_ms([fwd(c, False) for c in copies], 50),
+          "K7 stats": _cuda_ms([fwd(c, True) for c in copies], 50),
+          "K8a": _cuda_ms([bwd(c, "dkv") for c in copies], 30),
+          "K8b": _cuda_ms([bwd(c, "dq") for c in copies], 30)}
+    if any(rc):
+        raise AssertionError(f"flash {name}: launch returned {set(rc)}")
+    plain_fwd = _cuda_ms([lambda c=c: fa.flash_attention_plain(
+        c[0], c[1], c[2], mask, causal=causal) for c in copies], 5)
+    plain_bwd = _cuda_ms([lambda c=c: fa.flash_attention_bwd_plain(
+        c[0], c[1], c[2], mask, o, l, m, c[3], causal=causal)
+        for c in copies], 5)
+    # library yardstick: SDPA with the same boolean mask (the fully padded
+    # row attends everything instead: SDPA gives NaN there), and the
+    # autograd backward of that call; the port never calls either
+    sdpa_mask = None
+    if mask is not None:
+        lm = mask.clone()
+        lm[~lm.any(-1)] = True
+        sdpa_mask = lm[:, None, None, :]
+    clean = [torch.nan_to_num(t) for t in (q, k, v)]
+    lib_fwd = _cuda_ms([lambda: F.scaled_dot_product_attention(
+        *clean, attn_mask=sdpa_mask, is_causal=causal)], 50)
+    leaves = [t.clone().requires_grad_(True) for t in clean]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
+                                         is_causal=causal)
+    lib_bwd = _cuda_ms([lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True)], 20)
+    del copies, leaves, out
+    torch.cuda.empty_cache()
+    # what this input needs: the flops of the valid (query, key) pairs;
+    # K and V rows only where a key is valid (a masked row is never read),
+    # q and dO only for batch rows with a valid key, every output in full
+    pairs = H * fa.attention_pairs(mask, B, S, causal)
+    peak = "flops" if dtype == torch.bfloat16 else "flops_f32"
+    if mask is None:
+        kv_frac = live_frac = 1.0
+        mbytes = 0
+    else:
+        kv_frac = mask.float().mean().item()
+        live_frac = mask.any(-1).float().mean().item()
+        mbytes = B * S
+    kv, qin = 2 * slab * kv_frac, slab * live_frac
+    stats = 3 * B * H * S * 4                     # m, l, delta (f32)
+    bounds = {"K7": _bound(dev_info, qin + kv + slab + mbytes,
+                           4 * D * pairs, peak),
+              "K7 stats": _bound(dev_info, qin + kv + slab + mbytes
+                                 + 2 * B * H * S * 4, 4 * D * pairs, peak),
+              "K8a": _bound(dev_info, 2 * qin + kv + 2 * slab + stats
+                            + mbytes, 8 * D * pairs, peak),
+              "K8b": _bound(dev_info, 2 * qin + kv + slab + stats + mbytes,
+                            6 * D * pairs, peak)}
+    shape = {"B": B, "H": H, "S": S, "D": D, "causal": causal,
+             "mask": {"padded": "ragged, one fully padded row",
+                      "lengths": "ragged, 64 ... S keys"}.get(mask_kind),
+             "dtype": str(dtype).split(".")[-1], "pairs": pairs,
+             "valid_key_share": kv_frac}
+    for key in rec:
+        fwd_side = key.startswith("K7")
+        rec[key].update({"ms": ms[key],
+                         "plain_ms": plain_fwd if fwd_side else plain_bwd,
+                         **bounds[key],
+                         "library_ms": lib_fwd if fwd_side else lib_bwd,
+                         "shape": shape})
+    log(f"[flash {name}] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_flash_kernels(dev_info):
+    """9a: every shape in bf16 and f32; times at the ``FLASH_TIMED`` shapes
+    in bf16."""
+    import torch
+    recs = {}
+    for i, label in enumerate(FLASH_CASES):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            timed = dtype == torch.bfloat16 and label in FLASH_TIMED
+            recs[f"{label} {str(dtype).split('.')[-1]}"] = _flash_case(
+                dev_info, label, dtype, 90 + 2 * i + j, timed)
+    return recs
+
+
+def _bert_cfg(torch_dtype, **kw):
+    from mmlspark_tpu_torch.models.zoo.transformer import TransformerConfig
+    return TransformerConfig(dtype=torch_dtype, **{**BERT, **kw})
+
+
+def phase_flash_parity(bert_np, dev_info):
+    """9b: BERT-base in f32, B = 2, S = 512 with ragged masks (one fully
+    padded row): the flash forward through the kernels against the same
+    model on the host, where the port runs the plain versions; the dense
+    path against flash on the rows that are not fully padded; the
+    gradients of ``loss_fn`` through the kernels against those on the
+    host."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo import transformer as tf
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = _bert_cfg(torch.float32, use_flash=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S = 2, 512
+    ids = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    mask = _ragged_mask(B, S, gen, dev)
+    mask[0, 400:] = False
+    host = {"ids": ids.to(cpu), "labels": labels.to(cpu),
+            "mask": mask.to(cpu)}
+    flash_attention.launches = flash_attention.launches_dkv = 0
+    flash_attention.launches_dq = 0
+    flash_attention_plain.calls = flash_attention_bwd_plain.calls = 0
+    with torch.no_grad():
+        params = tf.params_from_numpy(bert_np, cfg, dev)
+        hk = tf.transformer_apply(params, ids, cfg, mask=mask)
+        hd = tf.transformer_apply(params, ids, cfg._replace(use_flash=False),
+                                  mask=mask)
+        del params
+        hp = tf.transformer_apply(tf.params_from_numpy(bert_np, cfg, cpu),
+                                  host["ids"], cfg, mask=host["mask"])
+    if flash_attention.launches != cfg.layers or \
+            flash_attention_plain.calls != cfg.layers:
+        raise AssertionError(f"9b: {flash_attention.launches} K7 launches, "
+                             f"{flash_attention_plain.calls} plain calls, "
+                             f"want {cfg.layers} each")
+    fwd_err = (hk.cpu() - hp).abs().max().item()
+    dense_err = (hk[0] - hd[0]).abs().max().item()
+    # f32 hidden states after the final LayerNorm are O(1): the card and
+    # the host differ in the attention's and every matmul's summation
+    # order, carried through 12 layers; dense differs also by exp
+    # underflow vs the mask
+    if not torch.isfinite(hk).all() or fwd_err > 1e-4 or dense_err > 1e-4:
+        raise AssertionError(f"9b: hidden kernel-vs-plain {fwd_err}, "
+                             f"flash-vs-dense {dense_err} (bound 1e-4)")
+    grads, losses = {}, {}
+    for run, d in (("kernel", dev), ("plain", cpu)):
+        master = tf.params_from_numpy(bert_np, cfg, d, master=True)
+        leaves = tf.tree_leaves(master)
+        ids_r, labels_r = (ids, labels) if d == dev else \
+            (host["ids"], host["labels"])
+        loss = tf.loss_fn(master, ids_r, labels_r, cfg)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads[run] = [None if x is None else x.detach().cpu() for x in g]
+        losses[run] = loss.item()
+        del master, leaves, loss, g
+    if (flash_attention.launches_dkv, flash_attention.launches_dq,
+            flash_attention_bwd_plain.calls) != (cfg.layers,) * 3:
+        raise AssertionError(f"9b: K8a/K8b launches "
+                             f"{flash_attention.launches_dkv}/"
+                             f"{flash_attention.launches_dq}, plain "
+                             f"backward calls "
+                             f"{flash_attention_bwd_plain.calls}, want "
+                             f"{cfg.layers} each")
+    grad_err = 0.0
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        if a is None:
+            continue
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        grad_err = max(grad_err, rel)
+    # each leaf's gradient within 1e-3 of its largest entry: f32 backward
+    # through 12 layers, card and host summation orders
+    loss_err = abs(losses["kernel"] - losses["plain"])
+    if grad_err > 1e-3 or loss_err > 1e-4 or \
+            not all(torch.isfinite(x).all() for x in grads["kernel"]
+                    if x is not None):
+        raise AssertionError(f"9b: gradient rel err {grad_err}, loss err "
+                             f"{loss_err}")
+    rec = {"B": B, "S": S, "dtype": "float32",
+           "hidden_kernel_vs_plain": fwd_err,
+           "hidden_flash_vs_dense_unpadded_rows": dense_err,
+           "loss_kernel": losses["kernel"], "loss_plain": losses["plain"],
+           "grad_max_rel_err": grad_err}
+    log(f"[flash parity] {json.dumps(rec)} | {dev_info['smi']}")
+    del grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flash_inference(bert_np, dev_info, k7_ms, reps=5):
+    """9c: BERT-base encoder inference in bf16, B = 32, S = 512, ragged
+    padding masks: 12 K7 launches per forward and no plain call; K7's
+    share of a forward from ``k7_ms``, its time at this shape in 9a."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo import transformer as tf
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    dev = torch.device("cuda")
+    cfg = _bert_cfg(torch.bfloat16, use_flash=True)
+    params = tf.params_from_numpy(bert_np, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, S = 32, 512
+    ids = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    mask = _lengths_mask(B, S, gen, dev)
+    with torch.no_grad():
+        tf.transformer_apply(params, ids, cfg, mask=mask)    # warm-up
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        flash_attention_plain.calls = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            h = tf.transformer_apply(params, ids, cfg, mask=mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, plain = flash_attention.launches, flash_attention_plain.calls
+    if launches != cfg.layers * reps or plain != 0:
+        raise AssertionError(f"9c: {launches} K7 launches (want "
+                             f"{cfg.layers * reps}), {plain} plain calls")
+    if h.shape != (B, S, cfg.d_model) or h.dtype != torch.bfloat16 or \
+            not torch.isfinite(h).all():
+        raise AssertionError(f"9c: hidden {tuple(h.shape)} {h.dtype}, "
+                             f"finite {bool(torch.isfinite(h).all())}")
+    ms_fwd = wall / reps * 1e3
+    rec = {"B": B, "S": S, "forwards": reps, "wall_s": wall,
+           "seq_per_s": B * reps / wall, "ms_per_forward": ms_fwd,
+           "real_tokens": int(mask.sum()), "k7_launches": launches,
+           "k7_share_of_forward": cfg.layers * k7_ms / ms_fwd}
+    log(f"[flash inference] {json.dumps(rec)} | {dev_info['smi']}")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_run(params_np, cfg, B, S, steps, lr, seed):
+    """``train_step`` ``steps`` times on one fixed batch after one warm-up
+    step; returns (losses, per-step seconds, launch counts, plain calls,
+    peak bytes). The counts cover the timed steps, or the warm-up step
+    itself when ``steps`` is 0."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo import transformer as tf
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain)
+    dev = torch.device("cuda")
+    params = tf.params_from_numpy(params_np, cfg, dev, master=True)
+    opt = [torch.zeros_like(t) for t in tf.tree_leaves(params)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero_counts():
+        flash_attention.launches = flash_attention.launches_dkv = 0
+        flash_attention.launches_dq = 0
+        flash_attention_plain.calls = flash_attention_bwd_plain.calls = 0
+
+    zero_counts()
+    losses = [float(tf.train_step(params, opt, ids, labels, cfg, lr=lr)[2])]
+    if steps:
+        zero_counts()
+    secs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(tf.train_step(params, opt, ids, labels, cfg,
+                                          lr=lr)[2]))
+        secs.append(time.perf_counter() - t0)
+    counts = (flash_attention.launches, flash_attention.launches_dkv,
+              flash_attention.launches_dq)
+    plain = flash_attention_plain.calls + flash_attention_bwd_plain.calls
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses, secs, counts, plain, peak
+
+
+def phase_flash_training(bert_np, dev_info, kernel_ms, steps=10):
+    """9d: BERT-base bf16 training, B = 16, S = 512, ``steps`` steps on one
+    fixed batch after a warm-up step (12 launches each of K7, K8a and K8b
+    per step, no plain call, the loss finite and lower at the end), and
+    the kernels' share of a step from ``kernel_ms``, their summed time at
+    this shape in 9a; then one step of the FULL causal decoder at B = 4,
+    S = 2048 with flash (12 launches of each kernel) and with dense
+    attention (none): flash's peak device memory below dense's."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    cfg = _bert_cfg(torch.bfloat16, use_flash=True)
+    B, S = 16, 512
+    # lr 1e-3: at the reference's 1e-4, ten steps of random-label training
+    # move the loss by ~5e-4, too close to bf16 rounding to assert on
+    losses, secs, counts, plain, peak = _train_run(bert_np, cfg, B, S, steps,
+                                                   1e-3, 7)
+    want = tuple([cfg.layers * steps] * 3)
+    if counts != want or plain != 0:
+        raise AssertionError(f"9d: K7/K8a/K8b launches {counts} (want "
+                             f"{want}), plain calls {plain}")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+        raise AssertionError(f"9d: losses {losses}")
+    step_s = statistics.median(secs)
+    bert = {"B": B, "S": S, "steps": steps, "lr": 1e-3,
+            "loss_first": losses[1], "loss_last": losses[-1],
+            "step_s_median": step_s, "step_s": secs,
+            "tokens_per_s": B * S / step_s, "peak_bytes": peak,
+            "k7_launches": counts[0], "k8a_launches": counts[1],
+            "k8b_launches": counts[2],
+            "flash_share_of_step": cfg.layers * kernel_ms / (step_s * 1e3)}
+    log(f"[flash training] {json.dumps(bert)} | {dev_info['smi']}")
+    dec_np = init_transformer(_full_cfg(torch.float32), seed=0)
+    mem, dcounts = {}, {}
+    for use_flash in (True, False):
+        dcfg = _full_cfg(torch.bfloat16)._replace(use_flash=use_flash)
+        dl, ds, dc, dp, dpeak = _train_run(dec_np, dcfg, 4, 2048, 0, 1e-4, 8)
+        want = (dcfg.layers if use_flash else 0,) * 3
+        if not np.isfinite(dl[0]) or dc != want or dp != 0:
+            raise AssertionError(f"9d decoder (use_flash={use_flash}): loss "
+                                 f"{dl}, K7/K8a/K8b launches {dc} (want "
+                                 f"{want}), plain calls {dp}")
+        mem["flash" if use_flash else "dense"] = dpeak
+        dcounts["flash" if use_flash else "dense"] = dc
+    if not mem["flash"] < mem["dense"]:
+        raise AssertionError(f"9d decoder: flash peak {mem['flash']} not "
+                             f"below dense {mem['dense']}")
+    dec = {"B": 4, "S": 2048, "launches_flash_step": dcounts["flash"],
+           "peak_bytes_flash": mem["flash"],
+           "peak_bytes_dense": mem["dense"],
+           "flash_over_dense": mem["flash"] / mem["dense"]}
+    log(f"[flash decoder memory] {json.dumps(dec)} | {dev_info['smi']}")
+    return bert, dec
+
+
 def main():
     sys.path.insert(0, HERE)
     try:
@@ -1012,6 +1504,18 @@ def main():
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     parity = phase_tree_parity(X, y, dev_info)
     gbdt = phase_gbdt(X, y, dev_info, hist_recs)
+    del X, y
+    flash_recs = phase_flash_kernels(dev_info)
+    bert_np = init_transformer(_bert_cfg(torch.float32), seed=0)
+    flash_parity = phase_flash_parity(bert_np, dev_info)
+    # the kernels' 9a times at 9c's and 9d's own shapes give their shares
+    infer_rec = flash_recs["infer bfloat16"]
+    train_rec = flash_recs["train bfloat16"]
+    infer = phase_flash_inference(bert_np, dev_info, infer_rec["K7"]["ms"])
+    train, dec_mem = phase_flash_training(
+        bert_np, dev_info,
+        sum(train_rec[k]["ms"] for k in ("K7 stats", "K8a", "K8b")))
+    del bert_np
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
@@ -1041,6 +1545,41 @@ def main():
          "cases": hist_recs, "tree_parity": parity,
          "sec_per_iter": gbdt["sec_per_iter"],
          "share_of_iter": gbdt["k6_share_of_iter"]}]
+    fsrc = "mmlspark_tpu_torch/csrc/flash_attention.cu"
+    fref = "mmlspark_tpu/ops/flash_attention.py"
+    sdpa = "F.scaled_dot_product_attention"
+    # headline times at the main paths' shapes: K7 at 9c's inference
+    # (without stats), K8a/K8b at 9d's training
+    main_rec = {"K7": infer_rec, "K8a": train_rec, "K8b": train_rec}
+    extras = {
+        "K7": {"with_stats": {k: train_rec["K7 stats"][k] for k in keys},
+               "launches_inference": infer["k7_launches"],
+               "launches_training": train["k7_launches"],
+               "library_call": sdpa, "model_parity": flash_parity,
+               "inference": infer},
+        "K8a": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
+                                f"and dV together)",
+                "training": train, "decoder_memory": dec_mem},
+        "K8b": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
+                                f"and dV together)"}}
+    for key, name, line, launches in (
+            ("K7", "flash_attention", 64,
+             infer["k7_launches"] + train["k7_launches"]),
+            ("K8a", "flash_attention backward (dK, dV)", 230,
+             train["k8a_launches"]),
+            ("K8b", "flash_attention backward (dQ)", 270,
+             train["k8b_launches"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": fsrc,
+            "replaces": f"{fref}:{line}", "launches": launches,
+            **{k: main_rec[key][key][k] for k in keys},
+            "shape": main_rec[key][key]["shape"],
+            "max_abs_err_all_cases": max(r[key]["max_abs_err"]
+                                         for r in flash_recs.values()),
+            "cases": {label: {k: flash_recs[f"{label} bfloat16"][key][k]
+                              for k in keys + ("shape",)}
+                      for label in FLASH_TIMED},
+            **extras[key]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev_info["smi"])

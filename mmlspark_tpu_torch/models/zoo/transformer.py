@@ -1,13 +1,17 @@
-"""Decoder subset of the zoo transformer (counterpart of
-``models/zoo/transformer.py``): the config, seeded weights, the weight
-loader, the cached prefill and ragged decode steps, and the paged KV
-cache with its two attention implementations.
+"""The zoo transformer (counterpart of ``models/zoo/transformer.py``): the
+config, seeded weights, the weight loader, the full-sequence forward
+(:func:`transformer_apply`, dense or flash attention) with its trainer
+(:func:`loss_fn`, :func:`train_step`), the cached prefill and ragged
+decode steps, and the paged KV cache with its two attention
+implementations.
 
 Layouts are the JAX package's at every public function — (B, H, S, hd)
 activations, (N, H, page, hd) page pools, a params dict with the same
-keys — so the port and the reference compare like with like. Matrices
-are cast to ``cfg.dtype`` once, in :func:`params_from_numpy`, which is
-numerically the same as the reference's per-use ``.astype(dt)``.
+keys — so the port and the reference compare like with like. Every
+matrix is cast to ``cfg.dtype`` at its use, as the reference's
+``.astype(dt)`` does: a serving dict from :func:`params_from_numpy`
+holds the matrices already cast (the cast is then a no-op), a
+``master=True`` dict holds f32 leaves that train.
 
 The paged functions update the page pools IN PLACE and return the same
 list (the JAX package returns fresh, donated buffers; a caller that
@@ -23,13 +27,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.flash_attention import flash_attention
 from ...ops.kv_quant import (SCALE_DTYPE, dequantize_kv, kv_store_dtype,
                              quantize_kv)
 from ...ops.paged_attention import _bits, paged_attention_window
 from ...utils.device import resolve_device
 
-__all__ = ["TransformerConfig", "init_transformer", "params_from_numpy",
-           "prefill_cache", "decode_step_ragged", "decode_window_ragged",
+__all__ = ["TransformerConfig", "BERT_BASE", "BERT_MINI", "DECODER_MINI",
+           "init_transformer", "params_from_numpy", "transformer_apply",
+           "loss_fn", "train_step", "tree_leaves", "prefill_cache",
+           "decode_step_ragged", "decode_window_ragged",
            "init_paged_cache", "paged_gather",
            "paged_scatter_rows", "decode_step_paged", "decode_window_paged",
            "gelu"]
@@ -45,15 +52,47 @@ class TransformerConfig(NamedTuple):
     d_ff: int = 3072
     max_len: int = 512
     dtype: Any = torch.bfloat16
+    #: mixture-of-experts FFNs (the reference's fields and defaults);
+    #: moe_experts > 0 raises: MoE layers come with ROADMAP.md slice 6
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    #: attention through the flash kernels (``ops/flash_attention``)
+    #: instead of the dense (B, H, S, S) scores. Only a fully padded row
+    #: differs: dense gives the mean of v there, flash gives 0
+    use_flash: bool = False
     causal: bool = False
     norm: str = "layernorm"        # "layernorm" | "rmsnorm"
     position: str = "learned"      # "learned" | "rope"
     rope_theta: float = 10000.0
 
+    def is_moe_layer(self, i: int) -> bool:
+        return (self.moe_experts > 0 and self.moe_every > 0
+                and (i % self.moe_every) == (self.moe_every - 1))
+
+
+#: the published BERT-base widths (the reference's default config)
+BERT_BASE = TransformerConfig()
+#: Llama-style decoder shape (causal + RMSNorm + RoPE); small enough to test
+DECODER_MINI = TransformerConfig(vocab=1024, layers=4, d_model=256, heads=8,
+                                 d_ff=1024, max_len=128, causal=True,
+                                 norm="rmsnorm", position="rope")
+BERT_MINI = TransformerConfig(vocab=1024, layers=4, d_model=256, heads=8,
+                              d_ff=1024, max_len=128)
+
+
+def _no_moe(cfg: TransformerConfig):
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE layers (moe_experts > 0) need parallel/moe.py: ROADMAP.md "
+            "slice 6 (multi-device)")
+
 
 def init_transformer(cfg: TransformerConfig, seed: int = 0) -> Dict:
     """Seeded numpy weights — the reference's draw order verbatim, so the
     same seed gives bitwise the same arrays (dense layers only)."""
+    _no_moe(cfg)
     rng = np.random.default_rng(seed)
 
     def dense(din, dout, scale=None):
@@ -92,19 +131,22 @@ def init_transformer(cfg: TransformerConfig, seed: int = 0) -> Dict:
 
 
 def params_from_numpy(params: Dict, cfg: TransformerConfig,
-                      device=None) -> Dict:
+                      device=None, master: bool = False) -> Dict:
     """The reference's param pytree (numpy arrays, or ``np.asarray`` of
     jax arrays) → the port's tensors on ``device`` (None = the card).
 
-    Embeddings, projection matrices and biases are cast ONCE to
-    ``cfg.dtype``; norm scales/biases stay f32 (the norms run in f32) and
-    ``lm_head`` stays f32 (the reference multiplies f32 hidden by an f32
-    head)."""
+    Serving (``master=False``): embeddings, projection matrices and biases
+    are cast ONCE to ``cfg.dtype``; norm scales/biases stay f32 (the norms
+    run in f32) and ``lm_head`` stays f32 (the reference multiplies f32
+    hidden by an f32 head). Training (``master=True``): every leaf stays
+    f32 and requires grad; the forward casts each matrix to ``cfg.dtype``
+    at its use, so gradients land on the f32 leaves, as in JAX."""
     dev = resolve_device(device)
 
     def t(a, dtype):
-        return torch.from_numpy(np.array(a, np.float32)).to(
-            device=dev, dtype=dtype)
+        x = torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=torch.float32 if master else dtype)
+        return x.requires_grad_(True) if master else x
 
     def norm(p):
         return {k: t(v, torch.float32) for k, v in p.items()}
@@ -116,7 +158,8 @@ def params_from_numpy(params: Dict, cfg: TransformerConfig,
            "layers": []}
     for lp in params["layers"]:
         if "moe" in lp:
-            raise ValueError("the port's decoder has no MoE layers")
+            raise NotImplementedError("MoE layers come with ROADMAP.md "
+                                      "slice 6 (multi-device)")
         out["layers"].append({
             "ln1": norm(lp["ln1"]), "ln2": norm(lp["ln2"]),
             **{name: {"w": t(lp[name]["w"], dt), "b": t(lp[name]["b"], dt)}
@@ -174,13 +217,15 @@ def _rope(q, k, theta: float):
     return _rot_half(q, cos, sin), _rot_half(k, cos, sin)
 
 
-def _dense(x, p):
-    return x @ p["w"] + p["b"]
+def _dense(x, p, dt):
+    """``x @ w + b`` with both cast to ``dt`` at the use (a no-op on a
+    serving dict)."""
+    return x @ p["w"].to(dt) + p["b"].to(dt)
 
 
 def _qkv_heads(x, lp, cfg, B, S):
     hd = cfg.d_model // cfg.heads
-    q, k, v = _dense(x, lp["qkv"]).split(cfg.d_model, dim=-1)
+    q, k, v = _dense(x, lp["qkv"], cfg.dtype).split(cfg.d_model, dim=-1)
 
     def heads(t):
         return t.reshape(B, S, cfg.heads, hd).transpose(1, 2)
@@ -192,10 +237,10 @@ def _ffn_residual(h, lp, cfg, ctx, B, S):
     """Output projection + residual, then the norm/FFN/residual half."""
     dt = cfg.dtype
     ctx = ctx.transpose(1, 2).reshape(B, S, cfg.d_model)
-    h = h + _dense(ctx, lp["out"])
+    h = h + _dense(ctx, lp["out"], dt)
     x = _norm(h.float(), lp["ln2"], cfg).to(dt)
-    y = gelu(_dense(x, lp["w1"]))
-    return h + _dense(y, lp["w2"])
+    y = gelu(_dense(x, lp["w1"], dt))
+    return h + _dense(y, lp["w2"], dt)
 
 
 def _attend(q, k, v, ok, dt):
@@ -209,10 +254,126 @@ def _attend(q, k, v, ok, dt):
 
 
 def _embed(params, ids, cfg, positions):
-    h = params["embed"]["tok"][ids]
+    """Gathers from the tables cast to ``cfg.dtype`` (the reference's
+    ``tok.astype(dt)[ids]``: in training the gradient is a scatter in
+    ``cfg.dtype`` into the f32 leaf, as in JAX)."""
+    h = params["embed"]["tok"].to(cfg.dtype)[ids]
     if cfg.position == "learned":
-        h = h + params["embed"]["pos"][positions]
+        h = h + params["embed"]["pos"].to(cfg.dtype)[positions]
     return h
+
+
+def _check_forward(cfg: TransformerConfig, mesh):
+    if cfg.norm not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"cfg.norm {cfg.norm!r} (layernorm | rmsnorm)")
+    if cfg.position not in ("learned", "rope"):
+        raise ValueError(f"cfg.position {cfg.position!r} (learned | rope)")
+    _no_moe(cfg)
+    if mesh is not None:
+        raise NotImplementedError("transformer_apply on a device mesh: "
+                                  "ROADMAP.md slice 6 (multi-device)")
+
+
+def _attend_dense(q, k, v, mask, cfg):
+    """The reference's dense branch verbatim: f32 scores over sqrt(hd), a
+    -1e9 additive bias on masked keys, a -1e9 causal ``where``, softmax in
+    f32, probabilities cast to ``cfg.dtype`` before ``p @ v``. A fully
+    padded row therefore attends uniformly (the mean of v)."""
+    S, hd = q.shape[2], q.shape[-1]
+    scores = (q.float() @ k.float().transpose(-1, -2)) / np.float32(
+        np.sqrt(hd))
+    if mask is not None:
+        scores = scores + torch.where(mask[:, None, None, :], 0.0, -1e9)
+    if cfg.causal:
+        tri = torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                    device=q.device))
+        scores = torch.where(tri[None, None], scores, -1e9)
+    attn = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    return attn @ v
+
+
+def transformer_apply(params: Dict, ids: torch.Tensor,
+                      cfg: TransformerConfig, mesh=None,
+                      mask: Optional[torch.Tensor] = None,
+                      return_aux: bool = False):
+    """Encoder forward → final hidden states (B, S, d_model) in
+    ``cfg.dtype``. ``mask`` (B, S) bool marks the keys to attend (the
+    BERT padding mask). ``cfg.use_flash`` routes attention through
+    :func:`~mmlspark_tpu_torch.ops.flash_attention.flash_attention` (K7
+    forward, K8a/K8b backward on the card), else through the reference's
+    dense branch. ``return_aux=True`` also returns the MoE auxiliaries,
+    zero here (no MoE layers). ``mesh`` must be None."""
+    _check_forward(cfg, mesh)
+    dt = cfg.dtype
+    B, S = ids.shape
+    if mask is not None:
+        mask = mask.to(torch.bool)
+    h = _embed(params, ids, cfg, torch.arange(S, device=ids.device)[None])
+    for lp in params["layers"]:
+        x = _norm(h.float(), lp["ln1"], cfg).to(dt)
+        q, k, v = _qkv_heads(x, lp, cfg, B, S)
+        if cfg.position == "rope":
+            q, k = _rope(q, k, cfg.rope_theta)
+        if cfg.use_flash:
+            ctx = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), kv_mask=mask,
+                                  causal=cfg.causal).to(dt)
+        else:
+            ctx = _attend_dense(q, k, v, mask, cfg)
+        h = _ffn_residual(h, lp, cfg, ctx, B, S)
+    hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
+    if return_aux:
+        zero = torch.zeros((), dtype=torch.float32, device=ids.device)
+        return hidden, {"balance": zero, "dropped": zero.clone()}
+    return hidden
+
+
+def loss_fn(params, ids, labels, cfg: TransformerConfig, mesh=None):
+    """Mean next-token negative log-likelihood of ``labels`` (B, S) under
+    the f32 logits ``hidden @ lm_head`` (plus the MoE balance term, zero
+    here)."""
+    hidden, aux = transformer_apply(params, ids, cfg, mesh,
+                                    return_aux=True)
+    logits = hidden.float() @ params["lm_head"]["w"]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return nll.mean() + cfg.moe_aux_weight * aux["balance"]
+
+
+def tree_leaves(tree):
+    """The tensors of a params-shaped dict (or list) in a fixed order:
+    dict keys sorted, lists in order (the port's ``jax.tree.leaves``)."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in tree_leaves(item)]
+    return [tree]
+
+
+def train_step(params, opt_state, ids, labels, cfg: TransformerConfig,
+               mesh=None, lr: float = 1e-4):
+    """One SGD-with-momentum step, as the reference's: ``m = 0.9 m + g``,
+    then ``p = p - lr m``, with g the gradient of :func:`loss_fn`.
+
+    ``params`` is a ``master=True`` dict (f32 leaves that require grad)
+    and ``opt_state`` zeros shaped like it: a dict of the same structure,
+    or a list of zeros in :func:`tree_leaves` order. Unlike the
+    reference, which returns fresh pytrees, the port updates both IN
+    PLACE (under ``torch.no_grad()``) and returns the same dicts: (params,
+    opt_state, loss), the loss a detached f32 scalar."""
+    leaves = tree_leaves(params)
+    moms = tree_leaves(opt_state)
+    if len(leaves) != len(moms):
+        raise ValueError("opt_state must have the structure of params")
+    loss = loss_fn(params, ids, labels, cfg, mesh)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with torch.no_grad():
+        for p, m, g in zip(leaves, moms, grads):
+            m.mul_(0.9)
+            if g is not None:
+                m.add_(g)
+            p.sub_(lr * m)
+    return params, opt_state, loss.detach()
 
 
 def prefill_cache(params: Dict, ids: torch.Tensor, length,

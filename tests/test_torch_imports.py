@@ -35,6 +35,7 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.serving.generation",
                  "mmlspark_tpu_torch.utils.cuda_build",
                  "mmlspark_tpu_torch.ops.histogram",
+                 "mmlspark_tpu_torch.ops.flash_attention",
                  "mmlspark_tpu_torch.models.gbdt",
                  "mmlspark_tpu_torch.models.gbdt.binning",
                  "mmlspark_tpu_torch.models.gbdt.objectives",
@@ -124,6 +125,7 @@ def test_cuda_build_is_lazy_and_names_its_sources():
     from mmlspark_tpu_torch.utils import cuda_build
     assert (cuda_build.CSRC / "paged_attention.cu").exists()
     assert (cuda_build.CSRC / "histogram.cu").exists()
+    assert (cuda_build.CSRC / "flash_attention.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build._libs == {}         # nothing built at import
 
