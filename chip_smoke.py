@@ -58,7 +58,24 @@ Phases (any failure exits non-zero and prints no result line):
    of K7, K8a and K8b per step, the loss lower at the end, step seconds
    and tokens/s; then one step of the causal decoder at B=4, S=2048 with
    flash and with dense attention: flash's peak device memory below
-   dense's.
+   dense's;
+10. the mesh — (a) K5a (bf16 pages) and K5b (int8, fp8) against their
+   plain versions at the decode and extend shapes, and K5a on 6 heads
+   (one rank's shard at tp = 2): ctx within about one bf16 ulp, NaN
+   planted at and past pos kept out, every pool bit untouched; times
+   beside the plain versions, SDPA and the bounds, and the rows the mesh
+   path writes after the kernel timed alone; (b) a tp = 1 mesh (a world
+   of one rank over NCCL): f32 full-width greedy tokens of the meshed
+   kernel engine equal phase 4's single-device ones and the meshed
+   gather engine's, on f32, int8 and fp8 pages, through K5a/K5b and
+   never K1/K2; (c) bf16 serving of phase 6's mix on a single-device
+   engine and on the tp = 1 mesh: K5a once per layer per attention
+   call, tokens/s and p50 tick side by side; (d) tp = 2 as two gloo
+   processes sharing the card, six heads and a pool shard each: both
+   ranks' f32 tokens equal each other's and 10b's over all 16 tokens.
+
+``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only, prints no
+result and exits 3.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -158,17 +175,18 @@ def _bits(t):
                    4: torch.int32}[t.element_size()])
 
 
-def _kv_case_inputs(B, W, pos_list, seed, store):
+def _kv_case_inputs(B, W, pos_list, seed, store, H=12):
     """Random pools on the card (quantized through ``quantize_kv`` when
     ``store`` is a quantized dtype), a shuffled block table, and garbage
     in every slot at or past each row's bound: NaN values in bf16 pools;
-    NaN scales, plus the NaN code 0x7F in fp8 pools, in quantized ones."""
+    NaN scales, plus the NaN code 0x7F in fp8 pools, in quantized ones.
+    ``H`` heads (12 at full width, 6 for one rank's shard at tp = 2)."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.ops.kv_quant import quantize_kv
 
     dev = torch.device("cuda")
-    H, hd, page = 12, 64, 16
+    hd, page = 64, 16
     pos_np = np.array(pos_list, np.int64)
     P = int(-(-(pos_np.max() + W) // page))
     N = 1 + B * P
@@ -451,38 +469,56 @@ def _full_cfg(torch_dtype):
     return TransformerConfig(dtype=torch_dtype, **FULL)
 
 
-def phase_parity(params_np):
-    """f32 full width: kernel and plain-gather engines give the same greedy
-    tokens, on model-dtype pages (K1) and on int8 and fp8 pages (K2)."""
+#: phases 4 and 10b: the f32 parity engine and its prompts
+PARITY = dict(max_slots=4, max_len=384, page_size=16, prefill_chunk=128,
+              steps_per_dispatch=2)
+PARITY_PROMPTS = (20, 70, 300)
+PARITY_NEW = 16
+
+
+def _parity_prompts(vocab):
     import numpy as np
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, n) for n in PARITY_PROMPTS]
+
+
+def _parity_tokens(params_np, cfg, impl, kv_dtype, mesh=None):
+    """One f32 parity engine's greedy tokens for the parity prompts."""
     import torch
     from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    eng = ContinuousDecoder(params_np, cfg, paged_attn=impl,
+                            kv_dtype=kv_dtype, mesh=mesh, **PARITY)
+    reqs = [eng.submit(p, PARITY_NEW) for p in _parity_prompts(cfg.vocab)]
+    for _ in range(400):
+        if all(r.done for r in reqs):
+            break
+        eng.step()
+    eng.flush()
+    out = [eng.result(r, timeout=1) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parity(params_np):
+    """f32 full width: kernel and plain-gather engines give the same greedy
+    tokens, on model-dtype pages (K1) and on int8 and fp8 pages (K2).
+    Returns the kernel engine's tokens per page type (10b's reference)."""
+    import torch
     cfg = _full_cfg(torch.float32)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (20, 70, 300)]
+    single = {}
     for kv_dtype in (None, "int8", "fp8"):
-        outs = {}
-        for impl in ("kernel", "gather"):
-            eng = ContinuousDecoder(params_np, cfg, max_slots=4, max_len=384,
-                                    page_size=16, prefill_chunk=128,
-                                    steps_per_dispatch=2, paged_attn=impl,
-                                    kv_dtype=kv_dtype)
-            reqs = [eng.submit(p, 16) for p in prompts]
-            for _ in range(400):
-                if all(r.done for r in reqs):
-                    break
-                eng.step()
-            eng.flush()
-            outs[impl] = [eng.result(r, timeout=1) for r in reqs]
-            del eng
-            torch.cuda.empty_cache()
+        outs = {impl: _parity_tokens(params_np, cfg, impl, kv_dtype)
+                for impl in ("kernel", "gather")}
         if outs["kernel"] != outs["gather"]:
             raise AssertionError(
                 f"f32 greedy tokens differ ({kv_dtype or 'f32'} pages): "
                 f"kernel {outs['kernel']} vs gather {outs['gather']}")
+        single[kv_dtype] = outs["kernel"]
         log(f"[parity] f32 full width, {kv_dtype or 'f32'} pages: kernel == "
-            f"gather for {len(prompts)} requests x 16 tokens (prompts "
-            f"20/70/300)")
+            f"gather for {len(PARITY_PROMPTS)} requests x {PARITY_NEW} tokens "
+            f"(prompts {'/'.join(map(str, PARITY_PROMPTS))})")
+    return single
 
 
 def _post(url, payload, timeout=300):
@@ -1479,27 +1515,372 @@ def phase_flash_training(bert_np, dev_info, kernel_ms, steps=10):
     return bert, dec
 
 
-def main():
+def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
+                 store=None, H=12):
+    """The window read at one shape: K5a over bf16 pages, or K5b over
+    quantized pages of ``store`` dtype, ``H`` heads. Correctness against
+    the plain version (ctx within about one bf16 ulp, the NaN planted at
+    and past each row's pos kept out, every pool bit untouched), then its
+    time, the plain version's, one SDPA over the gathered dequantized K/V
+    and the window (the library yardstick), its bound, and on their own
+    the rows the mesh path writes after it (``_mount_writes``)."""
+    import torch
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    x = _kv_case_inputs(B, W, pos_list, seed, store, H=H)
+    hd, page, P = x["hd"], x["page"], x["P"]
+    q, kn, vn, bt, pools = x["q"], x["kn"], x["vn"], x["bt"], x["pools"]
+    pos_np = x["pos_np"]
+    quant = store is not None
+    what = (f"K5b {str(store).split('.')[-1]} {label}" if quant
+            else f"K5a {label}")
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    active = torch.tensor(active_list, device=dev)
+    scale = 1.0 / hd ** 0.5
+    want = pa.paged_attention_window_read_plain(q, kn, vn, pools[0],
+                                                pools[1], bt, pos, scale,
+                                                *pools[2:])
+    kern = [t.clone() for t in pools]
+    got = pa._window_read(q, kn, vn, kern[0], kern[1], bt, pos, scale,
+                          *kern[2:])
+    torch.cuda.synchronize()
+    err = _check_ctx(what, got, want)
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kern, pools)):
+        raise AssertionError(f"{what}: the window read wrote its pools")
+    lib = pa._library()
+    n = _copies(sum(t.numel() * t.element_size() for t in pools))
+    copies = [[t.clone() for t in kern] for _ in range(n)]
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (bt.data_ptr(), pos.data_ptr(), got.data_ptr(), B, H, W, P, page,
+            scale, stream)
+    rc = []
+
+    def launcher(c):
+        ptrs = [t.data_ptr() for t in c]
+        acts = (q.data_ptr(), kn.data_ptr(), vn.data_ptr())
+        if quant:
+            return lambda: rc.append(lib.mmlspark_pa_window_read_q(
+                1, pa._STORES[store], hd, *acts, *ptrs, *tail))
+        return lambda: rc.append(lib.mmlspark_pa_window_read(
+            1, hd, *acts, *ptrs, *tail))
+    ms = _cuda_ms([launcher(c) for c in copies], 200)
+    if any(rc):
+        raise AssertionError(f"{what}: launch returned {set(rc)}")
+    plain_ms = _cuda_ms([lambda c=c: pa.paged_attention_window_read_plain(
+        q, kn, vn, c[0], c[1], bt, pos, scale, *c[2:]) for c in copies], 20)
+
+    write_ms = _cuda_ms([lambda c=c: pa._mount_writes(kn, vn, c, bt, pos,
+                                                      active)
+                         for c in copies], 200)
+    del copies
+    L = P * page
+    key_ok = x["t_idx"][None] < pos.long()[:, None]
+    kc, vc = _dequant_kv(pools, bt, key_ok)
+    k_all = torch.cat([kc, kn], 2).contiguous()
+    v_all = torch.cat([vc, vn], 2).contiguous()
+    causal = torch.tril(torch.ones(W, W, dtype=torch.bool, device=dev))
+    mask = torch.cat([key_ok[:, None, None, :].expand(B, 1, W, L),
+                      causal[None, None].expand(B, 1, W, W)], -1)
+    n = _copies(2 * k_all.numel() * k_all.element_size())
+    kvs = [(k_all.clone(), v_all.clone()) for _ in range(n)]
+    library_ms = _cuda_ms([lambda c=c: F.scaled_dot_product_attention(
+        q, c[0], c[1], attn_mask=mask) for c in kvs], 200)
+    del kvs
+    # bound: K1's less the window-row writes — live cached keys (< pos)
+    # with their scales, q/k_new/v_new, ctx; flops QK and PV over live
+    # keys and the window. The writes' own bound: k_new/v_new read, the
+    # active rows' codes (and scales) written.
+    row_bytes = hd + 2 if quant else 2 * hd
+    live = int(pos_np.sum())
+    n_active = int(sum(active_list))
+    nbytes = (2 * live * H * row_bytes + 3 * B * H * W * hd * 2
+              + B * H * W * hd * 2 + bt.numel() * 4 + B * 4)
+    flops = sum(4 * H * hd * W * (int(p) + W) for p in pos_np)
+    wbytes = (2 * B * H * W * hd * 2 + 2 * n_active * W * H * row_bytes
+              + bt.numel() * 4 + B * 4)
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
+           "write_ms": write_ms,
+           "write_bound_ms": _bound(dev_info, wbytes, 0)["bound_ms"],
+           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
+                     "max_pos": int(pos_np.max()), "live_keys": live,
+                     "pages": str(store or torch.bfloat16).split(".")[-1]}}
+    tag = what.split()[0].lower() + " " + " ".join(what.split()[1:])
+    log(f"[{tag}] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_window_kernels(dev_info):
+    """10a: K5a on bf16 pages and K5b on int8 and fp8 pages at phase 3's
+    decode and extend shapes (12 heads), plus K5a at the decode shape on
+    6 heads, one rank's shard at tp = 2."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    pos = [0, 1, 15, 16, 17, 255, 256, 300, 511, 512, 700, 1000, 1023,
+           int(rng.integers(1, 1024)), 64, 900]
+    active = [True] * 16
+    active[5] = active[11] = False
+    shapes = {"decode": (16, 1, pos, active, 5),
+              "extend": (1, 256, [384], [True], 6)}
+    recs = {"K5a": {}, "K5b": {}}
+    for label, args in shapes.items():
+        recs["K5a"][label] = _window_case(dev_info, label, *args)
+    recs["K5a"]["decode h6"] = _window_case(dev_info, "decode h6",
+                                            *shapes["decode"][:4], 7, H=6)
+    for store in (torch.int8, torch.float8_e4m3fn):
+        name = str(store).split(".")[-1]
+        for label, args in shapes.items():
+            recs["K5b"][f"{name} {label}"] = _window_case(
+                dev_info, label, *args, store=store)
+    return recs
+
+
+def _zero_pa_counts():
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    paged_attention_window.launches = paged_attention_window.launches_q = 0
+    paged_attention_window.launches_window = 0
+    paged_attention_window.launches_window_q = 0
+
+
+def _pa_counts():
+    """(K1, K2, K5a, K5b) launches since the last zeroing."""
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    p = paged_attention_window
+    return (p.launches, p.launches_q, p.launches_window,
+            p.launches_window_q)
+
+
+def phase_mesh_parity(params_np, single, mesh):
+    """10b: f32 full width on a tp = 1 mesh (a world of one rank over
+    NCCL): the meshed kernel engine's greedy tokens equal the single-device
+    kernel engine's (phase 4's) and the meshed gather engine's, on f32,
+    int8 and fp8 pages; K5a (f32) or K5b (int8, fp8) launched, K1 and K2
+    never. Returns the launches per page type."""
+    import torch
+    cfg = _full_cfg(torch.float32)
+    launches = {}
+    for kv_dtype in (None, "int8", "fp8"):
+        outs, counts = {}, {}
+        for impl in ("kernel", "gather"):
+            _zero_pa_counts()
+            outs[impl] = _parity_tokens(params_np, cfg, impl, kv_dtype, mesh)
+            counts[impl] = _pa_counts()
+        name = kv_dtype or "f32"
+        if not outs["kernel"] == single[kv_dtype] == outs["gather"]:
+            raise AssertionError(
+                f"10b {name} pages: meshed kernel {outs['kernel']}, single "
+                f"device {single[kv_dtype]}, meshed gather {outs['gather']}")
+        k1, k2, k5a, k5b = counts["kernel"]
+        want = (k5a > 0 and k5b == 0) if kv_dtype is None else \
+            (k5b > 0 and k5a == 0)
+        if k1 or k2 or not want or any(counts["gather"]):
+            raise AssertionError(f"10b {name} pages: (K1, K2, K5a, K5b) "
+                                 f"launches {counts}")
+        launches[name] = {"k5a": k5a, "k5b": k5b}
+        log(f"[mesh parity] f32 full width, tp1 mesh, {name} pages: meshed "
+            f"kernel == single-device kernel == meshed gather for "
+            f"{len(PARITY_PROMPTS)} requests x {PARITY_NEW} tokens; K5a "
+            f"{k5a}, K5b {k5b}, K1/K2 0")
+    return launches
+
+
+def _serve_mix(eng, rng, vocab, sizes, max_new):
+    """Phase 6's request mix through ``submit``/``step``: two requests
+    sharing a 96-token prefix (the owner first), then prompts of
+    ``sizes``; returns (requests, wall seconds)."""
+    import numpy as np
+    import torch
+    shared = rng.integers(0, vocab, 96)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(np.concatenate([shared,
+                                       rng.integers(0, vocab, tail)]),
+                       max_new, prefix_key="system", prefix_len=len(shared))
+            for tail in (8, 24)]
+    reqs += [eng.submit(rng.integers(0, vocab, n), max_new) for n in sizes]
+    while not all(r.done for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
+    """10c: bf16 full width, phase 6's mix (64 new tokens each) through a
+    single-device engine and then a tp = 1 meshed engine, bf16 pages.
+    The meshed run must launch K5a once per layer per attention call
+    (decode step or extend) and no K1/K2, gather nothing and hit the
+    prefix; tokens/s and p50 tick beside the single-device bf16 run and
+    phase 6's int8 numbers. Then one all-reduce of a decode step's
+    (16, 1, d_model) activations on the mesh's group is timed, and with
+    10a's time of the rows written outside the kernel (``write_ms``)
+    gives the mesh's added time per tick: layers x steps x (writes + two
+    all-reduces)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.parallel.mesh import axis_group
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    from mmlspark_tpu_torch.utils.device import resolve_device
+    cfg = _full_cfg(torch.bfloat16)
+    sizes, max_new = [32, 128, 384] * 3, 64
+    out = {}
+    for key, m in (("single", None), ("mesh", mesh)):
+        eng = ContinuousDecoder(params_np, cfg, max_slots=16, max_len=1024,
+                                page_size=16, prefill_chunk=256,
+                                steps_per_dispatch=4, mesh=m)
+        warm = eng.submit([1, 2, 3], 4)     # cuBLAS handles, allocator
+        while not warm.done:
+            eng.step()
+        eng.tick_seconds.clear()
+        stats0, hits0 = dict(eng._kv.stats), eng.stats["prefix_hits"]
+        _zero_pa_counts()
+        reqs, wall = _serve_mix(eng, np.random.default_rng(3), cfg.vocab,
+                                sizes, max_new)
+        counts = _pa_counts()
+        stats = eng._kv.stats
+        calls = stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
+        gather = stats["gather_bytes"] - stats0["gather_bytes"]
+        for r in reqs:
+            toks = eng.result(r, timeout=1)
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab
+                                               for t in toks):
+                raise AssertionError(f"10c {key} request {r.rid}: "
+                                     f"{len(toks)} tokens")
+        hits = eng.stats["prefix_hits"] - hits0
+        want = ((cfg.layers * calls, 0, 0, 0) if key == "single"
+                else (0, 0, cfg.layers * calls, 0))
+        if counts != want or gather != 0 or hits < 1:
+            raise AssertionError(f"10c {key}: (K1, K2, K5a, K5b) launches "
+                                 f"{counts}, want {want}; gather {gather}, "
+                                 f"prefix hits {hits}")
+        ticks = list(eng.tick_seconds)
+        n_tok = sum(len(r.tokens) for r in reqs)
+        out[key] = {"requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+                    "tok_per_s": n_tok / wall,
+                    "p50_tick_ms": statistics.median(ticks) * 1e3,
+                    "ticks": len(ticks), "attn_calls": calls,
+                    "k1_launches": counts[0], "k5a_launches": counts[2],
+                    "mesh_shape": eng._mesh_shape,
+                    "pool_device_bytes": eng._kv.device_bytes()}
+        del eng
+        torch.cuda.empty_cache()
+    x = torch.zeros(16, 1, cfg.d_model, dtype=cfg.dtype,
+                    device=resolve_device())
+    group = axis_group(mesh, "tp")
+    allreduce_ms = _cuda_ms([lambda: dist.all_reduce(x, group=group)], 200)
+    added = cfg.layers * 4 * (write_ms + 2 * allreduce_ms)
+    rec = {**out, "phase6_int8_single": {k: q8[k] for k in
+                                         ("tok_per_s", "p50_tick_ms")},
+           "allreduce_ms": allreduce_ms, "write_ms": write_ms,
+           "added_ms_per_tick_from_parts": added,
+           "added_ms_per_tick_measured": (out["mesh"]["p50_tick_ms"]
+                                          - out["single"]["p50_tick_ms"]),
+           "steps_per_dispatch": 4, "layers": cfg.layers}
+    log(f"[mesh serving] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _tp2_rank(mesh, seed):
+    """One rank of 10d: the f32 full-width model from ``seed``, this
+    rank's six heads, a pool shard, the parity prompts; its tokens, its
+    (K1, K2, K5a, K5b) launches and its shard's bytes."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    from mmlspark_tpu_torch.parallel.mesh import axis_rank
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _full_cfg(torch.float32)
+    params_np = init_transformer(cfg, seed=seed)
+    eng = ContinuousDecoder(params_np, cfg, mesh=mesh, **PARITY)
+    _zero_pa_counts()
+    reqs = [eng.submit(p, PARITY_NEW) for p in _parity_prompts(cfg.vocab)]
+    for _ in range(400):
+        if all(r.done for r in reqs):
+            break
+        eng.step()
+    eng.flush()
+    return {"rank": axis_rank(mesh, "tp"), "mesh_shape": eng._mesh_shape,
+            "tokens": [eng.result(r, timeout=1) for r in reqs],
+            "launches": _pa_counts(), "pool_heads": eng._kv.heads,
+            "pool_device_bytes": eng._kv.device_bytes(),
+            "pool_device_bytes_global": eng._kv.device_bytes_global()}
+
+
+def phase_tp2(dev_info, want):
+    """10d: tp = 2 on the one card — two rank processes over gloo, each
+    with six heads and its own pool shard, the f32 parity engine: both
+    ranks' tokens equal each other's and 10b's over all
+    ``PARITY_NEW`` tokens; K5a launched on each rank, K1/K2 never."""
+    from mmlspark_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(_tp2_rank, 2, args=(0,), device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    for r in res:
+        k1, k2, k5a, k5b = r["launches"]
+        if r["tokens"] != want or r["mesh_shape"] != "tp2" or \
+                r["pool_heads"] != 6 or k1 or k2 or k5b or k5a <= 0:
+            raise AssertionError(f"10d rank {r['rank']}: tokens "
+                                 f"{r['tokens']} (want {want}), launches "
+                                 f"{r['launches']}, heads {r['pool_heads']}")
+    rec = {"ranks": 2, "backend": "gloo", "horizon_tokens": PARITY_NEW,
+           "k5a_launches_per_rank": [r["launches"][2] for r in res],
+           "pool_device_bytes_per_rank": res[0]["pool_device_bytes"],
+           "pool_device_bytes_global": res[0]["pool_device_bytes_global"],
+           "wall_s": wall}
+    log(f"[tp2] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase10(params_np, dev_info, single, q8):
+    """10a-10d; the NCCL world of one that 10b and 10c share is left
+    before 10d spawns its two gloo ranks."""
+    from mmlspark_tpu_torch.parallel import distributed
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+    win = phase_window_kernels(dev_info)
+    distributed.initialize(device="cuda")
+    try:
+        mesh = make_mesh({"tp": 1})
+        mesh_par = phase_mesh_parity(params_np, single, mesh)
+        serve = phase_mesh_serving(params_np, dev_info, mesh, q8,
+                                   win["K5a"]["decode"]["write_ms"])
+    finally:
+        distributed.shutdown()
+    tp2 = phase_tp2(dev_info, single[None])
+    return win, mesh_par, serve, tp2
+
+
+def main(argv=()):
     sys.path.insert(0, HERE)
     try:
         import mmlspark_tpu_torch  # noqa: F401
     except ImportError as e:
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
+    # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
+    # 4); a partial run prints no result and exits 3
+    only = set(argv)
     t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build()
-    recs = phase_kernels(dev_info)
     from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
     import torch
     params_np = init_transformer(_full_cfg(torch.float32), seed=0)
-    phase_parity(params_np)
+    if only:
+        single = phase_parity(params_np)
+        _phase10(params_np, dev_info, single,
+                 {"tok_per_s": None, "p50_tick_ms": None})
+        log(f"[done] partial run of phases {sorted(only)}, "
+            f"{time.perf_counter() - t_start:.1f} s; no result")
+        return 3
+    recs = phase_kernels(dev_info)
+    single = phase_parity(params_np)
     k1_launches = phase_serving(params_np, dev_info)
     q8 = phase_quant_serving(params_np, dev_info, "int8",
                              [32, 128, 384] * 3)
     f8 = phase_quant_serving(params_np, dev_info, "fp8", [32, 384])
     sweep = phase_read_sweep(params_np, dev_info)
-    del params_np
     hist_recs = phase_hist_kernel(dev_info)
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     parity = phase_tree_parity(X, y, dev_info)
@@ -1516,6 +1897,8 @@ def main():
         bert_np, dev_info,
         sum(train_rec[k]["ms"] for k in ("K7 stats", "K8a", "K8b")))
     del bert_np
+    win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
+    del params_np
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
@@ -1535,6 +1918,18 @@ def main():
          "source": src, "replaces": f"{ref}:356",
          "launches": sweep["k4_launches"],
          **{k: recs["K4"][k] for k in keys}, "read": recs["K4"]},
+        {"name": "paged_attention_window (mesh=)", "route": "cuda",
+         "source": src, "replaces": f"{ref}:297",
+         "launches": serve["mesh"]["k5a_launches"],
+         "launches_mesh_parity_f32": mesh_par["f32"]["k5a"],
+         "launches_tp2_per_rank": tp2["k5a_launches_per_rank"],
+         **{k: win["K5a"]["decode"][k] for k in keys}, **win["K5a"]},
+        {"name": "paged_attention_window (mesh=, k_scale/v_scale)",
+         "route": "cuda", "source": src, "replaces": f"{ref}:461",
+         "launches": mesh_par["int8"]["k5b"] + mesh_par["fp8"]["k5b"],
+         "launches_int8_run": mesh_par["int8"]["k5b"],
+         "launches_fp8_run": mesh_par["fp8"]["k5b"],
+         **{k: win["K5b"]["int8 decode"][k] for k in keys}, **win["K5b"]},
         {"name": "level_histogram", "route": "cuda",
          "source": "mmlspark_tpu_torch/csrc/histogram.cu",
          "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
@@ -1591,7 +1986,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except SystemExit:
         raise
     except BaseException:

@@ -1,5 +1,5 @@
 // Paged attention over the KV page pool for Hopper (sm_90a): one kernel
-// body, instantiated four ways.
+// body, instantiated six ways.
 //
 //   K1  fused window + scatter, pages in the query dtype. Replaces the TPU
 //       kernel `_pa_fused_kernel` (mmlspark_tpu/ops/paged_attention.py,
@@ -11,6 +11,12 @@
 //       `_pa_read_kernel` (launched by `_pa_read_call`).
 //   K4  read-only sweep over int8 or fp8 pages. Replaces
 //       `_pa_read_kernel_q` (launched by `_pa_read_call_q`).
+//   K5a window read-only, pages in the query dtype: K1's attention with
+//       its scatter compiled out. Replaces `_pa_window_kernel` (launched
+//       by `_pa_window_read_call`), the kernel a tensor-parallel mesh
+//       runs on each rank's head shard.
+//   K5b K5a over int8 or fp8 pages. Replaces `_pa_window_kernel_q`
+//       (launched by `_pa_window_read_call_q`).
 //
 // What they compute. Fused (K1, K2): row b's W queries sit at absolute
 // positions pos[b] .. pos[b]+W-1. Query j attends
@@ -25,9 +31,12 @@
 // scale. A row with wlo[b] > whi[b] (inactive) writes nothing.
 // Read-only (K3, K4): row b's W queries all attend its first lengths[b]
 // cached keys; no window, no causal mask, no writes; lengths[b] == 0
-// gives zeros.
+// gives zeros. Window read-only (K5a, K5b): K1/K2's attention, bounded by
+// pos[b], with no scatter: the pools are only read (the mesh path writes
+// the fresh rows outside the kernel, ops/paged_attention.py
+// `_pool_write_rows`), and every row computes its context, active or not.
 //
-// Dequant (K2, K4): a key row is f32(code) * f32(scale); the product is
+// Dequant (K2, K4, K5b): a key row is f32(code) * f32(scale); the product is
 // exact in f32 (an int8 or e4m3 code times a bf16 scale fits in 24 bits),
 // so the kernels and their plain versions differ only in summation order.
 //
@@ -83,6 +92,13 @@ namespace {
 constexpr int kWarps = 4;     // warps per block
 constexpr int kTile = 32;     // keys per tile (one per lane)
 constexpr float kNeg = -1e30f;
+
+// the kernel's modes: what bounds the cached keys and what is written
+enum Mode : int {
+  kFused = 0,    // K1, K2: keys < pos, window keys causal, scatter
+  kRead = 1,     // K3, K4: keys < lengths, no window, no writes
+  kWindow = 2,   // K5a, K5b: keys < pos, window keys causal, no writes
+};
 
 using bf16 = __nv_bfloat16;
 using fp8 = __nv_fp8_e4m3;
@@ -254,14 +270,14 @@ constexpr size_t smem_bytes() {
 
 struct Args {
   const void* q;
-  const void* kn;         // fused only: the window's fresh K / V rows
+  const void* kn;         // fused, window: the window's fresh K / V rows
   const void* vn;
   void* kp;               // (N, H, page, hd) pools, store type S
   void* vp;
   void* ks;               // (N, H, page) bf16 scales, quantized only
   void* vs;
   const int32_t* bt;      // (B, P)
-  const int32_t* bound;   // (B,): pos (fused) or lengths (read-only)
+  const int32_t* bound;   // (B,): pos (fused, window) or lengths (read)
   const int32_t* wlo;     // (B,), fused only
   const int32_t* whi;
   void* out;
@@ -270,10 +286,9 @@ struct Args {
 };
 
 // T: query / k_new / v_new / output type (float or bf16). S: page store
-// type: T itself (K1, K3), int8_t or fp8 (K2, K4). READ: read-only sweep
-// bounded by lengths (K3, K4) instead of the fused window + scatter
-// bounded by pos (K1, K2). QT: queries per block.
-template <typename T, typename S, bool READ, int HD, int QT>
+// type: T itself (K1, K3, K5a), int8_t or fp8 (K2, K4, K5b). MODE: see
+// `Mode`. QT: queries per block.
+template <typename T, typename S, int MODE, int HD, int QT>
 __global__ void __launch_bounds__(kWarps * 32)
 pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
           const T* __restrict__ vn, S* __restrict__ kpool,
@@ -285,6 +300,7 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
           const int32_t* __restrict__ whi_v, T* __restrict__ out, int H,
           int W, int P, int page, float scale) {
   constexpr bool kQuant = !std::is_same<S, T>::value;
+  constexpr bool READ = MODE == kRead;
   constexpr int DPL = HD / 32;   // output dims owned by each lane
   constexpr int LD = HD + 1;     // padded row: conflict-free column reads
   extern __shared__ float smem[];
@@ -300,8 +316,8 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // cached keys [0, bound) are visible: pos (fused) or lengths (read-only,
-  // held inside the block table's width)
+  // cached keys [0, bound) are visible: pos (fused, window) or lengths
+  // (read-only, held inside the block table's width)
   const int bound = READ ? min(bound_v[b], P * page) : bound_v[b];
   const int32_t* bt = block_tables + size_t(b) * P;
   const size_t row_off = (size_t(b) * H + h) * W;   // (b, h, 0, 0) / HD
@@ -323,7 +339,7 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int r = 0; r < DPL; ++r) acc[i][r] = 0.f;
   }
 
-  // the live key tiles: cached keys [0, bound), then (fused only) the
+  // the live key tiles: cached keys [0, bound), then (fused, window) the
   // window keys this query tile can see, [0, min(q0 + QT, W))
   const int n_page_tiles = (bound + kTile - 1) / kTile;
   const int w_end = READ ? 0 : min(q0 + QT, W);
@@ -425,7 +441,7 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     from_f32(aa / (ll == 0.f ? 1.f : ll), &out[(row_off + j) * HD + d]);
   }
 
-  if constexpr (!READ) {
+  if constexpr (MODE == kFused) {
     // scatter this tile's fresh rows into their pages. Writes land at
     // positions >= pos; every read above was < pos.
     fused_scatter<T, S, HD, QT>(kn, vn, kpool, vpool, kscale, vscale, bt,
@@ -434,10 +450,10 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-template <typename T, typename S, bool READ, int HD, int QT>
+template <typename T, typename S, int MODE, int HD, int QT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, QT>();
-  auto kern = pa_kernel<T, S, READ, HD, QT>;
+  auto kern = pa_kernel<T, S, MODE, HD, QT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -455,39 +471,39 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename S, bool READ>
+template <typename T, typename S, int MODE>
 cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   if (a.B <= 0 || a.H <= 0 || a.W <= 0 || a.P <= 0 || a.page <= 0)
     return cudaErrorInvalidValue;
   // only the head dim of the models served so far; another one is
   // instantiated with the slice that brings a model needing it
   if (hd != 64) return cudaErrorInvalidValue;
-  if (a.W == 1) return launch<T, S, READ, 64, 1>(a, s);
-  return launch<T, S, READ, 64, 8>(a, s);
+  if (a.W == 1) return launch<T, S, MODE, 64, 1>(a, s);
+  return launch<T, S, MODE, 64, 8>(a, s);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out)
-template <typename S, bool READ>
+template <typename S, int MODE>
 cudaError_t by_dtype(int dtype, int hd, const Args& a, cudaStream_t s) {
-  if (dtype == 0) return dispatch<float, S, READ>(hd, a, s);
-  if (dtype == 1) return dispatch<bf16, S, READ>(hd, a, s);
+  if (dtype == 0) return dispatch<float, S, MODE>(hd, a, s);
+  if (dtype == 1) return dispatch<bf16, S, MODE>(hd, a, s);
   return cudaErrorInvalidValue;
 }
 
-// pools in the query dtype (K1, K3)
-template <bool READ>
+// pools in the query dtype (K1, K3, K5a)
+template <int MODE>
 cudaError_t plain_pools(int dtype, int hd, const Args& a, cudaStream_t s) {
-  if (dtype == 0) return dispatch<float, float, READ>(hd, a, s);
-  if (dtype == 1) return dispatch<bf16, bf16, READ>(hd, a, s);
+  if (dtype == 0) return dispatch<float, float, MODE>(hd, a, s);
+  if (dtype == 1) return dispatch<bf16, bf16, MODE>(hd, a, s);
   return cudaErrorInvalidValue;
 }
 
-// store: 0 = int8, 1 = float8_e4m3fn (K2, K4)
-template <bool READ>
+// store: 0 = int8, 1 = float8_e4m3fn (K2, K4, K5b)
+template <int MODE>
 cudaError_t quant_pools(int dtype, int store, int hd, const Args& a,
                         cudaStream_t s) {
-  if (store == 0) return by_dtype<int8_t, READ>(dtype, hd, a, s);
-  if (store == 1) return by_dtype<fp8, READ>(dtype, hd, a, s);
+  if (store == 0) return by_dtype<int8_t, MODE>(dtype, hd, a, s);
+  if (store == 1) return by_dtype<fp8, MODE>(dtype, hd, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -508,7 +524,7 @@ int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              void* stream) {
   Args a{q, k_new, v_new, k_pages, v_pages, nullptr, nullptr, block_tables,
          pos, wlo, whi, out, B, H, W, P, page, scale};
-  return int(plain_pools<false>(dtype, hd, a,
+  return int(plain_pools<kFused>(dtype, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }
 
@@ -524,7 +540,7 @@ int mmlspark_pa_window_fused_q(int dtype, int store, int hd, const void* q,
                                void* stream) {
   Args a{q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, block_tables,
          pos, wlo, whi, out, B, H, W, P, page, scale};
-  return int(quant_pools<false>(dtype, store, hd, a,
+  return int(quant_pools<kFused>(dtype, store, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }
 
@@ -537,7 +553,7 @@ int mmlspark_pa_read(int dtype, int hd, const void* q, const void* k_pages,
   Args a{q, nullptr, nullptr, const_cast<void*>(k_pages),
          const_cast<void*>(v_pages), nullptr, nullptr, block_tables,
          lengths, nullptr, nullptr, out, B, H, W, P, page, scale};
-  return int(plain_pools<true>(dtype, hd, a,
+  return int(plain_pools<kRead>(dtype, hd, a,
                                static_cast<cudaStream_t>(stream)));
 }
 
@@ -553,8 +569,42 @@ int mmlspark_pa_read_q(int dtype, int store, int hd, const void* q,
          const_cast<void*>(v_pages), const_cast<void*>(k_scale),
          const_cast<void*>(v_scale), block_tables, lengths, nullptr,
          nullptr, out, B, H, W, P, page, scale};
-  return int(quant_pools<true>(dtype, store, hd, a,
+  return int(quant_pools<kRead>(dtype, store, hd, a,
                                static_cast<cudaStream_t>(stream)));
+}
+
+// K5a. Window read-only: K1's attention (keys < pos[b] from the pools,
+// the window's own k_new / v_new rows under the in-window causal mask)
+// with nothing written but out; pools in q's dtype.
+int mmlspark_pa_window_read(int dtype, int hd, const void* q,
+                            const void* k_new, const void* v_new,
+                            const void* k_pages, const void* v_pages,
+                            const int32_t* block_tables, const int32_t* pos,
+                            void* out, int B, int H, int W, int P, int page,
+                            float scale, void* stream) {
+  Args a{q, k_new, v_new, const_cast<void*>(k_pages),
+         const_cast<void*>(v_pages), nullptr, nullptr, block_tables, pos,
+         nullptr, nullptr, out, B, H, W, P, page, scale};
+  return int(plain_pools<kWindow>(dtype, hd, a,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// K5b. K5a over int8 (store 0) or fp8-e4m3 (store 1) pools with their
+// (N, H, page) bf16 scale pools, all only read.
+int mmlspark_pa_window_read_q(int dtype, int store, int hd, const void* q,
+                              const void* k_new, const void* v_new,
+                              const void* k_pages, const void* v_pages,
+                              const void* k_scale, const void* v_scale,
+                              const int32_t* block_tables,
+                              const int32_t* pos, void* out, int B, int H,
+                              int W, int P, int page, float scale,
+                              void* stream) {
+  Args a{q, k_new, v_new, const_cast<void*>(k_pages),
+         const_cast<void*>(v_pages), const_cast<void*>(k_scale),
+         const_cast<void*>(v_scale), block_tables, pos, nullptr, nullptr,
+         out, B, H, W, P, page, scale};
+  return int(quant_pools<kWindow>(dtype, store, hd, a,
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 const char* mmlspark_cuda_error_string(int err) {

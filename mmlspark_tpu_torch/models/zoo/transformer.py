@@ -16,6 +16,17 @@ holds the matrices already cast (the cast is then a no-op), a
 The paged functions update the page pools IN PLACE and return the same
 list (the JAX package returns fresh, donated buffers; a caller that
 rebinds sees the same thing).
+
+Tensor parallelism (``mesh=`` on :func:`prefill_cache` and the paged
+decode functions): JAX lays the params out with ``param_shardings`` and
+lets GSPMD partition one program; the port runs one process per rank of
+the mesh's ``tp`` axis, each holding :func:`shard_params`' Megatron
+slice (q/k/v by whole heads, ``w1`` by columns, ``out``/``w2`` by rows;
+embeddings, norms and ``lm_head`` replicated) and its head shard of the
+pages. The layer math is the same; the head count comes from the
+weights, and after each row-parallel projection (``out``, ``w2``) one
+``all_reduce`` (sum) runs on the ``tp`` group, whatever its size, before
+the bias is added once. The logits are then the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -25,16 +36,20 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...ops.flash_attention import flash_attention
 from ...ops.kv_quant import (SCALE_DTYPE, dequantize_kv, kv_store_dtype,
                              quantize_kv)
-from ...ops.paged_attention import _bits, paged_attention_window
+from ...ops.paged_attention import (_bits, _check_mesh_axes, _check_mount,
+                                    paged_attention_window)
+from ...parallel.mesh import axis_group
 from ...utils.device import resolve_device
 
 __all__ = ["TransformerConfig", "BERT_BASE", "BERT_MINI", "DECODER_MINI",
-           "init_transformer", "params_from_numpy", "transformer_apply",
+           "init_transformer", "params_from_numpy", "shard_params",
+           "transformer_apply",
            "loss_fn", "train_step", "tree_leaves", "prefill_cache",
            "decode_step_ragged", "decode_window_ragged",
            "init_paged_cache", "paged_gather",
@@ -167,6 +182,51 @@ def params_from_numpy(params: Dict, cfg: TransformerConfig,
     return out
 
 
+def shard_params(params: Dict, cfg: TransformerConfig, rank: int,
+                 tp: int) -> Dict:
+    """Rank ``rank`` of ``tp``'s Megatron slice of a numpy param tree
+    (the port of ``param_shardings`` / ``shardings_for`` as explicit
+    slices): q, k and v each keep the columns of heads
+    ``[rank·H/tp, (rank+1)·H/tp)``, so a rank's heads are whole (JAX's
+    ``P(None, "tp")`` on the fused ``qkv`` cuts its 3·d columns
+    contiguously instead and lets GSPMD reshard); ``w1`` keeps a block
+    of columns, ``out`` and ``w2`` the matching block of rows, their
+    biases whole (added once, after the reduce). Embeddings, norms and
+    ``lm_head`` are replicated. The result feeds
+    :func:`params_from_numpy`."""
+    _no_moe(cfg)
+    if cfg.heads % tp:
+        raise ValueError(f"heads {cfg.heads} not divisible by mesh tp={tp}")
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by mesh tp={tp}")
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside tp={tp}")
+    d, f = cfg.d_model // tp, cfg.d_ff // tp
+    hs, fs = slice(rank * d, (rank + 1) * d), slice(rank * f, (rank + 1) * f)
+
+    def qkv(a):
+        a = np.asarray(a)
+        return np.concatenate([a[..., i * cfg.d_model:][..., hs]
+                               for i in range(3)], axis=-1)
+
+    out = {"embed": dict(params["embed"]), "final_ln": params["final_ln"],
+           "lm_head": params["lm_head"], "layers": []}
+    for lp in params["layers"]:
+        if "moe" in lp:
+            raise NotImplementedError("MoE layers come with ROADMAP.md "
+                                      "slice 6 (multi-device)")
+        out["layers"].append({
+            "ln1": lp["ln1"], "ln2": lp["ln2"],
+            "qkv": {"w": qkv(lp["qkv"]["w"]), "b": qkv(lp["qkv"]["b"])},
+            "out": {"w": np.asarray(lp["out"]["w"])[hs],
+                    "b": lp["out"]["b"]},
+            "w1": {"w": np.asarray(lp["w1"]["w"])[:, fs],
+                   "b": np.asarray(lp["w1"]["b"])[fs]},
+            "w2": {"w": np.asarray(lp["w2"]["w"])[fs],
+                   "b": lp["w2"]["b"]}})
+    return out
+
+
 def gelu(x):
     """``jax.nn.gelu``'s default form: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -224,23 +284,49 @@ def _dense(x, p, dt):
 
 
 def _qkv_heads(x, lp, cfg, B, S):
+    """q, k, v as (B, heads, S, hd); the head count is the weights' (all
+    of ``cfg.heads``, or a rank's shard of them)."""
     hd = cfg.d_model // cfg.heads
-    q, k, v = _dense(x, lp["qkv"], cfg.dtype).split(cfg.d_model, dim=-1)
+    q, k, v = _dense(x, lp["qkv"], cfg.dtype).chunk(3, dim=-1)
 
     def heads(t):
-        return t.reshape(B, S, cfg.heads, hd).transpose(1, 2)
+        return t.reshape(B, S, -1, hd).transpose(1, 2)
 
     return heads(q), heads(k), heads(v)
 
 
-def _ffn_residual(h, lp, cfg, ctx, B, S):
-    """Output projection + residual, then the norm/FFN/residual half."""
+def _row_dense(x, p, dt, group):
+    """``x @ w + b`` for a row-parallel projection: with a ``tp`` group
+    the rank's partial product is summed over the group (always, even a
+    group of one) and the whole bias is added once, after the sum."""
+    if group is None:
+        return _dense(x, p, dt)
+    y = x @ p["w"].to(dt)
+    dist.all_reduce(y, group=group)
+    return y + p["b"].to(dt)
+
+
+def _ffn_residual(h, lp, cfg, ctx, B, S, group=None):
+    """Output projection + residual, then the norm/FFN/residual half;
+    ``group`` is the ``tp`` group that sums the row-parallel halves."""
     dt = cfg.dtype
-    ctx = ctx.transpose(1, 2).reshape(B, S, cfg.d_model)
-    h = h + _dense(ctx, lp["out"], dt)
+    ctx = ctx.transpose(1, 2).reshape(B, S, -1)
+    h = h + _row_dense(ctx, lp["out"], dt, group)
     x = _norm(h.float(), lp["ln2"], cfg).to(dt)
     y = gelu(_dense(x, lp["w1"], dt))
-    return h + _dense(y, lp["w2"], dt)
+    return h + _row_dense(y, lp["w2"], dt, group)
+
+
+def _mesh_group(mesh, cfg: TransformerConfig, B: int, slot_axis=None,
+                head_axis=None):
+    """The ``tp`` group the layer loop reduces over (None without a mesh
+    or a head axis), after checking that the mesh divides the heads and
+    shards no slots."""
+    if mesh is None:
+        return None
+    _check_mount(mesh, B, cfg.heads, slot_axis, head_axis)
+    _check_mesh_axes(mesh, slot_axis, head_axis)
+    return None if head_axis is None else axis_group(mesh, head_axis)
 
 
 def _attend(q, k, v, ok, dt):
@@ -377,15 +463,19 @@ def train_step(params, opt_state, ids, labels, cfg: TransformerConfig,
 
 
 def prefill_cache(params: Dict, ids: torch.Tensor, length,
-                  cfg: TransformerConfig, max_len: int):
+                  cfg: TransformerConfig, max_len: int, mesh=None,
+                  head_axis: Optional[str] = "tp"):
     """Batched prompt prefill: ONE causal forward over the (padded) prompt
     (dense attention in plain torch, as the reference leaves it to XLA),
     capturing every layer's K/V into ``max_len`` buffers, plus the logits
     at the last real token.
 
     ``ids`` (B, P) right-padded, ``length`` (B,) real lengths → (logits
-    (B, vocab) f32, cache list of {"k","v"} (B, H, max_len, hd))."""
+    (B, vocab) f32, cache list of {"k","v"} (B, H, max_len, hd)). Under a
+    ``mesh`` (with :func:`shard_params` weights) the cache holds the
+    rank's heads and each layer runs two all-reduces over ``head_axis``."""
     dt = cfg.dtype
+    group = _mesh_group(mesh, cfg, ids.shape[0], None, head_axis)
     B, P = ids.shape
     if P > max_len:
         raise ValueError(f"prompt {P} exceeds cache max_len {max_len}")
@@ -404,7 +494,7 @@ def prefill_cache(params: Dict, ids: torch.Tensor, length,
         pad = (0, 0, 0, max_len - P)
         cache.append({"k": F.pad(k.to(dt), pad), "v": F.pad(v.to(dt), pad)})
         ctx = _attend(q, k, v, attn_ok, dt)
-        h = _ffn_residual(h, lp, cfg, ctx, B, P)
+        h = _ffn_residual(h, lp, cfg, ctx, B, P, group)
     hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
     last = hidden[torch.arange(B, device=dev), length - 1]
     logits = last.float() @ params["lm_head"]["w"]
@@ -413,13 +503,15 @@ def prefill_cache(params: Dict, ids: torch.Tensor, length,
 
 def decode_window_ragged(params: Dict, tokens: torch.Tensor,
                          pos: torch.Tensor, cache, cfg: TransformerConfig,
-                         active: Optional[torch.Tensor] = None):
+                         active: Optional[torch.Tensor] = None, group=None):
     """Cached forward over a window of W tokens per row at per-row start
     positions: ``tokens`` (B, W), ``pos`` (B,) → (logits (B, W, vocab)
     f32, new cache). Row b's query j sits at ``pos[b] + j``, attends
     cached keys ``<= pos[b] + j``, and the window's K/V land at
     ``pos[b]..pos[b]+W-1``. Inactive rows keep their cache untouched.
-    Functional: the input cache is not modified."""
+    Functional: the input cache is not modified. ``group``: the ``tp``
+    group of a rank holding :func:`shard_params` weights and its heads
+    of the cache."""
     dt = cfg.dtype
     B, W = tokens.shape
     L = cache[0]["k"].shape[2]
@@ -450,7 +542,7 @@ def decode_window_ragged(params: Dict, tokens: torch.Tensor,
             vc = torch.where(keep, vc, c["v"])
         new_cache.append({"k": kc, "v": vc})
         ctx = _attend(q, kc, vc, key_ok, dt)
-        h = _ffn_residual(h, lp, cfg, ctx, B, W)
+        h = _ffn_residual(h, lp, cfg, ctx, B, W, group)
     hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
     logits = hidden.float() @ params["lm_head"]["w"]
     return logits, new_cache
@@ -458,13 +550,13 @@ def decode_window_ragged(params: Dict, tokens: torch.Tensor,
 
 def decode_step_ragged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                        cache, cfg: TransformerConfig,
-                       active: Optional[torch.Tensor] = None):
+                       active: Optional[torch.Tensor] = None, group=None):
     """One incremental decode step at per-row positions: ``tokens`` (B,),
     ``pos`` (B,) → (logits (B, vocab) f32, new cache) — the W = 1 case of
     :func:`decode_window_ragged` (one layer loop keeps the two paths
     identical)."""
     logits, new = decode_window_ragged(params, tokens[:, None], pos, cache,
-                                       cfg, active)
+                                       cfg, active, group)
     return logits[:, 0], new
 
 
@@ -584,12 +676,16 @@ def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
 def _decode_window_paged_kernel(params: Dict, tokens: torch.Tensor,
                                 pos: torch.Tensor, cache_pages,
                                 block_tables, cfg: TransformerConfig,
-                                active: Optional[torch.Tensor]):
+                                active: Optional[torch.Tensor], mesh=None,
+                                slot_axis=None, head_axis="tp"):
     """The kernel layer loop: the same embedding / rope / projection / FFN
     math as :func:`decode_window_ragged`, with attention reading the pages
-    in place and writing the window's fresh rows in the same launch."""
+    in place and writing the window's fresh rows in the same launch (K1,
+    K2) — or, under a mesh, reading the rank's head shard through K5a/K5b
+    with the rows written after the kernel."""
     dt = cfg.dtype
     B, W = tokens.shape
+    group = _mesh_group(mesh, cfg, B, slot_axis, head_axis)
     hd = cfg.d_model // cfg.heads
     dev = tokens.device
     pos = pos.to(torch.int32)
@@ -610,8 +706,9 @@ def _decode_window_paged_kernel(params: Dict, tokens: torch.Tensor,
                   if _is_quant_cache(c) else {})
         ctx = paged_attention_window(
             q.contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous(),
-            c["k"], c["v"], bt, pos, active=active, **scales)[0]
-        h = _ffn_residual(h, lp, cfg, ctx, B, W)
+            c["k"], c["v"], bt, pos, active=active, mesh=mesh,
+            slot_axis=slot_axis, head_axis=head_axis, **scales)[0]
+        h = _ffn_residual(h, lp, cfg, ctx, B, W, group)
     hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
     logits = hidden.float() @ params["lm_head"]["w"]
     return logits, cache_pages
@@ -628,21 +725,30 @@ def decode_step_paged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                       cache_pages, block_tables, cfg: TransformerConfig, *,
                       page_size: int, length: int,
                       active: Optional[torch.Tensor] = None,
-                      impl: str = "kernel"):
+                      impl: str = "kernel", mesh=None, slot_axis=None,
+                      head_axis="tp"):
     """One paged decode step → (logits (B, vocab) f32, pools updated in
     place). ``impl="kernel"`` (default) attends through the hand-written
     kernel; ``impl="gather"`` gathers to contiguous (``length`` keys),
     runs :func:`decode_step_ragged` and writes the one new position per
-    row back — the oracle. Nothing else selects the implementation."""
+    row back — the oracle. Nothing else selects the implementation.
+
+    Under a ``mesh`` (heads over ``head_axis``, default ``"tp"``)
+    ``params`` is this rank's :func:`shard_params` slice and
+    ``cache_pages`` its head shard: the kernel path reads through
+    K5a/K5b, the gather path gathers the rank's heads, and both reduce
+    over the ``tp`` group. ``head_axis=None`` means replicated weights
+    and heads (no reduce)."""
     if _check_impl(impl) == "kernel":
         logits, pages = _decode_window_paged_kernel(
             params, tokens[:, None], pos, cache_pages, block_tables, cfg,
-            active)
+            active, mesh, slot_axis, head_axis)
         return logits[:, 0], pages
+    group = _mesh_group(mesh, cfg, tokens.shape[0], slot_axis, head_axis)
     gathered = paged_gather(cache_pages, block_tables, length,
                             out_dtype=cfg.dtype)
     logits, new = decode_step_ragged(params, tokens, pos, gathered, cfg,
-                                     active)
+                                     active, group)
     pages = _paged_writeback(cache_pages, new, block_tables,
                              pos.long()[:, None], page_size, active)
     return logits, pages
@@ -652,20 +758,23 @@ def decode_window_paged(params: Dict, tokens: torch.Tensor,
                         pos: torch.Tensor, cache_pages, block_tables,
                         cfg: TransformerConfig, *, page_size: int,
                         length: int, active: Optional[torch.Tensor] = None,
-                        impl: str = "kernel"):
+                        impl: str = "kernel", mesh=None, slot_axis=None,
+                        head_axis="tp"):
     """Paged window decode — the chunked-prefill and prefix-extend
     primitive. Row b's window writes positions ``pos[b]..pos[b]+W-1``
-    into its pages (each must be < ``length``). ``impl`` as in
-    :func:`decode_step_paged`."""
+    into its pages (each must be < ``length``). ``impl`` and ``mesh`` as
+    in :func:`decode_step_paged`."""
     if _check_impl(impl) == "kernel":
         return _decode_window_paged_kernel(params, tokens, pos, cache_pages,
-                                           block_tables, cfg, active)
+                                           block_tables, cfg, active, mesh,
+                                           slot_axis, head_axis)
+    group = _mesh_group(mesh, cfg, tokens.shape[0], slot_axis, head_axis)
     W = tokens.shape[1]
     wpos = pos.long()[:, None] + torch.arange(W, device=tokens.device)
     gathered = paged_gather(cache_pages, block_tables, length,
                             out_dtype=cfg.dtype)
     logits, new = decode_window_ragged(params, tokens, pos, gathered, cfg,
-                                       active)
+                                       active, group)
     pages = _paged_writeback(cache_pages, new, block_tables, wpos,
                              page_size, active)
     return logits, pages

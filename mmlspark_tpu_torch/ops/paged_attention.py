@@ -1,9 +1,10 @@
 """Paged attention over the KV page pool (counterpart of
-``ops/paged_attention.py``, single device): the fused decode-window
-kernel with its in-launch page scatter, on plain or quantized pages, and
-the read-only sweep, on plain or quantized pages.
+``ops/paged_attention.py``): the fused decode-window kernel with its
+in-launch page scatter, the read-only sweep, and the mesh mount's
+window read whose page writes run outside the kernel, each on plain or
+quantized pages.
 
-Four kernels, each with its plain PyTorch version beside it and its own
+Six kernels, each with its plain PyTorch version beside it and its own
 launch count; all are written by hand in ``csrc/paged_attention.cu``:
 
 ============  ==============================  ================================
@@ -18,11 +19,17 @@ K3            :func:`paged_attention`         ``_pa_read_kernel``
               (``.launches``)
 K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
               scales (``.launches_q``)
+K5a           :func:`paged_attention_window`  ``_pa_window_kernel``
+              with ``mesh=``
+              (``.launches_window``)
+K5b           the same with scales            ``_pa_window_kernel_q``
+              (``.launches_window_q``)
 ============  ==============================  ================================
 
-* :func:`paged_attention_window_plain` and :func:`paged_attention_plain`
-  are the plain versions. CPU tensors take them; the card's kernels are
-  held against them.
+* :func:`paged_attention_window_plain`,
+  :func:`paged_attention_window_read_plain` and
+  :func:`paged_attention_plain` are the plain versions. CPU tensors take
+  them; the card's kernels are held against them.
 * The wrappers run the plain version for CPU tensors and the kernel for
   CUDA tensors, or raise; there is no fallback.
 
@@ -32,6 +39,15 @@ rebinds). Quantized pools hold int8 or ``float8_e4m3fn`` codes with one
 bf16 scale per (page, head, position); reads dequantize as
 ``f32(code) * f32(scale)`` and the fused scatter quantizes each fresh row
 by the rules of :func:`~mmlspark_tpu_torch.ops.kv_quant.quantize_kv`.
+
+The mesh mount (``mesh=``): JAX mounts the kernel with ``shard_map``
+over global arrays; the port runs one process per rank, so the caller
+passes its RANK-LOCAL q / k_new / v_new and its head shard of the pools
+(every rank of a ``tp`` group holds ``H / tp`` heads of every page). The
+window op then reads through K5a/K5b and writes the fresh rows with
+:func:`_pool_write_rows` / :func:`_pool_write_rows_quant` outside the
+kernel, bytes identical to the fused scatter's; the read-only op runs
+K3/K4 on the shard. No collective runs inside either.
 
 Page-size rule on Hopper: none. The kernels tile the logical key space
 in 32-key tiles and look each key's page up on its own, so any
@@ -47,11 +63,12 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import axis_size, mesh_shape
 from .kv_quant import SCALE_DTYPE, quantize_kv
 
 __all__ = ["paged_attention", "paged_attention_plain",
            "paged_attention_window", "paged_attention_window_plain",
-           "write_range"]
+           "paged_attention_window_read_plain", "write_range"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,25 +119,23 @@ def _softmax_ctx(s, valid, v, out_dtype):
     return (ctx / torch.where(l_ == 0, 1.0, l_)).to(out_dtype)
 
 
-def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
-                                 block_tables, pos, wlo, whi, scale: float,
-                                 k_scale=None, v_scale=None):
-    """Plain PyTorch version of the fused kernels (K1; K2 with scales),
-    same arguments and the same in-place page (and scale) update.
-    Returns ctx (B, H, W, hd) in ``q.dtype``.
+def paged_attention_window_read_plain(q, k_new, v_new, k_pages, v_pages,
+                                      block_tables, pos, scale: float,
+                                      k_scale=None, v_scale=None):
+    """Plain PyTorch version of the window read (K5a; K5b with scales):
+    the fused kernels' attention with nothing written. Returns ctx
+    (B, H, W, hd) in ``q.dtype``; the pools are only read.
 
     Cached keys at or past ``pos[b]`` are masked AND zeroed after the
     dequant, so garbage codes or scales in unwritten slots never reach
-    ``p · v``. The window's own rows are attended unquantized; they are
-    quantized only on their way into the pool."""
+    ``p · v``. The window's own rows are attended unquantized."""
     B, H, W, hd = q.shape
     page = k_pages.shape[2]
     P = block_tables.shape[1]
     dev = q.device
     bt = block_tables.long()
-    posl = pos.long()
     L = P * page
-    key_ok = torch.arange(L, device=dev)[None] < posl[:, None]      # (B, L)
+    key_ok = torch.arange(L, device=dev)[None] < pos.long()[:, None]  # (B, L)
     kc = torch.where(key_ok[:, None, :, None],
                      _gather_rows(k_pages, k_scale, bt), 0.0)
     vc = torch.where(key_ok[:, None, :, None],
@@ -131,8 +146,28 @@ def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
     causal = torch.tril(torch.ones(W, W, dtype=torch.bool, device=dev))
     valid = torch.cat([key_ok[:, None, None, :].expand(B, 1, W, L),
                        causal[None, None].expand(B, 1, W, W)], dim=-1)
-    ctx = _softmax_ctx(torch.cat([s_c, s_w], dim=-1), valid,
-                       torch.cat([vc, v_new.float()], dim=2), q.dtype)
+    return _softmax_ctx(torch.cat([s_c, s_w], dim=-1), valid,
+                        torch.cat([vc, v_new.float()], dim=2), q.dtype)
+
+
+def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
+                                 block_tables, pos, wlo, whi, scale: float,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch version of the fused kernels (K1; K2 with scales),
+    same arguments and the same in-place page (and scale) update:
+    :func:`paged_attention_window_read_plain`'s context, then each row's
+    fresh rows scattered into the pages of its write range [wlo, whi]
+    (empty for an inactive row). Returns ctx (B, H, W, hd) in
+    ``q.dtype``."""
+    W = q.shape[2]
+    page = k_pages.shape[2]
+    P = block_tables.shape[1]
+    dev = q.device
+    bt = block_tables.long()
+    posl = pos.long()
+    ctx = paged_attention_window_read_plain(q, k_new, v_new, k_pages,
+                                            v_pages, block_tables, pos,
+                                            scale, k_scale, v_scale)
     # the scatter: window row j of an active row lands at position pos+j
     t = posl[:, None] + torch.arange(W, device=dev)[None]            # (B, W)
     lp = torch.div(t, page, rounding_mode="floor")
@@ -172,6 +207,110 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
     return _softmax_ctx(s, key_ok[:, None, None, :], vc, q.dtype)
 
 
+def _row_slots(block_tables, pos, W: int, page: int, active):
+    """(physical page, offset) of each row's W window positions, flat in
+    (row, j) order, as the JAX writers compute them: the page through
+    the block table, the offset ``(pos + j) % page``. Inactive rows, and
+    positions past the block table's width, go to trash page 0."""
+    P = block_tables.shape[1]
+    wpos = pos.long()[:, None] + torch.arange(W, device=pos.device)  # (B, W)
+    lp = torch.div(wpos, page, rounding_mode="floor")
+    phys = torch.gather(block_tables.long(), 1, lp.clamp(max=P - 1))
+    keep = lp < P
+    if active is not None:
+        keep = keep & active[:, None]
+    phys = torch.where(keep, phys, torch.zeros_like(phys))
+    return phys.reshape(-1), (wpos % page).reshape(-1)
+
+
+def _put_rows(pool, rows, pf, of):
+    """``pool[pf, :, of] = rows`` for (B, H, W, hd) rows flattened in
+    (row, j) order, in the pool's dtype."""
+    B, H, W, hd = rows.shape
+    pool[pf, :, of] = rows.transpose(1, 2).reshape(B * W, H, hd).to(
+        pool.dtype)
+
+
+def _put_rows_quant(pool, scales, rows, pf, of):
+    """:func:`_put_rows` through
+    :func:`~mmlspark_tpu_torch.ops.kv_quant.quantize_kv`: codes into the
+    pool, the per-head scales into the (N, H, page) scale pool."""
+    B, H, W, hd = rows.shape
+    codes, sc = quantize_kv(rows.transpose(1, 2).reshape(B * W, H, hd),
+                            pool.dtype)
+    _bits(pool)[pf, :, of] = _bits(codes)
+    scales[pf, :, of] = sc.to(scales.dtype)
+
+
+def _pool_write_rows(pool, rows, block_tables, pos, active):
+    """Scatter each row's W fresh K/V rows (B, H, W, hd) into their pages
+    IN PLACE — the mesh path's page write, outside the kernel (JAX
+    ``_pool_write_rows``). The bytes equal the fused kernel's in-launch
+    scatter and the gather path's writeback; inactive rows write trash
+    page 0. Returns ``pool``."""
+    _put_rows(pool, rows, *_row_slots(block_tables, pos, rows.shape[2],
+                                      pool.shape[2], active))
+    return pool
+
+
+def _pool_write_rows_quant(pool, scales, rows, block_tables, pos, active):
+    """Quantizing twin of :func:`_pool_write_rows` (JAX
+    ``_pool_write_rows_quant``): each (H, hd) row goes through
+    :func:`~mmlspark_tpu_torch.ops.kv_quant.quantize_kv` and its per-head
+    scale lands in the (N, H, page) scale pool at the same (page,
+    offset). Both pools are updated IN PLACE; returns (pool, scales)."""
+    _put_rows_quant(pool, scales, rows, *_row_slots(
+        block_tables, pos, rows.shape[2], pool.shape[2], active))
+    return pool, scales
+
+
+def _mount_writes(k_new, v_new, pools, block_tables, pos, active):
+    """The mesh mount's page writes after the window read: the K and V
+    rows (codes and scales when ``pools`` holds scale pools too) at one
+    set of (page, offset) slots — :func:`_pool_write_rows(_quant)
+    <_pool_write_rows>` for K and for V, with the slots computed once."""
+    pf, of = _row_slots(block_tables, pos, k_new.shape[2], pools[0].shape[2],
+                        active)
+    if len(pools) == 4:
+        _put_rows_quant(pools[0], pools[2], k_new, pf, of)
+        _put_rows_quant(pools[1], pools[3], v_new, pf, of)
+    else:
+        _put_rows(pools[0], k_new, pf, of)
+        _put_rows(pools[1], v_new, pf, of)
+
+
+def _check_mount(mesh, B: int, H: int, slot_axis, head_axis):
+    """The mesh's axes must divide the GLOBAL heads ``H`` (``head_axis``)
+    and rows ``B`` (``slot_axis``), as in the JAX mount; callers that
+    know the global shapes (the model's layer loops, the engine) check
+    here."""
+    if head_axis is not None:
+        tp = axis_size(mesh, head_axis)
+        if H % tp:
+            raise ValueError(
+                f"heads {H} not divisible by mesh {head_axis}={tp}")
+    if slot_axis is not None:
+        dp = axis_size(mesh, slot_axis)
+        if B % dp:
+            raise ValueError(
+                f"batch {B} not divisible by mesh {slot_axis}={dp}")
+
+
+def _check_mesh_axes(mesh, slot_axis, head_axis) -> None:
+    """What the port's mount takes: a head axis the mesh names, and no
+    slot sharding (rows over ``dp`` need the fresh rows of every dp shard
+    on every replica: ROADMAP.md, slice 6 leftovers)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    for name in (slot_axis, head_axis):
+        if name is not None and name not in names:
+            raise ValueError(f"mesh {mesh_shape(mesh)} has no axis {name!r}")
+    if slot_axis is not None and axis_size(mesh, slot_axis) > 1:
+        raise NotImplementedError(
+            f"slot sharding over {slot_axis}={axis_size(mesh, slot_axis)} "
+            f"is not ported to mmlspark_tpu_torch yet (queued in "
+            f"ROADMAP.md, 'Slice 6 leftovers')")
+
+
 def _library():
     from ..utils.cuda_build import load_library
     lib = load_library("paged_attention")
@@ -183,8 +322,13 @@ def _library():
             + shape
         lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
         lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
+        lib.mmlspark_pa_window_read.argtypes = [ci, ci] + [vp] * 8 + shape
+        lib.mmlspark_pa_window_read_q.argtypes = [ci, ci, ci] + [vp] * 10 \
+            + shape
         for fn in (lib.mmlspark_pa_window_fused, lib.mmlspark_pa_window_fused_q,
-                   lib.mmlspark_pa_read, lib.mmlspark_pa_read_q):
+                   lib.mmlspark_pa_read, lib.mmlspark_pa_read_q,
+                   lib.mmlspark_pa_window_read,
+                   lib.mmlspark_pa_window_read_q):
             fn.restype = ci
         lib.mmlspark_cuda_error_string.argtypes = [ci]
         lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
@@ -276,9 +420,48 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
+def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
+                 k_scale=None, v_scale=None):
+    """The window read (K5a; K5b with scales) on checked, int32,
+    contiguous arguments: :func:`paged_attention_window_read_plain` for
+    CPU tensors, the kernel for CUDA tensors, counted in
+    ``paged_attention_window.launches_window`` (K5a) or
+    ``.launches_window_q`` (K5b). The pools are only read."""
+    if q.device.type == "cpu":
+        return paged_attention_window_read_plain(
+            q, k_new, v_new, k_pages, v_pages, bt, pos, scale, k_scale,
+            v_scale)
+    _cuda_ready(q)
+    B, H, W, hd = q.shape
+    lib = _library()
+    out = torch.empty_like(q)
+    shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if k_scale is not None:
+            err = lib.mmlspark_pa_window_read_q(
+                _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                bt.data_ptr(), pos.data_ptr(), out.data_ptr(), *shape, stream)
+        else:
+            err = lib.mmlspark_pa_window_read(
+                _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
+                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                bt.data_ptr(), pos.data_ptr(), out.data_ptr(), *shape, stream)
+    _raise_on(lib, err, "window paged attention")
+    if k_scale is not None:
+        paged_attention_window.launches_window_q += 1
+    else:
+        paged_attention_window.launches_window += 1
+    return out
+
+
 def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
                            pos, *, active=None, k_scale=None, v_scale=None,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, mesh=None,
+                           slot_axis: Optional[str] = None,
+                           head_axis: Optional[str] = None):
     """Fused decode-window attention + page scatter.
 
     Row ``b``'s W queries ``q`` (B, H, W, hd) sit at absolute positions
@@ -300,7 +483,17 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     launch the hand-written kernel (K1, or K2 with scales) on the current
     stream and count the launch in ``paged_attention_window.launches``
     (K1) or ``.launches_q`` (K2); anything the kernel does not take
-    raises."""
+    raises.
+
+    With ``mesh=`` (a ``DeviceMesh``; heads over ``head_axis``) the
+    arguments are this rank's: its heads of q / k_new / v_new and its
+    head shard of the pools. The attention then runs READ-ONLY (K5a, or
+    K5b with scales, counted in ``.launches_window`` /
+    ``.launches_window_q``; the window-read plain version on the CPU)
+    and the fresh rows are written after it by :func:`_pool_write_rows`
+    / :func:`_pool_write_rows_quant`, the same bytes the fused scatter
+    writes; inactive rows write trash page 0. ``slot_axis`` of size > 1
+    raises NotImplementedError."""
     _check(q, k_pages, v_pages, block_tables, pos, k_new=k_new, v_new=v_new,
            k_scale=k_scale, v_scale=v_scale)
     B, H, W, hd = q.shape
@@ -310,8 +503,14 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
         scale = 1.0 / math.sqrt(hd)
     pos = pos.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
-    wlo, whi = write_range(pos, W, page, active)
     pools = (k_pages, v_pages) + ((k_scale, v_scale) if quant else ())
+    if mesh is not None:
+        _check_mesh_axes(mesh, slot_axis, head_axis)
+        ctx = _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos,
+                           float(scale), k_scale, v_scale)
+        _mount_writes(k_new, v_new, pools, bt, pos, active)
+        return (ctx,) + pools
+    wlo, whi = write_range(pos, W, page, active)
     if q.device.type == "cpu":
         ctx = paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
                                            bt, pos, wlo, whi, float(scale),
@@ -344,15 +543,20 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     return (out,) + pools
 
 
-#: kernel launches since the last reset: K1 (``launches``) and K2
-#: (``launches_q``); the plain CPU path never counts
+#: kernel launches since the last reset: K1 (``launches``), K2
+#: (``launches_q``), K5a (``launches_window``) and K5b
+#: (``launches_window_q``); the plain CPU path never counts
 paged_attention_window.launches = 0
 paged_attention_window.launches_q = 0
+paged_attention_window.launches_window = 0
+paged_attention_window.launches_window_q = 0
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     k_scale=None, v_scale=None,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, mesh=None,
+                    slot_axis: Optional[str] = None,
+                    head_axis: Optional[str] = None):
     """Read-only paged attention: queries ``q`` (B, H, W, hd) attend the
     first ``lengths[b]`` cached keys of row ``b``, read in place from the
     (N, H, page, hd) pools through ``block_tables`` (B, P); every query of
@@ -363,9 +567,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
 
     CPU tensors run :func:`paged_attention_plain`. CUDA tensors launch
     the hand-written kernel (K3, or K4 with scales) and count it in
-    ``paged_attention.launches`` (K3) or ``.launches_q`` (K4)."""
+    ``paged_attention.launches`` (K3) or ``.launches_q`` (K4).
+
+    With ``mesh=`` the arguments are this rank's head shard (q's heads
+    and the pools' heads over ``head_axis``); the sweep runs on the shard
+    as it is, with no collective. ``slot_axis`` of size > 1 raises
+    NotImplementedError."""
     _check(q, k_pages, v_pages, block_tables, lengths, k_scale=k_scale,
            v_scale=v_scale)
+    if mesh is not None:
+        _check_mesh_axes(mesh, slot_axis, head_axis)
     B, H, W, hd = q.shape
     page = k_pages.shape[2]
     quant = k_scale is not None

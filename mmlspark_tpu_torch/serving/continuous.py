@@ -1,5 +1,5 @@
 """Continuous batching for autoregressive decoding (counterpart of
-``serving/continuous.py:110-2180``, single device, no speculation).
+``serving/continuous.py:110-2180``, no speculation).
 
 * a **static slot pool** — every occupied slot advances at its own
   position in the same decode step, so requests join mid-flight;
@@ -21,6 +21,16 @@ PyTorch runs eagerly, so the reference's ``lru_cache``/``jax.jit``
 program factories are plain methods here; the device work is ordered on
 one CUDA stream and the host only waits at a drain (one device→host copy
 per drained block) or when it uploads host state.
+
+**Tensor-parallel serving** (``mesh=``, a ``DeviceMesh`` naming ``"tp"``,
+or ``("dp", "tp")`` with dp = 1): one process per rank, every rank
+running this same engine with the same ``submit``/``step`` calls in the
+same order. The host scheduler is deterministic, so every rank keeps the
+same block tables; each rank holds its ``shard_params`` slice of the
+weights and its ``heads / tp`` shard of the pool, and the layer loop
+all-reduces over the ``tp`` group after each row-parallel projection, so
+every rank computes the same logits and tokens. Slot sharding over
+``dp > 1`` is not ported.
 
 Greedy decoding is the parity-tested mode: each request's tokens equal
 the reference's ``generate_cached`` on its prompt alone. Sampled decoding
@@ -44,11 +54,12 @@ import torch
 from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
                                       decode_step_paged, decode_window_paged,
                                       paged_scatter_rows, params_from_numpy,
-                                      prefill_cache)
+                                      prefill_cache, shard_params)
 from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
                             resolve_kv_dtype)
 from ..ops.padding import bucket_size
 from ..ops.paged_attention import _bits
+from ..parallel.mesh import axis_rank, axis_size, mesh_shape
 from ..utils.device import resolve_device
 from .kv_pool import PagedKVPool, PoolExhausted, prefix_hash as _prefix_hash
 
@@ -132,7 +143,13 @@ class ContinuousDecoder:
 
     ``kv_dtype="int8"|"fp8"`` stores the pages quantized; every
     ``quant_probe``-th insert of prefill rows (0 = never) measures their
-    round-trip error into the pool's ``quant_error_*`` stats."""
+    round-trip error into the pool's ``quant_error_*`` stats (on a mesh,
+    of this rank's heads).
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``, over a
+    world from ``parallel.distributed.initialize``) serves tensor
+    parallel: heads over ``"tp"``; every rank must run the same calls.
+    A ``"dp"`` axis larger than 1 raises NotImplementedError."""
 
     def __init__(self, params: Dict, cfg: TransformerConfig, *,
                  device=None,
@@ -153,8 +170,11 @@ class ContinuousDecoder:
                  mesh=None, journal=None):
         if draft_params is not None:
             raise _not_ported("speculative decoding (draft_params)")
-        if mesh is not None:
-            raise _not_ported("the meshed decoder (mesh)")
+        if mesh is not None and axis_size(mesh, "dp") > 1:
+            raise NotImplementedError(
+                f"slot sharding over dp={axis_size(mesh, 'dp')} is not "
+                f"ported to mmlspark_tpu_torch yet (queued in ROADMAP.md, "
+                f"'Slice 6 leftovers')")
         if prefill_ahead:
             raise _not_ported("prefill-ahead staging (prefill_ahead > 0)")
         if journal is not None:
@@ -190,6 +210,16 @@ class ContinuousDecoder:
         self._k = int(steps_per_dispatch)
         self._depth = int(pipeline_depth)
         self._attn_impl = paged_attn
+        #: the mesh, its head axis ("tp" when the mesh names one; no slot
+        #: axis is sharded here), and its shape string ("tp2")
+        self._mesh = mesh
+        self._head_axis = ("tp" if mesh is not None
+                           and "tp" in (mesh.mesh_dim_names or ())
+                           else None)
+        self._mesh_shape = mesh_shape(mesh)
+        tp = axis_size(mesh, "tp")
+        if self._head_axis is not None:
+            params = shard_params(params, cfg, axis_rank(mesh, "tp"), tp)
         self._params = params_from_numpy(params, cfg, self._dev)
         #: (device token block (rows, cols), {col: (slot, request)} at
         #: dispatch time) per outstanding dispatch, oldest first
@@ -206,7 +236,7 @@ class ContinuousDecoder:
                 f"({self._P_max} pages + the trash page)")
         self._kv = PagedKVPool(cfg, num_pages=int(kv_pages),
                                page_size=self._page, kv_dtype=self._kv_dtype,
-                               device=self._dev)
+                               device=self._dev, tp=tp)
         self._chunk = int(prefill_chunk)
         self._defrag_thr = (max(1, self._kv.num_pages // 4)
                             if defrag_threshold is None
@@ -216,10 +246,11 @@ class ContinuousDecoder:
         #: host seconds of each step() that dispatched decode work
         self.tick_seconds: collections.deque = collections.deque(maxlen=4096)
         # per-call KV bytes of one sweep at worst-case length: what the
-        # gather impl copies to materialize contiguous K/V (0 for the kernel)
-        self._gather_bytes_tick = self._S * self._L * \
-            self._kv.bytes_per_position()
-        self._gather_bytes_extend = self._L * self._kv.bytes_per_position()
+        # gather impl copies to materialize contiguous K/V (0 for the
+        # kernel), over all shards, as one device counts it
+        bpp = self._kv.bytes_per_position_global()
+        self._gather_bytes_tick = self._S * self._L * bpp
+        self._gather_bytes_extend = self._L * bpp
         self._slot_req: List[Optional[_Request]] = [None] * self._S
         self._waiting: List[_Request] = []
         self._lock = threading.Lock()          # guards _waiting/_next_rid
@@ -397,7 +428,7 @@ class ContinuousDecoder:
             lengths[i] = r.prompt.size
         logits, row_cache = prefill_cache(self._params, self._h2d(ids),
                                           self._h2d(lengths), self._cfg,
-                                          self._L)
+                                          self._L, **self._tp_kw())
         self.stats["prefills"] += 1
         return logits, row_cache
 
@@ -545,6 +576,13 @@ class ContinuousDecoder:
         ids[0, :tokens.size] = tokens
         return ids
 
+    def _tp_kw(self) -> dict:
+        """The mesh arguments of the model calls: heads only (a slot axis
+        is never sharded here, and an extend's one row could not be)."""
+        if self._mesh is None:
+            return {}
+        return {"mesh": self._mesh, "head_axis": self._head_axis}
+
     def _extend(self, ids: np.ndarray, start: int, slot: int):
         """Window forward over one slot's pages (prefix suffix or prefill
         chunk); returns the window logits (1, W, vocab)."""
@@ -552,7 +590,7 @@ class ContinuousDecoder:
             self._params, self._h2d(ids), self._h2d([start], np.int32),
             self._kv.buffers, self._bt[slot:slot + 1], self._cfg,
             page_size=self._page, length=self._L, active=None,
-            impl=self._attn_impl)
+            impl=self._attn_impl, **self._tp_kw())
         self._kv.note_attn_tick(
             self._attn_impl,
             gather_bytes=(self._gather_bytes_extend
@@ -614,7 +652,7 @@ class ContinuousDecoder:
         ids = self._padded_ids(req.prompt, self._L)
         logits, row_cache = prefill_cache(
             self._params, self._h2d(ids), self._h2d([P], np.int32),
-            self._cfg, self._L)
+            self._cfg, self._L, **self._tp_kw())
         self.stats["prefills"] += 1
         self._insert_chunk_locked([(slot, req)], logits, row_cache)
         if self._prefix_store_cap > 0:
@@ -733,7 +771,7 @@ class ContinuousDecoder:
             logits, _ = decode_step_paged(
                 self._params, tok, pos, self._kv.buffers, self._bt,
                 self._cfg, page_size=self._page, length=self._L,
-                active=active, impl=self._attn_impl)
+                active=active, impl=self._attn_impl, **self._tp_kw())
             if sample:
                 nxt = self._pick(logits, self._temp, self._topk, self._topp,
                                  gens)

@@ -40,7 +40,10 @@ class _InFlight:
 class GenerationEngine:
     """Serve ``{"tokens": [...], "max_new": N}`` → ``{"tokens": [...]}``
     over a :class:`ContinuousDecoder` slot pool. ``device=None`` means
-    the CUDA card (and raises without one)."""
+    the CUDA card (and raises without one). ``mesh`` must be None: a
+    meshed front needs rank 0 to broadcast its submissions to the other
+    ranks, which is not ported (ROADMAP.md, 'Slice 6 leftovers'); drive
+    a meshed ``ContinuousDecoder`` on every rank instead."""
 
     def __init__(self, params, cfg, *, device=None, max_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -51,7 +54,11 @@ class GenerationEngine:
                  steps_per_dispatch: int = 1,
                  pipeline_depth: int = 2,
                  page_size: int = 16, prefill_chunk: int = 256,
-                 kv_pages: Optional[int] = None):
+                 kv_pages: Optional[int] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "GenerationEngine(mesh=) is not ported to mmlspark_tpu_torch "
+                "yet (queued in ROADMAP.md, 'Slice 6 leftovers')")
         self.decoder = ContinuousDecoder(
             params, cfg, device=device, max_slots=max_slots,
             max_len=max_len, eos_id=eos_id,

@@ -20,6 +20,15 @@ Physical page 0 is the **trash page**: never allocated, the redirect
 target for inactive-row writes and for block-table entries past a row's
 allocation. The pool is host bookkeeping plus a handle to the device
 buffers; the caller serializes access.
+
+**Tensor parallelism** (``tp > 1``, the JAX ``sharding=`` argument): a
+rank's pool holds its ``heads / tp`` heads of every page, ``(num_pages,
+heads / tp, page_size, hd)``. The page dimension stays a shared arena:
+every rank runs the same allocations, so alloc/free, block tables, CoW
+and ``compact()`` are the same host bookkeeping on every rank.
+``device_bytes`` and ``bytes_per_position`` report this shard;
+``device_bytes_global`` and ``bytes_per_position_global`` all ``tp``
+shards together.
 """
 
 from __future__ import annotations
@@ -61,17 +70,23 @@ class PagedKVPool:
     shared-prefix registry."""
 
     def __init__(self, cfg, *, num_pages: int, page_size: int,
-                 kv_dtype: Optional[str] = None, device=None):
+                 kv_dtype: Optional[str] = None, device=None, tp: int = 1):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
+        if tp < 1 or cfg.heads % tp:
+            raise ValueError(f"heads {cfg.heads} not divisible by tp={tp}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
+        #: head shards the pool's heads are split into (1 = all heads)
+        self.tp = int(tp)
+        #: heads this pool holds: its shard of cfg.heads
+        self.heads = cfg.heads // self.tp
         hd = cfg.d_model // cfg.heads
-        self._shape = (self.num_pages, cfg.heads, self.page_size, hd)
+        self._shape = (self.num_pages, self.heads, self.page_size, hd)
         self._scale_shape = self._shape[:3]
         #: canonical quantized-page dtype name ("int8"/"fp8") or None
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
@@ -112,7 +127,7 @@ class PagedKVPool:
         return layers
 
     def device_bytes(self) -> int:
-        """Exact device bytes of the pool's buffers: K+V values in the
+        """Exact device bytes of this shard's buffers: K+V values in the
         (possibly quantized) value dtype plus the scale pools."""
         nbytes = (2 * self.cfg.layers * int(np.prod(self._shape))
                   * torch.empty((), dtype=self.value_dtype).element_size())
@@ -121,13 +136,21 @@ class PagedKVPool:
                        * torch.empty((), dtype=self.scale_dtype).element_size())
         return nbytes
 
+    def device_bytes_global(self) -> int:
+        """Device bytes of all ``tp`` shards' buffers together."""
+        return self.tp * self.device_bytes()
+
     def bytes_per_position(self) -> int:
-        """Device bytes one cached position costs across K+V and all
-        layers, values and scales."""
+        """Device bytes one cached position costs this shard across K+V
+        and all layers, values and scales."""
         hd = self.cfg.d_model // self.cfg.heads
         return self.cfg.layers * kv_bytes_per_position(
-            self.cfg.heads, hd, self.value_dtype,
-            self.scale_dtype is not None)
+            self.heads, hd, self.value_dtype, self.scale_dtype is not None)
+
+    def bytes_per_position_global(self) -> int:
+        """Device bytes one cached position costs all ``tp`` shards
+        together (the single-device pool's figure)."""
+        return self.tp * self.bytes_per_position()
 
     def note_quant_error(self, rms: float) -> None:
         """Record one sampled write-time round-trip error: the relative RMS

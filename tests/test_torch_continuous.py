@@ -19,6 +19,8 @@ from mmlspark_tpu.models.zoo import transformer as ref_tf
 from mmlspark_tpu_torch.models.zoo import transformer as port_tf
 from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
 
+import test_torch_mesh_ranks as ranks
+
 REF_CFG = ref_tf.TransformerConfig(vocab=128, layers=2, d_model=64, heads=4,
                                    d_ff=128, max_len=64, causal=True,
                                    norm="rmsnorm", position="rope",
@@ -193,7 +195,8 @@ def test_submit_validation(params):
             eng.submit(*args, **kw)
 
 
-@pytest.mark.parametrize("kw", [{"draft_params": {}}, {"mesh": object()},
+@pytest.mark.parametrize("kw", [{"draft_params": {}},
+                                {"mesh": ranks.StubMesh(dp=2, tp=1)},
                                 {"prefill_ahead": 1}, {"prefill_ahead": 2},
                                 {"journal": object()}])
 def test_unported_options_raise(params, kw):

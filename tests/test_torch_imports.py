@@ -41,7 +41,10 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.models.gbdt.objectives",
                  "mmlspark_tpu_torch.models.gbdt.trees",
                  "mmlspark_tpu_torch.models.gbdt.booster",
-                 "mmlspark_tpu_torch.models.gbdt.train"):
+                 "mmlspark_tpu_torch.models.gbdt.train",
+                 "mmlspark_tpu_torch.parallel.distributed",
+                 "mmlspark_tpu_torch.parallel.mesh",
+                 "mmlspark_tpu_torch.parallel.launch"):
         assert want in names
 
 
@@ -61,6 +64,30 @@ def test_imports_load_no_jax_and_no_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", ["mmlspark_tpu_torch.parallel.distributed",
+                                  "mmlspark_tpu_torch.parallel.mesh",
+                                  "mmlspark_tpu_torch.parallel.launch"])
+def test_parallel_module_alone_loads_no_jax_and_joins_no_world(name):
+    """Each parallel module on its own, in a clean interpreter: a rank
+    spawned by ``run_ranks`` re-imports exactly such a module, so it must
+    stay free of JAX; importing it forms no process group."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({name!r})\n"
+        "import torch.distributed as dist\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or\n"
+        "             m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"
+        "print(json.dumps([bad, dist.is_initialized()]))\n")
+    env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(ROOT),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], False]
 
 
 def test_sources_name_no_reference_import():

@@ -1,0 +1,347 @@
+"""Port parity: the mesh mount of paged attention (``ops/paged_attention.py``
+with ``mesh=``) and the window read-only kernels' plain versions.
+
+* K5a/K5b's plain version (``paged_attention_window_read_plain``)
+  against the JAX ``_pa_window_read_call`` / ``_pa_window_read_call_q``
+  in Pallas interpret mode: ctx within 1e-5 in f32 (online vs one-shot
+  softmax reorders the sums), within one bf16 ulp (2**-7 relative) with
+  bf16 queries; pools never written.
+* The mesh path's page writers ``_pool_write_rows(_quant)`` against the
+  JAX ones, bitwise (pages, codes, scales, trash page 0 included), and
+  against the port's fused plain scatter off page 0.
+* The mount on a tp = 2 gloo world of two CPU ranks (each holding two of
+  four heads) against the JAX mount on a ("tp",) 2-device mesh: ctx
+  all-gathered over heads within 1e-5 (one bf16 ulp with bf16
+  queries), pools bitwise off page 0.
+
+JAX runs on the conftest's 8 host devices; the ranks run
+``tests/test_torch_mesh_ranks.py``, which imports no JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh
+
+from mmlspark_tpu.ops import kv_quant as ref_q
+from mmlspark_tpu.ops import paged_attention as ref_pa
+from mmlspark_tpu_torch.ops import paged_attention as port_pa
+from mmlspark_tpu_torch.parallel import distributed as port_dist
+from mmlspark_tpu_torch.parallel import mesh as port_mesh
+from mmlspark_tpu_torch.parallel.launch import run_ranks
+
+import test_torch_mesh_ranks as ranks
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+#: bf16 outputs round one f32 value each: at most one bf16 ulp apart
+BF16 = dict(rtol=2.0 ** -7, atol=1e-6)
+
+B, H, HD, PAGE, P, W = 4, 4, 8, 4, 4, 4
+#: a row at pos 0, windows crossing a page boundary, an inactive row
+POS = np.array([0, 6, 9, 3], np.int32)
+ACTIVE = np.array([True, True, False, True])
+LENGTHS = np.array([0, 5, 16, 9], np.int32)
+
+
+def _np_bits(a):
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.itemsize])
+
+
+def _t_bits(t):
+    return _np_bits(t.view({1: torch.uint8, 2: torch.int16,
+                            4: torch.int32}[t.element_size()]).numpy())
+
+
+def _to_torch(a):
+    """A numpy / jax array → torch, bit for bit (bf16 and fp8 included)."""
+    a = np.asarray(a)
+    if a.dtype.name in ("bfloat16", "float8_e4m3fn"):
+        return ranks.to_torch(a.view({2: np.int16, 1: np.uint8}[a.itemsize]),
+                              a.dtype.name)
+    return torch.from_numpy(a.copy())
+
+
+def _wire(a):
+    """A jax / numpy array as the ranks receive it: raw bits + dtype."""
+    a = np.asarray(a)
+    if a.dtype.name in ("bfloat16", "float8_e4m3fn"):
+        return a.view({2: np.int16, 1: np.uint8}[a.itemsize]), a.dtype.name
+    return a, None
+
+
+def _from_wire(bits, like):
+    """Raw bits back from a rank, as float32 values of ``like``'s dtype."""
+    return np.asarray(bits).view(np.asarray(like).dtype).astype(np.float32)
+
+
+def _case(seed, dtype, store):
+    """Seeded inputs: q / k_new / v_new in ``dtype``; pools in ``dtype``
+    or quantized by the reference quantizer to ``store``; a shuffled
+    block table."""
+    rng = np.random.default_rng(seed)
+    N = 1 + B * P
+    act = [jnp.asarray(rng.normal(0, 1, (B, H, W, HD)), dtype)
+           for _ in range(3)]
+    raw = [jnp.asarray(rng.normal(0, 1, (N, H, PAGE, HD)), jnp.float32)
+           for _ in range(2)]
+    if store is None:
+        pools = [r.astype(dtype) for r in raw]
+    else:
+        st = ref_q.kv_store_dtype(store)
+        (kp, ks), (vp, vs) = (ref_q.quantize_kv(r, st) for r in raw)
+        pools = [kp, vp, ks, vs]
+    bt = (1 + rng.permutation(B * P)).reshape(B, P).astype(np.int32)
+    return act, pools, bt
+
+
+def _jax_window_read(act, pools, bt, pos):
+    q, kn, vn = act
+    Wp = ref_pa._round_up(W, ref_pa.sublane_multiple(q.dtype))
+    pad = [ref_pa._pad_window(t, Wp) for t in act]
+    kw = dict(W=W, scale=float(1 / np.sqrt(HD)), interpret=True)
+    if len(pools) == 4:
+        out = ref_pa._pa_window_read_call_q(*pad, *pools, jnp.asarray(bt),
+                                            jnp.asarray(pos), **kw)
+    else:
+        out = ref_pa._pa_window_read_call(*pad, *pools, jnp.asarray(bt),
+                                          jnp.asarray(pos), **kw)
+    return np.asarray(out[:, :, :W].astype(jnp.float32))
+
+
+CASES = [(jnp.float32, None), (jnp.bfloat16, None), (jnp.float32, "int8"),
+         (jnp.bfloat16, "int8"), (jnp.float32, "fp8"), (jnp.bfloat16, "fp8")]
+
+
+@pytest.mark.parametrize("dtype,store", CASES,
+                         ids=[f"{jnp.dtype(d).name}-{s or 'plain'}"
+                              for d, s in CASES])
+def test_window_read_plain_matches_reference(dtype, store):
+    act, pools, bt = _case(1, dtype, store)
+    want = _jax_window_read(act, pools, bt, POS)
+    pools_t = [_to_torch(p) for p in pools]
+    before = [t.clone() for t in pools_t]
+    got = port_pa.paged_attention_window_read_plain(
+        *[_to_torch(a) for a in act], pools_t[0], pools_t[1],
+        torch.from_numpy(bt), torch.from_numpy(POS), float(1 / np.sqrt(HD)),
+        *pools_t[2:])
+    assert got.dtype == _to_torch(act[0]).dtype and got.shape == (B, H, W, HD)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **(F32 if dtype == jnp.float32 else BF16))
+    # read-only: every pool bit unchanged
+    for a, b in zip(pools_t, before):
+        assert np.array_equal(_t_bits(a), _t_bits(b))
+
+
+def test_window_read_wrapper_runs_plain_on_cpu_and_never_counts():
+    act, pools, bt = _case(2, jnp.float32, None)
+    args = [_to_torch(a) for a in act] + [_to_torch(p) for p in pools]
+    port_pa.paged_attention_window.launches_window = 0
+    got = port_pa._window_read(*args, torch.from_numpy(bt),
+                               torch.from_numpy(POS), float(1 / np.sqrt(HD)))
+    want = port_pa.paged_attention_window_read_plain(
+        *args, torch.from_numpy(bt), torch.from_numpy(POS),
+        float(1 / np.sqrt(HD)))
+    assert torch.equal(got, want)
+    assert port_pa.paged_attention_window.launches_window == 0
+
+
+WRITER_CASES = [(jnp.float32, None), (jnp.bfloat16, None),
+                (jnp.float32, "int8"), (jnp.bfloat16, "int8"),
+                (jnp.float32, "fp8")]
+
+
+@pytest.mark.parametrize("dtype,store", WRITER_CASES,
+                         ids=[f"{jnp.dtype(d).name}-{s or 'plain'}"
+                              for d, s in WRITER_CASES])
+def test_pool_writers_bitwise_vs_reference(dtype, store):
+    act, pools, bt = _case(3, dtype, store)
+    _, kn, vn = act
+    pos_j, bt_j, act_j = (jnp.asarray(x) for x in (POS, bt, ACTIVE))
+    pos_t, bt_t, act_t = (torch.from_numpy(x) for x in (POS, bt, ACTIVE))
+    mine = [_to_torch(p) for p in pools]
+    fused = [t.clone() for t in mine]
+    if store is None:
+        want = [ref_pa._pool_write_rows(pools[0], kn, bt_j, pos_j, act_j),
+                ref_pa._pool_write_rows(pools[1], vn, bt_j, pos_j, act_j)]
+        got = [port_pa._pool_write_rows(mine[0], _to_torch(kn), bt_t,
+                                        pos_t, act_t),
+               port_pa._pool_write_rows(mine[1], _to_torch(vn), bt_t,
+                                        pos_t, act_t)]
+    else:
+        (kp, ks), (vp, vs) = (
+            ref_pa._pool_write_rows_quant(pools[i], pools[i + 2], rows,
+                                          bt_j, pos_j, act_j)
+            for i, rows in ((0, kn), (1, vn)))
+        want = [kp, vp, ks, vs]
+        k_out = port_pa._pool_write_rows_quant(mine[0], mine[2],
+                                               _to_torch(kn), bt_t, pos_t,
+                                               act_t)
+        v_out = port_pa._pool_write_rows_quant(mine[1], mine[3],
+                                               _to_torch(vn), bt_t, pos_t,
+                                               act_t)
+        got = [k_out[0], v_out[0], k_out[1], v_out[1]]
+    # in place, and bitwise the reference's, trash page 0 included (one
+    # inactive row and W <= page: its trash writes never collide)
+    assert all(g is m for g, m in zip(got, mine))
+    for g, w in zip(got, want):
+        assert np.array_equal(_t_bits(g), _np_bits(w))
+    # the fused plain scatter writes the same bytes everywhere but page 0
+    wlo, whi = port_pa.write_range(pos_t, W, PAGE, act_t)
+    port_pa.paged_attention_window_plain(
+        *[_to_torch(a) for a in act], fused[0], fused[1], bt_t, pos_t, wlo,
+        whi, float(1 / np.sqrt(HD)), *fused[2:])
+    for f, g in zip(fused, got):
+        assert np.array_equal(_t_bits(f)[1:], _t_bits(g)[1:])
+
+
+MOUNT_CASES = [(jnp.float32, None), (jnp.float32, "int8"),
+               (jnp.bfloat16, "fp8")]
+
+
+@pytest.fixture(scope="module")
+def mounts():
+    """Both mounts, JAX on a ("tp",) 2-device mesh and the port on a
+    tp = 2 world of two gloo ranks, over the same inputs."""
+    mesh = Mesh(np.array(jax.devices()[:2]), ("tp",))
+    want, wire = [], []
+    for i, (dtype, store) in enumerate(MOUNT_CASES):
+        act, pools, bt = _case(10 + i, dtype, store)
+        kw = ({"k_scale": pools[2], "v_scale": pools[3]}
+              if store is not None else {})
+        ctx, *new_pools = ref_pa.paged_attention_window(
+            *act, pools[0], pools[1], jnp.asarray(bt), jnp.asarray(POS),
+            active=jnp.asarray(ACTIVE), mesh=mesh, head_axis="tp",
+            interpret=True, **kw)
+        read = ref_pa.paged_attention(
+            act[0], pools[0], pools[1], jnp.asarray(bt),
+            jnp.asarray(LENGTHS), mesh=mesh, head_axis="tp", interpret=True,
+            **kw)
+        want.append({"ctx": np.asarray(ctx.astype(jnp.float32)),
+                     "read": np.asarray(read.astype(jnp.float32)),
+                     "pools": new_pools, "dtype": act[0]})
+        c = {"bt": bt, "pos": POS, "active": ACTIVE, "lengths": LENGTHS,
+             "dtypes": {}, "pools": []}
+        for name, a in zip(("q", "kn", "vn"), act):
+            c[name], c["dtypes"][name] = _wire(a)
+        for name, a in zip(("kp", "vp", "ks", "vs"), pools):
+            c[name], c["dtypes"][name] = _wire(a)
+            c["pools"].append(name)
+        wire.append(c)
+    got = run_ranks(ranks.mount_cases, 2, args=(wire,), device="cpu",
+                    threads=1, timeout=300)
+    return want, got
+
+
+@pytest.mark.parametrize("i", range(len(MOUNT_CASES)),
+                         ids=[f"{jnp.dtype(d).name}-{s or 'plain'}"
+                              for d, s in MOUNT_CASES])
+def test_window_mount_matches_reference_tp2(mounts, i):
+    want, got = mounts
+    tol = F32 if MOUNT_CASES[i][0] == jnp.float32 else BF16
+    for rank in (0, 1):
+        ctx = _from_wire(got[rank][i]["ctx"], want[i]["dtype"])
+        np.testing.assert_allclose(ctx, want[i]["ctx"], **tol)
+    # each rank holds its two heads of every page; together, off the
+    # trash page, they are the JAX mount's pools bit for bit
+    for j, w in enumerate(want[i]["pools"]):
+        full = np.concatenate([got[r][i]["pools"][j] for r in (0, 1)],
+                              axis=1)
+        assert np.array_equal(_np_bits(full)[1:], _np_bits(w)[1:])
+
+
+@pytest.mark.parametrize("i", range(len(MOUNT_CASES)),
+                         ids=[f"{jnp.dtype(d).name}-{s or 'plain'}"
+                              for d, s in MOUNT_CASES])
+def test_read_mount_matches_reference_tp2(mounts, i):
+    want, got = mounts
+    tol = F32 if MOUNT_CASES[i][0] == jnp.float32 else BF16
+    for rank in (0, 1):
+        read = _from_wire(got[rank][i]["read"], want[i]["dtype"])
+        np.testing.assert_allclose(read, want[i]["read"], **tol)
+        # lengths == 0 gives zeros under the mount too
+        assert np.all(read[0] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [None, "int8", "fp8"])
+def test_cuda_window_read_matches_plain_version(store):
+    """On the card: K5a (K5b with scales) against its plain version at a
+    head dim the kernels take, bf16 queries; ctx within bf16 rounding and
+    every pool bit untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    Bc, Hc, Wc, hd, page, Pc = 4, 6, 8, 64, 16, 8
+    act = [torch.from_numpy(rng.normal(0, 1, (Bc, Hc, Wc, hd))).to(
+        dev, torch.bfloat16) for _ in range(3)]
+    raw = [torch.from_numpy(rng.normal(0, 1, (1 + Bc * Pc, Hc, page, hd))
+                            ).to(dev, torch.float32) for _ in range(2)]
+    if store is None:
+        pools = [r.to(torch.bfloat16) for r in raw]
+    else:
+        from mmlspark_tpu_torch.ops.kv_quant import kv_store_dtype, quantize_kv
+        (kp, ks), (vp, vs) = (quantize_kv(r, kv_store_dtype(store))
+                              for r in raw)
+        pools = [kp, vp, ks, vs]
+    bt = torch.from_numpy((1 + rng.permutation(Bc * Pc)).reshape(Bc, Pc)
+                          ).to(dev, torch.int32)
+    pos = torch.tensor([0, 17, 63, 100], dtype=torch.int32, device=dev)
+    before = [p.clone() for p in pools]
+    want = port_pa.paged_attention_window_read_plain(
+        *act, pools[0], pools[1], bt, pos, 0.125, *pools[2:])
+    got = port_pa._window_read(*act, pools[0], pools[1], bt, pos, 0.125,
+                               *pools[2:])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=1e-2, atol=4e-3)
+    for a, b in zip(pools, before):
+        assert torch.equal(port_pa._bits(a), port_pa._bits(b))
+
+
+def test_mount_rejects_indivisible_axes():
+    # the template's case: 3 rows over dp = 4 ...
+    with pytest.raises(ValueError, match="divisible"):
+        port_pa._check_mount(ranks.StubMesh(dp=4, tp=2), 3, 4, "dp", "tp")
+    # ... and 4 heads over tp = 3
+    with pytest.raises(ValueError, match="divisible"):
+        port_pa._check_mount(ranks.StubMesh(tp=3), 2, 4, None, "tp")
+    port_pa._check_mount(ranks.StubMesh(dp=4, tp=2), 8, 4, "dp", "tp")
+
+
+def test_mount_refuses_slot_sharding_and_unknown_axes():
+    act, pools, bt = _case(4, jnp.float32, None)
+    q, kp, vp = _to_torch(act[0]), _to_torch(pools[0]), _to_torch(pools[1])
+    lens = torch.from_numpy(LENGTHS)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_pa.paged_attention(q, kp, vp, torch.from_numpy(bt), lens,
+                                mesh=ranks.StubMesh(dp=2, tp=1),
+                                slot_axis="dp",
+                                head_axis="tp")
+    with pytest.raises(ValueError, match="no axis"):
+        port_pa.paged_attention(q, kp, vp, torch.from_numpy(bt), lens,
+                                mesh=ranks.StubMesh(tp=1), head_axis="heads")
+
+
+def test_mesh_helpers_without_a_world():
+    assert port_mesh.mesh_shape(None) == "single"
+    assert port_mesh.mesh_shape(ranks.StubMesh(dp=1, tp=2)) == "dp1xtp2"
+    assert port_mesh.axis_size(ranks.StubMesh(dp=1, tp=2), "tp") == 2
+    assert port_mesh.axis_size(ranks.StubMesh(tp=2), "dp") == 1
+    assert port_mesh.axis_size(None, "tp") == 1
+    assert port_dist.choose_backend(2, "cpu") == "gloo"
+    assert 0 < port_dist.find_open_port() < 65536
+    assert port_dist.world_info()["process_count"] == 1
+    with pytest.raises(RuntimeError, match="initialize"):
+        port_mesh.make_mesh({"tp": 1}, "cpu")
+
+
+def test_run_ranks_reports_a_failing_rank():
+    with pytest.raises(RuntimeError, match="failed on purpose"):
+        run_ranks(ranks.fails, 1, device="cpu", threads=1,
+                  timeout=120)
