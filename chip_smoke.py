@@ -45,20 +45,25 @@ Phases (any failure exits non-zero and prints no result line):
    against their plain versions at BERT-base (B=8, H=12, S=512, D=64,
    ragged padding masks with one fully padded row, NaN planted in every
    masked key row), the causal decoder (B=2, S=2048), an unaligned S=200
-   at D=32 and D=128, each in bf16 and f32: f32 within 1e-5 * max|ref|,
-   bf16 within 2 bf16 ulps (+ 1e-5 * max|ref|) of the plain f32 result,
-   the fully padded row exactly 0; times at the first two shapes beside
-   the plain versions, SDPA (forward and its autograd backward) and the
-   bounds; (b) BERT-base f32 ``transformer_apply(use_flash=True)`` and
+   at D=32 and D=128, the main paths' own shapes, and masks with a whole
+   64-key hole in every row (the masked-tile skip) at D=64 and D=128,
+   each in bf16 and f32: f32 within 1e-5 * max|ref|, bf16 within 2 bf16
+   ulps (+ 1e-5 * max|ref|) of the plain f32 result, plus 2^-8 of the
+   same product over absolute values for the bf16 K7's o and K8a's dK
+   and dV (they round P and dS to bf16 once); the fully padded row
+   exactly 0; times at the ``FLASH_TIMED`` shapes beside the plain
+   versions, SDPA (forward and its autograd backward) and the bounds;
+   (b) BERT-base f32 ``transformer_apply(use_flash=True)`` and
    the gradients of ``loss_fn`` through the kernels against the same
    through the plain versions, and dense against flash on the rows that
    are not fully padded; (c) bf16 encoder inference at B=32, S=512:
-   sequences/s with exactly 12 K7 launches per forward; (d) bf16 training
-   at B=16, S=512: 10 ``train_step``s after a warm-up, 12 launches each
-   of K7, K8a and K8b per step, the loss lower at the end, step seconds
-   and tokens/s; then one step of the causal decoder at B=4, S=2048 with
-   flash and with dense attention: flash's peak device memory below
-   dense's;
+   sequences/s with exactly 12 K7 launches per forward, and the
+   hidden states against one forward through dense attention; (d) bf16
+   training at B=16, S=512: 10 ``train_step``s after a warm-up, 12
+   launches each of K7, K8a and K8b per step, the loss lower at the
+   end, step seconds and tokens/s; then one step of the causal decoder
+   at B=4, S=2048 with flash and with dense attention: flash's peak
+   device memory below dense's;
 10. the mesh — (a) K5a (bf16 pages) and K5b (int8, fp8) against their
    plain versions at the decode and extend shapes, and K5a on 6 heads
    (one rank's shard at tp = 2): ctx within about one bf16 ulp, NaN
@@ -74,8 +79,9 @@ Phases (any failure exits non-zero and prints no result line):
    processes sharing the card, six heads and a pool shard each: both
    ranks' f32 tokens equal each other's and 10b's over all 16 tokens.
 
-``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only, prints no
-result and exits 3.
+``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only, and
+``python3 chip_smoke.py 9`` phases 1, 2 and 9; either prints no result
+and exits 3.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -140,7 +146,8 @@ def phase_build():
     log(f"[build] {secs} (wall {time.perf_counter() - t0:.2f} s)")
     for name, text in cuda_build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -1049,15 +1056,18 @@ BERT = dict(vocab=30522, layers=12, d_model=768, heads=12, d_ff=3072,
             max_len=512)
 #: 9a shapes: label -> (B, H, S, D, causal, mask): mask "padded" is
 #: ``_ragged_mask`` (one fully padded row), "lengths" is 9c's
-#: ``_lengths_mask``, None is no mask. The last three are the main paths'
-#: own: 9c's inference, 9d's training and 9d's causal decoder.
+#: ``_lengths_mask``, "holes" is ``_holes_mask``, None is no mask.
+#: "infer", "train" and "decoder" are the main paths' own: 9c's
+#: inference, 9d's training and 9d's causal decoder.
 FLASH_CASES = {"bert": (8, 12, 512, 64, False, "padded"),
                "causal": (2, 12, 2048, 64, True, None),
                "unaligned": (2, 4, 200, 32, False, "padded"),
                "d128": (2, 8, 512, 128, True, "padded"),
                "infer": (32, 12, 512, 64, False, "lengths"),
                "train": (16, 12, 512, 64, False, None),
-               "decoder": (4, 12, 2048, 64, True, None)}
+               "decoder": (4, 12, 2048, 64, True, None),
+               "holes": (2, 4, 192, 64, False, "holes"),
+               "holes_d128": (3, 4, 200, 128, True, "holes")}
 #: the 9a shapes timed (in bf16), beside their plain versions and SDPA
 FLASH_TIMED = ("bert", "causal", "infer", "train", "decoder")
 
@@ -1072,6 +1082,17 @@ def _ragged_mask(B, S, gen, dev):
     return torch.arange(S, device=dev)[None] < lengths[:, None]
 
 
+def _holes_mask(B, S, gen, dev):
+    """Non-prefix masks: 70% of the keys at random, with keys 64 ... 127
+    (one whole key tile) masked in every row and the last row masked
+    whole."""
+    import torch
+    mask = torch.rand(B, S, generator=gen, device=dev) < 0.7
+    mask[:, 64:128] = False
+    mask[-1] = False
+    return mask
+
+
 def _lengths_mask(B, S, gen, dev):
     """9c's padding masks: row b keeps its first 64 ... S keys."""
     import torch
@@ -1079,12 +1100,16 @@ def _lengths_mask(B, S, gen, dev):
     return torch.arange(S, device=dev)[None] < lengths[:, None]
 
 
-def _ulp_check(what, got, want):
+def _ulp_check(what, got, want, rel=None):
     """``got`` against the plain version's result ``want`` (f32, computed
     from the same inputs). f32 output: within 1e-5 * max|want| (the sums
     run in another order). bf16 output: within 2 bf16 ulps of ``want``
     plus 1e-5 * max|want| (the rounding to bf16, and near-zero entries
-    whose ulp is below the f32 summation error). Returns max_abs_err."""
+    whose ulp is below the f32 summation error), plus 2^-8 * ``rel``
+    where given: ``rel`` is the output taken over absolute values
+    (``bf16_rounding_scale``), for the bf16 K7's o and K8a's dK and dV,
+    which round each P or dS element to bf16 once before a tensor-core
+    product (2^-8 is bf16's unit roundoff). Returns max_abs_err."""
     import torch
     want = want.float()
     diff = (got.float() - want).abs()
@@ -1092,7 +1117,10 @@ def _ulp_check(what, got, want):
     if got.dtype == torch.bfloat16:
         mag = want.abs().clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        bad = diff > 2 * ulp + floor
+        allowed = 2 * ulp + floor
+        if rel is not None:
+            allowed = allowed + 2.0 ** -8 * rel
+        bad = diff > allowed
     else:
         bad = diff > floor
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()) or \
@@ -1111,7 +1139,8 @@ def _flash_inputs(B, H, S, D, mask_kind, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
                    .to(dtype) for _ in range(4))
-    make = {"padded": _ragged_mask, "lengths": _lengths_mask}.get(mask_kind)
+    make = {"padded": _ragged_mask, "lengths": _lengths_mask,
+            "holes": _holes_mask}.get(mask_kind)
     mask = None if make is None else make(B, S, gen, dev)
     if mask is not None:
         dead = ~mask[:, None, :, None].expand(B, H, S, D)
@@ -1143,10 +1172,14 @@ def _flash_case(dev_info, label, dtype, seed, timed):
     wo, wl, wm = fa.flash_attention_plain(*f32, mask, causal=causal)
     wq, wk, wv = fa.flash_attention_bwd_plain(*f32, mask, o.float(), l, m,
                                               do.float(), causal=causal)
-    err = {"K7": _ulp_check(f"K7 {name}", o0, wo),
-           "K7 stats": _ulp_check(f"K7 stats {name}", o, wo),
-           "K8a": max(_ulp_check(f"K8a dK {name}", dk, wk),
-                      _ulp_check(f"K8a dV {name}", dv, wv)),
+    r_o = r_dk = r_dv = None
+    if dtype == torch.bfloat16:
+        r_o, r_dk, r_dv = fa.bf16_rounding_scale(
+            *f32, mask, o.float(), l, m, do.float(), causal=causal)
+    err = {"K7": _ulp_check(f"K7 {name}", o0, wo, r_o),
+           "K7 stats": _ulp_check(f"K7 stats {name}", o, wo, r_o),
+           "K8a": max(_ulp_check(f"K8a dK {name}", dk, wk, r_dk),
+                      _ulp_check(f"K8a dV {name}", dv, wv, r_dv)),
            "K8b": _ulp_check(f"K8b dQ {name}", dq, wq)}
     if not torch.equal(o0, o):
         raise AssertionError(f"K7 {name}: with and without stats differ")
@@ -1399,7 +1432,12 @@ def phase_flash_inference(bert_np, dev_info, k7_ms, reps=5):
             h = tf.transformer_apply(params, ids, cfg, mask=mask)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches, plain = flash_attention.launches, flash_attention_plain.calls
+        launches = flash_attention.launches
+        plain = flash_attention_plain.calls
+        # untimed: the same ids and masks through dense attention (every
+        # row keeps >= 64 keys, so both define the same function there)
+        hd = tf.transformer_apply(params, ids, cfg._replace(use_flash=False),
+                                  mask=mask)
     if launches != cfg.layers * reps or plain != 0:
         raise AssertionError(f"9c: {launches} K7 launches (want "
                              f"{cfg.layers * reps}), {plain} plain calls")
@@ -1407,13 +1445,26 @@ def phase_flash_inference(bert_np, dev_info, k7_ms, reps=5):
             not torch.isfinite(h).all():
         raise AssertionError(f"9c: hidden {tuple(h.shape)} {h.dtype}, "
                              f"finite {bool(torch.isfinite(h).all())}")
+    # bf16 flash against bf16 dense: both round P once (dense after the
+    # normalisation, flash before it) and every layer's activations to
+    # bf16, and 12 layers carry the differences; 2^-3 of the largest
+    # hidden value is 16 to 32 bf16 ulps at its magnitude. A wrong
+    # fragment or a skipped live tile moves the hidden states by
+    # O(max|h|).
+    dense_err = (h.float() - hd.float()).abs().max().item()
+    dense_bound = 2.0 ** -3 * hd.float().abs().max().item()
+    if not dense_err <= dense_bound:
+        raise AssertionError(f"9c: bf16 flash vs dense hidden max |diff| "
+                             f"{dense_err} above {dense_bound}")
     ms_fwd = wall / reps * 1e3
     rec = {"B": B, "S": S, "forwards": reps, "wall_s": wall,
            "seq_per_s": B * reps / wall, "ms_per_forward": ms_fwd,
            "real_tokens": int(mask.sum()), "k7_launches": launches,
-           "k7_share_of_forward": cfg.layers * k7_ms / ms_fwd}
+           "k7_share_of_forward": cfg.layers * k7_ms / ms_fwd,
+           "hidden_flash_vs_dense_max_abs": dense_err,
+           "hidden_flash_vs_dense_bound": dense_bound}
     log(f"[flash inference] {json.dumps(rec)} | {dev_info['smi']}")
-    del params
+    del params, h, hd
     torch.cuda.empty_cache()
     return rec
 
@@ -1851,6 +1902,23 @@ def _phase10(params_np, dev_info, single, q8):
     return win, mesh_par, serve, tp2
 
 
+def _phase9(dev_info):
+    """Phases 9a-9d; the kernels' 9a times at 9c's and 9d's own shapes
+    give their shares."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    flash_recs = phase_flash_kernels(dev_info)
+    bert_np = init_transformer(_bert_cfg(torch.float32), seed=0)
+    flash_parity = phase_flash_parity(bert_np, dev_info)
+    infer_rec = flash_recs["infer bfloat16"]
+    train_rec = flash_recs["train bfloat16"]
+    infer = phase_flash_inference(bert_np, dev_info, infer_rec["K7"]["ms"])
+    train, dec_mem = phase_flash_training(
+        bert_np, dev_info,
+        sum(train_rec[k]["ms"] for k in ("K7 stats", "K8a", "K8b")))
+    return flash_recs, flash_parity, infer, train, dec_mem
+
+
 def main(argv=()):
     sys.path.insert(0, HERE)
     try:
@@ -1859,8 +1927,13 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); a partial run prints no result and exits 3
+    # 4); "9": phases 1, 2 and 9; a partial run prints no result and
+    # exits 3
     only = set(argv)
+    if not only <= {"9", "10"}:
+        log(f"chip_smoke: unknown phases {sorted(only - {'9', '10'})}; "
+            f"the arguments are 9 and 10")
+        return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build()
@@ -1868,9 +1941,12 @@ def main(argv=()):
     import torch
     params_np = init_transformer(_full_cfg(torch.float32), seed=0)
     if only:
-        single = phase_parity(params_np)
-        _phase10(params_np, dev_info, single,
-                 {"tok_per_s": None, "p50_tick_ms": None})
+        if "9" in only:
+            _phase9(dev_info)
+        if "10" in only:
+            single = phase_parity(params_np)
+            _phase10(params_np, dev_info, single,
+                     {"tok_per_s": None, "p50_tick_ms": None})
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -1886,17 +1962,9 @@ def main(argv=()):
     parity = phase_tree_parity(X, y, dev_info)
     gbdt = phase_gbdt(X, y, dev_info, hist_recs)
     del X, y
-    flash_recs = phase_flash_kernels(dev_info)
-    bert_np = init_transformer(_bert_cfg(torch.float32), seed=0)
-    flash_parity = phase_flash_parity(bert_np, dev_info)
-    # the kernels' 9a times at 9c's and 9d's own shapes give their shares
+    flash_recs, flash_parity, infer, train, dec_mem = _phase9(dev_info)
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
-    infer = phase_flash_inference(bert_np, dev_info, infer_rec["K7"]["ms"])
-    train, dec_mem = phase_flash_training(
-        bert_np, dev_info,
-        sum(train_rec[k]["ms"] for k in ("K7 stats", "K8a", "K8b")))
-    del bert_np
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
     del params_np
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -19,7 +19,15 @@ are all masked gives 0, not NaN, and its stats are l = 0, m = -1e30.
 :func:`flash_attention_bwd_plain`  plain version of K8a + K8b: the port
                                 of ``_fa_reference_block_bwd``, a loop
                                 over key blocks batched over (B, H)
+:func:`bf16_rounding_scale`     the outputs over absolute values, which
+                                scale the bf16 kernels' error bound
 =============================  =========================================
+
+In bfloat16, K7 and K8a run on the tensor cores and round each
+probability P (K8a also each dS) to bf16 once before it enters a
+product, so their outputs lie within 2⁻⁸ · :func:`bf16_rounding_scale`
+(plus the rounding of the output itself) of the plain versions run in
+f32; K8b and the float32 kernels keep f32 P.
 
 Launches are counted in ``flash_attention.launches`` (K7),
 ``flash_attention.launches_dkv`` (K8a) and ``flash_attention.launches_dq``
@@ -51,7 +59,8 @@ from torch.autograd.function import once_differentiable
 
 __all__ = ["flash_attention", "flash_attention_with_stats",
            "flash_attention_sharded", "flash_attention_plain",
-           "flash_attention_bwd_plain", "attention_pairs", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "bf16_rounding_scale",
+           "attention_pairs", "HEAD_DIMS"]
 
 _NEG = -1e30
 #: head dims the kernels are built for
@@ -161,6 +170,30 @@ def _delta(do, o):
     return (do.float() * o.float()).sum(dim=-1)
 
 
+def _bwd_blocks(q, k, v, kv_mask, o, l, m, do, causal, scale, block_k):
+    """The plain backward's recompute, one key block at a time: yields
+    (j0, j1, qf, dof, kj, p, ds) with p and ds (B, H, S, j1 - j0) f32."""
+    B, H, S, D = q.shape
+    key_ok = _key_ok(kv_mask, B, S, q.device)
+    qf, dof = q.float(), do.float()
+    kf, vf = _zero_masked(k, key_ok), _zero_masked(v, key_ok)
+    linv = torch.where(l == 0.0, 0.0, 1.0 / l)[..., None]
+    delta = _delta(do, o)[..., None]
+    rows = torch.arange(S, device=q.device)
+    for j0 in range(0, S, block_k):
+        j1 = min(S, j0 + block_k)
+        kj, vj = kf[:, :, j0:j1], vf[:, :, j0:j1]
+        s = (qf @ kj.transpose(-1, -2)) * scale             # (B, H, S, bk)
+        valid = key_ok[:, None, None, j0:j1]
+        if causal:
+            valid = valid & (rows[:, None] >= rows[None, j0:j1])
+        p = torch.exp(torch.where(valid, s, _NEG) - m[..., None]) * \
+            valid * linv
+        dp = dof @ vj.transpose(-1, -2)
+        ds = p * (dp - delta) * scale
+        yield j0, j1, qf, dof, kj, p, ds
+
+
 def flash_attention_bwd_plain(q, k, v, kv_mask, o, l, m, do, *,
                               causal: bool = False,
                               scale: Optional[float] = None,
@@ -173,28 +206,12 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, l, m, do, *,
     reference's ``lax.scan`` over key blocks is a Python loop, batched
     over (B, H). Counts ``flash_attention_bwd_plain.calls``."""
     flash_attention_bwd_plain.calls += 1
-    B, H, S, D = q.shape
-    scale = _scale(scale, D)
-    key_ok = _key_ok(kv_mask, B, S, q.device)
-    qf, dof = q.float(), do.float()
-    kf, vf = _zero_masked(k, key_ok), _zero_masked(v, key_ok)
-    linv = torch.where(l == 0.0, 0.0, 1.0 / l)[..., None]
-    delta = _delta(do, o)[..., None]
-    rows = torch.arange(S, device=q.device)
-    dq = torch.zeros_like(qf)
-    dk = torch.empty_like(qf)
-    dv = torch.empty_like(qf)
-    for j0 in range(0, S, block_k):
-        j1 = min(S, j0 + block_k)
-        kj, vj = kf[:, :, j0:j1], vf[:, :, j0:j1]
-        s = (qf @ kj.transpose(-1, -2)) * scale             # (B, H, S, bk)
-        valid = key_ok[:, None, None, j0:j1]
-        if causal:
-            valid = valid & (rows[:, None] >= rows[None, j0:j1])
-        p = torch.exp(torch.where(valid, s, _NEG) - m[..., None]) * \
-            valid * linv
-        dp = dof @ vj.transpose(-1, -2)
-        ds = p * (dp - delta) * scale
+    scale = _scale(scale, q.shape[-1])
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    for j0, j1, qf, dof, kj, p, ds in _bwd_blocks(
+            q, k, v, kv_mask, o, l, m, do, causal, scale, block_k):
         dq += ds @ kj
         dk[:, :, j0:j1] = ds.transpose(-1, -2) @ qf
         dv[:, :, j0:j1] = p.transpose(-1, -2) @ dof
@@ -202,6 +219,31 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, l, m, do, *,
 
 
 flash_attention_bwd_plain.calls = 0
+
+
+def bf16_rounding_scale(q, k, v, kv_mask, o, l, m, do, *,
+                        causal: bool = False,
+                        scale: Optional[float] = None,
+                        block_k: int = 512):
+    """R of the bf16 kernels' error bound → (r_o, r_dk, r_dv), f32.
+
+    The bf16 K7 rounds each probability P, and the bf16 K8a each P and
+    dS, to bf16 once before it enters a tensor-core product. One rounding
+    of each x moves a sum of x·y by at most 2⁻⁸ · sum |x||y| (2⁻⁸ is
+    bf16's unit roundoff). R is each such output taken over absolute
+    values, with the plain versions' arithmetic: r_o = sum P |v| / l (the
+    plain forward over |v|, exact since P ≥ 0), r_dv = Pᵀ |dO|, r_dk =
+    |dS|ᵀ |Q|."""
+    r_o = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                kv_mask, causal=causal, scale=scale)[0]
+    scale = _scale(scale, q.shape[-1])
+    r_dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    r_dv = torch.empty_like(r_dk)
+    for j0, j1, qf, dof, _, p, ds in _bwd_blocks(
+            q, k, v, kv_mask, o, l, m, do, causal, scale, block_k):
+        r_dk[:, :, j0:j1] = ds.abs().transpose(-1, -2) @ qf.abs()
+        r_dv[:, :, j0:j1] = p.transpose(-1, -2) @ dof.abs()
+    return r_o, r_dk, r_dv
 
 
 def attention_pairs(kv_mask, B: int, S: int, causal: bool) -> int:

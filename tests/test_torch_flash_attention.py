@@ -36,6 +36,22 @@ def _mask(seed, B, S, p=0.3):
     return np.random.default_rng(seed).random((B, S)) > p
 
 
+def _holes(seed, B, S):
+    """A non-prefix mask: ``_mask`` with keys 64 ... 127 (one whole 64-key
+    tile of the CUDA kernels) masked in every row, and the last row masked
+    whole."""
+    mask = _mask(seed, B, S)
+    mask[:, 64:128] = False
+    mask[-1] = False
+    return mask
+
+
+def _case_mask(c, seed, B, p=0.3):
+    if c.get("mask") == "holes":
+        return _holes(seed, B, c["S"])
+    return _mask(seed, B, c["S"], p) if c.get("mask") else None
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -47,6 +63,7 @@ FWD_CASES = {
     "causal_mask": dict(S=128, D=64, causal=True, mask=True),
     "unaligned_200": dict(S=200, D=32, mask=True),
     "short_48_d32": dict(S=48, D=32),
+    "holes": dict(S=192, D=32, mask="holes"),
 }
 
 
@@ -55,7 +72,7 @@ def test_forward_matches_reference(case):
     c = FWD_CASES[case]
     q, k, v = _qkv(len(case), S=c["S"], D=c["D"])
     causal = c.get("causal", False)
-    mask = _mask(7, 2, c["S"]) if c.get("mask") else None
+    mask = _case_mask(c, 7, 2)
     want = np.asarray(ref_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         kv_mask=None if mask is None else jnp.asarray(mask)))
@@ -126,6 +143,7 @@ GRAD_CASES = {
     "mask": dict(S=128, D=32, mask=True),
     "unaligned_mask": dict(S=200, D=32, mask=True),
     "causal_unaligned_d64": dict(S=72, D=64, causal=True),
+    "holes": dict(S=192, D=32, mask="holes", B=2),
 }
 
 
@@ -135,9 +153,10 @@ def test_gradients_match_reference(case):
     kernels in interpret mode) against torch.autograd through the port's
     (plain K8a/K8b on the CPU)."""
     c = GRAD_CASES[case]
-    q, k, v = _qkv(20 + len(case), B=1, S=c["S"], D=c["D"])
+    B = c.get("B", 1)
+    q, k, v = _qkv(20 + len(case), B=B, S=c["S"], D=c["D"])
     causal = c.get("causal", False)
-    mask = _mask(21, 1, c["S"], 0.2) if c.get("mask") else None
+    mask = _case_mask(c, 21, B, 0.2)
     ct = np.random.default_rng(22).normal(0, 1, q.shape).astype(np.float32)
     jmask = None if mask is None else jnp.asarray(mask)
 
@@ -179,6 +198,34 @@ def test_bwd_plain_matches_autograd_of_plain_forward():
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
         # the fully masked batch element gets exactly zero gradients
         assert all(float(g[1].abs().max()) == 0.0 for g in got)
+
+
+def test_bf16_rounding_scale_bounds_the_plain_outputs():
+    """R of the bf16 bound is each output over absolute values: it bounds
+    |o|, |dK| and |dV| elementwise, equals o where v >= 0 and dV where
+    dO >= 0, and is 0 on a fully masked row."""
+    q, k, v = (_t(a) for a in _qkv(33, B=2, S=96, D=32))
+    mask = _t(_holes(34, 2, 96))
+    do = _t(np.random.default_rng(35).normal(size=q.shape).astype(
+        np.float32))
+    for causal in (False, True):
+        o, l, m = port.flash_attention_plain(q, k, v, mask, causal=causal)
+        _, dk, dv = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m,
+                                                   do, causal=causal)
+        r_o, r_dk, r_dv = port.bf16_rounding_scale(q, k, v, mask, o, l, m,
+                                                   do, causal=causal)
+        for r, x in ((r_o, o), (r_dk, dk), (r_dv, dv)):
+            assert r.dtype == torch.float32
+            assert bool((x.abs() <= r * (1 + 1e-6) + 1e-7).all())
+            assert float(r[1].abs().max()) == 0.0
+        pos_o = port.flash_attention_plain(q, k, v.abs(), mask,
+                                           causal=causal)[0]
+        r_o2 = port.bf16_rounding_scale(q, k, v.abs(), mask, o, l, m, do,
+                                        causal=causal)[0]
+        torch.testing.assert_close(r_o2, pos_o, rtol=0, atol=0)
+        dv_pos = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m,
+                                                do.abs(), causal=causal)[2]
+        torch.testing.assert_close(r_dv, dv_pos, rtol=0, atol=0)
 
 
 def test_bf16_io_keeps_dtype():
@@ -257,54 +304,82 @@ def test_attention_pairs_counts_valid_pairs():
     assert port.attention_pairs(mask, 2, 4, True) == 8
 
 
+def _within_bf16_bound(got, want, rel=None):
+    """bf16 ``got`` against the f32 plain result ``want``: within 2 bf16
+    ulps of ``want`` plus 1e-5 * max|want|, plus 2^-8 * ``rel`` where
+    given (``bf16_rounding_scale``: the bf16 K7 and K8a round each P and
+    dS to bf16 once before a tensor-core product, and 2^-8 is bf16's unit
+    roundoff)."""
+    want = want.float()
+    mag = want.abs().clamp_min(2.0 ** -126)
+    allowed = (2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+               + 1e-5 * want.abs().max())
+    if rel is not None:
+        allowed = allowed + 2.0 ** -8 * rel
+    bad = (got.float() - want).abs() > allowed
+    assert torch.isfinite(got).all() and not bad.any(), int(bad.sum())
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On the card: K7 (with and without stats), K8a and K8b against their
     plain versions, f32 and bf16, head dims 32/64/128, causal and masked,
-    unaligned S, a fully masked row and NaN past the mask, and the
-    training path's unmasked, non-causal bf16 case."""
+    unaligned S, a fully masked row and NaN past the mask, non-prefix
+    masks with a whole masked 64-key tile (the bf16 kernels skip it), and
+    the training path's unmasked, non-causal bf16 case. f32 within 1e-5
+    (forward) and 1e-4 (gradients); bf16 within ``_within_bf16_bound`` of
+    the plain versions run in f32 on the same values."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     for seed, (B, H, S, D, causal, dt, masked) in enumerate(
-            [(2, 3, 200, 32, False, torch.float32, True),
-             (2, 2, 256, 64, True, torch.bfloat16, True),
-             (1, 2, 130, 128, False, torch.float32, True),
-             (2, 2, 128, 64, True, torch.float32, True),
-             (2, 3, 192, 64, False, torch.bfloat16, False)]):
+            [(2, 3, 200, 32, False, torch.float32, "random"),
+             (2, 2, 256, 64, True, torch.bfloat16, "random"),
+             (1, 2, 130, 128, False, torch.float32, "random"),
+             (2, 2, 128, 64, True, torch.float32, "random"),
+             (2, 3, 192, 64, False, torch.bfloat16, None),
+             (2, 2, 192, 64, False, torch.bfloat16, "holes"),
+             (3, 2, 200, 128, True, torch.bfloat16, "holes")]):
         g = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev)
                        .to(dt) for _ in range(4))
         mask = None
         if masked:
             mask = torch.rand(B, S, generator=g, device=dev) > 0.2
+            if masked == "holes":
+                mask[:, 64:128] = False
             mask[-1] = False
-            k[:, :, ~mask[0]] = float("nan")
-            v[:, :, ~mask[0]] = float("nan")
-            k[-1], v[-1] = float("nan"), float("nan")
+            for b in range(B):
+                k[b, :, ~mask[b]] = float("nan")
+                v[b, :, ~mask[b]] = float("nan")
         before = (port.flash_attention.launches,
                   port.flash_attention.launches_dkv,
                   port.flash_attention.launches_dq)
         o, l, m = port._fwd_kernel(q, k, v, mask, causal, D ** -0.5, True)
         o0 = port.flash_attention(q, k, v, kv_mask=mask, causal=causal)
         torch.testing.assert_close(o0, o, rtol=0, atol=0)
-        wo, wl, wm = port.flash_attention_plain(q, k, v, mask,
-                                                causal=causal)
-        tol = (dict(rtol=1e-5, atol=1e-5) if dt == torch.float32
-               else dict(rtol=1.6e-2, atol=1e-2))
-        torch.testing.assert_close(o.float(), wo.float(), **tol)
+        f32 = [t.float() for t in (q, k, v)]
+        wo, wl, wm = port.flash_attention_plain(*f32, mask, causal=causal)
         torch.testing.assert_close(l, wl, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
         assert not masked or float(o[-1].float().abs().max()) == 0.0
         got = port._bwd_kernel(q, k, v, mask, o, l, m, do, causal,
                                D ** -0.5)
-        want = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m, do,
-                                              causal=causal)
-        for a, b in zip(got, want):
+        want = port.flash_attention_bwd_plain(
+            *f32, mask, o.float(), l, m, do.float(), causal=causal)
+        for a in got:
             assert torch.isfinite(a).all()
-            torch.testing.assert_close(a.float(), b.float(), **(
-                dict(rtol=1e-4, atol=1e-4) if dt == torch.float32
-                else dict(rtol=1.6e-2, atol=2e-2)))
+        if dt == torch.float32:
+            torch.testing.assert_close(o, wo, rtol=1e-5, atol=1e-5)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            r_o, r_dk, r_dv = port.bf16_rounding_scale(
+                *f32, mask, o.float(), l, m, do.float(), causal=causal)
+            _within_bf16_bound(o, wo, r_o)
+            _within_bf16_bound(got[0], want[0])
+            _within_bf16_bound(got[1], want[1], r_dk)
+            _within_bf16_bound(got[2], want[2], r_dv)
         torch.cuda.synchronize()
         assert (port.flash_attention.launches,
                 port.flash_attention.launches_dkv,
