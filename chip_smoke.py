@@ -49,8 +49,8 @@ Phases (any failure exits non-zero and prints no result line):
    64-key hole in every row (the masked-tile skip) at D=64 and D=128,
    each in bf16 and f32: f32 within 1e-5 * max|ref|, bf16 within 2 bf16
    ulps (+ 1e-5 * max|ref|) of the plain f32 result, plus 2^-8 of the
-   same product over absolute values for the bf16 K7's o and K8a's dK
-   and dV (they round P and dS to bf16 once); the fully padded row
+   same product over absolute values for the bf16 K7's o, K8a's dK and
+   dV and K8b's dQ (they round P and dS to bf16 once); the fully padded row
    exactly 0; times at the ``FLASH_TIMED`` shapes beside the plain
    versions, SDPA (forward and its autograd backward) and the bounds;
    (b) BERT-base f32 ``transformer_apply(use_flash=True)`` and
@@ -1107,9 +1107,10 @@ def _ulp_check(what, got, want, rel=None):
     plus 1e-5 * max|want| (the rounding to bf16, and near-zero entries
     whose ulp is below the f32 summation error), plus 2^-8 * ``rel``
     where given: ``rel`` is the output taken over absolute values
-    (``bf16_rounding_scale``), for the bf16 K7's o and K8a's dK and dV,
-    which round each P or dS element to bf16 once before a tensor-core
-    product (2^-8 is bf16's unit roundoff). Returns max_abs_err."""
+    (``bf16_rounding_scale``), for the bf16 K7's o, K8a's dK and dV and
+    K8b's dQ, which round each P or dS element to bf16 once before a
+    tensor-core product (2^-8 is bf16's unit roundoff). Returns
+    max_abs_err."""
     import torch
     want = want.float()
     diff = (got.float() - want).abs()
@@ -1172,15 +1173,15 @@ def _flash_case(dev_info, label, dtype, seed, timed):
     wo, wl, wm = fa.flash_attention_plain(*f32, mask, causal=causal)
     wq, wk, wv = fa.flash_attention_bwd_plain(*f32, mask, o.float(), l, m,
                                               do.float(), causal=causal)
-    r_o = r_dk = r_dv = None
+    r_o = r_dq = r_dk = r_dv = None
     if dtype == torch.bfloat16:
-        r_o, r_dk, r_dv = fa.bf16_rounding_scale(
+        r_o, r_dq, r_dk, r_dv = fa.bf16_rounding_scale(
             *f32, mask, o.float(), l, m, do.float(), causal=causal)
     err = {"K7": _ulp_check(f"K7 {name}", o0, wo, r_o),
            "K7 stats": _ulp_check(f"K7 stats {name}", o, wo, r_o),
            "K8a": max(_ulp_check(f"K8a dK {name}", dk, wk, r_dk),
                       _ulp_check(f"K8a dV {name}", dv, wv, r_dv)),
-           "K8b": _ulp_check(f"K8b dQ {name}", dq, wq)}
+           "K8b": _ulp_check(f"K8b dQ {name}", dq, wq, r_dq)}
     if not torch.equal(o0, o):
         raise AssertionError(f"K7 {name}: with and without stats differ")
     live = wl > 0

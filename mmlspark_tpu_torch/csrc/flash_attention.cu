@@ -7,7 +7,8 @@
 //   K8a  fa_bwd_dkv_kernel (float32), fa_bwd_dkv_mma_kernel (bfloat16).
 //        Replaces `_fa_bwd_dkv_kernel` (launched by `_flash_bwd_pallas`):
 //        dK and dV.
-//   K8b  fa_bwd_dq_kernel. Replaces `_fa_bwd_dq_kernel` (same launcher): dQ.
+//   K8b  fa_bwd_dq_kernel (float32), fa_bwd_dq_mma_kernel (bfloat16).
+//        Replaces `_fa_bwd_dq_kernel` (same launcher): dQ.
 //
 // What they compute. q, k, v, o are (BH, S, D) slabs of (B, H, S, D)
 // tensors in float32 or bfloat16 (f32 arithmetic); mask is an
@@ -51,32 +52,35 @@
 // run on the tensor cores (989 TFLOP/s of bf16 against 67 TFLOP/s of f32
 // FMA). Two bodies:
 //
-// - bf16, K7 and K8a: tensor cores. A block of 4 warps owns 64 rows, 16
-//   a warp. Tiles stay bf16 in shared memory (rows padded by 8 elements,
-//   so that ldmatrix is free of bank conflicts) and arrive by cp.async,
-//   double-buffered: tile t + 1 loads while tile t computes. Products are
-//   mma.sync m16n8k16 with f32 accumulation (products of bf16 values are
-//   exact in f32). The softmax runs in registers on the accumulator
-//   fragments; P (and K8a's dS) is rounded to bf16 once and repacked from
-//   the accumulator fragment into the A fragment of the next product, with
-//   no trip through shared memory. l sums the unrounded f32 P. K8a works
-//   in the key-rows form (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T
-//   are A fragments as they come. A 64-key tile whose mask bytes are all
-//   zero is skipped whole (K7: never loaded; K8a: writes zero dK/dV rows),
-//   which is exact: it would add 0 to l and to every sum.
-// - float32, and K8b in both types: plain FMA from shared memory. 256
-//   threads form a 16 x 16 grid: thread (ty, tx) computes the scores of
-//   rows ty + 16 i and columns tx + 16 j (i, j < 4), and owns the output
-//   rows ty + 16 i and columns tx + 16 c (c < D / 16). Tiles sit in shared
-//   memory as f32 rows padded to D + 1; loads are not pipelined. The f32
-//   body keeps card and host results equal to 1e-5.
+// - bf16, all three kernels: tensor cores. A block of 4 warps owns 64
+//   rows, 16 a warp. Tiles stay bf16 in shared memory (rows padded by 8
+//   elements, so that ldmatrix is free of bank conflicts) and arrive by
+//   cp.async, double-buffered: tile t + 1 loads while tile t computes.
+//   Products are mma.sync m16n8k16 with f32 accumulation (products of
+//   bf16 values are exact in f32). The softmax runs in registers on the
+//   accumulator fragments; P (and the backward's dS) is rounded to bf16
+//   once and repacked from the accumulator fragment into the A fragment
+//   of the next product, with no trip through shared memory. l sums the
+//   unrounded f32 P. K8a works in the key-rows form (S^T = K Q^T, dP^T =
+//   V dO^T), so P^T and dS^T are A fragments as they come; K8b in the
+//   query-rows form of K7 (S = Q K^T, dP = dO V^T, then dQ += dS K). A
+//   64-key tile whose mask bytes are all zero is skipped whole (K7 and
+//   K8b: never loaded; K8a: writes zero dK/dV rows), which is exact: it
+//   would add 0 to l and to every sum.
+// - float32: plain FMA from shared memory. 256 threads form a 16 x 16
+//   grid: thread (ty, tx) computes the scores of rows ty + 16 i and
+//   columns tx + 16 j (i, j < 4), and owns the output rows ty + 16 i and
+//   columns tx + 16 c (c < D / 16). Tiles sit in shared memory as f32 rows
+//   padded to D + 1; loads are not pipelined. The f32 body keeps card and
+//   host results equal to 1e-5.
 //
-// Shared memory per block: bf16 K7 Q + 2 stages of K, V = 5 * 64 * (D + 8)
-// * 2 bytes (85 KB at D = 128); bf16 K8a K, V + 2 stages of Q, dO and the
-// row stats = 104 KB at D = 128; f32 (LD = D + 1): K7 3 tiles + P = 116 KB
-// at D = 128, K8b 4 tiles + dS = 149 KB, K8a 4 tiles + P + dS + row stats
-// = 166 KB. Above 48 KB it is dynamic memory, opted into with
-// cudaFuncSetAttribute.
+// Shared memory per block, bf16 (tiles of 64 x (D + 8) x 2 bytes): K7 Q +
+// 2 stages of K, V = 5 tiles (85 KB at D = 128); K8b Q, dO + 2 stages of
+// K, V = 6 tiles (30.7 / 55.3 / 104.4 KB at D = 32 / 64 / 128); K8a K, V
+// + 2 stages of Q, dO and the row stats = 104 KB at D = 128. f32 (LD =
+// D + 1): K7 3 tiles + P = 116 KB at D = 128, K8b 4 tiles + dS = 149 KB,
+// K8a 4 tiles + P + dS + row stats = 166 KB. Above 48 KB it is dynamic
+// memory, opted into with cudaFuncSetAttribute.
 //
 // Build: mmlspark_tpu_torch/utils/cuda_build.py runs nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC on this file
@@ -299,7 +303,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- K8b ---------------------------------------------------------------------
+// ---- K8b, float32 ------------------------------------------------------------
 
 // the per-row backward inputs of query `row`: m, linv = 1 / l (0 where
 // l == 0) and delta; a row past S gets linv = 0, so its p is 0
@@ -504,7 +508,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 on tensor cores: K7 and K8a --------------------------------------
+// ---- bf16 on tensor cores: K7, K8a and K8b ---------------------------------
 
 constexpr int kMmaThreads = 128;   // 4 warps, 16 rows of a 64-row tile each
 constexpr float kLog2e = 1.4426950408889634f;
@@ -597,6 +601,10 @@ constexpr size_t dkv_mma_smem() {
   // K, V; Q, dO in each of 2 stages; m, l, delta in each of 2 stages
   return 6 * tile_bytes<HD>() + 2 * 3 * kTile * sizeof(float);
 }
+template <int HD>
+constexpr size_t dq_mma_smem() {
+  return 6 * tile_bytes<HD>();   // Q, dO, and K, V in each of 2 stages
+}
 
 // Start the async copy of rows [r0, r0 + kTile) of a bf16 (S, HD) slab
 // into a shared tile [kTile][HD + 8]. A row past S, or whose mask byte is
@@ -632,6 +640,70 @@ __device__ __forceinline__ int next_live_tile(
     if (__syncthreads_or(live)) break;
   }
   return from;
+}
+
+// The query-rows form of K7 and K8b, for the 16 rows of one warp. Score
+// column tile n (keys k0 + 8 n + 2 t + e of lane (g, t)) is s[n].
+
+// s[n] += a * (rows 8 n .. 8 n + 7 of a 64-row tile)^T at k-step kk: the
+// rows (K or V as stored) are the col-major B operand
+template <int HD>
+__device__ __forceinline__ void mma_rows_t(float (&s)[kTile / 8][4],
+                                           const uint32_t (&a)[4],
+                                           const bf16* __restrict__ tile,
+                                           int kk, int lane) {
+  constexpr int LDS = mma_ld<HD>();
+#pragma unroll
+  for (int np = 0; np < kTile / 16; ++np) {
+    uint32_t b[4];
+    ldsm_x4(b, tile + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDS +
+                   kk * 16 + ((lane >> 3) & 1) * 8);
+    mma(s[2 * np], a, b[0], b[1]);
+    mma(s[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// acc (16 x HD) += a (keys 16 kk .. 16 kk + 15) * those rows of a
+// [key][HD] tile, whose B fragments come from ldmatrix.trans
+template <int HD>
+__device__ __forceinline__ void mma_rows(float (&acc)[HD / 8][4],
+                                         const uint32_t (&a)[4],
+                                         const bf16* __restrict__ tile,
+                                         int kk, int lane) {
+  constexpr int LDS = mma_ld<HD>();
+#pragma unroll
+  for (int dn = 0; dn < HD / 16; ++dn) {
+    uint32_t b[4];
+    ldsm_x4_t(b, tile + (kk * 16 + (lane & 15)) * LDS + dn * 16 +
+                     (lane >> 4) * 8);
+    mma(acc[2 * dn], a, b[0], b[1]);
+    mma(acc[2 * dn + 1], a, b[2], b[3]);
+  }
+}
+
+// Bit 2 n + e: key k0 + 8 n + 2 t + e is before S and not masked.
+__device__ __forceinline__ uint32_t tile_key_bits(
+    int k0, int t, int S, const uint8_t* __restrict__ mask) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * n + 2 * t + e;
+      if (key < S && (mask == nullptr || mask[key] != 0))
+        bits |= 1u << (2 * n + e);
+    }
+  return bits;
+}
+// the same bits with the keys after query `row` cleared
+__device__ __forceinline__ uint32_t causal_bits(uint32_t bits, int k0, int t,
+                                                int row) {
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (k0 + 8 * n + 2 * t + e > row) bits &= ~(1u << (2 * n + e));
+  return bits;
 }
 
 // K7, bf16. Block: 64 queries of one (b, h); warp w owns queries 16 w ..
@@ -712,37 +784,13 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int np = 0; np < SN / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, k_s + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDS +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qf[kk], b[0], b[1]);
-        mma(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
+    for (int kk = 0; kk < KS; ++kk) mma_rows_t<HD>(s, qf[kk], k_s, kk, lane);
 
-    // key validity of this lane's 16 columns (keys cur + 8 n + 2 t + e)
-    uint32_t kbits = 0;
-#pragma unroll
-    for (int n = 0; n < SN; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = cur + 8 * n + 2 * t + e;
-        if (key < S && (mrow == nullptr || mrow[key] != 0))
-          kbits |= 1u << (2 * n + e);
-      }
+    const uint32_t kbits = tile_key_bits(cur, t, S, mrow);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = q0 + warp * 16 + g + 8 * hr;
-      uint32_t ok = kbits;
-      if (causal) {
-#pragma unroll
-        for (int n = 0; n < SN; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (cur + 8 * n + 2 * t + e > row) ok &= ~(1u << (2 * n + e));
-      }
+      const uint32_t ok = causal ? causal_bits(kbits, cur, t, row) : kbits;
       float mx = kNeg;
 #pragma unroll
       for (int n = 0; n < SN; ++n)
@@ -782,14 +830,7 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < ON / 2; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, v_s + (kk * 16 + (lane & 15)) * LDS + dp * 16 +
-                         (lane >> 4) * 8);
-        mma(acc[2 * dp], a, b[0], b[1]);
-        mma(acc[2 * dp + 1], a, b[2], b[3]);
-      }
+      mma_rows<HD>(acc, a, v_s, kk, lane);
     }
     cur = nxt;
     stage ^= 1;
@@ -1067,6 +1108,188 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K8b, bf16. Block: 64 queries of one (b, h); warp w owns queries 16 w ..
+// 16 w + 15 and their dQ rows, with the row stats of rows g and g + 8 in
+// registers (m in log2 units). The loop runs over the live key tiles (K
+// and V double-buffered by cp.async, as in K7): S = Q K^T and dP = dO V^T
+// (K and V rows are the col-major B operand as stored), P and dS on the
+// accumulator fragments, then dQ += bf16(dS) K with K's B fragments from
+// ldmatrix.trans. Q and dO stay A fragments in registers up to D = 64; at
+// D = 128 they are read from shared memory at each use, which leaves the
+// registers to the dQ accumulator and the S and dP fragments (64 each).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const uint8_t* __restrict__ mask,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in,
+                     const float* __restrict__ delta_in,
+                     bf16* __restrict__ dq, int H, int S, float scale,
+                     int causal) {
+  constexpr int LDS = mma_ld<HD>();
+  constexpr int KS = HD / 16;
+  constexpr int ON = HD / 8;
+  constexpr int SN = kTile / 8;
+  constexpr int CPR = HD / 8;
+  constexpr bool kRegQ = HD <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + kTile * LDS;
+  bf16* kv_s = do_s + kTile * LDS;   // [stage][K, V][kTile][LDS]
+
+  const int q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * S * HD;
+  const size_t soff = (size_t)bh * S;
+  const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * S : nullptr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sc = scale * kLog2e;
+
+  load_tile_async<HD>(q + base, q0, S, nullptr, q_s);
+  load_tile_async<HD>(dout + base, q0, S, nullptr, do_s);
+  cp_commit();
+  // a causal tile sees no key past its last query
+  const int k_end = causal ? min(q0 + kTile, S) : S;
+  int cur = next_live_tile(0, k_end, S, mrow);
+  if (cur < k_end) {
+    load_tile_async<HD>(k + base, cur, S, mrow, kv_s);
+    load_tile_async<HD>(v + base, cur, S, mrow, kv_s + kTile * LDS);
+  }
+  cp_commit();
+
+  // rows g and g + 8 of this warp: m (log2 units), linv, delta; a row
+  // past S gets linv = 0, so its p is 0
+  int row[2];
+  float m2[2], linv[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    row[hr] = q0 + warp * 16 + g + 8 * hr;
+    const RowStats r = row_stats(m_in, l_in, delta_in, soff, row[hr], S);
+    m2[hr] = r.m * kLog2e;
+    linv[hr] = r.linv;
+    dl[hr] = r.delta;
+  }
+
+  cp_wait<1>();   // Q and dO have landed
+  __syncthreads();
+  const bf16* qw_s = q_s + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+  const bf16* dow_s =
+      do_s + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+  uint32_t qf[kRegQ ? KS : 1][4], dof[kRegQ ? KS : 1][4];
+  if constexpr (kRegQ) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(qf[kk], qw_s + kk * 16);
+      ldsm_x4(dof[kk], dow_s + kk * 16);
+    }
+  }
+
+  float acc[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int stage = 0;
+  while (cur < k_end) {
+    // the vote is also the barrier after which no warp reads stage ^ 1
+    const int nxt = next_live_tile(cur + kTile, k_end, S, mrow);
+    if (nxt < k_end) {
+      bf16* dst = kv_s + (stage ^ 1) * 2 * kTile * LDS;
+      load_tile_async<HD>(k + base, nxt, S, mrow, dst);
+      load_tile_async<HD>(v + base, nxt, S, mrow, dst + kTile * LDS);
+    }
+    cp_commit();
+    cp_wait<1>();   // this tile has landed (the next may be in flight)
+    __syncthreads();
+    const bf16* k_s = kv_s + stage * 2 * kTile * LDS;
+    const bf16* v_s = k_s + kTile * LDS;
+
+    // S and dP of this warp's 16 queries against the tile's 64 keys: n8
+    // tile n holds keys cur + 8 n + 2 t + e
+    float s[SN][4], dp[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      if constexpr (kRegQ) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
+      } else {
+        ldsm_x4(a, qw_s + kk * 16);
+      }
+      mma_rows_t<HD>(s, a, k_s, kk, lane);
+      if constexpr (kRegQ) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = dof[kk][j];
+      } else {
+        ldsm_x4(a, dow_s + kk * 16);
+      }
+      mma_rows_t<HD>(dp, a, v_s, kk, lane);
+    }
+
+    // P = exp(S scale - m) linv and dS = P (dP - delta) scale, selected to
+    // 0 where the pair is not valid, in place of S
+    const uint32_t kbits = tile_key_bits(cur, t, S, mrow);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const uint32_t ok =
+          causal ? causal_bits(kbits, cur, t, row[hr]) : kbits;
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hr + e];
+          const float p = (ok >> (2 * n + e)) & 1u
+                              ? exp2f(x * sc - m2[hr]) * linv[hr]
+                              : 0.f;
+          x = p * (dp[n][2 * hr + e] - dl[hr]) * scale;
+        }
+    }
+
+    // dQ += bf16(dS) K: the dS fragments of keys 16 kk .. 16 kk + 15 are
+    // the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      mma_rows<HD>(acc, a, k_s, kk, lane);
+    }
+    cur = nxt;
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  // dQ through this warp's own Q rows (read only by it, above), then
+  // 16-byte stores. A tile that met no live key writes zeros.
+  __syncwarp();
+  bf16* dq_s = q_s + warp * 16 * LDS;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int n = 0; n < ON; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dq_s + (g + 8 * hr) * LDS + 8 * n +
+                                         2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * hr], acc[n][2 * hr + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    const int qrow = q0 + warp * 16 + r;
+    if (qrow < S)
+      *reinterpret_cast<uint4*>(dq + base + (size_t)qrow * HD + cc) =
+          *reinterpret_cast<const uint4*>(dq_s + r * LDS + cc);
+  }
+}
+
 // ---- launchers -----------------------------------------------------------------
 
 struct Args {
@@ -1146,12 +1369,21 @@ cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
       break;
     }
     case 3: {
-      constexpr size_t smem = dq_smem<HD>();
-      auto kern = fa_bwd_dq_kernel<T, HD>;
-      if ((err = configure(kern, smem)) != cudaSuccess) return err;
-      kern<<<grid, kThreads, smem, stream>>>(
-          q, k, v, a.mask, dout, a.m, a.l, a.delta, static_cast<T*>(a.out0),
-          a.H, a.S, a.scale, a.causal);
+      if constexpr (std::is_same<T, bf16>::value) {
+        constexpr size_t smem = dq_mma_smem<HD>();
+        auto kern = fa_bwd_dq_mma_kernel<HD>;
+        if ((err = configure(kern, smem)) != cudaSuccess) return err;
+        kern<<<grid, kMmaThreads, smem, stream>>>(
+            q, k, v, a.mask, dout, a.m, a.l, a.delta,
+            static_cast<T*>(a.out0), a.H, a.S, a.scale, a.causal);
+      } else {
+        constexpr size_t smem = dq_smem<HD>();
+        auto kern = fa_bwd_dq_kernel<T, HD>;
+        if ((err = configure(kern, smem)) != cudaSuccess) return err;
+        kern<<<grid, kThreads, smem, stream>>>(
+            q, k, v, a.mask, dout, a.m, a.l, a.delta,
+            static_cast<T*>(a.out0), a.H, a.S, a.scale, a.causal);
+      }
       break;
     }
     default:

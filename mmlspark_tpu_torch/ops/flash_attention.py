@@ -23,11 +23,11 @@ are all masked gives 0, not NaN, and its stats are l = 0, m = -1e30.
                                 scale the bf16 kernels' error bound
 =============================  =========================================
 
-In bfloat16, K7 and K8a run on the tensor cores and round each
-probability P (K8a also each dS) to bf16 once before it enters a
-product, so their outputs lie within 2⁻⁸ · :func:`bf16_rounding_scale`
-(plus the rounding of the output itself) of the plain versions run in
-f32; K8b and the float32 kernels keep f32 P.
+In bfloat16, K7, K8a and K8b run on the tensor cores and round each
+probability P (K8a also each dS, K8b only each dS) to bf16 once before it
+enters a product, so their outputs lie within 2⁻⁸ ·
+:func:`bf16_rounding_scale` (plus the rounding of the output itself) of
+the plain versions run in f32; the float32 kernels keep f32 P and dS.
 
 Launches are counted in ``flash_attention.launches`` (K7),
 ``flash_attention.launches_dkv`` (K8a) and ``flash_attention.launches_dq``
@@ -225,25 +225,27 @@ def bf16_rounding_scale(q, k, v, kv_mask, o, l, m, do, *,
                         causal: bool = False,
                         scale: Optional[float] = None,
                         block_k: int = 512):
-    """R of the bf16 kernels' error bound → (r_o, r_dk, r_dv), f32.
+    """R of the bf16 kernels' error bound → (r_o, r_dq, r_dk, r_dv), f32.
 
-    The bf16 K7 rounds each probability P, and the bf16 K8a each P and
-    dS, to bf16 once before it enters a tensor-core product. One rounding
-    of each x moves a sum of x·y by at most 2⁻⁸ · sum |x||y| (2⁻⁸ is
-    bf16's unit roundoff). R is each such output taken over absolute
-    values, with the plain versions' arithmetic: r_o = sum P |v| / l (the
-    plain forward over |v|, exact since P ≥ 0), r_dv = Pᵀ |dO|, r_dk =
-    |dS|ᵀ |Q|."""
+    The bf16 K7 rounds each probability P, the bf16 K8a each P and dS, and
+    the bf16 K8b each dS, to bf16 once before it enters a tensor-core
+    product. One rounding of each x moves a sum of x·y by at most 2⁻⁸ ·
+    sum |x||y| (2⁻⁸ is bf16's unit roundoff). R is each such output taken
+    over absolute values, with the plain versions' arithmetic: r_o = sum
+    P |v| / l (the plain forward over |v|, exact since P ≥ 0), r_dq = |dS|
+    |K|, r_dk = |dS|ᵀ |Q|, r_dv = Pᵀ |dO|."""
     r_o = flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                 kv_mask, causal=causal, scale=scale)[0]
     scale = _scale(scale, q.shape[-1])
-    r_dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    r_dv = torch.empty_like(r_dk)
-    for j0, j1, qf, dof, _, p, ds in _bwd_blocks(
+    r_dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    r_dk = torch.empty_like(r_dq)
+    r_dv = torch.empty_like(r_dq)
+    for j0, j1, qf, dof, kj, p, ds in _bwd_blocks(
             q, k, v, kv_mask, o, l, m, do, causal, scale, block_k):
+        r_dq += ds.abs() @ kj.abs()
         r_dk[:, :, j0:j1] = ds.abs().transpose(-1, -2) @ qf.abs()
         r_dv[:, :, j0:j1] = p.transpose(-1, -2) @ dof.abs()
-    return r_o, r_dk, r_dv
+    return r_o, r_dq, r_dk, r_dv
 
 
 def attention_pairs(kv_mask, B: int, S: int, causal: bool) -> int:

@@ -202,19 +202,19 @@ def test_bwd_plain_matches_autograd_of_plain_forward():
 
 def test_bf16_rounding_scale_bounds_the_plain_outputs():
     """R of the bf16 bound is each output over absolute values: it bounds
-    |o|, |dK| and |dV| elementwise, equals o where v >= 0 and dV where
-    dO >= 0, and is 0 on a fully masked row."""
+    |o|, |dQ|, |dK| and |dV| elementwise, equals o where v >= 0 and dV
+    where dO >= 0, and is 0 on a fully masked row."""
     q, k, v = (_t(a) for a in _qkv(33, B=2, S=96, D=32))
     mask = _t(_holes(34, 2, 96))
     do = _t(np.random.default_rng(35).normal(size=q.shape).astype(
         np.float32))
     for causal in (False, True):
         o, l, m = port.flash_attention_plain(q, k, v, mask, causal=causal)
-        _, dk, dv = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m,
-                                                   do, causal=causal)
-        r_o, r_dk, r_dv = port.bf16_rounding_scale(q, k, v, mask, o, l, m,
-                                                   do, causal=causal)
-        for r, x in ((r_o, o), (r_dk, dk), (r_dv, dv)):
+        dq, dk, dv = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m,
+                                                    do, causal=causal)
+        r_o, r_dq, r_dk, r_dv = port.bf16_rounding_scale(
+            q, k, v, mask, o, l, m, do, causal=causal)
+        for r, x in ((r_o, o), (r_dq, dq), (r_dk, dk), (r_dv, dv)):
             assert r.dtype == torch.float32
             assert bool((x.abs() <= r * (1 + 1e-6) + 1e-7).all())
             assert float(r[1].abs().max()) == 0.0
@@ -226,6 +226,32 @@ def test_bf16_rounding_scale_bounds_the_plain_outputs():
         dv_pos = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m,
                                                 do.abs(), causal=causal)[2]
         torch.testing.assert_close(r_dv, dv_pos, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_with_bf16_ds_stays_within_the_bound(causal):
+    """The bf16 K8b's rounding, emulated in plain PyTorch: dS rounded to
+    bf16 once per key block before ``dS @ K`` stays within 2^-8 * r_dq
+    (plus 1e-6 * max|dq| for the f32 sums' order) of the f32 dQ, with a
+    non-prefix mask and a fully masked row; that row's dQ is exactly 0."""
+    q, k, v = (_t(a) for a in _qkv(36, B=2, S=192, D=32))
+    mask = _t(_holes(37, 2, 192))
+    do = _t(np.random.default_rng(38).normal(size=q.shape).astype(
+        np.float32))
+    o, l, m = port.flash_attention_plain(q, k, v, mask, causal=causal)
+    want = port.flash_attention_bwd_plain(q, k, v, mask, o, l, m, do,
+                                          causal=causal)[0]
+    r_dq = port.bf16_rounding_scale(q, k, v, mask, o, l, m, do,
+                                    causal=causal)[1]
+    got = torch.zeros_like(want)
+    for _, _, _, _, kj, _, ds in port._bwd_blocks(
+            q, k, v, mask, o, l, m, do, causal, 32 ** -0.5, 64):
+        got += ds.to(torch.bfloat16).float() @ kj
+    err = (got - want).abs()
+    assert bool((err <= 2.0 ** -8 * r_dq
+                 + 1e-6 * want.abs().max()).all()), float(err.max())
+    assert float(err.max()) > 0.0       # the rounding did happen
+    assert float(got[1].abs().max()) == 0.0
 
 
 def test_bf16_io_keeps_dtype():
@@ -307,9 +333,9 @@ def test_attention_pairs_counts_valid_pairs():
 def _within_bf16_bound(got, want, rel=None):
     """bf16 ``got`` against the f32 plain result ``want``: within 2 bf16
     ulps of ``want`` plus 1e-5 * max|want|, plus 2^-8 * ``rel`` where
-    given (``bf16_rounding_scale``: the bf16 K7 and K8a round each P and
-    dS to bf16 once before a tensor-core product, and 2^-8 is bf16's unit
-    roundoff)."""
+    given (``bf16_rounding_scale``: the bf16 K7, K8a and K8b round each P
+    and dS to bf16 once before a tensor-core product, and 2^-8 is bf16's
+    unit roundoff)."""
     want = want.float()
     mag = want.abs().clamp_min(2.0 ** -126)
     allowed = (2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
@@ -339,7 +365,8 @@ def test_cuda_kernels_match_plain_versions():
              (2, 2, 128, 64, True, torch.float32, "random"),
              (2, 3, 192, 64, False, torch.bfloat16, None),
              (2, 2, 192, 64, False, torch.bfloat16, "holes"),
-             (3, 2, 200, 128, True, torch.bfloat16, "holes")]):
+             (3, 2, 200, 128, True, torch.bfloat16, "holes"),
+             (2, 2, 130, 32, True, torch.bfloat16, "random")]):
         g = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev)
                        .to(dt) for _ in range(4))
@@ -374,10 +401,10 @@ def test_cuda_kernels_match_plain_versions():
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
         else:
-            r_o, r_dk, r_dv = port.bf16_rounding_scale(
+            r_o, r_dq, r_dk, r_dv = port.bf16_rounding_scale(
                 *f32, mask, o.float(), l, m, do.float(), causal=causal)
             _within_bf16_bound(o, wo, r_o)
-            _within_bf16_bound(got[0], want[0])
+            _within_bf16_bound(got[0], want[0], r_dq)
             _within_bf16_bound(got[1], want[1], r_dk)
             _within_bf16_bound(got[2], want[2], r_dv)
         torch.cuda.synchronize()
