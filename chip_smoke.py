@@ -11,18 +11,24 @@ Phases (any failure exits non-zero and prints no result line):
 2. build — compiles every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together;
 3. kernels — each kernel (K1 on bf16 pages, K2 on int8 and fp8 pages, at
-   a decode tick and a chunked-prefill extend at full width; K3 and K4
-   at a read-only shape) against its plain PyTorch version on the card:
-   context within about one bf16 ulp, pages and scales bitwise, inactive
-   rows untouched, NaN planted past every bound kept out; then its time,
-   the plain version's time, one PyTorch library call's time as a
-   yardstick, and the least time the card could take (its bound);
+   a decode tick, a chunked-prefill extend at full width and serving's
+   own window shapes: a prompt's first and second chunks, an 8-token
+   prefix suffix at an unaligned position, four rows with one inactive;
+   K3 and K4 at a read-only shape) against its plain PyTorch version on
+   the card: context within about one bf16 ulp (plus 2^-8 of the same
+   attention over |V| for the tensor-core window body, K1/K2 at W > 1,
+   which rounds P to bf16), pages and scales bitwise, inactive rows
+   untouched, NaN planted past every bound kept out; then its time, the
+   plain version's time, one PyTorch library call's time as a yardstick,
+   and the least time the card could take (its bound);
 4. parity — at full width in float32, the engine's greedy tokens through
    the kernel equal those through the plain gather path, token for token,
    on f32 pages and on int8 and fp8 pages;
 5. serving — a bf16 ``GenerationEngine`` at full width answers a dozen
    HTTP ``POST /generate`` requests (chunked prompts, a shared prefix, an
-   SSE stream); K1 must have launched in this run;
+   SSE stream); K1 must have launched in this run, its launches split
+   into decode steps and extends (prefill chunks and prefix suffixes,
+   each once per layer, from the engine's chunk trace and prefix hits);
 6. quantized serving — a bf16 ``ContinuousDecoder(kv_dtype="int8")`` at
    full width serves the same request mix through ``submit``/``step``
    (then a shorter fp8 run); K2 must have launched and K1 not, with the
@@ -79,9 +85,9 @@ Phases (any failure exits non-zero and prints no result line):
    processes sharing the card, six heads and a pool shard each: both
    ranks' f32 tokens equal each other's and 10b's over all 16 tokens.
 
-``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only, and
-``python3 chip_smoke.py 9`` phases 1, 2 and 9; either prints no result
-and exits 3.
+``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only,
+``python3 chip_smoke.py 9`` phases 1, 2 and 9, and ``python3
+chip_smoke.py 3`` phases 1, 2 and 3; each prints no result and exits 3.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -151,17 +157,29 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _cuda_ms(fns, reps):
+def _cuda_ms(fns, reps, head_start=True):
     """Mean device ms per call over ``reps`` back-to-back calls between two
     CUDA events, cycling through ``fns`` (one per copy of the inputs, so
     that together they exceed the 50 MB L2 and each call finds its data
-    cold, as each layer of the real model does)."""
+    cold, as each layer of the real model does).
+
+    ``head_start``: the stream first spins for longer than the host takes
+    to issue all ``reps`` calls, so the events time the device alone; a
+    call whose kernels finish faster than the host issues them (SDPA with
+    a mask, a few small kernels a call) would otherwise time the host.
+    Without it the reading is paced by whichever is slower."""
     import torch
+    t0 = time.perf_counter()
     for f in fns[:3]:
         f()
+    host_s = (time.perf_counter() - t0) / min(3, len(fns))
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if head_start:
+        # 2e9 cycles a second bounds the H100's SM clock from above, so
+        # the spin lasts at least 2 x the host's issue time (at most 0.1 s)
+        torch.cuda._sleep(int(min(0.1, 2 * host_s * reps) * 2e9))
     a.record()
     for i in range(reps):
         fns[i % len(fns)]()
@@ -226,18 +244,23 @@ def _kv_case_inputs(B, W, pos_list, seed, store, H=12):
                 vn=vn, bt=bt, pools=pools, t_idx=t_idx)
 
 
-def _check_ctx(what, got, want):
+def _check_ctx(what, got, want, r=None):
     """bf16 output: both round one f32 result whose sums are reordered, so
-    they may differ by about one bf16 ulp (<= 2**-7 relative)."""
+    they may differ by about one bf16 ulp (<= 2**-7 relative). ``r``: the
+    tensor-core window body (K1/K2 at W > 1) also rounds each P (or P times
+    the V scale) to bf16 once, which may move ctx by 2**-8 * r more, r
+    from ``paged_rounding_scale``."""
     import torch
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     atol, rtol = 4e-3, 1e-2
-    bad = diff > atol + rtol * want.float().abs()
+    bad = diff > atol + rtol * want.float().abs() + (
+        0.0 if r is None else 2.0 ** -8 * r)
     if not torch.isfinite(got).all() or bad.any():
+        extra = "" if r is None else " + 2**-8*R"
         raise AssertionError(f"{what}: ctx off by more than {atol} + "
-                             f"{rtol}*|want| at {int(bad.sum())} elements, "
-                             f"or not finite (max_abs_err {err})")
+                             f"{rtol}*|want|{extra} at {int(bad.sum())} "
+                             f"elements, or not finite (max_abs_err {err})")
     return err
 
 
@@ -285,12 +308,20 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
     want = pa.paged_attention_window_plain(q, kn, vn, plain[0], plain[1],
                                            bt, pos, wlo, whi, scale,
                                            *plain[2:])
+    # W > 1 runs the tensor-core body: its bound adds 2**-8 * R
+    r = pa.paged_rounding_scale(
+        q, kn, vn, pools[0], pools[1], bt, pos, scale,
+        *((pools[2], pools[3]) if quant else ())) if W > 1 else None
     kern = [t.clone() for t in pools]
     kw = {"k_scale": kern[2], "v_scale": kern[3]} if quant else {}
-    got = pa.paged_attention_window(q, kn, vn, kern[0], kern[1], bt, pos,
-                                    active=active, **kw)[0]
+    paw = pa.paged_attention_window
+    mma0 = paw.launches_mma + paw.launches_q_mma
+    got = paw(q, kn, vn, kern[0], kern[1], bt, pos, active=active, **kw)[0]
     torch.cuda.synchronize()
-    err = _check_ctx(what, got, want)
+    # the body the library reports it ran (recorded, not asserted here:
+    # the serving phases assert it on the main path)
+    body = "mma" if paw.launches_mma + paw.launches_q_mma > mma0 else "fma"
+    err = _check_ctx(what, got, want, r)
     # every non-trash page (and scale) bitwise; inactive rows untouched
     if not all(torch.equal(_bits(a[1:]), _bits(b[1:]))
                for a, b in zip(kern, plain)):
@@ -319,10 +350,10 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
         if quant:
             return lambda: rc.append(lib.mmlspark_pa_window_fused_q(
                 1, pa._STORES[store], hd, q.data_ptr(), kn.data_ptr(),
-                vn.data_ptr(), *ptrs, *ints, *shape))
+                vn.data_ptr(), *ptrs, *ints, *shape, None))
         return lambda: rc.append(lib.mmlspark_pa_window_fused(
             1, hd, q.data_ptr(), kn.data_ptr(), vn.data_ptr(), *ptrs,
-            *ints, *shape))
+            *ints, *shape, None))
     ms = _cuda_ms([launcher(c) for c in copies], 200)
     if any(rc):
         raise AssertionError(f"{what}: launch returned {set(rc)}")
@@ -342,9 +373,11 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
                       causal[None, None].expand(B, 1, W, W)], -1)
     n = _copies(2 * k_all.numel() * k_all.element_size())
     kvs = [(k_all.clone(), v_all.clone()) for _ in range(n)]
-    library_ms = _cuda_ms([lambda c=c: F.scaled_dot_product_attention(
-        q, c[0], c[1], attn_mask=mask) for c in kvs], 200)
-    del kvs
+    sdpa = [lambda c=c: F.scaled_dot_product_attention(
+        q, c[0], c[1], attn_mask=mask) for c in kvs]
+    library_ms = _cuda_ms(sdpa, 200)
+    library_host = _cuda_ms(sdpa, 200, head_start=False)
+    del kvs, sdpa
     # bound: each input byte read once, each output byte written once —
     # live cached keys (< pos) of every row with their scales,
     # q/k_new/v_new, ctx, and the fresh rows (codes and scales) of the
@@ -358,6 +391,7 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
     flops = sum(4 * H * hd * W * (int(p) + W) for p in pos_np)
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
+           "library_ms_host_paced": library_host, "body": body,
            "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
                      "max_pos": int(pos_np.max()), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
@@ -423,9 +457,11 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
     mask = key_ok[:, None, None, :].expand(B, 1, W, L)
     n = _copies(2 * kc.numel() * kc.element_size())
     kvs = [(kc.clone(), vc.clone()) for _ in range(n)]
-    library_ms = _cuda_ms([lambda c=c: F.scaled_dot_product_attention(
-        q, c[0], c[1], attn_mask=mask) for c in kvs], 200)
-    del kvs
+    sdpa = [lambda c=c: F.scaled_dot_product_attention(
+        q, c[0], c[1], attn_mask=mask) for c in kvs]
+    library_ms = _cuda_ms(sdpa, 200)
+    library_host = _cuda_ms(sdpa, 200, head_start=False)
+    del kvs, sdpa
     # bound: live keys (< lengths) with their scales, q and ctx
     row_bytes = hd + 2 if quant else 2 * hd
     live = int(sum(len_list))
@@ -434,6 +470,7 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
     flops = 4 * H * hd * W * live
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
+           "library_ms_host_paced": library_host,
            "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
                      "max_len": max(len_list), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
@@ -453,9 +490,18 @@ def phase_kernels(dev_info):
     active = [True] * 16
     active[5] = active[11] = False
     recs = {"K1": {}, "K2": {}}
-    # chunked-prefill extend: one row, a 256-token window at position 384
+    # chunked-prefill extend: one row, a 256-token window at position 384;
+    # then serving's own window shapes: a 384-token prompt's first chunk
+    # (no cached key) and its second, a prefix-suffix window of the
+    # smallest bucket at an unaligned position (a page straddled, half of
+    # an m16 query tile empty), and four rows, one inactive (writes nothing)
     shapes = {"decode": (16, 1, pos, active, 1),
-              "extend": (1, 256, [384], [True], 2)}
+              "extend": (1, 256, [384], [True], 2),
+              "chunk1": (1, 256, [0], [True], 8),
+              "chunk2": (1, 128, [256], [True], 9),
+              "suffix8": (1, 8, [90], [True], 10),
+              "extend b4": (4, 128, [384, 0, 90, 256],
+                            [True, True, False, True], 11)}
     for label, args in shapes.items():
         recs["K1"][label] = _fused_case(dev_info, label, *args)
     for store in (torch.int8, torch.float8_e4m3fn):
@@ -567,7 +613,10 @@ def phase_serving(params_np, dev_info):
         assert st == 200
         eng.decoder.tick_seconds.clear()
         stats0 = dict(eng.decoder._kv.stats)
+        chunks0 = len(eng.decoder._chunk_trace)
+        hits0 = eng.decoder.stats["prefix_hits"]
         paged_attention_window.launches = 0
+        paged_attention_window.launches_mma = 0
 
         def client(i, p):
             try:
@@ -588,9 +637,11 @@ def phase_serving(params_np, dev_info):
             t.join(timeout=300)
         wall = time.perf_counter() - t0
         launches = paged_attention_window.launches
+        mma = paged_attention_window.launches_mma
         stats = eng.decoder._kv.stats
         ticks = list(eng.decoder.tick_seconds)
-        prefix_hits = eng.decoder.stats["prefix_hits"]
+        prefix_hits = eng.decoder.stats["prefix_hits"] - hits0
+        chunks = len(eng.decoder._chunk_trace) - chunks0
     finally:
         eng.stop()
     n_tok = 0
@@ -620,14 +671,34 @@ def phase_serving(params_np, dev_info):
         raise AssertionError(f"K1 launches {launches}, gather_bytes {gather}")
     if prefix_hits < 1:
         raise AssertionError("the shared-prefix request did not hit")
+    split = _window_split("K1", launches, mma, chunks, prefix_hits,
+                          cfg.layers)
     p50 = statistics.median(ticks) * 1e3 if ticks else float("nan")
     rec = {"requests": len(payloads), "tokens": n_tok, "wall_s": wall,
            "tok_per_s": n_tok / wall, "p50_tick_ms": p50,
            "ticks": len(ticks), "k1_launches": launches,
-           "gather_bytes": gather, "prefix_hits": prefix_hits,
-           "steps_per_dispatch": 4, "layers": cfg.layers}
+           "k1_launches_decode": split["decode"],
+           "k1_launches_extend": split["extend"],
+           "prefill_chunks": chunks, "gather_bytes": gather,
+           "prefix_hits": prefix_hits, "steps_per_dispatch": 4,
+           "layers": cfg.layers}
     log(f"[serving] {json.dumps(rec)} | {dev_info['smi']}")
-    return launches
+    return rec
+
+
+def _window_split(what, launches, mma, chunks, hits, layers):
+    """A bf16 run's K1 or K2 launches split by body: ``mma`` of them the
+    library reported running on the tensor-core body (the extends, W > 1),
+    the rest on the FMA body (the decode steps, W = 1). Cross-check: every
+    prefill chunk and every prefix-suffix window of the engine's chunk
+    trace and prefix hits is one extend per layer."""
+    expect = (chunks + hits) * layers
+    if not 0 < mma < launches or mma != expect:
+        raise AssertionError(f"{what}: {launches} launches, {mma} on the "
+                             f"tensor-core body, {expect} expected from "
+                             f"{chunks} chunks and {hits} prefix hits x "
+                             f"{layers} layers")
+    return {"decode": launches - mma, "extend": mma}
 
 
 def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
@@ -660,9 +731,11 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
     eng.tick_seconds.clear()
     stats0 = dict(eng._kv.stats)
     hits0 = eng.stats["prefix_hits"]
+    chunks0 = len(eng._chunk_trace)
     eng._quant_inserts = 0
     paged_attention_window.launches = 0
     paged_attention_window.launches_q = 0
+    paged_attention_window.launches_q_mma = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(np.concatenate([shared, rng.integers(0, cfg.vocab,
                                                             tail)]),
@@ -674,8 +747,9 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
         eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = (paged_attention_window.launches,
-              paged_attention_window.launches_q)
+    k1, k2, k2_mma = (paged_attention_window.launches,
+                      paged_attention_window.launches_q,
+                      paged_attention_window.launches_q_mma)
     stats = eng._kv.stats
     for r in reqs:
         toks = eng.result(r, timeout=1)
@@ -703,10 +777,16 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
                              f"fired")
     n_tok = sum(len(r.tokens) for r in reqs)
     ticks = list(eng.tick_seconds)
+    chunks = len(eng._chunk_trace) - chunks0
+    split = _window_split(f"K2 {kv_dtype}", k2, k2_mma, chunks, hits,
+                          cfg.layers)
     rec = {"kv_dtype": kv_dtype, "requests": len(reqs), "tokens": n_tok,
            "wall_s": wall, "tok_per_s": n_tok / wall,
            "p50_tick_ms": statistics.median(ticks) * 1e3,
-           "ticks": len(ticks), "k2_launches": k2, "k1_launches": k1,
+           "ticks": len(ticks), "k2_launches": k2,
+           "k2_launches_decode": split["decode"],
+           "k2_launches_extend": split["extend"],
+           "prefill_chunks": chunks, "k1_launches": k1,
            "gather_bytes": gather, "prefix_hits": hits,
            "bytes_per_position": bpp, "bytes_per_position_bf16": bf16_bpp,
            "pool_device_bytes": eng._kv.device_bytes(),
@@ -1693,6 +1773,8 @@ def phase_window_kernels(dev_info):
 def _zero_pa_counts():
     from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
     paged_attention_window.launches = paged_attention_window.launches_q = 0
+    paged_attention_window.launches_mma = 0
+    paged_attention_window.launches_q_mma = 0
     paged_attention_window.launches_window = 0
     paged_attention_window.launches_window_q = 0
 
@@ -1928,12 +2010,12 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "9": phases 1, 2 and 9; a partial run prints no result and
-    # exits 3
+    # 4); "9": phases 1, 2 and 9; "3": phases 1, 2 and 3; a partial run
+    # prints no result and exits 3
     only = set(argv)
-    if not only <= {"9", "10"}:
-        log(f"chip_smoke: unknown phases {sorted(only - {'9', '10'})}; "
-            f"the arguments are 9 and 10")
+    if not only <= {"3", "9", "10"}:
+        log(f"chip_smoke: unknown phases {sorted(only - {'3', '9', '10'})};"
+            f" the arguments are 3, 9 and 10")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -1942,6 +2024,8 @@ def main(argv=()):
     import torch
     params_np = init_transformer(_full_cfg(torch.float32), seed=0)
     if only:
+        if "3" in only:
+            phase_kernels(dev_info)
         if "9" in only:
             _phase9(dev_info)
         if "10" in only:
@@ -1953,7 +2037,7 @@ def main(argv=()):
         return 3
     recs = phase_kernels(dev_info)
     single = phase_parity(params_np)
-    k1_launches = phase_serving(params_np, dev_info)
+    serving = phase_serving(params_np, dev_info)
     q8 = phase_quant_serving(params_np, dev_info, "int8",
                              [32, 128, 384] * 3)
     f8 = phase_quant_serving(params_np, dev_info, "fp8", [32, 384])
@@ -1974,11 +2058,17 @@ def main(argv=()):
     ref = "mmlspark_tpu/ops/paged_attention.py"
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
-         "replaces": f"{ref}:226", "launches": k1_launches,
+         "replaces": f"{ref}:226", "launches": serving["k1_launches"],
+         "launches_decode": serving["k1_launches_decode"],
+         "launches_extend": serving["k1_launches_extend"],
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
         {"name": "paged_attention_window (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:404",
          "launches": q8["k2_launches"], "launches_fp8_run": f8["k2_launches"],
+         "launches_decode": q8["k2_launches_decode"],
+         "launches_extend": q8["k2_launches_extend"],
+         "launches_fp8_run_decode": f8["k2_launches_decode"],
+         "launches_fp8_run_extend": f8["k2_launches_extend"],
          **{k: recs["K2"]["int8 decode"][k] for k in keys}, **recs["K2"]},
         {"name": "paged_attention", "route": "cuda", "source": src,
          "replaces": f"{ref}:195", "launches": sweep["k3_launches"],

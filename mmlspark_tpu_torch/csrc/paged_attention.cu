@@ -1,5 +1,6 @@
-// Paged attention over the KV page pool for Hopper (sm_90a): one kernel
-// body, instantiated six ways.
+// Paged attention over the KV page pool for Hopper (sm_90a): six kernels
+// from two bodies, an f32 FMA body (pa_kernel) and a bf16 tensor-core body
+// for fused windows (pa_mma_kernel).
 //
 //   K1  fused window + scatter, pages in the query dtype. Replaces the TPU
 //       kernel `_pa_fused_kernel` (mmlspark_tpu/ops/paged_attention.py,
@@ -46,16 +47,28 @@
 // build with --use_fast_math), then int8: rint and clamp to +-127; fp8:
 // clamp to +-448 and round to nearest even with saturation.
 //
-// What bounds them on this card: bytes. A decode tick (W = 1) does about
-// 4 flops per byte of K/V it reads, far below the ~295 flops/byte at which
-// the H100's compute would be the limit, so the least time is the live
-// pages and their scales (each read once) over the 3.35 TB/s of HBM.
-// Quantized pages halve those bytes: at hd 64 a key row is 64 bytes of
-// codes plus a 2-byte scale against 128 bytes of bf16.
+// Which body each instantiation takes (`dispatch`):
+//   * pa_mma_kernel: K1 and K2 (kFused) with bf16 queries and W > 1, the
+//     chunked-prefill chunks and prefix-suffix windows of bf16 serving;
+//   * pa_kernel: every W = 1 call (the decode tick), every f32 call, and
+//     K3/K4 (kRead) and K5a/K5b (kWindow) at any W.
 //
-// What the design does about that. The TPU kernels swept a sequential
-// (b, page) grid with scratch carried across grid steps; here one block
-// owns (query tile, head, row) and loops only over the row's LIVE keys
+// What bounds them on this card. A decode tick (W = 1) does about 4 flops
+// per byte of K/V it reads, far below the ~295 flops/byte at which the
+// H100's compute would be the limit: bytes bound it, the live pages and
+// their scales (each read once) over the 3.35 TB/s of HBM. Quantized pages
+// halve those bytes: at hd 64 a key row is 64 bytes of codes plus a 2-byte
+// scale against 128 bytes of bf16. A window of W queries does W times the
+// flops on the same cached bytes; an extend chunk (W = 256 at pos 384)
+// does about 500 MFLOP on 3.5 MB in and out (~140 flops a byte), still
+// bytes on the tensor cores' roofline, but 7.5 us of flops at f32 FMA's
+// 67 TFLOP/s against 1 us of bytes: at W > 1 the scalar math, not the
+// bytes, bounds an FMA body, which is why the window has the tensor-core
+// body.
+//
+// pa_kernel, the f32 FMA body. The TPU kernels swept a sequential (b,
+// page) grid with scratch carried across grid steps; here one block owns
+// (query tile, head, row) and loops only over the row's LIVE keys
 // (ceil(bound / 32) tiles of 32 keys, never the block table's full
 // width). The block's warps split the key tiles between them so that a
 // W = 1 tick still keeps four warps per (row, head) reading, each warp
@@ -64,12 +77,54 @@
 // key's page up once (and, quantized, loads that key's K and V scales
 // beside it); then the tile's K and V rows arrive as 16-byte vector loads,
 // all issued before the first is used: one memory round trip per tile,
-// not one per element. Keys at or past the bound are never loaded (their
-// tile slots are zero-filled and their scales never read), so garbage
-// codes or scales in unwritten page slots cannot reach p * v, and the
-// reads never touch the slots this launch writes. The math is plain f32
-// FMA loops; tensor cores, TMA, loads pipelined across tiles and CUDA
-// graphs are later work.
+// not one per element. Tiles sit in shared memory as f32 (dequantized on
+// load), and each query's score is a 64-long fmaf chain per lane.
+//
+// pa_mma_kernel, the bf16 tensor-core body. One block owns 16 queries
+// (one m16 tile) of one (row, head), so an extend chunk of W = 256 at B =
+// 1, H = 12 is a 192-block grid. Its 4 warps split the 32-key tiles as
+// above and all hold the block's Q as A fragments in registers. Per tile:
+// S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, f32 accumulate),
+// the online softmax on the accumulator fragments (m in log2 units), P
+// rounded to bf16 and repacked from the score fragments into the A
+// fragment of the next product, never through shared memory; l sums the
+// unrounded f32 p. Each warp double-buffers its own tiles with cp.async
+// (each 16-byte chunk of a key row takes its address from that key's own
+// block-table entry, so there is still no page-size rule) and reads the
+// block-table entries two tiles ahead, so the next tile's copies are in
+// flight while this one computes. bf16 tiles are padded by 8 elements a
+// row for conflict-free ldmatrix. Window tiles skip whole past the
+// block's last query; the diagonal tile masks element by element. The
+// warps' (m, l, acc) merge through shared memory; then the block runs the
+// same fused_scatter as the FMA body, so pages and scales are bitwise the
+// same.
+//
+// K2 in the tensor-core body: page tiles arrive as codes (64 bytes a row
+// at hd 64, half a bf16 tile, rows padded to hd + 16 bytes) and are
+// widened to bf16 as the B fragments are built, which is exact (|int8| <=
+// 127 and every e4m3 value fit bf16's 8-bit significand). The scales
+// cannot ride inside a bf16 operand without a rounding, so they go where
+// they cost none: the K scale multiplies each score column after the
+// product, in f32, s = scale * sk * (q . code_k), equal to the FMA body's
+// q . (f32(code) * f32(sk)) up to the order of the sums; the V scale is
+// folded into P, P' = bf16(p * sv), the only rounding it takes, with l
+// still summed from the unrounded p. A scale is loaded only for a live
+// key; a dead key keeps sk = sv = 0 (an unwritten slot's scale may be NaN,
+// and NaN * 0 is NaN). Window tiles (fresh rows, never quantized) are
+// plain bf16 tiles; a tile is either all window keys or all page keys.
+//
+// Error bound of the tensor-core body: q, k_new, v_new and bf16 pages are
+// bf16 already and codes widen exactly, so its one extra rounding is of
+// each p (K1) or p * sv (K2) to bf16 before P V: relative 2^-8 a term, so
+// the context lies within 2^-8 * R (plus the output's own bf16 rounding)
+// of the plain f32 result, where R is the same attention taken over |V|
+// (ops/paged_attention.py `paged_rounding_scale`).
+//
+// Both bodies never load a key at or past its bound (its tile slots are
+// zero-filled, by cp.async src-size 0 in the tensor-core body, and its
+// scales never read), so garbage codes or scales in unwritten page slots
+// cannot reach p * v, and the reads never touch the slots this launch
+// writes. TMA, wgmma and CUDA graphs are later work.
 //
 // Page-size rule: none. Tiles are 32 keys wide in the logical key space
 // and each key's page is looked up on its own, so any page size >= 1
@@ -87,7 +142,11 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace mma_sm90;   // the tensor-core tile helpers
 
 constexpr int kWarps = 4;     // warps per block
 constexpr int kTile = 32;     // keys per tile (one per lane)
@@ -283,6 +342,8 @@ struct Args {
   void* out;
   int B, H, W, P, page;
   float scale;
+  int* body;              // fused only: set to 1 when the tensor-core
+                          // body launched (the caller zeroes it)
 };
 
 // T: query / k_new / v_new / output type (float or bf16). S: page store
@@ -450,19 +511,430 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-template <typename T, typename S, int MODE, int HD, int QT>
+// ---- the bf16 window body on the tensor cores (K1, K2 at W > 1) -----------
+//
+// The tile helpers (cp.async, ldmatrix, mma.sync, pack_bf16) are K7's,
+// from mma_sm90.cuh.
+
+constexpr int kMq = 16;   // queries per block: one m16 tile
+constexpr int kMk = 32;   // keys per tile
+
+// Two codes (the low byte is the lower k) widened to one register of two
+// bf16. Exact: |int8| <= 127 and every e4m3 value fit bf16's 8-bit
+// significand and its exponent range.
+template <typename S>
+__device__ __forceinline__ uint32_t widen2(uint32_t v);
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t v) {
+  return pack_bf16(static_cast<float>(static_cast<int8_t>(v & 0xffu)),
+                   static_cast<float>(static_cast<int8_t>((v >> 8) & 0xffu)));
+}
+template <>
+__device__ __forceinline__ uint32_t widen2<fp8>(uint32_t v) {
+  fp8 lo, hi;
+  lo.__x = static_cast<__nv_fp8_storage_t>(v & 0xffu);
+  hi.__x = static_cast<__nv_fp8_storage_t>((v >> 8) & 0xffu);
+  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+// Shared rows: a bf16 tile row is mma_ld = HD + 8 elements and a code
+// tile row HD + 16 bytes, so that the 8 rows an ldmatrix phase reads, and
+// the rows a code fragment gathers, fall on distinct banks.
+template <int HD>
+__host__ __device__ constexpr int code_ld() {
+  return HD + 16;
+}
+// one stage of one warp: its K and V tiles, bf16 or codes
+template <int HD>
+__host__ __device__ constexpr size_t mma_stage_bytes() {
+  return 2 * size_t(kMk) * mma_ld<HD>() * sizeof(bf16);
+}
+// Shared memory, dynamic: the block's Q tile [kMq][HD + 8] bf16, then 2
+// stages per warp. After its last tile a warp's stages hold its partial
+// softmax state for the merge: m [kMq], l [kMq], acc [kMq][HD + 8] f32.
+template <int HD>
+constexpr size_t mma_smem() {
+  return size_t(kMq) * mma_ld<HD>() * sizeof(bf16) +
+         size_t(kWarps) * 2 * mma_stage_bytes<HD>();
+}
+static_assert(2 * kMk * code_ld<64>() <= mma_stage_bytes<64>(),
+              "a code stage fits a bf16 stage");
+static_assert(sizeof(float) * (2 * kMq + kMq * mma_ld<64>()) <=
+                  2 * mma_stage_bytes<64>(),
+              "the merge state fits a warp's stages");
+
+// K1 (S = bf16) and K2 (S = int8 / fp8) at W > 1 with bf16 queries. Block:
+// kMq queries of one (row b, head h). Its 4 warps split the key tiles (32
+// keys each: the cached keys < pos through the block table, then the
+// window keys the block's queries can see) and each keeps the block's Q
+// as A fragments in registers and its own running (m, l, acc) on the
+// accumulator fragments; the partial states merge once through shared
+// memory. Per tile: S = Q K^T on mma.sync, the online softmax in f32 (m
+// in log2 units), then O += P V with P repacked in registers. Each warp
+// double-buffers its own tiles with cp.async and reads the block-table
+// entries two tiles ahead. Quantized page tiles arrive as codes and are
+// widened to bf16 as the B fragments are built; the K scale multiplies
+// the score column after the product and the V scale is folded into P.
+template <typename S, int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
+              const bf16* __restrict__ vn, S* __restrict__ kpool,
+              S* __restrict__ vpool, bf16* __restrict__ kscale,
+              bf16* __restrict__ vscale,
+              const int32_t* __restrict__ block_tables,
+              const int32_t* __restrict__ pos_v,
+              const int32_t* __restrict__ wlo_v,
+              const int32_t* __restrict__ whi_v, bf16* __restrict__ out,
+              int H, int W, int P, int page, float scale) {
+  constexpr bool kQuant = !std::is_same<S, bf16>::value;
+  constexpr int LDS = mma_ld<HD>();
+  constexpr int LDC = code_ld<HD>();
+  constexpr int KS = HD / 16;   // k16 steps over the head dim
+  constexpr int ON = HD / 8;    // n8 tiles of an output row
+  constexpr int SN = kMk / 8;   // n8 tiles of a score row
+  constexpr int CPR = HD / 8;   // 16-byte chunks of a bf16 row
+  constexpr int CPC = HD / 16;  // 16-byte chunks of a code row
+  constexpr int LDA = HD + 8;   // row of the merge's acc
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* stages = smem_raw + kMq * LDS * sizeof(bf16);
+
+  const int q0 = blockIdx.x * kMq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pos = pos_v[b];
+  const int32_t* bt = block_tables + size_t(b) * P;
+  const size_t row_off = (size_t(b) * H + h) * W;   // (b, h, 0, 0) / HD
+  const float sc = scale * kLog2e;
+  unsigned char* wbuf = stages + warp * 2 * mma_stage_bytes<HD>();
+
+  // the key tiles: cached keys [0, pos), then the window keys this
+  // block's queries can see, [0, w_end)
+  const int n_page = (pos + kMk - 1) / kMk;
+  const int w_end = min(q0 + kMq, W);
+  const int n_tiles = n_page + (w_end + kMk - 1) / kMk;
+
+  // this lane's key in tile ti: its block-table entry (page tiles; read
+  // ahead) and its row (pool slot, or window row of k_new / v_new; -1 past
+  // the tile's limit, never loaded)
+  auto bt_entry = [&](int ti) -> int {
+    const int key = ti * kMk + lane;
+    return ti < n_page && key < pos ? bt[key / page] : 0;
+  };
+  auto key_row = [&](int ti, int btv) -> long long {
+    if (ti >= n_page) {
+      const int key = (ti - n_page) * kMk + lane;
+      return key < w_end ? (long long)(row_off + key) : -1;
+    }
+    const int key = ti * kMk + lane;
+    return key < pos ? ((long long)btv * H + h) * page + key % page : -1;
+  };
+  // start tile ti's K and V rows into a stage; window tiles and K1's
+  // pages are bf16 tiles, K2's pages code tiles (warp-uniform)
+  auto start_copies = [&](int ti, long long row, unsigned char* buf) {
+    if (!kQuant || ti >= n_page) {
+      const bool win = ti >= n_page;
+      const bf16* ks = win ? kn : reinterpret_cast<const bf16*>(kpool);
+      const bf16* vs = win ? vn : reinterpret_cast<const bf16*>(vpool);
+      bf16* kd = reinterpret_cast<bf16*>(buf);
+      bf16* vd = kd + kMk * LDS;
+#pragma unroll
+      for (int i = 0; i < kMk * CPR / 32; ++i) {
+        const int c = lane + 32 * i;
+        const int r = c / CPR, cc = (c % CPR) * 8;
+        const long long src = __shfl_sync(0xffffffffu, row, r);
+        const bool ok = src >= 0;
+        cp_async16(kd + r * LDS + cc, ok ? ks + src * HD + cc : ks, ok);
+        cp_async16(vd + r * LDS + cc, ok ? vs + src * HD + cc : vs, ok);
+      }
+    } else {
+      const unsigned char* ks = reinterpret_cast<const unsigned char*>(kpool);
+      const unsigned char* vs = reinterpret_cast<const unsigned char*>(vpool);
+      unsigned char* kd = buf;
+      unsigned char* vd = buf + kMk * LDC;
+#pragma unroll
+      for (int i = 0; i < kMk * CPC / 32; ++i) {
+        const int c = lane + 32 * i;
+        const int r = c / CPC, cc = (c % CPC) * 16;
+        const long long src = __shfl_sync(0xffffffffu, row, r);
+        const bool ok = src >= 0;
+        cp_async16(kd + r * LDC + cc, ok ? ks + src * HD + cc : ks, ok);
+        cp_async16(vd + r * LDC + cc, ok ? vs + src * HD + cc : vs, ok);
+      }
+    }
+  };
+  // this lane's key's K and V scales: loaded for a live page key only (a
+  // dead key keeps 0, as an unwritten slot's scale may be NaN)
+  auto load_scales = [&](int ti, long long row, float& sk, float& sv) {
+    sk = sv = 0.f;
+    if (kQuant && ti < n_page && row >= 0) {
+      sk = __bfloat162float(kscale[row]);
+      sv = __bfloat162float(vscale[row]);
+    }
+  };
+
+  // Q, then this warp's first tile; rows past W are zero-filled
+  for (int c = tid; c < kMq * CPR; c += blockDim.x) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    const bool ok = q0 + r < W;
+    cp_async16(q_s + r * LDS + cc, ok ? q + (row_off + q0 + r) * HD + cc : q,
+               ok);
+  }
+  cp_commit();
+  int ti = warp;
+  float sk = 0.f, sv = 0.f;   // the current tile's scales of this lane's key
+  if (ti < n_tiles) {
+    const long long row = key_row(ti, bt_entry(ti));
+    start_copies(ti, row, wbuf);
+    load_scales(ti, row, sk, sv);
+  }
+  cp_commit();
+  int bt_next = bt_entry(ti + kWarps);
+  cp_wait<1>();   // Q has landed
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(qf[kk], q_s + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
+
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};   // rows g, g + 8
+  float acc[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int stage = 0;
+  while (ti < n_tiles) {
+    // start the next tile (its block-table entries were read a tile ago)
+    // and read the entries of the one after it
+    const int nx = ti + kWarps;
+    float sk_n = 0.f, sv_n = 0.f;
+    if (nx < n_tiles) {
+      const long long row = key_row(nx, bt_next);
+      start_copies(nx, row, wbuf + (stage ^ 1) * mma_stage_bytes<HD>());
+      load_scales(nx, row, sk_n, sv_n);
+      bt_next = bt_entry(nx + kWarps);
+    }
+    cp_commit();
+    cp_wait<1>();   // this tile has landed (the next may be in flight)
+    __syncwarp();
+    const unsigned char* buf = wbuf + stage * mma_stage_bytes<HD>();
+    const bool win = ti >= n_page;
+    const bool codes = kQuant && !win;   // warp-uniform
+    const int base = (win ? ti - n_page : ti) * kMk;
+
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if (codes) {
+      // B fragment of n8 tile n at k-step kk: key 8 n + g, dims
+      // 16 kk + 2 t (+1) and + 8, widened from the codes
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+          for (int n = 0; n < SN; ++n) {
+            const unsigned char* p =
+                buf + (8 * n + g) * LDC + kk * 16 + 2 * t;
+            mma(s[n], qf[kk],
+                widen2<S>(*reinterpret_cast<const uint16_t*>(p)),
+                widen2<S>(*reinterpret_cast<const uint16_t*>(p + 8)));
+          }
+      }
+    } else {
+      // K rows as stored are the col-major B operand
+      const bf16* k_s = reinterpret_cast<const bf16*>(buf);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, k_s + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDS +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma(s[2 * np], qf[kk], bb[0], bb[1]);
+          mma(s[2 * np + 1], qf[kk], bb[2], bb[3]);
+        }
+    }
+
+    // the score columns' scales: sc, times the K scale of each column's
+    // key (held by the lane that owns that key) on a code tile
+    float cs[SN][2], vsc[SN][2];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cs[n][e] = sc;
+        vsc[n][e] = 1.f;
+        if (codes) {
+          const int src = 8 * n + 2 * t + e;
+          cs[n][e] = sc * __shfl_sync(0xffffffffu, sk, src);
+          vsc[n][e] = __shfl_sync(0xffffffffu, sv, src);
+        }
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int query = q0 + g + 8 * hr;
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = base + 8 * n + 2 * t + e;
+          const bool ok = win ? (key < W && key <= query) : key < pos;
+          float& x = s[n][2 * hr + e];
+          x = ok ? x * cs[n][e] : kNeg;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[hr], mx);
+      const float corr = exp2f(m_r[hr] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = base + 8 * n + 2 * t + e;
+          const bool ok = win ? (key < W && key <= query) : key < pos;
+          float& x = s[n][2 * hr + e];
+          x = ok ? exp2f(x - m_new) : 0.f;
+          ps += x;                 // l sums the unrounded p
+          x *= vsc[n][e];          // P' = p * sv, rounded once below
+        }
+      l_r[hr] = corr * l_r[hr] + ps;   // this lane's part of the row sum
+      m_r[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        acc[n][2 * hr] *= corr;
+        acc[n][2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += bf16(P') V: the score fragments of keys 16 kk .. 16 kk + 15 are
+    // the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      if (codes) {
+        // B fragment of n8 tile n: keys 16 kk + 2 t (+1) and + 8 (+9) of
+        // dim 8 n + g, one code from each of four rows
+        if constexpr (kQuant) {
+          const unsigned char* v_c = buf + kMk * LDC;
+#pragma unroll
+          for (int n = 0; n < ON; ++n) {
+            const unsigned char* p =
+                v_c + (kk * 16 + 2 * t) * LDC + 8 * n + g;
+            mma(acc[n], a, widen2<S>(p[0] | (uint32_t(p[LDC]) << 8)),
+                widen2<S>(p[8 * LDC] | (uint32_t(p[9 * LDC]) << 8)));
+          }
+        }
+      } else {
+        // V's B fragments from ldmatrix.trans
+        const bf16* v_s = reinterpret_cast<const bf16*>(buf) + kMk * LDS;
+#pragma unroll
+        for (int dn = 0; dn < HD / 16; ++dn) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, v_s + (kk * 16 + (lane & 15)) * LDS + dn * 16 +
+                            (lane >> 4) * 8);
+          mma(acc[2 * dn], a, bb[0], bb[1]);
+          mma(acc[2 * dn + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncwarp();   // every lane is done with this stage before it refills
+    sk = sk_n;
+    sv = sv_n;
+    ti = nx;
+    stage ^= 1;
+  }
+  cp_wait<0>();
+  __syncwarp();
+
+  // this warp's partial state into its own stages, then the merge
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_r[hr] += __shfl_xor_sync(0xffffffffu, l_r[hr], 1);
+    l_r[hr] += __shfl_xor_sync(0xffffffffu, l_r[hr], 2);
+  }
+  {
+    float* m_w = reinterpret_cast<float*>(wbuf);
+    float* l_w = m_w + kMq;
+    float* a_w = l_w + kMq;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = g + 8 * hr;
+      if (t == 0) {
+        m_w[r] = m_r[hr];
+        l_w[r] = l_r[hr];
+      }
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        a_w[r * LDA + 8 * n + 2 * t] = acc[n][2 * hr];
+        a_w[r * LDA + 8 * n + 2 * t + 1] = acc[n][2 * hr + 1];
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < kMq * CPR; c += blockDim.x) {
+    const int r = c / CPR, d0 = (c % CPR) * 8;
+    if (q0 + r >= W) continue;
+    float mm = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mm = fmaxf(mm, reinterpret_cast<const float*>(
+                         stages + w * 2 * mma_stage_bytes<HD>())[r]);
+    float ll = 0.f, aa[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) aa[e] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* m_w = reinterpret_cast<const float*>(
+          stages + w * 2 * mma_stage_bytes<HD>());
+      const float cw = exp2f(m_w[r] - mm);
+      ll += m_w[kMq + r] * cw;
+      const float* a_w = m_w + 2 * kMq + r * LDA + d0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) aa[e] += a_w[e] * cw;
+    }
+    const float div = ll == 0.f ? 1.f : ll;
+    uint4 o;
+    uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ow[e] = pack_bf16(aa[2 * e] / div, aa[2 * e + 1] / div);
+    *reinterpret_cast<uint4*>(out + (row_off + q0 + r) * HD + d0) = o;
+  }
+
+  // scatter this tile's fresh rows into their pages. Writes land at
+  // positions >= pos; every read above was < pos (or of k_new / v_new).
+  fused_scatter<bf16, S, HD, kMq>(kn, vn, kpool, vpool, kscale, vscale, bt,
+                                  pos, wlo_v[b], whi_v[b], row_off, q0, h,
+                                  H, W, P, page, warp, lane, tid);
+}
+
+// One launch of either body: KERN's dynamic shared memory raised to SMEM
+// once, then a (ceil(W / QT), H, B) grid of 4-warp blocks. Both bodies
+// take the same arguments; T is the query type, S the page store type.
+template <auto KERN, typename T, typename S, int QT, size_t SMEM>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, QT>();
-  auto kern = pa_kernel<T, S, MODE, HD, QT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((a.W + QT - 1) / QT, a.H, a.B);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
+  KERN<<<grid, kWarps * 32, SMEM, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kn),
       static_cast<const T*>(a.vn), static_cast<S*>(a.kp),
       static_cast<S*>(a.vp), static_cast<bf16*>(a.ks),
@@ -478,8 +950,17 @@ cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   // only the head dim of the models served so far; another one is
   // instantiated with the slice that brings a model needing it
   if (hd != 64) return cudaErrorInvalidValue;
-  if (a.W == 1) return launch<T, S, MODE, 64, 1>(a, s);
-  return launch<T, S, MODE, 64, 8>(a, s);
+  if (a.W == 1)
+    return launch<pa_kernel<T, S, MODE, 64, 1>, T, S, 1,
+                  smem_bytes<64, 1>()>(a, s);
+  // K1 / K2 windows with bf16 queries: the tensor-core body
+  if constexpr (MODE == kFused && std::is_same<T, bf16>::value) {
+    if (a.body != nullptr) *a.body = 1;
+    return launch<pa_mma_kernel<S, 64>, bf16, S, kMq, mma_smem<64>()>(a, s);
+  } else {
+    return launch<pa_kernel<T, S, MODE, 64, 8>, T, S, 8,
+                  smem_bytes<64, 8>()>(a, s);
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out)
@@ -513,7 +994,9 @@ extern "C" {
 
 // K1. dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, pools and out
 // share it). All int32 arrays are (B,) except block_tables (B, P).
-// Returns the launch's cudaError_t (0 on success).
+// *body (may be null; the caller zeroes it) is set to 1 when the launch
+// ran the tensor-core body. Returns the launch's cudaError_t (0 on
+// success).
 int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              const void* k_new, const void* v_new,
                              void* k_pages, void* v_pages,
@@ -521,9 +1004,9 @@ int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              const int32_t* pos, const int32_t* wlo,
                              const int32_t* whi, void* out, int B, int H,
                              int W, int P, int page, float scale,
-                             void* stream) {
+                             void* stream, int* body) {
   Args a{q, k_new, v_new, k_pages, v_pages, nullptr, nullptr, block_tables,
-         pos, wlo, whi, out, B, H, W, P, page, scale};
+         pos, wlo, whi, out, B, H, W, P, page, scale, body};
   return int(plain_pools<kFused>(dtype, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }
@@ -537,9 +1020,9 @@ int mmlspark_pa_window_fused_q(int dtype, int store, int hd, const void* q,
                                const int32_t* pos, const int32_t* wlo,
                                const int32_t* whi, void* out, int B, int H,
                                int W, int P, int page, float scale,
-                               void* stream) {
+                               void* stream, int* body) {
   Args a{q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, block_tables,
-         pos, wlo, whi, out, B, H, W, P, page, scale};
+         pos, wlo, whi, out, B, H, W, P, page, scale, body};
   return int(quant_pools<kFused>(dtype, store, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }

@@ -12,9 +12,11 @@ kernel        wrapper (launch count)          replaces (``mmlspark_tpu/ops/
                                               paged_attention.py``)
 ============  ==============================  ================================
 K1            :func:`paged_attention_window`  ``_pa_fused_kernel``
-              (``.launches``)
+              (``.launches``; tensor-core
+              body ``.launches_mma``)
 K2            :func:`paged_attention_window`  ``_pa_fused_kernel_q``
-              with scales (``.launches_q``)
+              with scales (``.launches_q``;
+              ``.launches_q_mma``)
 K3            :func:`paged_attention`         ``_pa_read_kernel``
               (``.launches``)
 K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
@@ -32,6 +34,17 @@ K5b           the same with scales            ``_pa_window_kernel_q``
   them; the card's kernels are held against them.
 * The wrappers run the plain version for CPU tensors and the kernel for
   CUDA tensors, or raise; there is no fallback.
+* :func:`paged_rounding_scale` is the window attention over absolute
+  values, which scales the bf16 window kernels' error bound.
+
+Two bodies serve the six kernels. K1 and K2 with bfloat16 queries and
+W > 1 (chunked-prefill chunks, prefix-suffix windows) run on the tensor
+cores: they round each probability P (K1), or P times the key's V scale
+(K2), to bf16 once before it enters the P·V product, so their context
+lies within 2⁻⁸ · :func:`paged_rounding_scale` (plus the rounding of the
+output itself) of the plain version run in f32. Every other call (W = 1,
+float32, K3/K4, K5a/K5b) runs the f32 FMA body, whose context differs
+from the plain version's only in the order of its sums.
 
 The page pools (and scale pools) are updated IN PLACE (the JAX package
 aliases them onto its outputs, which is the same thing for a caller that
@@ -68,7 +81,8 @@ from .kv_quant import SCALE_DTYPE, quantize_kv
 
 __all__ = ["paged_attention", "paged_attention_plain",
            "paged_attention_window", "paged_attention_window_plain",
-           "paged_attention_window_read_plain", "write_range"]
+           "paged_attention_window_read_plain", "paged_rounding_scale",
+           "write_range"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -186,6 +200,34 @@ def paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
                 _bits(pages)[phys, :, off] = _bits(codes)
                 scales[phys, :, off] = sc
     return ctx
+
+
+def paged_rounding_scale(q, k_new, v_new, k_pages, v_pages, block_tables,
+                         pos, scale: Optional[float] = None, k_scale=None,
+                         v_scale=None):
+    """R of the bf16 window kernels' error bound → (B, H, W, hd) f32.
+
+    The tensor-core K1 rounds each probability p, and K2 each p · sv, to
+    bf16 once before the P·V product. One rounding of each term moves
+    sum p·v / l by at most 2⁻⁸ · sum p·|v| / l (2⁻⁸ is bf16's unit
+    roundoff). R is that sum: the plain window attention
+    (:func:`paged_attention_window_read_plain`, in f32) with ``v_new``
+    and the cached V — dequantized through ``v_scale`` — replaced by
+    their absolute values. The pools are only read (|V| is built on
+    copies); ``pos`` bounds the cached keys as in the window kernels."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if v_scale is None:
+        v_abs, vs_abs = v_pages.float().abs(), None
+    else:
+        # |code · scale| = |code| · |scale|: a sign bit cleared on each
+        # (int8 codes are clipped to ±127, so |code| never overflows)
+        v_abs = (_bits(v_pages) & 0x7F).view(v_pages.dtype) \
+            if v_pages.dtype != torch.int8 else v_pages.abs()
+        vs_abs = v_scale.abs()
+    return paged_attention_window_read_plain(
+        q.float(), k_new.float(), v_new.float().abs(), k_pages, v_abs,
+        block_tables, pos, float(scale), k_scale, vs_abs)
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -317,9 +359,11 @@ def _library():
     if lib.mmlspark_pa_window_fused.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [ci, ci, ci, ci, ci, cf, vp]      # B, H, W, P, page, scale, stream
-        lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 10 + shape
+        body = [ctypes.POINTER(ci)]               # set to 1 by the mma body
+        lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 10 + shape \
+            + body
         lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 12 \
-            + shape
+            + shape + body
         lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
         lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
         lib.mmlspark_pa_window_read.argtypes = [ci, ci] + [vp] * 8 + shape
@@ -482,8 +526,9 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     CPU tensors run :func:`paged_attention_window_plain`. CUDA tensors
     launch the hand-written kernel (K1, or K2 with scales) on the current
     stream and count the launch in ``paged_attention_window.launches``
-    (K1) or ``.launches_q`` (K2); anything the kernel does not take
-    raises.
+    (K1) or ``.launches_q`` (K2), and also in ``.launches_mma`` /
+    ``.launches_q_mma`` when the library reports that it ran the
+    tensor-core body; anything the kernel does not take raises.
 
     With ``mesh=`` (a ``DeviceMesh``; heads over ``head_axis``) the
     arguments are this rank's: its heads of q / k_new / v_new and its
@@ -520,6 +565,7 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     lib = _library()
     out = torch.empty_like(q)
     shape = (B, H, W, bt.shape[1], page, float(scale))
+    body = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if quant:
@@ -528,26 +574,34 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
                 k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                 bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
-                whi.data_ptr(), out.data_ptr(), *shape, stream)
+                whi.data_ptr(), out.data_ptr(), *shape, stream,
+                ctypes.byref(body))
         else:
             err = lib.mmlspark_pa_window_fused(
                 _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
                 v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
-                whi.data_ptr(), out.data_ptr(), *shape, stream)
+                whi.data_ptr(), out.data_ptr(), *shape, stream,
+                ctypes.byref(body))
     _raise_on(lib, err, "fused paged attention")
     if quant:
         paged_attention_window.launches_q += 1
+        paged_attention_window.launches_q_mma += body.value
     else:
         paged_attention_window.launches += 1
+        paged_attention_window.launches_mma += body.value
     return (out,) + pools
 
 
 #: kernel launches since the last reset: K1 (``launches``), K2
 #: (``launches_q``), K5a (``launches_window``) and K5b
-#: (``launches_window_q``); the plain CPU path never counts
+#: (``launches_window_q``); of K1's and K2's, those the library reports
+#: it ran on the tensor-core body (``launches_mma``, ``launches_q_mma``);
+#: the plain CPU path never counts
 paged_attention_window.launches = 0
 paged_attention_window.launches_q = 0
+paged_attention_window.launches_mma = 0
+paged_attention_window.launches_q_mma = 0
 paged_attention_window.launches_window = 0
 paged_attention_window.launches_window_q = 0
 

@@ -5,8 +5,9 @@ own shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use, inside the call that needs the kernel (never at
 import: the CPU tests import every module on a machine without
 ``nvcc``), and its output lands in the checkout's ``build/`` directory,
-named by a hash of the source and the flags so an edited source never
-loads a stale library. Several sources build in parallel through
+named by a hash of the source, the ``csrc/*.cuh`` headers the sources
+share and the flags, so an edited source or header never loads a stale
+library. Several sources build in parallel through
 :func:`build_all`.
 """
 
@@ -56,6 +57,8 @@ def nvcc_path() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

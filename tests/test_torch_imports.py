@@ -157,6 +157,21 @@ def test_cuda_build_is_lazy_and_names_its_sources():
     assert cuda_build._libs == {}         # nothing built at import
 
 
+def test_cuda_build_names_a_library_by_its_shared_headers(tmp_path,
+                                                          monkeypatch):
+    """An edit to a shared ``.cuh`` header renames every source's library,
+    so no source loads one built against the old header."""
+    from mmlspark_tpu_torch.utils import cuda_build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = cuda_build._target("k")
+    assert cuda_build._target("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert cuda_build._target("k") != before
+    assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == ["k.cu"]
+
+
 def test_padding_matches_reference():
     from mmlspark_tpu.ops import padding as ref
     from mmlspark_tpu_torch.ops import padding as port

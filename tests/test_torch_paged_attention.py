@@ -229,10 +229,21 @@ def test_unknown_impl_raises():
                                   CFG, page_size=4, length=4, impl="xla")
 
 
+def _assert_window_ctx(got, want, r):
+    """The bf16 window kernels (K1/K2 at W > 1, the tensor-core body)
+    against their plain version: within 4e-3 + 1e-2 * |want| (the output's
+    bf16 rounding, sums reordered) plus 2^-8 * R for the one rounding of
+    each P (or P times the V scale) to bf16."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 4e-3 + 1e-2 * want.float().abs()
+                 + 2.0 ** -8 * r).all()), float(err.max())
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """On the card: the hand-written kernel against its plain version at
-    a full-width head shape, bf16 pages bitwise, ctx within bf16 rounding."""
+    a full-width head shape, bf16 pages bitwise, ctx within bf16 rounding
+    (plus the tensor-core body's bound: W = 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     B, H, W, hd, page, P = 4, 12, 8, 64, 16, 8
@@ -248,13 +259,39 @@ def test_cuda_kernel_matches_plain_version():
     want = port_pa.paged_attention_window_plain(
         args[0], args[1], args[2], kp2, vp2, bt_d, pos, wlo, whi,
         1.0 / np.sqrt(hd))
-    got, kp1, vp1 = port_pa.paged_attention_window(
-        *args, bt_d, pos, active=active)
+    r = port_pa.paged_rounding_scale(*args, bt_d, pos)
+    paw = port_pa.paged_attention_window
+    mma0 = paw.launches_mma
+    got, kp1, vp1 = paw(*args, bt_d, pos, active=active)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
-                               rtol=1e-2, atol=4e-3)
+    _assert_window_ctx(got, want, r)
     assert torch.equal(kp1[1:], kp2[1:]) and torch.equal(vp1[1:], vp2[1:])
+    # the library reports the tensor-core body for a bf16 window only
+    assert paw.launches_mma == mma0 + 1
+    paw(*(a[:, :, :1].contiguous() for a in args[:3]), kp1, vp1, bt_d,
+        pos, active=active)
+    assert paw.launches_mma == mma0 + 1
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_cpu_window_counts_no_launch(quant):
+    """The plain CPU path is no kernel launch: every counter stays put."""
+    B, H, W, hd, page, P = 2, 2, 4, 16, 4, 3
+    q, kn, vn, kp, vp, bt = (torch.from_numpy(a) for a in
+                             _inputs(0, B, H, W, hd, page, P))
+    kw = {}
+    if quant:
+        kp, ks = port_q.quantize_kv(kp, torch.int8)
+        vp, vs = port_q.quantize_kv(vp, torch.int8)
+        kw = {"k_scale": ks, "v_scale": vs}
+    paw = port_pa.paged_attention_window
+    names = ("launches", "launches_q", "launches_mma", "launches_q_mma",
+             "launches_window", "launches_window_q")
+    before = [getattr(paw, n) for n in names]
+    ctx = paw(q, kn, vn, kp, vp, bt, torch.tensor([0, 5], dtype=torch.int32),
+              **kw)[0]
+    assert ctx.shape == q.shape and torch.isfinite(ctx).all()
+    assert [getattr(paw, n) for n in names] == before
 
 
 # ---- quantized pages (kv_quant, K2) and the read-only sweep (K3, K4) ----
@@ -476,7 +513,8 @@ def test_quant_wrapper_checks_inputs(bad):
 @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
 def test_cuda_quant_kernels_match_plain_version(kv_dtype):
     """On the card: K2 and K4 against their plain versions at a full-width
-    head shape, pages and scales bitwise, ctx within bf16 rounding."""
+    head shape, pages and scales bitwise, ctx within bf16 rounding (K2
+    plus the tensor-core body's bound: W = 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, H, W, hd, page, P = 4, 12, 8, 64, 16, 8
@@ -493,13 +531,13 @@ def test_cuda_quant_kernels_match_plain_version(kv_dtype):
     want = port_pa.paged_attention_window_plain(
         *act, plain[0], plain[1], bt_d, pos, wlo, whi, 1.0 / np.sqrt(hd),
         plain[2], plain[3])
+    r = port_pa.paged_rounding_scale(*act, pools[0], pools[1], bt_d, pos,
+                                     k_scale=pools[2], v_scale=pools[3])
     got = port_pa.paged_attention_window(
         *act, pools[0], pools[1], bt_d, pos, active=active,
         k_scale=pools[2], v_scale=pools[3])
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got[0].float().cpu().numpy(),
-                               want.float().cpu().numpy(),
-                               rtol=1e-2, atol=4e-3)
+    _assert_window_ctx(got[0], want, r)
     for g, w in zip(pools, plain):
         assert np.array_equal(_bits_t(g.cpu())[1:], _bits_t(w.cpu())[1:])
     want = port_pa.paged_attention_plain(act[0], *pools[:2], bt_d, pos,
@@ -510,3 +548,147 @@ def test_cuda_quant_kernels_match_plain_version(kv_dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=1e-2, atol=4e-3)
+
+
+# ---- the bf16 window body's error bound (K1, K2 at W > 1) ----------------
+
+STORES = ["bf16"] + KV_DTYPES
+
+
+def _rounding_inputs(store, seed, W=40, hd=16, page=8):
+    """Window inputs on the CPU: f32 q / k_new / v_new holding bf16 values
+    (what the card's kernels take), bf16 or quantized pools with NaN
+    planted at and past each row's pos, a shuffled block table, rows at
+    pos 0, an unaligned pos and a later one, the last row inactive."""
+    B, H = 3, 2
+    pos = torch.tensor([0, 13, 45], dtype=torch.int32)
+    P = (int(pos.max()) + W + page - 1) // page
+    q, kn, vn, kp, vp, bt = _inputs(seed, B, H, W, hd, page, P)
+    q, kn, vn = (torch.from_numpy(a).bfloat16().float() for a in (q, kn, vn))
+    kp, vp, bt = torch.from_numpy(kp), torch.from_numpy(vp), \
+        torch.from_numpy(bt)
+    if store == "bf16":
+        pools = [kp.bfloat16(), vp.bfloat16()]
+    else:
+        dt = port_q.kv_store_dtype(store)
+        (kc, ks), (vc, vs) = port_q.quantize_kv(kp, dt), \
+            port_q.quantize_kv(vp, dt)
+        pools = [kc, vc, ks, vs]
+    for b in range(B):
+        dead = torch.arange(P * page) >= int(pos[b])
+        pg, off = bt[b, torch.arange(P * page)[dead] // page].long(), \
+            torch.arange(P * page)[dead] % page
+        for t in pools[2:] if store != "bf16" else pools:
+            t[pg, :, off] = float("nan")
+    active = torch.tensor([True, True, False])
+    return q, kn, vn, pools, bt, pos, active
+
+
+def _nonneg_v(vn, pools):
+    """The same inputs with every V value (fresh rows, cached codes and
+    scales) made >= 0."""
+    pools = list(pools)
+    v = pools[1]
+    pools[1] = ((v.view(torch.uint8) & 0x7F).view(v.dtype)
+                if v.dtype == torch.float8_e4m3fn else v.abs())
+    if len(pools) == 4:
+        pools[3] = pools[3].abs()
+    return vn.abs(), pools
+
+
+@pytest.mark.parametrize("store", STORES)
+def test_paged_rounding_scale_bounds_ctx(store):
+    """R bounds |ctx| elementwise (the plain context with V's signs);
+    with every V >= 0 it is the plain context itself, bit for bit. Rows
+    at pos 0, at an unaligned pos and inactive included."""
+    q, kn, vn, pools, bt, pos, active = _rounding_inputs(store, 50)
+    page = pools[0].shape[2]
+    wlo, whi = port_pa.write_range(pos, q.shape[2], page, active)
+    scale = q.shape[-1] ** -0.5
+    before = [t.clone() for t in pools]
+    r = port_pa.paged_rounding_scale(q, kn, vn, pools[0], pools[1], bt, pos,
+                                     k_scale=(pools[2:] or [None])[0],
+                                     v_scale=(pools[3:] or [None])[0])
+    assert r.dtype == torch.float32 and r.shape == q.shape
+    assert all(np.array_equal(_bits_t(a), _bits_t(b), equal_nan=False)
+               for a, b in zip(pools, before))       # pools only read
+    plain = [t.clone() for t in pools]
+    ctx = port_pa.paged_attention_window_plain(q, kn, vn, plain[0], plain[1],
+                                               bt, pos, wlo, whi, scale,
+                                               *plain[2:])
+    assert torch.isfinite(r).all() and torch.isfinite(ctx).all()
+    assert bool((ctx.abs() <= r + 1e-6 * r.max()).all())
+    vn_pos, pools_pos = _nonneg_v(vn, pools)
+    r_pos = port_pa.paged_rounding_scale(
+        q, kn, vn_pos, pools_pos[0], pools_pos[1], bt, pos,
+        k_scale=(pools_pos[2:] or [None])[0],
+        v_scale=(pools_pos[3:] or [None])[0])
+    ctx_pos = port_pa.paged_attention_window_read_plain(
+        q, kn, vn_pos, pools_pos[0], pools_pos[1], bt, pos, scale,
+        *pools_pos[2:])
+    assert torch.equal(r_pos, ctx_pos)
+
+
+def _bf16_window_emulation(q, kn, vn, pools, bt, pos, scale, tile=32):
+    """The tensor-core body's arithmetic in plain PyTorch: an online f32
+    softmax over 32-key tiles (the cached keys below pos, then the window
+    keys under the causal mask), each tile's p times its keys' V scales
+    (1 for bf16 rows) rounded to bf16 once before the product with the V
+    rows (codes, for quantized pages); l sums the unrounded p."""
+    B, H, W, hd = q.shape
+    page = pools[0].shape[2]
+    L = bt.shape[1] * page
+    key_ok = torch.arange(L)[None] < pos.long()[:, None]          # (B, L)
+    scales = pools[2:] or [None, None]
+    kc = torch.where(key_ok[:, None, :, None],
+                     port_pa._gather_rows(pools[0], scales[0], bt.long()),
+                     0.0)
+    vcode = torch.where(key_ok[:, None, :, None],
+                        port_pa._gather_rows(pools[1], None, bt.long()), 0.0)
+    if scales[1] is None:
+        sv = torch.ones(B, H, L)
+    else:
+        g = scales[1][bt.long()].float()                   # (B, P, H, page)
+        sv = g.permute(0, 2, 1, 3).reshape(B, H, L)
+    sv = torch.where(key_ok[:, None, :], sv, 0.0)
+    causal = torch.tril(torch.ones(W, W, dtype=torch.bool))
+    parts = [(torch.einsum("bhwd,bhkd->bhwk", q, kc) * scale,
+              key_ok[:, None, None, :].expand(B, H, W, L), sv, vcode),
+             (torch.einsum("bhwd,bhkd->bhwk", q, kn) * scale,
+              causal[None, None].expand(B, H, W, W), torch.ones(B, H, W), vn)]
+    m = torch.full((B, H, W, 1), -1e30)
+    l_ = torch.zeros(B, H, W, 1)
+    acc = torch.zeros(B, H, W, hd)
+    for s, ok, svk, vk in parts:
+        for k0 in range(0, s.shape[-1], tile):
+            st = torch.where(ok[..., k0:k0 + tile], s[..., k0:k0 + tile],
+                             -1e30)
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(st - m_new) * ok[..., k0:k0 + tile]
+            l_ = corr * l_ + p.sum(-1, keepdim=True)
+            pv = (p * svk[:, :, None, k0:k0 + tile]).bfloat16().float()
+            acc = corr * acc + pv @ vk[:, :, k0:k0 + tile]
+            m = m_new
+    return acc / torch.where(l_ == 0, 1.0, l_)
+
+
+@pytest.mark.parametrize("store", STORES)
+def test_bf16_window_rounding_stays_within_the_bound(store):
+    """The bf16 window body's rounding, emulated in plain PyTorch: P (K1)
+    or P · sv (K2) rounded to bf16 once per 32-key tile stays within
+    2^-8 * R (plus 1e-6 * max|ctx| for the f32 sums' order) of the f32
+    plain context, and the rounding does move it."""
+    q, kn, vn, pools, bt, pos, _ = _rounding_inputs(store, 51)
+    scale = q.shape[-1] ** -0.5
+    want = port_pa.paged_attention_window_read_plain(
+        q, kn, vn, pools[0], pools[1], bt, pos, scale, *pools[2:])
+    r = port_pa.paged_rounding_scale(q, kn, vn, pools[0], pools[1], bt, pos,
+                                     k_scale=(pools[2:] or [None])[0],
+                                     v_scale=(pools[3:] or [None])[0])
+    got = _bf16_window_emulation(q, kn, vn, pools, bt, pos, scale)
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= 2.0 ** -8 * r + 1e-6 * want.abs().max()).all()), \
+        float(err.max())
+    assert float(err.max()) > 0.0       # the rounding did happen
