@@ -71,23 +71,35 @@ Phases (any failure exits non-zero and prints no result line):
    at B=4, S=2048 with flash and with dense attention: flash's peak
    device memory below dense's;
 10. the mesh — (a) K5a (bf16 pages) and K5b (int8, fp8) against their
-   plain versions at the decode and extend shapes, and K5a on 6 heads
-   (one rank's shard at tp = 2): ctx within about one bf16 ulp, NaN
-   planted at and past pos kept out, every pool bit untouched; times
-   beside the plain versions, SDPA and the bounds, and the rows the mesh
-   path writes after the kernel timed alone; (b) a tp = 1 mesh (a world
-   of one rank over NCCL): f32 full-width greedy tokens of the meshed
-   kernel engine equal phase 4's single-device ones and the meshed
-   gather engine's, on f32, int8 and fp8 pages, through K5a/K5b and
-   never K1/K2; (c) bf16 serving of phase 6's mix on a single-device
-   engine and on the tp = 1 mesh: K5a once per layer per attention
-   call, tokens/s and p50 tick side by side; (d) tp = 2 as two gloo
-   processes sharing the card, six heads and a pool shard each: both
-   ranks' f32 tokens equal each other's and 10b's over all 16 tokens.
+   plain versions at the decode (split body) and extend (tensor-core
+   body) shapes, the decode on 6 heads (one rank's shard at tp = 2),
+   serving's own decode (16 rows up to 448 keys over a 64-page block
+   table) and a straggler (one row at 2047, the rest at 64 or below):
+   ctx within about one bf16 ulp (plus 2^-8 of the same attention over
+   |V| at the extend), NaN planted at and past pos kept out, every pool
+   bit untouched, the body the library reports, one kernel launch a
+   call (``torch.profiler``); times beside the plain versions, SDPA and
+   the bounds, the wrapper's host-paced time and host issue cost, and
+   the rows the mesh path writes after the kernel timed alone; (b) a tp
+   = 1 mesh (a world of one rank over NCCL): f32 full-width greedy
+   tokens of the meshed kernel engine equal phase 4's single-device ones
+   and the meshed gather engine's, on f32, int8 and fp8 pages, through
+   K5a/K5b (decode steps on the split body) and never K1/K2; (c) bf16
+   serving of phase 6's mix on a single-device engine and on the tp = 1
+   mesh: K5a once per layer per attention call, its tensor-core launches
+   exactly the prefill chunks and prefix suffixes times the layers and
+   its split ones the decode steps, tokens/s and p50 tick side by side;
+   (d) tp = 2 as two gloo processes sharing the card, six heads and a
+   pool shard each: both ranks' f32 tokens equal each other's and 10b's
+   over all 16 tokens, the decode steps on the split body.
 
 ``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, and ``python3
 chip_smoke.py 3`` phases 1, 2 and 3; each prints no result and exits 3.
+``--baseline DIR`` (with any of these, or alone) also times, in 10a,
+the K5 kernels and window-read wrapper of another checkout of the port
+in DIR (its ``mmlspark_tpu_torch/``, built into ``DIR/build``),
+alternating with this one's: a before/after reading on one card.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -188,6 +200,21 @@ def _cuda_ms(fns, reps, head_start=True):
     return a.elapsed_time(b) / reps
 
 
+def _host_ms(fns, reps):
+    """Mean host ms to issue one call, over ``reps`` calls cycling through
+    ``fns`` while the stream spins far longer than the loop takes: no
+    call waits for the device, so this is the caller's host cost alone."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))     # >= 50 ms at the H100's top SM clock
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e3
+
+
 def _copies(nbytes):
     """How many copies of ``nbytes`` of inputs exceed twice the L2."""
     return int(min(64, max(4, -(-100 * 2 ** 20 // max(1, nbytes)))))
@@ -200,12 +227,14 @@ def _bits(t):
                    4: torch.int32}[t.element_size()])
 
 
-def _kv_case_inputs(B, W, pos_list, seed, store, H=12):
+def _kv_case_inputs(B, W, pos_list, seed, store, H=12, P=None):
     """Random pools on the card (quantized through ``quantize_kv`` when
     ``store`` is a quantized dtype), a shuffled block table, and garbage
     in every slot at or past each row's bound: NaN values in bf16 pools;
     NaN scales, plus the NaN code 0x7F in fp8 pools, in quantized ones.
-    ``H`` heads (12 at full width, 6 for one rank's shard at tp = 2)."""
+    ``H`` heads (12 at full width, 6 for one rank's shard at tp = 2);
+    the block table ``P`` pages wide (an engine's max_len / page), or
+    just wide enough for the longest row."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.ops.kv_quant import quantize_kv
@@ -213,7 +242,7 @@ def _kv_case_inputs(B, W, pos_list, seed, store, H=12):
     dev = torch.device("cuda")
     hd, page = 64, 16
     pos_np = np.array(pos_list, np.int64)
-    P = int(-(-(pos_np.max() + W) // page))
+    P = max(P or 0, int(-(-(pos_np.max() + W) // page)))
     N = 1 + B * P
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -687,9 +716,9 @@ def phase_serving(params_np, dev_info):
 
 
 def _window_split(what, launches, mma, chunks, hits, layers):
-    """A bf16 run's K1 or K2 launches split by body: ``mma`` of them the
-    library reported running on the tensor-core body (the extends, W > 1),
-    the rest on the FMA body (the decode steps, W = 1). Cross-check: every
+    """A bf16 run's K1, K2 or K5a launches split by body: ``mma`` of them
+    the library reported running on the tensor-core body (the extends, W >
+    1), the rest the decode steps (W = 1). Cross-check: every
     prefill chunk and every prefix-suffix window of the engine's chunk
     trace and prefix hits is one extend per layer."""
     expect = (chunks + hits) * layers
@@ -1647,21 +1676,81 @@ def phase_flash_training(bert_np, dev_info, kernel_ms, steps=10):
     return bert, dec
 
 
+def _kernel_launches(fn):
+    """What one call of ``fn`` asks of the card, by ``torch.profiler``:
+    (kernel launches the runtime saw, as ``serving/tick_profile.py``
+    counts them; memset and copy calls; the device activity recorded).
+    The runtime calls are the count: a second profiler session in one
+    process may record no device activity at all."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        # "Profiler clears events at the end of each cycle": one cycle here
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if "LaunchKernel" in e.key)
+    copies = sum(e.count for e in ev
+                 if "Memset" in e.key or "Memcpy" in e.key)
+    device = [e.key for e in ev if str(e.device_type).endswith("CUDA")
+              for _ in range(e.count)]
+    return launches, copies, device
+
+
+def _load_baseline(root):
+    """``ops.paged_attention`` of another checkout of the port (``root``
+    holds its ``mmlspark_tpu_torch/``), imported beside this one under
+    another name, with its own ``csrc`` built into ``root/build``: 10a
+    then times that tree's K5 kernels and wrapper in the same process,
+    on the same card, as a before/after reading."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "mmlspark_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["baseline_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("baseline_port.ops.paged_attention")
+
+
+def _window_bodies():
+    """K5a/K5b launches by the body the library reported: tensor-core
+    (``mma``, K5a / ``q_mma``, K5b) and split decode (``split``,
+    ``q_split``)."""
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    p = paged_attention_window
+    return {"mma": p.launches_window_mma, "q_mma": p.launches_window_q_mma,
+            "split": p.launches_window_split,
+            "q_split": p.launches_window_q_split}
+
+
 def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
-                 store=None, H=12):
+                 store=None, H=12, P=None, base=None):
     """The window read at one shape: K5a over bf16 pages, or K5b over
-    quantized pages of ``store`` dtype, ``H`` heads. Correctness against
-    the plain version (ctx within about one bf16 ulp, the NaN planted at
-    and past each row's pos kept out, every pool bit untouched), then its
-    time, the plain version's, one SDPA over the gathered dequantized K/V
-    and the window (the library yardstick), its bound, and on their own
-    the rows the mesh path writes after it (``_mount_writes``)."""
+    quantized pages of ``store`` dtype, ``H`` heads, bf16 queries.
+    Correctness against the plain version (ctx within about one bf16 ulp,
+    plus 2**-8 * R for the tensor-core body at W > 1; the NaN planted at
+    and past each row's pos kept out, every pool bit untouched), the body
+    the library reports (split at W = 1, tensor-core at W > 1) and one
+    call = one kernel on the card; then its time, the plain version's,
+    one SDPA over the gathered dequantized K/V and the window (the
+    library yardstick), its bound, the wrapper's host-paced time, and on
+    their own the rows the mesh path writes after it (``_mount_writes``).
+    ``base``: another tree's ``ops.paged_attention`` (``--baseline``),
+    whose kernel and wrapper are timed alternately with this one's."""
     import torch
     import torch.nn.functional as F
     from mmlspark_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    x = _kv_case_inputs(B, W, pos_list, seed, store, H=H)
+    x = _kv_case_inputs(B, W, pos_list, seed, store, H=H, P=P)
     hd, page, P = x["hd"], x["page"], x["P"]
     q, kn, vn, bt, pools = x["q"], x["kn"], x["vn"], x["bt"], x["pools"]
     pos_np = x["pos_np"]
@@ -1674,30 +1763,89 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     want = pa.paged_attention_window_read_plain(q, kn, vn, pools[0],
                                                 pools[1], bt, pos, scale,
                                                 *pools[2:])
+    # W > 1 runs the tensor-core body: its bound adds 2**-8 * R
+    r = pa.paged_rounding_scale(q, kn, vn, pools[0], pools[1], bt, pos,
+                                scale, *pools[2:]) if W > 1 else None
     kern = [t.clone() for t in pools]
+    b0 = _window_bodies()
     got = pa._window_read(q, kn, vn, kern[0], kern[1], bt, pos, scale,
                           *kern[2:])
     torch.cuda.synchronize()
-    err = _check_ctx(what, got, want)
+    b1 = _window_bodies()
+    ran = {k for k in b1 if b1[k] > b0[k]}
+    body = "split" if ran == {"q_split" if quant else "split"} else \
+        "mma" if ran == {"q_mma" if quant else "mma"} else f"fma {ran}"
+    if body != ("split" if W == 1 else "mma"):
+        raise AssertionError(f"{what}: ran the {body} body")
+    err = _check_ctx(what, got, want, r)
     if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kern, pools)):
         raise AssertionError(f"{what}: the window read wrote its pools")
+    # one call is one kernel on the card (the split body's workspace is
+    # cached: no memset, no second launch)
+    launches, memsets, device = _kernel_launches(lambda: pa._window_read(
+        q, kn, vn, kern[0], kern[1], bt, pos, scale, *kern[2:]))
+    if launches != 1 or memsets or len(device) > 1:
+        raise AssertionError(f"{what}: one call ran {launches} launches "
+                             f"and {memsets} memsets / copies; device "
+                             f"activity {device}")
     lib = pa._library()
     n = _copies(sum(t.numel() * t.element_size() for t in pools))
     copies = [[t.clone() for t in kern] for _ in range(n)]
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (bt.data_ptr(), pos.data_ptr(), got.data_ptr(), B, H, W, P, page,
-            scale, stream)
+    acts = (q.data_ptr(), kn.data_ptr(), vn.data_ptr())
+    tail = (B, H, W, P, page, scale, stream)
+    work = (None, None)
+    if W == 1:
+        work = pa._split_workspace(dev, B, H, P, page, hd,
+                                   lib.split_chunk)[4:]
     rc = []
 
     def launcher(c):
         ptrs = [t.data_ptr() for t in c]
-        acts = (q.data_ptr(), kn.data_ptr(), vn.data_ptr())
+        ints = (bt.data_ptr(), pos.data_ptr(), got.data_ptr(), *work)
         if quant:
             return lambda: rc.append(lib.mmlspark_pa_window_read_q(
-                1, pa._STORES[store], hd, *acts, *ptrs, *tail))
+                1, pa._STORES[store], hd, *acts, *ptrs, *ints, *tail, None))
         return lambda: rc.append(lib.mmlspark_pa_window_read(
-            1, hd, *acts, *ptrs, *tail))
-    ms = _cuda_ms([launcher(c) for c in copies], 200)
+            1, hd, *acts, *ptrs, *ints, *tail, None))
+
+    def base_launcher(c):
+        # the baseline tree's C entry: no workspace, no body argument
+        blib = base._library()    # built at its first use
+        ptrs = [t.data_ptr() for t in c]
+        ints = (bt.data_ptr(), pos.data_ptr(), got.data_ptr())
+        if quant:
+            return lambda: rc.append(blib.mmlspark_pa_window_read_q(
+                1, pa._STORES[store], hd, *acts, *ptrs, *ints, *tail))
+        return lambda: rc.append(blib.mmlspark_pa_window_read(
+            1, hd, *acts, *ptrs, *ints, *tail))
+
+    runs = [("", launcher, pa)]
+    if base is not None:
+        runs.append(("_base", base_launcher, base))
+
+    def wrapper(mod):
+        return [lambda c=c: mod._window_read(q, kn, vn, c[0], c[1], bt, pos,
+                                             scale, *c[2:]) for c in copies]
+    for _, make, mod in runs:     # warm-up, untimed (and past the profiler)
+        warm = [make(c) for c in copies] + wrapper(mod)
+        _cuda_ms(warm, len(warm), head_start=False)
+    # this tree, then (with a baseline) the baseline, this tree, the
+    # baseline: kernel back to back (device time), then the wrapper paced
+    # by the host
+    readings = {}
+    for _ in range(2 if base is not None else 1):
+        for key, make, mod in runs:
+            readings.setdefault("ms" + key, []).append(
+                _cuda_ms([make(c) for c in copies], 200))
+            readings.setdefault("window_read_ms_host_paced" + key, []).append(
+                _cuda_ms(wrapper(mod), 200, head_start=False))
+    # the wrapper's host cost alone varies with the shared host's load
+    # more than it differs between trees: five alternating readings
+    for _ in range(5):
+        for key, _, mod in runs:
+            readings.setdefault("window_read_host_ms" + key, []).append(
+                _host_ms(wrapper(mod), 200))
     if any(rc):
         raise AssertionError(f"{what}: launch returned {set(rc)}")
     plain_ms = _cuda_ms([lambda c=c: pa.paged_attention_window_read_plain(
@@ -1717,9 +1865,11 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
                       causal[None, None].expand(B, 1, W, W)], -1)
     n = _copies(2 * k_all.numel() * k_all.element_size())
     kvs = [(k_all.clone(), v_all.clone()) for _ in range(n)]
-    library_ms = _cuda_ms([lambda c=c: F.scaled_dot_product_attention(
-        q, c[0], c[1], attn_mask=mask) for c in kvs], 200)
-    del kvs
+    sdpa = [lambda c=c: F.scaled_dot_product_attention(
+        q, c[0], c[1], attn_mask=mask) for c in kvs]
+    library_ms = _cuda_ms(sdpa, 200)
+    library_host = _cuda_ms(sdpa, 200, head_start=False)
+    del kvs, sdpa
     # bound: K1's less the window-row writes — live cached keys (< pos)
     # with their scales, q/k_new/v_new, ctx; flops QK and PV over live
     # keys and the window. The writes' own bound: k_new/v_new read, the
@@ -1732,22 +1882,33 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     flops = sum(4 * H * hd * W * (int(p) + W) for p in pos_np)
     wbytes = (2 * B * H * W * hd * 2 + 2 * n_active * W * H * row_bytes
               + bt.numel() * 4 + B * 4)
-    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    rec = {"max_abs_err": err, "ms": readings["ms"][0], "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
+           "library_ms_host_paced": library_host,
+           "window_read_ms_host_paced":
+               readings["window_read_ms_host_paced"][0],
+           "window_read_host_ms": statistics.median(
+               readings["window_read_host_ms"]),
+           "body": body, "launches_per_call": launches,
            "write_ms": write_ms,
            "write_bound_ms": _bound(dev_info, wbytes, 0)["bound_ms"],
-           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
+           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page, "P": P,
                      "max_pos": int(pos_np.max()), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
+    if base is not None:
+        rec["readings"] = readings
     tag = what.split()[0].lower() + " " + " ".join(what.split()[1:])
     log(f"[{tag}] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
 
 
-def phase_window_kernels(dev_info):
+def phase_window_kernels(dev_info, base=None):
     """10a: K5a on bf16 pages and K5b on int8 and fp8 pages at phase 3's
-    decode and extend shapes (12 heads), plus K5a at the decode shape on
-    6 heads, one rank's shard at tp = 2."""
+    decode and extend shapes (12 heads), the decode shape on 6 heads (one
+    rank's shard at tp = 2), serving's own decode (16 rows up to 10c's
+    448 keys over its 64-page block table) and a straggler (one row at
+    2047, the rest at 64 or below: continuous batching with one long
+    context). ``base``: a baseline tree's module, timed beside."""
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
@@ -1755,28 +1916,31 @@ def phase_window_kernels(dev_info):
            int(rng.integers(1, 1024)), 64, 900]
     active = [True] * 16
     active[5] = active[11] = False
-    shapes = {"decode": (16, 1, pos, active, 5),
-              "extend": (1, 256, [384], [True], 6)}
+    serve = [int(p) for p in rng.integers(0, 449, 16)]
+    straggler = [2047, 0, 64] + [int(p) for p in rng.integers(1, 65, 13)]
+    shapes = {"decode": dict(args=(16, 1, pos, active)),
+              "extend": dict(args=(1, 256, [384], [True])),
+              "decode h6": dict(args=(16, 1, pos, active), H=6),
+              "serving decode": dict(args=(16, 1, serve, active), P=64),
+              "straggler": dict(args=(16, 1, straggler, active))}
     recs = {"K5a": {}, "K5b": {}}
-    for label, args in shapes.items():
-        recs["K5a"][label] = _window_case(dev_info, label, *args)
-    recs["K5a"]["decode h6"] = _window_case(dev_info, "decode h6",
-                                            *shapes["decode"][:4], 7, H=6)
-    for store in (torch.int8, torch.float8_e4m3fn):
-        name = str(store).split(".")[-1]
-        for label, args in shapes.items():
-            recs["K5b"][f"{name} {label}"] = _window_case(
-                dev_info, label, *args, store=store)
+    seed = 5
+    for store in (None, torch.int8, torch.float8_e4m3fn):
+        name = "" if store is None else str(store).split(".")[-1] + " "
+        for label, kw in shapes.items():
+            recs["K5b" if store is not None else "K5a"][name + label] = \
+                _window_case(dev_info, label, *kw["args"], seed, store=store,
+                             H=kw.get("H", 12), P=kw.get("P"), base=base)
+            seed += 1
     return recs
 
 
 def _zero_pa_counts():
     from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
-    paged_attention_window.launches = paged_attention_window.launches_q = 0
-    paged_attention_window.launches_mma = 0
-    paged_attention_window.launches_q_mma = 0
-    paged_attention_window.launches_window = 0
-    paged_attention_window.launches_window_q = 0
+    for name in ("", "_q", "_mma", "_q_mma", "_window", "_window_q",
+                 "_window_mma", "_window_q_mma", "_window_split",
+                 "_window_q_split"):
+        setattr(paged_attention_window, "launches" + name, 0)
 
 
 def _pa_counts():
@@ -1792,7 +1956,8 @@ def phase_mesh_parity(params_np, single, mesh):
     NCCL): the meshed kernel engine's greedy tokens equal the single-device
     kernel engine's (phase 4's) and the meshed gather engine's, on f32,
     int8 and fp8 pages; K5a (f32) or K5b (int8, fp8) launched, K1 and K2
-    never. Returns the launches per page type."""
+    never, the decode steps through the split body (f32 queries: none on
+    the tensor-core body). Returns the launches per page type."""
     import torch
     cfg = _full_cfg(torch.float32)
     launches = {}
@@ -1802,6 +1967,8 @@ def phase_mesh_parity(params_np, single, mesh):
             _zero_pa_counts()
             outs[impl] = _parity_tokens(params_np, cfg, impl, kv_dtype, mesh)
             counts[impl] = _pa_counts()
+            if impl == "kernel":
+                bodies = _window_bodies()
         name = kv_dtype or "f32"
         if not outs["kernel"] == single[kv_dtype] == outs["gather"]:
             raise AssertionError(
@@ -1810,14 +1977,17 @@ def phase_mesh_parity(params_np, single, mesh):
         k1, k2, k5a, k5b = counts["kernel"]
         want = (k5a > 0 and k5b == 0) if kv_dtype is None else \
             (k5b > 0 and k5a == 0)
-        if k1 or k2 or not want or any(counts["gather"]):
+        split = bodies["split"] + bodies["q_split"]
+        mma = bodies["mma"] + bodies["q_mma"]
+        if k1 or k2 or not want or any(counts["gather"]) or mma or \
+                not 0 < split < k5a + k5b:
             raise AssertionError(f"10b {name} pages: (K1, K2, K5a, K5b) "
-                                 f"launches {counts}")
-        launches[name] = {"k5a": k5a, "k5b": k5b}
+                                 f"launches {counts}, bodies {bodies}")
+        launches[name] = {"k5a": k5a, "k5b": k5b, "split": split}
         log(f"[mesh parity] f32 full width, tp1 mesh, {name} pages: meshed "
             f"kernel == single-device kernel == meshed gather for "
             f"{len(PARITY_PROMPTS)} requests x {PARITY_NEW} tokens; K5a "
-            f"{k5a}, K5b {k5b}, K1/K2 0")
+            f"{k5a}, K5b {k5b} ({split} on the split body), K1/K2 0")
     return launches
 
 
@@ -1845,7 +2015,11 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
     single-device engine and then a tp = 1 meshed engine, bf16 pages.
     The meshed run must launch K5a once per layer per attention call
     (decode step or extend) and no K1/K2, gather nothing and hit the
-    prefix; tokens/s and p50 tick beside the single-device bf16 run and
+    prefix; its K5a launches split by body as phases 5 and 6 split K1's
+    and K2's: the tensor-core ones exactly the engine's prefill chunks
+    and prefix suffixes times the layers, the split ones the rest (the
+    decode steps); tokens/s and p50 tick beside the single-device bf16
+    run and
     phase 6's int8 numbers. Then one all-reduce of a decode step's
     (16, 1, d_model) activations on the mesh's group is timed, and with
     10a's time of the rows written outside the kernel (``write_ms``)
@@ -1869,10 +2043,13 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
             eng.step()
         eng.tick_seconds.clear()
         stats0, hits0 = dict(eng._kv.stats), eng.stats["prefix_hits"]
+        chunks0 = len(eng._chunk_trace)
         _zero_pa_counts()
         reqs, wall = _serve_mix(eng, np.random.default_rng(3), cfg.vocab,
                                 sizes, max_new)
         counts = _pa_counts()
+        bodies = _window_bodies()
+        chunks = len(eng._chunk_trace) - chunks0
         stats = eng._kv.stats
         calls = stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
         gather = stats["gather_bytes"] - stats0["gather_bytes"]
@@ -1896,8 +2073,18 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
                     "p50_tick_ms": statistics.median(ticks) * 1e3,
                     "ticks": len(ticks), "attn_calls": calls,
                     "k1_launches": counts[0], "k5a_launches": counts[2],
+                    "prefill_chunks": chunks, "prefix_hits": hits,
                     "mesh_shape": eng._mesh_shape,
                     "pool_device_bytes": eng._kv.device_bytes()}
+        if key == "mesh":
+            split = _window_split("K5a", counts[2], bodies["mma"], chunks,
+                                  hits, cfg.layers)
+            if bodies["split"] != split["decode"]:
+                raise AssertionError(f"10c mesh: {bodies['split']} K5a "
+                                     f"launches on the split body, want "
+                                     f"the {split['decode']} decode steps")
+            out[key].update(k5a_launches_decode=split["decode"],
+                            k5a_launches_extend=split["extend"])
         del eng
         torch.cuda.empty_cache()
     x = torch.zeros(16, 1, cfg.d_model, dtype=cfg.dtype,
@@ -1937,7 +2124,8 @@ def _tp2_rank(mesh, seed):
     eng.flush()
     return {"rank": axis_rank(mesh, "tp"), "mesh_shape": eng._mesh_shape,
             "tokens": [eng.result(r, timeout=1) for r in reqs],
-            "launches": _pa_counts(), "pool_heads": eng._kv.heads,
+            "launches": _pa_counts(), "bodies": _window_bodies(),
+            "pool_heads": eng._kv.heads,
             "pool_device_bytes": eng._kv.device_bytes(),
             "pool_device_bytes_global": eng._kv.device_bytes_global()}
 
@@ -1946,20 +2134,26 @@ def phase_tp2(dev_info, want):
     """10d: tp = 2 on the one card — two rank processes over gloo, each
     with six heads and its own pool shard, the f32 parity engine: both
     ranks' tokens equal each other's and 10b's over all
-    ``PARITY_NEW`` tokens; K5a launched on each rank, K1/K2 never."""
+    ``PARITY_NEW`` tokens; K5a launched on each rank, its decode steps on
+    the split body, K1/K2 never."""
     from mmlspark_tpu_torch.parallel.launch import run_ranks
     t0 = time.perf_counter()
     res = run_ranks(_tp2_rank, 2, args=(0,), device="cuda", timeout=600)
     wall = time.perf_counter() - t0
     for r in res:
         k1, k2, k5a, k5b = r["launches"]
+        split, mma = r["bodies"]["split"], r["bodies"]["mma"]
         if r["tokens"] != want or r["mesh_shape"] != "tp2" or \
-                r["pool_heads"] != 6 or k1 or k2 or k5b or k5a <= 0:
+                r["pool_heads"] != 6 or k1 or k2 or k5b or mma or \
+                not 0 < split < k5a:
             raise AssertionError(f"10d rank {r['rank']}: tokens "
                                  f"{r['tokens']} (want {want}), launches "
-                                 f"{r['launches']}, heads {r['pool_heads']}")
+                                 f"{r['launches']}, bodies {r['bodies']}, "
+                                 f"heads {r['pool_heads']}")
     rec = {"ranks": 2, "backend": "gloo", "horizon_tokens": PARITY_NEW,
            "k5a_launches_per_rank": [r["launches"][2] for r in res],
+           "k5a_launches_split_per_rank": [r["bodies"]["split"]
+                                           for r in res],
            "pool_device_bytes_per_rank": res[0]["pool_device_bytes"],
            "pool_device_bytes_global": res[0]["pool_device_bytes_global"],
            "wall_s": wall}
@@ -1967,12 +2161,13 @@ def phase_tp2(dev_info, want):
     return rec
 
 
-def _phase10(params_np, dev_info, single, q8):
+def _phase10(params_np, dev_info, single, q8, base=None):
     """10a-10d; the NCCL world of one that 10b and 10c share is left
-    before 10d spawns its two gloo ranks."""
+    before 10d spawns its two gloo ranks. ``base``: a baseline tree's
+    ``ops.paged_attention``, timed beside 10a's kernels."""
     from mmlspark_tpu_torch.parallel import distributed
     from mmlspark_tpu_torch.parallel.mesh import make_mesh
-    win = phase_window_kernels(dev_info)
+    win = phase_window_kernels(dev_info, base)
     distributed.initialize(device="cuda")
     try:
         mesh = make_mesh({"tp": 1})
@@ -2011,7 +2206,19 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "9": phases 1, 2 and 9; "3": phases 1, 2 and 3; a partial run
-    # prints no result and exits 3
+    # prints no result and exits 3. "--baseline DIR": 10a also times the
+    # K5 kernels and wrapper of the port checked out in DIR
+    argv = list(argv)
+    base_dir = None
+    if "--baseline" in argv:
+        i = argv.index("--baseline")
+        base_dir = argv[i + 1] if i + 1 < len(argv) else None
+        del argv[i:i + 2]
+        if base_dir is None or not os.path.isdir(
+                os.path.join(base_dir, "mmlspark_tpu_torch")):
+            log(f"chip_smoke: --baseline needs a directory holding "
+                f"mmlspark_tpu_torch/, got {base_dir!r}")
+            return 2
     only = set(argv)
     if not only <= {"3", "9", "10"}:
         log(f"chip_smoke: unknown phases {sorted(only - {'3', '9', '10'})};"
@@ -2020,6 +2227,7 @@ def main(argv=()):
     t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build()
+    base = _load_baseline(base_dir) if base_dir else None
     from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
     import torch
     params_np = init_transformer(_full_cfg(torch.float32), seed=0)
@@ -2031,7 +2239,7 @@ def main(argv=()):
         if "10" in only:
             single = phase_parity(params_np)
             _phase10(params_np, dev_info, single,
-                     {"tok_per_s": None, "p50_tick_ms": None})
+                     {"tok_per_s": None, "p50_tick_ms": None}, base)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -2050,7 +2258,8 @@ def main(argv=()):
     flash_recs, flash_parity, infer, train, dec_mem = _phase9(dev_info)
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
-    win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
+    win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8,
+                                         base)
     del params_np
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2080,14 +2289,20 @@ def main(argv=()):
         {"name": "paged_attention_window (mesh=)", "route": "cuda",
          "source": src, "replaces": f"{ref}:297",
          "launches": serve["mesh"]["k5a_launches"],
+         "launches_decode": serve["mesh"]["k5a_launches_decode"],
+         "launches_extend": serve["mesh"]["k5a_launches_extend"],
          "launches_mesh_parity_f32": mesh_par["f32"]["k5a"],
+         "launches_mesh_parity_f32_split": mesh_par["f32"]["split"],
          "launches_tp2_per_rank": tp2["k5a_launches_per_rank"],
+         "launches_tp2_split_per_rank": tp2["k5a_launches_split_per_rank"],
          **{k: win["K5a"]["decode"][k] for k in keys}, **win["K5a"]},
         {"name": "paged_attention_window (mesh=, k_scale/v_scale)",
          "route": "cuda", "source": src, "replaces": f"{ref}:461",
          "launches": mesh_par["int8"]["k5b"] + mesh_par["fp8"]["k5b"],
          "launches_int8_run": mesh_par["int8"]["k5b"],
          "launches_fp8_run": mesh_par["fp8"]["k5b"],
+         "launches_split": (mesh_par["int8"]["split"]
+                            + mesh_par["fp8"]["split"]),
          **{k: win["K5b"]["int8 decode"][k] for k in keys}, **win["K5b"]},
         {"name": "level_histogram", "route": "cuda",
          "source": "mmlspark_tpu_torch/csrc/histogram.cu",

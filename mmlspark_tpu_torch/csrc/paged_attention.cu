@@ -1,6 +1,7 @@
 // Paged attention over the KV page pool for Hopper (sm_90a): six kernels
-// from two bodies, an f32 FMA body (pa_kernel) and a bf16 tensor-core body
-// for fused windows (pa_mma_kernel).
+// from three bodies, an f32 FMA body (pa_kernel), a bf16 tensor-core body
+// for windows (pa_mma_kernel) and a decode body split over the keys for
+// the window read (pa_split_kernel).
 //
 //   K1  fused window + scatter, pages in the query dtype. Replaces the TPU
 //       kernel `_pa_fused_kernel` (mmlspark_tpu/ops/paged_attention.py,
@@ -47,11 +48,15 @@
 // build with --use_fast_math), then int8: rint and clamp to +-127; fp8:
 // clamp to +-448 and round to nearest even with saturation.
 //
-// Which body each instantiation takes (`dispatch`):
-//   * pa_mma_kernel: K1 and K2 (kFused) with bf16 queries and W > 1, the
-//     chunked-prefill chunks and prefix-suffix windows of bf16 serving;
-//   * pa_kernel: every W = 1 call (the decode tick), every f32 call, and
-//     K3/K4 (kRead) and K5a/K5b (kWindow) at any W.
+// Which body each instantiation takes (`dispatch`; the C entries of K1,
+// K2, K5a and K5b report it in their `int* body`: 1 tensor-core, 2 split):
+//   * pa_mma_kernel: K1, K2 (kFused) and K5a, K5b (kWindow) with bf16
+//     queries and W > 1, the chunked-prefill chunks and prefix-suffix
+//     windows of bf16 serving, on one device or on a mesh's head shard;
+//   * pa_split_kernel: K5a and K5b at W = 1 (the meshed decode tick), f32
+//     or bf16 queries;
+//   * pa_kernel: K1 and K2 at W = 1 (the single-device decode tick), f32
+//     windows of K1, K2, K5a and K5b, and K3/K4 (kRead) at any W.
 //
 // What bounds them on this card. A decode tick (W = 1) does about 4 flops
 // per byte of K/V it reads, far below the ~295 flops/byte at which the
@@ -97,7 +102,8 @@
 // block's last query; the diagonal tile masks element by element. The
 // warps' (m, l, acc) merge through shared memory; then the block runs the
 // same fused_scatter as the FMA body, so pages and scales are bitwise the
-// same.
+// same (kFused only: under kWindow, K5a/K5b, the scatter is compiled out
+// and wlo/whi are never read).
 //
 // K2 in the tensor-core body: page tiles arrive as codes (64 bytes a row
 // at hd 64, half a bf16 tile, rows padded to hd + 16 bytes) and are
@@ -124,7 +130,36 @@
 // zero-filled, by cp.async src-size 0 in the tensor-core body, and its
 // scales never read), so garbage codes or scales in unwritten page slots
 // cannot reach p * v, and the reads never touch the slots this launch
-// writes. TMA, wgmma and CUDA graphs are later work.
+// writes. TMA and wgmma are later work.
+//
+// pa_split_kernel, the window read's decode body. In the FMA body one
+// block owns a (row, head) and its 4 warps split the row's 32-key tiles,
+// so the longest row sets the time: at 1023 keys each warp walks 8 tiles,
+// each a chain of a block-table read, the dependent row loads and the
+// math, nothing fetched ahead, and at H = 6, B = 16 the 96 blocks leave a
+// third of the 132 SMs idle. The split body cuts each (row, head)'s keys
+// into chunks of kChunk = 256 keys, one block each, so no warp walks more
+// than two tiles and a 1023-key row is 4 blocks side by side. The grid,
+// (ceil(P * page / kChunk), H, B), comes from the block table's width, so
+// the host never reads pos; a block whose chunk starts at or past pos
+// exits at once, and the row's fresh key rides in its last live chunk.
+// Per warp: lane t owns key t of a tile (its score a 64-long fmaf chain
+// over the staged row, the query broadcast from shared memory) and output
+// dims 2 t, 2 t + 1; tiles are staged as stored (f32, bf16 or codes, rows
+// padded by 16 bytes), double-buffered with cp.async, the block-table
+// entries of the next tile read while this one's copies fly and a quantized
+// key's scales loaded with its copies. Codes are dequantized as f32(code) *
+// scale (exact) at each use, so the math is the FMA body's, in f32. The
+// warps' (m, l, acc) merge in shared memory; a row with one live chunk
+// writes its context there and then. Otherwise each block writes its
+// partial (m, l, acc) to the caller's f32 workspace, and the last block of
+// the (row, head) to arrive (a __threadfence, then an atomicAdd on that
+// (row, head)'s counter) merges the partials in chunk order, writes the
+// context and resets the counter to 0: one launch a call, no memset. The
+// merge reorders the sums only, so the context stays within the plain
+// version's bound. The workspace and counters are the wrapper's, cached
+// per device (ops/paged_attention.py `_split_workspace`), which assumes one
+// stream per device.
 //
 // Page-size rule: none. Tiles are 32 keys wide in the logical key space
 // and each key's page is looked up on its own, so any page size >= 1
@@ -342,8 +377,11 @@ struct Args {
   void* out;
   int B, H, W, P, page;
   float scale;
-  int* body;              // fused only: set to 1 when the tensor-core
-                          // body launched (the caller zeroes it)
+  int* body;              // fused, window: set to 1 when the tensor-core
+                          // body launched, 2 the split decode body (the
+                          // caller zeroes it)
+  float* work;            // window at W = 1: the split body's partials
+  int* counters;          // and its per-(row, head) arrival counters
 };
 
 // T: query / k_new / v_new / output type (float or bf16). S: page store
@@ -511,7 +549,7 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-// ---- the bf16 window body on the tensor cores (K1, K2 at W > 1) -----------
+// ---- the bf16 window body on the tensor cores (K1, K2, K5a, K5b, W > 1) ---
 //
 // The tile helpers (cp.async, ldmatrix, mma.sync, pack_bf16) are K7's,
 // from mma_sm90.cuh.
@@ -563,19 +601,20 @@ static_assert(sizeof(float) * (2 * kMq + kMq * mma_ld<64>()) <=
                   2 * mma_stage_bytes<64>(),
               "the merge state fits a warp's stages");
 
-// K1 (S = bf16) and K2 (S = int8 / fp8) at W > 1 with bf16 queries. Block:
-// kMq queries of one (row b, head h). Its 4 warps split the key tiles (32
-// keys each: the cached keys < pos through the block table, then the
-// window keys the block's queries can see) and each keeps the block's Q
-// as A fragments in registers and its own running (m, l, acc) on the
-// accumulator fragments; the partial states merge once through shared
-// memory. Per tile: S = Q K^T on mma.sync, the online softmax in f32 (m
+// K1 and K5a (S = bf16), K2 and K5b (S = int8 / fp8) at W > 1 with bf16
+// queries; MODE kFused (K1, K2) scatters the fresh rows at the end,
+// kWindow (K5a, K5b) only reads. Block: kMq queries of one (row b, head
+// h). Its 4 warps split the key tiles (32 keys each: the cached keys < pos
+// through the block table, then the window keys the block's queries can
+// see) and each keeps the block's Q as A fragments in registers and its
+// own running (m, l, acc) on the accumulator fragments; the partial
+// states merge once through shared memory. Per tile: S = Q K^T on mma.sync, the online softmax in f32 (m
 // in log2 units), then O += P V with P repacked in registers. Each warp
 // double-buffers its own tiles with cp.async and reads the block-table
 // entries two tiles ahead. Quantized page tiles arrive as codes and are
 // widened to bf16 as the B fragments are built; the K scale multiplies
 // the score column after the product and the V scale is folded into P.
-template <typename S, int HD>
+template <typename S, int HD, int MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
               const bf16* __restrict__ vn, S* __restrict__ kpool,
@@ -914,16 +953,316 @@ pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
     *reinterpret_cast<uint4*>(out + (row_off + q0 + r) * HD + d0) = o;
   }
 
-  // scatter this tile's fresh rows into their pages. Writes land at
-  // positions >= pos; every read above was < pos (or of k_new / v_new).
-  fused_scatter<bf16, S, HD, kMq>(kn, vn, kpool, vpool, kscale, vscale, bt,
-                                  pos, wlo_v[b], whi_v[b], row_off, q0, h,
-                                  H, W, P, page, warp, lane, tid);
+  if constexpr (MODE == kFused) {
+    // scatter this tile's fresh rows into their pages. Writes land at
+    // positions >= pos; every read above was < pos (or of k_new / v_new).
+    fused_scatter<bf16, S, HD, kMq>(kn, vn, kpool, vpool, kscale, vscale,
+                                    bt, pos, wlo_v[b], whi_v[b], row_off, q0,
+                                    h, H, W, P, page, warp, lane, tid);
+  }
 }
 
-// One launch of either body: KERN's dynamic shared memory raised to SMEM
-// once, then a (ceil(W / QT), H, B) grid of 4-warp blocks. Both bodies
-// take the same arguments; T is the query type, S the page store type.
+// ---- the window read's decode body, split over the keys (K5a, K5b, W = 1) -
+//
+// A decode row's keys are cut into chunks of kChunk keys, one block each:
+// the grid is (ceil(P * page / kChunk), H, B), sized from the block
+// table's width so that the host never reads pos. A block whose chunk
+// starts at or past the row's bound exits at once; the live ones (the
+// first max(1, ceil(pos / kChunk))) each walk at most kSplitTiles tiles a
+// warp, the row's own fresh key riding in the last live chunk. Each
+// writes its partial (m, l, acc) in f32 to the workspace; the last to
+// arrive (a __threadfence, then an atomicAdd on the (row, head)'s
+// counter) merges them in the same launch and resets the counter to 0
+// for the next launch. A row with one live chunk writes its context
+// straight away and never touches the workspace or its counter.
+
+constexpr int kSplitTiles = 2;                         // tiles a warp walks
+constexpr int kChunk = kWarps * kSplitTiles * kTile;   // keys a block reads
+
+// A staged key row: HD values as stored (f32, bf16 or codes), padded by
+// 16 bytes so that the rows a quarter-warp reads side by side (lane =
+// key) fall on distinct banks.
+template <typename S, int HD>
+__host__ __device__ constexpr int split_row() {
+  return HD * int(sizeof(S)) + 16;
+}
+// one stage of one warp: its K and V tiles
+template <typename S, int HD>
+__host__ __device__ constexpr size_t split_stage() {
+  return 2 * size_t(kTile) * split_row<S, HD>();
+}
+// Shared memory, dynamic: the query [HD] f32, then 2 stages per warp.
+// After its last tile a warp's stages hold its partial state for the
+// block's merge: m, l, acc [HD] f32.
+template <typename S, int HD>
+constexpr size_t split_smem() {
+  return sizeof(float) * HD + size_t(kWarps) * 2 * split_stage<S, HD>();
+}
+static_assert(sizeof(float) * (2 + 64) <= split_stage<int8_t, 64>(),
+              "the merge state fits a warp's first stage");
+
+// q . row over HD: the query from shared f32 (every lane reads the same
+// address), the row as staged, 16 bytes a read; quantized, each code is
+// dequantized as f32(code) * sk (exact) before its product, so the sum
+// is the FMA body's in the same order.
+template <typename S, int HD, bool SCALED>
+__device__ __forceinline__ float split_dot(const float* __restrict__ q_s,
+                                           const unsigned char* row,
+                                           float sk) {
+  constexpr int EPC = 16 / int(sizeof(S));
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD / EPC; ++c) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * c);
+    const S* e = reinterpret_cast<const S*>(&v);
+#pragma unroll
+    for (int i = 0; i < EPC; ++i) {
+      const float k = SCALED ? to_f32(e[i]) * sk : to_f32(e[i]);
+      s = fmaf(q_s[c * EPC + i], k, s);
+    }
+  }
+  return s;
+}
+
+// dims 2 lane and 2 lane + 1 of a staged row, as f32
+template <typename S>
+__device__ __forceinline__ float2 split_pair(const unsigned char* row,
+                                             int lane) {
+  const S* e = reinterpret_cast<const S*>(row) + 2 * lane;
+  return make_float2(to_f32(e[0]), to_f32(e[1]));
+}
+
+// T: query / k_new / v_new / output type (float or bf16); S: page store
+// type, T itself (K5a) or int8_t / fp8 (K5b). Block: chunk blockIdx.x of
+// (row b, head h), W = 1. Lane t of a warp owns key t of each of its
+// tiles (the score is its row's dot with q) and output dims 2 t, 2 t + 1
+// (P V reads each V row once, p and the V scale shuffled from the key's
+// lane). Each warp double-buffers its tiles with cp.async, reads the
+// block-table entries of its next tile while this one's copies fly and
+// loads a quantized key's scales with its copies. MODE is kWindow: the
+// scatter of K1/K2 and the W > 1 reads of K3/K4 are not routed here.
+template <typename T, typename S, int MODE, int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
+                const T* __restrict__ vn, const S* __restrict__ kpool,
+                const S* __restrict__ vpool, const bf16* __restrict__ kscale,
+                const bf16* __restrict__ vscale,
+                const int32_t* __restrict__ block_tables,
+                const int32_t* __restrict__ pos_v, T* __restrict__ out,
+                float* __restrict__ work, int* __restrict__ counters, int H,
+                int P, int page, float scale) {
+  static_assert(MODE == kWindow, "only the window read runs split");
+  static_assert(HD == 64, "lane t owns output dims 2 t and 2 t + 1");
+  constexpr bool kQuant = !std::is_same<S, T>::value;
+  constexpr int RB = split_row<S, HD>();
+  constexpr int CPR = HD * int(sizeof(S)) / 16;   // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  unsigned char* stages = smem_raw + sizeof(float) * HD;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // cached keys [0, pos) are visible (none past the block table, as in
+  // the plain version), and the row's fresh key
+  const int pos = min(pos_v[b], P * page);
+  const int n_live = max(1, (pos + kChunk - 1) / kChunk);
+  if (c >= n_live) return;   // past the bound: nothing to read
+  const int k0 = c * kChunk;
+  const int k1 = min(k0 + kChunk, pos);    // this chunk's keys [k0, k1)
+  const int n_tiles = (k1 - k0 + kTile - 1) / kTile;
+  const bool fresh = c == n_live - 1;      // the fresh key is read here
+  const int32_t* bt = block_tables + size_t(b) * P;
+  const size_t row = size_t(b) * H + h;    // (b, h) at W = 1
+  unsigned char* wbuf = stages + warp * 2 * split_stage<S, HD>();
+  const unsigned char* kbytes = reinterpret_cast<const unsigned char*>(kpool);
+  const unsigned char* vbytes = reinterpret_cast<const unsigned char*>(vpool);
+
+  if (tid < HD) q_s[tid] = to_f32(q[row * HD + tid]);
+  // the fresh key and value, dims 2 lane and 2 lane + 1 (warp 0 reads
+  // them; their loads fly while the tiles are walked)
+  float2 kf = make_float2(0.f, 0.f), vf = kf;
+  if (fresh && warp == 0) {
+    kf = make_float2(to_f32(kn[row * HD + 2 * lane]),
+                     to_f32(kn[row * HD + 2 * lane + 1]));
+    vf = make_float2(to_f32(vn[row * HD + 2 * lane]),
+                     to_f32(vn[row * HD + 2 * lane + 1]));
+  }
+
+  // this lane's key in tile ti: its block-table entry (read a tile
+  // ahead) and its pool slot (-1 past the chunk: never loaded)
+  auto bt_entry = [&](int ti) -> int {
+    const int key = k0 + ti * kTile + lane;
+    return ti < n_tiles && key < k1 ? bt[key / page] : 0;
+  };
+  auto key_slot = [&](int ti, int btv) -> long long {
+    const int key = k0 + ti * kTile + lane;
+    return key < k1 ? ((long long)btv * H + h) * page + key % page : -1;
+  };
+  // tile ti's K and V rows into a stage, 16 bytes a copy, each from the
+  // slot of its own key (dead keys zero-filled, their bytes never read)
+  auto start_copies = [&](long long slot, unsigned char* buf) {
+#pragma unroll
+    for (int i = 0; i < kTile * CPR / 32; ++i) {
+      const int e = lane + 32 * i;
+      const int r = e / CPR, cc = (e % CPR) * 16;
+      const long long src = __shfl_sync(0xffffffffu, slot, r);
+      const bool ok = src >= 0;
+      const size_t off = ok ? size_t(src) * HD * sizeof(S) + cc : 0;
+      cp_async16(buf + r * RB + cc, kbytes + off, ok);
+      cp_async16(buf + (kTile + r) * RB + cc, vbytes + off, ok);
+    }
+  };
+  // a live key's K and V scales (a dead key keeps 0: an unwritten slot's
+  // scale may be NaN)
+  auto load_scales = [&](long long slot, float& sk, float& sv) {
+    sk = sv = 0.f;
+    if (kQuant && slot >= 0) {
+      sk = __bfloat162float(kscale[slot]);
+      sv = __bfloat162float(vscale[slot]);
+    }
+  };
+
+  int ti = warp;
+  float sk = 0.f, sv = 0.f;   // the current tile's scales of this lane's key
+  if (ti < n_tiles) {
+    const long long slot = key_slot(ti, bt_entry(ti));
+    start_copies(slot, wbuf);
+    load_scales(slot, sk, sv);
+  }
+  cp_commit();
+  int bt_next = bt_entry(ti + kWarps);
+  __syncthreads();   // the query is in shared memory
+
+  float m = kNeg, l = 0.f;         // warp-uniform
+  float2 acc = make_float2(0.f, 0.f);
+  int stage = 0;
+  while (ti < n_tiles) {
+    // start the next tile (its block-table entries were read a tile ago)
+    const int nx = ti + kWarps;
+    float sk_n = 0.f, sv_n = 0.f;
+    if (nx < n_tiles) {
+      const long long slot = key_slot(nx, bt_next);
+      start_copies(slot, wbuf + (stage ^ 1) * split_stage<S, HD>());
+      load_scales(slot, sk_n, sv_n);
+      bt_next = bt_entry(nx + kWarps);
+    }
+    cp_commit();
+    cp_wait<1>();   // this tile has landed (the next may be in flight)
+    __syncwarp();
+    const unsigned char* k_t = wbuf + stage * split_stage<S, HD>();
+    const unsigned char* v_t = k_t + kTile * RB;
+    const bool valid = k0 + ti * kTile + lane < k1;
+    float s = split_dot<S, HD, kQuant>(q_s, k_t + lane * RB, sk) * scale;
+    s = valid ? s : kNeg;
+    const float m_new = fmaxf(m, warp_max(s));
+    const float p = valid ? expf(s - m_new) : 0.f;
+    const float corr = expf(m - m_new);
+    l = corr * l + warp_sum(p);
+    acc.x *= corr;
+    acc.y *= corr;
+#pragma unroll 8
+    for (int t = 0; t < kTile; ++t) {
+      const float pt = __shfl_sync(0xffffffffu, p, t);
+      float2 v = split_pair<S>(v_t + t * RB, lane);
+      if constexpr (kQuant) {
+        const float st = __shfl_sync(0xffffffffu, sv, t);
+        v.x *= st;   // f32(code) * sv, exact
+        v.y *= st;
+      }
+      acc.x = fmaf(pt, v.x, acc.x);
+      acc.y = fmaf(pt, v.y, acc.y);
+    }
+    m = m_new;
+    __syncwarp();   // every lane is done with this stage before it refills
+    sk = sk_n;
+    sv = sv_n;
+    ti = nx;
+    stage ^= 1;
+  }
+  cp_wait<0>();
+  __syncwarp();
+
+  if (fresh && warp == 0) {
+    // the row's own fresh key, never quantized, visible to its query
+    const float s =
+        warp_sum(fmaf(q_s[2 * lane + 1], kf.y, q_s[2 * lane] * kf.x)) * scale;
+    const float m_new = fmaxf(m, s);
+    const float p = expf(s - m_new);
+    const float corr = expf(m - m_new);
+    l = corr * l + p;
+    acc.x = fmaf(p, vf.x, corr * acc.x);
+    acc.y = fmaf(p, vf.y, corr * acc.y);
+    m = m_new;
+  }
+
+  // the warps' partial states into their own first stages, then merged
+  // into the block's (dims d = tid < HD)
+  {
+    float* st = reinterpret_cast<float*>(wbuf);
+    if (lane == 0) {
+      st[0] = m;
+      st[1] = l;
+    }
+    st[2 + 2 * lane] = acc.x;
+    st[3 + 2 * lane] = acc.y;
+  }
+  __syncthreads();
+  float mm = kNeg, ll = 0.f, aa = 0.f;
+  if (tid < HD) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mm = fmaxf(mm, reinterpret_cast<const float*>(
+                         stages + w * 2 * split_stage<S, HD>())[0]);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* st = reinterpret_cast<const float*>(
+          stages + w * 2 * split_stage<S, HD>());
+      const float cw = expf(st[0] - mm);
+      ll += st[1] * cw;
+      aa += st[2 + tid] * cw;
+    }
+  }
+  if (n_live == 1) {
+    // the whole row in this block: no partials, no counter
+    if (tid < HD) from_f32(aa / (ll == 0.f ? 1.f : ll), &out[row * HD + tid]);
+    return;
+  }
+
+  // this chunk's partial: (m, l, acc [HD]), f32, unnormalised
+  float* part = work + (row * gridDim.x + c) * (HD + 2);
+  if (tid < HD) part[2 + tid] = aa;
+  if (tid == 0) {
+    part[0] = mm;
+    part[1] = ll;
+  }
+  __threadfence();   // the partial is visible before the arrival counts
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[row], 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of (b, h) to arrive merges every live chunk's partial
+  __threadfence();
+  if (tid < HD) {
+    const float* p0 = work + row * gridDim.x * (HD + 2);
+    float M = kNeg;
+    for (int k = 0; k < n_live; ++k) M = fmaxf(M, __ldcg(p0 + k * (HD + 2)));
+    float L = 0.f, A = 0.f;
+    for (int k = 0; k < n_live; ++k) {
+      const float* pk = p0 + k * (HD + 2);
+      const float ck = expf(__ldcg(pk) - M);
+      L += __ldcg(pk + 1) * ck;
+      A += __ldcg(pk + 2 + tid) * ck;
+    }
+    from_f32(A / (L == 0.f ? 1.f : L), &out[row * HD + tid]);
+  }
+  if (tid == 0) counters[row] = 0;   // ready for the next launch
+}
+
+// One launch of the FMA or the tensor-core body: KERN's dynamic shared
+// memory raised to SMEM once, then a (ceil(W / QT), H, B) grid of 4-warp
+// blocks. Both take the same arguments; T is the query type, S the page
+// store type.
 template <auto KERN, typename T, typename S, int QT, size_t SMEM>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static bool configured = false;
@@ -943,6 +1282,31 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// One launch of the split decode body: a (ceil(P * page / kChunk), H, B)
+// grid over the caller's workspace, (B, H, chunks, HD + 2) f32 partials,
+// and (B, H) int counters that are 0 on entry and left 0.
+template <typename T, typename S, int MODE>
+cudaError_t launch_split(const Args& a, cudaStream_t stream) {
+  constexpr size_t SMEM = split_smem<S, 64>();
+  if (a.work == nullptr || a.counters == nullptr) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pa_split_kernel<T, S, MODE, 64>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((a.P * a.page + kChunk - 1) / kChunk, a.H, a.B);
+  pa_split_kernel<T, S, MODE, 64><<<grid, kWarps * 32, SMEM, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kn),
+      static_cast<const T*>(a.vn), static_cast<const S*>(a.kp),
+      static_cast<const S*>(a.vp), static_cast<const bf16*>(a.ks),
+      static_cast<const bf16*>(a.vs), a.bt, a.bound, static_cast<T*>(a.out),
+      a.work, a.counters, a.H, a.P, a.page, a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, typename S, int MODE>
 cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   if (a.B <= 0 || a.H <= 0 || a.W <= 0 || a.P <= 0 || a.page <= 0)
@@ -950,13 +1314,21 @@ cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   // only the head dim of the models served so far; another one is
   // instantiated with the slice that brings a model needing it
   if (hd != 64) return cudaErrorInvalidValue;
-  if (a.W == 1)
-    return launch<pa_kernel<T, S, MODE, 64, 1>, T, S, 1,
-                  smem_bytes<64, 1>()>(a, s);
-  // K1 / K2 windows with bf16 queries: the tensor-core body
-  if constexpr (MODE == kFused && std::is_same<T, bf16>::value) {
+  if (a.W == 1) {
+    // the window read's decode (K5a, K5b): split over the keys
+    if constexpr (MODE == kWindow) {
+      if (a.body != nullptr) *a.body = 2;
+      return launch_split<T, S, MODE>(a, s);
+    } else {
+      return launch<pa_kernel<T, S, MODE, 64, 1>, T, S, 1,
+                    smem_bytes<64, 1>()>(a, s);
+    }
+  }
+  // K1 / K2 / K5a / K5b windows with bf16 queries: the tensor-core body
+  if constexpr (MODE != kRead && std::is_same<T, bf16>::value) {
     if (a.body != nullptr) *a.body = 1;
-    return launch<pa_mma_kernel<S, 64>, bf16, S, kMq, mma_smem<64>()>(a, s);
+    return launch<pa_mma_kernel<S, 64, MODE>, bf16, S, kMq,
+                  mma_smem<64>()>(a, s);
   } else {
     return launch<pa_kernel<T, S, MODE, 64, 8>, T, S, 8,
                   smem_bytes<64, 8>()>(a, s);
@@ -1058,16 +1430,23 @@ int mmlspark_pa_read_q(int dtype, int store, int hd, const void* q,
 
 // K5a. Window read-only: K1's attention (keys < pos[b] from the pools,
 // the window's own k_new / v_new rows under the in-window causal mask)
-// with nothing written but out; pools in q's dtype.
+// with nothing written but out; pools in q's dtype. At W = 1 the split
+// decode body runs over `work`, (B, H, ceil(P * page / chunk), hd + 2)
+// f32, and `counters`, (B, H) int32, zero on entry and left zero (chunk
+// from mmlspark_pa_split_chunk); both may be null at W > 1. *body (may be
+// null; the caller zeroes it) is set to 1 when the launch ran the
+// tensor-core body, 2 the split decode body.
 int mmlspark_pa_window_read(int dtype, int hd, const void* q,
                             const void* k_new, const void* v_new,
                             const void* k_pages, const void* v_pages,
                             const int32_t* block_tables, const int32_t* pos,
-                            void* out, int B, int H, int W, int P, int page,
-                            float scale, void* stream) {
+                            void* out, void* work, void* counters, int B,
+                            int H, int W, int P, int page, float scale,
+                            void* stream, int* body) {
   Args a{q, k_new, v_new, const_cast<void*>(k_pages),
          const_cast<void*>(v_pages), nullptr, nullptr, block_tables, pos,
-         nullptr, nullptr, out, B, H, W, P, page, scale};
+         nullptr, nullptr, out, B, H, W, P, page, scale, body,
+         static_cast<float*>(work), static_cast<int*>(counters)};
   return int(plain_pools<kWindow>(dtype, hd, a,
                                   static_cast<cudaStream_t>(stream)));
 }
@@ -1079,16 +1458,21 @@ int mmlspark_pa_window_read_q(int dtype, int store, int hd, const void* q,
                               const void* k_pages, const void* v_pages,
                               const void* k_scale, const void* v_scale,
                               const int32_t* block_tables,
-                              const int32_t* pos, void* out, int B, int H,
-                              int W, int P, int page, float scale,
-                              void* stream) {
+                              const int32_t* pos, void* out, void* work,
+                              void* counters, int B, int H, int W, int P,
+                              int page, float scale, void* stream,
+                              int* body) {
   Args a{q, k_new, v_new, const_cast<void*>(k_pages),
          const_cast<void*>(v_pages), const_cast<void*>(k_scale),
          const_cast<void*>(v_scale), block_tables, pos, nullptr, nullptr,
-         out, B, H, W, P, page, scale};
+         out, B, H, W, P, page, scale, body, static_cast<float*>(work),
+         static_cast<int*>(counters)};
   return int(quant_pools<kWindow>(dtype, store, hd, a,
                                   static_cast<cudaStream_t>(stream)));
 }
+
+// Keys a block of the split decode body reads (the workspace's chunk).
+int mmlspark_pa_split_chunk(void) { return kChunk; }
 
 const char* mmlspark_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -23,9 +23,13 @@ K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
               scales (``.launches_q``)
 K5a           :func:`paged_attention_window`  ``_pa_window_kernel``
               with ``mesh=``
-              (``.launches_window``)
+              (``.launches_window``;
+              ``.launches_window_mma``,
+              ``.launches_window_split``)
 K5b           the same with scales            ``_pa_window_kernel_q``
-              (``.launches_window_q``)
+              (``.launches_window_q``;
+              ``.launches_window_q_mma``,
+              ``.launches_window_q_split``)
 ============  ==============================  ================================
 
 * :func:`paged_attention_window_plain`,
@@ -37,14 +41,26 @@ K5b           the same with scales            ``_pa_window_kernel_q``
 * :func:`paged_rounding_scale` is the window attention over absolute
   values, which scales the bf16 window kernels' error bound.
 
-Two bodies serve the six kernels. K1 and K2 with bfloat16 queries and
-W > 1 (chunked-prefill chunks, prefix-suffix windows) run on the tensor
-cores: they round each probability P (K1), or P times the key's V scale
-(K2), to bf16 once before it enters the P·V product, so their context
-lies within 2⁻⁸ · :func:`paged_rounding_scale` (plus the rounding of the
-output itself) of the plain version run in f32. Every other call (W = 1,
-float32, K3/K4, K5a/K5b) runs the f32 FMA body, whose context differs
-from the plain version's only in the order of its sums.
+Three bodies serve the six kernels, and the C entries of K1, K2, K5a
+and K5b report which one ran (counted in the ``_mma`` / ``_split``
+counters above):
+
+* the tensor-core body: K1, K2, K5a and K5b with bfloat16 queries and
+  W > 1 (chunked-prefill chunks, prefix-suffix windows). It rounds each
+  probability P (K1, K5a), or P times the key's V scale (K2, K5b), to
+  bf16 once before it enters the P·V product, so its context lies within
+  2⁻⁸ · :func:`paged_rounding_scale` (plus the rounding of the output
+  itself) of the plain version run in f32;
+* the split decode body: K5a and K5b at W = 1 (the meshed decode tick),
+  f32 or bf16 queries. Each (row, head)'s keys are cut into fixed chunks,
+  one block each, and the last block to finish merges the partial
+  softmax states in the same launch, through a workspace and per-(row,
+  head) counters that :func:`_split_workspace` allocates once per device
+  and caches (zeroed once; every launch leaves them zero). Its math is
+  f32, so its context differs from the plain version's only in the
+  order of its sums;
+* the f32 FMA body: every other call (K1/K2 at W = 1, float32 windows,
+  K3/K4), also within the order of its sums.
 
 The page pools (and scale pools) are updated IN PLACE (the JAX package
 aliases them onto its outputs, which is the same thing for a caller that
@@ -359,23 +375,26 @@ def _library():
     if lib.mmlspark_pa_window_fused.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [ci, ci, ci, ci, ci, cf, vp]      # B, H, W, P, page, scale, stream
-        body = [ctypes.POINTER(ci)]               # set to 1 by the mma body
+        body = [ctypes.POINTER(ci)]     # 1: the mma body ran, 2: the split one
         lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 10 + shape \
             + body
         lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 12 \
             + shape + body
         lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
         lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
-        lib.mmlspark_pa_window_read.argtypes = [ci, ci] + [vp] * 8 + shape
-        lib.mmlspark_pa_window_read_q.argtypes = [ci, ci, ci] + [vp] * 10 \
-            + shape
+        lib.mmlspark_pa_window_read.argtypes = [ci, ci] + [vp] * 10 + shape \
+            + body
+        lib.mmlspark_pa_window_read_q.argtypes = [ci, ci, ci] + [vp] * 12 \
+            + shape + body
+        lib.mmlspark_pa_split_chunk.argtypes = []
         for fn in (lib.mmlspark_pa_window_fused, lib.mmlspark_pa_window_fused_q,
                    lib.mmlspark_pa_read, lib.mmlspark_pa_read_q,
                    lib.mmlspark_pa_window_read,
-                   lib.mmlspark_pa_window_read_q):
+                   lib.mmlspark_pa_window_read_q, lib.mmlspark_pa_split_chunk):
             fn.restype = ci
         lib.mmlspark_cuda_error_string.argtypes = [ci]
         lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
+        lib.split_chunk = lib.mmlspark_pa_split_chunk()   # keys a block
     return lib
 
 
@@ -464,13 +483,48 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
+#: device -> (workspace, counters, their capacities, their data
+#: pointers) of the split decode body, grown to the largest call so far
+#: and reused. The counters are zeroed once, when allocated; every launch
+#: leaves them zero. Reuse across calls assumes one stream per device (the
+#: engine's): two window reads in flight on two streams of one device
+#: would share the buffers.
+_split_buffers: dict = {}
+
+
+def _split_workspace(device, B: int, H: int, P: int, page: int, hd: int,
+                     chunk: int):
+    """The split decode body's scratch for a (B, H) call over a block
+    table of ``P`` pages: at least (B, H, ceil(P * page / chunk), hd + 2)
+    f32 partials and (B, H) int32 arrival counters, from the device's
+    cached buffers (a larger call reallocates them; no call launches a
+    memset but one that grows the counters). Returns the cache entry,
+    ``(work, counters, work capacity, counter capacity, work pointer,
+    counter pointer)``."""
+    n_work = B * H * (-(-P * page // chunk)) * (hd + 2)
+    buf = _split_buffers.get(device)
+    if buf is None or buf[2] < n_work or buf[3] < B * H:
+        work, cnt = (None, None) if buf is None else buf[:2]
+        if work is None or work.numel() < n_work:
+            work = torch.empty(n_work, dtype=torch.float32, device=device)
+        if cnt is None or cnt.numel() < B * H:
+            cnt = torch.zeros(B * H, dtype=torch.int32, device=device)
+        buf = (work, cnt, work.numel(), cnt.numel(), work.data_ptr(),
+               cnt.data_ptr())
+        _split_buffers[device] = buf
+    return buf
+
+
 def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
                  k_scale=None, v_scale=None):
     """The window read (K5a; K5b with scales) on checked, int32,
     contiguous arguments: :func:`paged_attention_window_read_plain` for
     CPU tensors, the kernel for CUDA tensors, counted in
     ``paged_attention_window.launches_window`` (K5a) or
-    ``.launches_window_q`` (K5b). The pools are only read."""
+    ``.launches_window_q`` (K5b), and by the body the library reports:
+    ``.launches_window(_q)_mma`` (bf16 windows, W > 1, the tensor-core
+    body) or ``.launches_window(_q)_split`` (decode, W = 1, the split
+    body). One launch a call; the pools are only read."""
     if q.device.type == "cpu":
         return paged_attention_window_read_plain(
             q, k_new, v_new, k_pages, v_pages, bt, pos, scale, k_scale,
@@ -479,7 +533,13 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
     B, H, W, hd = q.shape
     lib = _library()
     out = torch.empty_like(q)
+    scratch = (out.data_ptr(), None, None)
+    if W == 1:
+        scratch = (out.data_ptr(), *_split_workspace(
+            q.device, B, H, bt.shape[1], k_pages.shape[2], hd,
+            lib.split_chunk)[4:])
     shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
+    body = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if k_scale is not None:
@@ -487,17 +547,24 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
                 _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
                 k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                bt.data_ptr(), pos.data_ptr(), out.data_ptr(), *shape, stream)
+                bt.data_ptr(), pos.data_ptr(), *scratch, *shape, stream,
+                ctypes.byref(body))
         else:
             err = lib.mmlspark_pa_window_read(
                 _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
                 v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                bt.data_ptr(), pos.data_ptr(), out.data_ptr(), *shape, stream)
+                bt.data_ptr(), pos.data_ptr(), *scratch, *shape, stream,
+                ctypes.byref(body))
     _raise_on(lib, err, "window paged attention")
+    paw = paged_attention_window
     if k_scale is not None:
-        paged_attention_window.launches_window_q += 1
+        paw.launches_window_q += 1
+        paw.launches_window_q_mma += int(body.value == 1)
+        paw.launches_window_q_split += int(body.value == 2)
     else:
-        paged_attention_window.launches_window += 1
+        paw.launches_window += 1
+        paw.launches_window_mma += int(body.value == 1)
+        paw.launches_window_split += int(body.value == 2)
     return out
 
 
@@ -534,7 +601,8 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     arguments are this rank's: its heads of q / k_new / v_new and its
     head shard of the pools. The attention then runs READ-ONLY (K5a, or
     K5b with scales, counted in ``.launches_window`` /
-    ``.launches_window_q``; the window-read plain version on the CPU)
+    ``.launches_window_q`` and by body, as :func:`_window_read` says; the
+    window-read plain version on the CPU)
     and the fresh rows are written after it by :func:`_pool_write_rows`
     / :func:`_pool_write_rows_quant`, the same bytes the fused scatter
     writes; inactive rows write trash page 0. ``slot_axis`` of size > 1
@@ -595,15 +663,21 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
 
 #: kernel launches since the last reset: K1 (``launches``), K2
 #: (``launches_q``), K5a (``launches_window``) and K5b
-#: (``launches_window_q``); of K1's and K2's, those the library reports
-#: it ran on the tensor-core body (``launches_mma``, ``launches_q_mma``);
-#: the plain CPU path never counts
+#: (``launches_window_q``); of these, those the library reports it ran on
+#: the tensor-core body (``launches_mma``, ``launches_q_mma``,
+#: ``launches_window_mma``, ``launches_window_q_mma``) and, of K5a's and
+#: K5b's, on the split decode body (``launches_window_split``,
+#: ``launches_window_q_split``); the plain CPU path never counts
 paged_attention_window.launches = 0
 paged_attention_window.launches_q = 0
 paged_attention_window.launches_mma = 0
 paged_attention_window.launches_q_mma = 0
 paged_attention_window.launches_window = 0
 paged_attention_window.launches_window_q = 0
+paged_attention_window.launches_window_mma = 0
+paged_attention_window.launches_window_q_mma = 0
+paged_attention_window.launches_window_split = 0
+paged_attention_window.launches_window_q_split = 0
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,

@@ -286,7 +286,9 @@ def test_cpu_window_counts_no_launch(quant):
         kw = {"k_scale": ks, "v_scale": vs}
     paw = port_pa.paged_attention_window
     names = ("launches", "launches_q", "launches_mma", "launches_q_mma",
-             "launches_window", "launches_window_q")
+             "launches_window", "launches_window_q", "launches_window_mma",
+             "launches_window_q_mma", "launches_window_split",
+             "launches_window_q_split")
     before = [getattr(paw, n) for n in names]
     ctx = paw(q, kn, vn, kp, vp, bt, torch.tensor([0, 5], dtype=torch.int32),
               **kw)[0]
