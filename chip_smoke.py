@@ -96,10 +96,6 @@ Phases (any failure exits non-zero and prints no result line):
 ``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, and ``python3
 chip_smoke.py 3`` phases 1, 2 and 3; each prints no result and exits 3.
-``--baseline DIR`` (with any of these, or alone) also times, in 10a,
-the K5 kernels and window-read wrapper of another checkout of the port
-in DIR (its ``mmlspark_tpu_torch/``, built into ``DIR/build``),
-alternating with this one's: a before/after reading on one card.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -1702,24 +1698,6 @@ def _kernel_launches(fn):
     return launches, copies, device
 
 
-def _load_baseline(root):
-    """``ops.paged_attention`` of another checkout of the port (``root``
-    holds its ``mmlspark_tpu_torch/``), imported beside this one under
-    another name, with its own ``csrc`` built into ``root/build``: 10a
-    then times that tree's K5 kernels and wrapper in the same process,
-    on the same card, as a before/after reading."""
-    import importlib
-    import importlib.util
-    pkg = os.path.join(os.path.abspath(root), "mmlspark_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "baseline_port", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["baseline_port"] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module("baseline_port.ops.paged_attention")
-
-
 def _window_bodies():
     """K5a/K5b launches by the body the library reported: tensor-core
     (``mma``, K5a / ``q_mma``, K5b) and split decode (``split``,
@@ -1732,7 +1710,7 @@ def _window_bodies():
 
 
 def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
-                 store=None, H=12, P=None, base=None):
+                 store=None, H=12, P=None):
     """The window read at one shape: K5a over bf16 pages, or K5b over
     quantized pages of ``store`` dtype, ``H`` heads, bf16 queries.
     Correctness against the plain version (ctx within about one bf16 ulp,
@@ -1742,9 +1720,7 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     call = one kernel on the card; then its time, the plain version's,
     one SDPA over the gathered dequantized K/V and the window (the
     library yardstick), its bound, the wrapper's host-paced time, and on
-    their own the rows the mesh path writes after it (``_mount_writes``).
-    ``base``: another tree's ``ops.paged_attention`` (``--baseline``),
-    whose kernel and wrapper are timed alternately with this one's."""
+    their own the rows the mesh path writes after it (``_mount_writes``)."""
     import torch
     import torch.nn.functional as F
     from mmlspark_tpu_torch.ops import paged_attention as pa
@@ -1796,8 +1772,8 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     tail = (B, H, W, P, page, scale, stream)
     work = (None, None)
     if W == 1:
-        work = pa._split_workspace(dev, B, H, P, page, hd,
-                                   lib.split_chunk)[4:]
+        work = tuple(t.data_ptr() for t in pa._split_workspace(
+            q.device, B, H, P, page, hd, lib.split_chunk))
     rc = []
 
     def launcher(c):
@@ -1809,43 +1785,16 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
         return lambda: rc.append(lib.mmlspark_pa_window_read(
             1, hd, *acts, *ptrs, *ints, *tail, None))
 
-    def base_launcher(c):
-        # the baseline tree's C entry: no workspace, no body argument
-        blib = base._library()    # built at its first use
-        ptrs = [t.data_ptr() for t in c]
-        ints = (bt.data_ptr(), pos.data_ptr(), got.data_ptr())
-        if quant:
-            return lambda: rc.append(blib.mmlspark_pa_window_read_q(
-                1, pa._STORES[store], hd, *acts, *ptrs, *ints, *tail))
-        return lambda: rc.append(blib.mmlspark_pa_window_read(
-            1, hd, *acts, *ptrs, *ints, *tail))
-
-    runs = [("", launcher, pa)]
-    if base is not None:
-        runs.append(("_base", base_launcher, base))
-
-    def wrapper(mod):
-        return [lambda c=c: mod._window_read(q, kn, vn, c[0], c[1], bt, pos,
-                                             scale, *c[2:]) for c in copies]
-    for _, make, mod in runs:     # warm-up, untimed (and past the profiler)
-        warm = [make(c) for c in copies] + wrapper(mod)
-        _cuda_ms(warm, len(warm), head_start=False)
-    # this tree, then (with a baseline) the baseline, this tree, the
-    # baseline: kernel back to back (device time), then the wrapper paced
-    # by the host
-    readings = {}
-    for _ in range(2 if base is not None else 1):
-        for key, make, mod in runs:
-            readings.setdefault("ms" + key, []).append(
-                _cuda_ms([make(c) for c in copies], 200))
-            readings.setdefault("window_read_ms_host_paced" + key, []).append(
-                _cuda_ms(wrapper(mod), 200, head_start=False))
-    # the wrapper's host cost alone varies with the shared host's load
-    # more than it differs between trees: five alternating readings
-    for _ in range(5):
-        for key, _, mod in runs:
-            readings.setdefault("window_read_host_ms" + key, []).append(
-                _host_ms(wrapper(mod), 200))
+    wrapped = [lambda c=c: pa._window_read(q, kn, vn, c[0], c[1], bt, pos,
+                                           scale, *c[2:]) for c in copies]
+    raw = [launcher(c) for c in copies]
+    # warm-up, untimed (and past the profiler)
+    _cuda_ms(raw + wrapped, len(raw) + len(wrapped), head_start=False)
+    # the kernel back to back (device time), the wrapper paced by the
+    # host, and the wrapper's host cost alone
+    ms = _cuda_ms(raw, 200)
+    host_paced = _cuda_ms(wrapped, 200, head_start=False)
+    host_ms = _host_ms(wrapped, 200)
     if any(rc):
         raise AssertionError(f"{what}: launch returned {set(rc)}")
     plain_ms = _cuda_ms([lambda c=c: pa.paged_attention_window_read_plain(
@@ -1882,33 +1831,30 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     flops = sum(4 * H * hd * W * (int(p) + W) for p in pos_np)
     wbytes = (2 * B * H * W * hd * 2 + 2 * n_active * W * H * row_bytes
               + bt.numel() * 4 + B * 4)
-    rec = {"max_abs_err": err, "ms": readings["ms"][0], "plain_ms": plain_ms,
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
            "library_ms_host_paced": library_host,
-           "window_read_ms_host_paced":
-               readings["window_read_ms_host_paced"][0],
-           "window_read_host_ms": statistics.median(
-               readings["window_read_host_ms"]),
+           "window_read_ms_host_paced": host_paced,
+           "window_read_host_ms": host_ms,
            "body": body, "launches_per_call": launches,
            "write_ms": write_ms,
            "write_bound_ms": _bound(dev_info, wbytes, 0)["bound_ms"],
            "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page, "P": P,
                      "max_pos": int(pos_np.max()), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
-    if base is not None:
-        rec["readings"] = readings
     tag = what.split()[0].lower() + " " + " ".join(what.split()[1:])
     log(f"[{tag}] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
 
 
-def phase_window_kernels(dev_info, base=None):
-    """10a: K5a on bf16 pages and K5b on int8 and fp8 pages at phase 3's
-    decode and extend shapes (12 heads), the decode shape on 6 heads (one
-    rank's shard at tp = 2), serving's own decode (16 rows up to 10c's
-    448 keys over its 64-page block table) and a straggler (one row at
-    2047, the rest at 64 or below: continuous batching with one long
-    context). ``base``: a baseline tree's module, timed beside."""
+def window_cases():
+    """10a's cases, ``(kernel, label, args, keywords)`` for
+    :func:`_window_case` (and ``time_window_read.py``): K5a on bf16 pages
+    and K5b on int8 and fp8 pages at phase 3's decode and extend shapes
+    (12 heads), the decode shape on 6 heads (one rank's shard at tp = 2),
+    serving's own decode (16 rows up to 10c's 448 keys over its 64-page
+    block table) and a straggler (one row at 2047, the rest at 64 or
+    below: continuous batching with one long context)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
@@ -1918,20 +1864,26 @@ def phase_window_kernels(dev_info, base=None):
     active[5] = active[11] = False
     serve = [int(p) for p in rng.integers(0, 449, 16)]
     straggler = [2047, 0, 64] + [int(p) for p in rng.integers(1, 65, 13)]
-    shapes = {"decode": dict(args=(16, 1, pos, active)),
-              "extend": dict(args=(1, 256, [384], [True])),
-              "decode h6": dict(args=(16, 1, pos, active), H=6),
-              "serving decode": dict(args=(16, 1, serve, active), P=64),
-              "straggler": dict(args=(16, 1, straggler, active))}
-    recs = {"K5a": {}, "K5b": {}}
-    seed = 5
+    shapes = {"decode": ((16, 1, pos, active), {}),
+              "extend": ((1, 256, [384], [True]), {}),
+              "decode h6": ((16, 1, pos, active), {"H": 6}),
+              "serving decode": ((16, 1, serve, active), {"P": 64}),
+              "straggler": ((16, 1, straggler, active), {})}
+    cases, seed = [], 5
     for store in (None, torch.int8, torch.float8_e4m3fn):
         name = "" if store is None else str(store).split(".")[-1] + " "
-        for label, kw in shapes.items():
-            recs["K5b" if store is not None else "K5a"][name + label] = \
-                _window_case(dev_info, label, *kw["args"], seed, store=store,
-                             H=kw.get("H", 12), P=kw.get("P"), base=base)
+        for label, (args, kw) in shapes.items():
+            cases.append(("K5a" if store is None else "K5b", name + label,
+                          (label, *args, seed), {"store": store, **kw}))
             seed += 1
+    return cases
+
+
+def phase_window_kernels(dev_info):
+    """10a: every case of :func:`window_cases`."""
+    recs = {"K5a": {}, "K5b": {}}
+    for kernel, name, args, kw in window_cases():
+        recs[kernel][name] = _window_case(dev_info, *args, **kw)
     return recs
 
 
@@ -2161,13 +2113,12 @@ def phase_tp2(dev_info, want):
     return rec
 
 
-def _phase10(params_np, dev_info, single, q8, base=None):
+def _phase10(params_np, dev_info, single, q8):
     """10a-10d; the NCCL world of one that 10b and 10c share is left
-    before 10d spawns its two gloo ranks. ``base``: a baseline tree's
-    ``ops.paged_attention``, timed beside 10a's kernels."""
+    before 10d spawns its two gloo ranks."""
     from mmlspark_tpu_torch.parallel import distributed
     from mmlspark_tpu_torch.parallel.mesh import make_mesh
-    win = phase_window_kernels(dev_info, base)
+    win = phase_window_kernels(dev_info)
     distributed.initialize(device="cuda")
     try:
         mesh = make_mesh({"tp": 1})
@@ -2206,19 +2157,7 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "9": phases 1, 2 and 9; "3": phases 1, 2 and 3; a partial run
-    # prints no result and exits 3. "--baseline DIR": 10a also times the
-    # K5 kernels and wrapper of the port checked out in DIR
-    argv = list(argv)
-    base_dir = None
-    if "--baseline" in argv:
-        i = argv.index("--baseline")
-        base_dir = argv[i + 1] if i + 1 < len(argv) else None
-        del argv[i:i + 2]
-        if base_dir is None or not os.path.isdir(
-                os.path.join(base_dir, "mmlspark_tpu_torch")):
-            log(f"chip_smoke: --baseline needs a directory holding "
-                f"mmlspark_tpu_torch/, got {base_dir!r}")
-            return 2
+    # prints no result and exits 3
     only = set(argv)
     if not only <= {"3", "9", "10"}:
         log(f"chip_smoke: unknown phases {sorted(only - {'3', '9', '10'})};"
@@ -2227,7 +2166,6 @@ def main(argv=()):
     t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build()
-    base = _load_baseline(base_dir) if base_dir else None
     from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
     import torch
     params_np = init_transformer(_full_cfg(torch.float32), seed=0)
@@ -2239,7 +2177,7 @@ def main(argv=()):
         if "10" in only:
             single = phase_parity(params_np)
             _phase10(params_np, dev_info, single,
-                     {"tok_per_s": None, "p50_tick_ms": None}, base)
+                     {"tok_per_s": None, "p50_tick_ms": None})
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -2258,8 +2196,7 @@ def main(argv=()):
     flash_recs, flash_parity, infer, train, dec_mem = _phase9(dev_info)
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
-    win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8,
-                                         base)
+    win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
     del params_np
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

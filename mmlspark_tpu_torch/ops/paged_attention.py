@@ -483,12 +483,11 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
-#: device -> (workspace, counters, their capacities, their data
-#: pointers) of the split decode body, grown to the largest call so far
-#: and reused. The counters are zeroed once, when allocated; every launch
-#: leaves them zero. Reuse across calls assumes one stream per device (the
-#: engine's): two window reads in flight on two streams of one device
-#: would share the buffers.
+#: CUDA device -> (workspace, counters) of the split decode body, grown
+#: to the largest call so far and reused. The counters are zeroed once,
+#: when allocated; every launch leaves them zero. Reuse across calls
+#: assumes one stream per device (the engine's): two window reads in
+#: flight on two streams of one device would share the buffers.
 _split_buffers: dict = {}
 
 
@@ -498,21 +497,19 @@ def _split_workspace(device, B: int, H: int, P: int, page: int, hd: int,
     table of ``P`` pages: at least (B, H, ceil(P * page / chunk), hd + 2)
     f32 partials and (B, H) int32 arrival counters, from the device's
     cached buffers (a larger call reallocates them; no call launches a
-    memset but one that grows the counters). Returns the cache entry,
-    ``(work, counters, work capacity, counter capacity, work pointer,
-    counter pointer)``."""
+    memset but one that grows the counters). Returns ``(work,
+    counters)``."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     n_work = B * H * (-(-P * page // chunk)) * (hd + 2)
-    buf = _split_buffers.get(device)
-    if buf is None or buf[2] < n_work or buf[3] < B * H:
-        work, cnt = (None, None) if buf is None else buf[:2]
+    work, cnt = _split_buffers.get(device, (None, None))
+    if work is None or work.numel() < n_work or cnt.numel() < B * H:
         if work is None or work.numel() < n_work:
             work = torch.empty(n_work, dtype=torch.float32, device=device)
         if cnt is None or cnt.numel() < B * H:
             cnt = torch.zeros(B * H, dtype=torch.int32, device=device)
-        buf = (work, cnt, work.numel(), cnt.numel(), work.data_ptr(),
-               cnt.data_ptr())
-        _split_buffers[device] = buf
-    return buf
+        _split_buffers[device] = (work, cnt)
+    return work, cnt
 
 
 def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
@@ -535,9 +532,9 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
     out = torch.empty_like(q)
     scratch = (out.data_ptr(), None, None)
     if W == 1:
-        scratch = (out.data_ptr(), *_split_workspace(
-            q.device, B, H, bt.shape[1], k_pages.shape[2], hd,
-            lib.split_chunk)[4:])
+        work, cnt = _split_workspace(q.device, B, H, bt.shape[1],
+                                     k_pages.shape[2], hd, lib.split_chunk)
+        scratch = (out.data_ptr(), work.data_ptr(), cnt.data_ptr())
     shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
     body = ctypes.c_int(0)
     with torch.cuda.device(q.device):

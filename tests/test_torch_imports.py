@@ -1,7 +1,7 @@
-"""The port stands alone: importing every module of ``mmlspark_tpu_torch``
-and ``chip_smoke`` loads neither JAX nor any module of the JAX package,
-and its entry points refuse to fall back to the CPU when no card is
-present. Checked in a fresh interpreter with a clean environment, since
+"""The port stands alone: importing every module of ``mmlspark_tpu_torch``,
+``chip_smoke`` and ``time_window_read`` loads neither JAX nor any module
+of the JAX package, and its entry points refuse to fall back to the CPU
+when no card is present. Checked in a fresh interpreter with a clean environment, since
 this test process has JAX loaded already (``tests/conftest.py``)."""
 
 import json
@@ -51,7 +51,8 @@ def test_every_port_module_is_listed():
 def test_imports_load_no_jax_and_no_reference_package():
     code = (
         "import importlib, json, sys\n"
-        f"for name in {_port_modules()!r} + ['chip_smoke']:\n"
+        f"for name in {_port_modules()!r} + ['chip_smoke',\n"
+        "                                    'time_window_read']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) or\n"
@@ -94,7 +95,7 @@ def test_sources_name_no_reference_import():
     """A static check too: no port source imports jax or the JAX
     package (``mmlspark_tpu_torch`` itself does not trip it)."""
     files = list((ROOT / "mmlspark_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "time_window_read.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

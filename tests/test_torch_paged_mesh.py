@@ -342,24 +342,22 @@ def test_split_decode_emulation_matches_plain(store, page):
 def test_split_workspace_is_cached_and_grows():
     """The split body's scratch: (B, H, chunks, hd + 2) f32 partials and
     (B, H) counters, zeroed once when allocated, reused by calls that
-    fit, reallocated (counters zeroed again) by one that does not; the
-    cached pointers are the buffers'."""
+    fit, reallocated (counters zeroed again) by one that does not."""
     dev = torch.device("cpu")
     port_pa._split_buffers.pop(dev, None)
     try:
-        work, cnt, *_ = port_pa._split_workspace(dev, 16, 12, 64, 16, 64, 256)
+        work, cnt = port_pa._split_workspace(dev, 16, 12, 64, 16, 64, 256)
         assert work.numel() == 16 * 12 * 4 * 66 and work.dtype == torch.float32
         assert cnt.numel() == 16 * 12 and not cnt.any()
         cnt[3] = 1      # a launch leaves them 0; this marks the buffer
-        w2, c2, *_ = port_pa._split_workspace(dev, 4, 6, 33, 16, 64, 256)
+        w2, c2 = port_pa._split_workspace(dev, 4, 6, 33, 16, 64, 256)
         assert w2 is work and c2 is cnt          # fits: reused as is
-        w3, c3, *_ = port_pa._split_workspace(dev, 16, 12, 128, 16, 64, 256)
+        w3, c3 = port_pa._split_workspace(dev, 16, 12, 128, 16, 64, 256)
         assert w3.numel() == 16 * 12 * 8 * 66 and c3 is cnt
-        buf = port_pa._split_workspace(dev, 32, 12, 64, 16, 64, 256)
-        w4, c4 = buf[:2]
+        w4, c4 = port_pa._split_workspace(dev, 32, 12, 64, 16, 64, 256)
         assert c4.numel() == 32 * 12 and not c4.any() and w4 is w3
-        assert buf[2:] == (w4.numel(), c4.numel(), w4.data_ptr(),
-                           c4.data_ptr())
+        cached = port_pa._split_buffers[dev]
+        assert cached[0] is w4 and cached[1] is c4
     finally:
         port_pa._split_buffers.pop(dev, None)
 
