@@ -11,28 +11,35 @@ Phases (any failure exits non-zero and prints no result line):
 2. build — compiles every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together;
 3. kernels — each kernel (K1 on bf16 pages, K2 on int8 and fp8 pages, at
-   a decode tick, a chunked-prefill extend at full width and serving's
-   own window shapes: a prompt's first and second chunks, an 8-token
-   prefix suffix at an unaligned position, four rows with one inactive;
-   K3 and K4 at a read-only shape) against its plain PyTorch version on
-   the card: context within about one bf16 ulp (plus 2^-8 of the same
-   attention over |V| for the tensor-core window body, K1/K2 at W > 1,
-   which rounds P to bf16), pages and scales bitwise, inactive rows
-   untouched, NaN planted past every bound kept out; then its time, the
-   plain version's time, one PyTorch library call's time as a yardstick,
-   and the least time the card could take (its bound);
+   a decode tick, serving's own decode over its 64-page block table, a
+   2047-key straggler, a chunked-prefill extend at full width and
+   serving's own window shapes: a prompt's first and second chunks, an
+   8-token prefix suffix at an unaligned position, four rows with one
+   inactive; K3 and K4 at a read-only shape) against its plain PyTorch
+   version on the card: context within about one bf16 ulp (plus 2^-8 of
+   the same attention over |V| for the tensor-core window body, K1/K2 at
+   W > 1, which rounds P to bf16), pages and scales bitwise, inactive
+   rows untouched, NaN planted past every bound kept out; K1/K2 on the
+   body the library reports (split at W = 1, tensor-core at W > 1), one
+   kernel launch a call (``torch.profiler``); then its time, the plain
+   version's time, one PyTorch library call's time as a yardstick, and
+   the least time the card could take (its bound);
 4. parity — at full width in float32, the engine's greedy tokens through
    the kernel equal those through the plain gather path, token for token,
-   on f32 pages and on int8 and fp8 pages;
+   on f32 pages and on int8 and fp8 pages, the kernel engine's decode
+   steps on the split body;
 5. serving — a bf16 ``GenerationEngine`` at full width answers a dozen
    HTTP ``POST /generate`` requests (chunked prompts, a shared prefix, an
-   SSE stream); K1 must have launched in this run, its launches split
-   into decode steps and extends (prefill chunks and prefix suffixes,
-   each once per layer, from the engine's chunk trace and prefix hits);
+   SSE stream); K1 must have launched in this run, its launches split by
+   the body the library reports into extends on the tensor-core body
+   (prefill chunks and prefix suffixes, each once per layer, from the
+   engine's chunk trace and prefix hits) and decode steps on the split
+   body (the engine's other attention calls, once per layer), no other;
 6. quantized serving — a bf16 ``ContinuousDecoder(kv_dtype="int8")`` at
    full width serves the same request mix through ``submit``/``step``
-   (then a shorter fp8 run); K2 must have launched and K1 not, with the
-   pool at 66/128 of the bf16 layout's bytes per position;
+   (then a shorter fp8 run); K2 must have launched and K1 not, split by
+   body as in 5, with the pool at 66/128 of the bf16 layout's bytes per
+   position;
 7. read-only sweep — the public ``paged_attention`` over bf16 and int8
    pools the model filled, every layer: K3, then K4;
 8. GBDT — (a) the histogram kernel K6 against its plain version at the
@@ -86,9 +93,10 @@ Phases (any failure exits non-zero and prints no result line):
    and the meshed gather engine's, on f32, int8 and fp8 pages, through
    K5a/K5b (decode steps on the split body) and never K1/K2; (c) bf16
    serving of phase 6's mix on a single-device engine and on the tp = 1
-   mesh: K5a once per layer per attention call, its tensor-core launches
-   exactly the prefill chunks and prefix suffixes times the layers and
-   its split ones the decode steps, tokens/s and p50 tick side by side;
+   mesh: K1 (single device) or K5a (mesh) once per layer per attention
+   call, the tensor-core launches exactly the prefill chunks and prefix
+   suffixes times the layers and the split ones the decode steps,
+   tokens/s and p50 tick side by side;
    (d) tp = 2 as two gloo processes sharing the card, six heads and a
    pool shard each: both ranks' f32 tokens equal each other's and 10b's
    over all 16 tokens, the decode steps on the split body.
@@ -309,16 +317,20 @@ def _dequant_kv(pools, bt, key_ok):
 
 
 def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
-                store=None):
+                store=None, P=None):
     """The fused kernel at one shape: K1 over bf16 pages, or K2 over
-    quantized pages of ``store`` dtype. Correctness against the plain
-    version, then times. Returns the record for this shape."""
+    quantized pages of ``store`` dtype, over a block table ``P`` pages
+    wide (or just wide enough). Correctness against the plain version
+    (ctx, every page and scale bitwise with NaN planted at and past each
+    pos, inactive rows untouched), the body the library reports (split at
+    W = 1, tensor-core at W > 1) and one call = one kernel on the card;
+    then times. Returns the record for this shape."""
     import torch
     import torch.nn.functional as F
     from mmlspark_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    x = _kv_case_inputs(B, W, pos_list, seed, store)
+    x = _kv_case_inputs(B, W, pos_list, seed, store, P=P)
     H, hd, page, P = x["H"], x["hd"], x["page"], x["P"]
     q, kn, vn, bt, pools = x["q"], x["kn"], x["vn"], x["bt"], x["pools"]
     pos_np = x["pos_np"]
@@ -339,13 +351,13 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
         *((pools[2], pools[3]) if quant else ())) if W > 1 else None
     kern = [t.clone() for t in pools]
     kw = {"k_scale": kern[2], "v_scale": kern[3]} if quant else {}
-    paw = pa.paged_attention_window
-    mma0 = paw.launches_mma + paw.launches_q_mma
-    got = paw(q, kn, vn, kern[0], kern[1], bt, pos, active=active, **kw)[0]
+    b0 = _bodies()
+    got = pa.paged_attention_window(q, kn, vn, kern[0], kern[1], bt, pos,
+                                    active=active, **kw)[0]
     torch.cuda.synchronize()
-    # the body the library reports it ran (recorded, not asserted here:
-    # the serving phases assert it on the main path)
-    body = "mma" if paw.launches_mma + paw.launches_q_mma > mma0 else "fma"
+    body = _body_ran(b0, _bodies(), quant)
+    if body != ("split" if W == 1 else "mma"):
+        raise AssertionError(f"{what}: ran the {body} body")
     err = _check_ctx(what, got, want, r)
     # every non-trash page (and scale) bitwise; inactive rows untouched
     if not all(torch.equal(_bits(a[1:]), _bits(b[1:]))
@@ -359,6 +371,14 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
                        for a, o in zip(kern, pools)):
                 raise AssertionError(f"{what}: inactive row {b} wrote its "
                                      f"pages")
+    # one call is one kernel on the card (the split body's workspace is
+    # cached: no memset, no second launch); it writes the same rows again
+    launches, memsets, device = _kernel_launches(lambda: pa._fused_window(
+        q, kn, vn, kern[0], kern[1], bt, pos, wlo, whi, scale, *kern[2:]))
+    if launches != 1 or memsets or len(device) > 1:
+        raise AssertionError(f"{what}: one call ran {launches} launches "
+                             f"and {memsets} memsets / copies; device "
+                             f"activity {device}")
     # kernel time: raw back-to-back launches of the C entry point (no
     # wrapper work between them), over enough pool copies to defeat L2
     lib = pa._library()
@@ -366,8 +386,12 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
     copies = [[t.clone() for t in kern] for _ in range(n)]
     stream = torch.cuda.current_stream().cuda_stream
     shape = (B, H, W, P, page, scale, stream)
+    work = (None, None)
+    if W == 1:
+        work = tuple(t.data_ptr() for t in pa._split_workspace(
+            q.device, B, H, P, page, hd, lib.split_chunk))
     ints = (bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(), whi.data_ptr(),
-            got.data_ptr())
+            got.data_ptr(), *work)
     rc = []
 
     def launcher(c):
@@ -417,7 +441,8 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
            "library_ms_host_paced": library_host, "body": body,
-           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
+           "launches_per_call": launches,
+           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page, "P": P,
                      "max_pos": int(pos_np.max()), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
     tag = what.split()[0].lower() + " " + " ".join(what.split()[1:])
@@ -504,36 +529,51 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
     return rec
 
 
-def phase_kernels(dev_info):
+def _decode_rows():
+    """The decode ticks of phase 3 and 10a, 16 rows each with rows 5 and
+    11 inactive: ``pos``, contexts up to 1023 crossing page and chunk
+    boundaries (incl. 0, exact multiples of 16); serving's own decode
+    (``serve``, up to 10c's 448 keys); a straggler (one row at 2047, the
+    rest at 64 or below: continuous batching with one long context).
+    Returns (pos, active, serve, straggler)."""
     import numpy as np
-    import torch
     rng = np.random.default_rng(0)
-    # decode tick: B=16, W=1, contexts up to ~1024 crossing page
-    # boundaries (incl. 0, exact multiples of 16), two inactive rows
     pos = [0, 1, 15, 16, 17, 255, 256, 300, 511, 512, 700, 1000, 1023,
            int(rng.integers(1, 1024)), 64, 900]
     active = [True] * 16
     active[5] = active[11] = False
+    serve = [int(p) for p in rng.integers(0, 449, 16)]
+    straggler = [2047, 0, 64] + [int(p) for p in rng.integers(1, 65, 13)]
+    return pos, active, serve, straggler
+
+
+def phase_kernels(dev_info):
+    import torch
+    pos, active, serve, straggler = _decode_rows()
     recs = {"K1": {}, "K2": {}}
-    # chunked-prefill extend: one row, a 256-token window at position 384;
-    # then serving's own window shapes: a 384-token prompt's first chunk
-    # (no cached key) and its second, a prefix-suffix window of the
-    # smallest bucket at an unaligned position (a page straddled, half of
-    # an m16 query tile empty), and four rows, one inactive (writes nothing)
-    shapes = {"decode": (16, 1, pos, active, 1),
-              "extend": (1, 256, [384], [True], 2),
-              "chunk1": (1, 256, [0], [True], 8),
-              "chunk2": (1, 128, [256], [True], 9),
-              "suffix8": (1, 8, [90], [True], 10),
-              "extend b4": (4, 128, [384, 0, 90, 256],
-                            [True, True, False, True], 11)}
-    for label, args in shapes.items():
-        recs["K1"][label] = _fused_case(dev_info, label, *args)
+    # the decode tick (the split body): B=16, W=1; serving's decode over
+    # its engine's 64-page block table; the straggler. Chunked-prefill
+    # extend: one row, a 256-token window at position 384; then serving's
+    # own window shapes: a 384-token prompt's first chunk (no cached key)
+    # and its second, a prefix-suffix window of the smallest bucket at an
+    # unaligned position (a page straddled, half of an m16 query tile
+    # empty), and four rows, one inactive (writes nothing)
+    shapes = {"decode": ((16, 1, pos, active, 1), {}),
+              "serving decode": ((16, 1, serve, active, 12), {"P": 64}),
+              "straggler": ((16, 1, straggler, active, 13), {}),
+              "extend": ((1, 256, [384], [True], 2), {}),
+              "chunk1": ((1, 256, [0], [True], 8), {}),
+              "chunk2": ((1, 128, [256], [True], 9), {}),
+              "suffix8": ((1, 8, [90], [True], 10), {}),
+              "extend b4": ((4, 128, [384, 0, 90, 256],
+                             [True, True, False, True], 11), {})}
+    for label, (args, kw) in shapes.items():
+        recs["K1"][label] = _fused_case(dev_info, label, *args, **kw)
     for store in (torch.int8, torch.float8_e4m3fn):
         name = str(store).split(".")[-1]
-        for label, args in shapes.items():
+        for label, (args, kw) in shapes.items():
             recs["K2"][f"{name} {label}"] = _fused_case(
-                dev_info, label, *args, store=store)
+                dev_info, label, *args, store=store, **kw)
     # the read-only sweep: 16 rows of 4 queries over the same ragged
     # lengths (row 0 has none)
     recs["K3"] = _read_case(dev_info, "read", 16, 4, pos, 3)
@@ -561,7 +601,9 @@ def _parity_prompts(vocab):
 
 
 def _parity_tokens(params_np, cfg, impl, kv_dtype, mesh=None):
-    """One f32 parity engine's greedy tokens for the parity prompts."""
+    """One f32 parity engine's greedy tokens for the parity prompts, and
+    its decode steps: its attention calls less its prefill chunks and
+    prefix suffixes."""
     import torch
     from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
     eng = ContinuousDecoder(params_np, cfg, paged_attn=impl,
@@ -573,29 +615,45 @@ def _parity_tokens(params_np, cfg, impl, kv_dtype, mesh=None):
         eng.step()
     eng.flush()
     out = [eng.result(r, timeout=1) for r in reqs]
+    steps = (eng._kv.stats[f"attn_ticks_{impl}"] - len(eng._chunk_trace)
+             - eng.stats["prefix_hits"])
     del eng
     torch.cuda.empty_cache()
-    return out
+    return out, steps
 
 
 def phase_parity(params_np):
     """f32 full width: kernel and plain-gather engines give the same greedy
-    tokens, on model-dtype pages (K1) and on int8 and fp8 pages (K2).
-    Returns the kernel engine's tokens per page type (10b's reference)."""
+    tokens, on model-dtype pages (K1) and on int8 and fp8 pages (K2), the
+    kernel engine's decode steps on the split body (one launch per layer
+    each) and nothing on the tensor-core body (f32 queries). Returns the
+    kernel engine's tokens per page type (10b's reference)."""
     import torch
     cfg = _full_cfg(torch.float32)
     single = {}
     for kv_dtype in (None, "int8", "fp8"):
-        outs = {impl: _parity_tokens(params_np, cfg, impl, kv_dtype)
-                for impl in ("kernel", "gather")}
+        outs = {}
+        for impl in ("kernel", "gather"):
+            _zero_pa_counts()
+            outs[impl], steps = _parity_tokens(params_np, cfg, impl, kv_dtype)
+            if impl == "kernel":
+                bodies, kernel_steps = _bodies(), steps
+        name = kv_dtype or "f32"
         if outs["kernel"] != outs["gather"]:
             raise AssertionError(
-                f"f32 greedy tokens differ ({kv_dtype or 'f32'} pages): "
+                f"f32 greedy tokens differ ({name} pages): "
                 f"kernel {outs['kernel']} vs gather {outs['gather']}")
+        split = bodies["split"] + bodies["q_split"]
+        if bodies["mma"] or bodies["q_mma"] or \
+                split != kernel_steps * cfg.layers:
+            raise AssertionError(f"parity {name} pages: bodies {bodies}, "
+                                 f"want {kernel_steps} decode steps x "
+                                 f"{cfg.layers} layers on the split body")
         single[kv_dtype] = outs["kernel"]
-        log(f"[parity] f32 full width, {kv_dtype or 'f32'} pages: kernel == "
-            f"gather for {len(PARITY_PROMPTS)} requests x {PARITY_NEW} tokens "
-            f"(prompts {'/'.join(map(str, PARITY_PROMPTS))})")
+        log(f"[parity] f32 full width, {name} pages: kernel == gather for "
+            f"{len(PARITY_PROMPTS)} requests x {PARITY_NEW} tokens (prompts "
+            f"{'/'.join(map(str, PARITY_PROMPTS))}); {split} decode launches "
+            f"on the split body")
     return single
 
 
@@ -640,8 +698,7 @@ def phase_serving(params_np, dev_info):
         stats0 = dict(eng.decoder._kv.stats)
         chunks0 = len(eng.decoder._chunk_trace)
         hits0 = eng.decoder.stats["prefix_hits"]
-        paged_attention_window.launches = 0
-        paged_attention_window.launches_mma = 0
+        _zero_pa_counts()
 
         def client(i, p):
             try:
@@ -661,14 +718,15 @@ def phase_serving(params_np, dev_info):
         for t in threads:
             t.join(timeout=300)
         wall = time.perf_counter() - t0
-        launches = paged_attention_window.launches
-        mma = paged_attention_window.launches_mma
-        stats = eng.decoder._kv.stats
+        # every request is answered: the engine launches nothing more
+        launches, bodies = paged_attention_window.launches, _bodies()
+        stats = dict(eng.decoder._kv.stats)
         ticks = list(eng.decoder.tick_seconds)
         prefix_hits = eng.decoder.stats["prefix_hits"] - hits0
         chunks = len(eng.decoder._chunk_trace) - chunks0
     finally:
         eng.stop()
+    calls = stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
     n_tok = 0
     for i, p in enumerate(payloads):
         status, body = results.get(i, (None, b"missing"))
@@ -696,14 +754,15 @@ def phase_serving(params_np, dev_info):
         raise AssertionError(f"K1 launches {launches}, gather_bytes {gather}")
     if prefix_hits < 1:
         raise AssertionError("the shared-prefix request did not hit")
-    split = _window_split("K1", launches, mma, chunks, prefix_hits,
-                          cfg.layers)
+    split = _window_split("K1", launches, bodies, calls, chunks,
+                          prefix_hits, cfg.layers)
     p50 = statistics.median(ticks) * 1e3 if ticks else float("nan")
     rec = {"requests": len(payloads), "tokens": n_tok, "wall_s": wall,
            "tok_per_s": n_tok / wall, "p50_tick_ms": p50,
            "ticks": len(ticks), "k1_launches": launches,
            "k1_launches_decode": split["decode"],
            "k1_launches_extend": split["extend"],
+           "decode_steps": split["decode_steps"],
            "prefill_chunks": chunks, "gather_bytes": gather,
            "prefix_hits": prefix_hits, "steps_per_dispatch": 4,
            "layers": cfg.layers}
@@ -711,19 +770,26 @@ def phase_serving(params_np, dev_info):
     return rec
 
 
-def _window_split(what, launches, mma, chunks, hits, layers):
-    """A bf16 run's K1, K2 or K5a launches split by body: ``mma`` of them
-    the library reported running on the tensor-core body (the extends, W >
-    1), the rest the decode steps (W = 1). Cross-check: every
-    prefill chunk and every prefix-suffix window of the engine's chunk
-    trace and prefix hits is one extend per layer."""
-    expect = (chunks + hits) * layers
-    if not 0 < mma < launches or mma != expect:
+def _window_split(what, launches, bodies, calls, chunks, hits, layers):
+    """A bf16 run's K1, K2 or K5a launches split by the body the library
+    reported (``bodies``, :func:`_bodies`' record of the run): the
+    extends (W > 1) on the tensor-core body, the decode steps (W = 1) on
+    the split body, nothing on the FMA body. Cross-check against the
+    engine: its ``calls`` attention calls are every prefill chunk and
+    prefix-suffix window of its chunk trace and prefix hits (one extend
+    per layer each) and its decode steps (the rest, one split launch per
+    layer each)."""
+    mma = bodies["mma"] + bodies["q_mma"]
+    split = bodies["split"] + bodies["q_split"]
+    extend, steps = (chunks + hits) * layers, calls - chunks - hits
+    if not 0 < mma < launches or mma != extend or \
+            split != steps * layers or mma + split != launches:
         raise AssertionError(f"{what}: {launches} launches, {mma} on the "
-                             f"tensor-core body, {expect} expected from "
-                             f"{chunks} chunks and {hits} prefix hits x "
-                             f"{layers} layers")
-    return {"decode": launches - mma, "extend": mma}
+                             f"tensor-core body and {split} on the split "
+                             f"body; want {extend} from {chunks} chunks and "
+                             f"{hits} prefix hits and {steps * layers} from "
+                             f"{steps} decode steps, x {layers} layers")
+    return {"decode": split, "extend": mma, "decode_steps": steps}
 
 
 def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
@@ -758,9 +824,7 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
     hits0 = eng.stats["prefix_hits"]
     chunks0 = len(eng._chunk_trace)
     eng._quant_inserts = 0
-    paged_attention_window.launches = 0
-    paged_attention_window.launches_q = 0
-    paged_attention_window.launches_q_mma = 0
+    _zero_pa_counts()
     t0 = time.perf_counter()
     reqs = [eng.submit(np.concatenate([shared, rng.integers(0, cfg.vocab,
                                                             tail)]),
@@ -772,9 +836,8 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
         eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2, k2_mma = (paged_attention_window.launches,
-                      paged_attention_window.launches_q,
-                      paged_attention_window.launches_q_mma)
+    k1, k2 = paged_attention_window.launches, paged_attention_window.launches_q
+    bodies = _bodies()
     stats = eng._kv.stats
     for r in reqs:
         toks = eng.result(r, timeout=1)
@@ -803,7 +866,8 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
     n_tok = sum(len(r.tokens) for r in reqs)
     ticks = list(eng.tick_seconds)
     chunks = len(eng._chunk_trace) - chunks0
-    split = _window_split(f"K2 {kv_dtype}", k2, k2_mma, chunks, hits,
+    calls = stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
+    split = _window_split(f"K2 {kv_dtype}", k2, bodies, calls, chunks, hits,
                           cfg.layers)
     rec = {"kv_dtype": kv_dtype, "requests": len(reqs), "tokens": n_tok,
            "wall_s": wall, "tok_per_s": n_tok / wall,
@@ -811,6 +875,7 @@ def phase_quant_serving(params_np, dev_info, kv_dtype, sizes):
            "ticks": len(ticks), "k2_launches": k2,
            "k2_launches_decode": split["decode"],
            "k2_launches_extend": split["extend"],
+           "decode_steps": split["decode_steps"],
            "prefill_chunks": chunks, "k1_launches": k1,
            "gather_bytes": gather, "prefix_hits": hits,
            "bytes_per_position": bpp, "bytes_per_position_bf16": bf16_bpp,
@@ -1698,15 +1763,24 @@ def _kernel_launches(fn):
     return launches, copies, device
 
 
-def _window_bodies():
-    """K5a/K5b launches by the body the library reported: tensor-core
-    (``mma``, K5a / ``q_mma``, K5b) and split decode (``split``,
-    ``q_split``)."""
+def _bodies(kind=""):
+    """K1/K2 (``kind=""``) or K5a/K5b (``kind="window"``) launches by the
+    body the library reported: tensor-core (``mma``, K1 or K5a / ``q_mma``,
+    K2 or K5b) and split decode (``split``, ``q_split``)."""
     from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
-    p = paged_attention_window
-    return {"mma": p.launches_window_mma, "q_mma": p.launches_window_q_mma,
-            "split": p.launches_window_split,
-            "q_split": p.launches_window_q_split}
+    pre = "launches_" + (kind + "_" if kind else "")
+    return {k: getattr(paged_attention_window, pre + k)
+            for k in ("mma", "q_mma", "split", "q_split")}
+
+
+def _body_ran(b0, b1, quant):
+    """The body one call ran, from :func:`_bodies` before (``b0``) and
+    after (``b1``): "split", "mma", or "fma" with the counters that
+    moved."""
+    ran = {k for k in b1 if b1[k] > b0[k]}
+    q = "q_" if quant else ""
+    return ("split" if ran == {q + "split"} else
+            "mma" if ran == {q + "mma"} else f"fma {ran}")
 
 
 def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
@@ -1743,14 +1817,11 @@ def _window_case(dev_info, label, B, W, pos_list, active_list, seed,
     r = pa.paged_rounding_scale(q, kn, vn, pools[0], pools[1], bt, pos,
                                 scale, *pools[2:]) if W > 1 else None
     kern = [t.clone() for t in pools]
-    b0 = _window_bodies()
+    b0 = _bodies("window")
     got = pa._window_read(q, kn, vn, kern[0], kern[1], bt, pos, scale,
                           *kern[2:])
     torch.cuda.synchronize()
-    b1 = _window_bodies()
-    ran = {k for k in b1 if b1[k] > b0[k]}
-    body = "split" if ran == {"q_split" if quant else "split"} else \
-        "mma" if ran == {"q_mma" if quant else "mma"} else f"fma {ran}"
+    body = _body_ran(b0, _bodies("window"), quant)
     if body != ("split" if W == 1 else "mma"):
         raise AssertionError(f"{what}: ran the {body} body")
     err = _check_ctx(what, got, want, r)
@@ -1855,15 +1926,8 @@ def window_cases():
     serving's own decode (16 rows up to 10c's 448 keys over its 64-page
     block table) and a straggler (one row at 2047, the rest at 64 or
     below: continuous batching with one long context)."""
-    import numpy as np
     import torch
-    rng = np.random.default_rng(0)
-    pos = [0, 1, 15, 16, 17, 255, 256, 300, 511, 512, 700, 1000, 1023,
-           int(rng.integers(1, 1024)), 64, 900]
-    active = [True] * 16
-    active[5] = active[11] = False
-    serve = [int(p) for p in rng.integers(0, 449, 16)]
-    straggler = [2047, 0, 64] + [int(p) for p in rng.integers(1, 65, 13)]
+    pos, active, serve, straggler = _decode_rows()
     shapes = {"decode": ((16, 1, pos, active), {}),
               "extend": ((1, 256, [384], [True]), {}),
               "decode h6": ((16, 1, pos, active), {"H": 6}),
@@ -1889,9 +1953,9 @@ def phase_window_kernels(dev_info):
 
 def _zero_pa_counts():
     from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
-    for name in ("", "_q", "_mma", "_q_mma", "_window", "_window_q",
-                 "_window_mma", "_window_q_mma", "_window_split",
-                 "_window_q_split"):
+    for name in ("", "_q", "_mma", "_q_mma", "_split", "_q_split",
+                 "_window", "_window_q", "_window_mma", "_window_q_mma",
+                 "_window_split", "_window_q_split"):
         setattr(paged_attention_window, "launches" + name, 0)
 
 
@@ -1917,10 +1981,11 @@ def phase_mesh_parity(params_np, single, mesh):
         outs, counts = {}, {}
         for impl in ("kernel", "gather"):
             _zero_pa_counts()
-            outs[impl] = _parity_tokens(params_np, cfg, impl, kv_dtype, mesh)
+            outs[impl] = _parity_tokens(params_np, cfg, impl, kv_dtype,
+                                        mesh)[0]
             counts[impl] = _pa_counts()
             if impl == "kernel":
-                bodies = _window_bodies()
+                bodies = _bodies("window")
         name = kv_dtype or "f32"
         if not outs["kernel"] == single[kv_dtype] == outs["gather"]:
             raise AssertionError(
@@ -1966,17 +2031,16 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
     """10c: bf16 full width, phase 6's mix (64 new tokens each) through a
     single-device engine and then a tp = 1 meshed engine, bf16 pages.
     The meshed run must launch K5a once per layer per attention call
-    (decode step or extend) and no K1/K2, gather nothing and hit the
-    prefix; its K5a launches split by body as phases 5 and 6 split K1's
-    and K2's: the tensor-core ones exactly the engine's prefill chunks
-    and prefix suffixes times the layers, the split ones the rest (the
-    decode steps); tokens/s and p50 tick beside the single-device bf16
-    run and
-    phase 6's int8 numbers. Then one all-reduce of a decode step's
-    (16, 1, d_model) activations on the mesh's group is timed, and with
-    10a's time of the rows written outside the kernel (``write_ms``)
-    gives the mesh's added time per tick: layers x steps x (writes + two
-    all-reduces)."""
+    (decode step or extend) and no K1/K2 (the single-device run K1 and
+    nothing else), gather nothing and hit the prefix; each run's launches
+    split by body as phases 5 and 6 split K1's and K2's: the tensor-core
+    ones exactly the engine's prefill chunks and prefix suffixes times
+    the layers, the split ones the rest (the decode steps); tokens/s and
+    p50 tick beside the single-device bf16 run and phase 6's int8
+    numbers. Then one all-reduce of a decode step's (16, 1, d_model)
+    activations on the mesh's group is timed, and with 10a's time of the
+    rows written outside the kernel (``write_ms``) gives the mesh's added
+    time per tick: layers x steps x (writes + two all-reduces)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2000,7 +2064,7 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
         reqs, wall = _serve_mix(eng, np.random.default_rng(3), cfg.vocab,
                                 sizes, max_new)
         counts = _pa_counts()
-        bodies = _window_bodies()
+        bodies = _bodies("window" if m is not None else "")
         chunks = len(eng._chunk_trace) - chunks0
         stats = eng._kv.stats
         calls = stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
@@ -2028,15 +2092,11 @@ def phase_mesh_serving(params_np, dev_info, mesh, q8, write_ms):
                     "prefill_chunks": chunks, "prefix_hits": hits,
                     "mesh_shape": eng._mesh_shape,
                     "pool_device_bytes": eng._kv.device_bytes()}
-        if key == "mesh":
-            split = _window_split("K5a", counts[2], bodies["mma"], chunks,
-                                  hits, cfg.layers)
-            if bodies["split"] != split["decode"]:
-                raise AssertionError(f"10c mesh: {bodies['split']} K5a "
-                                     f"launches on the split body, want "
-                                     f"the {split['decode']} decode steps")
-            out[key].update(k5a_launches_decode=split["decode"],
-                            k5a_launches_extend=split["extend"])
+        what, i = ("K5a", 2) if key == "mesh" else ("K1", 0)
+        split = _window_split(what, counts[i], bodies, calls, chunks, hits,
+                              cfg.layers)
+        out[key].update({f"{what.lower()}_launches_decode": split["decode"],
+                         f"{what.lower()}_launches_extend": split["extend"]})
         del eng
         torch.cuda.empty_cache()
     x = torch.zeros(16, 1, cfg.d_model, dtype=cfg.dtype,
@@ -2076,7 +2136,7 @@ def _tp2_rank(mesh, seed):
     eng.flush()
     return {"rank": axis_rank(mesh, "tp"), "mesh_shape": eng._mesh_shape,
             "tokens": [eng.result(r, timeout=1) for r in reqs],
-            "launches": _pa_counts(), "bodies": _window_bodies(),
+            "launches": _pa_counts(), "bodies": _bodies("window"),
             "pool_heads": eng._kv.heads,
             "pool_device_bytes": eng._kv.device_bytes(),
             "pool_device_bytes_global": eng._kv.device_bytes_global()}
@@ -2202,11 +2262,14 @@ def main(argv=()):
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
     ref = "mmlspark_tpu/ops/paged_attention.py"
+    # K1/K2's decode launches are the split body's (``_window_split``
+    # asserts it), so they are its ``launches_split``
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226", "launches": serving["k1_launches"],
          "launches_decode": serving["k1_launches_decode"],
          "launches_extend": serving["k1_launches_extend"],
+         "launches_split": serving["k1_launches_decode"],
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
         {"name": "paged_attention_window (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:404",
@@ -2215,6 +2278,8 @@ def main(argv=()):
          "launches_extend": q8["k2_launches_extend"],
          "launches_fp8_run_decode": f8["k2_launches_decode"],
          "launches_fp8_run_extend": f8["k2_launches_extend"],
+         "launches_split": q8["k2_launches_decode"],
+         "launches_fp8_run_split": f8["k2_launches_decode"],
          **{k: recs["K2"]["int8 decode"][k] for k in keys}, **recs["K2"]},
         {"name": "paged_attention", "route": "cuda", "source": src,
          "replaces": f"{ref}:195", "launches": sweep["k3_launches"],

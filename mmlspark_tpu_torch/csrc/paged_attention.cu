@@ -53,10 +53,11 @@
 //   * pa_mma_kernel: K1, K2 (kFused) and K5a, K5b (kWindow) with bf16
 //     queries and W > 1, the chunked-prefill chunks and prefix-suffix
 //     windows of bf16 serving, on one device or on a mesh's head shard;
-//   * pa_split_kernel: K5a and K5b at W = 1 (the meshed decode tick), f32
-//     or bf16 queries;
-//   * pa_kernel: K1 and K2 at W = 1 (the single-device decode tick), f32
-//     windows of K1, K2, K5a and K5b, and K3/K4 (kRead) at any W.
+//   * pa_split_kernel: K1, K2, K5a and K5b at W = 1, f32 or bf16 queries:
+//     the decode tick, single-device (kFused, the page scatter in the
+//     fresh key's block) or on a mesh's head shard (kWindow);
+//   * pa_kernel: f32 windows (W > 1) of K1, K2, K5a and K5b, and K3/K4
+//     (kRead) at any W.
 //
 // What bounds them on this card. A decode tick (W = 1) does about 4 flops
 // per byte of K/V it reads, far below the ~295 flops/byte at which the
@@ -76,7 +77,7 @@
 // (query tile, head, row) and loops only over the row's LIVE keys
 // (ceil(bound / 32) tiles of 32 keys, never the block table's full
 // width). The block's warps split the key tiles between them so that a
-// W = 1 tick still keeps four warps per (row, head) reading, each warp
+// one-query read still keeps four warps per (row, head) reading, each warp
 // keeps its own running (m, l, acc) in registers, and the partial softmax
 // states merge once through shared memory at the end. Each lane looks its
 // key's page up once (and, quantized, loads that key's K and V scales
@@ -132,17 +133,18 @@
 // cannot reach p * v, and the reads never touch the slots this launch
 // writes. TMA and wgmma are later work.
 //
-// pa_split_kernel, the window read's decode body. In the FMA body one
-// block owns a (row, head) and its 4 warps split the row's 32-key tiles,
-// so the longest row sets the time: at 1023 keys each warp walks 8 tiles,
-// each a chain of a block-table read, the dependent row loads and the
-// math, nothing fetched ahead, and at H = 6, B = 16 the 96 blocks leave a
-// third of the 132 SMs idle. The split body cuts each (row, head)'s keys
-// into chunks of kChunk = 256 keys, one block each, so no warp walks more
-// than two tiles and a 1023-key row is 4 blocks side by side. The grid,
-// (ceil(P * page / kChunk), H, B), comes from the block table's width, so
-// the host never reads pos; a block whose chunk starts at or past pos
-// exits at once, and the row's fresh key rides in its last live chunk.
+// pa_split_kernel, the decode body (W = 1) of K1, K2, K5a and K5b. In the
+// FMA body one block owns a (row, head) and its 4 warps split the row's
+// 32-key tiles, so the longest row sets the time: at 1023 keys each warp
+// walks 8 tiles, each a chain of a block-table read, the dependent row
+// loads and the math, nothing fetched ahead, and at H = 6, B = 16 the 96
+// blocks leave a third of the 132 SMs idle. The split body cuts each
+// (row, head)'s keys into chunks of kChunk = 256 keys, one block each, so
+// no warp walks more than two tiles and a 1023-key row is 4 blocks side by
+// side. The grid, (ceil(P * page / kChunk), H, B), comes from the block
+// table's width, so the host never reads pos; a block whose chunk starts
+// at or past pos exits at once, and the row's fresh key rides in its last
+// live chunk.
 // Per warp: lane t owns key t of a tile (its score a 64-long fmaf chain
 // over the staged row, the query broadcast from shared memory) and output
 // dims 2 t, 2 t + 1; tiles are staged as stored (f32, bf16 or codes, rows
@@ -159,7 +161,13 @@
 // merge reorders the sums only, so the context stays within the plain
 // version's bound. The workspace and counters are the wrapper's, cached
 // per device (ops/paged_attention.py `_split_workspace`), which assumes one
-// stream per device.
+// stream per device. K1/K2 (kFused) add the page scatter: the block of
+// the row's last live chunk, the one that reads the fresh key, writes the
+// fresh row into its page with the other bodies' fused_scatter (so pages
+// and scales are bitwise theirs) before it can return; no other block
+// writes, and no block races it: every block reads keys below pos, and
+// the write lands at pos. An inactive row (wlo > whi) writes nothing and
+// still computes its context.
 //
 // Page-size rule: none. Tiles are 32 keys wide in the logical key space
 // and each key's page is looked up on its own, so any page size >= 1
@@ -380,8 +388,9 @@ struct Args {
   int* body;              // fused, window: set to 1 when the tensor-core
                           // body launched, 2 the split decode body (the
                           // caller zeroes it)
-  float* work;            // window at W = 1: the split body's partials
-  int* counters;          // and its per-(row, head) arrival counters
+  float* work;            // fused, window at W = 1: the split body's
+  int* counters;          // partials and its per-(row, head) arrival
+                          // counters
 };
 
 // T: query / k_new / v_new / output type (float or bf16). S: page store
@@ -962,7 +971,7 @@ pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
   }
 }
 
-// ---- the window read's decode body, split over the keys (K5a, K5b, W = 1) -
+// ---- the decode body, split over the keys (K1, K2, K5a, K5b at W = 1) ----
 //
 // A decode row's keys are cut into chunks of kChunk keys, one block each:
 // the grid is (ceil(P * page / kChunk), H, B), sized from the block
@@ -974,7 +983,9 @@ pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
 // arrive (a __threadfence, then an atomicAdd on the (row, head)'s
 // counter) merges them in the same launch and resets the counter to 0
 // for the next launch. A row with one live chunk writes its context
-// straight away and never touches the workspace or its counter.
+// straight away and never touches the workspace or its counter. Under
+// kFused (K1, K2) the last live chunk's block also writes the row's fresh
+// K/V row into its page, before it can return.
 
 constexpr int kSplitTiles = 2;                         // tiles a warp walks
 constexpr int kChunk = kWarps * kSplitTiles * kTile;   // keys a block reads
@@ -1033,25 +1044,29 @@ __device__ __forceinline__ float2 split_pair(const unsigned char* row,
 }
 
 // T: query / k_new / v_new / output type (float or bf16); S: page store
-// type, T itself (K5a) or int8_t / fp8 (K5b). Block: chunk blockIdx.x of
-// (row b, head h), W = 1. Lane t of a warp owns key t of each of its
-// tiles (the score is its row's dot with q) and output dims 2 t, 2 t + 1
-// (P V reads each V row once, p and the V scale shuffled from the key's
-// lane). Each warp double-buffers its tiles with cp.async, reads the
-// block-table entries of its next tile while this one's copies fly and
-// loads a quantized key's scales with its copies. MODE is kWindow: the
-// scatter of K1/K2 and the W > 1 reads of K3/K4 are not routed here.
+// type, T itself (K1, K5a) or int8_t / fp8 (K2, K5b). Block: chunk
+// blockIdx.x of (row b, head h), W = 1. Lane t of a warp owns key t of
+// each of its tiles (the score is its row's dot with q) and output dims
+// 2 t, 2 t + 1 (P V reads each V row once, p and the V scale shuffled
+// from the key's lane). Each warp double-buffers its tiles with cp.async,
+// reads the block-table entries of its next tile while this one's copies
+// fly and loads a quantized key's scales with its copies. MODE kFused
+// (K1, K2) scatters the fresh row, kWindow (K5a, K5b) only reads; the
+// sweep of K3/K4 (kRead) is not routed here.
 template <typename T, typename S, int MODE, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                const T* __restrict__ vn, const S* __restrict__ kpool,
-                const S* __restrict__ vpool, const bf16* __restrict__ kscale,
-                const bf16* __restrict__ vscale,
+                const T* __restrict__ vn, S* __restrict__ kpool,
+                S* __restrict__ vpool, bf16* __restrict__ kscale,
+                bf16* __restrict__ vscale,
                 const int32_t* __restrict__ block_tables,
-                const int32_t* __restrict__ pos_v, T* __restrict__ out,
+                const int32_t* __restrict__ pos_v,
+                const int32_t* __restrict__ wlo_v,
+                const int32_t* __restrict__ whi_v, T* __restrict__ out,
                 float* __restrict__ work, int* __restrict__ counters, int H,
                 int P, int page, float scale) {
-  static_assert(MODE == kWindow, "only the window read runs split");
+  static_assert(MODE == kFused || MODE == kWindow,
+                "the read-only sweep (kRead) does not run split");
   static_assert(HD == 64, "lane t owns output dims 2 t and 2 t + 1");
   constexpr bool kQuant = !std::is_same<S, T>::value;
   constexpr int RB = split_row<S, HD>();
@@ -1195,6 +1210,15 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     acc.y = fmaf(p, vf.y, corr * acc.y);
     m = m_new;
   }
+  if constexpr (MODE == kFused) {
+    // the fresh row into its page, by the block that read the fresh key
+    // and before any block returns. It lands at pos; every read of this
+    // launch was below pos.
+    if (fresh)
+      fused_scatter<T, S, HD, 1>(kn, vn, kpool, vpool, kscale, vscale, bt,
+                                 pos_v[b], wlo_v[b], whi_v[b], row, 0, h, H,
+                                 1, P, page, warp, lane, tid);
+  }
 
   // the warps' partial states into their own first stages, then merged
   // into the block's (dims d = tid < HD)
@@ -1300,10 +1324,10 @@ cudaError_t launch_split(const Args& a, cudaStream_t stream) {
   dim3 grid((a.P * a.page + kChunk - 1) / kChunk, a.H, a.B);
   pa_split_kernel<T, S, MODE, 64><<<grid, kWarps * 32, SMEM, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kn),
-      static_cast<const T*>(a.vn), static_cast<const S*>(a.kp),
-      static_cast<const S*>(a.vp), static_cast<const bf16*>(a.ks),
-      static_cast<const bf16*>(a.vs), a.bt, a.bound, static_cast<T*>(a.out),
-      a.work, a.counters, a.H, a.P, a.page, a.scale);
+      static_cast<const T*>(a.vn), static_cast<S*>(a.kp),
+      static_cast<S*>(a.vp), static_cast<bf16*>(a.ks),
+      static_cast<bf16*>(a.vs), a.bt, a.bound, a.wlo, a.whi,
+      static_cast<T*>(a.out), a.work, a.counters, a.H, a.P, a.page, a.scale);
   return cudaGetLastError();
 }
 
@@ -1315,12 +1339,12 @@ cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   // instantiated with the slice that brings a model needing it
   if (hd != 64) return cudaErrorInvalidValue;
   if (a.W == 1) {
-    // the window read's decode (K5a, K5b): split over the keys
-    if constexpr (MODE == kWindow) {
+    // the decode tick (K1, K2, K5a, K5b): split over the keys
+    if constexpr (MODE != kRead) {
       if (a.body != nullptr) *a.body = 2;
       return launch_split<T, S, MODE>(a, s);
     } else {
-      return launch<pa_kernel<T, S, MODE, 64, 1>, T, S, 1,
+      return launch<pa_kernel<T, S, kRead, 64, 1>, T, S, 1,
                     smem_bytes<64, 1>()>(a, s);
     }
   }
@@ -1365,20 +1389,24 @@ cudaError_t quant_pools(int dtype, int store, int hd, const Args& a,
 extern "C" {
 
 // K1. dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, pools and out
-// share it). All int32 arrays are (B,) except block_tables (B, P).
-// *body (may be null; the caller zeroes it) is set to 1 when the launch
-// ran the tensor-core body. Returns the launch's cudaError_t (0 on
-// success).
+// share it). All int32 arrays are (B,) except block_tables (B, P). At W
+// = 1 the split decode body runs over `work` and `counters`, as in
+// mmlspark_pa_window_read; both may be null at W > 1. *body (may be
+// null; the caller zeroes it) is set to 1 when the launch ran the
+// tensor-core body, 2 the split decode body. Returns the launch's
+// cudaError_t (0 on success).
 int mmlspark_pa_window_fused(int dtype, int hd, const void* q,
                              const void* k_new, const void* v_new,
                              void* k_pages, void* v_pages,
                              const int32_t* block_tables,
                              const int32_t* pos, const int32_t* wlo,
-                             const int32_t* whi, void* out, int B, int H,
-                             int W, int P, int page, float scale,
-                             void* stream, int* body) {
+                             const int32_t* whi, void* out, void* work,
+                             void* counters, int B, int H, int W, int P,
+                             int page, float scale, void* stream,
+                             int* body) {
   Args a{q, k_new, v_new, k_pages, v_pages, nullptr, nullptr, block_tables,
-         pos, wlo, whi, out, B, H, W, P, page, scale, body};
+         pos, wlo, whi, out, B, H, W, P, page, scale, body,
+         static_cast<float*>(work), static_cast<int*>(counters)};
   return int(plain_pools<kFused>(dtype, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }
@@ -1390,11 +1418,13 @@ int mmlspark_pa_window_fused_q(int dtype, int store, int hd, const void* q,
                                void* k_pages, void* v_pages, void* k_scale,
                                void* v_scale, const int32_t* block_tables,
                                const int32_t* pos, const int32_t* wlo,
-                               const int32_t* whi, void* out, int B, int H,
-                               int W, int P, int page, float scale,
-                               void* stream, int* body) {
+                               const int32_t* whi, void* out, void* work,
+                               void* counters, int B, int H, int W, int P,
+                               int page, float scale, void* stream,
+                               int* body) {
   Args a{q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, block_tables,
-         pos, wlo, whi, out, B, H, W, P, page, scale, body};
+         pos, wlo, whi, out, B, H, W, P, page, scale, body,
+         static_cast<float*>(work), static_cast<int*>(counters)};
   return int(quant_pools<kFused>(dtype, store, hd, a,
                                 static_cast<cudaStream_t>(stream)));
 }

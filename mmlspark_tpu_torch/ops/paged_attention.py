@@ -13,10 +13,13 @@ kernel        wrapper (launch count)          replaces (``mmlspark_tpu/ops/
 ============  ==============================  ================================
 K1            :func:`paged_attention_window`  ``_pa_fused_kernel``
               (``.launches``; tensor-core
-              body ``.launches_mma``)
+              body ``.launches_mma``, split
+              decode body
+              ``.launches_split``)
 K2            :func:`paged_attention_window`  ``_pa_fused_kernel_q``
               with scales (``.launches_q``;
-              ``.launches_q_mma``)
+              ``.launches_q_mma``,
+              ``.launches_q_split``)
 K3            :func:`paged_attention`         ``_pa_read_kernel``
               (``.launches``)
 K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
@@ -51,16 +54,18 @@ counters above):
   bf16 once before it enters the P·V product, so its context lies within
   2⁻⁸ · :func:`paged_rounding_scale` (plus the rounding of the output
   itself) of the plain version run in f32;
-* the split decode body: K5a and K5b at W = 1 (the meshed decode tick),
-  f32 or bf16 queries. Each (row, head)'s keys are cut into fixed chunks,
-  one block each, and the last block to finish merges the partial
-  softmax states in the same launch, through a workspace and per-(row,
-  head) counters that :func:`_split_workspace` allocates once per device
-  and caches (zeroed once; every launch leaves them zero). Its math is
-  f32, so its context differs from the plain version's only in the
-  order of its sums;
-* the f32 FMA body: every other call (K1/K2 at W = 1, float32 windows,
-  K3/K4), also within the order of its sums.
+* the split decode body: K1, K2, K5a and K5b at W = 1 (the decode tick,
+  single-device or meshed), f32 or bf16 queries. Each (row, head)'s keys
+  are cut into fixed chunks, one block each, and the last block to
+  finish merges the partial softmax states in the same launch, through a
+  workspace and per-(row, head) counters that :func:`_split_workspace`
+  allocates once per device and caches (zeroed once; every launch leaves
+  them zero). K1/K2's page scatter runs in the block of the row's last
+  live chunk, the one that reads the fresh key. Its math is f32, so its
+  context differs from the plain version's only in the order of its
+  sums;
+* the f32 FMA body: every other call (float32 windows, K3/K4), also
+  within the order of its sums.
 
 The page pools (and scale pools) are updated IN PLACE (the JAX package
 aliases them onto its outputs, which is the same thing for a caller that
@@ -376,9 +381,9 @@ def _library():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [ci, ci, ci, ci, ci, cf, vp]      # B, H, W, P, page, scale, stream
         body = [ctypes.POINTER(ci)]     # 1: the mma body ran, 2: the split one
-        lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 10 + shape \
+        lib.mmlspark_pa_window_fused.argtypes = [ci, ci] + [vp] * 12 + shape \
             + body
-        lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 12 \
+        lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 14 \
             + shape + body
         lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
         lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
@@ -484,10 +489,13 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 #: CUDA device -> (workspace, counters) of the split decode body, grown
-#: to the largest call so far and reused. The counters are zeroed once,
-#: when allocated; every launch leaves them zero. Reuse across calls
-#: assumes one stream per device (the engine's): two window reads in
-#: flight on two streams of one device would share the buffers.
+#: to the largest call so far and reused by every decode launch on the
+#: device: K1/K2 (:func:`_fused_window`) and K5a/K5b (:func:`_window_read`)
+#: share them. The counters are zeroed once, when allocated; every launch
+#: leaves them zero. Reuse across calls assumes one stream per device
+#: (the engine's, where the launches run one after another): two decode
+#: launches in flight on two streams of one device would share the
+#: buffers.
 _split_buffers: dict = {}
 
 
@@ -512,6 +520,16 @@ def _split_workspace(device, B: int, H: int, P: int, page: int, hd: int,
     return work, cnt
 
 
+def _scratch(lib, out, B: int, H: int, W: int, P: int, page: int):
+    """``(out, work, counters)`` pointers of a window launch: the split
+    decode body's cached workspace at W = 1, none at W > 1."""
+    if W > 1:
+        return out.data_ptr(), None, None
+    work, cnt = _split_workspace(out.device, B, H, P, page, out.shape[-1],
+                                 lib.split_chunk)
+    return out.data_ptr(), work.data_ptr(), cnt.data_ptr()
+
+
 def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
                  k_scale=None, v_scale=None):
     """The window read (K5a; K5b with scales) on checked, int32,
@@ -530,11 +548,7 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
     B, H, W, hd = q.shape
     lib = _library()
     out = torch.empty_like(q)
-    scratch = (out.data_ptr(), None, None)
-    if W == 1:
-        work, cnt = _split_workspace(q.device, B, H, bt.shape[1],
-                                     k_pages.shape[2], hd, lib.split_chunk)
-        scratch = (out.data_ptr(), work.data_ptr(), cnt.data_ptr())
+    scratch = _scratch(lib, out, B, H, W, bt.shape[1], k_pages.shape[2])
     shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
     body = ctypes.c_int(0)
     with torch.cuda.device(q.device):
@@ -565,6 +579,53 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
     return out
 
 
+def _fused_window(q, k_new, v_new, k_pages, v_pages, bt, pos, wlo, whi,
+                  scale: float, k_scale=None, v_scale=None):
+    """The fused window (K1; K2 with scales) on checked, int32, contiguous
+    arguments: :func:`paged_attention_window_plain` for CPU tensors, the
+    kernel for CUDA tensors, counted in ``paged_attention_window.launches``
+    (K1) or ``.launches_q`` (K2), and by the body the library reports:
+    ``.launches(_q)_mma`` (bf16 windows, W > 1, the tensor-core body) or
+    ``.launches(_q)_split`` (decode, W = 1, the split body). One launch a
+    call; the pools (and scale pools) are updated in place. Returns ctx."""
+    if q.device.type == "cpu":
+        return paged_attention_window_plain(q, k_new, v_new, k_pages,
+                                            v_pages, bt, pos, wlo, whi,
+                                            scale, k_scale, v_scale)
+    _cuda_ready(q)
+    B, H, W, hd = q.shape
+    lib = _library()
+    out = torch.empty_like(q)
+    scratch = _scratch(lib, out, B, H, W, bt.shape[1], k_pages.shape[2])
+    shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
+    body = ctypes.c_int(0)
+    ints = (bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(), whi.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if k_scale is not None:
+            err = lib.mmlspark_pa_window_fused_q(
+                _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                *ints, *scratch, *shape, stream, ctypes.byref(body))
+        else:
+            err = lib.mmlspark_pa_window_fused(
+                _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
+                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                *ints, *scratch, *shape, stream, ctypes.byref(body))
+    _raise_on(lib, err, "fused paged attention")
+    paw = paged_attention_window
+    if k_scale is not None:
+        paw.launches_q += 1
+        paw.launches_q_mma += int(body.value == 1)
+        paw.launches_q_split += int(body.value == 2)
+    else:
+        paw.launches += 1
+        paw.launches_mma += int(body.value == 1)
+        paw.launches_split += int(body.value == 2)
+    return out
+
+
 def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
                            pos, *, active=None, k_scale=None, v_scale=None,
                            scale: Optional[float] = None, mesh=None,
@@ -590,9 +651,9 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     CPU tensors run :func:`paged_attention_window_plain`. CUDA tensors
     launch the hand-written kernel (K1, or K2 with scales) on the current
     stream and count the launch in ``paged_attention_window.launches``
-    (K1) or ``.launches_q`` (K2), and also in ``.launches_mma`` /
-    ``.launches_q_mma`` when the library reports that it ran the
-    tensor-core body; anything the kernel does not take raises.
+    (K1) or ``.launches_q`` (K2), and by the body the library reports, as
+    :func:`_fused_window` says; anything the kernel does not take
+    raises.
 
     With ``mesh=`` (a ``DeviceMesh``; heads over ``head_axis``) the
     arguments are this rank's: its heads of q / k_new / v_new and its
@@ -621,54 +682,25 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
         _mount_writes(k_new, v_new, pools, bt, pos, active)
         return (ctx,) + pools
     wlo, whi = write_range(pos, W, page, active)
-    if q.device.type == "cpu":
-        ctx = paged_attention_window_plain(q, k_new, v_new, k_pages, v_pages,
-                                           bt, pos, wlo, whi, float(scale),
-                                           k_scale, v_scale)
-        return (ctx,) + pools
-    _cuda_ready(q)
-    lib = _library()
-    out = torch.empty_like(q)
-    shape = (B, H, W, bt.shape[1], page, float(scale))
-    body = ctypes.c_int(0)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if quant:
-            err = lib.mmlspark_pa_window_fused_q(
-                _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
-                k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
-                whi.data_ptr(), out.data_ptr(), *shape, stream,
-                ctypes.byref(body))
-        else:
-            err = lib.mmlspark_pa_window_fused(
-                _DTYPES[q.dtype], hd, q.data_ptr(), k_new.data_ptr(),
-                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(),
-                whi.data_ptr(), out.data_ptr(), *shape, stream,
-                ctypes.byref(body))
-    _raise_on(lib, err, "fused paged attention")
-    if quant:
-        paged_attention_window.launches_q += 1
-        paged_attention_window.launches_q_mma += body.value
-    else:
-        paged_attention_window.launches += 1
-        paged_attention_window.launches_mma += body.value
-    return (out,) + pools
+    ctx = _fused_window(q, k_new, v_new, k_pages, v_pages, bt, pos, wlo, whi,
+                        float(scale), k_scale, v_scale)
+    return (ctx,) + pools
 
 
 #: kernel launches since the last reset: K1 (``launches``), K2
 #: (``launches_q``), K5a (``launches_window``) and K5b
-#: (``launches_window_q``); of these, those the library reports it ran on
+#: (``launches_window_q``); of each, those the library reports it ran on
 #: the tensor-core body (``launches_mma``, ``launches_q_mma``,
-#: ``launches_window_mma``, ``launches_window_q_mma``) and, of K5a's and
-#: K5b's, on the split decode body (``launches_window_split``,
-#: ``launches_window_q_split``); the plain CPU path never counts
+#: ``launches_window_mma``, ``launches_window_q_mma``) and on the split
+#: decode body (``launches_split``, ``launches_q_split``,
+#: ``launches_window_split``, ``launches_window_q_split``); the plain CPU
+#: path never counts
 paged_attention_window.launches = 0
 paged_attention_window.launches_q = 0
 paged_attention_window.launches_mma = 0
 paged_attention_window.launches_q_mma = 0
+paged_attention_window.launches_split = 0
+paged_attention_window.launches_q_split = 0
 paged_attention_window.launches_window = 0
 paged_attention_window.launches_window_q = 0
 paged_attention_window.launches_window_mma = 0

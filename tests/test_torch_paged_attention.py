@@ -261,16 +261,17 @@ def test_cuda_kernel_matches_plain_version():
         1.0 / np.sqrt(hd))
     r = port_pa.paged_rounding_scale(*args, bt_d, pos)
     paw = port_pa.paged_attention_window
-    mma0 = paw.launches_mma
+    mma0, split0 = paw.launches_mma, paw.launches_split
     got, kp1, vp1 = paw(*args, bt_d, pos, active=active)
     torch.cuda.synchronize()
     _assert_window_ctx(got, want, r)
     assert torch.equal(kp1[1:], kp2[1:]) and torch.equal(vp1[1:], vp2[1:])
-    # the library reports the tensor-core body for a bf16 window only
-    assert paw.launches_mma == mma0 + 1
+    # the library reports the tensor-core body for a bf16 window, the
+    # split decode body at W = 1
+    assert (paw.launches_mma, paw.launches_split) == (mma0 + 1, split0)
     paw(*(a[:, :, :1].contiguous() for a in args[:3]), kp1, vp1, bt_d,
         pos, active=active)
-    assert paw.launches_mma == mma0 + 1
+    assert (paw.launches_mma, paw.launches_split) == (mma0 + 1, split0 + 1)
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -286,7 +287,8 @@ def test_cpu_window_counts_no_launch(quant):
         kw = {"k_scale": ks, "v_scale": vs}
     paw = port_pa.paged_attention_window
     names = ("launches", "launches_q", "launches_mma", "launches_q_mma",
-             "launches_window", "launches_window_q", "launches_window_mma",
+             "launches_split", "launches_q_split", "launches_window",
+             "launches_window_q", "launches_window_mma",
              "launches_window_q_mma", "launches_window_split",
              "launches_window_q_split")
     before = [getattr(paw, n) for n in names]

@@ -18,7 +18,9 @@ with ``mesh=``) and the window read-only kernels' plain versions.
   rounded to bf16 once, no scatter) within 2⁻⁸ · R plus the output's
   rounding; the split decode body (W = 1: chunked partial (m, l, acc),
   then the merge) within 1e-6 in f32; and the split body's cached
-  workspace.
+  workspace. The same split body with K1/K2's page scatter in the last
+  live chunk's block against the fused plain version: ctx within 1e-6,
+  pages and scales bitwise, inactive rows' pages untouched.
 
 JAX runs on the conftest's 8 host devices; the ranks run
 ``tests/test_torch_mesh_ranks.py``, which imports no JAX.
@@ -61,8 +63,10 @@ def _np_bits(a):
 
 
 def _t_bits(t):
+    """A tensor's raw bits as a numpy copy (a snapshot: later in-place
+    writes to ``t`` do not show in it)."""
     return _np_bits(t.view({1: torch.uint8, 2: torch.int16,
-                            4: torch.int32}[t.element_size()]).numpy())
+                            4: torch.int32}[t.element_size()]).numpy().copy())
 
 
 def _to_torch(a):
@@ -232,7 +236,19 @@ def test_window_read_mma_emulation_within_bound(store):
 SPLIT_TILE, SPLIT_WARPS, SPLIT_TILES = 32, 4, 2
 
 
-def _split_decode_emulation(q, kn, vn, pools, bt, pos, scale):
+def _quant_row(x, store):
+    """The split body's ``quant_row`` on one (hd,) f32 row: amax, the
+    scale rounded to bf16 (1 for an all-zero row), x / f32(scale) as an
+    IEEE division, then int8 rint-and-clip or fp8 clip-and-round."""
+    qmax = 127.0 if store == torch.int8 else 448.0
+    amax = x.abs().max()
+    s16 = torch.where(amax > 0, amax / qmax, torch.ones(())).to(
+        torch.bfloat16)
+    y = torch.clamp(x / s16.float(), -qmax, qmax)
+    return (torch.round(y) if store == torch.int8 else y).to(store), s16
+
+
+def _split_decode_emulation(q, kn, vn, pools, bt, pos, scale, write=None):
     """The split decode body's algorithm in plain PyTorch, f32, W = 1.
     Row b's cached keys [0, pos) (never past the block table) are cut into
     chunks of SPLIT_WARPS * SPLIT_TILES * SPLIT_TILE keys, the first
@@ -240,7 +256,13 @@ def _split_decode_emulation(q, kn, vn, pools, bt, pos, scale):
     w + SPLIT_WARPS, ... with an online softmax, warp 0 of the last live
     chunk then takes the row's fresh key, the warps' (m, l, acc) merge
     into the chunk's partial, and the partials merge into ctx. Only keys
-    below pos are gathered: what lies past it is never read."""
+    below pos are gathered: what lies past it is never read.
+
+    ``write=(wlo, whi)`` adds K1/K2's scatter (MODE kFused): the block of
+    each (row, head)'s last live chunk writes the fresh K and V rows at
+    pos into their page, in place, copied in the pool dtype or quantized
+    by :func:`_quant_row`, when the page lies in [wlo, whi] (empty for an
+    inactive row) and inside the block table."""
     B, H, _, hd = q.shape
     page, P = pools[0].shape[2], bt.shape[1]
     tile, chunk = SPLIT_TILE, SPLIT_WARPS * SPLIT_TILES * SPLIT_TILE
@@ -288,27 +310,40 @@ def _split_decode_emulation(q, kn, vn, pools, bt, pos, scale):
                     st = online(st, s, vn[b, :, 0].float()[None])
                 warps.append(st)
             parts.append(merge(warps))
+            if write is not None and c == n_live - 1:
+                _split_scatter(kn, vn, pools, bt, b, int(pos[b]),
+                               int(write[0][b]), int(write[1][b]))
         _, l_, acc = merge(parts)
         out[b, :, 0] = acc / torch.where(l_ == 0, 1.0, l_)[:, None]
     return out
 
 
-@pytest.mark.parametrize("page", [16, 1, 24])
-@pytest.mark.parametrize("store", [None, "int8", "fp8"])
-def test_split_decode_emulation_matches_plain(store, page):
-    """The split decode body's chunked partials and merge equal the plain
-    window read in f32 to 1e-6 of the largest |ctx|. Rows: pos 0 (the
-    fresh key alone), 255 / 256 (one chunk, full or one key short), 300
-    (a second chunk; at page 24 the chunk boundary 256 falls inside a
-    page), 1000 (four chunks), and the block table's last key; the table
-    is 1032 keys wide, so the short rows' later chunks are empty. The
-    engine's inactive row (the third) is computed like any other, and
-    the NaN planted at and past each pos stays out."""
-    rng = np.random.default_rng(7)
+def _split_scatter(kn, vn, pools, bt, b, pos, wlo, whi):
+    """The last live chunk's ``fused_scatter`` for row ``b``, every head:
+    its fresh K and V rows into the slot at ``pos``, in place."""
+    page, P = pools[0].shape[2], bt.shape[1]
+    lp = pos // page
+    if wlo > whi or not wlo <= lp <= whi or lp >= P:
+        return
+    pg, off = int(bt[b, lp]), pos % page
+    for h in range(kn.shape[1]):
+        for i, new in enumerate((kn, vn)):
+            row = new[b, h, 0]
+            if len(pools) == 2:
+                pools[i][pg, h, off] = row.to(pools[i].dtype)
+            else:
+                codes, s16 = _quant_row(row.float(), pools[i].dtype)
+                port_pa._bits(pools[i])[pg, h, off] = port_pa._bits(codes)
+                pools[2 + i][pg, h, off] = s16
+
+
+def _split_inputs(store, page, pos, seed):
+    """f32 decode inputs (H = 2, hd = 64) over a shuffled block table at
+    least 1032 keys wide, with f32, int8 or fp8 pools and NaN planted at
+    and past each row's pos (values, or the scales of quantized pools)."""
+    rng = np.random.default_rng(seed)
     H_, hd = 2, 64
     P_ = -(-1032 // page)
-    pos = torch.tensor([0, 255, 256, 300, 1000, P_ * page - 1],
-                       dtype=torch.int32)
     B_ = pos.numel()
     raw = [torch.from_numpy(rng.normal(0, 1, (1 + B_ * P_, H_, page, hd)
                                        ).astype(np.float32))
@@ -330,13 +365,67 @@ def test_split_decode_emulation_matches_plain(store, page):
         pg, off = bt[b, keys[dead] // page].long(), keys[dead] % page
         for t in (pools[:2] if store is None else pools[2:]):
             t[pg, :, off] = float("nan")
-    scale = hd ** -0.5
+    return q, kn, vn, pools, bt
+
+
+@pytest.mark.parametrize("page", [16, 1, 24])
+@pytest.mark.parametrize("store", [None, "int8", "fp8"])
+def test_split_decode_emulation_matches_plain(store, page):
+    """The split decode body's chunked partials and merge equal the plain
+    window read in f32 to 1e-6 of the largest |ctx|. Rows: pos 0 (the
+    fresh key alone), 255 / 256 (one chunk, full or one key short), 300
+    (a second chunk; at page 24 the chunk boundary 256 falls inside a
+    page), 1000 (four chunks), and the block table's last key; the table
+    is 1032 keys wide, so the short rows' later chunks are empty. The
+    engine's inactive row (the third) is computed like any other, and
+    the NaN planted at and past each pos stays out."""
+    P_ = -(-1032 // page)
+    pos = torch.tensor([0, 255, 256, 300, 1000, P_ * page - 1],
+                       dtype=torch.int32)
+    q, kn, vn, pools, bt = _split_inputs(store, page, pos, 7)
+    scale = 64 ** -0.5
     want = port_pa.paged_attention_window_read_plain(
         q, kn, vn, pools[0], pools[1], bt, pos, scale, *pools[2:])
     got = _split_decode_emulation(q, kn, vn, pools, bt, pos, scale)
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=0.0,
                                atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("page", [16, 1, 24])
+@pytest.mark.parametrize("store", [None, "int8", "fp8"])
+def test_split_fused_emulation_matches_plain(store, page):
+    """K1/K2 at W = 1 on the split body (MODE kFused): the chunked
+    partials and merge, plus the fresh row's page write by the block of
+    the last live chunk, against the fused plain version: ctx within
+    1e-6 of the largest |ctx|, every page and scale bitwise. Rows at pos
+    0 (the fresh key alone), 255 / 256 / 257 (around the first chunk
+    boundary), 511 / 512 and 1023 (the table's 1024th key, three chunks
+    on); two inactive rows (at 256 and 700) compute their context and
+    leave every one of their pages untouched, NaN planted at pos
+    included."""
+    pos = torch.tensor([0, 255, 256, 257, 511, 512, 1023, 256, 700],
+                       dtype=torch.int32)
+    active = torch.tensor([True] * 7 + [False] * 2)
+    q, kn, vn, pools, bt = _split_inputs(store, page, pos, 11)
+    wlo, whi = port_pa.write_range(pos, 1, page, active)
+    scale = 64 ** -0.5
+    before = [_t_bits(t) for t in pools]
+    plain = [t.clone() for t in pools]
+    want = port_pa.paged_attention_window_plain(
+        q, kn, vn, plain[0], plain[1], bt, pos, wlo, whi, scale, *plain[2:])
+    got = _split_decode_emulation(q, kn, vn, pools, bt, pos, scale,
+                                  write=(wlo, whi))
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=1e-6 * float(want.abs().max()))
+    for t, w, b0 in zip(pools, plain, before):
+        assert np.array_equal(_t_bits(t), _t_bits(w))
+        assert not np.array_equal(_t_bits(t), b0)     # the rows were written
+    for b in (7, 8):
+        rows = bt[b].long().numpy()
+        assert all(np.array_equal(_t_bits(t)[rows], b0[rows])
+                   for t, b0 in zip(pools, before))
 
 
 def test_split_workspace_is_cached_and_grows():
