@@ -15,15 +15,20 @@ Phases (any failure exits non-zero and prints no result line):
    2047-key straggler, a chunked-prefill extend at full width and
    serving's own window shapes: a prompt's first and second chunks, an
    8-token prefix suffix at an unaligned position, four rows with one
-   inactive; K3 and K4 at a read-only shape) against its plain PyTorch
-   version on the card: context within about one bf16 ulp (plus 2^-8 of
-   the same attention over |V| for the tensor-core window body, K1/K2 at
-   W > 1, which rounds P to bf16), pages and scales bitwise, inactive
-   rows untouched, NaN planted past every bound kept out; K1/K2 on the
-   body the library reports (split at W = 1, tensor-core at W > 1), one
-   kernel launch a call (``torch.profiler``); then its time, the plain
-   version's time, one PyTorch library call's time as a yardstick, and
-   the least time the card could take (its bound);
+   inactive; K3 on bf16 and K4 on int8 and fp8 pages at 16 rows of 4
+   queries, at W = 1, 5, 16 and 64, serving's decode lengths over its
+   64-page table and the straggler) against its plain PyTorch version on
+   the card: context within about one bf16 ulp (plus 2^-8 of the same
+   attention over |V| for the tensor-core window body, K1/K2 at W > 1,
+   which rounds P to bf16), pages and scales bitwise, the read-only
+   sweep's pools untouched and its length-0 rows exactly 0, inactive
+   rows untouched, NaN planted past every bound kept out; each call on
+   the body the library reports (K1/K2 split at W = 1, tensor-core at
+   W > 1; K3/K4 split at every W, groups of ``mmlspark_pa_read_group``
+   queries a block), one kernel launch a call and no memset
+   (``torch.profiler``); then its time, the plain version's time, one
+   PyTorch library call's time as a yardstick, and the least time the
+   card could take (its bound);
 4. parity — at full width in float32, the engine's greedy tokens through
    the kernel equal those through the plain gather path, token for token,
    on f32 pages and on int8 and fp8 pages, the kernel engine's decode
@@ -41,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
    body as in 5, with the pool at 66/128 of the bf16 layout's bytes per
    position;
 7. read-only sweep — the public ``paged_attention`` over bf16 and int8
-   pools the model filled, every layer: K3, then K4;
+   pools the model filled, every layer: K3, then K4, each launch on the
+   split body (W = 4);
 8. GBDT — (a) the histogram kernel K6 against its plain version at the
    level shapes of an 11M x 28 run (1 ... 16 nodes), at 64 and 80
    nodes, at 256 nodes on ragged rows, on uint16 bins, bf16-rounded
@@ -107,7 +113,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 ``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, ``python3 chip_smoke.py
-8`` phases 1, 2 and 8, and ``python3 chip_smoke.py 3`` phases 1, 2 and
+8`` phases 1, 2 and 8, ``python3 chip_smoke.py 7`` phases 1, 2, phase
+3's K3/K4 cases and 7, and ``python3 chip_smoke.py 3`` phases 1, 2 and
 3; each prints no result and exits 3.
 
 The last three lines are the kernels' JSON record, the card's name and
@@ -455,16 +462,22 @@ def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
     return rec
 
 
-def _read_case(dev_info, label, B, W, len_list, seed, store=None):
+def _read_case(dev_info, label, B, W, len_list, seed, store=None, P=None):
     """The read-only sweep at one shape: K3 over bf16 pages, or K4 over
-    quantized pages. Correctness against the plain version (rows with
-    ``lengths == 0`` exactly zero, pools untouched), then times."""
+    quantized pages of ``store`` dtype, over a block table ``P`` pages
+    wide (or just wide enough). Correctness against the plain version
+    (ctx within about one bf16 ulp, the NaN planted past each length kept
+    out, rows with ``lengths == 0`` exactly zero, every pool bit
+    untouched), the body the library reports (the split body at every W,
+    ``mmlspark_pa_read_group(W)`` queries a block) and one call = one
+    kernel on the card, no memset; then times. Returns the record for
+    this shape."""
     import torch
     import torch.nn.functional as F
     from mmlspark_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    x = _kv_case_inputs(B, W, len_list, seed, store)
+    x = _kv_case_inputs(B, W, len_list, seed, store, P=P)
     H, hd, page, P = x["H"], x["hd"], x["page"], x["P"]
     q, bt, pools = x["q"], x["bt"], x["pools"]
     quant = store is not None
@@ -472,12 +485,21 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
             else f"K3 {label}")
     lengths = torch.tensor(len_list, dtype=torch.int32, device=dev)
     scale = 1.0 / hd ** 0.5
+    lib = pa._library()
+    group = lib.mmlspark_pa_read_group(W)
+    if group != (1 if W == 1 else 4):
+        raise AssertionError(f"{what}: the library holds {group} queries "
+                             f"a block at W = {W}")
     want = pa.paged_attention_plain(q, pools[0], pools[1], bt, lengths,
                                     scale, *pools[2:])
     kern = [t.clone() for t in pools]
     kw = {"k_scale": kern[2], "v_scale": kern[3]} if quant else {}
+    b0 = _bodies("read")
     got = pa.paged_attention(q, kern[0], kern[1], bt, lengths, **kw)
     torch.cuda.synchronize()
+    body = _body_ran(b0, _bodies("read"), quant)
+    if body != "split":
+        raise AssertionError(f"{what}: ran the {body} body")
     err = _check_ctx(what, got, want)
     empty = lengths.long() == 0
     if empty.any() and not torch.equal(got[empty].float(),
@@ -485,12 +507,21 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
         raise AssertionError(f"{what}: a row with lengths == 0 is not zero")
     if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kern, pools)):
         raise AssertionError(f"{what}: the read-only sweep wrote its pools")
-    lib = pa._library()
+    # one call is one kernel on the card (the split body's workspace is
+    # cached: no memset, no second launch)
+    launches, memsets, device = _kernel_launches(lambda: pa.paged_attention(
+        q, kern[0], kern[1], bt, lengths, **kw))
+    if launches != 1 or memsets or len(device) > 1:
+        raise AssertionError(f"{what}: one call ran {launches} launches "
+                             f"and {memsets} memsets / copies; device "
+                             f"activity {device}")
     n = _copies(sum(t.numel() * t.element_size() for t in pools))
     copies = [[t.clone() for t in kern] for _ in range(n)]
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (bt.data_ptr(), lengths.data_ptr(), got.data_ptr(), B, H, W, P,
-            page, scale, stream)
+    work = tuple(t.data_ptr() for t in pa._split_workspace(
+        q.device, B, H, P, page, hd, lib.split_chunk, -(-W // group), group))
+    tail = (bt.data_ptr(), lengths.data_ptr(), got.data_ptr(), *work, B, H,
+            W, P, page, scale, stream, None)
     rc = []
 
     def launcher(c):
@@ -503,6 +534,10 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
     ms = _cuda_ms([launcher(c) for c in copies], 200)
     if any(rc):
         raise AssertionError(f"{what}: launch returned {set(rc)}")
+    # every launch leaves the arrival counters at 0: a call after the
+    # timed ones still merges each (row, head, group) exactly once
+    _check_ctx(what + " after the timed launches", pa.paged_attention(
+        q, kern[0], kern[1], bt, lengths, **kw), want)
     plain_ms = _cuda_ms([lambda c=c: pa.paged_attention_plain(
         q, c[0], c[1], bt, lengths, scale, *c[2:]) for c in copies], 20)
     del copies
@@ -517,21 +552,60 @@ def _read_case(dev_info, label, B, W, len_list, seed, store=None):
     library_ms = _cuda_ms(sdpa, 200)
     library_host = _cuda_ms(sdpa, 200, head_start=False)
     del kvs, sdpa
-    # bound: live keys (< lengths) with their scales, q and ctx
+    # bound: live keys (< lengths, within the table) with their scales,
+    # q and ctx; flops QK and PV over the live keys
     row_bytes = hd + 2 if quant else 2 * hd
-    live = int(sum(len_list))
+    live = int(sum(min(n_, L) for n_ in len_list))
     nbytes = (2 * live * H * row_bytes + 2 * B * H * W * hd * 2
               + bt.numel() * 4 + B * 4)
     flops = 4 * H * hd * W * live
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **_bound(dev_info, nbytes, flops), "library_ms": library_ms,
-           "library_ms_host_paced": library_host,
-           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page,
+           "library_ms_host_paced": library_host, "body": body,
+           "launches_per_call": launches,
+           "shape": {"B": B, "H": H, "W": W, "hd": hd, "page": page, "P": P,
                      "max_len": max(len_list), "live_keys": live,
                      "pages": str(store or torch.bfloat16).split(".")[-1]}}
     tag = what.split()[0].lower() + " " + " ".join(what.split()[1:])
     log(f"[{tag}] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
+
+
+def read_cases():
+    """Phase 3's K3/K4 cases, ``(kernel, label, args, keywords)`` for
+    :func:`_read_case` (and ``time_read.py``): K3 on bf16 pages and K4 on
+    int8 and fp8 pages, each at "read" (16 rows of 4 queries over the
+    decode tick's ragged lengths, row 0 with none), the same lengths at
+    W = 1 and W = 5 (a group of 4 and one of 1), serving's decode lengths
+    over its engine's 64-page block table at W = 4, the straggler (one
+    row at 2047, the rest at 64 or below) at W = 4, and "read" at W = 16
+    and W = 64 (many groups re-reading each chunk: the routing's
+    evidence)."""
+    import torch
+    pos, _, serve, straggler = _decode_rows()
+    shapes = {"read": ((16, 4, pos), {}),
+              "read w1": ((16, 1, pos), {}),
+              "read w5": ((16, 5, pos), {}),
+              "serving decode w4": ((16, 4, serve), {"P": 64}),
+              "straggler w4": ((16, 4, straggler), {}),
+              "read w16": ((16, 16, pos), {}),
+              "read w64": ((16, 64, pos), {})}
+    cases, seed = [], 3
+    for store in (None, torch.int8, torch.float8_e4m3fn):
+        name = "" if store is None else str(store).split(".")[-1] + " "
+        for label, (args, kw) in shapes.items():
+            cases.append(("K3" if store is None else "K4", name + label,
+                          (label, *args, seed), {"store": store, **kw}))
+            seed += 1
+    return cases
+
+
+def phase_read_kernels(dev_info):
+    """Phase 3's read-only sweep: every case of :func:`read_cases`."""
+    recs = {"K3": {}, "K4": {}}
+    for kernel, name, args, kw in read_cases():
+        recs[kernel][name] = _read_case(dev_info, *args, **kw)
+    return recs
 
 
 def _decode_rows():
@@ -579,11 +653,7 @@ def phase_kernels(dev_info):
         for label, (args, kw) in shapes.items():
             recs["K2"][f"{name} {label}"] = _fused_case(
                 dev_info, label, *args, store=store, **kw)
-    # the read-only sweep: 16 rows of 4 queries over the same ragged
-    # lengths (row 0 has none)
-    recs["K3"] = _read_case(dev_info, "read", 16, 4, pos, 3)
-    recs["K4"] = _read_case(dev_info, "read", 16, 4, pos, 4,
-                            store=torch.int8)
+    recs.update(phase_read_kernels(dev_info))
     return recs
 
 
@@ -899,11 +969,13 @@ def phase_read_sweep(params_np, dev_info):
     filled. Four prompts are prefilled and scattered into a bf16 pool and
     an int8 pool; ``paged_attention`` then runs every layer's queries
     over each (K3, then K4), held against a dense softmax over the
-    gathered keys, with a row of length 0 giving zeros."""
+    gathered keys, with a row of length 0 giving zeros. Every launch
+    must be on the split body, which the dispatch names at every W."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.models.zoo import transformer as tf
-    from mmlspark_tpu_torch.ops.paged_attention import paged_attention
+    from mmlspark_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain)
     from mmlspark_tpu_torch.utils.device import resolve_device
     cfg = _full_cfg(torch.bfloat16)
     dev = resolve_device()
@@ -929,7 +1001,8 @@ def phase_read_sweep(params_np, dev_info):
             tf.init_paged_cache(cfg, 1 + B * P, page, dev, kv_dtype), rows,
             bt, page)
         gathered = tf.paged_gather(pages, bt, L, out_dtype=torch.float32)
-        paged_attention.launches = paged_attention.launches_q = 0
+        for name in ("", "_q", "_split", "_q_split"):
+            setattr(paged_attention, "launches" + name, 0)
         outs = []
         for li, c in enumerate(pages):
             scales = ({"k_scale": c["k_scale"], "v_scale": c["v_scale"]}
@@ -937,8 +1010,20 @@ def phase_read_sweep(params_np, dev_info):
             outs.append(paged_attention(q[li], c["k"], c["v"], bt, lengths,
                                         **scales))
         torch.cuda.synchronize()
-        counts[kv_dtype or "bf16"] = (paged_attention.launches,
-                                      paged_attention.launches_q)
+        counts[kv_dtype or "bf16"] = _bodies("read") | {
+            "k3": paged_attention.launches, "k4": paged_attention.launches_q}
+        # a length past the table reads the whole table, as the plain
+        # version does (row 3's table is L keys; 511 of them filled)
+        past = lengths.clone()
+        past[3] = L + 89
+        c = pages[0]
+        scales = ((c["k_scale"], c["v_scale"]) if kv_dtype else ())
+        _check_ctx(f"read sweep {kv_dtype} past the table",
+                   paged_attention(q[0], c["k"], c["v"], bt, past,
+                                   **dict(zip(("k_scale", "v_scale"),
+                                              scales))),
+                   paged_attention_plain(q[0], c["k"], c["v"], bt, past,
+                                         hd ** -0.5, *scales))
         for li, (out, g) in enumerate(zip(outs, gathered)):
             s = (q[li].float() @ g["k"].transpose(-1, -2)) / hd ** 0.5
             s = torch.where(key_ok, s, -1e30)
@@ -951,13 +1036,17 @@ def phase_read_sweep(params_np, dev_info):
             if out[2].abs().max().item() != 0.0:
                 raise AssertionError("read sweep: the length-0 row is not "
                                      "zero")
-    k3, k4 = counts["bf16"][0], counts["int8"][1]
-    if k3 != cfg.layers or k4 != cfg.layers or counts["bf16"][1] or \
-            counts["int8"][0]:
-        raise AssertionError(f"read sweep launches {counts}, want "
-                             f"{cfg.layers} K3 then {cfg.layers} K4")
+    n = cfg.layers
+    want = {"bf16": {"k3": n, "k4": 0, "split": n, "q_split": 0},
+            "int8": {"k3": 0, "k4": n, "split": 0, "q_split": n}}
+    if counts != want:
+        raise AssertionError(f"read sweep launches {counts}, want {want} "
+                             f"on the split body")
+    k3, k4 = counts["bf16"]["k3"], counts["int8"]["k4"]
     rec = {"rows": B, "queries": W, "lengths": lengths.tolist(),
            "layers": cfg.layers, "k3_launches": k3, "k4_launches": k4,
+           "body": "split", "k3_launches_split": counts["bf16"]["split"],
+           "k4_launches_split": counts["int8"]["q_split"],
            "max_abs_err_vs_dense": err}
     log(f"[read sweep] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
@@ -1884,10 +1973,16 @@ def _kernel_launches(fn):
 
 
 def _bodies(kind=""):
-    """K1/K2 (``kind=""``) or K5a/K5b (``kind="window"``) launches by the
-    body the library reported: tensor-core (``mma``, K1 or K5a / ``q_mma``,
-    K2 or K5b) and split decode (``split``, ``q_split``)."""
-    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    """Launches by the body the library reported: K1/K2 (``kind=""``) or
+    K5a/K5b (``kind="window"``) on the tensor-core (``mma``, K1 or K5a /
+    ``q_mma``, K2 or K5b) and split decode bodies (``split``,
+    ``q_split``); K3/K4 (``kind="read"``) on the split body (``split``,
+    ``q_split``)."""
+    from mmlspark_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_window)
+    if kind == "read":
+        return {k: getattr(paged_attention, "launches_" + k)
+                for k in ("split", "q_split")}
     pre = "launches_" + (kind + "_" if kind else "")
     return {k: getattr(paged_attention_window, pre + k)
             for k in ("mma", "q_mma", "split", "q_split")}
@@ -2345,13 +2440,14 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "9": phases 1, 2 and 9; "8": phases 1, 2 and 8; "3": phases 1,
-    # 2 and 3; a partial run prints no result and exits 3
+    # 4); "9": phases 1, 2 and 9; "8": phases 1, 2 and 8; "7": phases 1,
+    # 2, phase 3's K3/K4 cases and 7; "3": phases 1, 2 and 3; a partial
+    # run prints no result and exits 3
     only = set(argv)
-    if not only <= {"3", "8", "9", "10"}:
-        log(f"chip_smoke: unknown phases "
-            f"{sorted(only - {'3', '8', '9', '10'})}; the arguments are 3, "
-            f"8, 9 and 10")
+    modes = {"3", "7", "8", "9", "10"}
+    if not only <= modes:
+        log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
+            f"arguments are 3, 7, 8, 9 and 10")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -2362,6 +2458,10 @@ def main(argv=()):
     if only:
         if "3" in only:
             phase_kernels(dev_info)
+        if "7" in only:
+            if "3" not in only:
+                phase_read_kernels(dev_info)
+            phase_read_sweep(params_np, dev_info)
         if "8" in only:
             _phase8(dev_info)
         if "9" in only:
@@ -2411,11 +2511,13 @@ def main(argv=()):
          **{k: recs["K2"]["int8 decode"][k] for k in keys}, **recs["K2"]},
         {"name": "paged_attention", "route": "cuda", "source": src,
          "replaces": f"{ref}:195", "launches": sweep["k3_launches"],
-         **{k: recs["K3"][k] for k in keys}, "read": recs["K3"]},
+         "launches_split": sweep["k3_launches_split"],
+         **{k: recs["K3"]["read"][k] for k in keys}, **recs["K3"]},
         {"name": "paged_attention (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:356",
          "launches": sweep["k4_launches"],
-         **{k: recs["K4"][k] for k in keys}, "read": recs["K4"]},
+         "launches_split": sweep["k4_launches_split"],
+         **{k: recs["K4"]["int8 read"][k] for k in keys}, **recs["K4"]},
         {"name": "paged_attention_window (mesh=)", "route": "cuda",
          "source": src, "replaces": f"{ref}:297",
          "launches": serve["mesh"]["k5a_launches"],

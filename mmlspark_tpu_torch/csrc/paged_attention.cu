@@ -1,7 +1,7 @@
 // Paged attention over the KV page pool for Hopper (sm_90a): six kernels
-// from three bodies, an f32 FMA body (pa_kernel), a bf16 tensor-core body
-// for windows (pa_mma_kernel) and a decode body split over the keys for
-// the window read (pa_split_kernel).
+// from three bodies, an f32 FMA body for f32 windows (pa_kernel), a bf16
+// tensor-core body for windows (pa_mma_kernel) and a body split over the
+// keys for the decode tick and the read-only sweep (pa_split_kernel).
 //
 //   K1  fused window + scatter, pages in the query dtype. Replaces the TPU
 //       kernel `_pa_fused_kernel` (mmlspark_tpu/ops/paged_attention.py,
@@ -48,16 +48,17 @@
 // build with --use_fast_math), then int8: rint and clamp to +-127; fp8:
 // clamp to +-448 and round to nearest even with saturation.
 //
-// Which body each instantiation takes (`dispatch`; the C entries of K1,
-// K2, K5a and K5b report it in their `int* body`: 1 tensor-core, 2 split):
+// Which body each instantiation takes (`dispatch`; the C entries report
+// it in their `int* body`: 1 tensor-core, 2 split, left 0 for FMA):
 //   * pa_mma_kernel: K1, K2 (kFused) and K5a, K5b (kWindow) with bf16
 //     queries and W > 1, the chunked-prefill chunks and prefix-suffix
 //     windows of bf16 serving, on one device or on a mesh's head shard;
 //   * pa_split_kernel: K1, K2, K5a and K5b at W = 1, f32 or bf16 queries:
 //     the decode tick, single-device (kFused, the page scatter in the
-//     fresh key's block) or on a mesh's head shard (kWindow);
-//   * pa_kernel: f32 windows (W > 1) of K1, K2, K5a and K5b, and K3/K4
-//     (kRead) at any W.
+//     fresh key's block) or on a mesh's head shard (kWindow); and the
+//     read-only sweep K3/K4 (kRead), one query a block at W = 1 and
+//     groups of kReadGroup = 4 at W > 1 (`read_group`);
+//   * pa_kernel: f32 windows (W > 1) of K1, K2, K5a and K5b.
 //
 // What bounds them on this card. A decode tick (W = 1) does about 4 flops
 // per byte of K/V it reads, far below the ~295 flops/byte at which the
@@ -77,7 +78,7 @@
 // (query tile, head, row) and loops only over the row's LIVE keys
 // (ceil(bound / 32) tiles of 32 keys, never the block table's full
 // width). The block's warps split the key tiles between them so that a
-// one-query read still keeps four warps per (row, head) reading, each warp
+// short window still keeps four warps per (row, head) reading, each warp
 // keeps its own running (m, l, acc) in registers, and the partial softmax
 // states merge once through shared memory at the end. Each lane looks its
 // key's page up once (and, quantized, loads that key's K and V scales
@@ -133,40 +134,46 @@
 // cannot reach p * v, and the reads never touch the slots this launch
 // writes. TMA and wgmma are later work.
 //
-// pa_split_kernel, the decode body (W = 1) of K1, K2, K5a and K5b. In the
-// FMA body one block owns a (row, head) and its 4 warps split the row's
-// 32-key tiles, so the longest row sets the time: at 1023 keys each warp
-// walks 8 tiles, each a chain of a block-table read, the dependent row
-// loads and the math, nothing fetched ahead, and at H = 6, B = 16 the 96
-// blocks leave a third of the 132 SMs idle. The split body cuts each
-// (row, head)'s keys into chunks of kChunk = 256 keys, one block each, so
-// no warp walks more than two tiles and a 1023-key row is 4 blocks side by
-// side. The grid, (ceil(P * page / kChunk), H, B), comes from the block
-// table's width, so the host never reads pos; a block whose chunk starts
-// at or past pos exits at once, and the row's fresh key rides in its last
-// live chunk.
-// Per warp: lane t owns key t of a tile (its score a 64-long fmaf chain
-// over the staged row, the query broadcast from shared memory) and output
-// dims 2 t, 2 t + 1; tiles are staged as stored (f32, bf16 or codes, rows
-// padded by 16 bytes), double-buffered with cp.async, the block-table
-// entries of the next tile read while this one's copies fly and a quantized
-// key's scales loaded with its copies. Codes are dequantized as f32(code) *
-// scale (exact) at each use, so the math is the FMA body's, in f32. The
-// warps' (m, l, acc) merge in shared memory; a row with one live chunk
-// writes its context there and then. Otherwise each block writes its
-// partial (m, l, acc) to the caller's f32 workspace, and the last block of
-// the (row, head) to arrive (a __threadfence, then an atomicAdd on that
-// (row, head)'s counter) merges the partials in chunk order, writes the
-// context and resets the counter to 0: one launch a call, no memset. The
-// merge reorders the sums only, so the context stays within the plain
-// version's bound. The workspace and counters are the wrapper's, cached
-// per device (ops/paged_attention.py `_split_workspace`), which assumes one
-// stream per device. K1/K2 (kFused) add the page scatter: the block of
-// the row's last live chunk, the one that reads the fresh key, writes the
-// fresh row into its page with the other bodies' fused_scatter (so pages
-// and scales are bitwise theirs) before it can return; no other block
-// writes, and no block races it: every block reads keys below pos, and
-// the write lands at pos. An inactive row (wlo > whi) writes nothing and
+// pa_split_kernel, the decode body (W = 1) of K1, K2, K5a and K5b and the
+// body of the read-only sweep K3/K4. In the FMA body one block owns a
+// (query tile, row, head) and its 4 warps split the row's 32-key tiles, so
+// the longest row sets the time: at 1023 keys each warp walks 8 tiles,
+// each a chain of a block-table read, the dependent row loads and the
+// math, nothing fetched ahead, and at H = 6, B = 16 the 96 blocks leave a
+// third of the 132 SMs idle (and a sweep of W = 4 leaves half of its
+// 8-query tile empty). The split body cuts each (row, head)'s keys into
+// chunks of kChunk = 256 keys, one block each, so no warp walks more than
+// two tiles and a 1023-key row is 4 blocks side by side; the sweep's W
+// queries go in groups of QG = 4, a block each. The grid, (ceil(P * page /
+// kChunk) * ceil(W / QG), H, B), comes from the block table's width, so
+// the host never reads pos or lengths; a block whose chunk starts at or
+// past the bound exits at once, and a decode row's fresh key rides in its
+// last live chunk.
+// Per warp: lane t owns key t of a tile (its QG scores 64-long fmaf
+// chains over the staged row, the queries broadcast from shared memory)
+// and output dims 2 t, 2 t + 1 of each query; tiles are staged as stored
+// (f32, bf16 or codes, rows padded by 16 bytes), double-buffered with
+// cp.async, the block-table entries of the next tile read while this
+// one's copies fly and a quantized key's scales loaded with its copies.
+// Codes are dequantized as f32(code) * scale (exact) at each use, so the
+// math is the FMA body's, in f32. The warps' (m, l, acc) merge in shared
+// memory; a row with one live chunk writes its context there and then.
+// Otherwise each block writes its partial (m, l, acc) per query to the
+// caller's f32 workspace, and the last block of the (row, head, group) to
+// arrive (a __threadfence, then an atomicAdd on its counter) merges the
+// partials in chunk order, writes the context and resets the counter to
+// 0: one launch a call, no memset. The merge reorders the sums only, so
+// the context stays within the plain version's bound. The workspace and
+// counters are the wrapper's, cached per device (ops/paged_attention.py
+// `_split_workspace`), which assumes one stream per device. K3/K4 (kRead)
+// read keys below min(lengths, P * page) and write nothing but out;
+// lengths == 0 leaves one live chunk with no tile, whose context is
+// exactly 0. K1/K2 (kFused) add the page scatter: the block of the row's
+// last live chunk, the one that reads the fresh key, writes the fresh row
+// into its page with the other bodies' fused_scatter (so pages and scales
+// are bitwise theirs) before it can return; no other block writes, and no
+// block races it: every block reads keys below pos, and the write lands
+// at pos. An inactive row (wlo > whi) writes nothing and
 // still computes its context.
 //
 // Page-size rule: none. Tiles are 32 keys wide in the logical key space
@@ -385,17 +392,15 @@ struct Args {
   void* out;
   int B, H, W, P, page;
   float scale;
-  int* body;              // fused, window: set to 1 when the tensor-core
-                          // body launched, 2 the split decode body (the
-                          // caller zeroes it)
-  float* work;            // fused, window at W = 1: the split body's
-  int* counters;          // partials and its per-(row, head) arrival
-                          // counters
+  int* body;              // set to 1 when the tensor-core body launched,
+                          // 2 the split body (the caller zeroes it)
+  float* work;            // the split body's partials and its
+  int* counters;          // per-(row, head, group) arrival counters
 };
 
 // T: query / k_new / v_new / output type (float or bf16). S: page store
-// type: T itself (K1, K3, K5a), int8_t or fp8 (K2, K4, K5b). MODE: see
-// `Mode`. QT: queries per block.
+// type: T itself (K1, K5a), int8_t or fp8 (K2, K5b). MODE: kFused or
+// kWindow (see `Mode`). QT: queries per block.
 template <typename T, typename S, int MODE, int HD, int QT>
 __global__ void __launch_bounds__(kWarps * 32)
 pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
@@ -407,8 +412,8 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
           const int32_t* __restrict__ wlo_v,
           const int32_t* __restrict__ whi_v, T* __restrict__ out, int H,
           int W, int P, int page, float scale) {
+  static_assert(MODE != kRead, "the read-only sweep runs split");
   constexpr bool kQuant = !std::is_same<S, T>::value;
-  constexpr bool READ = MODE == kRead;
   constexpr int DPL = HD / 32;   // output dims owned by each lane
   constexpr int LD = HD + 1;     // padded row: conflict-free column reads
   extern __shared__ float smem[];
@@ -424,9 +429,8 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // cached keys [0, bound) are visible: pos (fused, window) or lengths
-  // (read-only, held inside the block table's width)
-  const int bound = READ ? min(bound_v[b], P * page) : bound_v[b];
+  // cached keys [0, bound) are visible: pos
+  const int bound = bound_v[b];
   const int32_t* bt = block_tables + size_t(b) * P;
   const size_t row_off = (size_t(b) * H + h) * W;   // (b, h, 0, 0) / HD
 
@@ -447,10 +451,10 @@ pa_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int r = 0; r < DPL; ++r) acc[i][r] = 0.f;
   }
 
-  // the live key tiles: cached keys [0, bound), then (fused, window) the
-  // window keys this query tile can see, [0, min(q0 + QT, W))
+  // the live key tiles: cached keys [0, bound), then the window keys this
+  // query tile can see, [0, min(q0 + QT, W))
   const int n_page_tiles = (bound + kTile - 1) / kTile;
-  const int w_end = READ ? 0 : min(q0 + QT, W);
+  const int w_end = min(q0 + QT, W);
   const int n_win_tiles = (w_end + kTile - 1) / kTile;
   float* k_t = kv_s + warp * 2 * kTile * LD;
   float* v_t = k_t + kTile * LD;
@@ -971,24 +975,30 @@ pa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
   }
 }
 
-// ---- the decode body, split over the keys (K1, K2, K5a, K5b at W = 1) ----
+// ---- the body split over the keys (K1, K2, K5a, K5b at W = 1; K3, K4) ----
 //
-// A decode row's keys are cut into chunks of kChunk keys, one block each:
-// the grid is (ceil(P * page / kChunk), H, B), sized from the block
-// table's width so that the host never reads pos. A block whose chunk
-// starts at or past the row's bound exits at once; the live ones (the
-// first max(1, ceil(pos / kChunk))) each walk at most kSplitTiles tiles a
-// warp, the row's own fresh key riding in the last live chunk. Each
-// writes its partial (m, l, acc) in f32 to the workspace; the last to
-// arrive (a __threadfence, then an atomicAdd on the (row, head)'s
-// counter) merges them in the same launch and resets the counter to 0
-// for the next launch. A row with one live chunk writes its context
-// straight away and never touches the workspace or its counter. Under
-// kFused (K1, K2) the last live chunk's block also writes the row's fresh
-// K/V row into its page, before it can return.
+// A row's keys are cut into chunks of kChunk keys, one block each, and
+// its W queries into groups of QG (QG = 1 for a decode tick, W = 1): the
+// grid is (ceil(P * page / kChunk) * ceil(W / QG), H, B), sized from the
+// block table's width so that the host never reads pos or lengths, with
+// the groups of one (row, head) side by side in x, so that the groups
+// re-reading a chunk run close together and find it in L2. A
+// block whose chunk starts at or past the row's bound exits at once; the
+// live ones (the first max(1, ceil(bound / kChunk))) each walk at most
+// kSplitTiles tiles a warp, a decode row's own fresh key riding in the
+// last live chunk. Each writes its group's partial (m, l, acc) in f32 to
+// the workspace; the last to arrive (a __threadfence, then an atomicAdd
+// on the (row, head, group)'s counter) merges them in the same launch and
+// resets the counter to 0 for the next launch. A row with one live chunk
+// writes its context straight away and never touches the workspace or
+// its counter. Under kFused (K1, K2) the last live chunk's block also
+// writes the row's fresh K/V row into its page, before it can return;
+// under kRead (K3, K4) there is no fresh key and nothing but out is
+// written.
 
 constexpr int kSplitTiles = 2;                         // tiles a warp walks
 constexpr int kChunk = kWarps * kSplitTiles * kTile;   // keys a block reads
+constexpr int kReadGroup = 4;   // queries a block of the sweep holds, W > 1
 
 // A staged key row: HD values as stored (f32, bf16 or codes), padded by
 // 16 bytes so that the rows a quarter-warp reads side by side (lane =
@@ -1002,26 +1012,26 @@ template <typename S, int HD>
 __host__ __device__ constexpr size_t split_stage() {
   return 2 * size_t(kTile) * split_row<S, HD>();
 }
-// Shared memory, dynamic: the query [HD] f32, then 2 stages per warp.
-// After its last tile a warp's stages hold its partial state for the
-// block's merge: m, l, acc [HD] f32.
-template <typename S, int HD>
+// Shared memory, dynamic: the group's queries [HD][QG] f32 (the QG
+// queries of one dim side by side), then 2 stages per warp. After its
+// last tile a warp's first stage holds its partial states for the
+// block's merge: QG times (m, l, acc [HD]) f32.
+template <typename S, int HD, int QG>
 constexpr size_t split_smem() {
-  return sizeof(float) * HD + size_t(kWarps) * 2 * split_stage<S, HD>();
+  return sizeof(float) * HD * QG + size_t(kWarps) * 2 * split_stage<S, HD>();
 }
-static_assert(sizeof(float) * (2 + 64) <= split_stage<int8_t, 64>(),
-              "the merge state fits a warp's first stage");
-
-// q . row over HD: the query from shared f32 (every lane reads the same
-// address), the row as staged, 16 bytes a read; quantized, each code is
-// dequantized as f32(code) * sk (exact) before its product, so the sum
-// is the FMA body's in the same order.
-template <typename S, int HD, bool SCALED>
-__device__ __forceinline__ float split_dot(const float* __restrict__ q_s,
-                                           const unsigned char* row,
-                                           float sk) {
+// The group's QG scores q_j . row over HD: the queries from shared f32
+// (every lane reads the same address; four queries a 16-byte read), the
+// row as staged, 16 bytes a read; quantized, each code is dequantized as
+// f32(code) * sk (exact) before its products, so each sum is the FMA
+// body's in the same order.
+template <typename S, int HD, int QG, bool SCALED>
+__device__ __forceinline__ void split_dot(const float* __restrict__ q_s,
+                                          const unsigned char* row, float sk,
+                                          float (&s)[QG]) {
   constexpr int EPC = 16 / int(sizeof(S));
-  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < QG; ++j) s[j] = 0.f;
 #pragma unroll
   for (int c = 0; c < HD / EPC; ++c) {
     const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * c);
@@ -1029,10 +1039,22 @@ __device__ __forceinline__ float split_dot(const float* __restrict__ q_s,
 #pragma unroll
     for (int i = 0; i < EPC; ++i) {
       const float k = SCALED ? to_f32(e[i]) * sk : to_f32(e[i]);
-      s = fmaf(q_s[c * EPC + i], k, s);
+      const float* qd = q_s + (c * EPC + i) * QG;
+      if constexpr (QG % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < QG; j += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qd + j);
+          s[j] = fmaf(qq.x, k, s[j]);
+          s[j + 1] = fmaf(qq.y, k, s[j + 1]);
+          s[j + 2] = fmaf(qq.z, k, s[j + 2]);
+          s[j + 3] = fmaf(qq.w, k, s[j + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < QG; ++j) s[j] = fmaf(qd[j], k, s[j]);
+      }
     }
   }
-  return s;
 }
 
 // dims 2 lane and 2 lane + 1 of a staged row, as f32
@@ -1044,64 +1066,88 @@ __device__ __forceinline__ float2 split_pair(const unsigned char* row,
 }
 
 // T: query / k_new / v_new / output type (float or bf16); S: page store
-// type, T itself (K1, K5a) or int8_t / fp8 (K2, K5b). Block: chunk
-// blockIdx.x of (row b, head h), W = 1. Lane t of a warp owns key t of
-// each of its tiles (the score is its row's dot with q) and output dims
-// 2 t, 2 t + 1 (P V reads each V row once, p and the V scale shuffled
-// from the key's lane). Each warp double-buffers its tiles with cp.async,
-// reads the block-table entries of its next tile while this one's copies
-// fly and loads a quantized key's scales with its copies. MODE kFused
-// (K1, K2) scatters the fresh row, kWindow (K5a, K5b) only reads; the
-// sweep of K3/K4 (kRead) is not routed here.
-template <typename T, typename S, int MODE, int HD>
+// type, T itself (K1, K3, K5a) or int8_t / fp8 (K2, K4, K5b). Block:
+// chunk c of (row b = blockIdx.z, head h = blockIdx.y) for the group g of
+// QG queries, blockIdx.x = g * chunks + c (QG = 1 at W = 1). Lane t of a
+// warp owns key t of each of its tiles (its QG scores are its row's dots
+// with the group's queries) and output dims 2 t, 2 t + 1 of each query
+// (P V reads each V row once, the p's and the V scale shuffled from the
+// key's lane at QG = 1, read from its staged K row at QG > 1). Each warp
+// double-buffers its tiles with cp.async, reads the block-table entries
+// of its next tile while this one's copies fly and loads a quantized
+// key's scales with its copies. MODE kFused (K1, K2) folds in the row's
+// fresh key and scatters it, kWindow (K5a, K5b) folds it in and only
+// reads, kRead (K3, K4) has no fresh key: keys below min(lengths[b],
+// P * page), nothing written but out.
+template <typename T, typename S, int MODE, int HD, int QG>
 __global__ void __launch_bounds__(kWarps * 32)
 pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                 const T* __restrict__ vn, S* __restrict__ kpool,
                 S* __restrict__ vpool, bf16* __restrict__ kscale,
                 bf16* __restrict__ vscale,
                 const int32_t* __restrict__ block_tables,
-                const int32_t* __restrict__ pos_v,
+                const int32_t* __restrict__ bound_v,
                 const int32_t* __restrict__ wlo_v,
                 const int32_t* __restrict__ whi_v, T* __restrict__ out,
                 float* __restrict__ work, int* __restrict__ counters, int H,
-                int P, int page, float scale) {
-  static_assert(MODE == kFused || MODE == kWindow,
-                "the read-only sweep (kRead) does not run split");
+                int W, int P, int page, float scale) {
+  static_assert(MODE == kRead || QG == 1,
+                "a decode row's fresh key belongs to its one query");
   static_assert(HD == 64, "lane t owns output dims 2 t and 2 t + 1");
+  static_assert(QG == 1 || (QG % 4 == 0 && 4 * QG + 4 <= HD * sizeof(S)),
+                "a group's p's and V scale fit a staged K row, float4s");
+  static_assert(sizeof(float) * QG * (HD + 2) <= split_stage<S, HD>(),
+                "the merge state fits a warp's first stage");
   constexpr bool kQuant = !std::is_same<S, T>::value;
+  constexpr bool kFresh = MODE != kRead;   // a decode row's own key
   constexpr int RB = split_row<S, HD>();
   constexpr int CPR = HD * int(sizeof(S)) / 16;   // 16-byte chunks a row
+  constexpr int NT = kWarps * 32;
+  constexpr int EPT = (QG * HD + NT - 1) / NT;   // merged outputs a thread
+  constexpr int PS = QG * (HD + 2);              // floats of one partial
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last;
   float* q_s = reinterpret_cast<float*>(smem_raw);
-  unsigned char* stages = smem_raw + sizeof(float) * HD;
+  unsigned char* stages = smem_raw + sizeof(float) * HD * QG;
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = (W + QG - 1) / QG;             // query groups of a row
+  const int n_chunks = gridDim.x / G;          // chunks of the block table
+  const int c = blockIdx.x % n_chunks, g = blockIdx.x / n_chunks;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // cached keys [0, pos) are visible (none past the block table, as in
-  // the plain version), and the row's fresh key
-  const int pos = min(pos_v[b], P * page);
-  const int n_live = max(1, (pos + kChunk - 1) / kChunk);
+  // cached keys [0, bound) are visible (none past the block table, as in
+  // the plain versions): pos (fused, window) or lengths (read)
+  const int bound = min(bound_v[b], P * page);
+  const int n_live = max(1, (bound + kChunk - 1) / kChunk);
   if (c >= n_live) return;   // past the bound: nothing to read
   const int k0 = c * kChunk;
-  const int k1 = min(k0 + kChunk, pos);    // this chunk's keys [k0, k1)
+  const int k1 = min(k0 + kChunk, bound);   // this chunk's keys [k0, k1)
   const int n_tiles = (k1 - k0 + kTile - 1) / kTile;
-  const bool fresh = c == n_live - 1;      // the fresh key is read here
+  const bool fresh = kFresh && c == n_live - 1;   // the fresh key is here
   const int32_t* bt = block_tables + size_t(b) * P;
-  const size_t row = size_t(b) * H + h;    // (b, h) at W = 1
+  const size_t row = size_t(b) * H + h;   // (b, h)
+  const size_t rg = row * G + g;          // (b, h, g): partials, counter
+  const int nq = min(QG, W - g * QG);     // the group's queries in W
+  const size_t q_off = (row * W + size_t(g) * QG) * HD;   // its first one
   unsigned char* wbuf = stages + warp * 2 * split_stage<S, HD>();
   const unsigned char* kbytes = reinterpret_cast<const unsigned char*>(kpool);
   const unsigned char* vbytes = reinterpret_cast<const unsigned char*>(vpool);
 
-  if (tid < HD) q_s[tid] = to_f32(q[row * HD + tid]);
+  // the group's queries, f32 (slots past W are zero: never written out)
+  for (int e = tid; e < QG * HD; e += NT) {
+    const int j = e / HD, d = e % HD;
+    q_s[d * QG + j] = j < nq ? to_f32(q[q_off + e]) : 0.f;
+  }
   // the fresh key and value, dims 2 lane and 2 lane + 1 (warp 0 reads
   // them; their loads fly while the tiles are walked)
   float2 kf = make_float2(0.f, 0.f), vf = kf;
-  if (fresh && warp == 0) {
-    kf = make_float2(to_f32(kn[row * HD + 2 * lane]),
-                     to_f32(kn[row * HD + 2 * lane + 1]));
-    vf = make_float2(to_f32(vn[row * HD + 2 * lane]),
-                     to_f32(vn[row * HD + 2 * lane + 1]));
+  if constexpr (kFresh) {
+    if (fresh && warp == 0) {
+      kf = make_float2(to_f32(kn[row * HD + 2 * lane]),
+                       to_f32(kn[row * HD + 2 * lane + 1]));
+      vf = make_float2(to_f32(vn[row * HD + 2 * lane]),
+                       to_f32(vn[row * HD + 2 * lane + 1]));
+    }
   }
 
   // this lane's key in tile ti: its block-table entry (read a tile
@@ -1147,10 +1193,16 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
   cp_commit();
   int bt_next = bt_entry(ti + kWarps);
-  __syncthreads();   // the query is in shared memory
+  __syncthreads();   // the queries are in shared memory
 
-  float m = kNeg, l = 0.f;         // warp-uniform
-  float2 acc = make_float2(0.f, 0.f);
+  float m[QG], l[QG];   // warp-uniform
+  float2 acc[QG];
+#pragma unroll
+  for (int j = 0; j < QG; ++j) {
+    m[j] = kNeg;
+    l[j] = 0.f;
+    acc[j] = make_float2(0.f, 0.f);
+  }
   int stage = 0;
   while (ti < n_tiles) {
     // start the next tile (its block-table entries were read a tile ago)
@@ -1168,27 +1220,67 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     const unsigned char* k_t = wbuf + stage * split_stage<S, HD>();
     const unsigned char* v_t = k_t + kTile * RB;
     const bool valid = k0 + ti * kTile + lane < k1;
-    float s = split_dot<S, HD, kQuant>(q_s, k_t + lane * RB, sk) * scale;
-    s = valid ? s : kNeg;
-    const float m_new = fmaxf(m, warp_max(s));
-    const float p = valid ? expf(s - m_new) : 0.f;
-    const float corr = expf(m - m_new);
-    l = corr * l + warp_sum(p);
-    acc.x *= corr;
-    acc.y *= corr;
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      const float pt = __shfl_sync(0xffffffffu, p, t);
-      float2 v = split_pair<S>(v_t + t * RB, lane);
-      if constexpr (kQuant) {
-        const float st = __shfl_sync(0xffffffffu, sv, t);
-        v.x *= st;   // f32(code) * sv, exact
-        v.y *= st;
-      }
-      acc.x = fmaf(pt, v.x, acc.x);
-      acc.y = fmaf(pt, v.y, acc.y);
+    float p[QG];
+    split_dot<S, HD, QG, kQuant>(q_s, k_t + lane * RB, sk, p);
+#pragma unroll
+    for (int j = 0; j < QG; ++j) {
+      const float s = valid ? p[j] * scale : kNeg;
+      const float m_new = fmaxf(m[j], warp_max(s));
+      p[j] = valid ? expf(s - m_new) : 0.f;
+      const float corr = expf(m[j] - m_new);
+      l[j] = corr * l[j] + warp_sum(p[j]);
+      acc[j].x *= corr;
+      acc[j].y *= corr;
+      m[j] = m_new;
     }
-    m = m_new;
+    if constexpr (QG == 1) {
+      // key t's p and V scale shuffled from its lane
+#pragma unroll 8
+      for (int t = 0; t < kTile; ++t) {
+        float2 v = split_pair<S>(v_t + t * RB, lane);
+        if constexpr (kQuant) {
+          const float st = __shfl_sync(0xffffffffu, sv, t);
+          v.x *= st;   // f32(code) * sv, exact
+          v.y *= st;
+        }
+        const float pt = __shfl_sync(0xffffffffu, p[0], t);
+        acc[0].x = fmaf(pt, v.x, acc[0].x);
+        acc[0].y = fmaf(pt, v.y, acc[0].y);
+      }
+    } else {
+      // each lane's QG p's (and V scale) written over its own staged K
+      // row, which only it read: key t's p's are then broadcast 16-byte
+      // loads, not QG shuffles (4-7% off the sweep at W > 1 on the H100)
+      unsigned char* mine = wbuf + stage * split_stage<S, HD>() + lane * RB;
+#pragma unroll
+      for (int j = 0; j < QG; j += 4)
+        *reinterpret_cast<float4*>(mine + 4 * j) =
+            make_float4(p[j], p[j + 1], p[j + 2], p[j + 3]);
+      if constexpr (kQuant) *reinterpret_cast<float*>(mine + 4 * QG) = sv;
+      __syncwarp();
+#pragma unroll 8
+      for (int t = 0; t < kTile; ++t) {
+        const unsigned char* kt = k_t + t * RB;
+        float2 v = split_pair<S>(v_t + t * RB, lane);
+        if constexpr (kQuant) {
+          const float st = *reinterpret_cast<const float*>(kt + 4 * QG);
+          v.x *= st;   // f32(code) * sv, exact
+          v.y *= st;
+        }
+#pragma unroll
+        for (int j = 0; j < QG; j += 4) {
+          const float4 pp = *reinterpret_cast<const float4*>(kt + 4 * j);
+          acc[j].x = fmaf(pp.x, v.x, acc[j].x);
+          acc[j].y = fmaf(pp.x, v.y, acc[j].y);
+          acc[j + 1].x = fmaf(pp.y, v.x, acc[j + 1].x);
+          acc[j + 1].y = fmaf(pp.y, v.y, acc[j + 1].y);
+          acc[j + 2].x = fmaf(pp.z, v.x, acc[j + 2].x);
+          acc[j + 2].y = fmaf(pp.z, v.y, acc[j + 2].y);
+          acc[j + 3].x = fmaf(pp.w, v.x, acc[j + 3].x);
+          acc[j + 3].y = fmaf(pp.w, v.y, acc[j + 3].y);
+        }
+      }
+    }
     __syncwarp();   // every lane is done with this stage before it refills
     sk = sk_n;
     sv = sv_n;
@@ -1198,17 +1290,20 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   cp_wait<0>();
   __syncwarp();
 
-  if (fresh && warp == 0) {
-    // the row's own fresh key, never quantized, visible to its query
-    const float s =
-        warp_sum(fmaf(q_s[2 * lane + 1], kf.y, q_s[2 * lane] * kf.x)) * scale;
-    const float m_new = fmaxf(m, s);
-    const float p = expf(s - m_new);
-    const float corr = expf(m - m_new);
-    l = corr * l + p;
-    acc.x = fmaf(p, vf.x, corr * acc.x);
-    acc.y = fmaf(p, vf.y, corr * acc.y);
-    m = m_new;
+  if constexpr (kFresh) {
+    if (fresh && warp == 0) {
+      // the row's own fresh key, never quantized, visible to its query
+      const float s =
+          warp_sum(fmaf(q_s[2 * lane + 1], kf.y, q_s[2 * lane] * kf.x)) *
+          scale;
+      const float m_new = fmaxf(m[0], s);
+      const float p = expf(s - m_new);
+      const float corr = expf(m[0] - m_new);
+      l[0] = corr * l[0] + p;
+      acc[0].x = fmaf(p, vf.x, corr * acc[0].x);
+      acc[0].y = fmaf(p, vf.y, corr * acc[0].y);
+      m[0] = m_new;
+    }
   }
   if constexpr (MODE == kFused) {
     // the fresh row into its page, by the block that read the fresh key
@@ -1216,71 +1311,96 @@ pa_split_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     // launch was below pos.
     if (fresh)
       fused_scatter<T, S, HD, 1>(kn, vn, kpool, vpool, kscale, vscale, bt,
-                                 pos_v[b], wlo_v[b], whi_v[b], row, 0, h, H,
-                                 1, P, page, warp, lane, tid);
+                                 bound_v[b], wlo_v[b], whi_v[b], row, 0, h,
+                                 H, 1, P, page, warp, lane, tid);
   }
 
-  // the warps' partial states into their own first stages, then merged
-  // into the block's (dims d = tid < HD)
+  // the warps' partial states into their own first stages, query j's
+  // (m, l, acc [HD]) at j * (HD + 2), then merged into the block's
+  // (output e = j * HD + d of thread e % NT)
   {
     float* st = reinterpret_cast<float*>(wbuf);
-    if (lane == 0) {
-      st[0] = m;
-      st[1] = l;
+#pragma unroll
+    for (int j = 0; j < QG; ++j) {
+      if (lane == 0) {
+        st[j * (HD + 2)] = m[j];
+        st[j * (HD + 2) + 1] = l[j];
+      }
+      st[j * (HD + 2) + 2 + 2 * lane] = acc[j].x;
+      st[j * (HD + 2) + 3 + 2 * lane] = acc[j].y;
     }
-    st[2 + 2 * lane] = acc.x;
-    st[3 + 2 * lane] = acc.y;
   }
   __syncthreads();
-  float mm = kNeg, ll = 0.f, aa = 0.f;
-  if (tid < HD) {
+  float mm[EPT], ll[EPT], aa[EPT];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      mm = fmaxf(mm, reinterpret_cast<const float*>(
-                         stages + w * 2 * split_stage<S, HD>())[0]);
+  for (int r = 0; r < EPT; ++r) {
+    const int e = tid + r * NT, j = e / HD, d = e % HD;
+    mm[r] = kNeg;
+    ll[r] = aa[r] = 0.f;
+    if (e >= QG * HD) continue;
+    auto state = [&](int w) {   // warp w's (m, l, acc) of query j
+      return reinterpret_cast<const float*>(
+                 stages + w * 2 * split_stage<S, HD>()) + j * (HD + 2);
+    };
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm[r] = fmaxf(mm[r], state(w)[0]);
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float* st = reinterpret_cast<const float*>(
-          stages + w * 2 * split_stage<S, HD>());
-      const float cw = expf(st[0] - mm);
-      ll += st[1] * cw;
-      aa += st[2 + tid] * cw;
+      const float* st = state(w);
+      const float cw = expf(st[0] - mm[r]);
+      ll[r] += st[1] * cw;
+      aa[r] += st[2 + d] * cw;
     }
   }
   if (n_live == 1) {
     // the whole row in this block: no partials, no counter
-    if (tid < HD) from_f32(aa / (ll == 0.f ? 1.f : ll), &out[row * HD + tid]);
+#pragma unroll
+    for (int r = 0; r < EPT; ++r) {
+      const int e = tid + r * NT;
+      if (e < QG * HD && e / HD < nq)
+        from_f32(aa[r] / (ll[r] == 0.f ? 1.f : ll[r]), &out[q_off + e]);
+    }
     return;
   }
 
-  // this chunk's partial: (m, l, acc [HD]), f32, unnormalised
-  float* part = work + (row * gridDim.x + c) * (HD + 2);
-  if (tid < HD) part[2 + tid] = aa;
-  if (tid == 0) {
-    part[0] = mm;
-    part[1] = ll;
+  // this chunk's partial: QG times (m, l, acc [HD]), f32, unnormalised
+  float* part = work + (rg * n_chunks + c) * PS;
+#pragma unroll
+  for (int r = 0; r < EPT; ++r) {
+    const int e = tid + r * NT, j = e / HD, d = e % HD;
+    if (e >= QG * HD) continue;
+    part[j * (HD + 2) + 2 + d] = aa[r];
+    if (d == 0) {
+      part[j * (HD + 2)] = mm[r];
+      part[j * (HD + 2) + 1] = ll[r];
+    }
   }
   __threadfence();   // the partial is visible before the arrival counts
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&counters[row], 1) == n_live - 1;
+  if (tid == 0) last = atomicAdd(&counters[rg], 1) == n_live - 1;
   __syncthreads();
   if (!last) return;
-  // the last block of (b, h) to arrive merges every live chunk's partial
+  // the last block of (b, h, g) to arrive merges every live chunk's
+  // partial, in chunk order
   __threadfence();
-  if (tid < HD) {
-    const float* p0 = work + row * gridDim.x * (HD + 2);
+  const float* p0 = work + rg * n_chunks * PS;
+#pragma unroll
+  for (int r = 0; r < EPT; ++r) {
+    const int e = tid + r * NT, j = e / HD, d = e % HD;
+    if (e >= QG * HD || j >= nq) continue;
     float M = kNeg;
-    for (int k = 0; k < n_live; ++k) M = fmaxf(M, __ldcg(p0 + k * (HD + 2)));
+    for (int k = 0; k < n_live; ++k)
+      M = fmaxf(M, __ldcg(p0 + k * PS + j * (HD + 2)));
     float L = 0.f, A = 0.f;
     for (int k = 0; k < n_live; ++k) {
-      const float* pk = p0 + k * (HD + 2);
+      const float* pk = p0 + k * PS + j * (HD + 2);
       const float ck = expf(__ldcg(pk) - M);
       L += __ldcg(pk + 1) * ck;
-      A += __ldcg(pk + 2 + tid) * ck;
+      A += __ldcg(pk + 2 + d) * ck;
     }
-    from_f32(A / (L == 0.f ? 1.f : L), &out[row * HD + tid]);
+    from_f32(A / (L == 0.f ? 1.f : L), &out[q_off + e]);
   }
-  if (tid == 0) counters[row] = 0;   // ready for the next launch
+  if (tid == 0) counters[rg] = 0;   // ready for the next launch
 }
 
 // One launch of the FMA or the tensor-core body: KERN's dynamic shared
@@ -1306,30 +1426,41 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One launch of the split decode body: a (ceil(P * page / kChunk), H, B)
-// grid over the caller's workspace, (B, H, chunks, HD + 2) f32 partials,
-// and (B, H) int counters that are 0 on entry and left 0.
-template <typename T, typename S, int MODE>
+// One launch of the split body with QG queries a block: a
+// (ceil(P * page / kChunk) * ceil(W / QG), H, B) grid over the caller's
+// workspace, (B, H, ceil(W / QG), chunks, QG, HD + 2) f32 partials, and
+// (B, H, ceil(W / QG)) int counters that are 0 on entry and left 0.
+template <typename T, typename S, int MODE, int QG>
 cudaError_t launch_split(const Args& a, cudaStream_t stream) {
-  constexpr size_t SMEM = split_smem<S, 64>();
+  constexpr size_t SMEM = split_smem<S, 64, QG>();
   if (a.work == nullptr || a.counters == nullptr) return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        pa_split_kernel<T, S, MODE, 64>,
+        pa_split_kernel<T, S, MODE, 64, QG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((a.P * a.page + kChunk - 1) / kChunk, a.H, a.B);
-  pa_split_kernel<T, S, MODE, 64><<<grid, kWarps * 32, SMEM, stream>>>(
+  if (a.body != nullptr) *a.body = 2;
+  const int groups = (a.W + QG - 1) / QG;
+  dim3 grid((a.P * a.page + kChunk - 1) / kChunk * groups, a.H, a.B);
+  pa_split_kernel<T, S, MODE, 64, QG><<<grid, kWarps * 32, SMEM, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kn),
       static_cast<const T*>(a.vn), static_cast<S*>(a.kp),
       static_cast<S*>(a.vp), static_cast<bf16*>(a.ks),
       static_cast<bf16*>(a.vs), a.bt, a.bound, a.wlo, a.whi,
-      static_cast<T*>(a.out), a.work, a.counters, a.H, a.P, a.page, a.scale);
+      static_cast<T*>(a.out), a.work, a.counters, a.H, a.W, a.P, a.page,
+      a.scale);
   return cudaGetLastError();
 }
+
+// The sweep's queries a block (K3, K4): one at W = 1, kReadGroup at
+// W > 1, every group re-reading its row's chunks (from L2: its groups run
+// side by side). No W goes back to the FMA body: on the H100 the split
+// body beat it at every W timed, 1, 4, 5, 16 and 64 (time_read.py, both
+// trees in one call: at W = 64, 0.153 against 0.262 ms on bf16 pages).
+int read_group(int W) { return W == 1 ? 1 : kReadGroup; }
 
 template <typename T, typename S, int MODE>
 cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
@@ -1338,24 +1469,22 @@ cudaError_t dispatch(int hd, const Args& a, cudaStream_t s) {
   // only the head dim of the models served so far; another one is
   // instantiated with the slice that brings a model needing it
   if (hd != 64) return cudaErrorInvalidValue;
-  if (a.W == 1) {
-    // the decode tick (K1, K2, K5a, K5b): split over the keys
-    if constexpr (MODE != kRead) {
-      if (a.body != nullptr) *a.body = 2;
-      return launch_split<T, S, MODE>(a, s);
-    } else {
-      return launch<pa_kernel<T, S, kRead, 64, 1>, T, S, 1,
-                    smem_bytes<64, 1>()>(a, s);
-    }
-  }
-  // K1 / K2 / K5a / K5b windows with bf16 queries: the tensor-core body
-  if constexpr (MODE != kRead && std::is_same<T, bf16>::value) {
-    if (a.body != nullptr) *a.body = 1;
-    return launch<pa_mma_kernel<S, 64, MODE>, bf16, S, kMq,
-                  mma_smem<64>()>(a, s);
+  if constexpr (MODE == kRead) {
+    // the sweep (K3, K4): split over the keys and the queries
+    if (read_group(a.W) == 1) return launch_split<T, S, kRead, 1>(a, s);
+    return launch_split<T, S, kRead, kReadGroup>(a, s);
   } else {
-    return launch<pa_kernel<T, S, MODE, 64, 8>, T, S, 8,
-                  smem_bytes<64, 8>()>(a, s);
+    // the decode tick (K1, K2, K5a, K5b): split over the keys
+    if (a.W == 1) return launch_split<T, S, MODE, 1>(a, s);
+    // windows with bf16 queries: the tensor-core body
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (a.body != nullptr) *a.body = 1;
+      return launch<pa_mma_kernel<S, 64, MODE>, bf16, S, kMq,
+                    mma_smem<64>()>(a, s);
+    } else {
+      return launch<pa_kernel<T, S, MODE, 64, 8>, T, S, 8,
+                    smem_bytes<64, 8>()>(a, s);
+    }
   }
 }
 
@@ -1430,14 +1559,21 @@ int mmlspark_pa_window_fused_q(int dtype, int store, int hd, const void* q,
 }
 
 // K3. Read-only: q (B, H, W, hd) attends the first lengths[b] keys; pools
-// in q's dtype; nothing is written but out.
+// in q's dtype; nothing is written but out. The split body runs over
+// `work`, at least (B, H, groups, ceil(P * page / chunk), group, hd + 2)
+// f32, and `counters`, (B, H, groups) int32, zero on entry and left zero,
+// with group = mmlspark_pa_read_group(W) queries a block and groups =
+// ceil(W / group). *body (may be null; the caller zeroes it) is set to 2,
+// the split body.
 int mmlspark_pa_read(int dtype, int hd, const void* q, const void* k_pages,
                      const void* v_pages, const int32_t* block_tables,
-                     const int32_t* lengths, void* out, int B, int H, int W,
-                     int P, int page, float scale, void* stream) {
+                     const int32_t* lengths, void* out, void* work,
+                     void* counters, int B, int H, int W, int P, int page,
+                     float scale, void* stream, int* body) {
   Args a{q, nullptr, nullptr, const_cast<void*>(k_pages),
          const_cast<void*>(v_pages), nullptr, nullptr, block_tables,
-         lengths, nullptr, nullptr, out, B, H, W, P, page, scale};
+         lengths, nullptr, nullptr, out, B, H, W, P, page, scale, body,
+         static_cast<float*>(work), static_cast<int*>(counters)};
   return int(plain_pools<kRead>(dtype, hd, a,
                                static_cast<cudaStream_t>(stream)));
 }
@@ -1448,12 +1584,14 @@ int mmlspark_pa_read_q(int dtype, int store, int hd, const void* q,
                        const void* k_pages, const void* v_pages,
                        const void* k_scale, const void* v_scale,
                        const int32_t* block_tables, const int32_t* lengths,
-                       void* out, int B, int H, int W, int P, int page,
-                       float scale, void* stream) {
+                       void* out, void* work, void* counters, int B, int H,
+                       int W, int P, int page, float scale, void* stream,
+                       int* body) {
   Args a{q, nullptr, nullptr, const_cast<void*>(k_pages),
          const_cast<void*>(v_pages), const_cast<void*>(k_scale),
          const_cast<void*>(v_scale), block_tables, lengths, nullptr,
-         nullptr, out, B, H, W, P, page, scale};
+         nullptr, out, B, H, W, P, page, scale, body,
+         static_cast<float*>(work), static_cast<int*>(counters)};
   return int(quant_pools<kRead>(dtype, store, hd, a,
                                static_cast<cudaStream_t>(stream)));
 }
@@ -1501,8 +1639,12 @@ int mmlspark_pa_window_read_q(int dtype, int store, int hd, const void* q,
                                   static_cast<cudaStream_t>(stream)));
 }
 
-// Keys a block of the split decode body reads (the workspace's chunk).
+// Keys a block of the split body reads (the workspace's chunk).
 int mmlspark_pa_split_chunk(void) { return kChunk; }
+
+// Queries a block of the read-only sweep holds at W queries a row (1 at
+// W = 1, else 4), for the workspace the caller passes.
+int mmlspark_pa_read_group(int W) { return read_group(W); }
 
 const char* mmlspark_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

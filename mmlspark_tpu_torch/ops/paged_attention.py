@@ -21,9 +21,11 @@ K2            :func:`paged_attention_window`  ``_pa_fused_kernel_q``
               ``.launches_q_mma``,
               ``.launches_q_split``)
 K3            :func:`paged_attention`         ``_pa_read_kernel``
-              (``.launches``)
+              (``.launches``; split body
+              ``.launches_split``)
 K4            :func:`paged_attention` with    ``_pa_read_kernel_q``
-              scales (``.launches_q``)
+              scales (``.launches_q``;
+              ``.launches_q_split``)
 K5a           :func:`paged_attention_window`  ``_pa_window_kernel``
               with ``mesh=``
               (``.launches_window``;
@@ -44,9 +46,8 @@ K5b           the same with scales            ``_pa_window_kernel_q``
 * :func:`paged_rounding_scale` is the window attention over absolute
   values, which scales the bf16 window kernels' error bound.
 
-Three bodies serve the six kernels, and the C entries of K1, K2, K5a
-and K5b report which one ran (counted in the ``_mma`` / ``_split``
-counters above):
+Three bodies serve the six kernels, and the C entries report which one
+ran (counted in the ``_mma`` / ``_split`` counters above):
 
 * the tensor-core body: K1, K2, K5a and K5b with bfloat16 queries and
   W > 1 (chunked-prefill chunks, prefix-suffix windows). It rounds each
@@ -54,17 +55,19 @@ counters above):
   bf16 once before it enters the P·V product, so its context lies within
   2⁻⁸ · :func:`paged_rounding_scale` (plus the rounding of the output
   itself) of the plain version run in f32;
-* the split decode body: K1, K2, K5a and K5b at W = 1 (the decode tick,
-  single-device or meshed), f32 or bf16 queries. Each (row, head)'s keys
-  are cut into fixed chunks, one block each, and the last block to
-  finish merges the partial softmax states in the same launch, through a
-  workspace and per-(row, head) counters that :func:`_split_workspace`
+* the split body: K1, K2, K5a and K5b at W = 1 (the decode tick,
+  single-device or meshed) and the read-only sweep K3/K4, f32 or bf16
+  queries. Each (row, head)'s keys are cut into fixed chunks, one block
+  each (the sweep's W queries also into groups of 4, a block each, one
+  query a block at W = 1), and the last block to finish merges the
+  partial softmax states in the same launch, through a workspace and
+  per-(row, head, group) counters that :func:`_split_workspace`
   allocates once per device and caches (zeroed once; every launch leaves
   them zero). K1/K2's page scatter runs in the block of the row's last
   live chunk, the one that reads the fresh key. Its math is f32, so its
   context differs from the plain version's only in the order of its
   sums;
-* the f32 FMA body: every other call (float32 windows, K3/K4), also
+* the f32 FMA body: float32 windows (K1, K2, K5a, K5b at W > 1), also
   within the order of its sums.
 
 The page pools (and scale pools) are updated IN PLACE (the JAX package
@@ -385,17 +388,20 @@ def _library():
             + body
         lib.mmlspark_pa_window_fused_q.argtypes = [ci, ci, ci] + [vp] * 14 \
             + shape + body
-        lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 6 + shape
-        lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 8 + shape
+        lib.mmlspark_pa_read.argtypes = [ci, ci] + [vp] * 8 + shape + body
+        lib.mmlspark_pa_read_q.argtypes = [ci, ci, ci] + [vp] * 10 + shape \
+            + body
         lib.mmlspark_pa_window_read.argtypes = [ci, ci] + [vp] * 10 + shape \
             + body
         lib.mmlspark_pa_window_read_q.argtypes = [ci, ci, ci] + [vp] * 12 \
             + shape + body
         lib.mmlspark_pa_split_chunk.argtypes = []
+        lib.mmlspark_pa_read_group.argtypes = [ci]     # W -> queries a block
         for fn in (lib.mmlspark_pa_window_fused, lib.mmlspark_pa_window_fused_q,
                    lib.mmlspark_pa_read, lib.mmlspark_pa_read_q,
                    lib.mmlspark_pa_window_read,
-                   lib.mmlspark_pa_window_read_q, lib.mmlspark_pa_split_chunk):
+                   lib.mmlspark_pa_window_read_q, lib.mmlspark_pa_split_chunk,
+                   lib.mmlspark_pa_read_group):
             fn.restype = ci
         lib.mmlspark_cuda_error_string.argtypes = [ci]
         lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
@@ -488,45 +494,51 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
-#: CUDA device -> (workspace, counters) of the split decode body, grown
-#: to the largest call so far and reused by every decode launch on the
-#: device: K1/K2 (:func:`_fused_window`) and K5a/K5b (:func:`_window_read`)
-#: share them. The counters are zeroed once, when allocated; every launch
-#: leaves them zero. Reuse across calls assumes one stream per device
-#: (the engine's, where the launches run one after another): two decode
-#: launches in flight on two streams of one device would share the
-#: buffers.
+#: CUDA device -> (workspace, counters) of the split body, grown to the
+#: largest call so far and reused by every split launch on the device:
+#: K1/K2 decode (:func:`_fused_window`), K5a/K5b decode
+#: (:func:`_window_read`) and K3/K4 (:func:`paged_attention`) share them.
+#: The counters are zeroed once, when allocated; every launch leaves them
+#: zero. Reuse across calls assumes one stream per device (the engine's,
+#: where the launches run one after another): two split launches in
+#: flight on two streams of one device would share the buffers.
 _split_buffers: dict = {}
 
 
 def _split_workspace(device, B: int, H: int, P: int, page: int, hd: int,
-                     chunk: int):
-    """The split decode body's scratch for a (B, H) call over a block
-    table of ``P`` pages: at least (B, H, ceil(P * page / chunk), hd + 2)
-    f32 partials and (B, H) int32 arrival counters, from the device's
+                     chunk: int, groups: int = 1, group: int = 1):
+    """The split body's scratch for a (B, H) call over a block table of
+    ``P`` pages whose W queries a row go in ``groups`` groups of
+    ``group`` queries a block (one group of one at a decode tick): at
+    least (B, H, groups, ceil(P * page / chunk), group, hd + 2) f32
+    partials and (B, H, groups) int32 arrival counters, from the device's
     cached buffers (a larger call reallocates them; no call launches a
     memset but one that grows the counters). Returns ``(work,
     counters)``."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    n_work = B * H * (-(-P * page // chunk)) * (hd + 2)
+    n_cnt = B * H * groups
+    n_work = n_cnt * (-(-P * page // chunk)) * group * (hd + 2)
     work, cnt = _split_buffers.get(device, (None, None))
-    if work is None or work.numel() < n_work or cnt.numel() < B * H:
+    if work is None or work.numel() < n_work or cnt.numel() < n_cnt:
         if work is None or work.numel() < n_work:
             work = torch.empty(n_work, dtype=torch.float32, device=device)
-        if cnt is None or cnt.numel() < B * H:
-            cnt = torch.zeros(B * H, dtype=torch.int32, device=device)
+        if cnt is None or cnt.numel() < n_cnt:
+            cnt = torch.zeros(n_cnt, dtype=torch.int32, device=device)
         _split_buffers[device] = (work, cnt)
     return work, cnt
 
 
-def _scratch(lib, out, B: int, H: int, W: int, P: int, page: int):
-    """``(out, work, counters)`` pointers of a window launch: the split
-    decode body's cached workspace at W = 1, none at W > 1."""
-    if W > 1:
+def _scratch(lib, out, P: int, page: int, group: int):
+    """``(out, work, counters)`` pointers of a launch over a block table
+    of ``P`` pages: the split body's cached workspace when it runs with
+    ``group`` queries a block (ceil(W / group) groups a row), none when
+    ``group`` is 0 (a window on another body)."""
+    if not group:
         return out.data_ptr(), None, None
-    work, cnt = _split_workspace(out.device, B, H, P, page, out.shape[-1],
-                                 lib.split_chunk)
+    B, H, W, hd = out.shape
+    work, cnt = _split_workspace(out.device, B, H, P, page, hd,
+                                 lib.split_chunk, -(-W // group), group)
     return out.data_ptr(), work.data_ptr(), cnt.data_ptr()
 
 
@@ -548,7 +560,7 @@ def _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos, scale: float,
     B, H, W, hd = q.shape
     lib = _library()
     out = torch.empty_like(q)
-    scratch = _scratch(lib, out, B, H, W, bt.shape[1], k_pages.shape[2])
+    scratch = _scratch(lib, out, bt.shape[1], k_pages.shape[2], int(W == 1))
     shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
     body = ctypes.c_int(0)
     with torch.cuda.device(q.device):
@@ -596,7 +608,7 @@ def _fused_window(q, k_new, v_new, k_pages, v_pages, bt, pos, wlo, whi,
     B, H, W, hd = q.shape
     lib = _library()
     out = torch.empty_like(q)
-    scratch = _scratch(lib, out, B, H, W, bt.shape[1], k_pages.shape[2])
+    scratch = _scratch(lib, out, bt.shape[1], k_pages.shape[2], int(W == 1))
     shape = (B, H, W, bt.shape[1], k_pages.shape[2], float(scale))
     body = ctypes.c_int(0)
     ints = (bt.data_ptr(), pos.data_ptr(), wlo.data_ptr(), whi.data_ptr())
@@ -723,8 +735,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     nothing is written.
 
     CPU tensors run :func:`paged_attention_plain`. CUDA tensors launch
-    the hand-written kernel (K3, or K4 with scales) and count it in
-    ``paged_attention.launches`` (K3) or ``.launches_q`` (K4).
+    the hand-written kernel (K3, or K4 with scales) on the current stream
+    and count it in ``paged_attention.launches`` (K3) or ``.launches_q``
+    (K4), and by the body the library reports: ``.launches(_q)_split``
+    (the split body, over the cached workspace of
+    :func:`_split_workspace`, one query a block at W = 1 and groups of 4
+    at W > 1); anything the kernel does not take raises.
 
     With ``mesh=`` the arguments are this rank's head shard (q's heads
     and the pools' heads over ``head_axis``); the sweep runs on the shard
@@ -747,7 +763,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _cuda_ready(q)
     lib = _library()
     out = torch.empty_like(q)
+    scratch = _scratch(lib, out, bt.shape[1], page,
+                       lib.mmlspark_pa_read_group(W))
     shape = (B, H, W, bt.shape[1], page, float(scale))
+    body = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if quant:
@@ -755,21 +774,28 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                 _DTYPES[q.dtype], _STORES[k_pages.dtype], hd, q.data_ptr(),
                 k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), *shape, stream)
+                *scratch, *shape, stream, ctypes.byref(body))
         else:
             err = lib.mmlspark_pa_read(
                 _DTYPES[q.dtype], hd, q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), *shape, stream)
+                *scratch, *shape, stream, ctypes.byref(body))
     _raise_on(lib, err, "read-only paged attention")
+    pa = paged_attention
     if quant:
-        paged_attention.launches_q += 1
+        pa.launches_q += 1
+        pa.launches_q_split += int(body.value == 2)
     else:
-        paged_attention.launches += 1
+        pa.launches += 1
+        pa.launches_split += int(body.value == 2)
     return out
 
 
 #: kernel launches since the last reset: K3 (``launches``) and K4
-#: (``launches_q``)
+#: (``launches_q``); of each, those the library reports it ran on the
+#: split body (``launches_split``, ``launches_q_split``); the plain CPU
+#: path never counts
 paged_attention.launches = 0
 paged_attention.launches_q = 0
+paged_attention.launches_split = 0
+paged_attention.launches_q_split = 0

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``mmlspark_tpu_torch``,
-``chip_smoke`` and ``time_window_read`` loads neither JAX nor any module
+``chip_smoke`` and the root timing scripts (``time_window_read``,
+``time_hist``, ``time_read``) loads neither JAX nor any module
 of the JAX package, and its entry points refuse to fall back to the CPU
 when no card is present. Checked in a fresh interpreter with a clean environment, since
 this test process has JAX loaded already (``tests/conftest.py``)."""
@@ -18,6 +19,8 @@ import torch
 import mmlspark_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the scripts at the repo's root that run on the card
+ROOT_SCRIPTS = ["chip_smoke", "time_window_read", "time_hist", "time_read"]
 
 
 def _port_modules():
@@ -51,8 +54,7 @@ def test_every_port_module_is_listed():
 def test_imports_load_no_jax_and_no_reference_package():
     code = (
         "import importlib, json, sys\n"
-        f"for name in {_port_modules()!r} + ['chip_smoke',\n"
-        "                                    'time_window_read']:\n"
+        f"for name in {_port_modules()!r} + {ROOT_SCRIPTS!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) or\n"
@@ -95,7 +97,7 @@ def test_sources_name_no_reference_import():
     """A static check too: no port source imports jax or the JAX
     package (``mmlspark_tpu_torch`` itself does not trip it)."""
     files = list((ROOT / "mmlspark_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "time_window_read.py"]
+    files += [ROOT / f"{name}.py" for name in ROOT_SCRIPTS]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

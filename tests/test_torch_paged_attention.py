@@ -518,7 +518,7 @@ def test_quant_wrapper_checks_inputs(bad):
 def test_cuda_quant_kernels_match_plain_version(kv_dtype):
     """On the card: K2 and K4 against their plain versions at a full-width
     head shape, pages and scales bitwise, ctx within bf16 rounding (K2
-    plus the tensor-core body's bound: W = 8)."""
+    plus the tensor-core body's bound: W = 8), K4 on the split body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, H, W, hd, page, P = 4, 12, 8, 64, 16, 8
@@ -546,9 +546,12 @@ def test_cuda_quant_kernels_match_plain_version(kv_dtype):
         assert np.array_equal(_bits_t(g.cpu())[1:], _bits_t(w.cpu())[1:])
     want = port_pa.paged_attention_plain(act[0], *pools[:2], bt_d, pos,
                                          1.0 / np.sqrt(hd), *pools[2:])
+    split0 = port_pa.paged_attention.launches_q_split
     got = port_pa.paged_attention(act[0], *pools[:2], bt_d, pos,
                                   k_scale=pools[2], v_scale=pools[3])
     torch.cuda.synchronize()
+    # K4 at W = 8 runs the split body, two groups of 4 queries a row
+    assert port_pa.paged_attention.launches_q_split == split0 + 1
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=1e-2, atol=4e-3)

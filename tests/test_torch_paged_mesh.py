@@ -26,6 +26,9 @@ JAX runs on the conftest's 8 host devices; the ranks run
 ``tests/test_torch_mesh_ranks.py``, which imports no JAX.
 """
 
+import functools
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -264,57 +267,109 @@ def _split_decode_emulation(q, kn, vn, pools, bt, pos, scale, write=None):
     by :func:`_quant_row`, when the page lies in [wlo, whi] (empty for an
     inactive row) and inside the block table."""
     B, H, _, hd = q.shape
-    page, P = pools[0].shape[2], bt.shape[1]
-    tile, chunk = SPLIT_TILE, SPLIT_WARPS * SPLIT_TILES * SPLIT_TILE
-
-    def merge(states):
-        m = torch.stack([s[0] for s in states]).amax(0)
-        c = [torch.exp(s[0] - m) for s in states]
-        return (m, sum(s[1] * ci for s, ci in zip(states, c)),
-                sum(s[2] * ci[:, None] for s, ci in zip(states, c)))
-
-    def online(state, s, v):           # one tile (or key): s (H, k)
-        m, l_, acc = state
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[:, None])
-        corr = torch.exp(m - m_new)
-        return (m_new, corr * l_ + p.sum(-1),
-                corr[:, None] * acc + torch.einsum("hk,khd->hd", p, v))
-
     out = torch.zeros(B, H, 1, hd)
     for b in range(B):
-        n = min(int(pos[b]), P * page)
-        keys = torch.arange(n)
-        pg, off = bt[b, keys // page].long(), keys % page
-        k, v = (pools[i][pg, :, off].float() for i in (0, 1))  # (n, H, hd)
-        if len(pools) == 4:
-            k = k * pools[2][pg, :, off].float()[..., None]
-            v = v * pools[3][pg, :, off].float()[..., None]
+        k, v = _live_rows(pools, bt, b, int(pos[b]))
         qb = q[b, :, 0].float()
-        n_live = max(1, -(-n // chunk))
+        chunks = _split_chunks(k.shape[0])
         parts = []
-        for c in range(n_live):
-            lo, hi = c * chunk, min((c + 1) * chunk, n)
-            warps = []
-            for w in range(SPLIT_WARPS):
-                st = (torch.full((H,), -1e30), torch.zeros(H),
-                      torch.zeros(H, hd))
-                for t in range(w, SPLIT_WARPS * SPLIT_TILES, SPLIT_WARPS):
-                    t0 = lo + t * tile
-                    if t0 < hi:
-                        t1 = min(t0 + tile, hi)
-                        s = torch.einsum("hd,khd->hk", qb, k[t0:t1]) * scale
-                        st = online(st, s, v[t0:t1])
-                if w == 0 and c == n_live - 1:
-                    s = (qb * kn[b, :, 0].float()).sum(-1)[:, None] * scale
-                    st = online(st, s, vn[b, :, 0].float()[None])
-                warps.append(st)
-            parts.append(merge(warps))
-            if write is not None and c == n_live - 1:
+        for c, (lo, hi) in enumerate(chunks):
+            warps = [_warp_walk(qb, k, v, lo, hi, w, scale)
+                     for w in range(SPLIT_WARPS)]
+            if c == len(chunks) - 1:
+                # warp 0 of the last live chunk takes the fresh key
+                s = (qb * kn[b, :, 0].float()).sum(-1)[:, None] * scale
+                warps[0] = _online(warps[0], s, vn[b, :, 0].float()[None])
+            parts.append(_merge(warps))
+            if write is not None and c == len(chunks) - 1:
                 _split_scatter(kn, vn, pools, bt, b, int(pos[b]),
                                int(write[0][b]), int(write[1][b]))
-        _, l_, acc = merge(parts)
+        _, l_, acc = _merge(parts)
         out[b, :, 0] = acc / torch.where(l_ == 0, 1.0, l_)[:, None]
+    return out
+
+
+def _merge(states):
+    """Softmax states (m, l, acc) merged: m (H, ...), acc (H, ..., hd)."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    c = [torch.exp(s[0] - m) for s in states]
+    return (m, sum(s[1] * ci for s, ci in zip(states, c)),
+            sum(s[2] * ci[..., None] for s, ci in zip(states, c)))
+
+
+def _online(state, s, v):
+    """One tile (or key) folded into a state: s (H, ..., k), v (k, H, hd)."""
+    m, l_, acc = state
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    return (m_new, corr * l_ + p.sum(-1),
+            corr[..., None] * acc + torch.einsum("h...k,khd->h...d", p, v))
+
+
+def _live_rows(pools, bt, b, bound):
+    """Row ``b``'s cached K and V below ``bound`` (never past the block
+    table) as (n, H, hd) f32, dequantized through their scales: only
+    these keys are gathered, so what lies past the bound is never
+    read."""
+    page, P = pools[0].shape[2], bt.shape[1]
+    keys = torch.arange(max(0, min(bound, P * page)))
+    pg, off = bt[b, keys // page].long(), keys % page
+    k, v = (pools[i][pg, :, off].float() for i in (0, 1))
+    if len(pools) == 4:
+        k = k * pools[2][pg, :, off].float()[..., None]
+        v = v * pools[3][pg, :, off].float()[..., None]
+    return k, v
+
+
+def _split_chunks(n):
+    """The live chunks [lo, hi) of a row of ``n`` keys: max(1, ceil(n /
+    chunk)), the one of an empty row holding no key."""
+    chunk = SPLIT_WARPS * SPLIT_TILES * SPLIT_TILE
+    return [(c * chunk, min((c + 1) * chunk, n))
+            for c in range(max(1, -(-n // chunk)))]
+
+
+def _warp_walk(qs, k, v, lo, hi, w, scale):
+    """Warp ``w``'s state over chunk [lo, hi): its tiles w, w +
+    SPLIT_WARPS, ... with an online softmax; ``qs`` (H, hd) or (H, QG,
+    hd), the state's m and l shaped like its scores less the key axis."""
+    lead = qs.shape[:-1]
+    st = (torch.full(lead, -1e30), torch.zeros(lead),
+          torch.zeros(qs.shape))
+    for t in range(w, SPLIT_WARPS * SPLIT_TILES, SPLIT_WARPS):
+        t0 = lo + t * SPLIT_TILE
+        if t0 < hi:
+            t1 = min(t0 + SPLIT_TILE, hi)
+            s = torch.einsum("h...d,khd->h...k", qs, k[t0:t1]) * scale
+            st = _online(st, s, v[t0:t1])
+    return st
+
+
+def _split_read_emulation(q, pools, bt, lengths, scale, group):
+    """The split body's read-only sweep (K3/K4, MODE kRead) in plain
+    PyTorch, f32: row b's keys [0, min(lengths[b], P * page)) are cut
+    into the live chunks of :func:`_split_chunks` and its W queries into
+    groups of ``group`` (1 at W = 1, 4 on the card at W > 1), the slots
+    past W zero; for each group and chunk the warps walk their tiles
+    (:func:`_warp_walk`), their states merge into the chunk's partial,
+    and the partials merge in chunk order into the group's context, of
+    which only the queries inside W are written. No fresh key, nothing
+    written but the output; a row with no key gives exactly 0."""
+    B, H, W, hd = q.shape
+    out = torch.zeros(B, H, W, hd)
+    for b in range(B):
+        k, v = _live_rows(pools, bt, b, int(lengths[b]))
+        for g0 in range(0, W, group):
+            nq = min(group, W - g0)
+            qs = torch.zeros(H, group, hd)
+            qs[:, :nq] = q[b, :, g0:g0 + nq].float()
+            parts = [_merge([_warp_walk(qs, k, v, lo, hi, w, scale)
+                             for w in range(SPLIT_WARPS)])
+                     for lo, hi in _split_chunks(k.shape[0])]
+            _, l_, acc = _merge(parts)
+            ctx = acc / torch.where(l_ == 0, 1.0, l_)[..., None]
+            out[b, :, g0:g0 + nq] = ctx[:, :nq]
     return out
 
 
@@ -428,10 +483,114 @@ def test_split_fused_emulation_matches_plain(store, page):
                    for t, b0 in zip(pools, before))
 
 
+#: the read emulation's rows: no key, one, around the first chunk
+#: boundary (255 / 256 / 257), the table's 1023rd key, and past the table
+READ_LENGTHS = [0, 1, 255, 256, 257, 1023, 1100]
+READ_CASES = [(d, s) for d in (jnp.float32, jnp.bfloat16)
+              for s in (None, "int8", "fp8")]
+
+
+@functools.lru_cache(maxsize=None)
+def _read_case(dtype, store, page):
+    """Seeded sweep inputs (H = 2, hd = 64, 9 queries a row) over a
+    shuffled block table of 1032 keys or more, the JAX ``paged_attention``
+    (interpret mode) on them, and the port's copies with NaN planted past
+    each row's length: in the values of plain pools, in the scales (and,
+    fp8, the codes) of quantized ones. A row's queries are independent,
+    so a call at W < 9 takes the first W of each row, ctx included.
+    Returns (q, pools, bt, lengths, JAX ctx in f32), the first three
+    torch."""
+    rng = np.random.default_rng(31)
+    B_, H_, W_, hd = len(READ_LENGTHS), 2, 9, 64
+    P_ = -(-1032 // page)
+    q = jnp.asarray(rng.normal(0, 1, (B_, H_, W_, hd)), dtype)
+    raw = [jnp.asarray(rng.normal(0, 1, (1 + B_ * P_, H_, page, hd)),
+                       jnp.float32) for _ in range(2)]
+    if store is None:
+        pools = [r.astype(dtype) for r in raw]
+        kw = {}
+    else:
+        st = ref_q.kv_store_dtype(store)
+        (kp, ks), (vp, vs) = (ref_q.quantize_kv(r, st) for r in raw)
+        pools, kw = [kp, vp], {"k_scale": ks, "v_scale": vs}
+    bt = (1 + rng.permutation(B_ * P_)).reshape(B_, P_).astype(np.int32)
+    lengths = np.array(READ_LENGTHS, np.int32)
+    want = ref_pa.paged_attention(q, *pools, jnp.asarray(bt),
+                                  jnp.asarray(lengths), interpret=True, **kw)
+    pools_t = [_to_torch(a) for a in pools + list(kw.values())]
+    keys = torch.arange(P_ * page)
+    for b, n in enumerate(READ_LENGTHS):
+        dead = keys >= n
+        pg, off = (torch.from_numpy(bt)[b, keys[dead] // page].long(),
+                   keys[dead] % page)
+        for t in (pools_t[:2] if store is None else pools_t[2:]):
+            t[pg, :, off] = float("nan")
+        if store == "fp8":
+            for t in pools_t[:2]:
+                t.view(torch.uint8)[pg, :, off] = 0x7F
+    return (_to_torch(q), pools_t, torch.from_numpy(bt),
+            torch.from_numpy(lengths), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("W", [1, 4, 5, 9])
+@pytest.mark.parametrize("page", [16, 1])
+@pytest.mark.parametrize("dtype,store", READ_CASES,
+                         ids=[f"{jnp.dtype(d).name}-{s or 'plain'}"
+                              for d, s in READ_CASES])
+def test_split_read_emulation_matches_plain_and_reference(dtype, store,
+                                                          page, W):
+    """K3/K4 on the split body (MODE kRead), one query a block at W = 1
+    and groups of 4 at W > 1 (W = 5 and 9 leave a group with one query
+    and three empty slots): the chunked partials and their merge, in f32,
+    equal the plain version to 1e-6 of the largest |ctx| and the JAX
+    ``paged_attention`` in interpret mode within the file's F32 (BF16
+    with bf16 queries, both rounded once) tolerance. The NaN planted past
+    every length stays out, the row with no key is exactly 0, and the
+    pools are only read."""
+    q9, pools, bt, lengths, want9 = _read_case(dtype, store, page)
+    q = q9[:, :, :W].contiguous()
+    scale = 64 ** -0.5
+    before = [_t_bits(t) for t in pools]
+    group = 1 if W == 1 else 4
+    got = _split_read_emulation(q, pools, bt, lengths, scale, group)
+    plain = port_pa.paged_attention_plain(q.float(), pools[0], pools[1], bt,
+                                          lengths, scale, *pools[2:])
+    assert torch.isfinite(got).all() and torch.isfinite(plain).all()
+    torch.testing.assert_close(got, plain, rtol=0.0,
+                               atol=1e-6 * float(plain.abs().max()))
+    assert float(got[0].abs().max()) == 0.0
+    np.testing.assert_allclose(got.to(q.dtype).float().numpy(),
+                               want9[:, :, :W],
+                               **(F32 if dtype == jnp.float32 else BF16))
+    assert all(np.array_equal(_t_bits(t), b0) for t, b0 in zip(pools, before))
+
+
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("store", [None, "int8"])
+def test_read_wrapper_runs_plain_on_cpu_and_never_counts(store, W):
+    """``paged_attention`` on CPU tensors is the plain version, bitwise,
+    and no launch of any body: every K3/K4 counter stays put and no split
+    workspace is allocated on the CPU."""
+    q9, pools, bt, lengths, _ = _read_case(jnp.float32, store, 16)
+    q = q9[:, :, :W].contiguous()
+    pa = port_pa.paged_attention
+    names = ("launches", "launches_q", "launches_split", "launches_q_split")
+    before = [getattr(pa, n) for n in names]
+    kw = {"k_scale": pools[2], "v_scale": pools[3]} if store else {}
+    got = pa(q, pools[0], pools[1], bt, lengths, **kw)
+    want = port_pa.paged_attention_plain(q, pools[0], pools[1], bt, lengths,
+                                         64 ** -0.5, *pools[2:])
+    assert torch.equal(got, want)
+    assert [getattr(pa, n) for n in names] == before
+    assert torch.device("cpu") not in port_pa._split_buffers
+
+
 def test_split_workspace_is_cached_and_grows():
-    """The split body's scratch: (B, H, chunks, hd + 2) f32 partials and
-    (B, H) counters, zeroed once when allocated, reused by calls that
-    fit, reallocated (counters zeroed again) by one that does not."""
+    """The split body's scratch: (B, H, groups, chunks, group, hd + 2) f32
+    partials and (B, H, groups) counters, zeroed once when allocated,
+    reused by calls that fit (a decode tick's one group of one, or a
+    sweep's groups of 4), reallocated (counters zeroed again) by one that
+    does not, including a sweep with more groups than any call before."""
     dev = torch.device("cpu")
     port_pa._split_buffers.pop(dev, None)
     try:
@@ -447,6 +606,26 @@ def test_split_workspace_is_cached_and_grows():
         assert c4.numel() == 32 * 12 and not c4.any() and w4 is w3
         cached = port_pa._split_buffers[dev]
         assert cached[0] is w4 and cached[1] is c4
+        # the sweep at W = 4: one group of 4 a (row, head), 4 x the
+        # partials of a decode tick over the same table, same counters
+        c4[5] = 1
+        w5, c5 = port_pa._split_workspace(dev, 16, 12, 64, 16, 64, 256, 1, 4)
+        assert w5.numel() == 16 * 12 * 4 * 4 * 66 and c5 is c4
+        # W = 9: three groups; more counters than any call before
+        w6, c6 = port_pa._split_workspace(dev, 16, 12, 64, 16, 64, 256, 3, 4)
+        assert w6.numel() == 16 * 12 * 3 * 4 * 4 * 66
+        assert c6.numel() == 16 * 12 * 3 and not c6.any()
+        # a decode tick after it fits both
+        assert port_pa._split_workspace(dev, 16, 12, 64, 16, 64,
+                                        256) == (w6, c6)
+        # scratch pointers: the split body's buffers when it runs with
+        # ``group`` queries a block, none for another body
+        lib = types.SimpleNamespace(split_chunk=256)
+        out = torch.empty(16, 12, 9, 64)
+        assert port_pa._scratch(lib, out, 64, 16, 0) == (out.data_ptr(),
+                                                          None, None)
+        assert port_pa._scratch(lib, out, 64, 16, 4) == (
+            out.data_ptr(), w6.data_ptr(), c6.data_ptr())
     finally:
         port_pa._split_buffers.pop(dev, None)
 
