@@ -110,8 +110,27 @@ Phases (any failure exits non-zero and prints no result line):
    (d) tp = 2 as two gloo processes sharing the card, six heads and a
    pool shard each: both ranks' f32 tokens equal each other's and 10b's
    over all 16 tokens, the decode steps on the split body.
+11. batched ONNX inference — ResNet-50 from ``export_resnet_onnx(RESNET50,
+   seed=0)`` through ``DataFrame`` → ``ONNXModel.transform`` (no hand
+   kernel on this path): (a) float32 logits of 32 uint8 NHWC rows from
+   the card's ONNX path, from ``resnet_apply`` on the card with the same
+   params and (4 rows) from the ONNX path on the CPU, within 1e-3 of the
+   largest |logit|, argmax identical; (b) bench.py's headline
+   configuration (2048 rows in an object column, batch 512, bf16,
+   transpose + ImageNet normalization + argmax on the card): warm-up
+   over the buckets the run hits, 3 timed passes, images/s (median),
+   the stage seconds (coerce, pad, h2d, dispatch, d2h), the batch
+   function and the graph alone on a resident batch of 512 (device ms
+   by CUDA events beside host issue ms; the graph channels-last and
+   contiguous NCHW), FLOPs an image from the graph's Conv and Gemm
+   shapes and the share of the bf16 peak, and the bf16 logits within
+   2^-4 of the largest f32 |logit| of (a), argmax equal wherever f32's
+   top-two gap exceeds that; (c) the same rows as a resident column
+   with ``output_device=True``: images/s, zero h2d bytes, outputs
+   bitwise (b)'s.
 
-``python3 chip_smoke.py 10`` runs phases 1, 2, 4 and 10 only,
+``python3 chip_smoke.py 11`` runs phases 1, 2 and 11 only,
+``python3 chip_smoke.py 10`` phases 1, 2, 4 and 10,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, ``python3 chip_smoke.py
 8`` phases 1, 2 and 8, ``python3 chip_smoke.py 7`` phases 1, 2, phase
 3's K3/K4 cases and 7, and ``python3 chip_smoke.py 3`` phases 1, 2 and
@@ -2388,6 +2407,253 @@ def phase_tp2(dev_info, want):
     return rec
 
 
+# bench.py's headline configuration (bench.py:1138-1175): ResNet-50 from
+# export_resnet_onnx(RESNET50, seed=0), 2048 uint8 224x224x3 NHWC rows in
+# an object column, batch 512, bfloat16, ImageNet normalization on device
+ONNX_BENCH = dict(rows=2048, batch=512, passes=3, parity_rows=32,
+                  cpu_rows=4)
+IMAGENET = {"scale": 1.0 / 255.0, "mean": [0.485, 0.456, 0.406],
+            "std": [0.229, 0.224, 0.225]}
+
+
+def _onnx_model(model_bytes, dtype, batch, device=None, **kw):
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    return ONNXModel(model_bytes, device=device,
+                     feed_dict={"input": "image"},
+                     fetch_dict={"logits": "logits"},
+                     argmax_dict={"pred": "logits"},
+                     transpose_dict={"input": [0, 3, 1, 2]},
+                     normalize_dict={"input": IMAGENET},
+                     mini_batch_size=batch, compute_dtype=dtype, **kw)
+
+
+def _graph_flops_per_image(m, x1):
+    """FLOPs of one image through the converted graph, counted from its
+    Conv and Gemm shapes (2 per multiply-add): the graph runs once on a
+    batch of one and every node's output shape is read from its
+    environment."""
+    import torch
+    from mmlspark_tpu_torch.onnx.convert import _Ctx, _eval_nodes
+    cm = m._ensure_converted()
+    params = m._params_for_device(x1.device)
+    env = dict(cm.const_params)
+    env.update(params)
+    env["input"] = x1
+    env[""] = None
+    with torch.inference_mode():
+        _eval_nodes(cm.model.graph.nodes, env, _Ctx(cm.model.opset,
+                                                     x1.device))
+    flops = 0
+    for node in cm.model.graph.nodes:
+        if node.op_type == "Conv":
+            w = env[node.input[1]]
+            flops += 2 * env[node.output[0]].numel() * w[0].numel()
+        elif node.op_type == "Gemm":
+            a, b = env[node.input[0]], env[node.input[1]]
+            k = a.shape[-1] if not node.attr("transA", 0) else a.shape[-2]
+            flops += 2 * env[node.output[0]].numel() * k
+    return flops
+
+
+def phase_onnx(dev_info):
+    """11a-11c: batched ONNX inference of ResNet-50 through
+    ``DataFrame`` → ``ONNXModel.transform`` (no hand kernel on this
+    path: convs are cuDNN, the head is cuBLAS)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.zoo.resnet import (RESNET50, ResNetConfig,
+                                                      export_resnet_onnx,
+                                                      init_resnet,
+                                                      resnet_apply)
+    dev = torch.device("cuda")
+    cfg = ONNX_BENCH
+    t0 = time.perf_counter()
+    model_bytes = export_resnet_onnx(RESNET50, seed=0)
+    export_s = time.perf_counter() - t0
+    X = np.random.default_rng(0).integers(0, 256, (cfg["rows"], 224, 224, 3),
+                                          dtype=np.uint8)
+    n32 = cfg["parity_rows"]
+
+    # 11a: f32 at full width (TF32 off since phase 1): the ONNX path on the
+    # card, resnet_apply on the card with the same params, and the ONNX
+    # path on the CPU over the first 4 rows. Tolerance: 1e-3 of the
+    # largest |logit| (f32 sum order over ResNet-50's 53 convs and the
+    # head; a wrong layout, pad or fold moves logits by O(max|logit|)).
+    f32 = _onnx_model(model_bytes, "float32", n32)
+    card = f32.transform(DataFrame({"image": X[:n32]}))["logits"]
+    with torch.inference_mode():
+        xf = torch.from_numpy(X[:n32]).to(dev).float()
+        mean = torch.tensor(IMAGENET["mean"], device=dev)
+        std = torch.tensor(IMAGENET["std"], device=dev)
+        xf = (xf * torch.tensor(IMAGENET["scale"], device=dev) - mean) / std
+        native = resnet_apply(init_resnet(RESNET50, seed=0), xf,
+                              ResNetConfig([3, 4, 6, 3],
+                                           dtype=torch.float32)
+                              ).cpu().numpy()
+    ncpu = cfg["cpu_rows"]
+    cpu = _onnx_model(model_bytes, "float32", ncpu, device="cpu").transform(
+        DataFrame({"image": X[:ncpu]}))["logits"]
+    tol = 1e-3 * float(np.abs(card).max())
+    err_native = float(np.abs(card - native).max())
+    err_cpu = float(np.abs(card[:ncpu] - cpu).max())
+    if card.shape != (n32, 1000) or not np.isfinite(card).all():
+        raise AssertionError(f"11a: logits {card.shape}, finite "
+                             f"{bool(np.isfinite(card).all())}")
+    if not (err_native <= tol and err_cpu <= tol):
+        raise AssertionError(f"11a: f32 logits off: vs resnet_apply "
+                             f"{err_native}, vs CPU {err_cpu}, bound {tol}")
+    if not ((card.argmax(1) == native.argmax(1)).all()
+            and (card[:ncpu].argmax(1) == cpu.argmax(1)).all()):
+        raise AssertionError("11a: f32 argmax differs between the card's "
+                             "ONNX path, resnet_apply and the CPU")
+    parity = {"rows": n32, "cpu_rows": ncpu, "bound": tol,
+              "max_abs_vs_resnet_apply": err_native,
+              "max_abs_vs_cpu": err_cpu, "max_abs_logit": float(
+                  np.abs(card).max()),
+              "distinct_argmax": int(len(set(card.argmax(1).tolist())))}
+    log(f"[onnx 11a] {json.dumps(parity)}")
+    del f32
+
+    # 11b: bench.py's configuration, host-fed: warm-up over the buckets
+    # the run hits, then timed passes, with cuDNN choosing algorithms per
+    # shape during the warm-up (benchmark mode, as XLA autotunes)
+    torch.backends.cudnn.benchmark = True
+    col = np.empty(cfg["rows"], dtype=object)
+    for i in range(cfg["rows"]):
+        col[i] = X[i]
+    df = DataFrame({"image": col})
+    batch = cfg["batch"]
+    m = _onnx_model(model_bytes, "bfloat16", batch)
+    warm_sizes = sorted({batch, cfg["rows"] % batch or batch})
+    warm = m.warm_up(batch_sizes=warm_sizes,
+                     input_specs={"input": (np.uint8, (224, 224, 3))})
+    m.transform(df.head(batch))                  # one untimed trip
+    torch.cuda.synchronize()
+    m.stage_counters.reset()
+    passes, out = [], None
+    for _ in range(cfg["passes"]):
+        t0 = time.perf_counter()
+        out = m.transform(df)
+        passes.append(time.perf_counter() - t0)
+    stages = m.stage_counters.snapshot()
+    ips = [cfg["rows"] / p for p in passes]
+    logits_b, pred_b = out["logits"], out["pred"]
+    if logits_b.shape != (cfg["rows"], 1000) or \
+            not np.isfinite(logits_b).all():
+        raise AssertionError(f"11b: logits {logits_b.shape}, finite "
+                             f"{bool(np.isfinite(logits_b).all())}")
+    # bf16 against 11a's f32 on the first 32 rows: 53 bf16 convs round
+    # activations once each (2^-9 relative), so the logits stay within
+    # 2^-4 of the largest f32 |logit|; argmax equal wherever f32's
+    # top-two gap exceeds that bound
+    bf_bound = 2.0 ** -4 * float(np.abs(card).max())
+    bf_err = float(np.abs(logits_b[:n32] - card).max())
+    top2 = np.sort(card, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > bf_bound
+    if not bf_err <= bf_bound:
+        raise AssertionError(f"11b: bf16 vs f32 logits {bf_err} above "
+                             f"{bf_bound}")
+    if not (pred_b[:n32][clear] == card.argmax(1)[clear]).all():
+        raise AssertionError("11b: bf16 argmax differs from f32 on a row "
+                             "whose top-two gap exceeds the bound")
+
+    # the converted graph alone on a resident batch of 512: the whole
+    # batch function (prep + graph + argmax) on uint8, then the graph on
+    # its prepped bf16 input channels-last and contiguous NCHW
+    fn = m._ensure_fn()
+    params = m._params_for_device(dev)
+    cm = m._ensure_converted()
+    x512 = torch.from_numpy(X[:batch]).to(dev)
+    with torch.inference_mode():
+        xin = x512.permute(0, 3, 1, 2).to(torch.bfloat16)
+        xin = xin * torch.tensor(IMAGENET["scale"], dtype=torch.bfloat16)
+        xin = (xin - torch.tensor(IMAGENET["mean"], device=dev).to(
+            torch.bfloat16).reshape(1, -1, 1, 1)) / torch.tensor(
+            IMAGENET["std"], device=dev).to(torch.bfloat16).reshape(
+            1, -1, 1, 1)
+        if not xin.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("11b: the permuted uint8 batch is not "
+                                 "channels-last")
+        flops_img = _graph_flops_per_image(m, xin[:1])
+        nchw_params = {k: v.contiguous() for k, v in params.items()}
+        xin_nchw = xin.contiguous()
+        calls = {
+            "batch_fn_channels_last": lambda: fn(params, {"input": x512}),
+            "graph_channels_last": lambda: cm(params, {"input": xin}),
+            "graph_nchw": lambda: cm(nchw_params, {"input": xin_nchw})}
+        for f in calls.values():
+            f()                  # cuDNN picks each layout's algorithms
+        torch.cuda.synchronize()
+        # interleaved, as the measuring guide asks of two versions
+        dev_ms = {k: [] for k in calls}
+        for _ in range(2):
+            for k, f in calls.items():
+                dev_ms[k].append(_cuda_ms([f], 10))
+        host_ms = {k: _host_ms([f], 5) for k, f in calls.items()}
+    dev_ms = {k: statistics.median(v) for k, v in dev_ms.items()}
+    peak = dev_info["flops"]
+    host_fed = {
+        "rows": cfg["rows"], "batch": batch, "dtype": "bfloat16",
+        "export_s": export_s, "warm_up": warm,
+        "pass_s": passes, "images_per_s_passes": ips,
+        "images_per_s": statistics.median(ips),
+        "stage_seconds": {k: v["seconds"] for k, v in stages.items()},
+        "stage_bytes": {k: v["bytes"] for k, v in stages.items()
+                        if v["bytes"]},
+        "flops_per_image": flops_img,
+        "peak_share": statistics.median(ips) * flops_img / peak,
+        "graph_device_ms": dev_ms, "graph_host_ms": host_ms,
+        "graph_images_per_s": {k: batch / v * 1e3
+                               for k, v in dev_ms.items()},
+        "graph_peak_share": {k: batch * flops_img / (v * 1e-3) / peak
+                             for k, v in dev_ms.items()},
+        "bf16_vs_f32": {"rows": n32, "max_abs": bf_err, "bound": bf_bound,
+                        "argmax_rows_compared": int(clear.sum()),
+                        "argmax_equal_rows": int(
+                            (pred_b[:n32] == card.argmax(1)).sum()),
+                        "max_abs_logit_f32": float(np.abs(card).max())}}
+    log(f"[onnx 11b] {json.dumps(host_fed)} | {dev_info['smi']}")
+
+    # 11c: the same rows as a resident column, outputs kept on the card:
+    # zero h2d bytes in the runner, outputs bitwise 11b's
+    m.set(output_device=True)
+    resident = DataFrame({"image": X}).device_put(["image"])
+    torch.cuda.synchronize()
+    m.transform(resident.head(batch))
+    torch.cuda.synchronize()
+    m.stage_counters.reset()
+    rpasses = []
+    for _ in range(cfg["passes"]):
+        t0 = time.perf_counter()
+        rout = m.transform(resident)
+        torch.cuda.synchronize()
+        rpasses.append(time.perf_counter() - t0)
+    rstages = m.stage_counters.snapshot()
+    if rstages["h2d"]["bytes"] != 0:
+        raise AssertionError(f"11c: {rstages['h2d']['bytes']} h2d bytes "
+                             f"on the resident feed")
+    if set(rout.resident_columns) != {"image", "logits", "pred"}:
+        raise AssertionError(f"11c: resident {rout.resident_columns}")
+    back = rout.to_host()
+    if not (np.array_equal(back["logits"], logits_b)
+            and np.array_equal(back["pred"].astype(np.int64), pred_b)):
+        raise AssertionError(
+            f"11c: resident outputs differ from 11b's: max |diff| "
+            f"{float(np.abs(back['logits'] - logits_b).max())}")
+    rips = [cfg["rows"] / p for p in rpasses]
+    res = {"pass_s": rpasses, "images_per_s_passes": rips,
+           "images_per_s": statistics.median(rips),
+           "peak_share": statistics.median(rips) * flops_img / peak,
+           "stage_seconds": {k: v["seconds"] for k, v in rstages.items()},
+           "h2d_bytes": rstages["h2d"]["bytes"]}
+    log(f"[onnx 11c] {json.dumps(res)} | {dev_info['smi']}")
+    torch.backends.cudnn.benchmark = False
+    del m, resident, rout, params, nchw_params, x512, xin, xin_nchw
+    torch.cuda.empty_cache()
+    return {"parity_f32": parity, "host_fed": host_fed, "resident": res}
+
+
 def _phase10(params_np, dev_info, single, q8):
     """10a-10d; the NCCL world of one that 10b and 10c share is left
     before 10d spawns its two gloo ranks."""
@@ -2444,10 +2710,10 @@ def main(argv=()):
     # 2, phase 3's K3/K4 cases and 7; "3": phases 1, 2 and 3; a partial
     # run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10"}
+    modes = {"3", "7", "8", "9", "10", "11"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9 and 10")
+            f"arguments are 3, 7, 8, 9, 10 and 11")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -2470,6 +2736,8 @@ def main(argv=()):
             single = phase_parity(params_np)
             _phase10(params_np, dev_info, single,
                      {"tok_per_s": None, "p50_tick_ms": None})
+        if "11" in only:
+            phase_onnx(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -2486,6 +2754,7 @@ def main(argv=()):
     train_rec = flash_recs["train bfloat16"]
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
     del params_np
+    phase_onnx(dev_info)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"

@@ -1,0 +1,468 @@
+"""ONNXModel — batched ONNX inference through the DataFrame API (counterpart
+of ``mmlspark_tpu/models/onnx_model.py``).
+
+Parity surface, as in the JAX package: ``feed_dict`` {model input →
+column} / ``fetch_dict`` {column → model output}, ``softmax_dict`` /
+``argmax_dict`` post-ops, minibatch → coerce → run per partition →
+flatten, and device selection per partition (round-robin over the local
+cards). The graph runs as PyTorch ops (:mod:`..onnx.convert`); batches are
+padded to power-of-two buckets (``ops/padding.py``), so the set of shapes
+cuDNN chooses algorithms for stays small.
+
+Input prep runs on the device after the transfer, in the reference's
+order: ``transpose_dict`` permutes (a uint8 NHWC batch permuted by
+[0, 3, 1, 2] is an NCHW view whose memory is already channels-last, so no
+copy is made), then a cast to ``compute_dtype``, then ``* scale``,
+``- mean`` and ``/ std``, each in that dtype. On the card, 4-D float
+params are held ``channels_last`` too, so convolutions run in cuDNN's
+NHWC layout end to end.
+
+The device is a constructor (and :meth:`ONNXModel.load`) keyword, not a
+persisted param: ``None`` means the CUDA card(s), and raises without one.
+``quantize="int8"``, ``tuning="auto"``, ``external_data_dir`` and
+``weights_override`` are not ported and raise ``NotImplementedError``
+naming their ROADMAP item when set; ``mesh_sharded`` raises when a
+batch is placed.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.dataframe import DataFrame
+from ..core.params import ComplexParam, Param
+from ..core.pipeline import Model
+from ..core.residency import DeviceColumn
+from ..onnx.convert import ConvertedModel, convert_model
+from ..ops.compile_cache import (StageCounters, resolve_input_specs,
+                                 warm_up_model)
+from ..parallel.mesh import feed_placement, local_devices
+from ..utils.device import resolve_device
+from .runner import BatchRunner, StagingSlabPool
+
+__all__ = ["ONNXModel"]
+
+#: params set away from their default that the port does not run yet, and
+#: the ROADMAP item each waits for (``mesh_sharded`` raises in
+#: ``parallel.mesh.feed_placement``)
+_NOT_PORTED = {
+    "quantize": "int8 weight-only quantization (ROADMAP queue item 4)",
+    "tuning": "tuning='auto' (ROADMAP queue item 4, after the tuner of "
+              "item 24)",
+    "external_data_dir": "ONNX external data (ROADMAP queue item 4)",
+    "weights_override": "weights_override from ONNX fine-tuning (ROADMAP "
+                        "queue items 4 and 23)",
+}
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+class ONNXModel(Model):
+    model_bytes = ComplexParam(doc="serialized ONNX ModelProto")
+    feed_dict = Param(dict, default={},
+                      doc="{model input name: dataframe column}")
+    fetch_dict = Param(dict, default={},
+                       doc="{output column: model output name}")
+    mini_batch_size = Param(int, default=64, doc="rows per device batch")
+    softmax_dict = Param(dict, default={}, doc="{output col: col to softmax}")
+    argmax_dict = Param(dict, default={}, doc="{output col: col to argmax}")
+    compute_dtype = Param(str, default="float32",
+                          choices=sorted(_TORCH_DTYPES),
+                          doc="cast float inputs/params to this dtype "
+                              "(bfloat16 recommended on the card)")
+    normalize_dict = Param(dict, default={},
+                           doc="{model input: {scale, mean, std}} applied on "
+                               "device after the dtype cast; mean/std "
+                               "broadcast over the channel axis (axis 1)")
+    transpose_dict = Param(dict, default={},
+                           doc="{model input: permutation} applied on device "
+                               "before normalization, e.g. NHWC uint8 images "
+                               "to the NCHW the graph expects: [0, 3, 1, 2]")
+    mesh_sharded = Param(bool, default=False,
+                         doc="not ported: SPMD inference over a device mesh")
+    external_data_dir = Param(str, default="",
+                              doc="not ported: sidecar files of models saved "
+                                  "with external data")
+    weights_override = ComplexParam(default=None,
+                                    doc="not ported: fine-tuned params "
+                                        "layered over the initializers")
+    quantize = Param(str, default="", choices=["", "int8"],
+                     doc="not ported: int8 weight-only quantization")
+    prefetch_depth = Param(int, default=2,
+                           doc="prepared batches coerced/padded ahead on a "
+                               "background worker while the current batch "
+                               "dispatches; 0 = prepare inline")
+    output_device = Param(bool, default=False,
+                          doc="keep fetch outputs device-resident (attached "
+                              "as DeviceColumns, no drain) so a downstream "
+                              "device stage or sink pays the single d2h; "
+                              "outputs keep their device dtypes (bf16 stays "
+                              "bf16) until DataFrame.to_host materializes "
+                              "them")
+    buckets = Param((list, int), default=[],
+                    doc="custom padding-bucket ladder (sorted batch sizes); "
+                        "empty = next-power-of-two. Warm-up and the runner "
+                        "derive every padded shape through the same ladder")
+    tuning = Param(str, default="", choices=["", "auto"],
+                   doc="not ported: measurement-driven tuning")
+
+    def __init__(self, model_bytes: Optional[bytes] = None, device=None,
+                 **kw):
+        self._init_state(resolve_device(device))
+        super().__init__(**kw)
+        if model_bytes is not None:
+            self.set(model_bytes=model_bytes)
+
+    def _init_state(self, device: Optional[torch.device]) -> None:
+        self._device = device
+        self._converted: Optional[ConvertedModel] = None
+        self._fn = None
+        self._fn_sig = None
+        self._fused_cols: set = set()
+        self._argmax_cols: set = set()
+        self._out_col_names: List[str] = []
+        self._device_params: Dict[tuple, dict] = {}
+        self._params_lock = threading.Lock()
+        self._counters = StageCounters()
+        self._staging: Dict[str, StagingSlabPool] = {}
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "ONNXModel":
+        """Load a saved model onto ``device`` (``None`` = the CUDA card)."""
+        stage = super().load(path)
+        stage._device = resolve_device(device)
+        return stage
+
+    @property
+    def device(self) -> torch.device:
+        """The device the model runs on; a model loaded inside a pipeline
+        resolves ``None`` (the card) on first use."""
+        if self._device is None:
+            self._device = resolve_device(None)
+        return self._device
+
+    @property
+    def stage_counters(self) -> StageCounters:
+        """coerce/pad/h2d/dispatch/d2h (and warm-up ``compile``)
+        instrumentation, cumulative over every transform/warm_up on this
+        instance."""
+        return self._counters
+
+    # -- metadata (proto-only, no session) ----------------------------------
+    def _ensure_converted(self) -> ConvertedModel:
+        if self._converted is None:
+            self._converted = convert_model(self.get("model_bytes"))
+        return self._converted
+
+    def _fetch_map(self, cm: ConvertedModel) -> Dict[str, str]:
+        return dict(self.fetch_dict) or {n: n for n in cm.output_names}
+
+    def _ensure_fn(self):
+        """One callable: model graph + softmax/argmax post-ops, so outputs
+        cross to the host exactly once."""
+        cm = self._ensure_converted()
+        fetch = self._fetch_map(cm)
+        softmax = {k: v for k, v in self.softmax_dict.items() if v in fetch}
+        argmax = {k: v for k, v in self.argmax_dict.items() if v in fetch}
+        normalize = dict(self.normalize_dict)
+        transpose = dict(self.transpose_dict)
+        float_inputs = {vi.name for vi in cm.inputs
+                        if np.issubdtype(vi.numpy_dtype, np.floating)}
+        bad_norm = set(normalize) - float_inputs
+        if bad_norm:
+            # normalizing an integer-typed model input would silently zero it
+            raise ValueError(
+                f"normalize_dict targets non-float model inputs "
+                f"{sorted(bad_norm)}; normalization requires a float-typed "
+                f"graph input")
+        compute_dt = _TORCH_DTYPES[self.compute_dtype]
+        sig = (tuple(sorted(fetch.items())), tuple(sorted(softmax.items())),
+               tuple(sorted(argmax.items())),
+               tuple(sorted((k, str(v)) for k, v in normalize.items())),
+               tuple(sorted((k, tuple(v)) for k, v in transpose.items())),
+               str(compute_dt))
+        if self._fn is None or self._fn_sig != sig:
+            if set(fetch.values()) != set(cm.output_names):
+                # dead-node elimination from the requested outputs
+                cm = cm.pruned(sorted(set(fetch.values())))
+
+            def prep(name, x):
+                """On-device input prep: layout, dtype cast, normalization.
+                Feeds cross the link in the column's own dtype (uint8 images
+                are 4x smaller than float32)."""
+                perm = transpose.get(name)
+                if perm is not None:
+                    x = x.permute(*perm)
+                if name in float_inputs and x.dtype != compute_dt:
+                    x = x.to(compute_dt)
+                spec = normalize.get(name)
+                if spec:
+                    shape = (1, -1) + (1,) * (x.ndim - 2)
+                    scale = spec.get("scale")
+                    if scale is not None:
+                        x = x * torch.tensor(scale, dtype=x.dtype)
+                    mean = spec.get("mean")
+                    if mean is not None:
+                        x = x - _constant(mean, x).reshape(shape)
+                    std = spec.get("std")
+                    if std is not None:
+                        x = x / _constant(std, x).reshape(shape)
+                return x
+
+            def run(params, feeds):
+                feeds = {k: prep(k, v) for k, v in feeds.items()}
+                outs = cm(params, feeds)
+                cols = {col: outs[name] for col, name in fetch.items()}
+                for out_col, src in softmax.items():
+                    cols[out_col] = torch.softmax(cols[src].float(), dim=-1)
+                for out_col, src in argmax.items():
+                    cols[out_col] = torch.argmax(cols[src], dim=-1).to(
+                        torch.int32)
+                return cols
+
+            self._fn = run
+            self._fn_sig = sig
+            self._fused_cols = set(softmax) | set(argmax)
+            self._argmax_cols = set(argmax)
+            self._out_col_names = list(fetch) + \
+                [c for c in self._fused_cols if c not in fetch]
+        return self._fn
+
+    def model_inputs(self) -> Dict[str, tuple]:
+        cm = self._ensure_converted()
+        return {vi.name: (vi.numpy_dtype, tuple(vi.shape)) for vi in cm.inputs}
+
+    def model_outputs(self) -> Dict[str, tuple]:
+        cm = self._ensure_converted()
+        return {vi.name: (vi.numpy_dtype, tuple(vi.shape))
+                for vi in cm.outputs}
+
+    # -- column coercion (parity: ONNXModel.coerceBatchedDf :564-584) -------
+    def _coerce(self, col, dtype, shape, device_prepped: bool = False):
+        """A column slice → the feed array. Host arrays: floats cross the
+        link as they are (float64 halved to float32), ints untouched, the
+        cast to compute_dtype happens on device. Device tensors: the same
+        policy as device ops, so the column never leaves the device."""
+        want = np.dtype(dtype)
+        if isinstance(col, torch.Tensor):
+            arr = col
+            if want.kind == "f":
+                if arr.dtype == torch.float64:
+                    arr = arr.float()
+            elif arr.dtype != torch.from_numpy(np.zeros(0, want)).dtype:
+                arr = arr.to(torch.from_numpy(np.zeros(0, want)).dtype)
+        else:
+            if col.dtype == object:
+                col = np.stack([np.asarray(v) for v in col])
+            arr = np.asarray(col)
+            if want.kind == "f":
+                if arr.dtype == np.float64 or arr.dtype.kind not in "fiu":
+                    arr = arr.astype(np.float32)
+            elif arr.dtype != want:
+                arr = arr.astype(want)
+        if device_prepped:
+            return arr  # layout handled on device; shape is not NCHW yet
+        # reshape flat rows to the model's per-row shape if one is declared
+        row_shape = [d for d in shape[1:] if isinstance(d, int)]
+        if row_shape and list(arr.shape[1:]) != row_shape \
+                and int(np.prod(arr.shape[1:])) == int(np.prod(row_shape)):
+            arr = arr.reshape((arr.shape[0],) + tuple(row_shape))
+        return arr
+
+    def _params_for_device(self, device: torch.device) -> dict:
+        """Float params on ``device`` in ``compute_dtype`` (moved as float32,
+        cast on the device), cached per device and dtype; 4-D ones
+        ``channels_last`` on the card."""
+        key = (str(device), self.compute_dtype)
+        with self._params_lock:
+            # staging stays under the lock: first touch per device is
+            # single-flight, so racing partitions do not both copy the
+            # weights
+            if key not in self._device_params:
+                cm = self._ensure_converted()
+                dt = _TORCH_DTYPES[self.compute_dtype]
+                out = {}
+                for k, v in cm.params.items():
+                    t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    if t.is_floating_point():
+                        t = t.to(dt)
+                    if device.type == "cuda" and t.ndim == 4:
+                        t = t.contiguous(memory_format=torch.channels_last)
+                    out[k] = t
+                self._device_params[key] = out
+            return self._device_params[key]
+
+    def set(self, **kwargs):
+        for k, what in _NOT_PORTED.items():
+            if k in kwargs and kwargs[k] not in (None, "", False):
+                raise NotImplementedError(f"{k}={kwargs[k]!r}: {what} is "
+                                          f"not ported yet")
+        return super().set(**kwargs)
+
+    # -- execution ----------------------------------------------------------
+    def _n_placements(self) -> int:
+        """Placements real traffic can hit: every local card when the
+        device names no index, else one."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            return max(1, len(local_devices()))
+        return 1
+
+    def _placement_params(self, pidx: int):
+        placement = feed_placement(self.mesh_sharded, pidx, self.device)
+        return placement, self._params_for_device(placement.device)
+
+    def _staging_for(self, device: torch.device) -> StagingSlabPool:
+        with self._params_lock:
+            pool = self._staging.get(str(device))
+            if pool is None:
+                pool = self._staging[str(device)] = StagingSlabPool(
+                    pin=device.type == "cuda")
+            return pool
+
+    def _run_batches(self, part: DataFrame, pidx: int) -> DataFrame:
+        """One partition through the shared feed/drain pipeline. Inference
+        mode is entered here, in the partition's own thread (it is
+        thread-local)."""
+        with torch.inference_mode():
+            return self._run_partition(part, pidx)
+
+    def _run_partition(self, part: DataFrame, pidx: int) -> DataFrame:
+        cm = self._ensure_converted()
+        fn = self._ensure_fn()
+        feed = self.feed_dict or {cm.input_names[0]: part.columns[0]}
+        in_meta = {vi.name: vi for vi in cm.inputs}
+        placement, params = self._placement_params(pidx)
+
+        # resident input columns feed device slices straight through — no
+        # host coercion, no staging slab, zero h2d payload; one concat per
+        # partition, then every batch slice is a view
+        resident = {col_name: part.device_column(col_name).device_array()
+                    for col_name in feed.values()
+                    if part.is_resident(col_name)}
+
+        def coerce(sl: slice) -> Dict[str, object]:
+            out = {}
+            for input_name, col_name in feed.items():
+                meta = in_meta[input_name]
+                dev = resident.get(col_name)
+                col = dev[sl] if dev is not None else part[col_name][sl]
+                out[input_name] = self._coerce(
+                    col, meta.numpy_dtype, meta.shape,
+                    device_prepped=input_name in self.transpose_dict)
+            return out
+
+        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        runner = BatchRunner(fn, params, coerce, placement.device,
+                             shards=placement.shards,
+                             mini_batch_size=self.mini_batch_size,
+                             prefetch_depth=self.prefetch_depth,
+                             counters=self._counters,
+                             staging=self._staging_for(placement.device),
+                             buckets=ladder)
+        if self.output_device:
+            # keep outputs resident: no drain — the sink (DataFrame.to_host
+            # or a downstream device stage) decides when to cross back
+            pending = runner.run(len(part))
+            out = part
+            for col_name in self._out_col_names:
+                chunks = [outs[col_name][:b] for outs, b in pending if b]
+                if not chunks:
+                    chunks = [torch.zeros((0,), dtype=torch.float32,
+                                          device=placement.device)]
+                out = out.with_device_column(
+                    col_name, DeviceColumn.from_device(chunks))
+            return out
+        pending = runner.run_and_drain(len(part))
+
+        out = part
+        for col_name in self._out_col_names:
+            chunks = [outs[col_name][:b] for outs, b in pending]
+            arr = np.concatenate(chunks) if chunks \
+                else np.zeros((0,), dtype=np.float32)
+            if col_name in self._argmax_cols:
+                arr = arr.astype(np.int64)
+            out = out.with_column(col_name, arr)
+        return out
+
+    # -- warm-up -------------------------------------------------------------
+    def warm_up(self, batch_sizes: Optional[List[int]] = None,
+                input_specs: Optional[Dict[str, tuple]] = None,
+                background: bool = False):
+        """Run one zero batch of every padding-bucket shape through the
+        graph on every placement real traffic can hit, before timing or
+        serving: cuDNN's algorithm choice, lazy module loading and the
+        allocator's growth happen here instead of in the first batches.
+
+        ``batch_sizes`` defaults to ``[mini_batch_size]``; pass the expected
+        ragged sizes too to warm their buckets. ``input_specs`` maps a
+        model input to its fed ``(dtype, per-row shape)`` and is required
+        when a column feeds a different dtype/layout than the graph
+        declares (uint8 HWC images into a float NCHW input via
+        ``transpose_dict``) or when the declared shape is symbolic.
+        ``background=True`` warms on a daemon thread and returns it;
+        otherwise returns ``{"buckets", "compiles", "seconds",
+        "placements"}`` (``compiles``: buckets run).
+        """
+        cm = self._ensure_converted()
+        fn = self._ensure_fn()
+        fed = dict(self.feed_dict) or {cm.input_names[0]: None}
+        specs = resolve_input_specs(cm.inputs, fed, self.transpose_dict,
+                                    overrides=input_specs)
+        sizes = [int(b) for b in (batch_sizes or [self.mini_batch_size])]
+        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        return warm_up_model(self, fn, specs, sizes, background=background,
+                             buckets=ladder)
+
+    def _transform(self, df: DataFrame) -> DataFrame:
+        self._ensure_fn()
+        out = df.map_partitions(self._run_batches)
+        # host fallback for post-ops whose source column does not come out
+        # of the graph (parity: softMaxTransform/argMaxTransform :519-562)
+        for out_col, src_col in self.softmax_dict.items():
+            if out_col in self._fused_cols:
+                continue
+            out = out.with_column(out_col, _host_softmax(out[src_col]))
+        for out_col, src_col in self.argmax_dict.items():
+            if out_col in self._fused_cols:
+                continue
+            out = out.with_column(out_col, _host_argmax(out[src_col]))
+        return out
+
+    # -- persistence: rebuild run state after load --------------------------
+    def _load_extra(self, path: str) -> None:
+        # the device is not persisted: ``load(path, device=...)`` sets it,
+        # a stage loaded inside a pipeline resolves the card on first use
+        self._init_state(None)
+
+
+def _constant(values, x: torch.Tensor) -> torch.Tensor:
+    """A normalization constant in ``x``'s dtype on ``x``'s device."""
+    return torch.tensor(values, dtype=torch.float32).to(x.device,
+                                                        non_blocking=True
+                                                        ).to(x.dtype)
+
+
+def _host_softmax(col: np.ndarray) -> np.ndarray:
+    if col.dtype != object:
+        v = np.asarray(col, dtype=np.float64)
+        e = np.exp(v - v.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+    probs = np.empty(len(col), dtype=object)
+    for i, v in enumerate(col):
+        v = np.asarray(v, dtype=np.float64)
+        e = np.exp(v - v.max(axis=-1, keepdims=True))
+        probs[i] = e / e.sum(axis=-1, keepdims=True)
+    return probs
+
+
+def _host_argmax(col: np.ndarray) -> np.ndarray:
+    if col.dtype != object:
+        return np.argmax(np.asarray(col), axis=-1).astype(np.int64)
+    return np.asarray([int(np.argmax(np.asarray(v))) for v in col],
+                      dtype=np.int64)

@@ -1,5 +1,11 @@
-"""Device meshes over the process world (counterpart of
-``parallel/mesh.py:108-149``).
+"""Device placement and meshes over the process world (counterpart of
+``parallel/mesh.py``: ``local_devices``, ``device_for_partition`` and
+``feed_placement`` at :27-98 for one process, ``make_mesh`` and the axis
+helpers at :108-149).
+
+A graph runner pins each DataFrame partition to a local card,
+round-robin (the reference's ``ONNXModel.selectGpuDevice``,
+``ONNXModel.scala:293-303``).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named
 dims, one rank per mesh point, over the group that
@@ -11,14 +17,59 @@ treat an axis the mesh does not name as size 1.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_mesh", "mesh_shape", "axis_size", "axis_rank",
-           "axis_group"]
+__all__ = ["local_devices", "device_for_partition", "feed_placement",
+           "Placement", "make_mesh", "mesh_shape", "axis_size",
+           "axis_rank", "axis_group"]
+
+
+def local_devices() -> List[torch.device]:
+    """This process's CUDA cards, in index order ([] when there is none:
+    the CPU is never a local device here, since no path falls back to
+    it)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_for_partition(partition_index: int) -> torch.device:
+    """Pin a data partition to a local card, round-robin; raises when no
+    card is present."""
+    devs = local_devices()
+    if not devs:
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "explicitly to run the plain PyTorch path")
+    return devs[partition_index % len(devs)]
+
+
+class Placement(NamedTuple):
+    """Where one partition's feeds go. ``shards`` is the multiple the
+    batch's leading dim pads to (1 on one device); ``key`` identifies the
+    placement for the per-device params cache and warm-up bookkeeping."""
+
+    device: torch.device
+    shards: int
+    key: tuple
+
+
+def feed_placement(use_mesh: bool, partition_index: int,
+                   device: Optional[torch.device] = None) -> Placement:
+    """Resolve where a graph runner's batches go: ``device`` when the
+    caller named one with an index (or the CPU), else a local card picked
+    round-robin by partition. A sharded placement over a mesh is not
+    ported (ROADMAP slice 6)."""
+    if use_mesh:
+        raise NotImplementedError(
+            "mesh_sharded placement (one batch sharded over a device "
+            "mesh) is not ported yet: ROADMAP slice 6")
+    if device is None or (device.type == "cuda" and device.index is None):
+        device = device_for_partition(partition_index)
+    return Placement(device, 1, ("device", str(device)))
 
 
 def make_mesh(axis_shapes: Optional[dict] = None, device: str = "cuda"):

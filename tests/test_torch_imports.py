@@ -47,7 +47,24 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.models.gbdt.train",
                  "mmlspark_tpu_torch.parallel.distributed",
                  "mmlspark_tpu_torch.parallel.mesh",
-                 "mmlspark_tpu_torch.parallel.launch"):
+                 "mmlspark_tpu_torch.parallel.launch",
+                 "mmlspark_tpu_torch.observability.registry",
+                 "mmlspark_tpu_torch.core.params",
+                 "mmlspark_tpu_torch.core.residency",
+                 "mmlspark_tpu_torch.core.dataframe",
+                 "mmlspark_tpu_torch.core.pipeline",
+                 "mmlspark_tpu_torch.core.schema",
+                 "mmlspark_tpu_torch.core.serialize",
+                 "mmlspark_tpu_torch.stages.batching",
+                 "mmlspark_tpu_torch.ops.padding",
+                 "mmlspark_tpu_torch.ops.compile_cache",
+                 "mmlspark_tpu_torch.models.runner",
+                 "mmlspark_tpu_torch.onnx.wire",
+                 "mmlspark_tpu_torch.onnx.proto",
+                 "mmlspark_tpu_torch.onnx.builder",
+                 "mmlspark_tpu_torch.onnx.convert",
+                 "mmlspark_tpu_torch.models.zoo.resnet",
+                 "mmlspark_tpu_torch.models.onnx_model"):
         assert want in names
 
 
