@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. device — a CUDA card must be present; prints its name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and cuDNN;
 2. build — compiles every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc
-   per source, all started together;
+   per source, all started together, and the native binning loop
+   (``native/fastpath.cpp``) with g++ beside them;
 3. kernels — each kernel (K1 on bf16 pages, K2 on int8 and fp8 pages, at
    a decode tick, serving's own decode over its 64-page block table, a
    2047-key straggler, a chunked-prefill extend at full width and
@@ -52,18 +53,23 @@ Phases (any failure exits non-zero and prints no result line):
    level shapes of an 11M x 28 run (1 ... 16 nodes), at 64 and 80
    nodes, at 256 nodes on ragged rows, on uint16 bins, bf16-rounded
    stats, bagged-out rows, a 2-bin feature and HIGGS's four 3-valued
-   b-tag columns at 16 nodes: counts bitwise, g/h within 2e-6 *
+   b-tag columns at 16 nodes, and class-batched levels (one launch for
+   7 classes at Covertype's 581,012 x 54 and 1, 4 and 16 nodes; 3
+   classes on uint16 bins): counts bitwise, g/h within 2e-6 *
    sum|stat| + 1e-7 of a float64 sum; times beside the plain version,
-   one ``index_add_`` and the bound, each case's launch plan; rows K6
+   one ``index_add_`` and the bound (the class-batched cases also
+   beside K single-class launches), each case's launch plan; rows K6
    must drop and fractional count weights on every body; and the
    shared-memory atomics the library compiled to; (b) one full-size
    tree (depth 5) through K6 and
    through the plain version: the same splits, or a recorded tie; (c)
-   ``train()`` on the repo's HIGGS-shaped 11,000,000 x 28 matrix, 100
-   iterations after a 1-iteration warm-up: exactly 5 K6 launches per
-   iteration and no plain call, train AUC above 0.75, a bitwise model
-   string round trip; bin, upload and boosting seconds, sec/iter and
-   K6's share of an iteration;
+   the native binning loop against the numpy loop on 1,000,000 rows of
+   the repo's HIGGS-shaped matrix (bins bitwise, seconds each), then
+   ``train()`` on all 11,000,000 x 28 of it, 100 iterations after a
+   1-iteration warm-up: exactly 5 K6 launches per iteration and no plain
+   call, every bin from the native loop, train AUC above 0.75, a bitwise
+   model string round trip; bin, upload and boosting seconds, sec/iter
+   and K6's share of an iteration;
 9. flash attention — (a) K7 (with and without stats), K8a and K8b
    against their plain versions at BERT-base (B=8, H=12, S=512, D=64,
    ragged padding masks with one fully padded row, NaN planted in every
@@ -129,7 +135,26 @@ Phases (any failure exits non-zero and prints no result line):
    with ``output_device=True``: images/s, zero h2d bytes, outputs
    bitwise (b)'s.
 
-``python3 chip_smoke.py 11`` runs phases 1, 2 and 11 only,
+12. GBDT estimators — (a) the north-star configuration through
+   ``LightGBMClassifier(device=None).fit`` on a ``DataFrame`` (the
+   HIGGS-shaped matrix as a 2-D ``features`` column, 8c's params): time
+   to model, 5 K6 launches an iteration, no plain call, every bin
+   native; the booster against 8c's ``train()`` (same trees' splits;
+   AUC within 1e-4 and probabilities within 1e-4 on average, since K6's
+   atomic order keeps two runs from being bitwise equal); ``transform``
+   of the first 1,000,000 rows, the probability column bitwise
+   ``Booster.predict``, train AUC above 0.75; (b) 7-class
+   ``objective="multiclass"`` at Covertype's shape (a seeded matrix,
+   labels the argmax of a sparse seeded linear map plus noise), 10% of
+   the rows in the validation column: 5 K6 launches an iteration (one
+   a level for all classes), no plain call, the first iteration's 7
+   trees through K6 and the plain version the same (or a recorded tie),
+   training multi-logloss below ln 7 / 2, probability rows summing to 1
+   within 1e-6, a bitwise model string round trip; sec/iter and K6's
+   share.
+
+``python3 chip_smoke.py 12`` runs phases 1, 2, 8c and 12 only,
+``python3 chip_smoke.py 11`` phases 1, 2 and 11,
 ``python3 chip_smoke.py 10`` phases 1, 2, 4 and 10,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, ``python3 chip_smoke.py
 8`` phases 1, 2 and 8, ``python3 chip_smoke.py 7`` phases 1, 2, phase
@@ -150,6 +175,7 @@ import threading
 import time
 import traceback
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -193,10 +219,16 @@ def phase_device():
 
 
 def phase_build():
+    from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    secs = cuda_build.build_all()
-    log(f"[build] {secs} (wall {time.perf_counter() - t0:.2f} s)")
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        # the native binning loop (g++) builds beside the kernels (nvcc)
+        host = ex.submit(native.build)
+        secs = cuda_build.build_all()
+        host.result()
+    log(f"[build] {secs}, native loop {native._target().name} "
+        f"(wall {time.perf_counter() - t0:.2f} s)")
     for name, text in cuda_build.build_logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -1237,7 +1269,108 @@ def _hist_case(dev_info, label, n, F, n_nodes, n_bins, seed,
 
 
 #: phase 8 at HIGGS's published size (scripts/bench_gbdt_higgs.py)
-GBDT = dict(rows=11_000_000, features=28, iters=100, ragged=1_000_003)
+GBDT = dict(rows=11_000_000, features=28, iters=100, ragged=1_000_003,
+            bin_rows=1_000_000)
+#: phase 12b at UCI Covertype's published shape (581,012 rows, 54
+#: features, 7 classes), 10% of the rows marked for validation
+COVTYPE = dict(rows=581_012, features=54, classes=7, iters=100, valid=0.1)
+
+
+def _class_hist_inputs(n, F, n_nodes, n_bins, K, seed, bin_dtype=None):
+    """One multiclass level's K6 inputs on the card, from ``seed``:
+    uniform bins (F, n), per-class uniform node ids (K, n), normal g and
+    uniform h (K, n), w = 1 (n,)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, n_bins, (F, n), generator=gen, device=dev,
+                         dtype=torch.int32).to(bin_dtype or torch.uint8)
+    node = torch.randint(0, n_nodes, (K, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g = torch.randn(K, n, generator=gen, device=dev)
+    h = torch.rand(K, n, generator=gen, device=dev)
+    return bins, node, g, h, torch.ones(n, device=dev)
+
+
+def hist_class_cases():
+    """Phase 8a's class-batched cases, (label, n, F, n_nodes, n_bins, K,
+    seed, options): 12b's Covertype shape at 7 classes and 1, 4 and 16
+    nodes (a depth-5 tree's first, third and last levels), and 3 classes
+    on uint16 bins (1024 bins, 4 nodes)."""
+    import torch
+    n, F, K = COVTYPE["rows"], COVTYPE["features"], COVTYPE["classes"]
+    return [(f"classes{K}_nodes{k}", n, F, k, 255, K, 40 + i, {})
+            for i, k in enumerate((1, 4, 16))] + [
+        ("classes3_uint16_bins1024", n, F, 4, 1024, 3, 43,
+         {"bin_dtype": torch.int16})]
+
+
+def _class_hist_case(dev_info, label, n, F, n_nodes, n_bins, K, seed,
+                     bin_dtype=None, reps=20):
+    """K6 over K classes in one launch against its plain version, then
+    its time beside K single-class launches on the same inputs, the plain
+    version, one ``index_add_`` over all K x n_nodes nodes' slots (the
+    library yardstick) and the bound (the bins read once)."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hm
+
+    dev = torch.device("cuda")
+    bin_dtype = bin_dtype or torch.uint8
+    args = _class_hist_inputs(n, F, n_nodes, n_bins, K, seed, bin_dtype)
+    bins, node, g, h, w = args
+    before = hm.level_histogram.launches
+    got = hm.level_histogram(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    if hm.level_histogram.launches != before + 1:
+        raise AssertionError(f"K6 {label}: {K} classes took "
+                             f"{hm.level_histogram.launches - before} "
+                             f"launches, not one")
+    plain = hm.level_histogram_plain(*args, n_nodes, n_bins)
+    ref = hm.level_histogram_plain(bins, node, g.double(), h.double(),
+                                   w.double(), n_nodes, n_bins)
+    mag = hm.level_histogram_plain(bins, node, g.abs().double(),
+                                   h.abs().double(), w.double(), n_nodes,
+                                   n_bins)
+    err, ratio = check_hist(f"K6 {label}", got, plain, ref, mag)
+    del got, plain, ref, mag
+    itemsize = 1 if bin_dtype == torch.uint8 else 2
+    nbytes = hm.hist_bytes(n, F, itemsize, n_nodes, n_bins, K)
+    copies = [[t.clone() for t in args] for _ in range(_copies(nbytes))]
+    ms = _cuda_ms([lambda c=c: hm.level_histogram(*c, n_nodes, n_bins)
+                   for c in copies], reps)
+
+    def singles(c):
+        for k in range(K):
+            hm.level_histogram(c[0], c[1][k], c[2][k], c[3][k], c[4],
+                               n_nodes, n_bins)
+    singles_ms = _cuda_ms([lambda c=c: singles(c) for c in copies], reps)
+    plain_ms = _cuda_ms([lambda c=c: hm.level_histogram_plain(
+        *c, n_nodes, n_bins) for c in copies], 3)
+    del copies
+    # library yardstick: one index_add_ of every (class, feature, row)
+    # triple's stats into the flattened (K * n_nodes * F * n_bins, 3)
+    # output
+    cls = torch.arange(K, device=dev)[:, None, None]
+    feat = torch.arange(F, device=dev)[None, :, None]
+    ids = (((cls * n_nodes + node.long()[:, None]) * F + feat) * n_bins
+           + hm.bins_as_int(bins).long()[None]).reshape(-1)
+    src = torch.stack([g, h, w.expand(K, n)], -1)[:, None].expand(
+        K, F, n, 3).reshape(-1, 3)
+    out = torch.zeros(K * n_nodes * F * n_bins, 3, device=dev)
+    library_ms = _cuda_ms([lambda: out.index_add_(0, ids, src)], 3)
+    del ids, src, out
+    torch.cuda.empty_cache()
+    plan = hm.hist_launch_plan(n, F, n_nodes, n_bins, itemsize,
+                               *hm._device_limits(dev), K)
+    rec = {"max_abs_err": err, "err_over_bound": ratio, "ms": ms,
+           "singles_ms": singles_ms, "plain_ms": plain_ms,
+           **_bound(dev_info, nbytes, 3 * n * F * K, peak="flops_f32"),
+           "bins_read_bytes": K * n * F * itemsize,
+           "library_ms": library_ms, "plan": plan._asdict(),
+           "shape": {"n": n, "F": F, "n_nodes": n_nodes, "n_bins": n_bins,
+                     "classes": K, "bins": str(bin_dtype).split(".")[-1]}}
+    log(f"[k6 {label}] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
 
 
 def hist_sass():
@@ -1318,16 +1451,46 @@ def hist_odd_rows():
 
 
 def phase_hist_kernel(dev_info):
-    """8a: K6 against its plain version at every case of ``hist_cases``,
-    on rows it must drop and fractional count weights, and the
+    """8a: K6 against its plain version at every case of ``hist_cases``
+    and ``hist_class_cases``, on rows it must drop and fractional count
+    weights, and the
     shared-memory atomics its library compiled to. Returns (the cases'
     records, the SASS counts)."""
     recs = {label: _hist_case(dev_info, label, *shape, **opts)
             for label, *shape, opts in hist_cases()}
+    recs.update({label: _class_hist_case(dev_info, label, *shape, **opts)
+                 for label, *shape, opts in hist_class_cases()})
     hist_odd_rows()
     sass = hist_sass()
     log(f"[k6 sass] {json.dumps(sass)}")
     return recs, sass
+
+
+def _tree_ties(what, kernel, plain):
+    """One tree's splits through K6 against the same through the plain
+    version, each (feats, thr_bins, gains) as numpy: the same split at
+    every node, or a tie (gains within 1e-5 relative) that is returned.
+    Nodes below a tie are not compared (their rows differ)."""
+    (fk, tk, gk), (fp, tp, gp) = kernel, plain
+    ties, tied = [], set()
+    for i in range(len(fk)):
+        anc, a = False, i
+        while a > 0:
+            a = (a - 1) // 2
+            anc = anc or a in tied
+        if anc or (fk[i], tk[i]) == (fp[i], tp[i]):
+            continue
+        gap = abs(float(gk[i]) - float(gp[i])) / max(abs(float(gp[i])), 1e-30)
+        log(f"[{what}] node {i}: kernel ({fk[i]}, {tk[i]}) gain "
+            f"{gk[i]!r} vs plain ({fp[i]}, {tp[i]}) gain {gp[i]!r}")
+        if gap > 1e-5:
+            raise AssertionError(f"{what}: node {i} splits differ with "
+                                 f"a gain gap of {gap:.3g} relative")
+        ties.append({"node": i, "kernel": [int(fk[i]), int(tk[i])],
+                     "plain": [int(fp[i]), int(tp[i])],
+                     "gain_kernel": float(gk[i]), "gain_plain": float(gp[i])})
+        tied.add(i)
+    return ties
 
 
 def phase_tree_parity(X, y, dev_info, depth=5):
@@ -1359,24 +1522,7 @@ def phase_tree_parity(X, y, dev_info, depth=5):
         for impl in ("kernel", "plain")}
     (fk, tk, lk, _, gk, _), (fp, tp, lp, _, gp, _) = (outs["kernel"],
                                                       outs["plain"])
-    ties, tied = [], set()
-    for i in range(len(fk)):
-        anc, a = False, i
-        while a > 0:
-            a = (a - 1) // 2
-            anc = anc or a in tied
-        if anc or (fk[i], tk[i]) == (fp[i], tp[i]):
-            continue
-        gap = abs(float(gk[i]) - float(gp[i])) / max(abs(float(gp[i])), 1e-30)
-        log(f"[tree parity] node {i}: kernel ({fk[i]}, {tk[i]}) gain "
-            f"{gk[i]!r} vs plain ({fp[i]}, {tp[i]}) gain {gp[i]!r}")
-        if gap > 1e-5:
-            raise AssertionError(f"tree parity: node {i} splits differ with "
-                                 f"a gain gap of {gap:.3g} relative")
-        ties.append({"node": i, "kernel": [int(fk[i]), int(tk[i])],
-                     "plain": [int(fp[i]), int(tp[i])],
-                     "gain_kernel": float(gk[i]), "gain_plain": float(gp[i])})
-        tied.add(i)
+    ties = _tree_ties("tree parity", (fk, tk, gk), (fp, tp, gp))
     rec = {"rows": len(y), "depth": depth, "nodes": len(fk),
            "stub_nodes": int((fk < 0).sum()),
            "identical": not ties, "ties": ties,
@@ -1388,15 +1534,49 @@ def phase_tree_parity(X, y, dev_info, depth=5):
     return rec
 
 
+def phase_binning(X, dev_info):
+    """8c's binning: the native loop and the numpy loop (its plain
+    version) on the same first ``GBDT["bin_rows"]`` rows of the HIGGS
+    matrix, in one call: the bins bitwise equal, and each loop's
+    seconds."""
+    import numpy as np
+    from mmlspark_tpu_torch.models.gbdt.binning import (BinMapper,
+                                                        bin_columns,
+                                                        bin_columns_plain)
+    part = X[:GBDT["bin_rows"]]
+    table, lengths = BinMapper(max_bin=255, seed=0).fit(X).bounds_table()
+    secs = {}
+    out = {}
+    for name, fn in (("native", bin_columns), ("numpy", bin_columns_plain),
+                     ("native_again", bin_columns)):
+        t0 = time.perf_counter()
+        out[name] = fn(part, table, lengths, False)
+        secs[name] = time.perf_counter() - t0
+    if not (np.array_equal(out["native"], out["numpy"])
+            and np.array_equal(out["native_again"], out["numpy"])):
+        raise AssertionError("the native loop's bins differ from numpy's")
+    rec = {"rows": len(part), "features": X.shape[1],
+           "native_s": secs["native"], "native_again_s": secs["native_again"],
+           "numpy_s": secs["numpy"],
+           "numpy_over_native": secs["numpy"] / min(secs["native"],
+                                                    secs["native_again"]),
+           "ns_per_element_native": min(secs["native"], secs["native_again"])
+           / part.size * 1e9,
+           "ns_per_element_numpy": secs["numpy"] / part.size * 1e9,
+           "bitwise_equal": True}
+    log(f"[binning] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
 def phase_gbdt(X, y, dev_info, hist_recs):
     """8c: ``train()`` at ``device=None`` on the HIGGS-shaped matrix, after
     a 1-iteration warm-up: K6 must launch exactly 5 times per iteration
-    and the plain version never; train AUC above 0.75; the model string
-    round trip predicts bitwise the same on the card."""
+    and the plain version never; every bin from the native loop and none
+    from numpy; train AUC above 0.75; the model string round trip
+    predicts bitwise the same on the card. Returns (its record, the
+    booster)."""
     import numpy as np
     from mmlspark_tpu_torch.models.gbdt import Booster, train
-    from mmlspark_tpu_torch.ops.histogram import (level_histogram,
-                                                  level_histogram_plain)
     from mmlspark_tpu_torch.utils.device import resolve_device
     iters = GBDT["iters"]
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
@@ -1405,16 +1585,12 @@ def phase_gbdt(X, y, dev_info, hist_recs):
     t0 = time.perf_counter()
     train({**params, "num_iterations": 1}, X, y)
     warm = time.perf_counter() - t0
-    level_histogram.launches = 0
-    level_histogram_plain.calls = 0
+    _zero_launch_counts()
     t0 = time.perf_counter()
     b = train(params, X, y)
     wall = time.perf_counter() - t0
-    launches, plain_calls = (level_histogram.launches,
-                             level_histogram_plain.calls)
-    if launches != 5 * iters or plain_calls != 0:
-        raise AssertionError(f"K6 launches {launches} (want {5 * iters}), "
-                             f"plain calls {plain_calls} (want 0)")
+    launches = _check_counts("8c train()", iters)
+    bins_native = _launch_counts()[2]
     if b.num_trees != iters or b.device != resolve_device():
         raise AssertionError(f"{b.num_trees} trees on {b.device}")
     t0 = time.perf_counter()
@@ -1441,8 +1617,238 @@ def phase_gbdt(X, y, dev_info, hist_recs):
            "predict_s": predict_s, "train_auc": auc,
            "k6_launches": launches, "k6_ms_per_iter": k6_ms,
            "k6_share_of_iter": k6_ms / (sec_iter * 1e3),
+           "bin_native_calls": bins_native,
            "stub_nodes": int((b.feats < 0).sum())}
     log(f"[gbdt] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec, b
+
+
+def _launch_counts():
+    """(K6 launches, plain K6 calls, native and numpy binning calls)."""
+    from mmlspark_tpu_torch.models.gbdt.binning import bin_columns
+    from mmlspark_tpu_torch.ops.histogram import (level_histogram,
+                                                  level_histogram_plain)
+    return (level_histogram.launches, level_histogram_plain.calls,
+            bin_columns.native_calls, bin_columns.plain_calls)
+
+
+def _zero_launch_counts():
+    from mmlspark_tpu_torch.models.gbdt.binning import bin_columns
+    from mmlspark_tpu_torch.ops.histogram import (level_histogram,
+                                                  level_histogram_plain)
+    level_histogram.launches = level_histogram_plain.calls = 0
+    bin_columns.native_calls = bin_columns.plain_calls = 0
+
+
+def _check_counts(what, iters):
+    """The main path's counts since :func:`_zero_launch_counts`: 5 K6
+    launches an iteration (num_leaves 31), no plain K6 call, the bins
+    from the native loop only. Returns the K6 launches."""
+    k6, plain, native, numpy_ = _launch_counts()
+    if k6 != 5 * iters or plain != 0 or native == 0 or numpy_ != 0:
+        raise AssertionError(f"{what}: K6 launches {k6} (want {5 * iters}), "
+                             f"plain calls {plain} (want 0), binning "
+                             f"{native} native / {numpy_} numpy calls")
+    return k6
+
+
+def phase_estimator_higgs(X, y, dev_info, b8c):
+    """12a: the north-star configuration through the estimator: the
+    HIGGS-shaped matrix as a ``DataFrame`` (a 2-D float ``features``
+    column and ``label``), ``LightGBMClassifier(device=None).fit`` with
+    8c's params; time to model (fit wall, binning, upload, sec/iter); 5
+    K6 launches an iteration; the booster against 8c's ``train()`` on the
+    same matrix (the same code path on one card, the same bins): not
+    bitwise, since K6 adds g and h in an order that changes from run to
+    run (ROADMAP.md, queue item 22), so as many trees, each tree's splits
+    compared, and on the transformed rows the same AUC within 1e-4 and
+    probabilities within 1e-4 on average; ``transform`` of the first
+    ``GBDT["bin_rows"]`` rows: probability equal to ``Booster.predict``
+    bitwise, train AUC above 0.75."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier
+    iters = GBDT["iters"]
+    df = DataFrame({"features": X, "label": y})
+    est = LightGBMClassifier(num_leaves=31, max_bin=255, learning_rate=0.1,
+                             num_iterations=iters, min_data_in_leaf=20)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    launches = _check_counts("12a fit", iters)
+    b = model.booster
+    if b.num_trees != b8c.num_trees:
+        raise AssertionError(f"12a: {b.num_trees} trees, 8c {b8c.num_trees}")
+    same_splits = [bool(np.array_equal(b.feats[t], b8c.feats[t])
+                        and np.array_equal(b.thr_raw[t], b8c.thr_raw[t]))
+                   for t in range(b.num_trees)]
+    rows = GBDT["bin_rows"]
+    t0 = time.perf_counter()
+    out = model.transform(DataFrame({"features": X[:rows]}))
+    transform_s = time.perf_counter() - t0
+    prob = np.stack(out["probability"])
+    want = b.predict(X[:rows])
+    if prob.shape != (rows, 2) or not np.array_equal(prob[:, 1], want):
+        raise AssertionError("12a: the probability column differs from "
+                             "Booster.predict")
+    if not np.array_equal(out["prediction"], np.argmax(
+            np.stack([1 - want, want], axis=1), axis=1).astype(float)):
+        raise AssertionError("12a: prediction is not the argmax")
+    auc = _auc(y[:rows], prob[:, 1])
+    if auc <= 0.75:
+        raise AssertionError(f"12a: train AUC {auc} <= 0.75")
+    p8c = b8c.predict(X[:rows])
+    auc8c, dp = _auc(y[:rows], p8c), np.abs(want - p8c)
+    if abs(auc - auc8c) > 1e-4 or dp.mean() > 1e-4:
+        raise AssertionError(f"12a: AUC {auc} vs 8c's {auc8c}, mean |dp| "
+                             f"{dp.mean()} (bounds 1e-4)")
+    ph = b.phase_seconds
+    rec = {"rows": len(y), "features": X.shape[1], "iterations": iters,
+           "fit_wall_s": fit_s, "bin_fit_s": ph["bin_fit"],
+           "bin_transform_s": ph["bin_transform"], "upload_s": ph["upload"],
+           "boost_s": ph["boost"], "sec_per_iter": ph["boost"] / iters,
+           "fit_other_s": fit_s - sum(ph.values()),
+           "transform_rows": rows, "transform_s": transform_s,
+           "train_auc_first_rows": auc, "k6_launches": launches,
+           "vs_8c": {"model_string_equal": b.to_string() == b8c.to_string(),
+                     "trees_with_equal_splits": sum(same_splits),
+                     "first_differing_tree": (same_splits.index(False)
+                                              if not all(same_splits)
+                                              else None),
+                     "leaf_max_abs_diff": float(np.abs(
+                         b.leaf_values - b8c.leaf_values).max()),
+                     "auc_8c": auc8c, "prob_max_abs_diff": float(dp.max()),
+                     "prob_mean_abs_diff": float(dp.mean())}}
+    log(f"[estimator 12a] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def make_covtype_like(n, f, k, seed=0):
+    """A Covertype-shaped problem from ``seed``: standard-normal features
+    and labels the argmax of a seeded linear map of them plus seeded
+    noise (learnable, not separable). The map weighs 4 of the features
+    for each class, as Covertype's classes turn on a few of its columns
+    (elevation above all)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0, 1, (n, f)).astype(np.float32)
+    W = np.zeros((f, k), dtype=np.float32)
+    for c in range(k):
+        W[rng.choice(f, 4, replace=False), c] = rng.normal(0, 1, 4)
+    noise = rng.normal(0, 1.0, (n, k)).astype(np.float32)
+    return X, np.argmax(X @ W + noise, axis=1).astype(np.float64)
+
+
+def _k6_level_ms(n, F, K, n_bins, depth):
+    """K6's device ms for one tree's levels (1 ... 2^(depth-1) nodes) at
+    K classes, on random inputs of the training shape."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hm
+    total = 0.0
+    for d in range(depth):
+        args = _class_hist_inputs(n, F, 2 ** d, n_bins, K, 50 + d)
+        total += _cuda_ms([lambda: hm.level_histogram(*args, 2 ** d, n_bins)],
+                          10)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_multiclass(dev_info):
+    """12b: 7-class ``LightGBMClassifier(objective="multiclass")`` at
+    Covertype's shape with 10% of the rows marked for validation: one K6
+    launch a level for all classes (5 an iteration, not 35) and no plain
+    call; the first iteration's 7 trees through K6 equal those through
+    the plain version on the card (or a recorded tie); training
+    multi-logloss below ln 7 / 2; probability rows summing to 1 within
+    1e-6; a bitwise model string round trip; sec/iter and K6's share."""
+    import math
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import (Booster, BinMapper,
+                                                LightGBMClassifier)
+    from mmlspark_tpu_torch.models.gbdt.objectives import (get_metric,
+                                                           get_objective)
+    from mmlspark_tpu_torch.models.gbdt.train import bins_on_device
+    from mmlspark_tpu_torch.models.gbdt.trees import build_tree
+    from mmlspark_tpu_torch.utils.device import resolve_device
+    n, F, K, iters = (COVTYPE["rows"], COVTYPE["features"],
+                      COVTYPE["classes"], COVTYPE["iters"])
+    X, y = make_covtype_like(n, F, K)
+    valid = np.random.default_rng(1).random(n) < COVTYPE["valid"]
+    df = DataFrame({"features": X, "label": y, "is_valid": valid})
+    est = LightGBMClassifier(objective="multiclass", num_leaves=31,
+                             max_bin=255, learning_rate=0.1,
+                             num_iterations=iters,
+                             validation_indicator_col="is_valid")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    launches = _check_counts("12b fit", iters)
+    b = model.booster
+    if b.num_class != K or b.num_trees != K * iters:
+        raise AssertionError(f"12b: {b.num_trees} trees of {b.num_class} "
+                             f"classes")
+    # the first iteration's trees, through K6 and through the plain version
+    Xt, yt = X[~valid], y[~valid]
+    dev = resolve_device()
+    mapper = BinMapper(max_bin=255, seed=0).fit(Xt)
+    bins = bins_on_device(mapper, Xt, dev)[0]
+    y_d = torch.as_tensor(yt, dtype=torch.float32).to(dev)
+    live = torch.ones(len(yt), dtype=torch.float32, device=dev)
+    g, h = get_objective("multiclass", num_class=K).grad_hess(
+        torch.zeros(len(yt), K, device=dev), y_d, live)
+    g, h = g.T.contiguous(), h.T.contiguous()
+    kw = dict(depth=5, n_bins=mapper.n_bins, lam=1e-10, alpha=0.0,
+              min_gain=0.0, min_child_weight=1e-3, min_data_in_leaf=20.0)
+    outs = {impl: [t.cpu().numpy() for t in build_tree(
+        bins, g, h, live, hist_impl=impl, **kw)]
+        for impl in ("kernel", "plain")}
+    (fk, tk, _, _, gk, _), (fp, tp, _, _, gp, _) = (outs["kernel"],
+                                                    outs["plain"])
+    ties = {k: _tree_ties(f"12b class {k}", (fk[k], tk[k], gk[k]),
+                          (fp[k], tp[k], gp[k])) for k in range(K)}
+    ties = {k: v for k, v in ties.items() if v}
+    fit_first_equal_plain = bool(np.array_equal(b.feats[:K], fp))
+    del bins, g, h
+    torch.cuda.empty_cache()
+    # training loss, the transform's probabilities, the model string
+    p_train = b.predict(Xt)
+    logloss = get_metric("multi_logloss")[1][0](yt, p_train, np.ones(len(yt)))
+    if not logloss < math.log(K) / 2:
+        raise AssertionError(f"12b: training multi-logloss {logloss} not "
+                             f"below ln {K} / 2")
+    t0 = time.perf_counter()
+    out = model.transform(df)
+    transform_s = time.perf_counter() - t0
+    prob = np.stack(out["probability"])
+    if prob.shape != (n, K) or not np.isfinite(prob).all() or \
+            np.abs(prob.sum(axis=1) - 1).max() > 1e-6:
+        raise AssertionError("12b: probability rows do not sum to 1")
+    again = Booster.from_string(b.to_string())
+    if again.to_string() != b.to_string() or not np.array_equal(
+            again.predict(X[valid]), b.predict(X[valid])):
+        raise AssertionError("12b: the model string round trip differs")
+    valid_logloss = get_metric("multi_logloss")[1][0](
+        y[valid], b.predict(X[valid]), np.ones(int(valid.sum())))
+    ph = b.phase_seconds
+    sec_iter = ph["boost"] / iters
+    k6_ms = _k6_level_ms(len(yt), F, K, mapper.n_bins, 5)
+    rec = {"rows": n, "train_rows": len(yt), "valid_rows": int(valid.sum()),
+           "features": F, "classes": K, "iterations": iters,
+           "fit_wall_s": fit_s, "bin_fit_s": ph["bin_fit"],
+           "bin_transform_s": ph["bin_transform"], "upload_s": ph["upload"],
+           "boost_s": ph["boost"], "sec_per_iter": sec_iter,
+           "k6_launches": launches, "k6_launches_per_iter": launches / iters,
+           "k6_ms_per_iter": k6_ms,
+           "k6_share_of_iter": k6_ms / (sec_iter * 1e3),
+           "train_multi_logloss": logloss, "valid_multi_logloss":
+           valid_logloss, "transform_s": transform_s,
+           "first_iteration_ties": ties,
+           "first_iteration_fit_equals_plain": fit_first_equal_plain}
+    log(f"[multiclass 12b] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
 
 
@@ -2672,13 +3078,20 @@ def _phase10(params_np, dev_info, single, q8):
     return win, mesh_par, serve, tp2
 
 
-def _phase8(dev_info):
+def _phase8(dev_info, X, y):
     """Phases 8a-8c."""
     hist_recs, sass = phase_hist_kernel(dev_info)
-    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     parity = phase_tree_parity(X, y, dev_info)
-    gbdt = phase_gbdt(X, y, dev_info, hist_recs)
-    return hist_recs, sass, parity, gbdt
+    binning = phase_binning(X, dev_info)
+    gbdt, b8c = phase_gbdt(X, y, dev_info, hist_recs)
+    gbdt["binning"] = binning
+    return hist_recs, sass, parity, gbdt, b8c
+
+
+def _phase12(dev_info, X, y, b8c):
+    """Phases 12a and 12b."""
+    return (phase_estimator_higgs(X, y, dev_info, b8c),
+            phase_multiclass(dev_info))
 
 
 def _phase9(dev_info):
@@ -2710,10 +3123,10 @@ def main(argv=()):
     # 2, phase 3's K3/K4 cases and 7; "3": phases 1, 2 and 3; a partial
     # run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11"}
+    modes = {"3", "7", "8", "9", "10", "11", "12"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10 and 11")
+            f"arguments are 3, 7, 8, 9, 10, 11 and 12")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -2728,8 +3141,16 @@ def main(argv=()):
             if "3" not in only:
                 phase_read_kernels(dev_info)
             phase_read_sweep(params_np, dev_info)
-        if "8" in only:
-            _phase8(dev_info)
+        if only & {"8", "12"}:
+            X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+            if "8" in only:
+                b8c = _phase8(dev_info, X, y)[-1]
+            else:
+                b8c = phase_gbdt(X, y, dev_info, {f"nodes{k}": {"ms": 0.0}
+                                 for k in (1, 2, 4, 8, 16)})[1]
+            if "12" in only:
+                _phase12(dev_info, X, y, b8c)
+            del X, y
         if "9" in only:
             _phase9(dev_info)
         if "10" in only:
@@ -2748,7 +3169,10 @@ def main(argv=()):
                              [32, 128, 384] * 3)
     f8 = phase_quant_serving(params_np, dev_info, "fp8", [32, 384])
     sweep = phase_read_sweep(params_np, dev_info)
-    hist_recs, sass, parity, gbdt = _phase8(dev_info)
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    hist_recs, sass, parity, gbdt, b8c = _phase8(dev_info, X, y)
+    est12a, multi12b = _phase12(dev_info, X, y, b8c)
+    del X, y, b8c
     flash_recs, flash_parity, infer, train, dec_mem = _phase9(dev_info)
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
@@ -2808,8 +3232,15 @@ def main(argv=()):
         {"name": "level_histogram", "route": "cuda",
          "source": "mmlspark_tpu_torch/csrc/histogram.cu",
          "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
-         "launches": gbdt["k6_launches"],
+         "launches": (gbdt["k6_launches"] + est12a["k6_launches"]
+                      + multi12b["k6_launches"]),
+         "launches_train_8c": gbdt["k6_launches"],
+         "launches_estimator_12a": est12a["k6_launches"],
+         "launches_multiclass_12b": multi12b["k6_launches"],
          **{k: hist_recs["nodes16"][k] for k in keys},
+         "class_batched": {label: {k: hist_recs[label][k]
+                                   for k in keys + ("singles_ms",)}
+                           for label, *_ in hist_class_cases()},
          "max_abs_err_all_cases": max(r["max_abs_err"]
                                       for r in hist_recs.values()),
          "cases": hist_recs, "sass_shared_atomics": sass,
@@ -2818,7 +3249,8 @@ def main(argv=()):
                           "step 1",
          "tree_parity": parity,
          "sec_per_iter": gbdt["sec_per_iter"],
-         "share_of_iter": gbdt["k6_share_of_iter"]}]
+         "share_of_iter": gbdt["k6_share_of_iter"],
+         "estimator_12a": est12a, "multiclass_12b": multi12b}]
     fsrc = "mmlspark_tpu_torch/csrc/flash_attention.cu"
     fref = "mmlspark_tpu/ops/flash_attention.py"
     sdpa = "F.scaled_dot_product_attention"

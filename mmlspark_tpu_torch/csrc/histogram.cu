@@ -14,6 +14,17 @@
 // stats (`kBf16`: the intrinsic torch's own conversion uses on this card,
 // so the values summed are bitwise what `.to(torch.bfloat16)` gives).
 //
+// Multiclass (K classes): the JAX package vmaps its tree build over the
+// classes, which puts a class axis on the TPU kernel's grid. Here the
+// class is the grid's second axis: plane k of blocks (blockIdx.y = k)
+// sums class k's node ids, g and h (rows k of (K, n) arrays) over the
+// shared bins and count weights into histogram k of the (K, n_nodes, F,
+// n_bins, 3) output, so one launch builds a level for all K classes.
+// Each plane reads the bins again (K * F * n bytes where the bound counts
+// F * n once); the alternative, a block adding each row it reads into all
+// K classes' tables, needs K tables in one block's shared memory, which
+// at 255 bins holds the lanes body's tables for one class only.
+//
 // The TPU kernel turned the scatter into a one-hot matmul on the MXU
 // because the TPU has no fast scatter; that does ~n_bins times the work.
 // Here the scatter is a scatter, into shared-memory tables.
@@ -186,7 +197,19 @@ hist_rows_kernel(const B* __restrict__ bins,
   float* tg = reinterpret_cast<float*>(smem);
   float* th = tg + plane;
   int* tc = reinterpret_cast<int*>(th + plane);
-  const long long total = (long long)n_nodes * F * n_bins;
+  // this block's class: its rows of node, g and h, its histogram's first
+  // slot in the output (slots are numbered over all classes, so add_out's
+  // alignment rule holds in every class's histogram)
+  const long long per_class = (long long)n_nodes * F * n_bins;
+  const long long obase = (long long)blockIdx.y * per_class;
+  const long long total = per_class * gridDim.y;
+  node += (long long)blockIdx.y * n;
+  g += (long long)blockIdx.y * n;
+  h += (long long)blockIdx.y * n;
+  // 16-byte loads need 16-byte aligned class rows (n % 4 == 0, or K = 1)
+  const bool vec = ((reinterpret_cast<uintptr_t>(node) |
+                     reinterpret_cast<uintptr_t>(g) |
+                     reinterpret_cast<uintptr_t>(h)) & 15) == 0;
 
   const unsigned gi = blockIdx.x % (unsigned)groups;
   const unsigned rest = blockIdx.x / (unsigned)groups;
@@ -209,11 +232,11 @@ hist_rows_kernel(const B* __restrict__ bins,
   }
 
   // a thread takes 4 consecutive rows at a time (rows_per_block is a
-  // multiple of 4, and node, g, h, w are 16-byte aligned)
+  // multiple of 4, and w is 16-byte aligned)
   for (long long r = r0 + 4LL * threadIdx.x; r < r1; r += 4LL * kThreads) {
     int nd[4];
     float gv[4], hv[4], wv[4];
-    if (r + 4 <= r1) {
+    if (vec && r + 4 <= r1) {
       const int4 a = __ldg(reinterpret_cast<const int4*>(node + r));
       const float4 b = __ldg(reinterpret_cast<const float4*>(g + r));
       const float4 c = __ldg(reinterpret_cast<const float4*>(h + r));
@@ -258,8 +281,8 @@ hist_rows_kernel(const B* __restrict__ bins,
           const unsigned b = (unsigned)col[r + k];
           const int s = rel[k] + (int)b;
           if (b < (unsigned)n_bins && (unsigned)s < (unsigned)ns)
-            add_out(out, ((long long)nd[k] * F + f0 + f) * n_bins + b, total,
-                    0.f, 0.f, wv[k]);
+            add_out(out, obase + ((long long)nd[k] * F + f0 + f) * n_bins + b,
+                    total, 0.f, 0.f, wv[k]);
         }
       }
     }
@@ -282,8 +305,8 @@ hist_rows_kernel(const B* __restrict__ bins,
           if (hv[k] != 0.f) atomicAdd(th + i, hv[k]);
           if (ones >> k & 1u) atomicAdd(tc + i, 1);
         } else {
-          add_out(out, ((long long)nd[k] * F + f0 + f) * n_bins + b, total,
-                  gv[k], hv[k], wv[k]);
+          add_out(out, obase + ((long long)nd[k] * F + f0 + f) * n_bins + b,
+                  total, gv[k], hv[k], wv[k]);
         }
       }
       cur = nxt;
@@ -298,7 +321,9 @@ hist_rows_kernel(const B* __restrict__ bins,
       const int slot = s0 + (i - f * ns);
       const int nd = slot / n_bins;
       const int j = f * chunk_slots + (i - f * ns);
-      add_out(out, ((long long)nd * F + f0 + f) * n_bins + (slot - nd * n_bins),
+      add_out(out,
+              obase + ((long long)nd * F + f0 + f) * n_bins +
+                  (slot - nd * n_bins),
               total, tg[j], th[j], (float)tc[j]);
     }
   }
@@ -328,7 +353,13 @@ hist_lanes_kernel(const uint8_t* __restrict__ bins,
   float* tg = reinterpret_cast<float*>(smem);
   float* th = tg + W * n_slots;
   int* tc = reinterpret_cast<int*>(th + W * n_slots);
-  const long long total = (long long)n_slots * F;
+  // this block's class (as in hist_rows_kernel)
+  const long long per_class = (long long)n_slots * F;
+  const long long obase = (long long)blockIdx.y * per_class;
+  const long long total = per_class * gridDim.y;
+  node += (long long)blockIdx.y * n;
+  g += (long long)blockIdx.y * n;
+  h += (long long)blockIdx.y * n;
   const int f0 = (int)(blockIdx.x % (unsigned)groups) * group;
   const int nf = min(group, F - f0);
   const long long r0 = (long long)(blockIdx.x / (unsigned)groups) *
@@ -401,8 +432,8 @@ hist_lanes_kernel(const uint8_t* __restrict__ bins,
       if (wj == 1.f)
         atomicAdd(tc + a, 1);
       else if (wj != 0.f)         // rare: a count weight other than 0 / 1
-        add_out(out, ((long long)ndj * F + f0 + fl) * n_bins + b, total,
-                0.f, 0.f, wj);
+        add_out(out, obase + ((long long)ndj * F + f0 + fl) * n_bins + b,
+                total, 0.f, 0.f, wj);
     }
   }
   __syncthreads();
@@ -412,14 +443,16 @@ hist_lanes_kernel(const uint8_t* __restrict__ bins,
     if (l >= nf) continue;
     const int slot = i / W;
     const int nd = slot / n_bins;
-    add_out(out, ((long long)nd * F + f0 + l) * n_bins + (slot - nd * n_bins),
+    add_out(out,
+            obase + ((long long)nd * F + f0 + l) * n_bins +
+                (slot - nd * n_bins),
             total, tg[i], th[i], (float)tc[i]);
   }
 }
 
 template <typename K, typename... Args>
-cudaError_t launch(K kern, unsigned blocks, int smem, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(K kern, unsigned blocks, unsigned classes, int smem,
+                   cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -428,7 +461,7 @@ cudaError_t launch(K kern, unsigned blocks, int smem, cudaStream_t stream,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kern<<<blocks, kThreads, smem, stream>>>(args...);
+  kern<<<dim3(blocks, classes), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -437,12 +470,12 @@ cudaError_t launch_lanes(int width, const uint8_t* bins, const int32_t* node,
                          const float* g, const float* h, const float* w,
                          float* out, long long n, int F, int n_nodes,
                          int n_bins, int group, int groups,
-                         long long rows_per_block, unsigned blocks, int smem,
-                         cudaStream_t stream) {
+                         long long rows_per_block, unsigned blocks,
+                         unsigned classes, int smem, cudaStream_t stream) {
 #define MMLSPARK_HIST_LANES(WIDTH)                                          \
-  return launch(hist_lanes_kernel<WIDTH, kBf16>, blocks, smem, stream, bins, \
-                node, g, h, w, out, n, F, n_nodes, n_bins, group, groups,   \
-                rows_per_block)
+  return launch(hist_lanes_kernel<WIDTH, kBf16>, blocks, classes, smem,     \
+                stream, bins, node, g, h, w, out, n, F, n_nodes, n_bins,    \
+                group, groups, rows_per_block)
   if (width == 32) MMLSPARK_HIST_LANES(32);
   if (width == 16) MMLSPARK_HIST_LANES(16);
   if (width == 8) MMLSPARK_HIST_LANES(8);
@@ -457,15 +490,16 @@ cudaError_t launch_rows(bool table, const void* bins, const int32_t* node,
                         float* out, long long n, int F, int n_nodes,
                         int n_bins, int group, int groups, int chunk_slots,
                         int chunks, long long rows_per_block,
-                        unsigned blocks, int smem, cudaStream_t stream) {
+                        unsigned blocks, unsigned classes, int smem,
+                        cudaStream_t stream) {
   const B* b = static_cast<const B*>(bins);
   if (table)
-    return launch(hist_rows_kernel<B, kBf16, true>, blocks, smem, stream, b,
-                  node, g, h, w, out, n, F, n_nodes, n_bins, group, groups,
-                  chunk_slots, chunks, rows_per_block);
-  return launch(hist_rows_kernel<B, kBf16, false>, blocks, smem, stream, b,
-                node, g, h, w, out, n, F, n_nodes, n_bins, group, groups,
-                chunk_slots, chunks, rows_per_block);
+    return launch(hist_rows_kernel<B, kBf16, true>, blocks, classes, smem,
+                  stream, b, node, g, h, w, out, n, F, n_nodes, n_bins,
+                  group, groups, chunk_slots, chunks, rows_per_block);
+  return launch(hist_rows_kernel<B, kBf16, false>, blocks, classes, smem,
+                stream, b, node, g, h, w, out, n, F, n_nodes, n_bins, group,
+                groups, chunk_slots, chunks, rows_per_block);
 }
 
 }  // namespace
@@ -475,12 +509,12 @@ extern "C" {
 // K6. body: 0 direct, 1 table, 2 lanes (`hist_launch_plan`'s `body`);
 // width: the lanes body's W (32, 16, 8 or 4), else 1.
 // bin_bytes: 1 (uint8 bins) or 2 (uint16 bits); bf16_stats: 1 rounds g, h,
-// w to bf16 on load. bins (F, n); node (n,) int32; g, h, w (n,) float32,
-// 16-byte aligned; out (n_nodes, F, n_bins, 3) float32, 16-byte aligned,
-// zeroed by the caller and added into. The plan (group, groups,
-// chunk_slots, chunks, rows_per_block, blocks, smem) is
-// `hist_launch_plan`'s; it is checked for consistency, not made here.
-// Returns cudaError_t.
+// w to bf16 on load. bins (F, n); node (classes, n) int32; g, h (classes,
+// n) float32; w (n,) float32; node, g, h, w 16-byte aligned; out (classes,
+// n_nodes, F, n_bins, 3) float32, 16-byte aligned, zeroed by the caller
+// and added into. The plan (group, groups, chunk_slots, chunks,
+// rows_per_block, blocks a class, classes, smem) is `hist_launch_plan`'s;
+// it is checked for consistency, not made here. Returns cudaError_t.
 int mmlspark_level_histogram(int body, int width, int bin_bytes,
                              int bf16_stats,
                              const void* bins, const void* node,
@@ -489,9 +523,10 @@ int mmlspark_level_histogram(int body, int width, int bin_bytes,
                              int n_bins, int group, int groups,
                              int chunk_slots, int chunks,
                              long long rows_per_block, long long blocks,
-                             int smem, void* stream) {
+                             int classes, int smem, void* stream) {
   if (n <= 0 || F <= 0 || n_nodes <= 0 || n_bins <= 0 || group <= 0 ||
-      groups <= 0 || chunk_slots <= 0 || chunks <= 0 || rows_per_block <= 0)
+      groups <= 0 || chunk_slots <= 0 || chunks <= 0 || rows_per_block <= 0 ||
+      classes <= 0 || classes > 65535)
     return int(cudaErrorInvalidValue);
   const long long n_slots = (long long)n_nodes * n_bins;
   const long long row_blocks = (n + rows_per_block - 1) / rows_per_block;
@@ -516,22 +551,23 @@ int mmlspark_level_histogram(int body, int width, int bin_bytes,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned nb = (unsigned)blocks;
+  const unsigned nc = (unsigned)classes;
   if (body == 2) {
     const uint8_t* b8 = static_cast<const uint8_t*>(bins);
     if (bf16_stats)
       return int(launch_lanes<true>(width, b8, nd, gf, hf, wf, o, n, F,
                                     n_nodes, n_bins, group, groups,
-                                    rows_per_block, nb, smem, s));
+                                    rows_per_block, nb, nc, smem, s));
     return int(launch_lanes<false>(width, b8, nd, gf, hf, wf, o, n, F,
                                    n_nodes, n_bins, group, groups,
-                                   rows_per_block, nb, smem, s));
+                                   rows_per_block, nb, nc, smem, s));
   }
   const bool table = body == 1;
 #define MMLSPARK_HIST_ROWS(B, BF16)                                         \
   return int(launch_rows<B, BF16>(table, bins, nd, gf, hf, wf, o, n, F,      \
                                   n_nodes, n_bins, group, groups,           \
                                   chunk_slots, chunks, rows_per_block, nb,  \
-                                  smem, s))
+                                  nc, smem, s))
   if (bin_bytes == 1 && bf16_stats) MMLSPARK_HIST_ROWS(uint8_t, true);
   if (bin_bytes == 1) MMLSPARK_HIST_ROWS(uint8_t, false);
   if (bin_bytes == 2 && bf16_stats) MMLSPARK_HIST_ROWS(uint16_t, true);

@@ -1,5 +1,5 @@
 """Feature binning for histogram GBDT (counterpart of
-``models/gbdt/binning.py``; the port's own copy, host-side numpy).
+``models/gbdt/binning.py``; the port's own copy, on the host).
 
 Continuous features are quantile-discretized into at most ``max_bin``
 integer bins, so tree training runs on a dense uint8/uint16 matrix. Bin 0
@@ -9,9 +9,11 @@ mapper. Sparse input (scipy CSR/CSC) bins column by column without
 materializing the dense float matrix.
 
 Bins are bitwise those of the JAX package: the same quantiles, the same
-``searchsorted(bounds, x, "left") + 1``. The dense transform runs the
-numpy loop of ``native/__init__.py:bin_columns`` (the JAX package's C++
-fast path is not carried over).
+``searchsorted(bounds, x, "left") + 1``. The dense float transform runs
+the port's native loop (``mmlspark_tpu_torch/native``, built with g++ at
+first use; a failed build raises), as the JAX package's does; the numpy
+loop :func:`bin_columns_plain` is its plain version. Both count their
+calls on :func:`bin_columns` (``native_calls`` / ``plain_calls``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ try:                                    # scipy is in the image; guarded so a
 except Exception:                       # pragma: no cover
     _sp = None
 
-__all__ = ["BinMapper", "MAX_BIN_DEFAULT", "is_sparse", "bin_columns"]
+from ... import native
+
+__all__ = ["BinMapper", "MAX_BIN_DEFAULT", "is_sparse", "bin_columns",
+           "bin_columns_plain"]
 
 MAX_BIN_DEFAULT = 255
 
@@ -37,9 +42,20 @@ def is_sparse(X) -> bool:
 
 def bin_columns(X: np.ndarray, bounds: np.ndarray, lengths: np.ndarray,
                 want_u16: bool) -> np.ndarray:
-    """Quantile-bin a float matrix: ``searchsorted(bounds_j, x, "left") + 1``
-    per element with NaN -> bin 0. ``bounds`` is the (F, L) padded table,
-    ``lengths`` the per-feature bound counts."""
+    """Quantile-bin a float32/float64 matrix in the native loop:
+    ``searchsorted(bounds_j, x, "left") + 1`` per element with NaN -> bin
+    0. ``bounds`` is the (F, L) padded table, ``lengths`` the per-feature
+    bound counts. Counted in ``bin_columns.native_calls``."""
+    bin_columns.native_calls += 1
+    return native.bin_columns(X, bounds, lengths, want_u16)
+
+
+def bin_columns_plain(X: np.ndarray, bounds: np.ndarray, lengths: np.ndarray,
+                      want_u16: bool) -> np.ndarray:
+    """The numpy loop that :func:`bin_columns` replaces, one
+    ``searchsorted`` pass per column, bitwise the same bins. Counted in
+    ``bin_columns.plain_calls``."""
+    bin_columns.plain_calls += 1
     n, f = X.shape
     dtype = np.uint16 if want_u16 else np.uint8
     out = np.zeros((n, f), dtype=dtype)
@@ -52,6 +68,11 @@ def bin_columns(X: np.ndarray, bounds: np.ndarray, lengths: np.ndarray,
             binned = np.where(np.isnan(col), 0, binned)
         out[:, j] = binned.astype(dtype)
     return out
+
+
+#: calls of the native loop and of the numpy loop since the last reset
+bin_columns.native_calls = 0
+bin_columns.plain_calls = 0
 
 
 class BinMapper:
@@ -116,9 +137,10 @@ class BinMapper:
         return 1 + max((len(b) for b in self.upper_bounds), default=1)
 
     def transform(self, X) -> np.ndarray:
-        """Bin a matrix column by column: only per-column temporaries
-        (O(n)) exist at any moment. Sparse input bins only the stored
-        values over each column's zero-value bin."""
+        """Bin a matrix. Dense float input goes through the native loop
+        (f16 and longdouble upcast to f64 first, the widths it takes);
+        integer input bins column by column. Sparse input bins only the
+        stored values over each column's zero-value bin."""
         if is_sparse(X):
             return self._transform_sparse(X.tocsc())
         X = np.asarray(X)

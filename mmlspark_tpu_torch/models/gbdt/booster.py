@@ -8,9 +8,13 @@ vectorized gathers. ``to_string`` / ``from_string`` use the JAX package's
 format (JSON + base64 npz), so a model written by either package loads
 into the other and predicts the same.
 
-Left out in this slice: TreeSHAP, ``refit``, ``trees_to_dataframe``,
-linear leaves and categorical encoders (a model string that carries
-either of the last two raises ``NotImplementedError``).
+A multiclass booster (``num_class`` K >= 2) stores its trees class-major,
+K an iteration, each with its leaf values in row k of a (K, 2^depth)
+array and zeros in the others; the model string records ``num_class``.
+
+Left out: TreeSHAP, ``refit``, ``trees_to_dataframe``, linear leaves and
+categorical encoders (a model string that carries either of the last
+two raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ from .trees import apply_chunked_dense, predict_leaf_indices, \
 __all__ = ["Booster"]
 
 
-def _leftover(what: str) -> NotImplementedError:
+def _leftover(what: str, item: Optional[int] = None) -> NotImplementedError:
+    """The error of a mode outside the port, naming its ROADMAP.md item
+    (§1's queue number, where it has one)."""
+    where = f", queue item {item}" if item else ""
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, slice-3 leftovers)")
+        f"{what} is not ported yet (ROADMAP.md, slice-3 leftovers{where})")
 
 
 class Booster:
@@ -220,9 +227,9 @@ class Booster:
         with np.load(buf) as z:
             arrays = {k: z[k] for k in z.files}
         if "lin_coefs" in arrays:
-            raise _leftover("a linear-tree model (linear_tree)")
+            raise _leftover("a linear-tree model (linear_tree)", 19)
         if "cat_encoder" in meta:
-            raise _leftover("a model with categorical features")
+            raise _leftover("a model with categorical features", 17)
         b = Booster(meta["depth"], meta["n_features"], meta["objective"],
                     meta["base_score"], meta["num_class"],
                     arrays["feats"], arrays["thr_raw"],

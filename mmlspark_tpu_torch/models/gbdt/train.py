@@ -9,8 +9,15 @@ arrays stay on the device in ``pending`` and are materialized in chunks
 after the loop, so iterations queue back to back on the card. The general
 path materializes each tree for eval, early stopping and callbacks.
 
-Ported in this slice: ``boosting="gbdt"``, dense X, ``tree_learner=
-"serial"``, the regression-family and binary objectives, sample weights,
+Multiclass (``objective="multiclass"``, ``num_class`` K >= 2) grows K
+trees an iteration, one per class, together: scores are (n, K), the
+gradients (K, n), and every level's K histograms come from one K6 launch
+(``trees.build_tree``). Trees are appended class-major, each with its
+leaf values in row k of a (K, 2^depth) array, as the JAX package stores
+them, so model strings load across the two packages.
+
+Ported: ``boosting="gbdt"``, dense X, ``tree_learner="serial"``, the
+regression-family, binary and multiclass objectives, sample weights,
 ``scale_pos_weight`` / ``is_unbalance``, ``boost_from_average``,
 ``bagging_fraction`` / ``bagging_freq``, ``feature_fraction`` and
 ``use_quantized_grad``. Every other mode raises ``NotImplementedError``
@@ -29,7 +36,7 @@ import torch
 from ...utils.device import resolve_device
 from ...ops.histogram import prepare_bins_columns
 from .binning import BinMapper, is_sparse
-from .booster import Booster
+from .booster import Booster, _leftover
 from .objectives import get_metric, get_objective
 from .trees import build_tree, predict_trees_any
 
@@ -141,51 +148,43 @@ class TrainConfig:
         self.n_features = n_features
 
 
-def _leftover(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, slice-3 leftovers)")
-
-
 def _reject_unported(p: Dict, X, group, init_model, mesh, init_score,
                      valid_init_scores) -> None:
     """Raise NotImplementedError for every mode outside this slice."""
     boosting = {"gbrt": "gbdt", "random_forest": "rf"}.get(
         str(p["boosting"]).lower(), str(p["boosting"]).lower())
     if boosting in ("goss", "dart", "rf"):
-        raise _leftover(f"boosting={boosting!r} (goss, rf and dart)")
+        raise _leftover(f"boosting={boosting!r} (goss, rf and dart)", 14)
     if boosting != "gbdt":
         raise ValueError(f"boosting must be gbdt/goss/dart/rf, got {boosting!r}")
-    obj = p["objective"]
-    if obj in ("multiclass", "softmax"):
-        raise _leftover("multiclass (needs a class-batched K6 launch)")
-    if obj == "lambdarank" or group is not None:
+    if p["objective"] == "lambdarank" or group is not None:
         raise _leftover("lambdarank")
     if mesh is not None or p["tree_learner"] != "serial":
         raise _leftover(f"tree_learner={p['tree_learner']!r} / mesh= "
-                        f"(data- and voting-parallel training, slice 6)")
+                        f"(data- and voting-parallel training, slice 6)", 31)
     if is_sparse(X):
-        raise _leftover("sparse input with EFB bundling")
+        raise _leftover("sparse input with EFB bundling", 18)
     if p["linear_tree"]:
-        raise _leftover("linear_tree")
+        raise _leftover("linear_tree", 19)
     if p["categorical_feature"]:
-        raise _leftover("categorical_feature")
+        raise _leftover("categorical_feature", 17)
     mc = p["monotone_constraints"]
     if mc is not None and np.asarray(mc).size and np.asarray(mc).any():
-        raise _leftover("monotone_constraints")
+        raise _leftover("monotone_constraints", 16)
     if float(p["path_smooth"]) != 0.0:
-        raise _leftover("path_smooth")
+        raise _leftover("path_smooth", 16)
     if p["interaction_constraints"]:
-        raise _leftover("interaction_constraints")
+        raise _leftover("interaction_constraints", 16)
     if p["extra_trees"]:
         raise _leftover("extra_trees")
     if float(p["feature_fraction_bynode"]) != 1.0:
         raise _leftover("feature_fraction_bynode")
     if init_model is not None:
-        raise _leftover("warm start (init_model)")
+        raise _leftover("warm start (init_model)", 20)
     if init_score is not None or valid_init_scores is not None:
-        raise _leftover("init_score")
+        raise _leftover("init_score", 20)
     if p["checkpoint_dir"]:
-        raise _leftover("step checkpoints (checkpoint_dir)")
+        raise _leftover("step checkpoints (checkpoint_dir)", 20)
 
 
 def _to_device(a: np.ndarray, dev: torch.device, dtype) -> torch.Tensor:
@@ -195,6 +194,28 @@ def _to_device(a: np.ndarray, dev: torch.device, dtype) -> torch.Tensor:
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t
+
+
+def _class_rows(leaf: np.ndarray, K: int) -> np.ndarray:
+    """(T, 2^D) leaf values of class-major trees (tree t of class t % K)
+    -> (T, K, 2^D), each tree's values in row t % K and zeros elsewhere:
+    how a multiclass booster stores a tree."""
+    out = np.zeros((leaf.shape[0], K, leaf.shape[1]), dtype=leaf.dtype)
+    t = np.arange(leaf.shape[0])
+    out[t, t % K] = leaf
+    return out
+
+
+def _host_trees(feats, thr_bin, leaf, gains, covers, mapper: BinMapper,
+                n_bins: int, is_multi: bool) -> List[Tuple]:
+    """One iteration's trees as the booster stores them, (feat, thr_raw,
+    leaf_value, gain, cover) each: one tree, or K trees class-major for
+    (K, ...) multiclass arrays."""
+    thr_raw = _thr_bins_to_raw(feats, thr_bin, mapper, n_bins)
+    if not is_multi:
+        return [(feats, thr_raw, leaf, gains, covers)]
+    return list(zip(feats, thr_raw, _class_rows(leaf, len(leaf)), gains,
+                    covers))
 
 
 def bins_on_device(mapper: BinMapper, X: np.ndarray, device):
@@ -248,7 +269,14 @@ def train(params: Dict,
          else np.ones(n))
     depth = _depth_for(p)
     objective_name = p["objective"]
-    obj = get_objective(objective_name, alpha=p["alpha"],
+    num_class = int(p["num_class"])
+    is_multi = objective_name in ("multiclass", "softmax")
+    if is_multi and num_class < 2:
+        raise ValueError(f"the multiclass objective needs num_class >= 2, "
+                         f"got {num_class}")
+    K = num_class if is_multi else 1
+    obj = get_objective(objective_name, num_class=num_class,
+                        alpha=p["alpha"],
                         tweedie_variance_power=p["tweedie_variance_power"])
 
     # class-imbalance reweighting, folded into the sample weights so
@@ -281,9 +309,10 @@ def train(params: Dict,
         mapper, X, dev)
 
     # boost_from_average: the first margin is the objective's optimal
-    # constant; off -> boosting starts at 0
-    base_score = obj.init_score(y, w) if p["boost_from_average"] else 0.0
-    booster = Booster(depth, F, objective_name, base_score, 1, device=dev)
+    # constant; off (and multiclass) -> boosting starts at 0
+    base_score = obj.init_score(y, w) if p["boost_from_average"] \
+        and not is_multi else 0.0
+    booster = Booster(depth, F, objective_name, base_score, K, device=dev)
 
     # device residency, all f32 (the reference runs with x64 off); scores
     # are the DELTA from base_score, re-added for the gradients
@@ -291,7 +320,8 @@ def train(params: Dict,
     y_d = torch.as_tensor(y, dtype=torch.float32).to(dev)
     w_d = torch.as_tensor(w, dtype=torch.float32).to(dev)
     live_d = torch.ones(n, dtype=torch.float32, device=dev)
-    scores = torch.zeros(n, dtype=torch.float32, device=dev)
+    scores = torch.zeros((n, K) if is_multi else n, dtype=torch.float32,
+                         device=dev)
     base32 = torch.tensor(base_score, dtype=torch.float32, device=dev)
     phase["upload"] += time.perf_counter() - t0
 
@@ -325,9 +355,11 @@ def train(params: Dict,
     valid_scores = None
     if valid_sets:
         if any(is_sparse(vx) for vx, _ in valid_sets):
-            raise _leftover("sparse validation sets")
+            raise _leftover("sparse validation sets", 18)
         valid_sets = [(np.asarray(vx), vy) for vx, vy in valid_sets]
-        valid_scores = [np.full(vx.shape[0], base_score, dtype=np.float64)
+        valid_scores = [np.full((vx.shape[0], K) if is_multi
+                                else vx.shape[0], base_score,
+                                dtype=np.float64)
                         for vx, _vy in valid_sets]
         if valid_weights is not None:
             if len(valid_weights) != len(valid_sets):
@@ -376,29 +408,37 @@ def train(params: Dict,
         fmask = _feature_mask()
         g_d, h_d = obj.grad_hess(scores + base32, y_d, w_d)
         # gh_w is 0/1 per row (bagging); every row is live (no padding)
-        g_d, h_d = g_d * gh_w, h_d * gh_w
+        if is_multi:        # (n, K) -> the (K, n) rows build_tree takes
+            g_d = (g_d * gh_w[:, None]).T.contiguous()
+            h_d = (h_d * gh_w[:, None]).T.contiguous()
+        else:
+            g_d, h_d = g_d * gh_w, h_d * gh_w
         feats, thr_bin, leaf_val, node_rel, gains, covers = build_tree(
             bins_cols, g_d, h_d, live_it, feature_mask=fmask, **build_kwargs)
-        scores = scores + leaf_val.index_select(0, node_rel) * lr
+        if is_multi:
+            scores = scores + leaf_val.gather(
+                1, node_rel.to(torch.int64)).T * lr
+        else:
+            scores = scores + leaf_val.index_select(0, node_rel) * lr
         if defer:
             pending.append((feats, thr_bin, leaf_val, gains, covers))
             continue
-        feats_np = feats.cpu().numpy()
-        thr_raw = _thr_bins_to_raw(feats_np, thr_bin.cpu().numpy(), mapper,
-                                   n_bins)
-        leaf_np = leaf_val.cpu().numpy() * lr
-        booster.append_tree(feats_np, thr_raw, leaf_np, gains.cpu().numpy(),
-                            covers.cpu().numpy())
+        trees = _host_trees(feats.cpu().numpy(), thr_bin.cpu().numpy(),
+                            leaf_val.cpu().numpy() * lr, gains.cpu().numpy(),
+                            covers.cpu().numpy(), mapper, n_bins, is_multi)
+        for tree in trees:
+            booster.append_tree(*tree)
 
-        # eval + early stopping (this iteration's tree only)
+        # eval + early stopping (this iteration's trees only)
         if valid_sets:
+            new_f, new_t, new_l = (np.stack([t[i] for t in trees])
+                                   for i in range(3))
             results = []
             per_set_log = (eval_log is not None
                            and (len(resolved) > 1 or len(valid_sets) > 1))
             for vi, (vx, vy) in enumerate(valid_sets):
                 valid_scores[vi] = valid_scores[vi] + predict_trees_any(
-                    feats_np[None], thr_raw[None], leaf_np[None], vx,
-                    depth=depth, device=dev)
+                    new_f, new_t, new_l, vx, depth=depth, device=dev)
                 raw32 = torch.from_numpy(valid_scores[vi].astype(np.float32))
                 pred = obj.transform(raw32).numpy()
                 vw = (valid_weights[vi] if valid_weights is not None
@@ -425,7 +465,7 @@ def train(params: Dict,
                 best_iter = it + 1
             elif patience and (it + 1 - best_iter) >= patience:
                 booster.best_iteration = best_iter
-                final = booster.truncated(best_iter)
+                final = booster.truncated(best_iter * K)
                 phase["boost"] = time.perf_counter() - t_boost
                 final.phase_seconds = phase
                 return final
@@ -436,7 +476,7 @@ def train(params: Dict,
 
     if pending:
         # materialize the deferred tree arrays: one host transfer per chunk
-        # of trees, then one vectorized bin -> raw threshold conversion
+        # of iterations, then one vectorized bin -> raw threshold conversion
         cols = [[], [], [], [], []]
         for lo in range(0, len(pending), _MATERIALIZE_CHUNK):
             grp = pending[lo:lo + _MATERIALIZE_CHUNK]
@@ -444,8 +484,14 @@ def train(params: Dict,
                 cols[i].append(torch.stack([t[i] for t in grp]).cpu().numpy())
         feats_all, thr_all, leaf_all, gains_all, covers_all = (
             np.concatenate(c) for c in cols)
-        thr_raw_all = _thr_bins_to_raw(feats_all, thr_all, mapper, n_bins)
         leaf_all = leaf_all.astype(np.float32) * np.float32(lr)
+        if is_multi:            # (iterations, K, ...) -> class-major trees
+            feats_all, thr_all, gains_all, covers_all = (
+                a.reshape((-1,) + a.shape[2:])
+                for a in (feats_all, thr_all, gains_all, covers_all))
+            leaf_all = _class_rows(
+                leaf_all.reshape((-1,) + leaf_all.shape[2:]), K)
+        thr_raw_all = _thr_bins_to_raw(feats_all, thr_all, mapper, n_bins)
         for t in range(feats_all.shape[0]):
             booster.append_tree(feats_all[t], thr_raw_all[t], leaf_all[t],
                                 gains_all[t], covers_all[t])

@@ -10,6 +10,11 @@ right for stopped subtrees too. Nothing in :func:`build_tree` reads a
 device value on the host: a tree's arrays stay on the card until the
 caller materializes them.
 
+Multiclass trees (one per class an iteration) grow together: the JAX
+package ``vmap``s :func:`build_tree` over the classes; here g and h carry
+a class axis, each level's K histograms come from one K6 launch, and the
+split search runs once over all K x nodes histograms.
+
 Prefix sums over the bin axis (:func:`_prefix_sum`) associate their adds
 as the reference's XLA lowering of ``jnp.cumsum`` does (blocks of 16), so
 that split gains computed from the same histogram are bit-identical to
@@ -124,20 +129,23 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                feature_mask: Optional[torch.Tensor] = None,
                hist_dtype: Optional[torch.dtype] = None,
                hist_impl: str = "kernel"):
-    """Grow one depth-``depth`` tree on the tensors' device.
+    """Grow one depth-``depth`` tree on the tensors' device, or one tree
+    per class when g and h have a class axis.
 
     bins_cols: (F, n) bins from :func:`~mmlspark_tpu_torch.ops.histogram.
     prepare_bins_columns`; g/h: (n,) f32 gradients/hessians (already
-    weighted); sample_weight_count: (n,) f32, 1.0 for live rows and 0.0
-    for bagged-out ones. ``hist_dtype=torch.bfloat16`` rounds the
-    histogram's stats to bf16 (sums stay f32). ``hist_impl`` "kernel"
-    builds each level's histogram with :func:`level_histogram` (K6 on
-    CUDA, its plain version on CPU); "plain" forces the plain version on
-    any device (the card's checks compare the two).
+    weighted), or (K, n) contiguous, one row a class; sample_weight_count:
+    (n,) f32, 1.0 for live rows and 0.0 for bagged-out ones, shared by the
+    classes. ``hist_dtype=torch.bfloat16`` rounds the histogram's stats to
+    bf16 (sums stay f32). ``hist_impl`` "kernel" builds each level's
+    histograms with :func:`level_histogram` (K6 on CUDA, one launch a
+    level for all classes; its plain version on CPU); "plain" forces the
+    plain version on any device (the card's checks compare the two).
 
     Returns (feat, thr_bin, leaf_value, node_rel, gains, covers), all on
     the device: (2^D-1,) int32, (2^D-1,) int32, (2^D,) f32, (n,) int32
-    leaf index per row, (2^D-1,) f32, (2^(D+1)-1,) f32."""
+    leaf index per row, (2^D-1,) f32, (2^(D+1)-1,) f32; with (K, n) g/h
+    each gains a leading class axis of K."""
     if hist_impl not in ("kernel", "plain"):
         raise ValueError(f"hist_impl must be 'kernel' or 'plain', got "
                          f"{hist_impl!r}")
@@ -145,21 +153,25 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"depth must be >= 1, got {depth}")
     hist_fn = level_histogram if hist_impl == "kernel" else \
         level_histogram_plain
+    batched = g.dim() == 2
+    K = g.shape[0] if batched else 1
     F, n = bins_cols.shape
     dev = bins_cols.device
     n_internal = 2 ** depth - 1
-    feats = torch.full((n_internal,), -1, dtype=torch.int32, device=dev)
-    thrs = torch.full((n_internal,), n_bins, dtype=torch.int32, device=dev)
-    gains = torch.zeros(n_internal, dtype=torch.float32, device=dev)
-    covers = torch.zeros(2 ** (depth + 1) - 1, dtype=torch.float32,
+    feats = torch.full((K, n_internal), -1, dtype=torch.int32, device=dev)
+    thrs = torch.full((K, n_internal), n_bins, dtype=torch.int32, device=dev)
+    gains = torch.zeros((K, n_internal), dtype=torch.float32, device=dev)
+    covers = torch.zeros((K, 2 ** (depth + 1) - 1), dtype=torch.float32,
                          device=dev)
-    node_rel = torch.zeros(n, dtype=torch.int32, device=dev)
+    node_rel = torch.zeros((K, n), dtype=torch.int32, device=dev)
     leaf_stats = None
     for d in range(depth):
         n_nodes = 2 ** d
+        m = K * n_nodes                     # the level's nodes, class-major
         off = 2 ** d - 1
-        hist = hist_fn(bins_cols, node_rel, g, h, sample_weight_count,
-                       n_nodes, n_bins, stats_dtype=hist_dtype)
+        hist = hist_fn(bins_cols, node_rel if batched else node_rel[0], g, h,
+                       sample_weight_count, n_nodes, n_bins,
+                       stats_dtype=hist_dtype).reshape(m, F, n_bins, 3)
         level_cover = hist[:, 0, :, 2].sum(dim=-1)       # counts per node
         bf, bb, bg = _find_splits(hist, lam, min_gain, min_child_weight,
                                   min_data_in_leaf, feature_mask)
@@ -169,31 +181,34 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
             # stubs (thr = n_bins, clipped to the last bin) keep all rows
             f_sel = bf.clamp(0, F - 1).to(torch.int64)
             sel = hist.gather(1, f_sel[:, None, None, None].expand(
-                n_nodes, 1, n_bins, 3))[:, 0]            # (nodes, B, 3)
+                m, 1, n_bins, 3))[:, 0]                  # (nodes, B, 3)
             cs = _prefix_sum(sel, 1)
             b_sel = bb.clamp(0, n_bins - 1).to(torch.int64)
             left = cs.gather(1, b_sel[:, None, None].expand(
-                n_nodes, 1, 3))[:, 0]                    # (nodes, 3)
+                m, 1, 3))[:, 0]                          # (nodes, 3)
             right = cs[:, -1] - left
             leaf_stats = torch.stack([left, right], dim=1).reshape(
-                2 * n_nodes, 3)
-        covers[off:off + n_nodes] = level_cover
-        feats[off:off + n_nodes] = bf
-        thrs[off:off + n_nodes] = bb
-        gains[off:off + n_nodes] = bg
+                K, 2 * n_nodes, 3)
+        covers[:, off:off + n_nodes] = level_cover.view(K, n_nodes)
+        feats[:, off:off + n_nodes] = bf.view(K, n_nodes)
+        thrs[:, off:off + n_nodes] = bb.view(K, n_nodes)
+        gains[:, off:off + n_nodes] = bg.view(K, n_nodes)
         # route rows: bin <= thr -> left; stub splits (thr = n_bins) -> left
-        row_feat = bf.index_select(0, node_rel).clamp(0, F - 1)
-        row_bin = bins_as_int(bins_cols.gather(
-            0, row_feat.to(torch.int64)[None])[0])
-        go_right = row_bin > bb.index_select(0, node_rel)
+        node_idx = node_rel if K == 1 else node_rel + torch.arange(
+            0, m, n_nodes, dtype=torch.int32, device=dev)[:, None]
+        node_idx = node_idx.view(-1)
+        row_feat = bf.index_select(0, node_idx).clamp(0, F - 1).view(K, n)
+        row_bin = bins_as_int(bins_cols.gather(0, row_feat.to(torch.int64)))
+        go_right = row_bin > bb.index_select(0, node_idx).view(K, n)
         node_rel = node_rel * 2 + go_right.to(torch.int32)
 
     G, H, C = leaf_stats.unbind(-1)
     G_reg = torch.sign(G) * torch.clamp_min(G.abs() - alpha, 0.0)  # L1 shrink
     leaf_value = -G_reg / (H + lam)
     leaf_value = torch.where(H.abs() > 0, leaf_value, 0.0)
-    covers[2 ** depth - 1:] = C
-    return feats, thrs, leaf_value, node_rel, gains, covers
+    covers[:, 2 ** depth - 1:] = C
+    out = (feats, thrs, leaf_value, node_rel, gains, covers)
+    return out if batched else tuple(t[0] for t in out)
 
 
 def _descend(f, t, X, depth: int) -> torch.Tensor:

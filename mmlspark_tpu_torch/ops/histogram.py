@@ -27,6 +27,13 @@ scatter as the scatter it is:
                             the CPU tests check it)
 =========================  ===========================================
 
+A multiclass level has K such histograms, one a class: each class has
+its own node ids, g and h over the same bins and count weights. The JAX
+package ``vmap``s its tree build over the classes, which puts a class
+axis on the kernel's grid; here one call takes node ids, g and h of
+shape (K, n) and returns (K, n_nodes, F, n_bins, 3), one launch for all
+K classes on CUDA.
+
 Bins are uint8, or uint16 carried as its raw 2-byte ``int16`` view
 (``torch.uint16`` has no CPU gather or comparison ops). The TPU's
 ``pallas_preferred`` crossovers and ``MMLSPARK_TPU_PALLAS`` switch have no
@@ -107,9 +114,22 @@ def level_histogram_plain(bins_cols, node_rel, g, h, w_count, n_nodes: int,
     """Plain PyTorch version of K6: one ``index_add_`` per feature over
     the ``node * n_bins + bin`` ids, rows in order. Returns
     (n_nodes, F, n_bins, 3) in the stats' dtype (float64 stats give a
-    float64 histogram, the reference the card's check uses). Never
-    counted as a launch; ``level_histogram_plain.calls`` counts calls."""
+    float64 histogram, the reference the card's check uses); with
+    node_rel, g and h of shape (K, n), (K, n_nodes, F, n_bins, 3), each
+    class's histogram computed as one single-class call computes it.
+    Never counted as a launch; ``level_histogram_plain.calls`` counts
+    calls."""
     level_histogram_plain.calls += 1
+    if g.dim() == 1:
+        return _plain_one(bins_cols, node_rel, g, h, w_count, n_nodes,
+                          n_bins, stats_dtype)
+    return torch.stack([_plain_one(bins_cols, node_rel[k], g[k], h[k],
+                                   w_count, n_nodes, n_bins, stats_dtype)
+                        for k in range(g.shape[0])])
+
+
+def _plain_one(bins_cols, node_rel, g, h, w_count, n_nodes, n_bins,
+               stats_dtype):
     F = bins_cols.shape[0]
     data = _stats(g, h, w_count, stats_dtype)
     out = torch.zeros((F, n_nodes * n_bins, 3), dtype=data.dtype,
@@ -125,10 +145,11 @@ level_histogram_plain.calls = 0
 
 
 def hist_bytes(n: int, F: int, bin_bytes: int, n_nodes: int,
-               n_bins: int) -> int:
-    """Bytes K6 must move: each input read once (bins, node ids, g, h, w)
-    and the histogram written once."""
-    return n * F * bin_bytes + n * (4 + 12) + n_nodes * F * n_bins * 12
+               n_bins: int, classes: int = 1) -> int:
+    """Bytes K6 must move: each input read once (bins and w once, each
+    class's node ids, g and h) and each class's histogram written once."""
+    return (n * F * bin_bytes + n * (4 + 12 * classes)
+            + classes * n_nodes * F * n_bins * 12)
 
 
 #: K6's block size (``kThreads`` in ``csrc/histogram.cu``)
@@ -164,7 +185,8 @@ class HistPlan(NamedTuple):
     (``smem`` bytes a block) and flush them into the output at the
     block's end; ``"direct"`` adds every row into the output.
     ``width``: the lanes body's W (features a warp sums side by side),
-    else 1."""
+    else 1. ``classes``: the grid's second axis, one class a plane of
+    ``blocks`` blocks (each class's plane reads the bins again)."""
     body: str
     width: int
     blocks: int
@@ -176,16 +198,21 @@ class HistPlan(NamedTuple):
     chunks: int
     rows_per_block: int
     row_blocks: int
+    classes: int = 1
 
     @property
     def grid(self):
-        return (self.blocks, 1, 1)
+        return (self.blocks, self.classes, 1)
 
 
 def hist_launch_plan(n: int, F: int, n_nodes: int, n_bins: int,
-                     bin_bytes: int, smem_optin: int, sms: int) -> HistPlan:
-    """The launch plan of K6 for one level, from the shapes and the card
-    (its opt-in shared memory per block and its SM count) alone.
+                     bin_bytes: int, smem_optin: int, sms: int,
+                     classes: int = 1) -> HistPlan:
+    """The launch plan of K6 for one level of ``classes`` classes, from
+    the shapes and the card (its opt-in shared memory per block and its
+    SM count) alone. Every class runs the same plan on its own plane of
+    the grid (``blockIdx.y``), and the planes share the wave: the row
+    blocks are cut so that all classes' blocks together fill it.
 
     What it answers (``PERF.md`` §6, K6): shared-memory traffic sets
     K6's pace (each f32 add a CAS loop; random slots meet in banks),
@@ -217,6 +244,9 @@ def hist_launch_plan(n: int, F: int, n_nodes: int, n_bins: int,
     if min(n, F, n_nodes, n_bins, sms) < 1:
         raise ValueError(f"empty plan: n={n} F={F} n_nodes={n_nodes} "
                          f"n_bins={n_bins} sms={sms}")
+    if not 1 <= classes <= 65535:
+        raise ValueError(f"classes {classes} outside [1, 65535] (the "
+                         f"grid's second axis)")
     if n_bins > 256 ** bin_bytes:
         raise ValueError(f"n_bins {n_bins} exceeds {bin_bytes}-byte bins")
     n_slots = n_nodes * n_bins
@@ -262,7 +292,8 @@ def hist_launch_plan(n: int, F: int, n_nodes: int, n_bins: int,
     else:
         tiles = -(-n // tile)
         per_wave = (2 if smem <= half else 1) * sms
-        row_blocks = max(1, min(per_wave // (groups * chunks), tiles))
+        row_blocks = max(1, min(per_wave // (groups * chunks * classes),
+                                tiles))
         rows_per_block = tile * -(-tiles // row_blocks)
     row_blocks = -(-n // rows_per_block)
     blocks = groups * chunks * row_blocks
@@ -271,12 +302,14 @@ def hist_launch_plan(n: int, F: int, n_nodes: int, n_bins: int,
     return HistPlan(body=body, width=width, blocks=blocks,
                     threads=HIST_THREADS, smem=smem, group=group,
                     groups=groups, chunk_slots=chunk_slots, chunks=chunks,
-                    rows_per_block=rows_per_block, row_blocks=row_blocks)
+                    rows_per_block=rows_per_block, row_blocks=row_blocks,
+                    classes=classes)
 
 
 def _check(bins_cols, node_rel, g, h, w_count, n_nodes, n_bins):
     """Device, dtype, shape and contiguity; raises on anything K6 does
-    not take. Values are not read (that would stall the card): node ids
+    not take. node_rel, g and h are all (n,) or all (K, n); w_count is
+    (n,). Values are not read (that would stall the card): node ids
     outside [0, n_nodes) and bins outside [0, n_bins) are dropped by the
     kernel and rejected by ``index_add_``."""
     if bins_cols.dim() != 2:
@@ -285,12 +318,16 @@ def _check(bins_cols, node_rel, g, h, w_count, n_nodes, n_bins):
         raise TypeError(f"bins_cols must be uint8 or int16 (uint16 bits), "
                         f"got {bins_cols.dtype}")
     F, n = bins_cols.shape
-    if node_rel.shape != (n,) or node_rel.dtype != torch.int32:
-        raise TypeError(f"node_rel must be int32 ({n},); got "
+    rows = (n,) if g.dim() == 1 else (g.shape[0], n)
+    if len(rows) == 2 and not 1 <= rows[0] <= 65535:
+        raise ValueError(f"{rows[0]} classes outside [1, 65535]")
+    if node_rel.shape != rows or node_rel.dtype != torch.int32:
+        raise TypeError(f"node_rel must be int32 {rows}; got "
                         f"{node_rel.dtype} {tuple(node_rel.shape)}")
-    for name, t in (("g", g), ("h", h), ("w_count", w_count)):
-        if t.shape != (n,) or t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 ({n},); got {t.dtype} "
+    for name, t, shape in (("g", g, rows), ("h", h, rows),
+                           ("w_count", w_count, (n,))):
+        if t.shape != shape or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 {shape}; got {t.dtype} "
                             f"{tuple(t.shape)}")
     devs = {t.device for t in (bins_cols, node_rel, g, h, w_count)}
     if len(devs) != 1:
@@ -313,7 +350,7 @@ def _library():
     if lib.mmlspark_level_histogram.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mmlspark_level_histogram.argtypes = (
-            [ci] * 4 + [vp] * 6 + [ll] + [ci] * 7 + [ll, ll, ci, vp])
+            [ci] * 4 + [vp] * 6 + [ll] + [ci] * 7 + [ll, ll, ci, ci, vp])
         lib.mmlspark_level_histogram.restype = ci
         lib.mmlspark_hist_error_string.argtypes = [ci]
         lib.mmlspark_hist_error_string.restype = ctypes.c_char_p
@@ -341,7 +378,10 @@ def level_histogram(bins_cols, node_rel, g, h, w_count, n_nodes: int,
 
     ``bins_cols`` comes from :func:`prepare_bins_columns`; ``node_rel``
     (n,) int32 in [0, n_nodes); g, h, w_count (n,) float32, w_count a
-    row's count weight (0/1 from bagging).
+    row's count weight (0/1 from bagging). Multiclass: node_rel, g and h
+    (K, n), one row a class, w_count (n,) shared, and the result (K,
+    n_nodes, F, n_bins, 3): one launch for all K classes (the grid's
+    second axis), each class's blocks reading the bins again.
     ``stats_dtype=torch.bfloat16`` rounds g/h/w to bf16 before the sums
     (LightGBM's quantized-gradient analog; the kernel rounds on load);
     sums stay f32.
@@ -365,13 +405,14 @@ def level_histogram(bins_cols, node_rel, g, h, w_count, n_nodes: int,
             raise ValueError(f"{name} must be 16-byte aligned on CUDA (K6 "
                              f"loads four rows at once)")
     F, n = bins_cols.shape
-    out = torch.zeros((n_nodes, F, n_bins, 3), dtype=torch.float32,
-                      device=bins_cols.device)
+    classes = 1 if g.dim() == 1 else g.shape[0]
+    out = torch.zeros(g.shape[:-1] + (n_nodes, F, n_bins, 3),
+                      dtype=torch.float32, device=bins_cols.device)
     if n == 0 or F == 0:
         return out
     bin_bytes = _BIN_DTYPES[bins_cols.dtype]
     plan = hist_launch_plan(n, F, n_nodes, n_bins, bin_bytes,
-                            *_device_limits(bins_cols.device))
+                            *_device_limits(bins_cols.device), classes)
     lib = _library()
     with torch.cuda.device(bins_cols.device):
         stream = torch.cuda.current_stream(bins_cols.device).cuda_stream
@@ -382,7 +423,8 @@ def level_histogram(bins_cols, node_rel, g, h, w_count, n_nodes: int,
             node_rel.data_ptr(), g.data_ptr(), h.data_ptr(),
             w_count.data_ptr(), out.data_ptr(), n, F, n_nodes, n_bins,
             plan.group, plan.groups, plan.chunk_slots, plan.chunks,
-            plan.rows_per_block, plan.blocks, plan.smem, stream)
+            plan.rows_per_block, plan.blocks, plan.classes, plan.smem,
+            stream)
     if err != 0:
         msg = lib.mmlspark_hist_error_string(err).decode()
         raise RuntimeError(f"level histogram kernel launch failed: {msg}")

@@ -3,7 +3,11 @@ JAX package on the CPU: bins bitwise, gradients within f32 rounding
 (rtol 1e-6), split search and whole trees identical on seeded data whose
 top-two gain margin is checked on the JAX side first, ``train()``
 identical trees with predictions within rtol 1e-5 / atol 1e-6, and model
-strings that load across the two packages both ways."""
+strings that load across the two packages both ways. Multiclass: the
+class-batched tree build equals one build per class bitwise and the
+JAX package's ``vmap``ped build; multiclass ``train()`` gives the JAX
+package's split features and bins, leaf values and predictions within
+the binary tests' tolerances, with and without early stopping."""
 
 import json
 
@@ -297,6 +301,74 @@ def test_build_tree_matches_reference(n_bins, dt, depth):
         ptrees.build_tree(*args, hist_impl="xla", **kw)
 
 
+def _class_inputs(seed, n, F, n_bins, K):
+    """Bins and (K, n) multiclass g/h at the first iteration's softmax
+    (scores 0 plus seeded noise), labels learnable from features 0-1."""
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(1, n_bins, (n, F)).astype(np.uint8)
+    y = (xb[:, 0].astype(np.int64) * K // n_bins + (xb[:, 1] > n_bins // 2)
+         + (rng.random(n) < 0.2)) % K
+    s = rng.normal(0, 0.3, (n, K)).astype(np.float32)
+    p = np.exp(s) / np.exp(s).sum(1, keepdims=True)
+    onehot = np.eye(K, dtype=np.float32)[y]
+    w = (rng.random(n) > 0.1).astype(np.float32)
+    g = ((p - onehot) * w[:, None]).T.copy()
+    h = (np.maximum(p * (1 - p), 1e-16) * 2.0 * w[:, None]).T.copy()
+    return xb, g.astype(np.float32), h.astype(np.float32), w
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_build_tree_classes_equal_one_build_per_class(impl):
+    """(K, n) g/h grow K trees at once: each bitwise the tree one (n,)
+    build grows from that class's g/h."""
+    n, F, n_bins, K = 1500, 5, 40, 3
+    xb, g, h, w = _class_inputs(11, n, F, n_bins, K)
+    cols = prepare_bins_columns(xb, "cpu")
+    kw = dict(depth=3, n_bins=n_bins, alpha=0.05, hist_impl=impl,
+              **SPLIT_KW)
+    batched = ptrees.build_tree(cols, torch.from_numpy(g),
+                                torch.from_numpy(h), torch.from_numpy(w),
+                                **kw)
+    assert batched[0].shape == (K, 7) and batched[3].shape == (K, n)
+    assert batched[2].shape == (K, 8) and batched[5].shape == (K, 15)
+    for k in range(K):
+        one = ptrees.build_tree(cols, torch.from_numpy(g[k]),
+                                torch.from_numpy(h[k]), torch.from_numpy(w),
+                                **kw)
+        for a, b in zip(batched, one):
+            assert torch.equal(a[k], b)
+    assert (batched[0] >= 0).sum() > K          # it really split
+
+
+def test_build_tree_classes_match_reference_vmap():
+    """The class-batched build against the JAX package's ``vmap`` of its
+    ``build_tree`` over classes (``train.py``'s multiclass branch)."""
+    import jax
+    n, F, n_bins, K, depth = 2000, 4, 32, 3, 3
+    xb, g, h, w = _class_inputs(12, n, F, n_bins, K)
+    kw = dict(depth=depth, n_bins=n_bins, **SPLIT_KW)
+    jout = [np.asarray(a) for a in jax.vmap(
+        lambda gk, hk: jtrees.build_tree(jnp.asarray(xb), gk, hk,
+                                         jnp.asarray(w), **kw))(
+        jnp.asarray(g), jnp.asarray(h))]
+    jf, jt, jl, jnode, jgain, jcov = jout
+    for k in range(K):
+        for d in range(depth):
+            nodes = (jnode[k] >> (depth - d)).astype(np.int32)
+            hist = _ref_hist(xb, nodes, g[k], h[k], w, 2 ** d, n_bins)
+            _assert_margin(jtrees._split_gains(hist, kw["lam"], 0.0, 1e-3,
+                                               10.0, None))
+    pf, pt, pl, pnode, pgain, pcov = ptrees.build_tree(
+        prepare_bins_columns(xb, "cpu"), torch.from_numpy(g),
+        torch.from_numpy(h), torch.from_numpy(w), **kw)
+    np.testing.assert_array_equal(pf.numpy(), jf)
+    np.testing.assert_array_equal(pt.numpy(), jt)
+    np.testing.assert_array_equal(pnode.numpy(), jnode)
+    np.testing.assert_allclose(pl.numpy(), jl, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(pgain.numpy(), jgain, rtol=1e-5)
+    np.testing.assert_allclose(pcov.numpy(), jcov, rtol=1e-5)
+
+
 def test_stub_nodes_route_everything_left():
     """A level that finds no valid split writes the sentinel (-1, n_bins)
     and sends every row left; the leaf stats keep the whole node."""
@@ -406,6 +478,85 @@ def test_train_quantized_grad_matches_reference(monkeypatch):
     assert not np.array_equal(exact.leaf_values, bp.leaf_values)
 
 
+def make_multiclass(n=900, f=5, k=3, seed=15):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f))
+    y = np.argmax(X[:, :k] + 0.3 * rng.normal(size=(n, k)), axis=1)
+    return X, y.astype(np.float64)
+
+
+MULTI = {"objective": "multiclass", "num_class": 3, "num_iterations": 6,
+         "num_leaves": 8, "max_bin": 32, "min_data_in_leaf": 5}
+
+
+@pytest.mark.parametrize("params", [
+    {}, {"bagging_fraction": 0.7, "bagging_freq": 2, "feature_fraction": 0.6,
+         "seed": 3, "lambda_l2": 1.0}], ids=["plain", "bagged"])
+def test_train_multiclass_matches_reference(params):
+    """K trees an iteration, class-major, each leaf row k of (K, 2^D):
+    the JAX package's split features and bins, leaf values within the
+    binary tests' rtol 1e-5 / atol 1e-7, predictions within rtol 1e-5 /
+    atol 1e-6."""
+    X, y = make_multiclass()
+    bj, bp = _both({**MULTI, **params}, X, y)
+    assert bp.num_class == 3 and bp.num_trees == 18
+    assert bp.leaf_values.shape == (18, 3, 8)
+    _same_trees(bj, bp)
+    _same_predictions(bj, bp, X)
+    # tree t holds class t % K's values only
+    t = np.arange(18)
+    mask = np.zeros((18, 3), bool)
+    mask[t, t % 3] = True
+    assert (bp.leaf_values[~mask] == 0).all()
+
+
+def test_train_multiclass_early_stopping_matches_reference():
+    X, y = make_multiclass(seed=16)
+    Xv, yv = make_multiclass(n=300, seed=17)
+    params = {**MULTI, "num_iterations": 40, "learning_rate": 0.5,
+              "early_stopping_round": 2,
+              "metric": ["multi_logloss", "multi_error"]}
+    logs = ([], [])
+    bj = jtrain(params, X, y, valid_sets=[(Xv, yv)], eval_log=logs[0])
+    bp = ptrain(params, X, y, valid_sets=[(Xv, yv)], eval_log=logs[1],
+                device="cpu")
+    assert bj.num_trees < 40 * 3              # it really stopped early
+    _same_trees(bj, bp)
+    _same_predictions(bj, bp, Xv)
+    assert len(logs[1]) == len(logs[0])
+    for a, b in zip(*logs):
+        assert a.keys() == b.keys()
+        for key in a:
+            # a few-ulp prediction difference can move one of 300 rows
+            # across the argmax: multi_error by 1/300 at most
+            np.testing.assert_allclose(
+                b[key], a[key], rtol=1e-5,
+                atol=1 / 300 if key == "multi_error" else 0)
+
+
+def test_multiclass_model_strings_cross_load_both_ways():
+    X, y = make_multiclass(seed=18)
+    bj, bp = _both(MULTI, X, y)
+    from_j = PBooster.from_string(bj.to_string(), device="cpu")
+    from_p = JBooster.from_string(bp.to_string())
+    assert json.loads(bp.to_string())["num_class"] == 3
+    for a, b in ((bj, from_j), (from_p, bp)):
+        np.testing.assert_array_equal(b.raw_score(X), a.raw_score(X))
+        _same_predictions(a, b, X)
+        np.testing.assert_array_equal(b.predict_leaf(X),
+                                      np.asarray(a.predict_leaf(X)))
+    for k in (None, 2):
+        np.testing.assert_allclose(bp.predict(X, num_iteration=k),
+                                   np.asarray(bj.predict(X, num_iteration=k)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_multiclass_needs_two_classes():
+    X, y = make_multiclass(n=60)
+    with pytest.raises(ValueError, match="num_class"):
+        ptrain({**MULTI, "num_class": 1}, X, y, device="cpu")
+
+
 def test_train_callbacks_see_the_reference_scores():
     X, _, logit = make_data(n=800, seed=9)
     seen = ([], [])
@@ -463,8 +614,8 @@ def test_booster_api_matches_reference():
 
 
 def test_reference_multiclass_model_predicts_in_port():
-    """Training multiclass is a later slice; a multiclass model written by
-    the JAX package already loads and predicts."""
+    """A multiclass model written by the JAX package loads and predicts
+    in the port."""
     rng = np.random.default_rng(12)
     X = rng.normal(size=(600, 4))
     y = np.argmax(X[:, :3], axis=1).astype(np.float64)
@@ -494,6 +645,7 @@ def test_unported_model_strings_raise():
 UNPORTED = {
     "goss": {"boosting": "goss"}, "dart": {"boosting": "dart"},
     "rf": {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
+    # multiclass trains now; its (n, K) starting margins do not
     "multiclass": {"objective": "multiclass", "num_class": 3},
     "lambdarank": {"objective": "lambdarank"},
     "data_parallel": {"tree_learner": "data_parallel"},
@@ -522,6 +674,8 @@ def test_unported_options_raise(case):
         kw = {"init_model": object()}
     elif case == "init_score":
         kw = {"init_score": np.zeros(50)}
+    elif case == "multiclass":
+        kw = {"init_score": np.zeros((50, 3))}
     elif case == "mesh":
         kw = {"mesh": object()}
     elif case == "group":

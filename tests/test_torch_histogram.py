@@ -470,3 +470,169 @@ def test_cuda_kernel_matches_plain_version():
             assert torch.equal(got[..., 2], plain[..., 2])
         err = (got[..., :2].double() - ref[..., :2]).abs()
         assert bool((err <= 2e-6 * mag[..., :2] + 1e-7).all())
+
+
+# -- the class axis (multiclass: one launch a level for all K classes) -------
+
+def _class_inputs(seed, n, F, n_nodes, n_bins, K, bin_dtype=np.uint8):
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(0, n_bins, (n, F)).astype(bin_dtype)
+    node = rng.integers(0, n_nodes, (K, n)).astype(np.int32)
+    g = rng.normal(size=(K, n)).astype(np.float32)
+    h = rng.random((K, n)).astype(np.float32)
+    w = (rng.random(n) > 0.1).astype(np.float32)
+    return xb, node, g * w, h * w, w
+
+
+@pytest.mark.parametrize("n,F,n_nodes,n_bins", SHAPES)
+@pytest.mark.parametrize("K", [1, 3])
+def test_class_batched_plain_equals_single_class_calls(n, F, n_nodes,
+                                                       n_bins, K):
+    """(K, n) node ids, g and h give (K, n_nodes, F, n_bins, 3), class k
+    bitwise the single-class call on row k; the public entry on CPU
+    tensors is the plain version, and either counts one call."""
+    xb, node, g, h, w = _class_inputs(n + K, n, F, n_nodes, n_bins, K)
+    cols = port.prepare_bins_columns(xb, "cpu")
+    args = (cols, torch.from_numpy(node), torch.from_numpy(g),
+            torch.from_numpy(h), torch.from_numpy(w))
+    before = port.level_histogram_plain.calls
+    got = port.level_histogram_plain(*args, n_nodes, n_bins)
+    assert port.level_histogram_plain.calls == before + 1
+    assert got.shape == (K, n_nodes, F, n_bins, 3)
+    for k in range(K):
+        one = port.level_histogram_plain(cols, args[1][k], args[2][k],
+                                         args[3][k], args[4], n_nodes,
+                                         n_bins)
+        assert torch.equal(got[k], one)
+        np.testing.assert_array_equal(
+            one.numpy(), _reference_hist(xb, node[k], g[k], h[k], w,
+                                         n_nodes, n_bins))
+    assert torch.equal(port.level_histogram(*args, n_nodes, n_bins), got)
+    sd = port.level_histogram(*args, n_nodes, n_bins,
+                              stats_dtype=torch.bfloat16)
+    assert torch.equal(sd[K - 1], port.level_histogram_plain(
+        cols, args[1][K - 1], args[2][K - 1], args[3][K - 1], args[4],
+        n_nodes, n_bins, stats_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("bad", ["w_classes", "node_flat", "g_rows",
+                                 "h_dtype", "too_many_classes"])
+def test_check_rejects_mismatched_class_axes(bad):
+    n, F, K = 64, 3, 3
+    xb, node, g, h, w = _class_inputs(0, n, F, 2, 16, K)
+    args = [port.prepare_bins_columns(xb, "cpu"), torch.from_numpy(node),
+            torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(w)]
+    if bad == "w_classes":
+        args[4] = args[4].expand(K, n).contiguous()
+    elif bad == "node_flat":
+        args[1] = args[1][0]
+    elif bad == "g_rows":
+        args[2] = args[2][:2]
+    elif bad == "h_dtype":
+        args[3] = args[3].double()
+    else:
+        args[1] = torch.zeros(70_000, n, dtype=torch.int32)
+        args[2] = args[3] = torch.zeros(70_000, n)
+    with pytest.raises((TypeError, ValueError)):
+        port.level_histogram(*args, 2, 16)
+
+
+def test_hist_bytes_counts_each_class_once_and_the_bins_once():
+    assert port.hist_bytes(581_012, 54, 1, 4, 255, 7) == (
+        581_012 * 54 + 581_012 * (4 + 12 * 7) + 7 * 4 * 54 * 255 * 12)
+    assert port.hist_bytes(100, 2, 2, 3, 16) == \
+        port.hist_bytes(100, 2, 2, 3, 16, classes=1)
+
+
+#: (n, F, n_nodes, n_bins, bin_bytes, classes) -> the plan's (body, width,
+#: blocks a class, group, groups, chunks, rows_per_block) on the H100:
+#: phase 8a's class-batched cases (Covertype's 581,012 x 54)
+PINNED_CLASSES = {
+    (581_012, 54, 1, 255, 1, 7): ("lanes", 32, 36, 27, 2, 1, 32288),
+    (581_012, 54, 4, 255, 1, 7): ("lanes", 16, 16, 14, 4, 1, 145280),
+    (581_012, 54, 16, 255, 1, 7): ("table", 1, 27, 2, 27, 1, 581012),
+    (581_012, 54, 4, 1024, 2, 3): ("table", 1, 81, 2, 27, 1, 193672),
+}
+
+
+@pytest.mark.parametrize("shape", list(PINNED_CLASSES) + [
+    (1000, 40, 1, 256, 1, 2), (7, 3, 1, 2, 1, 5), (9000, 5, 64, 63, 1, 3),
+    (11_000_000, 28, 16, 255, 1, 7), (600, 3, 2, 40000, 2, 4)], ids=str)
+def test_launch_plan_with_classes(shape):
+    """Every class runs the single-class plan's body and cuts on its own
+    plane of the grid, (blocks, classes, 1); the planes share one wave
+    of resident blocks (at least one row block a class)."""
+    *one, K = shape
+    optin, sms = H100
+    plan = port.hist_launch_plan(*one, optin, sms, K)
+    single = port.hist_launch_plan(*one, optin, sms)
+    assert plan.classes == K and plan.grid == (plan.blocks, K, 1)
+    assert (plan.body, plan.width, plan.smem, plan.group, plan.groups,
+            plan.chunk_slots, plan.chunks) == (
+        single.body, single.width, single.smem, single.group, single.groups,
+        single.chunk_slots, single.chunks)
+    assert plan.blocks == plan.groups * plan.chunks * plan.row_blocks
+    assert plan.row_blocks <= single.row_blocks
+    if plan.body != "direct":
+        per_wave = (2 if plan.smem <= (optin - 1024) // 2 else 1) * sms
+        if plan.groups * plan.chunks * K <= per_wave:
+            assert plan.blocks * K <= per_wave
+    if shape in PINNED_CLASSES:
+        assert (plan.body, plan.width, plan.blocks, plan.group, plan.groups,
+                plan.chunks, plan.rows_per_block) == PINNED_CLASSES[shape]
+    with pytest.raises(ValueError):
+        port.hist_launch_plan(*one, optin, sms, 0)
+    with pytest.raises(ValueError):
+        port.hist_launch_plan(*one, optin, sms, 65536)
+
+
+def test_class_plan_emulation_matches_plain():
+    """K6's algorithm over a class-batched plan, one plane a class, gives
+    each class the plain version's counts bitwise and g/h within the
+    card's bound."""
+    n, F, n_nodes, n_bins, K = 4000, 7, 8, 32, 3
+    xb, node, g, h, w = _class_inputs(5, n, F, n_nodes, n_bins, K)
+    cols = port.prepare_bins_columns(xb, "cpu")
+    plan = port.hist_launch_plan(n, F, n_nodes, n_bins, 1, 24_000, 8, K)
+    assert plan.body == "table" and plan.classes == K and plan.blocks > 1
+    nd, gt, ht, wt = (torch.from_numpy(a) for a in (node, g, h, w))
+    plain = port.level_histogram_plain(cols, nd, gt, ht, wt, n_nodes, n_bins)
+    for k in range(K):
+        got = _plan_emulation(cols, nd[k], gt[k], ht[k], wt, n_nodes, n_bins,
+                              plan)
+        assert torch.equal(got[..., 2], plain[k][..., 2])
+        assert _within_bound(got, cols, nd[k], gt[k], ht[k], wt, n_nodes,
+                             n_bins)
+
+
+@pytest.mark.cuda
+def test_cuda_class_batched_kernel_matches_plain_version():
+    """On the card: one K6 launch for K classes against the plain
+    version, on each body, with n % 4 != 0 (class rows not 16-byte
+    aligned: the kernel's scalar loads). Counts bitwise, g/h within the
+    f32 atomic-order bound of a float64 sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for seed, (n, F, n_nodes, n_bins, K, dt) in enumerate([
+            (100_003, 6, 1, 255, 7, np.uint8),
+            (100_000, 40, 4, 255, 3, np.uint8),
+            (100_001, 6, 16, 255, 7, np.uint8),
+            (50_001, 3, 256, 255, 2, np.uint8),
+            (50_002, 3, 4, 1024, 3, np.uint16)]):
+        xb, node, g, h, w = _class_inputs(seed, n, F, n_nodes, n_bins, K, dt)
+        cols = port.prepare_bins_columns(xb, dev)
+        nd, gt, ht, wt = (torch.from_numpy(a).to(dev)
+                          for a in (node, g, h, w))
+        before = port.level_histogram.launches
+        got = port.level_histogram(cols, nd, gt, ht, wt, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        assert port.level_histogram.launches == before + 1
+        plain = port.level_histogram_plain(cols, nd, gt, ht, wt, n_nodes,
+                                           n_bins)
+        assert torch.equal(got[..., 2], plain[..., 2])
+        for k in range(K):
+            ok = _within_bound(got[k].cpu(), cols.cpu(), nd[k].cpu(),
+                               gt[k].cpu(), ht[k].cpu(), wt.cpu(), n_nodes,
+                               n_bins)
+            assert ok

@@ -45,6 +45,8 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.models.gbdt.trees",
                  "mmlspark_tpu_torch.models.gbdt.booster",
                  "mmlspark_tpu_torch.models.gbdt.train",
+                 "mmlspark_tpu_torch.models.gbdt.estimators",
+                 "mmlspark_tpu_torch.native",
                  "mmlspark_tpu_torch.parallel.distributed",
                  "mmlspark_tpu_torch.parallel.mesh",
                  "mmlspark_tpu_torch.parallel.launch",
@@ -123,6 +125,40 @@ def test_sources_name_no_reference_import():
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",
                                                  "optax"), (f, s)
                 assert mod.split(".")[0] != "mmlspark_tpu", (f, s)
+
+
+def test_native_loop_builds_the_ports_own_source_in_a_clean_interpreter():
+    """The port compiles its own ``native/fastpath.cpp`` (no Python or
+    numpy headers: a plain C entry point), never the JAX package's file,
+    into ``build/native/``, and building and running it loads no JAX and
+    no module of the JAX package."""
+    from mmlspark_tpu_torch import native
+    assert native.SOURCE == ROOT / "mmlspark_tpu_torch" / "native" / \
+        "fastpath.cpp"
+    text = native.SOURCE.read_text()
+    assert "Python.h" not in text and "mmlspark_bin_columns" in text
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from mmlspark_tpu_torch import native\n"
+        "lib = native.build()\n"
+        "b = native.bin_columns(np.zeros((3, 2)), np.full((2, 1), np.inf),"
+        " np.ones(2, np.int64), False)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or\n"
+        "             m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"
+        "print(json.dumps([bad, str(lib), str(native.SOURCE),"
+        " b.tolist()]))\n")
+    env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(ROOT),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    bad, lib, src, bins = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert bad == [] and bins == [[1, 1]] * 3
+    assert Path(lib).parent == ROOT / "build" / "native"
+    assert src == str(native.SOURCE)
 
 
 def _no_cuda():
