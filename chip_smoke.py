@@ -16,9 +16,13 @@ Phases (any failure exits non-zero and prints no result line):
    2047-key straggler, a chunked-prefill extend at full width and
    serving's own window shapes: a prompt's first and second chunks, an
    8-token prefix suffix at an unaligned position, four rows with one
-   inactive; K3 on bf16 and K4 on int8 and fp8 pages at 16 rows of 4
-   queries, at W = 1, 5, 16 and 64, serving's decode lengths over its
-   64-page table and the straggler) against its plain PyTorch version on
+   inactive, speculative verify windows of 3 and 9 queries over the
+   decode tick's 16 rows, two inactive, a 512-token chunk; K1 also at
+   phase 13b's own verify windows, 2 and 3 queries of its 8-head target
+   over 16 rows at its request lengths, two inactive; K3 on bf16 and K4
+   on int8 and fp8 pages at 16 rows of 4 queries, at W = 1, 5, 16 and
+   64, serving's decode lengths over its 64-page table and the
+   straggler) against its plain PyTorch version on
    the card: context within about one bf16 ulp (plus 2^-8 of the same
    attention over |V| for the tensor-core window body, K1/K2 at W > 1,
    which rounds P to bf16), pages and scales bitwise, the read-only
@@ -153,7 +157,28 @@ Phases (any failure exits non-zero and prints no result line):
    within 1e-6, a bitwise model string round trip; sec/iter and K6's
    share.
 
-``python3 chip_smoke.py 12`` runs phases 1, 2, 8c and 12 only,
+13. speculative serving — (a) f32 full width, phase 4's engine and
+   prompts with a draft of bench.py's widths (d_model 128, 4 heads, 2
+   layers, d_ff 512) at FULL's vocabulary, gamma = 3: the greedy tokens
+   equal phase 4's kernel tokens on f32, int8 and fp8 pages, and K1/K2
+   launch on the FMA window body exactly (verify windows + prefill
+   chunks + prefix suffixes) x layers times, the verify windows counted
+   where the engine runs them (k a dispatch); the target as its own draft
+   (gamma = 4) gives the same tokens at acceptance above 0.95; (b)
+   bench.py's generation configuration (bench.py:480-557: a bf16 8-layer
+   d_model 512 target over vocabulary 8192 and its 2-layer draft, 16
+   slots, gamma = 2, ``autotune=True``), its warm-up and 48-request mix:
+   tokens/s, step p50/p99/max, prefix pages shared, tokens per round
+   and slot, the autotuner's history, K1 launches all on the tensor-core
+   body and equal to (verify windows + chunks + prefix suffixes) x
+   layers; then the same mix through the plain engine in the same
+   process (tokens/s, p50, the share of requests with identical greedy
+   tokens, reported, not asserted: bf16 verify windows round P to bf16;
+   for each request where they part, the f32 logit gap between the two
+   engines' picks at the first differing token).
+
+``python3 chip_smoke.py 13`` runs phases 1, 2, 4 and 13 only,
+``python3 chip_smoke.py 12`` phases 1, 2, 8c and 12,
 ``python3 chip_smoke.py 11`` phases 1, 2 and 11,
 ``python3 chip_smoke.py 10`` phases 1, 2, 4 and 10,
 ``python3 chip_smoke.py 9`` phases 1, 2 and 9, ``python3 chip_smoke.py
@@ -380,20 +405,20 @@ def _dequant_kv(pools, bt, key_ok):
 
 
 def _fused_case(dev_info, label, B, W, pos_list, active_list, seed,
-                store=None, P=None):
+                store=None, P=None, H=12):
     """The fused kernel at one shape: K1 over bf16 pages, or K2 over
     quantized pages of ``store`` dtype, over a block table ``P`` pages
-    wide (or just wide enough). Correctness against the plain version
-    (ctx, every page and scale bitwise with NaN planted at and past each
-    pos, inactive rows untouched), the body the library reports (split at
-    W = 1, tensor-core at W > 1) and one call = one kernel on the card;
-    then times. Returns the record for this shape."""
+    wide (or just wide enough), ``H`` heads. Correctness against the
+    plain version (ctx, every page and scale bitwise with NaN planted at
+    and past each pos, inactive rows untouched), the body the library
+    reports (split at W = 1, tensor-core at W > 1) and one call = one
+    kernel on the card; then times. Returns the record for this shape."""
     import torch
     import torch.nn.functional as F
     from mmlspark_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    x = _kv_case_inputs(B, W, pos_list, seed, store, P=P)
+    x = _kv_case_inputs(B, W, pos_list, seed, store, H=H, P=P)
     H, hd, page, P = x["H"], x["hd"], x["page"], x["P"]
     q, kn, vn, bt, pools = x["q"], x["kn"], x["vn"], x["bt"], x["pools"]
     pos_np = x["pos_np"]
@@ -678,6 +703,7 @@ def _decode_rows():
 
 
 def phase_kernels(dev_info):
+    import numpy as np
     import torch
     pos, active, serve, straggler = _decode_rows()
     recs = {"K1": {}, "K2": {}}
@@ -687,7 +713,10 @@ def phase_kernels(dev_info):
     # own window shapes: a 384-token prompt's first chunk (no cached key)
     # and its second, a prefix-suffix window of the smallest bucket at an
     # unaligned position (a page straddled, half of an m16 query tile
-    # empty), and four rows, one inactive (writes nothing)
+    # empty), and four rows, one inactive (writes nothing); the
+    # speculative verify windows (W = gamma + 1: 3 at bench.py's gamma 2,
+    # 9 at the autotuner's ceiling 8) over the decode tick's 16 rows, two
+    # inactive; a 512-token chunk (the autotuner doubles the chunk budget)
     shapes = {"decode": ((16, 1, pos, active, 1), {}),
               "serving decode": ((16, 1, serve, active, 12), {"P": 64}),
               "straggler": ((16, 1, straggler, active, 13), {}),
@@ -696,9 +725,24 @@ def phase_kernels(dev_info):
               "chunk2": ((1, 128, [256], [True], 9), {}),
               "suffix8": ((1, 8, [90], [True], 10), {}),
               "extend b4": ((4, 128, [384, 0, 90, 256],
-                             [True, True, False, True], 11), {})}
+                             [True, True, False, True], 11), {}),
+              "verify w3": ((16, 3, pos, active, 14), {}),
+              "verify w9": ((16, 9, pos, active, 15), {}),
+              "chunk512": ((1, 512, [256], [True], 16), {})}
     for label, (args, kw) in shapes.items():
         recs["K1"][label] = _fused_case(dev_info, label, *args, **kw)
+    # phase 13b's own verify windows (K1 only: its pages are bf16): its
+    # 8-head target at the gammas it runs (2 at the start, 1 after the
+    # autotuner's first step down), 16 rows at its request lengths (a
+    # 24, 96, 100 or 384-token prompt plus up to 64 tokens), two
+    # inactive, over its block table of (1024 + 8 + 1) / 16 pages
+    rng = np.random.default_rng(2)
+    spec_pos = [int(rng.choice((24, 96, 100, 384)) + rng.integers(0, 65))
+                for _ in range(16)]
+    for label, W, seed in (("13b verify w2", 2, 17),
+                           ("13b verify w3", 3, 18)):
+        recs["K1"][label] = _fused_case(dev_info, label, 16, W, spec_pos,
+                                        active, seed, P=65, H=8)
     for store in (torch.int8, torch.float8_e4m3fn):
         name = str(store).split(".")[-1]
         for label, (args, kw) in shapes.items():
@@ -1100,6 +1144,276 @@ def phase_read_sweep(params_np, dev_info):
            "k4_launches_split": counts["int8"]["q_split"],
            "max_abs_err_vs_dense": err}
     log(f"[read sweep] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+#: phase 13: bench.py's generation engine and mix (bench.py:517-557); its
+#: target and draft widths are tick_profile's ``SPEC`` and ``SPEC_DRAFT``
+SPEC_ENGINE = dict(max_slots=16, max_len=1024, page_size=16,
+                   prefill_chunk=256, autotune=True)
+SPEC_MIX = dict(lens=(24, 96, 384), requests=48, max_new=64)
+
+
+def _spec_cfgs(torch_dtype, vocab=None):
+    """bench.py's generation target and draft configs (tick_profile's
+    widths, causal) in ``torch_dtype``, the draft at ``vocab`` if given."""
+    from mmlspark_tpu_torch.models.zoo.transformer import TransformerConfig
+    from mmlspark_tpu_torch.serving.tick_profile import SPEC, SPEC_DRAFT
+    d = dict(SPEC_DRAFT, vocab=vocab or SPEC_DRAFT["vocab"])
+    return (TransformerConfig(dtype=torch_dtype, causal=True, **SPEC),
+            TransformerConfig(dtype=torch_dtype, causal=True, **d))
+
+
+def _spec_windows(eng):
+    """(verify windows, prefill chunks, prefix hits) of an engine's run,
+    each counted where it ran. Every dispatch ran k verify windows, and
+    these three are all of the engine's attention calls."""
+    windows = eng.stats.get("spec_verify_windows", 0)
+    chunks, hits = len(eng._chunk_trace), eng.stats["prefix_hits"]
+    ticks, calls = len(eng.tick_seconds), eng._kv.stats["attn_ticks_kernel"]
+    if ticks >= eng.tick_seconds.maxlen or windows != ticks * eng._k or \
+            calls != windows + chunks + hits:
+        raise AssertionError(
+            f"{windows} verify windows in {ticks} dispatches of k = "
+            f"{eng._k}; {calls} attention calls against {chunks} chunks + "
+            f"{hits} prefix suffixes + the windows")
+    return windows, chunks, hits
+
+
+def _spec_parity_run(params_np, cfg, d_np, d_cfg, kv_dtype, gamma):
+    """13a: one f32 parity engine with a draft; its greedy tokens, the
+    launches by body and the acceptance counters."""
+    import torch
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    _zero_pa_counts()
+    eng = ContinuousDecoder(params_np, cfg, kv_dtype=kv_dtype,
+                            draft_params=d_np, draft_cfg=d_cfg, gamma=gamma,
+                            **PARITY)
+    reqs = [eng.submit(p, PARITY_NEW) for p in _parity_prompts(cfg.vocab)]
+    for _ in range(400):
+        if all(r.done for r in reqs):
+            break
+        eng.step()
+    eng.flush()
+    out = [eng.result(r, timeout=1) for r in reqs]
+    windows, chunks, hits = _spec_windows(eng)
+    b = _bodies()
+    # f32 windows run the FMA body: the launches no other body reported
+    fma = (paged_attention_window.launches + paged_attention_window.launches_q
+           - sum(b.values()))
+    if b["mma"] + b["q_mma"] + b["split"] + b["q_split"] or \
+            fma != (windows + chunks + hits) * cfg.layers:
+        raise AssertionError(
+            f"13a {kv_dtype or 'f32'} pages: bodies {b}, {fma} FMA "
+            f"launches; want ({windows} verify windows + {chunks} chunks + "
+            f"{hits} prefix suffixes) x {cfg.layers} layers on the FMA "
+            f"body")
+    rec = {"gamma": gamma, "verify_windows": windows, "chunks": chunks,
+           "launches_fma": fma, "launches_spec_verify": windows * cfg.layers,
+           "spec_emitted": eng.stats["spec_emitted"],
+           "spec_round_slots": eng.stats["spec_round_slots"]}
+    del eng
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+def phase_spec_parity(params_np, single):
+    """13a: f32 full width, phase 4's engine and prompts with a draft of
+    bench.py's widths at FULL's vocabulary (seed 1) at gamma = 3: the
+    greedy tokens equal phase 4's kernel tokens on f32, int8 and fp8
+    pages, every verify window on the FMA body (K1, or K2). Then the
+    target as its own draft at gamma = 4 (the 15 tokens after the first
+    fill three whole rounds of 5, so full acceptance reads 1.0): the same
+    tokens, acceptance above 0.95."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    cfg = _full_cfg(torch.float32)
+    d_cfg = _spec_cfgs(torch.float32, cfg.vocab)[1]
+    d_np = init_transformer(d_cfg, 1)
+    recs = {}
+    for kv_dtype in (None, "int8", "fp8"):
+        name = kv_dtype or "f32"
+        out, rec = _spec_parity_run(params_np, cfg, d_np, d_cfg, kv_dtype, 3)
+        if out != single[kv_dtype]:
+            raise AssertionError(f"13a {name} pages: spec tokens {out} vs "
+                                 f"phase 4's {single[kv_dtype]}")
+        recs[name] = rec
+        log(f"[spec parity] f32 full width, {name} pages, gamma 3: tokens "
+            f"== phase 4's; {json.dumps(rec)}")
+    out, rec = _spec_parity_run(params_np, cfg, params_np, cfg, None, 4)
+    acc = (rec["spec_emitted"] / rec["spec_round_slots"] - 1.0) / 4
+    rec["acceptance"] = acc
+    if out != single[None] or not acc > 0.95:
+        raise AssertionError(f"13a perfect draft: acceptance {acc}, tokens "
+                             f"{out} vs phase 4's {single[None]}")
+    recs["perfect_draft"] = rec
+    log(f"[spec parity] the target as its own draft, gamma 4: tokens == "
+        f"phase 4's, acceptance {acc}; {json.dumps(rec)}")
+    return recs
+
+
+def _bench_generation(eng, vocab):
+    """bench.py's generation mix (bench.py:525-577) through ``eng``:
+    warm-up requests (one per prompt length, a prefix pair), then 48
+    requests (every third in the shared-prefix cohort, every sixth of the
+    rest chunked), 64 new tokens each, one ``step()`` at a time. Returns
+    (record, the timed requests' tokens, their prompts)."""
+    import numpy as np
+    import torch
+    lens, n_reqs, max_new = (SPEC_MIX["lens"], SPEC_MIX["requests"],
+                             SPEC_MIX["max_new"])
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(1, vocab, lens[1], dtype=np.int32)
+
+    def drain():
+        while any(r is not None for r in eng._slot_req) or eng._waiting:
+            eng.step()
+
+    for n in lens:
+        eng.submit(rng.integers(1, vocab, n, dtype=np.int32), 4)
+    eng.submit(sys_prompt, 4, prefix_key="bench-sys")
+    eng.submit(np.concatenate([sys_prompt, rng.integers(
+        1, vocab, 4, dtype=np.int32)]), 4, prefix_key="bench-sys")
+    drain()
+    share0 = eng._kv.stats["prefix_share_hits"]
+    reqs, prompts = [], []
+    for i in range(n_reqs):
+        if i % 3 == 2:
+            ids = np.concatenate([sys_prompt, rng.integers(
+                1, vocab, 4, dtype=np.int32)])
+            reqs.append(eng.submit(ids, max_new, prefix_key="bench-sys"))
+        else:
+            n = lens[i % 2] if i % 6 else lens[2]
+            ids = rng.integers(1, vocab, n, dtype=np.int32)
+            reqs.append(eng.submit(ids, max_new))
+        prompts.append(ids)
+    steps = []
+    t0 = time.perf_counter()
+    while any(r is not None for r in eng._slot_req) or eng._waiting:
+        s0 = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - s0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [eng.result(r, timeout=1) for r in reqs]
+    if any(len(t) != max_new or not all(0 <= x < vocab for x in t)
+           for t in toks):
+        raise AssertionError("13b: a request came back short or out of "
+                             "the vocabulary")
+    lat = np.sort(np.asarray(steps)) * 1e3
+    n_tok = sum(len(t) for t in toks)
+    rec = {"tok_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
+           "steps": len(steps), "step_p50_ms": float(lat[len(lat) // 2]),
+           "step_p99_ms": float(lat[min(len(lat) - 1,
+                                        int(len(lat) * 0.99))]),
+           "step_max_ms": float(lat[-1]),
+           "prefix_share_hits": eng._kv.stats["prefix_share_hits"] - share0,
+           "max_chunk_window": max(eng._chunk_trace, default=0),
+           "kv_pages": eng._kv.num_pages}
+    return rec, toks, prompts
+
+
+def _divergence_gaps(params_np, cfg, prompts, spec_toks, plain_toks):
+    """Where the spec and plain engines' greedy tokens part: for each such
+    request, the target's f32 logits (its bf16 weights widened to f32, one
+    dense prefill) after the tokens both emitted, at the two engines'
+    picks. A near tie shows as a gap between the picks far below the
+    logits' spread."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import (params_from_numpy,
+                                                           prefill_cache)
+    cfg32 = cfg._replace(dtype=torch.float32)
+
+    def widen(p):
+        if isinstance(p, dict):
+            return {k: widen(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [widen(v) for v in p]
+        return p.float()
+
+    params = widen(params_from_numpy(params_np, cfg))
+    dev = params["lm_head"]["w"].device
+    out = []
+    for i, (ids, a, b) in enumerate(zip(prompts, spec_toks, plain_toks)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([ids, np.asarray(a[:j], ids.dtype)])
+        with torch.no_grad():
+            lg, _ = prefill_cache(
+                params, torch.as_tensor(seq[None], device=dev),
+                torch.tensor([seq.size], device=dev), cfg32,
+                max_len=seq.size)
+        lg = lg[0]
+        top2 = torch.topk(lg, 2).values
+        out.append({"request": i, "token": j, "spec": a[j], "plain": b[j],
+                    "f32_argmax": int(lg.argmax()),
+                    "gap": float(lg[a[j]] - lg[b[j]]),
+                    "top2_gap": float(top2[0] - top2[1]),
+                    "spread": float(lg.std())})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_bench(dev_info):
+    """13b: bench.py's generation configuration on the card: the bf16
+    target and draft (seeds 0 and 1), 16 slots, gamma = 2, autotune, its
+    warm-up and 48-request mix; then the same mix through the plain
+    engine (no draft, the same other settings) in the same process. K1
+    launches only on the tensor-core body: (verify windows + prefill
+    chunks + prefix suffixes) x layers."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    cfg, d_cfg = _spec_cfgs(torch.bfloat16)
+    params_np = init_transformer(cfg, 0)
+    d_np = init_transformer(d_cfg, 1)
+    _zero_pa_counts()
+    eng = ContinuousDecoder(params_np, cfg, draft_params=d_np,
+                            draft_cfg=d_cfg, gamma=2, **SPEC_ENGINE)
+    spec, spec_toks, prompts = _bench_generation(eng, cfg.vocab)
+    windows, chunks, hits = _spec_windows(eng)
+    b = _bodies()
+    k1, k2 = paged_attention_window.launches, paged_attention_window.launches_q
+    if k2 or b["split"] or k1 != b["mma"] or \
+            k1 != (windows + chunks + hits) * cfg.layers:
+        raise AssertionError(
+            f"13b: K1 {k1} launches ({b}), K2 {k2}; want ({windows} verify "
+            f"windows + {chunks} chunks + {hits} prefix suffixes) x "
+            f"{cfg.layers} layers, all on the tensor-core body")
+    spec.update({
+        "verify_windows": windows, "chunks": chunks, "prefix_hits": hits,
+        "k1_launches": k1, "launches_spec_verify": windows * cfg.layers,
+        "launches_extend": (chunks + hits) * cfg.layers,
+        "spec_emitted": eng.stats["spec_emitted"],
+        "spec_round_slots": eng.stats["spec_round_slots"],
+        "tokens_per_round_slot": (eng.stats["spec_emitted"]
+                                  / eng.stats["spec_round_slots"]),
+        "gamma_end": eng._tuner.gamma, "chunk_end": eng._tuner.chunk,
+        "depth_end": eng._tuner.depth, "tuner_history": eng._tuner.history})
+    del eng
+    torch.cuda.empty_cache()
+    _zero_pa_counts()
+    eng = ContinuousDecoder(params_np, cfg, **SPEC_ENGINE)
+    plain, plain_toks, _ = _bench_generation(eng, cfg.vocab)
+    plain["tuner_history"] = eng._tuner.history
+    del eng
+    torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(spec_toks, plain_toks))
+    gaps = _divergence_gaps(params_np, cfg, prompts, spec_toks, plain_toks)
+    rec = {"spec": spec, "plain": plain,
+           "identical_requests": same, "requests": len(spec_toks),
+           "identical_share": same / len(spec_toks),
+           "divergence_max_abs_gap": max((abs(g["gap"]) for g in gaps),
+                                         default=0.0),
+           "divergence_max_gap_over_spread": max(
+               (abs(g["gap"]) / g["spread"] for g in gaps), default=0.0),
+           "divergences": gaps}
+    log(f"[spec bench] {json.dumps(rec)} | {dev_info['smi']}")
     return rec
 
 
@@ -3119,14 +3433,14 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "9": phases 1, 2 and 9; "8": phases 1, 2 and 8; "7": phases 1,
-    # 2, phase 3's K3/K4 cases and 7; "3": phases 1, 2 and 3; a partial
-    # run prints no result and exits 3
+    # 4); "13": phases 1, 2, 4 and 13; "9": phases 1, 2 and 9; "8":
+    # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
+    # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11", "12"}
+    modes = {"3", "7", "8", "9", "10", "11", "12", "13"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11 and 12")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12 and 13")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -3153,10 +3467,14 @@ def main(argv=()):
             del X, y
         if "9" in only:
             _phase9(dev_info)
-        if "10" in only:
+        if only & {"10", "13"}:
             single = phase_parity(params_np)
+        if "10" in only:
             _phase10(params_np, dev_info, single,
                      {"tok_per_s": None, "p50_tick_ms": None})
+        if "13" in only:
+            phase_spec_parity(params_np, single)
+            phase_spec_bench(dev_info)
         if "11" in only:
             phase_onnx(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
@@ -3169,6 +3487,8 @@ def main(argv=()):
                              [32, 128, 384] * 3)
     f8 = phase_quant_serving(params_np, dev_info, "fp8", [32, 384])
     sweep = phase_read_sweep(params_np, dev_info)
+    spec_a = phase_spec_parity(params_np, single)
+    spec_b = phase_spec_bench(dev_info)
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     hist_recs, sass, parity, gbdt, b8c = _phase8(dev_info, X, y)
     est12a, multi12b = _phase12(dev_info, X, y, b8c)
@@ -3184,13 +3504,23 @@ def main(argv=()):
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
     ref = "mmlspark_tpu/ops/paged_attention.py"
     # K1/K2's decode launches are the split body's (``_window_split``
-    # asserts it), so they are its ``launches_split``
+    # asserts it), so they are its ``launches_split``; their speculative
+    # verify windows are 13a's (f32: the FMA body) and 13b's (bf16: the
+    # tensor-core body)
+    k1_fma = spec_a["f32"]["launches_spec_verify"] + \
+        spec_a["perfect_draft"]["launches_spec_verify"]
+    k2_fma = sum(spec_a[n]["launches_spec_verify"] for n in ("int8", "fp8"))
+    k1_mma = spec_b["spec"]["launches_spec_verify"]
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226", "launches": serving["k1_launches"],
          "launches_decode": serving["k1_launches_decode"],
          "launches_extend": serving["k1_launches_extend"],
          "launches_split": serving["k1_launches_decode"],
+         "launches_spec_verify": k1_fma + k1_mma,
+         "launches_spec_verify_mma": k1_mma,
+         "launches_spec_verify_fma": k1_fma,
+         "spec_bench_13b": spec_b, "spec_parity_13a": spec_a,
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
         {"name": "paged_attention_window (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:404",
@@ -3201,6 +3531,8 @@ def main(argv=()):
          "launches_fp8_run_extend": f8["k2_launches_extend"],
          "launches_split": q8["k2_launches_decode"],
          "launches_fp8_run_split": f8["k2_launches_decode"],
+         "launches_spec_verify": k2_fma, "launches_spec_verify_mma": 0,
+         "launches_spec_verify_fma": k2_fma,
          **{k: recs["K2"]["int8 decode"][k] for k in keys}, **recs["K2"]},
         {"name": "paged_attention", "route": "cuda", "source": src,
          "replaces": f"{ref}:195", "launches": sweep["k3_launches"],

@@ -51,7 +51,8 @@ __all__ = ["TransformerConfig", "BERT_BASE", "BERT_MINI", "DECODER_MINI",
            "init_transformer", "params_from_numpy", "shard_params",
            "transformer_apply",
            "loss_fn", "train_step", "tree_leaves", "prefill_cache",
-           "decode_step_ragged", "decode_window_ragged",
+           "decode_step_ragged", "decode_step_ragged_inplace",
+           "decode_window_ragged",
            "init_paged_cache", "paged_gather",
            "paged_scatter_rows", "decode_step_paged", "decode_window_paged",
            "gelu"]
@@ -342,10 +343,14 @@ def _attend(q, k, v, ok, dt):
 def _embed(params, ids, cfg, positions):
     """Gathers from the tables cast to ``cfg.dtype`` (the reference's
     ``tok.astype(dt)[ids]``: in training the gradient is a scatter in
-    ``cfg.dtype`` into the f32 leaf, as in JAX)."""
+    ``cfg.dtype`` into the f32 leaf, as in JAX). Positions past the
+    learned table clamp to its last row, as the reference's gather does:
+    a speculative verify window writes up to gamma + 1 positions past a
+    request's end, into the cache's headroom."""
     h = params["embed"]["tok"].to(cfg.dtype)[ids]
     if cfg.position == "learned":
-        h = h + params["embed"]["pos"].to(cfg.dtype)[positions]
+        table = params["embed"]["pos"]
+        h = h + table.to(cfg.dtype)[positions.clamp(max=table.shape[0] - 1)]
     return h
 
 
@@ -501,17 +506,10 @@ def prefill_cache(params: Dict, ids: torch.Tensor, length,
     return logits, cache
 
 
-def decode_window_ragged(params: Dict, tokens: torch.Tensor,
-                         pos: torch.Tensor, cache, cfg: TransformerConfig,
-                         active: Optional[torch.Tensor] = None, group=None):
-    """Cached forward over a window of W tokens per row at per-row start
-    positions: ``tokens`` (B, W), ``pos`` (B,) → (logits (B, W, vocab)
-    f32, new cache). Row b's query j sits at ``pos[b] + j``, attends
-    cached keys ``<= pos[b] + j``, and the window's K/V land at
-    ``pos[b]..pos[b]+W-1``. Inactive rows keep their cache untouched.
-    Functional: the input cache is not modified. ``group``: the ``tp``
-    group of a rank holding :func:`shard_params` weights and its heads
-    of the cache."""
+def _window_ragged_(params, tokens, pos, cache, cfg, active, group):
+    """The layer loop of the ragged window, writing each layer's fresh K/V
+    rows into ``cache`` itself (an inactive row's rows keep their old
+    values) before attending over it. Returns the logits (B, W, vocab)."""
     dt = cfg.dtype
     B, W = tokens.shape
     L = cache[0]["k"].shape[2]
@@ -527,25 +525,36 @@ def decode_window_ragged(params: Dict, tokens: torch.Tensor,
               <= wpos[:, :, None])[:, None]                        # B,1,W,L
     keep = None if active is None else active[:, None, None, None]
     rows = torch.arange(B, device=dev)[:, None].expand(B, W)
-    new_cache = []
     for lp, c in zip(params["layers"], cache):
         x = _norm(h.float(), lp["ln1"], cfg).to(dt)
         q, k, v = _qkv_heads(x, lp, cfg, B, W)
         if cfg.position == "rope":
             q = _rot_half(q, cos, sin)
             k = _rot_half(k, cos, sin)
-        kc, vc = c["k"].clone(), c["v"].clone()
-        kc[rows, :, wpos] = k.to(dt).transpose(1, 2)
-        vc[rows, :, wpos] = v.to(dt).transpose(1, 2)
-        if keep is not None:
-            kc = torch.where(keep, kc, c["k"])
-            vc = torch.where(keep, vc, c["v"])
-        new_cache.append({"k": kc, "v": vc})
-        ctx = _attend(q, kc, vc, key_ok, dt)
+        for kk, t in (("k", k), ("v", v)):
+            fresh = t.to(dt).transpose(1, 2)                       # B,W,H,hd
+            if keep is not None:
+                fresh = torch.where(keep, fresh, c[kk][rows, :, wpos])
+            c[kk][rows, :, wpos] = fresh
+        ctx = _attend(q, c["k"], c["v"], key_ok, dt)
         h = _ffn_residual(h, lp, cfg, ctx, B, W, group)
     hidden = _norm(h.float(), params["final_ln"], cfg).to(dt)
-    logits = hidden.float() @ params["lm_head"]["w"]
-    return logits, new_cache
+    return hidden.float() @ params["lm_head"]["w"]
+
+
+def decode_window_ragged(params: Dict, tokens: torch.Tensor,
+                         pos: torch.Tensor, cache, cfg: TransformerConfig,
+                         active: Optional[torch.Tensor] = None, group=None):
+    """Cached forward over a window of W tokens per row at per-row start
+    positions: ``tokens`` (B, W), ``pos`` (B,) → (logits (B, W, vocab)
+    f32, new cache). Row b's query j sits at ``pos[b] + j``, attends
+    cached keys ``<= pos[b] + j``, and the window's K/V land at
+    ``pos[b]..pos[b]+W-1``. Inactive rows keep their cache untouched.
+    Functional: the input cache is not modified. ``group``: the ``tp``
+    group of a rank holding :func:`shard_params` weights and its heads
+    of the cache."""
+    new = [{"k": c["k"].clone(), "v": c["v"].clone()} for c in cache]
+    return _window_ragged_(params, tokens, pos, new, cfg, active, group), new
 
 
 def decode_step_ragged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -558,6 +567,19 @@ def decode_step_ragged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     logits, new = decode_window_ragged(params, tokens[:, None], pos, cache,
                                        cfg, active, group)
     return logits[:, 0], new
+
+
+def decode_step_ragged_inplace(params: Dict, tokens: torch.Tensor,
+                               pos: torch.Tensor, cache,
+                               cfg: TransformerConfig,
+                               active: Optional[torch.Tensor] = None):
+    """:func:`decode_step_ragged` writing the fresh rows into ``cache``
+    itself (per layer (B, H, L, hd) ``{"k","v"}``) instead of cloning it:
+    the speculative engine's draft slot pool, which the reference updates
+    in place by donation. Returns the logits (B, vocab) f32, bitwise
+    :func:`decode_step_ragged`'s; an inactive row's cache is unchanged."""
+    return _window_ragged_(params, tokens[:, None], pos, cache, cfg, active,
+                           None)[:, 0]
 
 
 # ---- paged KV cache ---------------------------------------------------------

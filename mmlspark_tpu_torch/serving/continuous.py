@@ -1,5 +1,5 @@
 """Continuous batching for autoregressive decoding (counterpart of
-``serving/continuous.py:110-2180``, no speculation).
+``serving/continuous.py:110-2180``).
 
 * a **static slot pool** — every occupied slot advances at its own
   position in the same decode step, so requests join mid-flight;
@@ -15,7 +15,14 @@
 * **k steps per dispatch** with retirement (remaining budget, eos) inside
   the step loop on the device, and **pipelined dispatch**: up to
   ``pipeline_depth`` token blocks stay in flight before the oldest is
-  copied to the host, with an eager drain when the pool is saturated.
+  copied to the host, with an eager drain when the pool is saturated;
+* **speculative decoding** (``draft_params`` + ``draft_cfg``): each of the
+  k rounds of a dispatch, the draft proposes ``gamma`` tokens per slot
+  from a contiguous draft slot pool, the target verifies every slot's
+  ``gamma + 1``-token window in one paged window forward (K1/K2 on the
+  card), and each slot keeps its own accepted prefix plus one token;
+* **the autotuner** (``autotune=True``, :class:`KVAutotuner`): gamma
+  follows acceptance, the chunk budget and pipeline depth occupancy.
 
 PyTorch runs eagerly, so the reference's ``lru_cache``/``jax.jit``
 program factories are plain methods here; the device work is ordered on
@@ -33,17 +40,21 @@ every rank computes the same logits and tokens. Slot sharding over
 ``dp > 1`` is not ported.
 
 Greedy decoding is the parity-tested mode: each request's tokens equal
-the reference's ``generate_cached`` on its prompt alone. Sampled decoding
-draws from a per-request ``torch.Generator`` seeded by the request's
-``seed``: draw n feeds emitted token n, so a request's samples do not
-depend on what else shares the pool (they differ from the reference's
-threefry draws).
+the reference's ``generate_cached`` on its prompt alone, with or without
+a draft. Sampled decoding draws from a per-request ``torch.Generator``
+seeded by the request's ``seed``, so a request's samples do not depend on
+what else shares the pool (they differ from the reference's threefry
+draws). Without a draft, draw n feeds emitted token n; with one, each
+round draws in a fixed order (a proposal per draft step, the acceptance
+uniforms, the resample), and the output is distributed as the target's
+own sampling is (the speculative-sampling correction).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import math
 import threading
 import time
 from typing import Dict, List, Optional
@@ -52,7 +63,9 @@ import numpy as np
 import torch
 
 from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
-                                      decode_step_paged, decode_window_paged,
+                                      decode_step_paged,
+                                      decode_step_ragged_inplace,
+                                      decode_window_paged,
                                       paged_scatter_rows, params_from_numpy,
                                       prefill_cache, shard_params)
 from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
@@ -61,7 +74,8 @@ from ..ops.padding import bucket_size
 from ..ops.paged_attention import _bits
 from ..parallel.mesh import axis_rank, axis_size, mesh_shape
 from ..utils.device import resolve_device
-from .kv_pool import PagedKVPool, PoolExhausted, prefix_hash as _prefix_hash
+from .kv_pool import (KVAutotuner, PagedKVPool, PoolExhausted,
+                      prefix_hash as _prefix_hash)
 
 __all__ = ["ContinuousDecoder"]
 
@@ -102,16 +116,61 @@ class _Request:
         self.finished_at: Optional[float] = None
 
 
+def _gumbel_argmax(logits, uniform):
+    """One categorical draw per row of (S, V) logits (any scale; -inf
+    never drawn) by the Gumbel-max rule from ``uniform`` (S, V) draws."""
+    gumbel = -torch.log(-torch.log(uniform.clamp(min=1e-20)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
 def _sample_rows(logits, temp, top_k, top_p, uniform):
     """Per-row greedy or filtered sampling on (S, V) f32 logits: rows with
     ``temp <= 0`` take the argmax; the others warp (top-k, then top-p)
     and sample by the Gumbel-max rule from ``uniform`` (S, V) draws."""
-    greedy = torch.argmax(logits, dim=-1)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
-    filtered = _warp_scaled_rows(scaled, top_k, top_p)
-    gumbel = -torch.log(-torch.log(uniform.clamp(min=1e-20)))
-    sampled = torch.argmax(filtered + gumbel, dim=-1)
-    return torch.where(temp <= 0.0, greedy, sampled).to(torch.int32)
+    sampled = _gumbel_argmax(_warp_scaled_rows(scaled, top_k, top_p),
+                             uniform)
+    return torch.where(temp <= 0.0, greedy, sampled)
+
+
+def _spec_accept(greedy, drafts, temp=None, t_logp=None, d_logp=None,
+                 u_acc=None, u_res=None):
+    """One verify round's decision for every row → (accepted drafts k
+    (S,) int32, the token that follows them (S,) int32).
+
+    ``greedy`` (S, g+1) holds the target's argmax at each window position
+    and ``drafts`` (S, g) the proposals. A greedy round (``t_logp`` None,
+    and rows with ``temp <= 0``) accepts while the proposal is the
+    target's argmax and ends on the target's argmax. A sampled row
+    accepts proposal x with probability min(1, p_t(x) / p_d(x)) (``u_acc``
+    (S, g) uniforms; ``t_logp`` (S, g+1, V) and ``d_logp`` (S, g, V) the
+    warped log-probabilities) and ends on a draw (``u_res`` (S, V)
+    uniforms) from the normalized residual max(p_t - p_d, 0) at its first
+    rejection, or from p_t after it accepted all g — so its tokens are
+    distributed as p_t's."""
+    g = drafts.shape[1]
+    accepts = greedy[:, :g] == drafts
+    if t_logp is not None:
+        d_idx = drafts.long()[..., None]
+        lp_t = t_logp[:, :g].gather(-1, d_idx)[..., 0]
+        lp_d = d_logp.gather(-1, d_idx)[..., 0]
+        acc_s = torch.log(u_acc.clamp(min=1e-38)) < lp_t - lp_d
+        accepts = torch.where(temp[:, None] > 0.0, acc_s, accepts)
+    k = torch.cumprod(accepts.to(torch.int32), dim=-1).sum(
+        dim=-1, dtype=torch.int32)
+    final = greedy.gather(1, k.long()[:, None])[:, 0]
+    if t_logp is not None:
+        rows = torch.arange(k.shape[0], device=k.device)
+        p_t_k = torch.exp(t_logp[rows, k.long()])
+        d_pad = torch.cat([d_logp, torch.full_like(d_logp[:, :1],
+                                                   -math.inf)], dim=1)
+        resid = (p_t_k - torch.exp(d_pad[rows, k.long()])).clamp(min=0.0)
+        tot = resid.sum(dim=-1, keepdim=True)
+        resid = torch.where(tot > 1e-30, resid / tot, p_t_k)
+        resampled = _gumbel_argmax(torch.log(resid.clamp(min=1e-38)), u_res)
+        final = torch.where(temp > 0.0, resampled, final)
+    return k, final
 
 
 def _quant_probe(rows: torch.Tensor, store_dtype):
@@ -149,7 +208,15 @@ class ContinuousDecoder:
     ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``, over a
     world from ``parallel.distributed.initialize``) serves tensor
     parallel: heads over ``"tp"``; every rank must run the same calls.
-    A ``"dp"`` axis larger than 1 raises NotImplementedError."""
+    A ``"dp"`` axis larger than 1 raises NotImplementedError.
+
+    ``draft_params`` (a numpy param tree) with ``draft_cfg`` turns on
+    speculative decoding at ``gamma`` draft tokens a round (the draft
+    causal, dense, on the target's vocabulary); ``autotune=True`` runs
+    the :class:`KVAutotuner`, which walks gamma up to ``max(gamma, 8)``
+    (every slot's pages and the draft pool are sized for that ceiling),
+    the chunk budget and the pipeline depth. Speculation on a mesh is not
+    ported (NotImplementedError)."""
 
     def __init__(self, params: Dict, cfg: TransformerConfig, *,
                  device=None,
@@ -165,11 +232,20 @@ class ContinuousDecoder:
                  defrag_threshold: Optional[int] = None,
                  paged_attn: str = "kernel",
                  draft_params: Optional[Dict] = None,
+                 draft_cfg: Optional[TransformerConfig] = None,
+                 gamma: int = 4,
+                 autotune: bool = False,
                  kv_dtype: Optional[str] = None,
                  quant_probe: int = 64,
                  mesh=None, journal=None):
-        if draft_params is not None:
-            raise _not_ported("speculative decoding (draft_params)")
+        #: speculative mode: the draft proposes gamma tokens a round per
+        #: slot, the target verifies every slot's window in one forward
+        self._spec = draft_params is not None
+        if self._spec and mesh is not None:
+            raise NotImplementedError(
+                "speculative decoding on a mesh is not ported to "
+                "mmlspark_tpu_torch yet (queued in ROADMAP.md, 'Slice 6 "
+                "leftovers', item 27)")
         if mesh is not None and axis_size(mesh, "dp") > 1:
             raise NotImplementedError(
                 f"slot sharding over dp={axis_size(mesh, 'dp')} is not "
@@ -181,6 +257,22 @@ class ContinuousDecoder:
             raise _not_ported("durable sessions (journal)")
         if not cfg.causal:
             raise ValueError("ContinuousDecoder needs cfg.causal=True")
+        if self._spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params without draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError("draft and target must share a vocabulary")
+            if not draft_cfg.causal or draft_cfg.moe_experts:
+                raise ValueError("draft must be causal and dense")
+            if draft_cfg.position == "learned" and max_len > draft_cfg.max_len:
+                # the draft's positions past its table would clamp: its
+                # proposals, and so the acceptance, would silently degrade
+                raise ValueError(
+                    f"max_len {max_len} exceeds the draft's learned position "
+                    f"table draft_cfg.max_len {draft_cfg.max_len}")
+        if gamma < 1:
+            # checked without a draft too, as the reference does
+            raise ValueError("gamma must be >= 1")
         if paged_attn not in ("kernel", "gather"):
             raise ValueError(f"unknown paged-attention impl {paged_attn!r} "
                              f"(choose 'kernel' or 'gather')")
@@ -209,6 +301,15 @@ class ContinuousDecoder:
         self._eos = eos_id
         self._k = int(steps_per_dispatch)
         self._depth = int(pipeline_depth)
+        self._gamma = int(gamma)
+        #: the autotuner walks gamma up to this ceiling; the headroom, the
+        #: page counts and the retirement horizon are sized for it
+        self._gamma_max = (max(self._gamma, 8) if (autotune and self._spec)
+                           else self._gamma)
+        self._d_cfg = draft_cfg
+        #: cache positions a slot spans: a verify window writes all
+        #: gamma + 1 positions even when fewer remain before max_new
+        self._Lc = self._L + (self._gamma_max + 1 if self._spec else 0)
         self._attn_impl = paged_attn
         #: the mesh, its head axis ("tp" when the mesh names one; no slot
         #: axis is sharded here), and its shape string ("tp2")
@@ -221,12 +322,15 @@ class ContinuousDecoder:
         if self._head_axis is not None:
             params = shard_params(params, cfg, axis_rank(mesh, "tp"), tp)
         self._params = params_from_numpy(params, cfg, self._dev)
+        if self._spec:
+            self._d_params = params_from_numpy(draft_params, draft_cfg,
+                                               self._dev)
         #: (device token block (rows, cols), {col: (slot, request)} at
         #: dispatch time) per outstanding dispatch, oldest first
         self._pending: List[tuple] = []
         self._page = PagedKVPool.kernel_aligned_page_size(page_size)
         #: block-table width: logical pages per slot at full cache length
-        self._P_max = -(-self._L // self._page)
+        self._P_max = -(-self._Lc // self._page)
         if kv_pages is None:
             kv_pages = (1 + self._S * self._P_max
                         + max(self._P_max, self._S))
@@ -238,6 +342,15 @@ class ContinuousDecoder:
                                page_size=self._page, kv_dtype=self._kv_dtype,
                                device=self._dev, tp=tp)
         self._chunk = int(prefill_chunk)
+        self._tuner = (KVAutotuner(gamma=self._gamma,
+                                   gamma_max=self._gamma_max,
+                                   chunk=self._chunk,
+                                   chunk_min=min(32, self._chunk),
+                                   chunk_max=max(1024, self._chunk),
+                                   depth=self._depth,
+                                   depth_min=min(1, self._depth),
+                                   depth_max=max(4, self._depth))
+                       if autotune else None)
         self._defrag_thr = (max(1, self._kv.num_pages // 4)
                             if defrag_threshold is None
                             else max(1, int(defrag_threshold)))
@@ -249,8 +362,12 @@ class ContinuousDecoder:
         # gather impl copies to materialize contiguous K/V (0 for the
         # kernel), over all shards, as one device counts it
         bpp = self._kv.bytes_per_position_global()
-        self._gather_bytes_tick = self._S * self._L * bpp
+        self._gather_bytes_tick = self._S * self._Lc * bpp
         self._gather_bytes_extend = self._L * bpp
+        #: most tokens one dispatch can emit per slot (the retirement
+        #: horizon unit), at the autotuner's gamma ceiling
+        self._max_per_dispatch = (self._k * (self._gamma_max + 1)
+                                  if self._spec else self._k)
         self._slot_req: List[Optional[_Request]] = [None] * self._S
         self._waiting: List[_Request] = []
         self._lock = threading.Lock()          # guards _waiting/_next_rid
@@ -283,6 +400,14 @@ class ContinuousDecoder:
         #: recent chunk sizes in tokens
         self._chunk_trace: List[int] = []
         self._prefix_store: Dict[str, tuple] = {}
+        if self._spec:
+            # the draft slot pool: per layer contiguous (S, H_d, Lc, hd_d)
+            d = self._d_cfg
+            shape = (self._S, d.heads, self._Lc, d.d_model // d.heads)
+            self._d_cache = [{kk: torch.zeros(shape, dtype=d.dtype,
+                                              device=self._dev)
+                              for kk in ("k", "v")}
+                             for _ in range(d.layers)]
         self._tok = self._zeros(torch.int32)
         self._pos = self._zeros(torch.int32)
         self._active = self._zeros(torch.bool, False)
@@ -391,8 +516,9 @@ class ContinuousDecoder:
             # uninserted request go back to the queue together
             groups = list(by_bucket.values())
             for gi, group in enumerate(groups):
-                logits, row_cache = self._prefill_group([r for _, r in group])
-                if not self._insert_rows(group, logits, row_cache):
+                logits, row_cache, d_rows = self._prefill_group(
+                    [r for _, r in group])
+                if not self._insert_rows(group, logits, row_cache, d_rows):
                     self._requeue([p for g in groups[gi:] for p in g]
                                   + prefixed + chunked)
                     return
@@ -418,7 +544,9 @@ class ContinuousDecoder:
     def _prefill_group(self, reqs):
         """ONE batched prefill over same-bucket requests: zero-padded ids,
         power-of-two row pad, pad rows length 1. Returns (logits,
-        row_cache); rows past ``len(reqs)`` are padding."""
+        row_cache, draft rows); rows past ``len(reqs)`` are padding, and
+        the draft's rows (its prefill of the same ids) are empty without
+        a draft."""
         padded = self._bucket(max(r.prompt.size for r in reqs))
         k = 1 << (len(reqs) - 1).bit_length()
         ids = np.zeros((k, padded), np.int32)
@@ -426,17 +554,20 @@ class ContinuousDecoder:
         for i, r in enumerate(reqs):
             ids[i, :r.prompt.size] = r.prompt
             lengths[i] = r.prompt.size
-        logits, row_cache = prefill_cache(self._params, self._h2d(ids),
-                                          self._h2d(lengths), self._cfg,
-                                          self._L, **self._tp_kw())
+        ids, lengths = self._h2d(ids), self._h2d(lengths)
+        logits, row_cache = prefill_cache(self._params, ids, lengths,
+                                          self._cfg, self._L, **self._tp_kw())
+        d_rows = (prefill_cache(self._d_params, ids, lengths, self._d_cfg,
+                                self._L)[1] if self._spec else [])
         self.stats["prefills"] += 1
-        return logits, row_cache
+        return logits, row_cache, d_rows
 
     # ---- page bookkeeping ----
     def _need(self, prompt_len: int, max_new: int) -> int:
         """Cache positions a request must own: prompt + every emittable
-        token."""
-        return prompt_len + max_new
+        token + the speculative verify window's optimistic tail."""
+        return (prompt_len + max_new
+                + (self._gamma_max + 1 if self._spec else 0))
 
     def _upload_bt(self):
         self._bt = self._h2d(self._bt_host)
@@ -492,7 +623,7 @@ class ContinuousDecoder:
             for slot, _ in group:
                 self._slot_req[slot] = None
 
-    def _insert_rows(self, group, logits, row_cache) -> bool:
+    def _insert_rows(self, group, logits, row_cache, d_rows) -> bool:
         """Pages, slot insertion and first tokens for an admitted group;
         False (nothing inserted) when the pool cannot hold it."""
         try:
@@ -502,14 +633,17 @@ class ContinuousDecoder:
         g = len(group)
         self._insert_chunk_locked(
             group, logits[:g],
-            [{kk: c[kk][:g] for kk in ("k", "v")} for c in row_cache])
+            [{kk: c[kk][:g] for kk in ("k", "v")} for c in row_cache],
+            [{kk: c[kk][:g] for kk in ("k", "v")} for c in d_rows])
         return True
 
-    def _insert_chunk_locked(self, group, logits, rows_t):
+    def _insert_chunk_locked(self, group, logits, rows_t, rows_d):
         """Scatter prefill rows into the slots' pages (``rows_t`` empty for
         prefix hits and chunked prefills, whose K/V is already written),
-        set the per-slot decode state, and queue the first tokens on the
-        drain pipeline. Pages must already be assigned."""
+        write the draft's rows ``rows_d`` (empty without a draft) into the
+        draft slot pool, set the per-slot decode state, and queue the
+        first tokens on the drain pipeline. Pages must already be
+        assigned."""
         g = len(group)
         slots = [s for s, _ in group]
         reqs = [r for _, r in group]
@@ -537,6 +671,9 @@ class ContinuousDecoder:
             page_rows = self._h2d(self._bt_host[slots, :n_pages], np.int64)
             paged_scatter_rows(self._kv.buffers, rows_t, page_rows,
                                self._page)
+        for c, rc in zip(self._d_cache if rows_d else (), rows_d):
+            for kk in ("k", "v"):
+                c[kk][slots_v, :, :rc[kk].shape[2]] = rc[kk]
         self._tok[slots_v] = firsts
         self._pos[slots_v] = lens_v
         self._active[slots_v] = True
@@ -558,12 +695,17 @@ class ContinuousDecoder:
         its own generator."""
         if all(g is None for g in gens):
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        u = torch.full_like(logits, 0.5)
+        return _sample_rows(logits, temp, topk, topp,
+                            self._uniform(gens, logits.shape[1]))
+
+    def _uniform(self, gens, n: int) -> torch.Tensor:
+        """(S, n) uniforms: ``n`` draws from each row's generator, in row
+        order, and 0.5 for rows without one (greedy rows draw nothing)."""
+        u = torch.full((len(gens), n), 0.5, device=self._dev)
         for i, g in enumerate(gens):
             if g is not None:
-                u[i] = torch.rand(logits.shape[1], generator=g,
-                                  device=self._dev)
-        return _sample_rows(logits, temp, topk, topp, u)
+                u[i] = torch.rand(n, generator=g, device=self._dev)
+        return u
 
     def _bucket(self, n: int, cap: Optional[int] = None) -> int:
         """THE pad-bucket policy (batched admission, prefix suffix windows
@@ -643,7 +785,8 @@ class ContinuousDecoder:
             w_logits = self._extend(self._padded_ids(suffix, self._L - start),
                                     start, slot)
             self._insert_chunk_locked([(slot, req)],
-                                      w_logits[:, suffix.size - 1], [])
+                                      w_logits[:, suffix.size - 1], [],
+                                      self._draft_prompt_rows(req))
             return True
         try:
             self._ensure_pages([(slot, req)])
@@ -654,7 +797,8 @@ class ContinuousDecoder:
             self._params, self._h2d(ids), self._h2d([P], np.int32),
             self._cfg, self._L, **self._tp_kw())
         self.stats["prefills"] += 1
-        self._insert_chunk_locked([(slot, req)], logits, row_cache)
+        self._insert_chunk_locked([(slot, req)], logits, row_cache,
+                                  self._draft_prompt_rows(req))
         if self._prefix_store_cap > 0:
             # register after the insert wrote the rows; the slot's later
             # writes land at positions >= P >= plen, outside the prefix
@@ -671,9 +815,24 @@ class ContinuousDecoder:
                 req.prompt[:plen].copy(), phash, plen)
         return True
 
+    def _draft_prompt_rows(self, req: _Request):
+        """The draft's prefill rows of the whole prompt (the draft always
+        re-prefills it: a draft is cheap by construction) for an admission
+        that runs no batched prefill; empty without a draft."""
+        if not self._spec:
+            return []
+        ids = self._padded_ids(req.prompt, self._L)
+        return prefill_cache(self._d_params, self._h2d(ids),
+                             self._h2d([req.prompt.size], np.int32),
+                             self._d_cfg, self._L)[1]
+
     # ---- chunked prefill ----
+    def _chunk_budget(self) -> int:
+        return self._tuner.chunk if self._tuner is not None else self._chunk
+
     def _needs_chunk(self, req: _Request) -> bool:
-        return req.prefix_key is None and req.prompt.size > self._chunk
+        return (req.prefix_key is None
+                and req.prompt.size > self._chunk_budget())
 
     def _begin_chunked(self, slot: int, req: _Request) -> bool:
         """Assign pages and park the request in the chunk scheduler: the
@@ -693,7 +852,7 @@ class ContinuousDecoder:
         slot = next(iter(self._chunking))
         req, off = self._chunking[slot]
         P = req.prompt.size
-        w = min(self._chunk, P - off)
+        w = min(self._chunk_budget(), P - off)
         w_logits = self._extend(
             self._padded_ids(req.prompt[off:off + w], self._L - off),
             off, slot)
@@ -705,7 +864,8 @@ class ContinuousDecoder:
             return
         del self._chunking[slot]
         self.stats["prefills"] += 1
-        self._insert_chunk_locked([(slot, req)], w_logits[:, w - 1], [])
+        self._insert_chunk_locked([(slot, req)], w_logits[:, w - 1], [],
+                                  self._draft_prompt_rows(req))
 
     # ---- retirement ----
     def _note_token(self, req: _Request, tok: int):
@@ -770,7 +930,7 @@ class ContinuousDecoder:
         for _ in range(self._k):
             logits, _ = decode_step_paged(
                 self._params, tok, pos, self._kv.buffers, self._bt,
-                self._cfg, page_size=self._page, length=self._L,
+                self._cfg, page_size=self._page, length=self._Lc,
                 active=active, impl=self._attn_impl, **self._tp_kw())
             if sample:
                 nxt = self._pick(logits, self._temp, self._topk, self._topp,
@@ -789,6 +949,113 @@ class ContinuousDecoder:
         self._tok, self._pos = tok, pos
         self._active, self._remaining = active, remaining
         return torch.stack(toks)
+
+    # ---- the speculative tick ----
+    def _warm_logp(self, lg: torch.Tensor, warp: bool) -> torch.Tensor:
+        """Log-probabilities of (S, V) or (S, W, V) logits at each row's
+        temperature, after the row's top-k/top-p warp when ``warp`` (the
+        same warp for target and draft: the rejection test is exact only
+        under a shared warp)."""
+        t = self._temp.clamp(min=1e-6).reshape(
+            (lg.shape[0],) + (1,) * (lg.dim() - 1))
+        scaled = lg.float() / t
+        if warp:
+            if lg.dim() == 2:
+                scaled = _warp_scaled_rows(scaled, self._topk, self._topp)
+            else:
+                s_, w_, v_ = scaled.shape
+                scaled = _warp_scaled_rows(
+                    scaled.reshape(s_ * w_, v_),
+                    self._topk.repeat_interleave(w_),
+                    self._topp.repeat_interleave(w_)).reshape(s_, w_, v_)
+        return torch.log_softmax(scaled, dim=-1)
+
+    def _spec_tick(self, decode_live: List[int], gamma: int,
+                   mode: str) -> torch.Tensor:
+        """k draft → verify rounds over every slot (the reference's
+        ``_spec_tick_program``, eager). Each round the draft takes gamma +
+        1 steps over its slot pool (the last writes the last proposal's
+        K/V, so the pool has no hole under full acceptance), the target
+        scores every slot's (pending + gamma drafts) window in ONE paged
+        window forward, and each slot accepts its own longest valid prefix
+        plus one token. Greedy rows (``mode="greedy"``, and temp <= 0 rows
+        of a sampled pool): proposals are draft argmaxes, acceptance is a
+        target-argmax match, the last token the target's argmax — the
+        plain engine's tokens. Sampled rows (``"sampled"``; ``"warped"``
+        when a live row warps): proposals are draft samples, a token is
+        accepted with probability min(1, p_t/p_d) and a rejection
+        resampled from the normalized residual max(p_t - p_d, 0); each
+        draws from its slot's generator in a fixed order. Emission stops
+        at eos, inclusive. Returns the (k (gamma + 1), S) block, -1 on
+        lanes not emitted; rejected lanes' K/V is overwritten before any
+        query reads it."""
+        dev, S = self._dev, self._S
+        sample = mode != "greedy"
+        warp = mode == "warped"
+        gens = [self._gens[i] if i in decode_live else None
+                for i in range(S)]
+        V = self._cfg.vocab
+        idx = torch.arange(gamma + 1, device=dev)
+        temp = self._temp
+        tok, pos = self._tok, self._pos
+        active, remaining = self._active, self._remaining
+        emits = []
+        for _ in range(self._k):
+            t, props, d_logps = tok, [], []
+            for i in range(gamma + 1):
+                lg = decode_step_ragged_inplace(self._d_params, t, pos + i,
+                                                self._d_cache, self._d_cfg,
+                                                active)
+                if i == gamma:          # this step only wrote its K/V
+                    break
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                if sample:
+                    logp = self._warm_logp(lg, warp)
+                    nxt = torch.where(
+                        temp > 0.0,
+                        _gumbel_argmax(logp, self._uniform(gens, V)), nxt)
+                    d_logps.append(logp)
+                props.append(nxt)
+                t = torch.where(active, nxt, t)
+            drafts = torch.stack(props, dim=1)                    # (S, g)
+            w_logits, _ = decode_window_paged(
+                self._params, torch.cat([tok[:, None], drafts], dim=1), pos,
+                self._kv.buffers, self._bt, self._cfg, page_size=self._page,
+                length=self._Lc, active=active, impl=self._attn_impl)
+            self.stats["spec_verify_windows"] = (
+                self.stats.get("spec_verify_windows", 0) + 1)
+            greedy = torch.argmax(w_logits, dim=-1).to(torch.int32)
+            if sample:
+                k, final = _spec_accept(
+                    greedy, drafts, temp, self._warm_logp(w_logits, warp),
+                    torch.stack(d_logps, dim=1), self._uniform(gens, gamma),
+                    self._uniform(gens, V))
+            else:
+                k, final = _spec_accept(greedy, drafts)
+            pad_drafts = torch.cat([drafts, drafts[:, -1:]], dim=1)
+            cand = torch.where(idx[None] < k[:, None], pad_drafts,
+                               final[:, None])
+            cnt = torch.minimum(k + 1, remaining)
+            if self._eos is not None:
+                # truncate at the first emitted eos, inclusive
+                is_eos = (cand == self._eos) & (idx[None] < cnt[:, None])
+                first = is_eos.to(torch.int32).argmax(dim=-1).to(torch.int32)
+                cnt = torch.where(is_eos.any(dim=-1), first + 1, cnt)
+            cnt = torch.where(active, cnt, torch.zeros_like(cnt))
+            emit = torch.where(idx[None] < cnt[:, None], cand,
+                               torch.full_like(cand, -1))
+            pos = pos + cnt
+            remaining = remaining - cnt
+            fin = remaining <= 0
+            if self._eos is not None:
+                fin = fin | (emit == self._eos).any(dim=-1)
+            active = active & ~fin
+            last = cand.gather(1, (cnt - 1).clamp(min=0).long()[:, None])
+            tok = torch.where(cnt > 0, last[:, 0], tok)
+            emits.append(emit.T)
+        self._tok, self._pos = tok, pos
+        self._active, self._remaining = active, remaining
+        return torch.cat(emits, dim=0)
 
     def step(self) -> int:
         """One engine tick; returns the number of live slots stepped."""
@@ -816,12 +1083,28 @@ class ContinuousDecoder:
             return 0
         # slots mid-chunked-prefill are occupied but device-inactive
         decode_live = [i for i in live if i not in self._chunking]
+        if self._tuner is not None:
+            self._tuner.observe(
+                len(live), self._S,
+                self.stats.get("spec_emitted") if self._spec else None,
+                self.stats.get("spec_round_slots") if self._spec else None)
         if not decode_live:
-            while len(self._pending) > self._depth:
+            while len(self._pending) > self._depth_now():
                 self._drain_one()
             return len(live)
         t0 = time.perf_counter()
-        toks = self._tick(decode_live)
+        if self._spec:
+            reqs = [self._slot_req[i] for i in decode_live]
+            mode = ("greedy" if all(r.temperature <= 0.0 for r in reqs)
+                    else "warped" if any(r.temperature > 0.0
+                                         and (r.top_k > 0 or r.top_p < 1.0)
+                                         for r in reqs)
+                    else "sampled")
+            gamma = (self._tuner.gamma if self._tuner is not None
+                     else self._gamma)
+            toks = self._spec_tick(decode_live, gamma, mode)
+        else:
+            toks = self._tick(decode_live)
         self._kv.note_attn_tick(
             self._attn_impl, calls=self._k,
             gather_bytes=(self._k * self._gather_bytes_tick
@@ -830,17 +1113,24 @@ class ContinuousDecoder:
         # block drains; tokens go to the request that held it at dispatch
         self._pending.append((toks, {i: (i, self._slot_req[i])
                                      for i in decode_live}))
-        while len(self._pending) > self._depth:
+        while len(self._pending) > self._depth_now():
             self._drain_one()
         self.tick_seconds.append(time.perf_counter() - t0)
         return len(live)
+
+    def _depth_now(self) -> int:
+        """The live pipeline-depth bound: the autotuner's pick when it
+        runs (it follows occupancy), else the constructor's."""
+        if self._tuner is not None and self._tuner.depth is not None:
+            return self._tuner.depth
+        return self._depth
 
     def _retirement_in_flight(self) -> bool:
         """True iff some occupied slot could finish inside the outstanding
         blocks (always, with eos enabled)."""
         if self._eos is not None:
             return True
-        horizon = self._k * len(self._pending)
+        horizon = self._max_per_dispatch * len(self._pending)
         return any(req is not None
                    and req.max_new - len(req.tokens) <= horizon
                    for req in self._slot_req)
@@ -850,11 +1140,25 @@ class ContinuousDecoder:
         path's one device→host sync) and replay it in emission order."""
         toks_dev, snapshot = self._pending.pop(0)
         toks = toks_dev.cpu().numpy()
+        if self._spec and toks.shape[0] > 1:
+            # a spec block: k rounds of gamma + 1 lanes, -1 where nothing
+            # was emitted. Both acceptance counters come from this block:
+            # a (round, slot) pair counts iff the slot emitted in it (a
+            # live round always emits at least one token)
+            lanes = toks.shape[0] // self._k
+            live_pairs = (toks.reshape(self._k, lanes, -1) >= 0).any(1)
+            self.stats["spec_emitted"] = (self.stats.get("spec_emitted", 0)
+                                          + int((toks >= 0).sum()))
+            self.stats["spec_round_slots"] = (
+                self.stats.get("spec_round_slots", 0)
+                + int(live_pairs.sum()))
         for s in range(toks.shape[0]):
             for col, (_, req) in snapshot.items():
                 if req.done:
                     continue
-                self._note_token(req, int(toks[s, col]))
+                tk = int(toks[s, col])
+                if tk >= 0:         # a spec lane past the accepted count
+                    self._note_token(req, tk)
         for _, (slot, req) in snapshot.items():
             if req.done and self._slot_req[slot] is req:
                 self._release_locked(slot)

@@ -43,7 +43,9 @@ class GenerationEngine:
     the CUDA card (and raises without one). ``mesh`` must be None: a
     meshed front needs rank 0 to broadcast its submissions to the other
     ranks, which is not ported (ROADMAP.md, 'Slice 6 leftovers'); drive
-    a meshed ``ContinuousDecoder`` on every rank instead."""
+    a meshed ``ContinuousDecoder`` on every rank instead. ``draft_params``,
+    ``draft_cfg``, ``gamma`` and ``autotune`` go to the decoder
+    (speculative decoding and the autotuner)."""
 
     def __init__(self, params, cfg, *, device=None, max_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -53,8 +55,10 @@ class GenerationEngine:
                  reply_timeout: float = 120.0,
                  steps_per_dispatch: int = 1,
                  pipeline_depth: int = 2,
+                 draft_params=None, draft_cfg=None, gamma: int = 4,
                  page_size: int = 16, prefill_chunk: int = 256,
-                 kv_pages: Optional[int] = None, mesh=None):
+                 kv_pages: Optional[int] = None, autotune: bool = False,
+                 mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "GenerationEngine(mesh=) is not ported to mmlspark_tpu_torch "
@@ -63,8 +67,10 @@ class GenerationEngine:
             params, cfg, device=device, max_slots=max_slots,
             max_len=max_len, eos_id=eos_id,
             steps_per_dispatch=steps_per_dispatch,
-            pipeline_depth=pipeline_depth, page_size=page_size,
-            prefill_chunk=prefill_chunk, kv_pages=kv_pages)
+            pipeline_depth=pipeline_depth, draft_params=draft_params,
+            draft_cfg=draft_cfg, gamma=gamma, page_size=page_size,
+            prefill_chunk=prefill_chunk, kv_pages=kv_pages,
+            autotune=autotune)
         self.default_max_new = int(default_max_new)
         self.server = WorkerServer(host, port, api_path,
                                    reply_timeout=reply_timeout)

@@ -1,5 +1,6 @@
 """Paged KV pool — page-granular cache management for serving
-(counterpart of ``serving/kv_pool.py:98-563``).
+(counterpart of ``serving/kv_pool.py:98-673``), and the closed-loop
+:class:`KVAutotuner` the engine runs with ``autotune=True``.
 
 * **pages** — the physical cache is ``(num_pages, H, page_size, hd)`` per
   layer (``models/zoo/transformer.init_paged_cache``); requests are sized
@@ -40,11 +41,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability.registry import gauge as _metric_gauge
 from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
                             kv_store_dtype, resolve_kv_dtype)
 from ..utils.device import resolve_device
 
-__all__ = ["PagedKVPool", "PoolExhausted", "prefix_hash"]
+__all__ = ["PagedKVPool", "PoolExhausted", "KVAutotuner", "prefix_hash"]
+
+M_AUTOTUNE_GAMMA = _metric_gauge(
+    "mmlspark_kvpool_autotune_gamma",
+    "Current speculative draft length chosen by the KV autotuner")
+M_AUTOTUNE_CHUNK = _metric_gauge(
+    "mmlspark_kvpool_autotune_chunk_budget",
+    "Current prefill chunk budget (tokens) chosen by the KV autotuner")
+M_AUTOTUNE_DEPTH = _metric_gauge(
+    "mmlspark_kvpool_autotune_pipeline_depth",
+    "Current decode pipeline depth (in-flight steps) chosen by the KV "
+    "autotuner")
 
 
 def prefix_hash(tokens: Sequence[int]) -> str:
@@ -327,3 +340,102 @@ class PagedKVPool:
         self._refs[:] = 0
         self._prefixes.clear()
         self._prefix_regs.clear()
+
+
+class KVAutotuner:
+    """Closed-loop tuner for speculative gamma, the prefill chunk budget
+    and the pipeline depth (host logic only; the reference's thresholds
+    and ``history`` records).
+
+    Observations arrive once per engine tick; every ``interval`` ticks the
+    batch turns into decisions:
+
+    * **gamma** follows the measured acceptance. A verify round emits
+      ``accepted + 1`` tokens per live slot, so ``acc = (emitted /
+      round_slots - 1) / gamma``: ``acc >= acc_hi`` raises gamma by one
+      (up to ``gamma_max``), ``acc <= acc_lo`` lowers it (floor 1).
+      Greedy output stays token-identical whatever gamma runs.
+    * **chunk budget** follows slot occupancy: a mostly idle pool
+      (``<= occ_lo``) doubles it (cap ``chunk_max``), a saturated one
+      (``>= occ_hi``) halves it (floor ``chunk_min``).
+    * **pipeline depth** follows occupancy the same way, one step at a
+      time within ``[depth_min, depth_max]``; ``depth=None`` leaves the
+      engine's static depth alone.
+    """
+
+    def __init__(self, *, gamma: int, gamma_max: int, chunk: int,
+                 chunk_min: int = 32, chunk_max: int = 1024,
+                 interval: int = 32, acc_lo: float = 0.55,
+                 acc_hi: float = 0.85, occ_lo: float = 0.25,
+                 occ_hi: float = 0.75, depth: Optional[int] = None,
+                 depth_min: int = 1, depth_max: int = 4):
+        self.gamma = int(gamma)
+        self.gamma_max = int(gamma_max)
+        self.chunk = int(chunk)
+        self.chunk_min = int(chunk_min)
+        self.chunk_max = int(chunk_max)
+        self.interval = max(1, int(interval))
+        self.acc_lo, self.acc_hi = float(acc_lo), float(acc_hi)
+        self.occ_lo, self.occ_hi = float(occ_lo), float(occ_hi)
+        self.depth = None if depth is None else int(depth)
+        self.depth_min = max(0, int(depth_min))
+        self.depth_max = max(self.depth_min, int(depth_max))
+        self.history: List[Dict] = []
+        self._ticks = 0
+        self._occ_sum = 0.0
+        self._emitted0 = 0
+        self._rounds0 = 0
+        M_AUTOTUNE_GAMMA.set(self.gamma)
+        M_AUTOTUNE_CHUNK.set(self.chunk)
+        if self.depth is not None:
+            M_AUTOTUNE_DEPTH.set(self.depth)
+
+    def observe(self, live: int, slots: int,
+                spec_emitted: Optional[int] = None,
+                spec_round_slots: Optional[int] = None) -> None:
+        """One engine tick: ``live`` occupied of ``slots``, plus the
+        engine's cumulative speculative counters (deltas taken here)."""
+        self._ticks += 1
+        self._occ_sum += live / max(1, slots)
+        if self._ticks < self.interval:
+            return
+        occ = self._occ_sum / self._ticks
+        self._ticks = 0
+        self._occ_sum = 0.0
+        if spec_emitted is not None and spec_round_slots is not None:
+            d_emit = spec_emitted - self._emitted0
+            d_rounds = spec_round_slots - self._rounds0
+            self._emitted0, self._rounds0 = spec_emitted, spec_round_slots
+            if d_rounds > 0 and self.gamma > 0:
+                acc = (d_emit / d_rounds - 1.0) / self.gamma
+                if acc >= self.acc_hi and self.gamma < self.gamma_max:
+                    self._set_gamma(self.gamma + 1, acc)
+                elif acc <= self.acc_lo and self.gamma > 1:
+                    self._set_gamma(self.gamma - 1, acc)
+        if occ <= self.occ_lo and self.chunk * 2 <= self.chunk_max:
+            self._set_chunk(self.chunk * 2, occ)
+        elif occ >= self.occ_hi and self.chunk // 2 >= self.chunk_min:
+            self._set_chunk(self.chunk // 2, occ)
+        if self.depth is not None:
+            if occ <= self.occ_lo and self.depth + 1 <= self.depth_max:
+                self._set_depth(self.depth + 1, occ)
+            elif occ >= self.occ_hi and self.depth - 1 >= self.depth_min:
+                self._set_depth(self.depth - 1, occ)
+
+    def _set_gamma(self, g: int, acc: float) -> None:
+        self.history.append({"knob": "gamma", "from": self.gamma, "to": g,
+                             "acceptance": round(acc, 4)})
+        self.gamma = g
+        M_AUTOTUNE_GAMMA.set(g)
+
+    def _set_chunk(self, c: int, occ: float) -> None:
+        self.history.append({"knob": "chunk", "from": self.chunk, "to": c,
+                             "occupancy": round(occ, 4)})
+        self.chunk = c
+        M_AUTOTUNE_CHUNK.set(c)
+
+    def _set_depth(self, d: int, occ: float) -> None:
+        self.history.append({"knob": "depth", "from": self.depth, "to": d,
+                             "occupancy": round(occ, 4)})
+        self.depth = d
+        M_AUTOTUNE_DEPTH.set(d)

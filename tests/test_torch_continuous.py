@@ -195,7 +195,8 @@ def test_submit_validation(params):
             eng.submit(*args, **kw)
 
 
-@pytest.mark.parametrize("kw", [{"draft_params": {}},
+@pytest.mark.parametrize("kw", [{"draft_params": {},
+                                 "mesh": ranks.StubMesh(tp=1)},
                                 {"mesh": ranks.StubMesh(dp=2, tp=1)},
                                 {"prefill_ahead": 1}, {"prefill_ahead": 2},
                                 {"journal": object()}])
