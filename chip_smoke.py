@@ -177,7 +177,38 @@ Phases (any failure exits non-zero and prints no result line):
    for each request where they part, the f32 logit gap between the two
    engines' picks at the first differing token).
 
-``python3 chip_smoke.py 13`` runs phases 1, 2, 4 and 13 only,
+14. transformer ONNX graphs through the converter — (a) BERT-base at its
+   published widths (``init_bert_params(BertOnnxConfig(vocab=30522,
+   layers=12, d_model=768, heads=12, d_ff=3072, max_len=512), seed=0)``)
+   as the ORT-optimized graph ``fused_bert_onnx`` writes (contrib
+   ``EmbedLayerNormalization``, ``Attention``, ``SkipLayerNormalization``,
+   ``BiasGelu``) and as ``export_bert_onnx``'s decomposed graph, through
+   ``DataFrame`` → ``ONNXModel(device=None).transform`` in float32 on 256
+   right-padded rows of 512 ids (lengths 32 ... 512, batches of 32):
+   exactly 12 K7 launches a batch for the fused graph (``_attention_core``
+   on K7, no dense call on the card, no plain call), none for the
+   decomposed one, the fused graph on the CPU for 4 rows; all hidden
+   states within 1e-3 of the largest |hidden| of one another; (b) both
+   graphs in bfloat16 (warm-up over the dynamic sequence axis, one untimed
+   pass, 3 timed passes): sequences/s side by side, 12 K7 launches a
+   batch, the fused states within 2^-4 of (a)'s largest |hidden|, each
+   graph's batch function on a resident batch (device ms by CUDA events,
+   host issue ms); K7 alone
+   at the call's shape (B=32, H=12, S=512, D=64, the first batch's mask)
+   beside its plain version, SDPA with the mask and its bound, and the
+   contiguous copies of the split-off heads; (c) one-node graphs on the
+   card, each one K7 launch, against the CPU path within 1e-3 of the
+   largest |output| (f32): com.microsoft ``Attention`` with
+   ``unidirectional=1``, ``MultiHeadAttention``, ai.onnx ``Attention``
+   causal, ``GroupQueryAttention`` prefill (B=4, S=512, 32 q heads over 8
+   kv heads, hd 128, rotary); then a ``GroupQueryAttention`` decode step
+   over a static cache on the dense path, no K7 launch, its caches bitwise
+   the CPU's; (d) ViT-B/16's logits (``export_vit_onnx``, 8 rows) and
+   FULL's decoder (``export_decoder_onnx``, 8 decode steps of 2 rows) on
+   the card against the CPU, within 1e-3 of the largest |logit|.
+
+``python3 chip_smoke.py 14`` runs phases 1, 2 and 14 only,
+``python3 chip_smoke.py 13`` phases 1, 2, 4 and 13,
 ``python3 chip_smoke.py 12`` phases 1, 2, 8c and 12,
 ``python3 chip_smoke.py 11`` phases 1, 2 and 11,
 ``python3 chip_smoke.py 10`` phases 1, 2, 4 and 10,
@@ -3374,6 +3405,527 @@ def phase_onnx(dev_info):
     return {"parity_f32": parity, "host_fed": host_fed, "resident": res}
 
 
+# ---- phase 14: an ORT-optimized BERT-base through ONNXModel (K7) -----------
+
+#: BERT-base at the published widths (Devlin et al. 2018, the
+#: bert-base-uncased config) as the port's ``BertOnnxConfig``
+BERT_ONNX = dict(vocab=30522, layers=12, d_model=768, heads=12, d_ff=3072,
+                 max_len=512)
+#: 14a/14b: 256 right-padded rows of 512 ids, lengths 32 ... 512 from a
+#: seeded generator, batches of 32 (the K7 "infer" shape); 4 rows on the CPU
+ONNX_BERT = dict(rows=256, seq=512, batch=32, passes=3, cpu_rows=4, seed=14)
+#: 14d: ViT-B/16 (224 px, patch 16, d 768, 12 heads, 12 layers, d_ff 3072,
+#: 1000 classes), 8 rows; FULL's decoder, 8 decode steps of 2 rows
+VIT_B16 = dict(image_size=224, patch=16, d_model=768, heads=12, layers=12,
+               d_ff=3072, num_classes=1000)
+
+
+def fused_bert_onnx(cfg, params):
+    """The ORT-optimized form of ``export_bert_onnx``'s encoder, written with
+    the port's builder from the same params (``init_bert_params``):
+    ``EmbedLayerNormalization`` (word + position embeddings, LayerNorm,
+    ``mask_index`` = the mask's row sums), then per layer ``Attention``
+    (com.microsoft: packed q/k/v weights and bias, ``mask_index``), the out
+    projection's ``MatMul``, ``SkipLayerNormalization`` (with the out
+    projection's bias), ``MatMul``, ``BiasGelu``, ``MatMul``,
+    ``SkipLayerNormalization``; output ``last_hidden_state``. Epsilon 1e-5
+    and erf-GELU, so it computes the same network as ``export_bert_onnx``;
+    no segment embedding (those inputs are empty, as ORT allows)."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
+                                                 make_node,
+                                                 make_tensor_value_info)
+    ms = {"domain": "com.microsoft"}
+    inits = {k: params[k] for k in ("embed.word", "embed.pos", "embed.ln.g",
+                                    "embed.ln.b")}
+    nodes = [make_node("EmbedLayerNormalization",
+                       ["input_ids", "", "embed.word", "embed.pos", "",
+                        "embed.ln.g", "embed.ln.b", "attention_mask"],
+                       ["x0", "mask_index"], epsilon=1e-5, **ms)]
+    x = "x0"
+    for i in range(cfg.layers):
+        p = f"l{i}."
+        inits[p + "qkv.w"] = np.concatenate(
+            [params[p + n + ".w"] for n in "qkv"], axis=1)
+        inits[p + "qkv.b"] = np.concatenate(
+            [params[p + n + ".b"] for n in "qkv"])
+        for k in ("o.w", "o.b", "ln1.g", "ln1.b", "ff1.w", "ff1.b", "ff2.w",
+                  "ff2.b", "ln2.g", "ln2.b"):
+            inits[p + k] = params[p + k]
+        nodes += [
+            make_node("Attention", [x, p + "qkv.w", p + "qkv.b",
+                                    "mask_index"], [p + "ctx"],
+                      num_heads=cfg.heads, **ms),
+            make_node("MatMul", [p + "ctx", p + "o.w"], [p + "o"]),
+            make_node("SkipLayerNormalization",
+                      [p + "o", x, p + "ln1.g", p + "ln1.b", p + "o.b"],
+                      [p + "h"], epsilon=1e-5, **ms),
+            make_node("MatMul", [p + "h", p + "ff1.w"], [p + "f1"]),
+            make_node("BiasGelu", [p + "f1", p + "ff1.b"], [p + "g"], **ms),
+            make_node("MatMul", [p + "g", p + "ff2.w"], [p + "f2"]),
+            make_node("SkipLayerNormalization",
+                      [p + "f2", p + "h", p + "ln2.g", p + "ln2.b",
+                       p + "ff2.b"], [f"x{i + 1}"], epsilon=1e-5, **ms)]
+        x = f"x{i + 1}"
+    nodes.append(make_node("Identity", [x], ["last_hidden_state"]))
+    graph = make_graph(
+        nodes, "bert_encoder_ort",
+        inputs=[make_tensor_value_info(n, np.int64, ("batch", "seq"))
+                for n in ("input_ids", "attention_mask")],
+        outputs=[make_tensor_value_info("last_hidden_state", np.float32,
+                                        ("batch", "seq", cfg.d_model))],
+        initializers=inits)
+    return make_model(graph, opset=17, extra_opsets={"com.microsoft": 1})
+
+
+def bert_rows(rows, seq, vocab, seed):
+    """(ids, mask) int64 (rows, seq): right-padded rows whose lengths a
+    seeded generator draws from seq / 16 ... seq (32 ... 512 at 512),
+    padding ids 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(seq // 16, seq + 1, rows)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int64)
+    ids = rng.integers(1, vocab, (rows, seq)) * mask
+    return ids.astype(np.int64), mask
+
+
+def _bert_model(model_bytes, dtype, batch, device=None):
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    return ONNXModel(model_bytes, device=device,
+                     feed_dict={"input_ids": "input_ids",
+                                "attention_mask": "attention_mask"},
+                     fetch_dict={"hidden": "last_hidden_state"},
+                     mini_batch_size=batch, compute_dtype=dtype)
+
+
+def _zero_k7_counts():
+    from mmlspark_tpu_torch.onnx import convert
+    from mmlspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                        flash_attention_plain)
+    flash_attention.launches = 0
+    flash_attention_plain.calls = 0
+    convert.dense_on_cuda.clear()
+
+
+def _k7_counts(what, want):
+    """K7 launches since ``_zero_k7_counts``; raises unless they are
+    ``want`` and no plain call or dense ``_attention_core`` call ran on the
+    card."""
+    from mmlspark_tpu_torch.onnx import convert
+    from mmlspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                        flash_attention_plain)
+    got = flash_attention.launches
+    dense = dict(convert.dense_on_cuda)
+    if got != want or flash_attention_plain.calls or dense:
+        raise AssertionError(f"{what}: {got} K7 launches (want {want}), "
+                             f"{flash_attention_plain.calls} plain calls, "
+                             f"dense attention on the card {dense}")
+    return got
+
+
+def _k7_onnx_timing(dev_info, mask, heads, head_dim):
+    """K7 alone at 14b's call shape (bf16, B = 32, H = 12, S = 512, D = 64,
+    the first batch's key mask): its time beside the plain version, SDPA
+    with the same mask and the bound, its error against the plain version
+    in f32, and the three contiguous copies ``_attention_core`` makes of
+    the q/k/v heads an Attention node splits off."""
+    import torch
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.onnx import convert
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    kmask = torch.from_numpy(mask != 0).to(dev)
+    B, S = kmask.shape
+    H, D = heads, head_dim
+    gen = torch.Generator(device=dev).manual_seed(141)
+    slab = B * H * S * D * 2
+    copies = [[torch.randn(B, H, S, D, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3)]
+              for _ in range(_copies(3 * slab))]
+    q, k, v = copies[0]
+    o = fa._fwd_kernel(q, k, v, kmask, False, D ** -0.5, False)[0]
+    f32 = [t.float() for t in (q, k, v)]
+    want = fa.flash_attention_plain(*f32, kmask)[0]
+    r_o = fa.flash_attention_plain(f32[0], f32[1], f32[2].abs(), kmask)[0]
+    err = _ulp_check("14b K7", o, want, r_o)
+    lib = fa._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = []
+
+    def fwd(c):
+        return lambda: rc.append(lib.mmlspark_fa_fwd(
+            fa._DTYPES[torch.bfloat16], D, c[0].data_ptr(), c[1].data_ptr(),
+            c[2].data_ptr(), kmask.data_ptr(), o.data_ptr(), None, None,
+            B * H, H, S, D ** -0.5, 0, stream))
+
+    ms = _cuda_ms([fwd(c) for c in copies], 50)
+    if any(rc):
+        raise AssertionError(f"14b K7: launch returned {set(rc)}")
+    plain_ms = _cuda_ms([lambda c=c: fa.flash_attention_plain(
+        c[0], c[1], c[2], kmask) for c in copies], 5)
+    sdpa_mask = kmask[:, None, None, :]
+    lib_ms = _cuda_ms([lambda c=c: F.scaled_dot_product_attention(
+        c[0], c[1], c[2], attn_mask=sdpa_mask) for c in copies], 50)
+    del copies
+    # the copies: q/k/v as the transposed views an Attention node's packed
+    # (B, S, 3 H D) projection gives, made contiguous for K7
+    qkvs = [torch.randn(B, S, 3 * H * D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(_copies(3 * slab))]
+    views = [[convert._split_heads(t, B, S, H)
+              for t in qkv.split(H * D, dim=-1)] for qkv in qkvs]
+    copy_ms = _cuda_ms([lambda vs=vs: [convert._k7_operand(t) for t in vs]
+                        for vs in views], 20)
+    del qkvs, views
+    torch.cuda.empty_cache()
+    pairs = H * fa.attention_pairs(kmask, B, S, False)
+    kv_frac = kmask.float().mean().item()
+    bound = _bound(dev_info, slab + 2 * slab * kv_frac + slab + B * S,
+                   4 * D * pairs, "flops")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": lib_ms, "contiguous_copies_ms": copy_ms,
+            "copies_bound_ms": _bound(dev_info, 6 * slab, 0)["bound_ms"],
+            "shape": {"B": B, "H": H, "S": S, "D": D, "causal": False,
+                      "mask": "14b's first batch", "dtype": "bfloat16",
+                      "pairs": pairs, "valid_key_share": kv_frac}}
+
+
+def _bert_batch_fn_ms(m, ids, mask):
+    """The model's batch function (input prep, the graph, the fetch) on
+    one resident batch, outputs left on the card: device ms by CUDA events
+    and host issue ms."""
+    import torch
+    dev = torch.device("cuda")
+    fn, params = m._ensure_fn(), m._params_for_device(dev)
+    feeds = {"input_ids": torch.from_numpy(ids).to(dev),
+             "attention_mask": torch.from_numpy(mask).to(dev)}
+    with torch.inference_mode():
+        fn(params, feeds)
+        torch.cuda.synchronize()
+        return {"batch_fn_device_ms": _cuda_ms([lambda: fn(params, feeds)],
+                                               3),
+                "batch_fn_host_ms": _host_ms([lambda: fn(params, feeds)], 3)}
+
+
+def _bert_passes(m, df, passes):
+    """Median sequences/s over ``passes`` timed transforms of ``df``
+    (outputs drained to the host), and the last output."""
+    import torch
+    times, out = [], None
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        out = m.transform(df)["hidden"]
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return len(df) / statistics.median(times), times, out
+
+
+def phase_onnx_bert_encoder(dev_info):
+    """14a-14b: the ORT-optimized BERT-base through ``DataFrame`` →
+    ``ONNXModel.transform``, each Attention node one K7 launch."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.zoo.bert_onnx import (BertOnnxConfig,
+                                                         export_bert_onnx,
+                                                         init_bert_params)
+    cfg = BertOnnxConfig(**BERT_ONNX)
+    c = ONNX_BERT
+    t0 = time.perf_counter()
+    params = init_bert_params(cfg, seed=0)
+    graphs = {"fused": fused_bert_onnx(cfg, params),
+              "decomposed": export_bert_onnx(cfg, params=params, opset=17)}
+    export_s = time.perf_counter() - t0
+    del params
+    ids, mask = bert_rows(c["rows"], c["seq"], cfg.vocab, c["seed"])
+    df = DataFrame({"input_ids": ids, "attention_mask": mask})
+    batches = -(-c["rows"] // c["batch"])
+    per_batch = cfg.layers
+
+    # 14a: f32 at full width. Tolerance 1e-3 of the largest |hidden| (f32
+    # sums in other orders through 12 layers; every query row has a valid
+    # key, so flash and dense define the same function; a wrong head
+    # split, mask or gelu moves the states by O(max|h|))
+    f32 = {}
+    launches = {}
+    for name in ("fused", "decomposed"):
+        _zero_k7_counts()
+        f32[name] = _bert_model(graphs[name], "float32",
+                                c["batch"]).transform(df)["hidden"]
+        launches[f"14a {name}"] = _k7_counts(
+            f"14a {name}", per_batch * batches if name == "fused" else 0)
+    ncpu = c["cpu_rows"]
+    cpu = _bert_model(graphs["fused"], "float32", ncpu,
+                      device="cpu").transform(df.head(ncpu))["hidden"]
+    ref = float(np.abs(f32["decomposed"]).max())
+    tol = 1e-3 * ref
+    errs = {"fused_vs_decomposed": float(np.abs(
+                f32["fused"] - f32["decomposed"]).max()),
+            "fused_vs_cpu": float(np.abs(f32["fused"][:ncpu] - cpu).max()),
+            "decomposed_vs_cpu": float(np.abs(
+                f32["decomposed"][:ncpu] - cpu).max())}
+    shape = (c["rows"], c["seq"], cfg.d_model)
+    if any(h.shape != shape or not np.isfinite(h).all()
+           for h in f32.values()):
+        raise AssertionError(f"14a: hidden shapes "
+                             f"{[h.shape for h in f32.values()]} (want "
+                             f"{shape}) or not finite")
+    if not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"14a: f32 hidden states off: {errs}, bound "
+                             f"{tol}")
+    a = {"rows": c["rows"], "batch": c["batch"], "cpu_rows": ncpu,
+         "export_s": export_s, "valid_token_share": float(mask.mean()),
+         "bound": tol, "max_abs_hidden": ref, **errs,
+         "k7_launches": launches["14a fused"],
+         "k7_launches_decomposed": launches["14a decomposed"]}
+    log(f"[onnx bert 14a] {json.dumps(a)}")
+
+    # 14b: bf16 at the "infer" shape, each graph warmed (warm_up over the
+    # dynamic sequence axis, one untimed pass), then timed passes
+    specs = {n: (np.int64, (c["seq"],))
+             for n in ("input_ids", "attention_mask")}
+    b = {"rows": c["rows"], "batch": c["batch"], "dtype": "bfloat16"}
+    bf16 = {}
+    for name in ("fused", "decomposed"):
+        m = _bert_model(graphs[name], "bfloat16", c["batch"])
+        warm = m.warm_up(batch_sizes=[c["batch"]], input_specs=specs)
+        m.transform(df)
+        _zero_k7_counts()
+        sps, times, bf16[name] = _bert_passes(m, df, c["passes"])
+        launches[f"14b {name}"] = _k7_counts(
+            f"14b {name}", per_batch * batches * c["passes"]
+            if name == "fused" else 0)
+        b[name] = {"seq_per_s": sps, "pass_s": times,
+                   "ms_per_batch": statistics.median(times) / batches * 1e3,
+                   "warm_up": warm, "k7_launches": launches[f"14b {name}"],
+                   "max_abs_vs_f32_fused": float(np.abs(
+                       bf16[name] - f32["fused"]).max()),
+                   **_bert_batch_fn_ms(m, ids[:c["batch"]],
+                                       mask[:c["batch"]])}
+        del m
+    # bf16 against 14a's fused f32: activations round to bf16 at every
+    # node and K7 rounds P once, through 12 layers; 2^-4 of the largest
+    # f32 |hidden| (the bound 11b holds ResNet-50's logits to)
+    bf_bound = 2.0 ** -4 * float(np.abs(f32["fused"]).max())
+    b["bf16_bound"] = bf_bound
+    if not (np.isfinite(bf16["fused"]).all()
+            and b["fused"]["max_abs_vs_f32_fused"] <= bf_bound):
+        raise AssertionError(f"14b: bf16 fused hidden off f32 by "
+                             f"{b['fused']['max_abs_vs_f32_fused']} "
+                             f"(bound {bf_bound}) or not finite")
+    k7 = _k7_onnx_timing(dev_info, mask[:c["batch"]], cfg.heads,
+                         cfg.d_model // cfg.heads)
+    b["k7"] = k7
+    b["k7_and_copies_share_of_batch"] = (
+        per_batch * (k7["ms"] + k7["contiguous_copies_ms"])
+        / b["fused"]["ms_per_batch"])
+    log(f"[onnx bert 14b] {json.dumps(b)} | {dev_info['smi']}")
+    return a, b, launches
+
+
+def _one_node_graph(op, ins, feeds, inits, outs, opset=17, **attrs):
+    """A one-node graph (the port's builder), converted, and its feeds:
+    (converted model, ``feeds``)."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx import (convert_model, make_graph,
+                                         make_model, make_node,
+                                         make_tensor_value_info)
+    g = make_graph([make_node(op, ins, outs, **attrs)], op,
+                   [make_tensor_value_info(k, v.dtype, list(v.shape))
+                    for k, v in feeds.items()],
+                   [make_tensor_value_info(o, np.float32, []) for o in outs],
+                   initializers=inits)
+    data = make_model(g, opset=opset, extra_opsets={"com.microsoft": 1})
+    return convert_model(data), feeds
+
+
+def _run_card_and_cpu(what, cm, feeds, k7_want):
+    """``cm`` on the card (params and feeds as CUDA tensors) and on the
+    CPU; K7 launches counted on the card run. Returns (card, cpu) outputs
+    as CPU tensors."""
+    import torch
+    dev = torch.device("cuda")
+    params = {k: torch.from_numpy(v).to(dev) for k, v in cm.params.items()}
+    _zero_k7_counts()
+    card = cm(params, {k: torch.from_numpy(v.copy()).to(dev)
+                       for k, v in feeds.items()})
+    torch.cuda.synchronize()
+    _k7_counts(what, k7_want)
+    cpu = cm({k: torch.from_numpy(v) for k, v in cm.params.items()},
+             {k: torch.from_numpy(v.copy()) for k, v in feeds.items()})
+    return {k: t.cpu() for k, t in card.items()}, cpu
+
+
+def _rope_cache(max_pos, rot_dim, theta=10000.0):
+    import numpy as np
+    half = rot_dim // 2
+    inv = 1.0 / theta ** (np.arange(half) / half)
+    ang = np.arange(max_pos)[:, None] * inv[None, :]
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def phase_onnx_attention_nodes(dev_info):
+    """14c: one-node attention graphs on the card, each one K7 launch,
+    against the same graph on the port's CPU path (1e-3 of the largest
+    |output|, f32); a GroupQueryAttention decode step on the dense path,
+    its cache bitwise the CPU's."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(143)
+
+    def normal(*shape, s=1.0):
+        return rng.normal(0, s, shape).astype(np.float32)
+
+    B, S, Hd, H = 2, 256, 768, 12
+    lens = np.array([S, 131], np.int32)
+    pad = (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+    cases = {
+        "Attention unidirectional": _one_node_graph(
+            "Attention", ["x", "w", "b", "lens"],
+            {"x": normal(B, S, Hd), "lens": lens},
+            {"w": normal(Hd, 3 * Hd, s=0.03), "b": normal(3 * Hd, s=0.1)},
+            ["y"], domain="com.microsoft", num_heads=H, unidirectional=1),
+        "MultiHeadAttention": _one_node_graph(
+            "MultiHeadAttention", ["q", "k", "v", "", "m"],
+            {"q": normal(B, S, Hd), "k": normal(B, S, Hd),
+             "v": normal(B, S, Hd), "m": pad}, {}, ["y"],
+            domain="com.microsoft", num_heads=H),
+        "ai.onnx Attention causal": _one_node_graph(
+            "Attention", ["q", "k", "v"],
+            {n: normal(B, H, S, Hd // H) for n in "qkv"}, {}, ["y"],
+            opset=23, is_causal=1),
+    }
+    Bg, Sg, Hq, Hkv, Dg = 4, 512, 32, 8, 128
+    glen = rng.integers(64, Sg + 1, Bg).astype(np.int32)
+    cos_c, sin_c = _rope_cache(Sg + 64, Dg)
+    gqa = dict(domain="com.microsoft", num_heads=Hq, kv_num_heads=Hkv,
+               do_rotary=1)
+    cases["GroupQueryAttention prefill"] = _one_node_graph(
+        "GroupQueryAttention", ["q", "k", "v", "", "", "sl", "tl", "cc",
+                                "sc"],
+        {"q": normal(Bg, Sg, Hq * Dg), "k": normal(Bg, Sg, Hkv * Dg),
+         "v": normal(Bg, Sg, Hkv * Dg), "sl": glen - 1,
+         "tl": np.array(Sg, np.int32)},
+        {"cc": cos_c, "sc": sin_c}, ["y"], **gqa)
+    rec = {}
+    for what, (cm, feeds) in cases.items():
+        card, cpu = _run_card_and_cpu(f"14c {what}", cm, feeds, 1)
+        ref = cpu["y"].abs().max().item()
+        err = (card["y"] - cpu["y"]).abs().max().item()
+        if not (torch.isfinite(card["y"]).all() and err <= 1e-3 * ref):
+            raise AssertionError(f"14c {what}: card vs CPU {err}, bound "
+                                 f"{1e-3 * ref}")
+        rec[what] = {"max_abs_vs_cpu": err, "bound": 1e-3 * ref,
+                     "k7_launches": 1}
+    # one decode step over a static cache: dense, the cache written in
+    # place at each row's own position
+    S_max = Sg + 64
+    past = rng.integers(Sg // 2, S_max - 1, Bg).astype(np.int32)
+    cm, feeds = _one_node_graph(
+        "GroupQueryAttention", ["q", "k", "v", "pk", "pv", "sl", "tl", "cc",
+                                "sc"],
+        {"q": normal(Bg, 1, Hq * Dg), "k": normal(Bg, 1, Hkv * Dg),
+         "v": normal(Bg, 1, Hkv * Dg), "pk": normal(Bg, Hkv, S_max, Dg),
+         "pv": normal(Bg, Hkv, S_max, Dg), "sl": past,
+         "tl": np.array(int(past.max()) + 1, np.int32)},
+        {"cc": cos_c, "sc": sin_c}, ["y", "ok", "ov"], **gqa)
+    card, cpu = _run_card_and_cpu("14c GQA decode", cm, feeds, 0)
+    ref = cpu["y"].abs().max().item()
+    err = (card["y"] - cpu["y"]).abs().max().item()
+    same = all(torch.equal(card[n], cpu[n]) for n in ("ok", "ov"))
+    if not (err <= 1e-3 * ref and same):
+        raise AssertionError(f"14c GQA decode: card vs CPU {err} (bound "
+                             f"{1e-3 * ref}), caches bitwise {same}")
+    rec["GroupQueryAttention decode"] = {
+        "max_abs_vs_cpu": err, "bound": 1e-3 * ref, "k7_launches": 0,
+        "caches_bitwise_cpu": same}
+    log(f"[onnx bert 14c] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_onnx_vit_decoder(dev_info, params_np):
+    """14d: ViT-B/16's logits from ``export_vit_onnx`` through ``ONNXModel``
+    on the card against the CPU; FULL's decoder from
+    ``export_decoder_onnx``, 8 decode steps on the card against the CPU."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    from mmlspark_tpu_torch.models.zoo.decoder_onnx import export_decoder_onnx
+    from mmlspark_tpu_torch.models.zoo.vit import (ViTConfig,
+                                                   export_vit_onnx,
+                                                   init_vit_params)
+    from mmlspark_tpu_torch.onnx import convert_model
+    vcfg = ViTConfig(**VIT_B16)
+    mb = export_vit_onnx(vcfg, params=init_vit_params(vcfg, seed=0))
+    px = np.random.default_rng(144).normal(
+        0, 1, (8, 3, vcfg.image_size, vcfg.image_size)).astype(np.float32)
+    logits = {}
+    for dev in (None, "cpu"):
+        m = ONNXModel(mb, device=dev, feed_dict={"pixel_values": "pixels"},
+                      fetch_dict={"logits": "logits"}, mini_batch_size=8)
+        logits[dev] = m.transform(DataFrame({"pixels": px}))["logits"]
+    ref = float(np.abs(logits["cpu"]).max())
+    vit_err = float(np.abs(logits[None] - logits["cpu"]).max())
+    if logits[None].shape != (8, vcfg.num_classes) or \
+            not vit_err <= 1e-3 * ref:
+        raise AssertionError(f"14d ViT-B/16: logits {logits[None].shape}, "
+                             f"card vs CPU {vit_err} (bound {1e-3 * ref})")
+    # the decoder: one token a step, static caches advancing in place
+    cfg = _full_cfg(torch.float32)
+    steps, B = 8, 2
+    cm = convert_model(export_decoder_onnx(cfg, params_np, max_len=steps))
+    hd = cfg.d_model // cfg.heads
+    tokens = np.random.default_rng(145).integers(0, cfg.vocab, (B, steps))
+    runs = {}
+    _zero_k7_counts()
+    for run, dev in (("card", torch.device("cuda")),
+                     ("cpu", torch.device("cpu"))):
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in cm.params.items()}
+        cache = {f"past_{kv}_{i}": torch.zeros(B, cfg.heads, steps, hd,
+                                               device=dev)
+                 for i in range(cfg.layers) for kv in "kv"}
+        out = []
+        for t in range(steps):
+            feeds = {"token": torch.from_numpy(tokens[:, t:t + 1]).to(dev),
+                     "seqlens": torch.full((B,), t, dtype=torch.int32,
+                                           device=dev),
+                     "total": torch.tensor(t + 1, dtype=torch.int32,
+                                           device=dev), **cache}
+            res = cm(params, feeds)
+            out.append(res["logits"].cpu())
+            cache = {k.replace("present", "past"): v for k, v in res.items()
+                     if k.startswith("present")}
+        runs[run] = out
+    _k7_counts("14d decoder", 0)
+    dec_err = []
+    for t in range(steps):
+        ref_t = runs["cpu"][t].abs().max().item()
+        e = (runs["card"][t] - runs["cpu"][t]).abs().max().item()
+        if not e <= 1e-3 * ref_t:
+            raise AssertionError(f"14d decoder step {t}: card vs CPU {e} "
+                                 f"(bound {1e-3 * ref_t})")
+        dec_err.append(e)
+    rec = {"vit_b16": {"rows": 8, "max_abs_vs_cpu": vit_err,
+                       "bound": 1e-3 * ref},
+           "decoder": {"steps": steps, "rows": B,
+                       "max_abs_vs_cpu_by_step": dec_err}}
+    log(f"[onnx bert 14d] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase14(dev_info, params_np):
+    """Phases 14a-14d."""
+    import torch
+    a, b, launches = phase_onnx_bert_encoder(dev_info)
+    nodes = phase_onnx_attention_nodes(dev_info)
+    small = phase_onnx_vit_decoder(dev_info, params_np)
+    torch.cuda.empty_cache()
+    launches["14c"] = sum(r["k7_launches"] for r in nodes.values())
+    return {"parity_f32": a, "bf16": b, "nodes": nodes, "vit_decoder": small,
+            "k7_launches": launches}
+
+
 def _phase10(params_np, dev_info, single, q8):
     """10a-10d; the NCCL world of one that 10b and 10c share is left
     before 10d spawns its two gloo ranks."""
@@ -3433,14 +3985,15 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "13": phases 1, 2, 4 and 13; "9": phases 1, 2 and 9; "8":
+    # 4); "13": phases 1, 2, 4 and 13; "14": phases 1, 2 and 14; "9":
+    # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11", "12", "13"}
+    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12 and 13")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13 and 14")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -3477,6 +4030,8 @@ def main(argv=()):
             phase_spec_bench(dev_info)
         if "11" in only:
             phase_onnx(dev_info)
+        if "14" in only:
+            _phase14(dev_info, params_np)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -3497,6 +4052,7 @@ def main(argv=()):
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
+    bert14 = _phase14(dev_info, params_np)
     del params_np
     phase_onnx(dev_info)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3589,10 +4145,14 @@ def main(argv=()):
     # headline times at the main paths' shapes: K7 at 9c's inference
     # (without stats), K8a/K8b at 9d's training
     main_rec = {"K7": infer_rec, "K8a": train_rec, "K8b": train_rec}
+    k7_onnx = sum(bert14["k7_launches"].values())
     extras = {
         "K7": {"with_stats": {k: train_rec["K7 stats"][k] for k in keys},
                "launches_inference": infer["k7_launches"],
                "launches_training": train["k7_launches"],
+               "launches_onnx": k7_onnx,
+               "launches_onnx_by_run": bert14["k7_launches"],
+               "onnx_infer_14b": bert14["bf16"]["k7"],
                "library_call": sdpa, "model_parity": flash_parity,
                "inference": infer},
         "K8a": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
@@ -3602,7 +4162,7 @@ def main(argv=()):
                                 f"and dV together)"}}
     for key, name, line, launches in (
             ("K7", "flash_attention", 64,
-             infer["k7_launches"] + train["k7_launches"]),
+             infer["k7_launches"] + train["k7_launches"] + k7_onnx),
             ("K8a", "flash_attention backward (dK, dV)", 230,
              train["k8a_launches"]),
             ("K8b", "flash_attention backward (dQ)", 270,

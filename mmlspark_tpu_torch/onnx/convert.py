@@ -5,9 +5,15 @@ The JAX package turns a graph into a function XLA compiles; the port runs
 the same graph eagerly, one PyTorch op per node, on the device its feeds
 live on. What the JAX package left to XLA becomes ordinary PyTorch ops:
 ``Conv`` is ``F.conv2d`` (cuDNN), ``Gemm``/``MatMul`` are ``torch.matmul``
-(cuBLAS), pools are ``F.max_pool2d`` or windowed sums. No node here
-reaches a hand-written kernel: the one Pallas consumer of the reference
-converter (``_attention_core``, the BERT family) is not ported yet.
+(cuBLAS), pools are ``F.max_pool2d`` or windowed sums. The one Pallas
+consumer of the reference converter, ``_attention_core`` (behind the fused
+``Attention``, ``MultiHeadAttention``, ai.onnx ``Attention`` and
+``GroupQueryAttention`` prefill), runs the hand-written flash kernel K7
+(``ops/flash_attention.py``) on CUDA tensors where the reference runs its
+flash kernel, and raises there where K7 has no instantiation; it runs the
+reference's dense branch where the reference does (host tensors, Sq !=
+Sk, a pair mask). ``dense_on_cuda`` counts the dense calls on the card by
+reason.
 
 Design notes, as in the reference:
 
@@ -29,14 +35,19 @@ Design notes, as in the reference:
   with 64-bit types off).
 
 Ported handlers: the elementwise, unary and comparison tables, ``Clip``,
-``Dropout``, ``Cast``, ``Where``, ``MatMul``, ``Gemm``, ``Conv``, the
-pools, ``BatchNormalization``, ``LayerNormalization``, ``Softmax``,
-``LogSoftmax``, the reductions, ``ArgMax``/``ArgMin`` and the shape and
-data-movement ops. Any other op raises :class:`UnsupportedOp`.
+``Dropout``, ``Cast``, ``Where``, ``MatMul``, ``Gemm``, ``Einsum``,
+``Conv``, the pools, ``BatchNormalization``, ``LayerNormalization``,
+``Softmax``, ``LogSoftmax``, the reductions, ``ArgMax``/``ArgMin``, the
+shape and data-movement ops, and the transformer ops of ORT's optimizer:
+the Gelu family (``Gelu``, ``BiasGelu``, ``FastGelu``, ``QuickGelu``),
+``FusedMatMul``, the LayerNorm and RMSNorm contrib ops, rotary
+embeddings, the four attention ops and ``RelativePositionBias``. Any
+other op raises :class:`UnsupportedOp`.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import itertools
@@ -46,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from .proto import (DataType, ModelProto, ValueInfo, ONNX_TO_NUMPY,
                     parse_model, tensor_to_numpy)
 
@@ -302,6 +314,688 @@ def _gemm(node, inputs, ctx):
         y, c = _promoted(ctx, y, c)
         y = y + c
     return y
+
+
+@register_op("Einsum")
+def _einsum(node, inputs, ctx):
+    return torch.einsum(node.attr("equation"), *_promoted(ctx, *inputs))
+
+
+# -- the Gelu family and FusedMatMul (ORT transformer-optimizer output) ------
+# Real BERT-class deployments ship through onnxruntime's transformer
+# optimizer, which fuses subgraphs into com.microsoft contrib ops. Dispatch
+# is by op type, domain-agnostic, except where a standard op shares the
+# name (``Attention``, ``RotaryEmbedding``).
+
+def _opt(inputs, i: int):
+    """Input ``i`` of a node, or None where it is absent or empty."""
+    return inputs[i] if len(inputs) > i else None
+
+
+def _opt_tensor(inputs, i: int, ctx: _Ctx):
+    v = _opt(inputs, i)
+    return None if v is None else _as_tensor(v, ctx)
+
+
+def _gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
+    # torch's default is the erf form; jax.nn.gelu's is tanh
+    return F.gelu(_float(x), approximate="tanh" if tanh else "none")
+
+
+@register_op("Gelu")
+def _gelu_op(node, inputs, ctx):
+    # ai.onnx Gelu (opset 20): erf unless approximate="tanh"
+    return _gelu(_as_tensor(inputs[0], ctx),
+                 node.attr("approximate", "none") == "tanh")
+
+
+@register_op("FusedMatMul")
+def _fused_matmul(node, inputs, ctx):
+    if node.attr("transBatchA", 0) or node.attr("transBatchB", 0):
+        # batch-dim transpose is a different permutation than transA/transB;
+        # silently ignoring it would multiply the wrong operands
+        raise UnsupportedOp("FusedMatMul with transBatchA/transBatchB")
+    a, b = _promoted(ctx, inputs[0], inputs[1])
+    if node.attr("transA", 0):
+        a = a.transpose(-1, -2)
+    if node.attr("transB", 0):
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b) * node.attr("alpha", 1.0)
+
+
+@register_op("BiasGelu")
+def _bias_gelu(node, inputs, ctx):
+    x, b = _promoted(ctx, inputs[0], inputs[1])
+    return _gelu(x + b, tanh=False)
+
+
+@register_op("FastGelu")
+def _fast_gelu(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    if _opt(inputs, 1) is not None:
+        x, b = _promoted(ctx, x, inputs[1])
+        x = x + b
+    return _gelu(x, tanh=True)
+
+
+@register_op("QuickGelu")
+def _quick_gelu(node, inputs, ctx):
+    x = _float(_as_tensor(inputs[0], ctx))
+    return x * torch.sigmoid(node.attr("alpha", 1.702) * x)
+
+
+# -- LayerNorm / RMSNorm contrib ops ------------------------------------------
+
+def _layernorm_last(x, gamma, beta, eps):
+    """LayerNorm over the last axis with f32 statistics, cast back to
+    ``x``'s dtype → (y, mean, inv_std), the stats f32 with a kept axis."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, correction=0, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    y = (xf - mu) * inv * gamma
+    if beta is not None:
+        y = y + beta
+    return y.to(x.dtype), mu, inv
+
+
+def _skip_sum(ctx, x, skip, bias):
+    total = functools.reduce(torch.add, _promoted(ctx, x, skip))
+    if bias is not None:
+        total = functools.reduce(torch.add, _promoted(ctx, total, bias))
+    return total
+
+
+@register_op("SkipLayerNormalization")
+def _skip_layernorm(node, inputs, ctx):
+    total = _skip_sum(ctx, inputs[0], inputs[1], _opt(inputs, 4))
+    y, mu, inv = _layernorm_last(total, _as_tensor(inputs[2], ctx),
+                                 _opt_tensor(inputs, 3, ctx),
+                                 node.attr("epsilon", 1e-12))
+    # ONNX's order: out, (mean), (inv_std_var), (input_skip_bias_sum)
+    return y, mu[..., 0], inv[..., 0], total
+
+
+@register_op("EmbedLayerNormalization")
+def _embed_layernorm(node, inputs, ctx):
+    ids = _as_tensor(inputs[0], ctx)
+    seg_ids, seg_emb = _opt(inputs, 1), _opt(inputs, 4)
+    mask, pos_ids = _opt_tensor(inputs, 7, ctx), _opt(inputs, 8)
+    word, pos = _promoted(ctx, inputs[2], inputs[3])
+    B, S = ids.shape
+    x = word[ids.long()]
+    if pos_ids is None:
+        x = x + pos[:S][None, :, :]
+    else:
+        x = x + pos[_as_tensor(pos_ids, ctx).long()]
+    if seg_emb is not None and seg_ids is not None:
+        x, seg = _promoted(ctx, x, seg_emb)
+        x = x + seg[_as_tensor(seg_ids, ctx).long()]
+    y, _mu, _inv = _layernorm_last(x, _opt_tensor(inputs, 5, ctx),
+                                   _opt_tensor(inputs, 6, ctx),
+                                   node.attr("epsilon", 1e-12))
+    if mask is not None:
+        mask_index = mask.to(torch.int32).sum(1, dtype=torch.int32)
+    else:
+        mask_index = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return y, mask_index, x
+
+
+def _rms_norm(x, gamma, eps):
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * inv * gamma).to(x.dtype), inv
+
+
+def _last_axis_only(node, x, what):
+    if node.attr("axis", -1) not in (-1, x.dim() - 1):
+        raise UnsupportedOp(f"{what} over a non-last axis")
+
+
+@register_op("SimplifiedLayerNormalization")
+def _simplified_layernorm(node, inputs, ctx):
+    # RMS norm (the Llama-family normalization; ORT emits this contrib op)
+    x = _as_tensor(inputs[0], ctx)
+    _last_axis_only(node, x, "SimplifiedLayerNormalization")
+    return _rms_norm(x, _as_tensor(inputs[1], ctx),
+                     node.attr("epsilon", 1e-6))[0]
+
+
+@register_op("RMSNormalization")
+def _rms_normalization(node, inputs, ctx):
+    # standard ai.onnx RMSNormalization (opset 23) — same math
+    x = _as_tensor(inputs[0], ctx)
+    _last_axis_only(node, x, "RMSNormalization")
+    return _rms_norm(x, _as_tensor(inputs[1], ctx),
+                     node.attr("epsilon", 1e-5))[0]
+
+
+@register_op("SkipSimplifiedLayerNormalization")
+def _skip_simplified_layernorm(node, inputs, ctx):
+    if len(node.output) > 1 and node.output[1]:
+        # RMS norm has no mean; a consumer of output 1 would receive None
+        raise UnsupportedOp("SkipSimplifiedLayerNormalization mean output")
+    total = _skip_sum(ctx, inputs[0], inputs[1], _opt(inputs, 3))
+    y, inv = _rms_norm(total, _as_tensor(inputs[2], ctx),
+                       node.attr("epsilon", 1e-12))
+    return y, None, inv[..., 0], total
+
+
+# -- rotary embeddings --------------------------------------------------------
+
+def _rope_rotate(xr, cos, sin, interleaved):
+    """The rotation core shared by RotaryEmbedding and fused-attention
+    rotary: ``xr`` (..., rot_dim) with broadcastable half-dim cos/sin."""
+    if interleaved:
+        x0, x1 = xr[..., 0::2], xr[..., 1::2]
+        return torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos],
+                           dim=-1).reshape(xr.shape)
+    half = xr.shape[-1] // 2
+    x0, x1 = xr[..., :half], xr[..., half:]
+    return torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+
+
+def _apply_rope4(x, pos, cos_cache, sin_cache, interleaved):
+    """Rotate the first ``2 * cos_cache.shape[-1]`` lanes of a (B, nh, S,
+    D) tensor at absolute positions ``pos`` (B, S)."""
+    rot_dim = 2 * cos_cache.shape[-1]
+    cos = cos_cache[pos.long()][:, None]                   # (B, 1, S, rd/2)
+    sin = sin_cache[pos.long()][:, None]
+    return torch.cat([_rope_rotate(x[..., :rot_dim], cos, sin, interleaved),
+                      x[..., rot_dim:]], dim=-1)
+
+
+
+@register_op("RotaryEmbedding")
+def _rotary_embedding(node, inputs, ctx):
+    """(B, S, H) or (B, heads, S, D) input with position ids and half-dim
+    cos/sin caches; ``interleaved`` pairs adjacent lanes, else the halves
+    rotate."""
+    if node.domain == "com.microsoft":
+        x, pos_ids, cos_cache, sin_cache = inputs[:4]
+    else:
+        # standard ai.onnx RotaryEmbedding (opset 23) orders the caches
+        # before position_ids
+        x, cos_cache, sin_cache = inputs[:3]
+        pos_ids = _opt(inputs, 3)
+        if pos_ids is None:
+            raise UnsupportedOp("RotaryEmbedding without position_ids")
+    x = _as_tensor(x, ctx)
+    pos_ids = _as_tensor(pos_ids, ctx)
+    cos_cache, sin_cache = _promoted(ctx, cos_cache, sin_cache)
+    orig_rank = x.dim()
+    if orig_rank == 3:
+        heads = node.attr("num_heads", 0)
+        if not heads:
+            raise UnsupportedOp("RotaryEmbedding 3-D input without num_heads")
+        B, S, H = x.shape
+        x = x.reshape(B, S, heads, H // heads).transpose(1, 2)
+    B, NH, S, D = x.shape
+    if pos_ids.dim() == 1 and pos_ids.shape[0] == 1:
+        # spec: shape (1) is a per-sequence OFFSET — position s rotates at
+        # pos_ids[0] + s (the decode-phase form), not a constant position
+        pos_ids = (pos_ids[0] + torch.arange(S, device=x.device))[None, :]
+        pos_ids = pos_ids.expand(B, S)
+    elif pos_ids.dim() != 2:
+        raise UnsupportedOp(
+            f"RotaryEmbedding position_ids shape {tuple(pos_ids.shape)}")
+    out = _apply_rope4(x, pos_ids, cos_cache, sin_cache,
+                     bool(node.attr("interleaved", 0)))
+    if orig_rank == 3:
+        out = out.transpose(1, 2).reshape(B, S, NH * D)
+    return out
+
+
+# -- attention ----------------------------------------------------------------
+
+_NEG = -1e30
+
+#: dense ``_attention_core`` calls made on CUDA tensors since the last
+#: reset, by the reason K7 did not take them (see :func:`_k7_route`)
+dense_on_cuda: collections.Counter = collections.Counter()
+
+
+def _decode_mask_index(mask_index, B, S, op_name):
+    """ORT mask forms shared by Attention/MultiHeadAttention: (B, S) 0/1
+    mask or (B,) right-pad lengths → (B, S) bool."""
+    if mask_index is None:
+        return None
+    if mask_index.dim() == 2:
+        return mask_index != 0
+    if mask_index.dim() == 1 and mask_index.shape[0] == B:
+        return (torch.arange(S, device=mask_index.device)[None, :]
+                < mask_index.to(torch.int32)[:, None])
+    raise UnsupportedOp(f"{op_name} mask_index shape "
+                        f"{tuple(mask_index.shape)}")
+
+
+def _attn_scale(node, head_size):
+    """ORT reads GetAttrOrDefault("scale", 0.0f) and substitutes
+    1/sqrt(head_size) when the stored value is 0 — so an explicitly
+    serialized scale=0.0 means "unset", not "zero the logits"."""
+    s = node.attr("scale", 0.0)
+    return float(s) if s else 1.0 / float(head_size) ** 0.5
+
+
+def _k7_route(q, k, v, pair_mask) -> Optional[str]:
+    """None when K7 takes this attention, else the reason it does not.
+
+    The reference takes its flash kernel on a TPU when ``Sq == Sk`` and
+    there is no pair mask; the port takes K7 on CUDA tensors under the
+    same rule. CPU tensors ("host"), "sq != sk" and a "pair mask" run
+    dense, as in the reference. "head dim" (not in ``HEAD_DIMS``, or v's
+    unlike q's) and "dtype" (not float32 or bfloat16) name an attention
+    K7 has no instantiation for, which :func:`_attention_core` refuses."""
+    if q.device.type != "cuda":
+        return "host"
+    if q.shape[2] != k.shape[2]:
+        return "sq != sk"
+    if pair_mask is not None:
+        return "pair mask"
+    if q.shape[-1] not in HEAD_DIMS or v.shape[-1] != q.shape[-1]:
+        return "head dim"
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        return "dtype"
+    return None
+
+
+def _k7_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as K7 takes it: the heads an
+    op splits off are transposed views, so this copies them."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _attention_core(q, k, v, kv_mask, causal, scale, pair_mask=None):
+    """(B, H, S, D) attention shared by the fused ops: K7 (the hand-written
+    flash kernel) where :func:`_k7_route` takes it, the dense branch where
+    the reference runs dense too (host tensors, Sq != Sk, a pair mask).
+    ``pair_mask`` is an optional (Sq, Sk) boolean mask (the ai.onnx 2-D
+    form, trailing-dim aligned). Dense calls on CUDA tensors count in
+    ``dense_on_cuda`` by reason; an attention the reference would give its
+    flash kernel but K7 has no instantiation for raises."""
+    reason = _k7_route(q, k, v, pair_mask)
+    if reason is None:
+        return flash_attention(_k7_operand(q), _k7_operand(k),
+                               _k7_operand(v), causal=causal,
+                               kv_mask=kv_mask, scale=scale)
+    if reason in ("head dim", "dtype"):
+        raise NotImplementedError(
+            f"K7 has no instantiation for this attention ({reason}: q "
+            f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} {v.dtype}); "
+            f"see ROADMAP.md section 2, second pass 6")
+    if q.device.type == "cuda":
+        dense_on_cuda[reason] += 1
+    mask = _qk_valid_mask(q.shape[2], k.shape[2], kv_mask, causal, q.device)
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    return _dense_masked_attn(q, k, v, mask, scale)
+
+
+def _qk_valid_mask(Sq, Sk, kv_mask, causal, device):
+    """(1|B, 1, Sq, Sk) boolean validity mask from the shared ORT
+    conventions: optional (B, Sk) key-padding mask, causal diagonal
+    end-aligned to the key sequence: query i sees keys j <= i + (Sk - Sq)
+    when the lengths differ."""
+    mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=device)
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((Sq, Sk), dtype=torch.bool,
+                                 device=device).tril(Sk - Sq)[None, None]
+    return mask
+
+
+def _dense_masked_attn(q, k, v, mask, scale, softcap=0.0,
+                       smooth_softmax=False, bias=None):
+    """(B, Hq, Sq, D) × (B, Hkv, Sk, D) attention with a (B, 1|H, Sq, Sk)
+    boolean mask, optional logit softcapping, optional ORT smooth-softmax
+    (an implicit extra zero logit in the denominator) and an optional
+    additive bias — the decode-phase path, where Sq is tiny.
+
+    GQA (Hkv < Hq) runs grouped over (group, rep) head axes: the KV cache
+    is never repeated ``rep`` times."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    qg = q.reshape(B, Hkv, rep, Sq, D).float()
+    s = (qg @ k.float()[:, :, None].transpose(-1, -2)) * scale
+    Sk = s.shape[-1]
+    if bias is not None:
+        # additive attention_bias (B|1, H|1, Sq, Sk), ORT semantics: added
+        # to the scaled scores before masking/softmax
+        bb = torch.broadcast_to(bias, (bias.shape[0], Hq, Sq, Sk))
+        s = s + bb.reshape(bias.shape[0], Hkv, rep, Sq, Sk).float()
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if mask.dim() == 4:
+        mask = mask[:, :, None]          # (B, 1|Hkv, 1, Sq, Sk)
+    s = torch.where(mask, s, _NEG)
+    if smooth_softmax:
+        # softmax_i = exp(s_i) / (1 + Σ exp(s_j)): stabilize against
+        # m = max(s, 0) so the implicit zero logit is included
+        m = s.amax(-1, keepdim=True).clamp_min(0.0)
+        e = torch.exp(s - m)
+        p = (e / (torch.exp(-m) + e.sum(-1, keepdim=True))).to(v.dtype)
+    else:
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = p @ v[:, :, None]
+    return out.reshape(B, Hq, Sq, v.shape[-1])
+
+
+def _split_heads(t, B, S, heads):
+    """(B, S, heads·D) → (B, heads, S, D), a transposed view."""
+    return t.reshape(B, S, heads, t.shape[-1] // heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    """(B, heads, S, D) → (B, S, heads·D)."""
+    B, H, S, D = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * D)
+
+
+@register_op("MultiHeadAttention")
+def _msft_mha(node, inputs, ctx):
+    """com.microsoft MultiHeadAttention: separate (B, S, H) q/k/v inputs.
+    Supported surface: optional packed bias, key_padding_mask as (B, S_kv)
+    0/1 or (B,) lengths, additive attention_bias, and past_key/past_value
+    concatenated along the sequence axis (present outputs carry the grown
+    cache — MHA's spec is concat-grow, unlike GQA's static buffers)."""
+    if node.domain != "com.microsoft":
+        raise UnsupportedOp(f"MultiHeadAttention in domain {node.domain!r}")
+    q_in, k_in, v_in = _promoted(ctx, *inputs[:3])
+    bias = _opt_tensor(inputs, 3, ctx)
+    mask_index = _opt_tensor(inputs, 4, ctx)
+    attn_bias = _opt_tensor(inputs, 5, ctx)
+    past_k, past_v = _opt_tensor(inputs, 6, ctx), _opt_tensor(inputs, 7, ctx)
+    if k_in.dim() != 3 or v_in.dim() != 3:
+        raise UnsupportedOp("MultiHeadAttention packed/5-D KV layouts")
+    heads = node.attr("num_heads")
+    if heads is None:
+        raise UnsupportedOp("MultiHeadAttention without num_heads")
+    B, Sq, H = q_in.shape
+    Sk = k_in.shape[1]
+    if bias is not None:
+        q_in, qb = _promoted(ctx, q_in, bias[:H])
+        k_in, kb = _promoted(ctx, k_in, bias[H:2 * H])
+        v_in, vb = _promoted(ctx, v_in, bias[2 * H:])
+        q_in, k_in, v_in = q_in + qb, k_in + kb, v_in + vb
+    q = _split_heads(q_in, B, Sq, heads)
+    k = _split_heads(k_in, B, Sk, heads)
+    v = _split_heads(v_in, B, Sk, heads)
+    if past_k is not None:
+        k = torch.cat(_promoted(ctx, past_k, k), dim=2)
+        v = torch.cat(_promoted(ctx, past_v, v), dim=2)
+        Sk = k.shape[2]
+    present_k, present_v = k, v
+    scale = _attn_scale(node, H // heads)
+    kv_mask = _decode_mask_index(mask_index, B, Sk, "MultiHeadAttention")
+    causal = bool(node.attr("unidirectional", 0))
+    if attn_bias is not None:
+        out = _dense_masked_attn(
+            q, k, v, _qk_valid_mask(Sq, Sk, kv_mask, causal, q.device),
+            scale, bias=attn_bias)
+    else:
+        out = _attention_core(q, k, v, kv_mask, causal, scale)
+    out = _merge_heads(out)
+    if len(node.output) > 1:
+        return out, present_k, present_v
+    return out
+
+
+def _std_attention(node, inputs, ctx):
+    """Standard ai.onnx Attention (opset 23): Q (B, Hq, Sq, D), K/V
+    (B, Hkv, Skv, D) — 4-D form, or 3-D (B, S, H·D) with the
+    q_num_heads/kv_num_heads attributes; GQA via Hq % Hkv == 0 head
+    repetition; optional past_key/past_value concatenated per the spec
+    (present outputs carry the grown cache)."""
+    q, k, v = _promoted(ctx, *inputs[:3])
+    attn_mask = _opt_tensor(inputs, 3, ctx)
+    past_k, past_v = _opt_tensor(inputs, 4, ctx), _opt_tensor(inputs, 5, ctx)
+    three_d = q.dim() == 3
+    if three_d:
+        qnh = node.attr("q_num_heads", 0)
+        kvnh = node.attr("kv_num_heads", 0)
+        if not qnh or not kvnh:
+            raise UnsupportedOp("ai.onnx Attention 3-D form without "
+                                "q_num_heads/kv_num_heads")
+        B, Sq, _ = q.shape
+        # the spec allows v_head_size != head_size
+        q = _split_heads(q, B, Sq, qnh)
+        k = _split_heads(k, B, k.shape[1], kvnh)
+        v = _split_heads(v, B, v.shape[1], kvnh)
+    elif q.dim() != 4:
+        raise UnsupportedOp(f"ai.onnx Attention rank-{q.dim()} inputs")
+    if past_k is not None:
+        # spec: present = concat(past, current) along the sequence axis
+        k = torch.cat(_promoted(ctx, past_k, k), dim=2)
+        v = torch.cat(_promoted(ctx, past_v, v), dim=2)
+    present_k, present_v = k, v
+    Hq, Hkv = q.shape[1], k.shape[1]
+    if Hq % Hkv:
+        raise UnsupportedOp(f"Attention q_num_heads {Hq} not a multiple of "
+                            f"kv_num_heads {Hkv}")
+    if Hkv != Hq:                      # GQA: each KV head serves rep heads
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+    causal = bool(node.attr("is_causal", 0))
+    if len(node.output) > 3 and node.output[3]:
+        raise UnsupportedOp("ai.onnx Attention qk_matmul_output")
+    if node.attr("qk_matmul_output_mode", 0):
+        raise UnsupportedOp("ai.onnx Attention qk_matmul_output_mode != 0")
+    # standard ai.onnx Attention (unlike ORT contrib): the default applies
+    # only when the attribute is ABSENT — an explicit 0.0 is honored
+    s = node.attr("scale", None)
+    scale = float(s) if s is not None else 1.0 / float(q.shape[-1]) ** 0.5
+    softcap = float(node.attr("softcap", 0.0))
+    Sq, Sk = q.shape[2], k.shape[2]
+    pair_mask = None
+    if attn_mask is not None:
+        # spec: the mask broadcasts against (B, H, Sq, Skv) aligned at the
+        # TRAILING dims, so a 2-D mask is (Sq, Skv) — not a padding mask
+        if attn_mask.dim() == 2 and attn_mask.dtype == torch.bool \
+                and tuple(attn_mask.shape) == (Sq, Sk):
+            pair_mask = attn_mask
+        else:
+            raise UnsupportedOp(
+                f"Attention mask shape {tuple(attn_mask.shape)} dtype "
+                f"{attn_mask.dtype} (only boolean (q_seq, kv_seq))")
+    if softcap:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if pair_mask is not None:
+            mask = mask & pair_mask
+        if causal:
+            mask = mask.tril(Sk - Sq)
+        out = _dense_masked_attn(q, k, v, mask[None, None], scale, softcap)
+    else:
+        out = _attention_core(q, k, v, None, causal, scale,
+                              pair_mask=pair_mask)
+    if three_d:
+        out = _merge_heads(out)
+    if len(node.output) > 1:
+        return out, present_k, present_v
+    return out
+
+
+@register_op("GroupQueryAttention")
+def _gqa(node, inputs, ctx):
+    """com.microsoft GroupQueryAttention — prefill AND decode (kv-cache)
+    forms, packed or separate QKV, optional fused rotary embedding.
+
+    Decode keeps the past_key/past_value buffers at their STATIC (B,
+    kv_heads, S_max, D) shape and writes the new K/V rows into them in
+    place, each batch row at its own ``past_len`` (ORT's shared past and
+    present buffer): ``present_k`` IS the fed ``past_k``. Prefill without
+    past runs causal attention with a key mask through
+    :func:`_attention_core`, K/V repeated to the query heads (K7 on the
+    card)."""
+    q_in = _as_tensor(inputs[0], ctx)
+    k_in, v_in = _opt(inputs, 1), _opt(inputs, 2)
+    past_k, past_v = _opt_tensor(inputs, 3, ctx), _opt_tensor(inputs, 4, ctx)
+    seqlens_k = _opt_tensor(inputs, 5, ctx)
+    cos_cache, sin_cache = _opt(inputs, 7), _opt(inputs, 8)
+    heads = node.attr("num_heads")
+    kv_heads = node.attr("kv_num_heads")
+    if not heads or not kv_heads:
+        raise UnsupportedOp("GroupQueryAttention without num_heads/"
+                            "kv_num_heads")
+    if node.attr("local_window_size", -1) != -1:
+        raise UnsupportedOp("GroupQueryAttention local_window_size")
+    softcap = float(node.attr("softcap", 0.0))
+    smooth = bool(node.attr("smooth_softmax", 0))
+    do_rotary = bool(node.attr("do_rotary", 0))
+    interleaved = bool(node.attr("rotary_interleaved", 0))
+    if do_rotary and (cos_cache is None or sin_cache is None):
+        raise UnsupportedOp("GroupQueryAttention do_rotary without "
+                            "cos/sin caches")
+    B, S = q_in.shape[0], q_in.shape[1]
+    dev = q_in.device
+    if k_in is None or v_in is None:
+        # packed layout: query carries (heads + 2*kv_heads)·D lanes
+        D = q_in.shape[2] // (heads + 2 * kv_heads)
+        q_in, k_in, v_in = torch.split(
+            q_in, [heads * D, kv_heads * D, kv_heads * D], dim=2)
+    else:
+        q_in, k_in, v_in = _promoted(ctx, q_in, k_in, v_in)
+    D = q_in.shape[2] // heads
+    q = _split_heads(q_in, B, S, heads)
+    k_new = _split_heads(k_in, B, S, kv_heads)
+    v_new = _split_heads(v_in, B, S, kv_heads)
+    scale = _attn_scale(node, D)
+    rep = heads // kv_heads
+    if seqlens_k is not None:
+        # seqlens_k[b] = total valid key count (past + new) - 1
+        last = seqlens_k.to(torch.int32).reshape(-1)          # (B,)
+    else:
+        last = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    # clamped at 0: a right-padded prefill row (valid < S) has its new
+    # tokens at positions 0..valid-1 with the tail masked by `last`, NOT at
+    # negative positions — matching ORT's slot-i-is-position-i prefill
+    past_len = (last + 1 - S).clamp_min(0)                    # (B,)
+    steps = torch.arange(S, device=dev)
+    if do_rotary:
+        cos_cache, sin_cache = _promoted(ctx, cos_cache, sin_cache)
+        pos = past_len[:, None] + steps[None, :]               # (B, S)
+        q = _apply_rope4(q, pos, cos_cache, sin_cache, interleaved)
+        k_new = _apply_rope4(k_new, pos, cos_cache, sin_cache, interleaved)
+
+    if past_k is not None:
+        # decode: write the new rows into the static cache, in place; the
+        # start is clamped so the chunk fits, as dynamic_update_slice does
+        S_max = past_k.shape[2]
+        start = past_len.clamp_max(S_max - S).long()
+        rows = torch.arange(B, device=dev)[:, None]
+        cols = start[:, None] + steps[None, :]                 # (B, S)
+        past_k[rows, :, cols] = k_new.transpose(1, 2).to(past_k.dtype)
+        past_v[rows, :, cols] = v_new.transpose(1, 2).to(past_v.dtype)
+        present_k, present_v = past_k, past_v
+        # query i (absolute position past_len+i) sees keys j <= past_len+i
+        # (grouped attention: the cache is NOT repeated across q heads)
+        mask = (torch.arange(S_max, device=dev)[None, None, None, :]
+                <= (past_len[:, None, None, None]
+                    + steps[None, None, :, None]))
+        out = _dense_masked_attn(q, present_k, present_v, mask, scale,
+                                 softcap, smooth)
+    else:
+        present_k, present_v = k_new, v_new
+        if softcap or smooth:
+            mask = ((steps[None, None, None, :] <= last[:, None, None, None])
+                    & (steps[None, None, :, None]
+                       >= steps[None, None, None, :]))
+            out = _dense_masked_attn(q, k_new, v_new, mask, scale, softcap,
+                                     smooth)
+        else:
+            k = k_new.repeat_interleave(rep, dim=1)
+            v = v_new.repeat_interleave(rep, dim=1)
+            kv_mask = steps[None, :] <= last[:, None]
+            # GQA is causal by construction in ORT's decoder graphs
+            out = _attention_core(q, k, v, kv_mask, True, scale)
+    out = _merge_heads(out)
+    if len(node.output) > 1:
+        return out, present_k, present_v
+    return out
+
+
+@register_op("Attention")
+def _msft_attention(node, inputs, ctx):
+    """ORT fused multi-head attention. Supported surface: equal q/k/v
+    hidden sizes, no past state; mask as (B, S) 0/1 or (B,) right-pad
+    lengths; ``unidirectional`` → causal; ``extra_add_qk`` /
+    ``attention_bias`` through the dense branch. The rest runs
+    :func:`_attention_core` (K7 on the card)."""
+    if node.domain != "com.microsoft":
+        # the standard ai.onnx Attention (opset 23) takes Q/K/V tensors
+        return _std_attention(node, inputs, ctx)
+    if _opt(inputs, 4) is not None:
+        raise UnsupportedOp("Attention with past state")
+    if node.attr("do_rotary", 0):
+        raise UnsupportedOp("Attention with do_rotary (use a separate "
+                            "RotaryEmbedding node)")
+    heads = node.attr("num_heads")
+    if heads is None:
+        raise UnsupportedOp("Attention without num_heads")
+    qkv_sizes = node.attr("qkv_hidden_sizes")
+    if qkv_sizes and len(set(qkv_sizes)) != 1:
+        raise UnsupportedOp(f"Attention qkv_hidden_sizes {qkv_sizes}")
+    x, w = _promoted(ctx, inputs[0], inputs[1])
+    mask_index = _opt_tensor(inputs, 3, ctx)
+    attn_bias = _opt_tensor(inputs, 5, ctx)
+    causal = bool(node.attr("unidirectional", 0))
+    B, S, _ = x.shape
+    hidden = w.shape[1] // 3
+    qkv = torch.matmul(x, w)                              # (B, S, 3*hidden)
+    if _opt(inputs, 2) is not None:                       # bias is optional
+        qkv, b = _promoted(ctx, qkv, inputs[2])
+        qkv = qkv + b
+    q, k, v = (_split_heads(t, B, S, heads)
+               for t in torch.split(qkv, hidden, dim=-1))
+    scale = _attn_scale(node, hidden // heads)
+    kv_mask = _decode_mask_index(mask_index, B, S, "Attention")
+    if attn_bias is not None:
+        # additive attention_bias / extra_add_qk (B|1, H|1, S, S)
+        out = _dense_masked_attn(
+            q, k, v, _qk_valid_mask(S, S, kv_mask, causal, x.device), scale,
+            bias=attn_bias)
+    else:
+        out = _attention_core(q, k, v, kv_mask, causal, scale)
+    return _merge_heads(out)
+
+
+@register_op("RelativePositionBias")
+def _relative_position_bias(node, inputs, ctx):
+    """ORT contrib ``com.microsoft.RelativePositionBias`` — T5's bucketed
+    relative attention bias as one op. Output (1, num_heads, q_len, k_len)
+    gathered from the (num_buckets, num_heads) bias table with the T5
+    log-bucketing: near offsets get exact buckets, far offsets share
+    logarithmically-spaced ones up to ``max_distance``. The buckets depend
+    on the lengths alone, so they are computed on the host, in float32 as
+    the reference computes them."""
+    table = _as_tensor(inputs[0], ctx)           # (num_buckets, num_heads)
+    q_len = int(np.asarray(_concrete(inputs[1], "RelativePositionBias "
+                                     "query_length")).ravel()[0])
+    k_len = int(np.asarray(_concrete(inputs[2], "RelativePositionBias "
+                                     "key_length")).ravel()[0])
+    num_buckets = int(table.shape[0])
+    max_distance = int(node.attr("max_distance", 128))
+    n = np.arange(q_len)[:, None] - np.arange(k_len)[None, :]
+    ret = np.zeros((q_len, k_len), np.int32)
+    nb = num_buckets
+    if node.attr("is_bidirectional", 0):
+        nb = num_buckets // 2
+        ret = ret + (n < 0).astype(np.int32) * nb
+        n = np.abs(n)
+    else:
+        n = np.maximum(n, 0)
+    max_exact = nb // 2
+    ratio = np.log(np.maximum(n, 1).astype(np.float32)
+                   / np.float32(max_exact))
+    large = max_exact + (ratio / np.float32(np.log(max_distance / max_exact))
+                         * np.float32(nb - max_exact)).astype(np.int32)
+    large = np.minimum(large, nb - 1)
+    bucket = ret + np.where(n < max_exact, n, large)
+    idx = torch.from_numpy(bucket.astype(np.int64)).to(table.device)
+    return table[idx].permute(2, 0, 1)[None]         # (1, H, q, k)
 
 
 # -- conv / pool -------------------------------------------------------------
@@ -886,7 +1580,7 @@ def _eval_nodes(nodes, env: Dict[str, object], ctx: _Ctx) -> None:
                 raise UnsupportedOp(
                     f"ONNX op {node.op_type!r} (node {node.name!r}) is not "
                     f"ported to PyTorch yet; {len(OP_HANDLERS)} ops are "
-                    f"(ROADMAP queue items 2-3)")
+                    f"(ROADMAP queue item 3)")
             if host:
                 # constants only: fold on the host, keep the result there
                 out = _to_host(handler(node, ins,
@@ -942,6 +1636,11 @@ class ConvertedModel:
         for name, val in params.items():
             env[name] = _as_tensor(val, ctx)
         for name, val in feeds.items():
+            # GroupQueryAttention writes its cache feeds in place: a numpy
+            # feed is copied where a CPU tensor would alias it (on the card
+            # the upload is the copy); a tensor feed is written as given
+            if _is_host(val) and device.type == "cpu":
+                val = np.array(val)
             env[name] = _as_tensor(val, ctx)
         env[""] = None
         _eval_nodes(self.model.graph.nodes, env, ctx)

@@ -66,6 +66,9 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.onnx.builder",
                  "mmlspark_tpu_torch.onnx.convert",
                  "mmlspark_tpu_torch.models.zoo.resnet",
+                 "mmlspark_tpu_torch.models.zoo.bert_onnx",
+                 "mmlspark_tpu_torch.models.zoo.vit",
+                 "mmlspark_tpu_torch.models.zoo.decoder_onnx",
                  "mmlspark_tpu_torch.models.onnx_model"):
         assert want in names
 
