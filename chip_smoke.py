@@ -207,7 +207,36 @@ Phases (any failure exits non-zero and prints no result line):
    FULL's decoder (``export_decoder_onnx``, 8 decode steps of 2 rows) on
    the card against the CPU, within 1e-3 of the largest |logit|.
 
-``python3 chip_smoke.py 14`` runs phases 1, 2 and 14 only,
+15. durable sessions, prefill-ahead and the async front — (a)
+   ``scripts/bench_decode.py``'s continuous-batching row at FULL's widths
+   in bf16 (``DECODE_CB``: 32 slots, ``max_len`` 257, 16 steps a
+   dispatch, depth 2, ``prefill_ahead=32``; a 32-request warm-up of 2 new
+   tokens, then 64 seeded 128-token prompts of 128 new tokens): tokens/s,
+   ``staged_prefills`` (above 0), TTFT p50 and max, K1 launches split by
+   body against the engine's decode calls (no extend: staged prompts
+   prefill densely); the same mix with ``prefill_ahead=0`` in the same
+   process beside it and the share of identical requests; before that, at
+   f32, phase 4's engine with ``prefill_ahead=4`` and nine of its prompts
+   for four slots gives phase 4's tokens with the stage used; (b)
+   bench.py's failover phase (``bench.py:695-758``: 2 slots, 8-token
+   pages, an 8-token prompt, 16 new tokens, checkpoint after 6 steps) at
+   FULL's widths on f32, bf16, int8 and fp8 pages: the blob's bytes are
+   the pool's pages and scales, the adopted pages are the blob's, the
+   warm restore prefills nothing and gives the uninterrupted tokens at
+   every dtype, the cold one at f32 (elsewhere its share and the f32
+   logit gap where it parts), a journal-only recovery at f32 gives them
+   too; ``emitted_at_checkpoint``, ``blob_bytes``, ``cold_restore_ms``,
+   ``warm_adopt_ms``, ``warm_reprefills``, and K1/K2 launches on the
+   restored engines by body; (c) ``GenerationEngine(transport="async",
+   prefill_ahead=...)``: at f32 phase 4's prompts over one keep-alive
+   connection give phase 4's tokens; at bf16 phase 5's mix and one
+   ``Expect: 100-continue`` request on phase 5's engine at 8 slots
+   (``prefill_ahead=8``) all answer 200 (K1 by body as in 5),
+   and ``/metrics`` carries the engine's, the server's, the admission
+   queue's and the journal's counters.
+
+``python3 chip_smoke.py 15`` runs phases 1, 2, 4 and 15 only,
+``python3 chip_smoke.py 14`` phases 1, 2 and 14,
 ``python3 chip_smoke.py 13`` phases 1, 2, 4 and 13,
 ``python3 chip_smoke.py 12`` phases 1, 2, 8c and 12,
 ``python3 chip_smoke.py 11`` phases 1, 2 and 11,
@@ -865,27 +894,35 @@ def _post(url, payload, timeout=300):
         return r.status, r.read()
 
 
-def phase_serving(params_np, dev_info):
+def _serving_payloads(vocab, max_new=64):
+    """Phase 5's request mix (15c sends it too): nine prompts of 32, 128
+    and 384 tokens, two sharing a 96-token prefix (index 9 the owner),
+    one SSE stream."""
     import numpy as np
+    rng = np.random.default_rng(2)
+    shared = [int(t) for t in rng.integers(0, vocab, 96)]
+    payloads = []
+    for n in [32, 128, 384] * 3:
+        payloads.append({"tokens": [int(t) for t in
+                                    rng.integers(0, vocab, n)],
+                         "max_new": max_new})
+    for tail in (8, 24):
+        payloads.append({"tokens": shared + [int(t) for t in
+                                             rng.integers(0, vocab, tail)],
+                         "max_new": max_new, "prefix_key": "system",
+                         "prefix_len": len(shared)})
+    payloads.append({"tokens": [int(t) for t in rng.integers(0, vocab, 48)],
+                     "max_new": max_new, "stream": True})
+    return payloads
+
+
+def phase_serving(params_np, dev_info):
     import torch
     from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
     from mmlspark_tpu_torch.serving.generation import GenerationEngine
     cfg = _full_cfg(torch.bfloat16)
-    rng = np.random.default_rng(2)
     max_new = 64
-    shared = [int(t) for t in rng.integers(0, cfg.vocab, 96)]
-    payloads = []
-    for i, n in enumerate([32, 128, 384] * 3):
-        payloads.append({"tokens": [int(t) for t in
-                                    rng.integers(0, cfg.vocab, n)],
-                         "max_new": max_new})
-    for tail in (8, 24):
-        payloads.append({"tokens": shared + [int(t) for t in
-                                             rng.integers(0, cfg.vocab, tail)],
-                         "max_new": max_new, "prefix_key": "system",
-                         "prefix_len": len(shared)})
-    payloads.append({"tokens": [int(t) for t in rng.integers(0, cfg.vocab, 48)],
-                     "max_new": max_new, "stream": True})
+    payloads = _serving_payloads(cfg.vocab, max_new)
     eng = GenerationEngine(params_np, cfg, max_slots=16, max_len=1024,
                            page_size=16, prefill_chunk=256,
                            steps_per_dispatch=4)
@@ -3914,6 +3951,453 @@ def phase_onnx_vit_decoder(dev_info, params_np):
     return rec
 
 
+#: 15a: scripts/bench_decode.py's continuous-batching row (bench_decode.py:
+#: 136-182) at its full width: 32 slots, 128-token prompts, 128 new
+#: tokens, 64 requests after a 32-request warm-up of 2 new tokens
+DECODE_CB = dict(slots=32, prompt=128, new=128, requests=64,
+                 steps_per_dispatch=16, pipeline_depth=2, prefill_ahead=32)
+#: 15b: bench.py's failover engine (bench.py:706-758) at FULL's widths
+FAILOVER = dict(max_slots=2, max_len=64, page_size=8)
+FAILOVER_PROMPT = (5, 13)       # np.arange(5, 13)
+FAILOVER_NEW = 16
+FAILOVER_STEPS = 6
+
+
+def _launch_split(what, calls, chunks, hits, layers, f32):
+    """K1/K2 launches since the last zeroing, split by the body the
+    library reported, against the engine's own count: its ``calls``
+    attention calls are its prefill chunks and prefix suffixes (one
+    extend a layer each: the FMA body in f32, the tensor-core body in
+    bf16) and its decode steps (the rest, one split launch a layer each).
+    No mesh launch."""
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    p = paged_attention_window
+    b = _bodies()
+    total = p.launches + p.launches_q
+    split, mma = b["split"] + b["q_split"], b["mma"] + b["q_mma"]
+    extends, steps = chunks + hits, calls - chunks - hits
+    got = {"split": split, "mma": mma, "fma": total - split - mma}
+    want = {"split": steps * layers,
+            "mma": 0 if f32 else extends * layers,
+            "fma": extends * layers if f32 else 0}
+    if got != want or total <= 0 or p.launches_window or \
+            p.launches_window_q:
+        raise AssertionError(
+            f"{what}: K1 {p.launches}, K2 {p.launches_q} launches by body "
+            f"{got}; want {want} from {steps} decode steps, {chunks} "
+            f"chunks and {hits} prefix suffixes x {layers} layers")
+    return {"k1": p.launches, "k2": p.launches_q, **got,
+            "decode_steps": steps, "extends": extends}
+
+
+def _drive(eng, reqs):
+    while not all(r.done for r in reqs):
+        eng.step()
+
+
+def _cb_run(params_np, cfg, ahead):
+    """One pass of bench_decode.py's continuous-batching row through a
+    ``ContinuousDecoder`` (its settings, ``prefill_ahead=ahead``): the
+    warm-up, then the timed 64 requests. Returns (record, tokens)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    c = DECODE_CB
+    B, P, T = c["slots"], c["prompt"], c["new"]
+    eng = ContinuousDecoder(params_np, cfg, max_slots=B, max_len=P + T + 1,
+                            steps_per_dispatch=c["steps_per_dispatch"],
+                            pipeline_depth=c["pipeline_depth"],
+                            prefill_ahead=ahead)
+    rng2 = np.random.default_rng(1)
+    _drive(eng, [eng.submit(rng2.integers(0, cfg.vocab, P), 2)
+                 for _ in range(B)])
+    torch.cuda.synchronize()
+    stats0 = dict(eng._kv.stats)
+    chunks0, hits0 = len(eng._chunk_trace), eng.stats["prefix_hits"]
+    staged0 = eng.stats.get("staged_prefills", 0)
+    _zero_pa_counts()
+    reqs = [eng.submit(rng2.integers(0, cfg.vocab, P), T)
+            for _ in range(c["requests"])]
+    t0 = time.perf_counter()
+    _drive(eng, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    calls = eng._kv.stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"]
+    counts = _launch_split(f"15a prefill_ahead={ahead}", calls,
+                           len(eng._chunk_trace) - chunks0,
+                           eng.stats["prefix_hits"] - hits0, cfg.layers,
+                           cfg.dtype == torch.float32)
+    toks = [eng.result(r, timeout=1) for r in reqs]
+    if any(len(t) != T or not all(0 <= x < cfg.vocab for x in t)
+           for t in toks):
+        raise AssertionError("15a: a request came back short or out of "
+                             "the vocabulary")
+    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    n_tok = sum(len(t) for t in toks)
+    rec = {"tok_per_s": n_tok / dt, "tokens": n_tok, "wall_s": dt,
+           "slots": B, "requests": len(reqs), "prompt_len": P,
+           "new_tokens": T, "steps_per_dispatch": c["steps_per_dispatch"],
+           "pipeline_depth": c["pipeline_depth"], "prefill_ahead": ahead,
+           "staged_prefills": eng.stats.get("staged_prefills", 0) - staged0,
+           "prefills": eng.stats["prefills"],
+           "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+           "ttft_max_ms": 1e3 * ttft[-1],
+           "dispatches": len(eng.tick_seconds), "launches": counts}
+    del eng
+    torch.cuda.empty_cache()
+    return rec, toks
+
+
+def phase_decode_cb(params_np, single, dev_info):
+    """15a: f32 parity first (phase 4's engine with ``prefill_ahead=4`` and
+    nine of phase 4's prompts for its four slots: each request's tokens
+    are phase 4's for its prompt, and the stage was used), then
+    bench_decode.py's row in bf16 with ``prefill_ahead=32`` and, in the
+    same process, with 0."""
+    import torch
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    cfg32 = _full_cfg(torch.float32)
+    prompts = _parity_prompts(cfg32.vocab)
+    order = [0, 1, 2, 0, 1, 1, 0, 0, 2]
+    eng = ContinuousDecoder(params_np, cfg32, prefill_ahead=4, **PARITY)
+    _zero_pa_counts()
+    reqs = [eng.submit(prompts[i], PARITY_NEW) for i in order]
+    _drive(eng, reqs)
+    eng.flush()
+    for i, r in zip(order, reqs):
+        if eng.result(r, timeout=1) != single[None][i]:
+            raise AssertionError(f"15a f32: prompt {i} gave {r.tokens}, "
+                                 f"phase 4 {single[None][i]}")
+    staged = eng.stats.get("staged_prefills", 0)
+    if staged < 1:
+        raise AssertionError("15a f32: nothing was staged")
+    parity = {"requests": len(reqs), "staged_prefills": staged,
+              "launches": _launch_split(
+                  "15a f32", eng._kv.stats["attn_ticks_kernel"],
+                  len(eng._chunk_trace), eng.stats["prefix_hits"],
+                  cfg32.layers, True)}
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[decode cb] f32 parity: {len(reqs)} requests == phase 4's tokens; "
+        f"{json.dumps(parity)}")
+    cfg = _full_cfg(torch.bfloat16)
+    staged_rec, staged_toks = _cb_run(params_np, cfg,
+                                      DECODE_CB["prefill_ahead"])
+    if staged_rec["staged_prefills"] < 1:
+        raise AssertionError("15a: prefill_ahead=32 staged nothing")
+    plain_rec, plain_toks = _cb_run(params_np, cfg, 0)
+    same = sum(a == b for a, b in zip(staged_toks, plain_toks))
+    rec = {"f32_parity": parity, "prefill_ahead": staged_rec,
+           "no_prefill_ahead": plain_rec,
+           "identical_requests": same, "identical_share":
+           same / len(staged_toks)}
+    log(f"[decode cb] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _blob_bytes_equal(what, blob, pool, pages):
+    """Every buffer's blob bytes are the pool's pages, in page order."""
+    import base64
+    import torch
+    idx = torch.as_tensor(pages, device=pool.device)
+    for layer, (c, entry) in enumerate(zip(pool.buffers, blob["data"])):
+        for key, buf in c.items():
+            want = buf.view(torch.uint8)[idx].cpu().numpy().tobytes()
+            if base64.b64decode(entry[key]) != want:
+                raise AssertionError(f"{what}: layer {layer} {key} bytes "
+                                     f"differ from the pool's pages")
+
+
+def _failover_case(params_np, cfg, kv_dtype, name, jdir):
+    """15b for one page dtype: bench.py's ``_failover_phase`` at FULL's
+    widths. Returns its record; raises where the checks fail."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    from mmlspark_tpu_torch.serving.journal import ServingJournal
+    f32 = cfg.dtype == torch.float32 and kv_dtype is None
+
+    def engine(**kw):
+        return ContinuousDecoder(params_np, cfg, kv_dtype=kv_dtype,
+                                 **FAILOVER, **kw)
+
+    def finish(eng, req):
+        _drive(eng, [req])
+        return eng.session_result(req)
+
+    prompt = np.arange(*FAILOVER_PROMPT, dtype=np.int32)
+    base = engine()
+    want = finish(base, base.submit(prompt, FAILOVER_NEW))
+    del base
+    src = engine()
+    live = src.submit(prompt, FAILOVER_NEW)
+    for _ in range(FAILOVER_STEPS):
+        src.step()
+    ckpt = src.checkpoint_session(live)
+    blob = ckpt["kv"]
+    if blob is None or live.done:
+        raise AssertionError(f"15b {name}: no blob mid-decode")
+    slot = src._slot_of(live)
+    _blob_bytes_equal(f"15b {name} export", blob, src._kv,
+                      src._slot_pages[slot][:blob["n_pages"]])
+    blob_bytes = sum(len(e[k]) for e in blob["data"] for k in e)
+    del src
+    out = {}
+    for mode in ("cold", "warm"):
+        eng = engine()
+        finish(eng, eng.submit(prompt, 2))        # priming request
+        torch.cuda.synchronize()
+        stats0, prefills0 = dict(eng._kv.stats), eng.stats["prefills"]
+        chunks0 = len(eng._chunk_trace)
+        _zero_pa_counts()
+        t0 = time.perf_counter()
+        req = eng.restore_session(ckpt["session"],
+                                  kv_blob=blob if mode == "warm" else None)
+        pause = 0.0
+        if mode == "warm":
+            # the adopted pages, before any step writes the next position
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _blob_bytes_equal(f"15b {name} adopt", blob, eng._kv,
+                              eng._slot_pages[eng._slot_of(req)]
+                              [:blob["n_pages"]])
+            pause = time.perf_counter() - t1
+        while not req.tokens and not req.done:
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0 - pause) * 1e3
+        toks = finish(eng, req)
+        eng.flush()
+        out[mode] = {
+            "ms": ms, "tokens": toks, "identical": toks == want,
+            "prefills": eng.stats["prefills"] - prefills0,
+            "launches": _launch_split(
+                f"15b {name} {mode}",
+                eng._kv.stats["attn_ticks_kernel"]
+                - stats0["attn_ticks_kernel"],
+                len(eng._chunk_trace) - chunks0, 0, cfg.layers, f32)}
+        del eng
+    if not out["warm"]["identical"]:
+        raise AssertionError(f"15b {name}: warm {out['warm']['tokens']} vs "
+                             f"uninterrupted {want}")
+    if out["warm"]["prefills"] != 0:
+        raise AssertionError(f"15b {name}: the warm restore prefilled")
+    if f32 and not out["cold"]["identical"]:
+        raise AssertionError(f"15b f32: cold {out['cold']['tokens']} vs "
+                             f"uninterrupted {want}")
+    rec = {"pages": name, "emitted_at_checkpoint":
+           len(ckpt["session"]["emitted"]), "blob_bytes": blob_bytes,
+           "blob_pages": blob["n_pages"], "blob_length": blob["length"],
+           "cold_restore_ms": out["cold"]["ms"],
+           "warm_adopt_ms": out["warm"]["ms"],
+           "warm_reprefills": out["warm"]["prefills"],
+           "cold_identical": out["cold"]["identical"],
+           "warm_identical": True,
+           "launches_cold": out["cold"]["launches"],
+           "launches_warm": out["warm"]["launches"]}
+    if not out["cold"]["identical"]:
+        rec["cold_divergence"] = _divergence_gaps(
+            params_np, cfg, [prompt], [out["cold"]["tokens"]], [want])
+    if f32:
+        # the process dies mid-decode: the journal alone restores it
+        jpath = os.path.join(jdir, "failover.journal")
+        if os.path.exists(jpath):
+            os.remove(jpath)
+        journal = ServingJournal(jpath, fsync=False)
+        src = engine(journal=journal)
+        live = src.submit(prompt, FAILOVER_NEW, session_id="15b")
+        for _ in range(FAILOVER_STEPS):
+            src.step()
+        journal.close()
+        sess = dict(ServingJournal.scan_sessions(jpath)["15b"], id="15b")
+        del src
+        eng = engine()
+        got = finish(eng, eng.restore_session(sess))
+        if got != want:
+            raise AssertionError(f"15b journal recovery: {got} vs {want}")
+        rec["journal_recovery"] = {"emitted_in_journal":
+                                   len(sess["emitted"]), "identical": True}
+        del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_failover(params_np, dev_info):
+    """15b: bench.py's failover phase on FULL at f32, bf16, int8 and fp8
+    pages (head dim 64: bench.py's own config has 16, which the paged
+    kernel does not take)."""
+    import torch
+    jdir = os.path.join(HERE, "build", "phase15")
+    os.makedirs(jdir, exist_ok=True)
+    recs = {}
+    for name, dtype, kv in (("f32", torch.float32, None),
+                            ("bf16", torch.bfloat16, None),
+                            ("int8", torch.bfloat16, "int8"),
+                            ("fp8", torch.bfloat16, "fp8")):
+        recs[name] = _failover_case(params_np, _full_cfg(dtype), kv, name,
+                                    jdir)
+        log(f"[failover] {name} pages: {json.dumps(recs[name])} | "
+            f"{dev_info['smi']}")
+    return recs
+
+
+def _expect_post(port, path, payload):
+    """POST with ``Expect: 100-continue`` on a raw socket: the interim 100
+    first, then the body, then the reply. Returns (status, body)."""
+    import socket
+    body = json.dumps(payload).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=300)
+    try:
+        s.sendall(b"POST %s HTTP/1.1\r\nHost: h\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: %d\r\nExpect: "
+                  b"100-continue\r\n\r\n" % (path.encode(), len(body)))
+        data = b""
+        while b"\r\n\r\n" not in data:
+            data += s.recv(4096)
+        if not data.startswith(b"HTTP/1.1 100"):
+            raise AssertionError(f"15c: no interim 100: {data[:40]!r}")
+        s.sendall(body)
+        data = data.split(b"\r\n\r\n", 1)[1]
+        while b"\r\n\r\n" not in data:
+            data += s.recv(4096)
+        head, rest = data.split(b"\r\n\r\n", 1)
+        length = int(next(line.split(b":")[1] for line in head.split(b"\r\n")
+                          if line.lower().startswith(b"content-length")))
+        while len(rest) < length:
+            rest += s.recv(65536)
+        return int(head.split(b" ")[1]), rest
+    finally:
+        s.close()
+
+
+def phase_async_front(params_np, single, dev_info):
+    """15c: ``GenerationEngine(transport="async", prefill_ahead=...)`` at
+    full width. f32: phase 4's prompts over one keep-alive connection
+    give phase 4's tokens. bf16: phase 5's mix (concurrent, the prefix
+    owner first, one SSE stream) and one ``Expect: 100-continue`` request,
+    all 200, K1 split by body as in phase 5; then ``/metrics`` carries the
+    engine's, the server's, the admission queue's and the journal's
+    counters."""
+    import http.client
+    import torch
+    from mmlspark_tpu_torch.serving.generation import GenerationEngine
+    cfg32 = _full_cfg(torch.float32)
+    with GenerationEngine(params_np, cfg32, transport="async",
+                          prefill_ahead=4, **PARITY) as eng:
+        conn = http.client.HTTPConnection("127.0.0.1", eng.server.port,
+                                          timeout=300)
+        got = []
+        for p in _parity_prompts(cfg32.vocab):
+            conn.request("POST", "/generate", json.dumps(
+                {"tokens": [int(t) for t in p],
+                 "max_new": PARITY_NEW}).encode(),
+                {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            body = r.read()
+            if r.status != 200:
+                raise AssertionError(f"15c f32: {r.status} {body!r}")
+            got.append(json.loads(body)["tokens"])
+        conn.close()
+    if got != single[None]:
+        raise AssertionError(f"15c f32: {got} vs phase 4's {single[None]}")
+    torch.cuda.empty_cache()
+    cfg = _full_cfg(torch.bfloat16)
+    max_new = 64
+    payloads = _serving_payloads(cfg.vocab, max_new)
+    expect = {"tokens": [int(t) for t in range(7, 71)], "max_new": max_new}
+    results = {}
+    # phase 5's engine at 8 slots: the 13 requests overfill it, so the
+    # stage can take part
+    eng = GenerationEngine(params_np, cfg, max_slots=8, max_len=1024,
+                           page_size=16, prefill_chunk=256,
+                           steps_per_dispatch=4, transport="async",
+                           prefill_ahead=8)
+    try:
+        eng.start()
+        st, _ = _post(eng.address, {"tokens": [1, 2, 3], "max_new": 4})
+        assert st == 200
+        dec = eng.decoder
+        torch.cuda.synchronize()
+        stats0 = dict(dec._kv.stats)
+        chunks0, hits0 = len(dec._chunk_trace), dec.stats["prefix_hits"]
+        staged0 = dec.stats.get("staged_prefills", 0)
+        _zero_pa_counts()
+
+        def client(i, p):
+            try:
+                results[i] = (_expect_post(eng.server.port, "/generate", p)
+                              if i == "expect" else _post(eng.address, p))
+            except Exception as e:      # recorded, checked below
+                results[i] = (None, repr(e).encode())
+
+        t0 = time.perf_counter()
+        client(9, payloads[9])          # the prefix owner first
+        threads = [threading.Thread(target=client, args=(i, p))
+                   for i, p in list(enumerate(payloads)) + [("expect",
+                                                             expect)]
+                   if i != 9]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = _launch_split(
+            "15c bf16",
+            dec._kv.stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"],
+            len(dec._chunk_trace) - chunks0,
+            dec.stats["prefix_hits"] - hits0, cfg.layers, False)
+        staged = dec.stats.get("staged_prefills", 0) - staged0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{eng.server.port}/metrics",
+                timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        eng.stop()
+    n_tok = 0
+    for i, p in list(enumerate(payloads)) + [("expect", expect)]:
+        status, body = results.get(i, (None, b"missing"))
+        if status != 200:
+            raise AssertionError(f"15c request {i}: {status} {body!r}")
+        if isinstance(p, dict) and p.get("stream"):
+            events = [json.loads(line[6:]) for line in
+                      body.decode().split("\n\n") if line.startswith("data: ")]
+            toks = events[-1]["tokens"]
+            if not events[-1].get("done"):
+                raise AssertionError("15c: the stream ended without done")
+        else:
+            toks = json.loads(body)["tokens"]
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"15c request {i}: {len(toks)} tokens")
+        n_tok += len(toks)
+    want = ("mmlspark_continuous_prefills_total ",
+            "mmlspark_continuous_live_slots ",
+            "mmlspark_continuous_drain_seconds_count ",
+            'mmlspark_serving_requests_total{transport="async",'
+            'method="POST",code="200"} ',
+            'mmlspark_wfq_enqueued_total{tenant="default"} ',
+            'mmlspark_journal_records_total{type="sess"} ',
+            'mmlspark_journal_records_total{type="tail"} ',
+            "mmlspark_journal_bytes ")
+    missing = [m for m in want if m not in metrics]
+    if missing:
+        raise AssertionError(f"15c /metrics lacks {missing}")
+    rec = {"f32_requests": len(got), "requests": len(payloads) + 1,
+           "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+           "staged_prefills": staged, "launches": counts,
+           "metrics_lines": len(metrics.splitlines())}
+    log(f"[async front] f32 over one keep-alive connection == phase 4's "
+        f"tokens; {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase15(params_np, single, dev_info):
+    """Phases 15a-15c."""
+    return {"15a": phase_decode_cb(params_np, single, dev_info),
+            "15b": phase_failover(params_np, dev_info),
+            "15c": phase_async_front(params_np, single, dev_info)}
+
+
 def _phase14(dev_info, params_np):
     """Phases 14a-14d."""
     import torch
@@ -3985,15 +4469,16 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "13": phases 1, 2, 4 and 13; "14": phases 1, 2 and 14; "9":
+    # 4); "13" and "15": phases 1, 2, 4 and 13 (or 15); "14": phases 1, 2
+    # and 14; "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14"}
+    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13 and 14")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14 and 15")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -4020,7 +4505,7 @@ def main(argv=()):
             del X, y
         if "9" in only:
             _phase9(dev_info)
-        if only & {"10", "13"}:
+        if only & {"10", "13", "15"}:
             single = phase_parity(params_np)
         if "10" in only:
             _phase10(params_np, dev_info, single,
@@ -4032,6 +4517,8 @@ def main(argv=()):
             phase_onnx(dev_info)
         if "14" in only:
             _phase14(dev_info, params_np)
+        if "15" in only:
+            _phase15(params_np, single, dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -4044,6 +4531,7 @@ def main(argv=()):
     sweep = phase_read_sweep(params_np, dev_info)
     spec_a = phase_spec_parity(params_np, single)
     spec_b = phase_spec_bench(dev_info)
+    p15 = _phase15(params_np, single, dev_info)
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     hist_recs, sass, parity, gbdt, b8c = _phase8(dev_info, X, y)
     est12a, multi12b = _phase12(dev_info, X, y, b8c)
@@ -4067,6 +4555,17 @@ def main(argv=()):
         spec_a["perfect_draft"]["launches_spec_verify"]
     k2_fma = sum(spec_a[n]["launches_spec_verify"] for n in ("int8", "fp8"))
     k1_mma = spec_b["spec"]["launches_spec_verify"]
+    # phase 15's paths, each counted from zero: 15a's f32 parity engine and
+    # its two bf16 runs, 15b's cold and warm restores (K2 on int8 and fp8
+    # pages), 15c's bf16 async front
+    p15a, p15b = p15["15a"], p15["15b"]
+    k_15a = {"f32_parity": p15a["f32_parity"]["launches"]["k1"],
+             "prefill_ahead_32": p15a["prefill_ahead"]["launches"]["k1"],
+             "prefill_ahead_0": p15a["no_prefill_ahead"]["launches"]["k1"]}
+    k_15b = {f"{name} {mode}": p15b[name][f"launches_{mode}"]
+             for name in p15b for mode in ("cold", "warm")}
+    k1_15b = {k: v["k1"] for k, v in k_15b.items() if v["k1"]}
+    k2_15b = {k: v["k2"] for k, v in k_15b.items() if v["k2"]}
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226", "launches": serving["k1_launches"],
@@ -4076,7 +4575,11 @@ def main(argv=()):
          "launches_spec_verify": k1_fma + k1_mma,
          "launches_spec_verify_mma": k1_mma,
          "launches_spec_verify_fma": k1_fma,
+         "launches_decode_cb_15a": k_15a,
+         "launches_failover_15b": k1_15b,
+         "launches_async_front_15c": p15["15c"]["launches"]["k1"],
          "spec_bench_13b": spec_b, "spec_parity_13a": spec_a,
+         "phase_15": p15,
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
         {"name": "paged_attention_window (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:404",
@@ -4089,6 +4592,7 @@ def main(argv=()):
          "launches_fp8_run_split": f8["k2_launches_decode"],
          "launches_spec_verify": k2_fma, "launches_spec_verify_mma": 0,
          "launches_spec_verify_fma": k2_fma,
+         "launches_failover_15b": k2_15b,
          **{k: recs["K2"]["int8 decode"][k] for k in keys}, **recs["K2"]},
         {"name": "paged_attention", "route": "cuda", "source": src,
          "replaces": f"{ref}:195", "launches": sweep["k3_launches"],

@@ -6,9 +6,9 @@ batch runner (``models/runner.py``) and ``StageCounters``
 (``ops/compile_cache.py``) keep. Pure stdlib, process-global and
 default-on: an update on a cached series is one small lock plus a float
 add. Tests call :func:`reset_all`; metric objects held by modules stay
-valid (only their series are cleared). The JAX package's exemplars,
-Prometheus exposition and build-info gauge belong to its serving and
-tracing layers, which the port does not have yet.
+valid (only their series are cleared). ``exposition.py`` renders it as
+Prometheus text; the JAX package's exemplars and build-info gauge belong
+to its tracing layer, which the port does not have yet.
 """
 
 from __future__ import annotations

@@ -22,7 +22,20 @@
   ``gamma + 1``-token window in one paged window forward (K1/K2 on the
   card), and each slot keeps its own accepted prefix plus one token;
 * **the autotuner** (``autotune=True``, :class:`KVAutotuner`): gamma
-  follows acceptance, the chunk budget and pipeline depth occupancy.
+  follows acceptance, the chunk budget and pipeline depth occupancy;
+* **prefill-ahead** (``prefill_ahead=N``): while every slot is occupied,
+  the leading run of waiting same-bucket prompts prefills right after a
+  decode dispatch and parks its (logits, KV rows) on the device, at most
+  N padded rows; retiring slots re-fill from the staged units with one
+  insert, no prefill on the admission path;
+* **durable sessions** (``journal=``, a :class:`ServingJournal`): every
+  submit is journaled write-ahead (``sess``), each drain appends one
+  ``tail`` record per session and retirement a ``sess_end``;
+  :meth:`ContinuousDecoder.checkpoint_session` snapshots a live request
+  (its canonical session and, when it holds written pages, their
+  exported blob) and :meth:`ContinuousDecoder.restore_session` rebuilds
+  it on another engine, cold (re-prefill of prompt + emitted tokens) or
+  warm (adopting the pages: nothing re-prefilled).
 
 PyTorch runs eagerly, so the reference's ``lru_cache``/``jax.jit``
 program factories are plain methods here; the device work is ordered on
@@ -41,12 +54,17 @@ every rank computes the same logits and tokens. Slot sharding over
 
 Greedy decoding is the parity-tested mode: each request's tokens equal
 the reference's ``generate_cached`` on its prompt alone, with or without
-a draft. Sampled decoding draws from a per-request ``torch.Generator``
-seeded by the request's ``seed``, so a request's samples do not depend on
-what else shares the pool (they differ from the reference's threefry
-draws). Without a draft, draw n feeds emitted token n; with one, each
-round draws in a fixed order (a proposal per draft step, the acceptance
-uniforms, the resample), and the output is distributed as the target's
+a draft. Sampled decoding takes its uniforms from a counter-based hash of
+(the request's ``seed``, the absolute position of the token drawn, the
+draw's purpose, the vocabulary lane) — :func:`_uniforms`, computed on the
+device for every row at once — so a request's samples do not depend on
+what else shares the pool, and a session restored at emit position n
+(cold or warm) continues the uninterrupted run's draws, as the
+reference's ``fold_in(key, position)`` schedule does (the values differ
+from the reference's threefry draws). With a draft, each round's draws
+are keyed as the reference keys them (proposal i at ``pos + i + 1``,
+acceptance j at ``pos + j + 1``, the resample at ``pos + k + 1``, each
+under its own purpose), and the output is distributed as the target's
 own sampling is (the speculative-sampling correction).
 """
 
@@ -68,11 +86,15 @@ from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
                                       decode_window_paged,
                                       paged_scatter_rows, params_from_numpy,
                                       prefill_cache, shard_params)
+from ..observability.registry import counter as _metric_counter
+from ..observability.registry import gauge as _metric_gauge
+from ..observability.registry import histogram as _metric_histogram
 from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
                             resolve_kv_dtype)
 from ..ops.padding import bucket_size
 from ..ops.paged_attention import _bits
 from ..parallel.mesh import axis_rank, axis_size, mesh_shape
+from ..reliability.faults import get_injector as _get_injector
 from ..utils.device import resolve_device
 from .kv_pool import (KVAutotuner, PagedKVPool, PoolExhausted,
                       prefix_hash as _prefix_hash)
@@ -81,20 +103,27 @@ __all__ = ["ContinuousDecoder"]
 
 _log = logging.getLogger("mmlspark_tpu_torch.serving")
 
-_ROADMAP = "ROADMAP.md, 'Modules to port', slice 1 leftovers"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to mmlspark_tpu_torch yet (queued in "
-        f"{_ROADMAP})")
+_M_DRAIN_SECONDS = _metric_histogram(
+    "mmlspark_continuous_drain_seconds",
+    "Host fetch latency of one outstanding (k, S) token block — the only "
+    "host<->device sync on the decode path")
+_M_LIVE_SLOTS = _metric_gauge(
+    "mmlspark_continuous_live_slots",
+    "Occupied decode slots at the latest step (batch size on device)")
+_M_PREFILLS = _metric_counter(
+    "mmlspark_continuous_prefills_total",
+    "Full prompt prefills executed (grouped prefills count once)")
+_M_PREFIX_HITS = _metric_counter(
+    "mmlspark_continuous_prefix_hits_total",
+    "Prompts served from the prefix cache via a suffix window")
 
 
 class _Request:
     __slots__ = ("rid", "prompt", "max_new", "tokens", "done", "event",
                  "submitted_at", "first_token_at", "finished_at",
                  "temperature", "top_k", "top_p", "seed",
-                 "prefix_key", "prefix_len", "error")
+                 "prefix_key", "prefix_len", "error",
+                 "session_id", "pre_emitted", "journaled")
 
     def __init__(self, rid, prompt, max_new, temperature=0.0, top_k=0,
                  top_p=1.0, seed=0):
@@ -114,6 +143,62 @@ class _Request:
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        #: durable-session identity (journal key; defaults to the rid)
+        self.session_id: str = str(rid)
+        #: tokens emitted by a previous incarnation of this session: a
+        #: restored request generates only the remainder (the full
+        #: completion is ``ContinuousDecoder.session_result``)
+        self.pre_emitted: List[int] = []
+        #: how many of ``tokens`` have reached the journal's tail records
+        #: (-1 once the session is closed)
+        self.journaled = 0
+
+
+# ---- counter-based sampling uniforms ----
+# int64 tensors holding 32-bit values; products are split into 16-bit
+# halves so nothing ever overflows int64 (the same bits on every device)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for x in [0, 2**32) and a 32-bit constant."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer (a bijection with full avalanche)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _uniforms(seed: torch.Tensor, qpos: torch.Tensor, purpose: int,
+              n: int) -> torch.Tensor:
+    """Uniforms in (0, 1) of shape ``qpos.shape + (n,)``: lane j of row i
+    is a hash of (``seed[i]``, ``qpos[i, ...]``, ``purpose``, j), computed
+    on the device for all rows at once. ``seed`` (S,) int64 holds each
+    row's request seed; ``qpos`` (S,) or (S, m) the absolute positions of
+    the tokens the draws decide. A restored session draws the same
+    uniforms at the same positions, whatever shares its pool."""
+    seed = seed.to(torch.int64)
+    h = _fmix32((seed & _M32) ^ 0x9E3779B9)
+    h = _fmix32(h ^ ((seed >> 32) & _M32))
+    h = h.reshape(h.shape + (1,) * (qpos.dim() - 1))
+    h = _fmix32(h ^ (qpos.to(torch.int64) & _M32))
+    h = _fmix32(h ^ ((purpose * 0x27D4EB2F) & _M32))
+    lanes = _mul32(torch.arange(n, device=seed.device, dtype=torch.int64),
+                   0x9E3779B1)
+    x = _fmix32(h[..., None] ^ lanes)
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def _seed64(seed: int) -> int:
+    """A request seed as the signed int64 the device keeps."""
+    s = int(seed) % (1 << 64)
+    return s - (1 << 64) if s >= (1 << 63) else s
 
 
 def _gumbel_argmax(logits, uniform):
@@ -146,7 +231,8 @@ def _spec_accept(greedy, drafts, temp=None, t_logp=None, d_logp=None,
     accepts proposal x with probability min(1, p_t(x) / p_d(x)) (``u_acc``
     (S, g) uniforms; ``t_logp`` (S, g+1, V) and ``d_logp`` (S, g, V) the
     warped log-probabilities) and ends on a draw (``u_res`` (S, V)
-    uniforms) from the normalized residual max(p_t - p_d, 0) at its first
+    uniforms, or a function of the accepted counts k that returns them)
+    from the normalized residual max(p_t - p_d, 0) at its first
     rejection, or from p_t after it accepted all g — so its tokens are
     distributed as p_t's."""
     g = drafts.shape[1]
@@ -168,6 +254,8 @@ def _spec_accept(greedy, drafts, temp=None, t_logp=None, d_logp=None,
         resid = (p_t_k - torch.exp(d_pad[rows, k.long()])).clamp(min=0.0)
         tot = resid.sum(dim=-1, keepdim=True)
         resid = torch.where(tot > 1e-30, resid / tot, p_t_k)
+        if callable(u_res):
+            u_res = u_res(k)
         resampled = _gumbel_argmax(torch.log(resid.clamp(min=1e-38)), u_res)
         final = torch.where(temp > 0.0, resampled, final)
     return k, final
@@ -216,7 +304,12 @@ class ContinuousDecoder:
     the :class:`KVAutotuner`, which walks gamma up to ``max(gamma, 8)``
     (every slot's pages and the draft pool are sized for that ceiling),
     the chunk budget and the pipeline depth. Speculation on a mesh is not
-    ported (NotImplementedError)."""
+    ported (NotImplementedError).
+
+    ``prefill_ahead`` (rows, 0 = off) stages waiting prefills on the
+    device while the pool is full; ``journal`` (a
+    :class:`~mmlspark_tpu_torch.serving.journal.ServingJournal`) makes
+    every session durable (see the module docstring)."""
 
     def __init__(self, params: Dict, cfg: TransformerConfig, *,
                  device=None,
@@ -251,10 +344,8 @@ class ContinuousDecoder:
                 f"slot sharding over dp={axis_size(mesh, 'dp')} is not "
                 f"ported to mmlspark_tpu_torch yet (queued in ROADMAP.md, "
                 f"'Slice 6 leftovers')")
-        if prefill_ahead:
-            raise _not_ported("prefill-ahead staging (prefill_ahead > 0)")
-        if journal is not None:
-            raise _not_ported("durable sessions (journal)")
+        if prefill_ahead < 0:
+            raise ValueError("prefill_ahead must be >= 0")
         if not cfg.causal:
             raise ValueError("ContinuousDecoder needs cfg.causal=True")
         if self._spec:
@@ -328,6 +419,12 @@ class ContinuousDecoder:
         #: (device token block (rows, cols), {col: (slot, request)} at
         #: dispatch time) per outstanding dispatch, oldest first
         self._pending: List[tuple] = []
+        #: prefill-ahead budget in padded rows (0 = off) and the staged
+        #: units: [requests, logits, target rows, draft rows, next offset]
+        self._stage_cap = int(prefill_ahead)
+        self._staged: List[list] = []
+        #: the durable-session journal, or None
+        self._journal = journal
         self._page = PagedKVPool.kernel_aligned_page_size(page_size)
         #: block-table width: logical pages per slot at full cache length
         self._P_max = -(-self._Lc // self._page)
@@ -415,21 +512,26 @@ class ContinuousDecoder:
         self._temp = self._zeros(torch.float32)
         self._topk = self._zeros(torch.int32)
         self._topp = self._zeros(torch.float32, 1.0)
-        #: per-slot sampling generators (None for greedy requests)
-        self._gens: List[Optional[torch.Generator]] = [None] * self._S
+        #: per-slot request seeds: the key of :func:`_uniforms`
+        self._seed = self._zeros(torch.int64)
 
     # ---- client surface ----
     def submit(self, prompt_ids, max_new_tokens: int = 32, *,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: int = 0,
                prefix_key: Optional[str] = None,
-               prefix_len: Optional[int] = None) -> _Request:
+               prefix_len: Optional[int] = None,
+               session_id: Optional[str] = None,
+               _journal_record: bool = True) -> _Request:
         """Queue one request; returns its ticket. ``prefix_key`` turns on
         prefix caching: the first request with a key prefills normally and
         registers its first ``prefix_len`` positions (default: the whole
         prompt); later requests with the key — whose prompts must start
         with the stored tokens — share those pages and run one window
-        forward over their suffix."""
+        forward over their suffix. ``session_id`` names the durable
+        session (default: the rid); with a journal the session is recorded
+        before the request becomes visible to the engine, and a failed
+        append fails this submit."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -466,6 +568,19 @@ class ContinuousDecoder:
                            top_p=top_p, seed=seed)
             req.prefix_key = prefix_key
             req.prefix_len = prefix_len
+            if session_id is not None:
+                req.session_id = str(session_id)
+            if self._journal is not None and _journal_record:
+                # write-ahead: journaled before the engine can see it
+                # (restore_session journals the canonical session itself)
+                self._journal.record_session(
+                    req.session_id, prompt.tolist(), {
+                        "max_new": int(max_new_tokens),
+                        "temperature": float(temperature),
+                        "top_k": int(top_k), "top_p": float(top_p),
+                        "seed": int(seed), "prefix_key": prefix_key,
+                        "prefix_len": prefix_len,
+                    }, phash=_prefix_hash(prompt))
             self._waiting.append(req)
         return req
 
@@ -476,19 +591,234 @@ class ContinuousDecoder:
             raise req.error
         return list(req.tokens)
 
-    def checkpoint_session(self, *args, **kwargs):
-        raise _not_ported("session checkpoint (checkpoint_session)")
+    def session_result(self, req: _Request,
+                       timeout: Optional[float] = None) -> List[int]:
+        """The full session completion: tokens emitted by previous
+        incarnations of a restored session, then this one's (equal to
+        :meth:`result` for a request never restored)."""
+        return list(req.pre_emitted) + self.result(req, timeout)
 
-    def restore_session(self, *args, **kwargs):
-        raise _not_ported("session restore (restore_session)")
+    # ---- session checkpoint / restore ----
+    def _slot_of(self, req: _Request) -> Optional[int]:
+        return next((i for i in range(self._S)
+                     if self._slot_req[i] is req), None)
+
+    def checkpoint_session(self, req: _Request, *,
+                           export_kv: bool = True) -> dict:
+        """Snapshot a live request as ``{"session": {...}, "kv": blob or
+        None}`` in canonical form: the ORIGINAL prompt and sampling
+        parameters and every token emitted across all incarnations, so a
+        checkpoint of a restored session round-trips. ``kv`` is the
+        exported page blob (:meth:`PagedKVPool.export_session`) when the
+        request holds a decoding slot with written pages (None when it is
+        waiting, staged, mid-chunked-prefill or done, on a speculative
+        engine, or when ``export_kv`` is false: the receiver then restores
+        cold).
+
+        Every outstanding dispatch drains first, so the host's token view
+        and the pages agree (each drain's device→host copy waits for its
+        dispatch; the stream is then synchronized before any page is
+        read). The page list is the slot's current one, after any
+        ``compact()`` remap, in logical order."""
+        with self._engine_lock:
+            while self._pending:
+                self._drain_one()
+            if self._dev.type == "cuda":
+                torch.cuda.current_stream(self._dev).synchronize()
+            n_pre = len(req.pre_emitted)
+            orig_prompt = req.prompt[:req.prompt.size - n_pre]
+            sess = {
+                "id": req.session_id,
+                "prompt": [int(t) for t in orig_prompt],
+                "params": {
+                    "max_new": int(req.max_new) + n_pre,
+                    "temperature": req.temperature, "top_k": req.top_k,
+                    "top_p": req.top_p, "seed": req.seed,
+                },
+                "phash": _prefix_hash(orig_prompt),
+                "emitted": list(req.pre_emitted) + list(req.tokens),
+            }
+            kv = None
+            if export_kv and not req.done and not self._spec:
+                slot = self._slot_of(req)
+                if (slot is not None and slot not in self._chunking
+                        and req.tokens and self._slot_pages[slot]):
+                    # positions written: the (possibly forced) prompt and
+                    # every emitted token but the last, which is the next
+                    # tick's input and has no K/V yet
+                    written = req.prompt.size + len(req.tokens) - 1
+                    n_live = self._kv.pages_per_slot(written)
+                    kv = self._kv.export_session(
+                        self._slot_pages[slot][:n_live], length=written)
+            return {"session": sess, "kv": kv}
+
+    def restore_session(self, sess: dict,
+                        kv_blob: Optional[dict] = None) -> _Request:
+        """Rebuild a journaled or checkpointed session on this engine.
+
+        Cold (``kv_blob`` None): the original prompt plus every emitted
+        token re-prefill as a forced prompt through normal admission, and
+        the remainder decodes. Greedy sessions continue token for token;
+        sampled ones too, since every draw is keyed by (seed, absolute
+        position). Warm: the blob's pages are adopted into this pool and
+        the request takes a free slot directly — nothing re-prefills; the
+        next tick feeds the last emitted token at its original position.
+
+        The returned request generates only the remainder
+        (:meth:`session_result` has the whole completion); a session whose
+        budget is spent or that already emitted eos comes back done. With
+        a journal, the canonical session (original prompt, merged tail)
+        is journaled here before the request becomes visible, so a second
+        failover replays from this engine without stacking forced
+        prefixes."""
+        prompt = np.asarray(sess.get("prompt", ()), np.int32).reshape(-1)
+        params = dict(sess.get("params", {}))
+        emitted = [int(t) for t in sess.get("emitted", ())]
+        sid = sess.get("id")
+        max_new = int(params.get("max_new", 32))
+        temperature = float(params.get("temperature", 0.0))
+        top_k = int(params.get("top_k", 0))
+        top_p = float(params.get("top_p", 1.0))
+        seed = int(params.get("seed", 0))
+        remaining = max_new - len(emitted)
+        if remaining <= 0 or (self._eos is not None and self._eos in emitted):
+            with self._lock:
+                rid = self._next_rid
+                self._next_rid += 1
+            req = _Request(rid, prompt, max(1, max_new),
+                           temperature=temperature, top_k=top_k,
+                           top_p=top_p, seed=seed)
+            if sid is not None:
+                req.session_id = str(sid)
+            req.pre_emitted = emitted
+            req.done = True
+            req.journaled = -1
+            req.finished_at = time.perf_counter()
+            req.event.set()
+            return req
+        forced = (np.concatenate([prompt, np.asarray(emitted, np.int32)])
+                  if emitted else prompt)
+        if sid is None:
+            with self._lock:
+                sid = f"sess-{self._next_rid}"
+        sid = str(sid)
+        if self._journal is not None:
+            self._journal.record_session(
+                sid, prompt.tolist(), {
+                    "max_new": max_new, "temperature": temperature,
+                    "top_k": top_k, "top_p": top_p, "seed": seed,
+                    "prefix_key": None, "prefix_len": None,
+                }, phash=_prefix_hash(prompt))
+            if emitted:
+                self._journal.record_session_tokens(sid, emitted)
+        if kv_blob is None:
+            req = self.submit(forced, max_new_tokens=remaining,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p, seed=seed, session_id=sid,
+                              _journal_record=False)
+            req.pre_emitted = emitted
+            return req
+        return self._adopt_warm(kv_blob, forced, remaining, temperature,
+                                top_k, top_p, seed, sid, emitted)
+
+    def _adopt_warm(self, kv_blob, forced, remaining, temperature, top_k,
+                    top_p, seed, sid, emitted) -> _Request:
+        """The warm path of :meth:`restore_session`: adopt the pages into
+        a free slot and set its decode state."""
+        if self._spec:
+            raise ValueError("warm adopt is not supported on speculative "
+                             "engines (the draft cache is not exported); "
+                             "restore cold instead")
+        if not emitted:
+            raise ValueError("warm adopt needs >= 1 emitted token (the "
+                             "next tick's input); restore cold instead")
+        written = int(kv_blob.get("length", -1))
+        if written != forced.size - 1:
+            raise ValueError(
+                f"kv blob holds {written} positions; session expects "
+                f"{forced.size - 1} (prompt+emitted minus the pending "
+                f"last token)")
+        if forced.size + remaining > self._L:
+            raise ValueError(
+                f"session needs {forced.size + remaining} positions; "
+                f"this engine's max_len is {self._L}")
+        with self._engine_lock:
+            slot = next((i for i in range(self._S)
+                         if self._slot_req[i] is None
+                         and i not in self._chunking), None)
+            if slot is None:
+                raise PoolExhausted("no free slot to adopt session into")
+            adopted = self._kv.adopt_session(kv_blob)
+            n_total = self._kv.pages_per_slot(
+                self._need(forced.size, remaining))
+            try:
+                extra = (self._kv.alloc(n_total - len(adopted))
+                         if n_total > len(adopted) else [])
+            except PoolExhausted:
+                self._kv.free(adopted)
+                raise
+            with self._lock:
+                rid = self._next_rid
+                self._next_rid += 1
+            req = _Request(rid, forced, remaining, temperature=temperature,
+                           top_k=top_k, top_p=top_p, seed=seed)
+            req.session_id = sid
+            req.pre_emitted = list(emitted)
+            self._slot_req[slot] = req
+            self._slot_pages[slot] = adopted + extra
+            self._set_bt_row(slot, adopted + extra)
+            # the last emitted token is the next input, at the position it
+            # holds in the uninterrupted run; draws key on (seed, position)
+            self._tok[slot] = int(forced[-1])
+            self._pos[slot] = written
+            self._active[slot] = True
+            self._remaining[slot] = remaining
+            self._temp[slot] = temperature
+            self._topk[slot] = top_k
+            self._topp[slot] = top_p
+            self._seed[slot] = _seed64(seed)
+            self.stats["sessions_adopted"] = \
+                self.stats.get("sessions_adopted", 0) + 1
+        return req
 
     # ---- admission ----
     def _admit(self):
-        """Move waiting requests into free slots. Plain requests admitted
-        in one tick batch their prefill per pad bucket; prefix-cache
-        requests take the per-request path; long prompts enter chunked
-        prefill last."""
+        """Move staged units, then waiting requests, into free slots.
+        Plain requests admitted in one tick batch their prefill per pad
+        bucket; prefix-cache requests take the per-request path; long
+        prompts enter chunked prefill last."""
         while True:
+            # staged units first: their prefill already ran, so insertion
+            # is one scatter and the first tokens ride the drain pipeline
+            staged_any = False
+            while self._staged:
+                with self._lock:
+                    free = [i for i in range(self._S)
+                            if self._slot_req[i] is None]
+                    if not free:
+                        break
+                    unit = self._staged[0]
+                    reqs, logits, rows, d_rows, off = unit
+                    m = min(len(free), len(reqs) - off)
+                    group = [(free[i], reqs[off + i]) for i in range(m)]
+                    for slot, req in group:
+                        self._slot_req[slot] = req
+                sl = slice(off, off + m)
+                if not self._insert_rows(
+                        group, logits[sl],
+                        [{kk: c[kk][sl] for kk in ("k", "v")} for c in rows],
+                        [{kk: c[kk][sl] for kk in ("k", "v")}
+                         for c in d_rows]):
+                    # pool exhausted: un-assign and keep the unit parked;
+                    # pages free as slots retire and a later tick retries
+                    with self._lock:
+                        for slot, _ in group:
+                            self._slot_req[slot] = None
+                    return
+                unit[4] += m
+                if unit[4] >= len(unit[0]):
+                    self._staged.pop(0)
+                staged_any = True
             with self._lock:
                 free = [i for i in range(self._S)
                         if self._slot_req[i] is None]
@@ -499,6 +829,8 @@ class ContinuousDecoder:
                     self._slot_req[slot] = req
                     batch.append((slot, req))
             if not batch:
+                if staged_any:
+                    continue    # insertions may have freed slots (max_new 1)
                 return
             plain, chunked, prefixed = [], [], []
             for s, r in batch:
@@ -531,6 +863,10 @@ class ContinuousDecoder:
                     req.done = True
                     req.finished_at = time.perf_counter()
                     req.event.set()
+                    if self._journal is not None and req.journaled >= 0:
+                        # not recoverable: retire its journaled session
+                        self._journal.record_session_end(req.session_id)
+                        req.journaled = -1
                     self._release_locked(slot)
                     continue
                 if not ok:
@@ -560,7 +896,49 @@ class ContinuousDecoder:
         d_rows = (prefill_cache(self._d_params, ids, lengths, self._d_cfg,
                                 self._L)[1] if self._spec else [])
         self.stats["prefills"] += 1
+        _M_PREFILLS.inc()
         return logits, row_cache, d_rows
+
+    @staticmethod
+    def _padded_rows(n: int) -> int:
+        """Device rows a staged n-request unit holds (the power-of-two row
+        pad of :meth:`_prefill_group`): what ``prefill_ahead`` charges."""
+        return 1 << (n - 1).bit_length()
+
+    def _stage_prefills(self):
+        """Prefill-ahead: prefill the leading run of waiting plain
+        same-bucket prompts while the slots are busy and park (logits,
+        target rows, draft rows) on the device for :meth:`_admit`.
+        Prefix-cache and chunked prompts end the run (they keep their own
+        paths), and so does a bucket change, so FIFO order holds across
+        waves. A unit is charged its padded rows until it fully drains. A
+        failed prefill puts its requests back at the front of the queue,
+        order intact, before the error propagates."""
+        with self._lock:
+            budget = self._stage_cap - sum(
+                self._padded_rows(len(u[0])) for u in self._staged)
+            take, bucket = [], None
+            while (self._waiting and self._waiting[0].prefix_key is None
+                   and not self._needs_chunk(self._waiting[0])):
+                b = self._bucket(self._waiting[0].prompt.size)
+                if bucket is None:
+                    bucket = b
+                elif b != bucket:
+                    break
+                if self._padded_rows(len(take) + 1) > budget:
+                    break
+                take.append(self._waiting.pop(0))
+        if not take:
+            return
+        try:
+            logits, row_cache, d_rows = self._prefill_group(take)
+        except BaseException:
+            with self._lock:
+                self._waiting[:0] = take
+            raise
+        self.stats["staged_prefills"] = (
+            self.stats.get("staged_prefills", 0) + 1)
+        self._staged.append([take, logits, row_cache, d_rows, 0])
 
     # ---- page bookkeeping ----
     def _need(self, prompt_len: int, max_new: int) -> int:
@@ -653,12 +1031,11 @@ class ContinuousDecoder:
         temps_v = self._h2d([r.temperature for r in reqs], np.float32)
         topks_v = self._h2d([r.top_k for r in reqs], np.int32)
         topps_v = self._h2d([r.top_p for r in reqs], np.float32)
-        for slot, r in group:
-            self._gens[slot] = (
-                torch.Generator(device=self._dev).manual_seed(r.seed)
-                if r.temperature > 0.0 else None)
+        seeds_v = self._h2d([_seed64(r.seed) for r in reqs], np.int64)
+        # the first token sits at position P (the prompt's length)
         firsts = self._pick(logits[:g].float(), temps_v, topks_v, topps_v,
-                            [self._gens[s] for s in slots])
+                            seeds_v, lens_v,
+                            any(r.temperature > 0.0 for r in reqs))
         if rows_t and self._quant_probe:
             # sampled write-time probe: every quant_probe'th insert of
             # prefill rows round-trips layer 0's keys (one host sync)
@@ -681,6 +1058,7 @@ class ContinuousDecoder:
         self._temp[slots_v] = temps_v
         self._topk[slots_v] = topks_v
         self._topp[slots_v] = topps_v
+        self._seed[slots_v] = seeds_v
         # first tokens ride the drain pipeline as a (1, g) block, queued
         # before any later tick block so drain order is emission order
         self._pending.append((firsts.reshape(1, -1),
@@ -689,23 +1067,15 @@ class ContinuousDecoder:
         if len(self._pending) == 1:
             self._drain_one()
 
-    def _pick(self, logits, temp, topk, topp, gens):
-        """Next tokens for (S, V) logits: argmax when no row samples, else
-        :func:`_sample_rows` with one uniform draw per sampling row from
-        its own generator."""
-        if all(g is None for g in gens):
+    @staticmethod
+    def _pick(logits, temp, topk, topp, seed, qpos, sample: bool):
+        """Next tokens for (S, V) logits at absolute positions ``qpos``:
+        the argmax when no row samples, else :func:`_sample_rows` over
+        :func:`_uniforms` keyed by each row's seed and ``qpos``."""
+        if not sample:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return _sample_rows(logits, temp, topk, topp,
-                            self._uniform(gens, logits.shape[1]))
-
-    def _uniform(self, gens, n: int) -> torch.Tensor:
-        """(S, n) uniforms: ``n`` draws from each row's generator, in row
-        order, and 0.5 for rows without one (greedy rows draw nothing)."""
-        u = torch.full((len(gens), n), 0.5, device=self._dev)
-        for i, g in enumerate(gens):
-            if g is not None:
-                u[i] = torch.rand(n, generator=g, device=self._dev)
-        return u
+                            _uniforms(seed, qpos, 0, logits.shape[1]))
 
     def _bucket(self, n: int, cap: Optional[int] = None) -> int:
         """THE pad-bucket policy (batched admission, prefix suffix windows
@@ -779,6 +1149,7 @@ class ContinuousDecoder:
             self._slot_pages[slot] = shared + private
             self._set_bt_row(slot, shared + private)
             self.stats["prefix_hits"] += 1
+            _M_PREFIX_HITS.inc()
             self._prefix_store[req.prefix_key] = \
                 self._prefix_store.pop(req.prefix_key)
             suffix = req.prompt[start:]
@@ -797,6 +1168,7 @@ class ContinuousDecoder:
             self._params, self._h2d(ids), self._h2d([P], np.int32),
             self._cfg, self._L, **self._tp_kw())
         self.stats["prefills"] += 1
+        _M_PREFILLS.inc()
         self._insert_chunk_locked([(slot, req)], logits, row_cache,
                                   self._draft_prompt_rows(req))
         if self._prefix_store_cap > 0:
@@ -864,6 +1236,7 @@ class ContinuousDecoder:
             return
         del self._chunking[slot]
         self.stats["prefills"] += 1
+        _M_PREFILLS.inc()
         self._insert_chunk_locked([(slot, req)], w_logits[:, w - 1], [],
                                   self._draft_prompt_rows(req))
 
@@ -882,7 +1255,6 @@ class ContinuousDecoder:
     def _release_locked(self, slot: int):
         self._slot_req[slot] = None
         self._active[slot] = False
-        self._gens[slot] = None
         self._chunking.pop(slot, None)
         pages = self._slot_pages[slot]
         if pages:
@@ -922,8 +1294,6 @@ class ContinuousDecoder:
         mid-dispatch stops advancing. Returns the (k, S) token block."""
         sample = any(self._slot_req[i].temperature > 0.0
                      for i in decode_live)
-        gens = [self._gens[i] if i in decode_live else None
-                for i in range(self._S)]
         tok, pos = self._tok, self._pos
         active, remaining = self._active, self._remaining
         toks = []
@@ -932,11 +1302,9 @@ class ContinuousDecoder:
                 self._params, tok, pos, self._kv.buffers, self._bt,
                 self._cfg, page_size=self._page, length=self._Lc,
                 active=active, impl=self._attn_impl, **self._tp_kw())
-            if sample:
-                nxt = self._pick(logits, self._temp, self._topk, self._topp,
-                                 gens)
-            else:
-                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            # the emitted token sits at pos + 1
+            nxt = self._pick(logits, self._temp, self._topk, self._topp,
+                             self._seed, pos + 1, sample)
             nxt = torch.where(active, nxt, tok)
             pos = torch.where(active, pos + 1, pos)
             remaining = torch.where(active, remaining - 1, remaining)
@@ -970,8 +1338,7 @@ class ContinuousDecoder:
                     self._topp.repeat_interleave(w_)).reshape(s_, w_, v_)
         return torch.log_softmax(scaled, dim=-1)
 
-    def _spec_tick(self, decode_live: List[int], gamma: int,
-                   mode: str) -> torch.Tensor:
+    def _spec_tick(self, gamma: int, mode: str) -> torch.Tensor:
         """k draft → verify rounds over every slot (the reference's
         ``_spec_tick_program``, eager). Each round the draft takes gamma +
         1 steps over its slot pool (the last writes the last proposal's
@@ -989,11 +1356,10 @@ class ContinuousDecoder:
         at eos, inclusive. Returns the (k (gamma + 1), S) block, -1 on
         lanes not emitted; rejected lanes' K/V is overwritten before any
         query reads it."""
-        dev, S = self._dev, self._S
+        dev = self._dev
         sample = mode != "greedy"
         warp = mode == "warped"
-        gens = [self._gens[i] if i in decode_live else None
-                for i in range(S)]
+        seed = self._seed
         V = self._cfg.vocab
         idx = torch.arange(gamma + 1, device=dev)
         temp = self._temp
@@ -1013,7 +1379,8 @@ class ContinuousDecoder:
                     logp = self._warm_logp(lg, warp)
                     nxt = torch.where(
                         temp > 0.0,
-                        _gumbel_argmax(logp, self._uniform(gens, V)), nxt)
+                        _gumbel_argmax(logp, _uniforms(seed, pos + i + 1,
+                                                       1, V)), nxt)
                     d_logps.append(logp)
                 props.append(nxt)
                 t = torch.where(active, nxt, t)
@@ -1026,10 +1393,16 @@ class ContinuousDecoder:
                 self.stats.get("spec_verify_windows", 0) + 1)
             greedy = torch.argmax(w_logits, dim=-1).to(torch.int32)
             if sample:
+                # acceptance j decides the token at pos + j + 1; the
+                # resample, drawn for every row before k is known, is
+                # keyed at pos + 1 + (the count the verify accepts)
+                t_logp = self._warm_logp(w_logits, warp)
+                d_logp = torch.stack(d_logps, dim=1)
+                u_acc = _uniforms(seed, pos[:, None] + 1 + idx[None, :gamma],
+                                  2, 1)[..., 0]
                 k, final = _spec_accept(
-                    greedy, drafts, temp, self._warm_logp(w_logits, warp),
-                    torch.stack(d_logps, dim=1), self._uniform(gens, gamma),
-                    self._uniform(gens, V))
+                    greedy, drafts, temp, t_logp, d_logp, u_acc,
+                    lambda k_: _uniforms(seed, pos + k_ + 1, 3, V))
             else:
                 k, final = _spec_accept(greedy, drafts)
             pad_drafts = torch.cat([drafts, drafts[:, -1:]], dim=1)
@@ -1063,10 +1436,13 @@ class ContinuousDecoder:
             return self._step_locked()
 
     def _step_locked(self) -> int:
-        # eager drain under saturation: with requests queued and every slot
-        # occupied, only a drained retirement frees a slot
+        injector = _get_injector()
+        if injector.enabled:
+            injector.fire("device_run")
+        # eager drain under saturation: with requests queued (or staged)
+        # and every slot occupied, only a drained retirement frees a slot
         with self._lock:
-            backlog = bool(self._waiting)
+            backlog = bool(self._waiting or self._staged)
         if backlog:
             while (self._pending
                    and all(self._slot_req[i] is not None
@@ -1076,6 +1452,7 @@ class ContinuousDecoder:
         self._admit()
         self._advance_chunks()
         live = [i for i in range(self._S) if self._slot_req[i] is not None]
+        _M_LIVE_SLOTS.set(len(live))
         if not live:
             if self._pending:
                 self._drain_one()
@@ -1102,7 +1479,7 @@ class ContinuousDecoder:
                     else "sampled")
             gamma = (self._tuner.gamma if self._tuner is not None
                      else self._gamma)
-            toks = self._spec_tick(decode_live, gamma, mode)
+            toks = self._spec_tick(gamma, mode)
         else:
             toks = self._tick(decode_live)
         self._kv.note_attn_tick(
@@ -1113,6 +1490,10 @@ class ContinuousDecoder:
         # block drains; tokens go to the request that held it at dispatch
         self._pending.append((toks, {i: (i, self._slot_req[i])
                                      for i in decode_live}))
+        # prefill-ahead: with the decode block queued on the device,
+        # prefill waiting prompts into the stage behind it
+        if self._stage_cap:
+            self._stage_prefills()
         while len(self._pending) > self._depth_now():
             self._drain_one()
         self.tick_seconds.append(time.perf_counter() - t0)
@@ -1139,7 +1520,8 @@ class ContinuousDecoder:
         """Copy the oldest outstanding token block to the host (the decode
         path's one device→host sync) and replay it in emission order."""
         toks_dev, snapshot = self._pending.pop(0)
-        toks = toks_dev.cpu().numpy()
+        with _M_DRAIN_SECONDS.time():
+            toks = toks_dev.cpu().numpy()
         if self._spec and toks.shape[0] > 1:
             # a spec block: k rounds of gamma + 1 lanes, -1 where nothing
             # was emitted. Both acceptance counters come from this block:
@@ -1159,6 +1541,21 @@ class ContinuousDecoder:
                 tk = int(toks[s, col])
                 if tk >= 0:         # a spec lane past the accepted count
                     self._note_token(req, tk)
+        if self._journal is not None:
+            # one tail record per session per drain; retirement closes the
+            # session so compaction can drop it
+            seen = set()
+            for _, (_, req) in snapshot.items():
+                if id(req) in seen or req.journaled < 0:
+                    continue
+                seen.add(id(req))
+                new = req.tokens[req.journaled:]
+                if new:
+                    self._journal.record_session_tokens(req.session_id, new)
+                    req.journaled = len(req.tokens)
+                if req.done:
+                    self._journal.record_session_end(req.session_id)
+                    req.journaled = -1
         for _, (slot, req) in snapshot.items():
             if req.done and self._slot_req[slot] is req:
                 self._release_locked(slot)
@@ -1178,6 +1575,11 @@ class ContinuousDecoder:
             with self._lock:
                 waiting, self._waiting = self._waiting, []
             cancelled = list(waiting)
+            # staged requests left the queue but never reached a slot;
+            # their parked rows go with the units
+            for unit in self._staged:
+                cancelled.extend(unit[0][unit[4]:])
+            self._staged.clear()
             self._pending.clear()
             for i in range(self._S):
                 req = self._slot_req[i]

@@ -44,8 +44,10 @@ class GenerationEngine:
     meshed front needs rank 0 to broadcast its submissions to the other
     ranks, which is not ported (ROADMAP.md, 'Slice 6 leftovers'); drive
     a meshed ``ContinuousDecoder`` on every rank instead. ``draft_params``,
-    ``draft_cfg``, ``gamma`` and ``autotune`` go to the decoder
-    (speculative decoding and the autotuner)."""
+    ``draft_cfg``, ``gamma``, ``autotune`` and ``prefill_ahead`` go to
+    the decoder (speculative decoding, the autotuner, prefill-ahead
+    staging); ``transport`` (``"threaded"`` or ``"async"``) to the
+    :class:`WorkerServer`."""
 
     def __init__(self, params, cfg, *, device=None, max_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -53,8 +55,10 @@ class GenerationEngine:
                  host: str = "127.0.0.1", port: int = 0,
                  api_path: str = "/generate",
                  reply_timeout: float = 120.0,
+                 transport: str = "threaded",
                  steps_per_dispatch: int = 1,
                  pipeline_depth: int = 2,
+                 prefill_ahead: int = 0,
                  draft_params=None, draft_cfg=None, gamma: int = 4,
                  page_size: int = 16, prefill_chunk: int = 256,
                  kv_pages: Optional[int] = None, autotune: bool = False,
@@ -67,13 +71,14 @@ class GenerationEngine:
             params, cfg, device=device, max_slots=max_slots,
             max_len=max_len, eos_id=eos_id,
             steps_per_dispatch=steps_per_dispatch,
-            pipeline_depth=pipeline_depth, draft_params=draft_params,
-            draft_cfg=draft_cfg, gamma=gamma, page_size=page_size,
-            prefill_chunk=prefill_chunk, kv_pages=kv_pages,
-            autotune=autotune)
+            pipeline_depth=pipeline_depth, prefill_ahead=prefill_ahead,
+            draft_params=draft_params, draft_cfg=draft_cfg, gamma=gamma,
+            page_size=page_size, prefill_chunk=prefill_chunk,
+            kv_pages=kv_pages, autotune=autotune)
         self.default_max_new = int(default_max_new)
         self.server = WorkerServer(host, port, api_path,
-                                   reply_timeout=reply_timeout)
+                                   reply_timeout=reply_timeout,
+                                   transport=transport)
         #: decoder rid -> _InFlight
         self._inflight: Dict[int, _InFlight] = {}
         self._stop = threading.Event()

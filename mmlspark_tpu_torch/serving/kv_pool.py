@@ -15,7 +15,11 @@
   page is copied, and shared pages are never written;
 * **defrag on retire** — frees go back to a min-heap (lowest index first);
   :meth:`compact` returns a permutation the engine applies with one
-  gather.
+  gather;
+* **session export / adopt** — :meth:`export_session` writes one
+  session's pages (values and scales) into the reference's portable blob,
+  byte for byte, and :meth:`adopt_session` scatters such a blob into
+  freshly allocated pages, so either package adopts the other's blobs.
 
 Physical page 0 is the **trash page**: never allocated, the redirect
 target for inactive-row writes and for block-table entries past a row's
@@ -34,6 +38,7 @@ shards together.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,6 +52,12 @@ from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
 from ..utils.device import resolve_device
 
 __all__ = ["PagedKVPool", "PoolExhausted", "KVAutotuner", "prefix_hash"]
+
+#: numpy's names for the pool dtypes: the session blob's ``value_dtype``
+#: and ``scale_dtype`` strings, as the reference writes them
+_NP_NAMES = {torch.float32: "float32", torch.float16: "float16",
+             torch.bfloat16: "bfloat16", torch.int8: "int8",
+             torch.float8_e4m3fn: "float8_e4m3fn"}
 
 M_AUTOTUNE_GAMMA = _metric_gauge(
     "mmlspark_kvpool_autotune_gamma",
@@ -310,6 +321,113 @@ class PagedKVPool:
             for h, (pages, plen) in self._prefixes.items()}
         self.stats["defrag_moves"] += moved
         return remap
+
+    # -- session export / adopt ----------------------------------------------
+
+    def _layout(self) -> dict:
+        """The blob fields an adopting pool must match."""
+        return {
+            "page_size": self.page_size,
+            "kv_dtype": self.kv_dtype,
+            "value_dtype": _NP_NAMES[self.value_dtype],
+            "scale_dtype": (_NP_NAMES[self.scale_dtype]
+                            if self.scale_dtype is not None else None),
+            "layers": int(self.cfg.layers),
+            "page_shape": [int(x) for x in self._shape[1:]],
+        }
+
+    def _check_unsharded(self, what: str) -> None:
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"{what} of a head-sharded pool (tp={self.tp}) is not ported "
+                f"to mmlspark_tpu_torch yet (queued in ROADMAP.md, 'Slice 6 "
+                f"leftovers')")
+
+    def export_session(self, pages: Sequence[int], *, length: int) -> dict:
+        """Serialize one session's KV pages into the reference's portable,
+        JSON-able blob (``serving/kv_pool.py:425-460``).
+
+        ``pages`` is the session's page list in logical (block-table)
+        order, after any ``compact()`` remap; quantized pools' scale pages
+        ride along per layer under the same indices. ``length`` is the
+        number of positions the pages hold. Each buffer's pages are
+        gathered as raw bytes (one gather per buffer), and all of them
+        cross to the host in ONE copy."""
+        self._check_unsharded("session export")
+        pages = [int(p) for p in pages]
+        idx = torch.as_tensor(pages, dtype=torch.int64).to(self.device)
+        flat, sizes = [], []
+        for c in self.buffers:
+            for buf in c.values():
+                b = buf.view(torch.uint8)[idx].reshape(-1)
+                flat.append(b)
+                sizes.append(b.numel())
+        host = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.uint8)
+        data, off, i = [], 0, 0
+        for c in self.buffers:
+            entry = {}
+            for key in c:
+                entry[key] = base64.b64encode(
+                    host[off:off + sizes[i]].tobytes()).decode("ascii")
+                off += sizes[i]
+                i += 1
+            data.append(entry)
+        self.stats["sessions_exported"] = \
+            self.stats.get("sessions_exported", 0) + 1
+        return {"v": 1, "n_pages": len(pages), "length": int(length),
+                **self._layout(), "data": data}
+
+    def adopt_session(self, blob: dict) -> List[int]:
+        """Allocate pages on THIS pool and scatter ``blob``'s contents into
+        them (``serving/kv_pool.py:462-509``). Returns the new page list in
+        the blob's logical order. Raises ``ValueError`` on a layout
+        mismatch (page size, layer count, head geometry, dtypes and
+        quantization mode must agree) before it allocates, and
+        ``PoolExhausted`` — with nothing leaked — when the pool lacks the
+        pages; any later failure frees what it allocated. The blob's bytes
+        cross to the device in one copy."""
+        self._check_unsharded("session adopt")
+        if blob.get("v") != 1:
+            raise ValueError(f"unknown session blob version {blob.get('v')}")
+        want = self._layout()
+        got = {k: blob.get(k) for k in want}
+        if got != want:
+            raise ValueError(
+                f"session blob layout mismatch: blob {got} != pool {want}")
+        n = int(blob["n_pages"])
+        pages = self.alloc(n)
+        try:
+            chunks, shapes = [], []
+            for c, entry in zip(self.buffers, blob["data"]):
+                for key, buf in c.items():
+                    raw = np.frombuffer(base64.b64decode(entry[key]), np.uint8)
+                    shape = (n,) + tuple(buf.view(torch.uint8).shape[1:])
+                    if raw.size != int(np.prod(shape)):
+                        raise ValueError(
+                            f"session blob {key!r}: {raw.size} bytes, want "
+                            f"{int(np.prod(shape))}")
+                    chunks.append(raw)
+                    shapes.append(shape)
+            if len(shapes) != sum(len(c) for c in self.buffers):
+                raise ValueError("session blob: missing layers or buffers")
+            dev = torch.from_numpy(np.concatenate(chunks))
+            if self.device.type != "cpu":
+                dev = dev.pin_memory().to(self.device, non_blocking=True)
+            idx = torch.as_tensor(pages, dtype=torch.int64).to(self.device)
+            off, i = 0, 0
+            for c in self.buffers:
+                for buf in c.values():
+                    size = int(np.prod(shapes[i]))
+                    buf.view(torch.uint8)[idx] = \
+                        dev[off:off + size].reshape(shapes[i])
+                    off += size
+                    i += 1
+        except Exception:
+            self.free(pages)
+            raise
+        self.stats["sessions_adopted"] = \
+            self.stats.get("sessions_adopted", 0) + 1
+        return pages
 
     # -- misc ----------------------------------------------------------------
 

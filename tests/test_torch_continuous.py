@@ -201,15 +201,25 @@ def test_submit_validation(params):
                                 {"prefill_ahead": 1}, {"prefill_ahead": 2},
                                 {"journal": object()}])
 def test_unported_options_raise(params, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(params, **kw)
+    """The options still unported raise NotImplementedError naming their
+    ROADMAP item; prefill-ahead and the journal, ported since, build."""
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _engine(params, **kw)
+        return
+    eng = _engine(params, **kw)
+    assert eng._stage_cap == kw.get("prefill_ahead", 0)
+    assert eng._journal is kw.get("journal")
 
 
 def test_unported_session_calls_raise(params):
+    """The session calls, ported since, validate their arguments as the
+    reference's do: a non-request has no session to checkpoint, and a
+    session without a prompt cannot be restored."""
     eng = _engine(params)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(AttributeError):
         eng.checkpoint_session(None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="empty prompt"):
         eng.restore_session({})
 
 

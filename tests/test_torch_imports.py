@@ -69,7 +69,17 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.models.zoo.bert_onnx",
                  "mmlspark_tpu_torch.models.zoo.vit",
                  "mmlspark_tpu_torch.models.zoo.decoder_onnx",
-                 "mmlspark_tpu_torch.models.onnx_model"):
+                 "mmlspark_tpu_torch.models.onnx_model",
+                 "mmlspark_tpu_torch.reliability",
+                 "mmlspark_tpu_torch.reliability.policy",
+                 "mmlspark_tpu_torch.reliability.faults",
+                 "mmlspark_tpu_torch.observability.events",
+                 "mmlspark_tpu_torch.observability.exposition",
+                 "mmlspark_tpu_torch.serving.journal",
+                 "mmlspark_tpu_torch.serving.admission",
+                 "mmlspark_tpu_torch.serving.server",
+                 "mmlspark_tpu_torch.serving.kv_pool",
+                 "mmlspark_tpu_torch.serving.continuous"):
         assert want in names
 
 
