@@ -234,8 +234,38 @@ Phases (any failure exits non-zero and prints no result line):
    (``prefill_ahead=8``) all answer 200 (K1 by body as in 5),
    and ``/metrics`` carries the engine's, the server's, the admission
    queue's and the journal's counters.
+16. the observability plane and the model registry on the serving
+   fronts — (a) ``GenerationEngine`` with ``gen@1`` live in the
+   registry, every request carrying its own ``traceparent``, one of two
+   tenants and ``X-Mmlspark-Model: gen``: at f32 phase 4's prompts, three
+   times each, give phase 4's tokens; at bf16 phase 5's engine and mix all
+   answer 200 with their trace ids echoed under the server's span, each
+   ``/debug/traces/{id}`` holds its root span and (a chunked prompt's)
+   ``prefill_chunk`` events, ``/debug/slo`` has one window per tenant
+   counting its requests, ``/debug/costs`` bills ``device_seconds`` and
+   ``kv_page_seconds`` to each tenant's class, ``/debug/timeseries`` holds
+   samples of the engine's live-slot gauge, ``/metrics`` the card's
+   memory gauges (above 0, at most its total), ``/healthz`` is ok, and K1
+   runs by body as in 5; tokens/s and p50 tick; (b) ``ServingEngine``
+   over the ORT-fused BERT-base (``fused_bert_onnx(pooled=True)``, bf16,
+   batches of 32, replies the ``cls`` row) with ``bert@1`` live and
+   ``bert@2`` (same graph and weights) a 25% canary and 50% shadow, both
+   registered through ``register_model``; 14b's 256 rows, one request
+   each, all parked before the engine starts (so drains take full
+   batches): ``bert@2`` serves exactly the requests the ``_bucket`` split
+   sends it, shadow pairs and replies agree with a direct
+   ``ONNXModel.transform`` within 14b's bf16 bound (2^-4 of the largest
+   |cls|), K7 runs 12 launches a dispatched batch, and ``POST /models``
+   promoting ``bert@2`` retires ``bert@1`` (``drained``) and frees at
+   least 90% of its parameter bytes on the card; sequences/s; (c)
+   ``/debug/profile?seconds=2`` during a second 16a burst: the Chrome
+   trace it writes names K1's kernels and the engine's
+   ``continuous.prefill`` range, and a second capture request meanwhile
+   gets 409. ``time_front.py`` times 16a's front alone in 20 s
+   closed-loop bursts, for comparing trees in one call.
 
-``python3 chip_smoke.py 15`` runs phases 1, 2, 4 and 15 only,
+``python3 chip_smoke.py 16`` runs phases 1, 2, 4 and 16 only,
+``python3 chip_smoke.py 15`` phases 1, 2, 4 and 15,
 ``python3 chip_smoke.py 14`` phases 1, 2 and 14,
 ``python3 chip_smoke.py 13`` phases 1, 2, 4 and 13,
 ``python3 chip_smoke.py 12`` phases 1, 2, 8c and 12,
@@ -259,6 +289,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3457,7 +3488,7 @@ VIT_B16 = dict(image_size=224, patch=16, d_model=768, heads=12, layers=12,
                d_ff=3072, num_classes=1000)
 
 
-def fused_bert_onnx(cfg, params):
+def fused_bert_onnx(cfg, params, pooled=False):
     """The ORT-optimized form of ``export_bert_onnx``'s encoder, written with
     the port's builder from the same params (``init_bert_params``):
     ``EmbedLayerNormalization`` (word + position embeddings, LayerNorm,
@@ -3467,7 +3498,9 @@ def fused_bert_onnx(cfg, params):
     projection's bias), ``MatMul``, ``BiasGelu``, ``MatMul``,
     ``SkipLayerNormalization``; output ``last_hidden_state``. Epsilon 1e-5
     and erf-GELU, so it computes the same network as ``export_bert_onnx``;
-    no segment embedding (those inputs are empty, as ORT allows)."""
+    no segment embedding (those inputs are empty, as ORT allows).
+    ``pooled=True`` adds the sentence embedding a serving graph answers
+    with, ``cls`` = ``last_hidden_state[:, 0, :]`` (a ``Gather``)."""
     import numpy as np
     from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
                                                  make_node,
@@ -3505,13 +3538,19 @@ def fused_bert_onnx(cfg, params):
                        p + "ff2.b"], [f"x{i + 1}"], epsilon=1e-5, **ms)]
         x = f"x{i + 1}"
     nodes.append(make_node("Identity", [x], ["last_hidden_state"]))
+    outputs = [make_tensor_value_info("last_hidden_state", np.float32,
+                                      ("batch", "seq", cfg.d_model))]
+    if pooled:
+        inits["cls_index"] = np.array(0, np.int64)
+        nodes.append(make_node("Gather", ["last_hidden_state", "cls_index"],
+                               ["cls"], axis=1))
+        outputs.append(make_tensor_value_info("cls", np.float32,
+                                              ("batch", cfg.d_model)))
     graph = make_graph(
         nodes, "bert_encoder_ort",
         inputs=[make_tensor_value_info(n, np.int64, ("batch", "seq"))
                 for n in ("input_ids", "attention_mask")],
-        outputs=[make_tensor_value_info("last_hidden_state", np.float32,
-                                        ("batch", "seq", cfg.d_model))],
-        initializers=inits)
+        outputs=outputs, initializers=inits)
     return make_model(graph, opset=17, extra_opsets={"com.microsoft": 1})
 
 
@@ -4391,6 +4430,595 @@ def phase_async_front(params_np, single, dev_info):
     return rec
 
 
+#: phase 16: the plane's sampler period (s), so a short burst leaves a few
+#: samples of each series; the capture length of 16c (s) and the tokens of
+#: each request it captures (short, so that prefills run all through it)
+PLANE = dict(ts_interval=0.25, profile_s=2.0, profile_new=8,
+             parity_repeats=3)
+#: 16b: 14b's rows through ServingEngine, batches of 32; ``bert@2`` a 25%
+#: canary and a 50% shadow
+PLANE_BERT = dict(canary=25, shadow=50)
+PLANE_SPAN = "00f067aa0ba902b7"
+
+
+def _plane_reset():
+    """Every process-global singleton of the observability plane and the
+    model registry, fresh (the state earlier phases left is not 16's)."""
+    from mmlspark_tpu_torch import observability as obs
+    from mmlspark_tpu_torch.observability import timeseries, tracing
+    from mmlspark_tpu_torch.serving.registry import reset_registry
+    from mmlspark_tpu_torch.tuning.observations import reset_store
+    obs.reset_tracker()
+    obs.reset_ledger()
+    timeseries.reset_alert_engine()
+    timeseries.reset_store()
+    obs.reset_watchdog()
+    reset_registry()
+    tracing.get_flight_recorder().clear()
+    reset_store()
+
+
+def _plane_headers(i, k=0):
+    """Request i's trace context, tenant and model: its own trace id (its
+    k-th resend another), two tenants alternating, ``X-Mmlspark-Model:
+    gen``."""
+    return {"traceparent": f"00-{k << 16 | i + 1:032x}-{PLANE_SPAN}-01",
+            "X-Mmlspark-Tenant": f"t{i % 2}", "X-Mmlspark-Model": "gen"}
+
+
+def _post_h(url, payload, headers, timeout=300):
+    """POST JSON with extra headers: (status, headers, body)."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **headers})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _get_json(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _echo_ok(what, i, headers, k=0):
+    """The reply's ``traceparent`` continues the trace of request i (its
+    k-th resend) under a span of the server's own."""
+    echo = headers.get("traceparent", "").split("-")
+    if len(echo) != 4 or echo[1] != f"{k << 16 | i + 1:032x}" or \
+            echo[2] == PLANE_SPAN:
+        raise AssertionError(f"{what} request {i}: traceparent echo "
+                             f"{headers.get('traceparent')!r}")
+
+
+def _plane_burst(eng, payloads, results):
+    """Phase 5's mix through the front with request headers: the prefix
+    owner first, then the rest concurrently. Returns the wall seconds."""
+    def client(i, p):
+        try:
+            results[i] = _post_h(eng.address, p, _plane_headers(i))
+        except Exception as e:      # recorded, checked by the caller
+            results[i] = (None, {}, repr(e).encode())
+
+    t0 = time.perf_counter()
+    client(9, payloads[9])
+    threads = [threading.Thread(target=client, args=(i, p))
+               for i, p in enumerate(payloads) if i != 9]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    return time.perf_counter() - t0
+
+
+def _plane_closed_loop(eng, payloads, seconds):
+    """The mix kept in flight: each request sent again, under a trace of
+    its own, as soon as its reply is in, until ``seconds`` have passed (a
+    failed request stops its client). Returns ([(i, k, status, headers,
+    body)], wall seconds)."""
+    t_end = time.perf_counter() + seconds
+    out = []
+
+    def client(i, p):
+        k = 0
+        while time.perf_counter() < t_end:
+            k += 1
+            try:
+                st, hdrs, body = _post_h(eng.address, p, _plane_headers(i, k))
+            except Exception as e:  # recorded, checked by the caller
+                st, hdrs, body = None, {}, repr(e).encode()
+            out.append((i, k, st, hdrs, body))
+            if st != 200:
+                return
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i, p))
+               for i, p in enumerate(payloads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 300)
+    return out, time.perf_counter() - t0
+
+
+def _stream_tokens(body):
+    events = [json.loads(line[6:]) for line in body.decode().split("\n\n")
+              if line.startswith("data: ")]
+    if not events or not events[-1].get("done"):
+        raise AssertionError(f"stream ended without done: {events[-1:]}")
+    return events[-1]["tokens"]
+
+
+def _metric_values(text, name):
+    """{label string: value} of a metric's samples in Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, val = line.rpartition(" ")
+            out[key[len(name):]] = float(val)
+    return out
+
+
+def _profile_trace(log_dir, timeout=120):
+    """The Chrome trace a ``/debug/profile`` capture writes, once the file
+    is complete."""
+    from mmlspark_tpu_torch.utils.profiling import TRACE_FILE
+    path = os.path.join(log_dir, TRACE_FILE)
+    t_end = time.perf_counter() + timeout
+    while time.perf_counter() < t_end:
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    return json.load(f), os.path.getsize(path)
+            except ValueError:
+                pass        # still being written
+        time.sleep(0.2)
+    raise AssertionError(f"16c: no trace at {path} after {timeout} s")
+
+
+def phase_plane_front(params_np, single, dev_info):
+    """16a/16c: the generation front with the observability plane and the
+    registry on. f32: phase 4's prompts, each sent ``parity_repeats``
+    times with its own trace context from two tenants, give phase 4's
+    tokens. bf16: phase 5's engine and mix, then every ``/debug/*`` route
+    checked against the run; 16c captures ``/debug/profile`` while the mix,
+    cut to ``profile_new`` tokens a request, is kept in flight (each
+    request resent when answered, so prefills run all through the
+    capture) and finds K1's kernels and the prefill annotation in the
+    trace."""
+    import torch
+    from mmlspark_tpu_torch.serving.generation import GenerationEngine
+    from mmlspark_tpu_torch.serving.registry import get_registry
+    os.environ["MMLSPARK_TPU_TS_INTERVAL"] = str(PLANE["ts_interval"])
+    _plane_reset()
+    cfg32 = _full_cfg(torch.float32)
+    prompts = _parity_prompts(cfg32.vocab)
+    n_par = PLANE["parity_repeats"] * len(prompts)
+    with GenerationEngine(params_np, cfg32, **PARITY) as eng:
+        get_registry().load("gen", "1", handle=eng)
+        for i in range(n_par):
+            p = prompts[i % len(prompts)]
+            st, hdrs, body = _post_h(
+                eng.address, {"tokens": [int(t) for t in p],
+                              "max_new": PARITY_NEW}, _plane_headers(i))
+            if st != 200:
+                raise AssertionError(f"16a f32 request {i}: {st} {body!r}")
+            _echo_ok("16a f32", i, hdrs)
+            got = json.loads(body)["tokens"]
+            if got != single[None][i % len(prompts)]:
+                raise AssertionError(f"16a f32 request {i}: {got} vs "
+                                     f"phase 4's "
+                                     f"{single[None][i % len(prompts)]}")
+    torch.cuda.empty_cache()
+    _plane_reset()
+
+    cfg = _full_cfg(torch.bfloat16)
+    max_new = 64
+    payloads = _serving_payloads(cfg.vocab, max_new)
+    payloads_c = _serving_payloads(cfg.vocab, PLANE["profile_new"])
+    eng = GenerationEngine(params_np, cfg, max_slots=16, max_len=1024,
+                           page_size=16, prefill_chunk=256,
+                           steps_per_dispatch=4)
+    base = f"http://127.0.0.1:{eng.server.port}"
+    results = {}
+    try:
+        get_registry().load("gen", "1", handle=eng)
+        eng.start()
+        st, _ = _post(eng.address, {"tokens": [1, 2, 3], "max_new": 4})
+        assert st == 200
+        dec = eng.decoder
+        torch.cuda.synchronize()
+        dec.tick_seconds.clear()
+        stats0 = dict(dec._kv.stats)
+        chunks0, hits0 = len(dec._chunk_trace), dec.stats["prefix_hits"]
+        _zero_pa_counts()
+        wall = _plane_burst(eng, payloads, results)
+        torch.cuda.synchronize()
+        ticks = list(dec.tick_seconds)
+        counts = _launch_split(
+            "16a bf16",
+            dec._kv.stats["attn_ticks_kernel"] - stats0["attn_ticks_kernel"],
+            len(dec._chunk_trace) - chunks0,
+            dec.stats["prefix_hits"] - hits0, cfg.layers, False)
+        time.sleep(2 * PLANE["ts_interval"])   # one more sampler tick
+        routes = {name: _get_json(base + path) for name, path in (
+            ("slo", "/debug/slo"), ("costs", "/debug/costs"),
+            ("timeseries", "/debug/timeseries?seconds=600"),
+            ("healthz", "/healthz"), ("registry", "/debug/registry"),
+            ("models", "/models"))}
+        traces = {i: _get_json(base + f"/debug/traces/{i + 1:032x}")
+                  for i in range(len(payloads))}
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        total_mem = torch.cuda.mem_get_info()[1]
+
+        # 16c: a capture while short requests are kept in flight; a second
+        # capture request meanwhile is refused
+        from torch.autograd import profiler as _autograd_profiler
+        st_p, prof = _get_json(
+            base + f"/debug/profile?seconds={PLANE['profile_s']}")
+        t_wait = time.perf_counter() + 30
+        while not _autograd_profiler._is_profiler_enabled and \
+                time.perf_counter() < t_wait:
+            time.sleep(0.01)
+        try:
+            urllib.request.urlopen(base + "/debug/profile?seconds=1",
+                                   timeout=60)
+            second = 200
+        except urllib.error.HTTPError as e:
+            second = e.code
+        results_c, wall_c = _plane_closed_loop(eng, payloads_c,
+                                               PLANE["profile_s"])
+        trace, trace_bytes = _profile_trace(prof["log_dir"])
+    finally:
+        eng.stop()
+
+    # 16a: every reply 200, its trace echoed under the server's span
+    n_tok = 0
+    replies = [("16a", i, 0, *results.get(i, (None, {}, b"missing")))
+               for i in range(len(payloads))]
+    replies += [("16c", *r) for r in results_c]
+    for what, i, k, status, hdrs, body in replies:
+        if status != 200:
+            raise AssertionError(f"{what} request {i}: {status} {body!r}")
+        _echo_ok(what, i, hdrs, k)
+        p = (payloads if what == "16a" else payloads_c)[i]
+        toks = (_stream_tokens(body) if p.get("stream")
+                else json.loads(body)["tokens"])
+        if len(toks) != p["max_new"] or \
+                not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{what} request {i}: {len(toks)} tokens")
+        if what == "16a":
+            n_tok += len(toks)
+    # the trace trees: each root carries the request's attributes; every
+    # chunked prompt's chunks are events of its own trace
+    chunked = 0
+    for i, (st, doc) in traces.items():
+        (root,) = doc["roots"]
+        attrs = root["attrs"]
+        if st != 200 or root["name"] != "server.request" or \
+                attrs.get("model") != "gen@1" or \
+                attrs.get("tenant") != f"t{i % 2}":
+            raise AssertionError(f"16a trace {i}: {st} {root['name']} "
+                                 f"{attrs}")
+        offs = [e["fields"]["offset"] for e in root["events"]
+                if e["name"] == "prefill_chunk"]
+        n = len(payloads[i]["tokens"])
+        want = (list(range(0, n, 256)) if n > 256
+                and "prefix_key" not in payloads[i] else [])
+        if offs != want:
+            raise AssertionError(f"16a trace {i}: prefill_chunk offsets "
+                                 f"{offs}, want {want}")
+        chunked += bool(offs)
+    if not chunked:
+        raise AssertionError("16a: no chunked request in the mix")
+    # SLO windows and costs, one class per tenant
+    per_tenant = {f"t{k}": sum(1 for i in range(len(payloads))
+                               if i % 2 == k) for k in (0, 1)}
+    windows = {c["tenant"]: c["window"]["count"]
+               for c in routes["slo"][1]["classes"]
+               if c["model"] == "gen@1"}
+    if windows != per_tenant:
+        raise AssertionError(f"16a /debug/slo windows {windows}, want "
+                             f"{per_tenant}")
+    costs = {c["tenant"]: c["resources"]
+             for c in routes["costs"][1]["classes"]
+             if c["model"] == "gen@1"}
+    if set(costs) != set(per_tenant) or not all(
+            r.get("device_seconds", 0) > 0
+            and r.get("kv_page_seconds", 0) > 0 for r in costs.values()):
+        raise AssertionError(f"16a /debug/costs per tenant: {costs}")
+    series = [s for s in routes["timeseries"][1]["series"]
+              if s["name"] == "mmlspark_continuous_live_slots"]
+    n_samples = sum(pt[5] for s in series for pt in s["points"])
+    if n_samples < 2:
+        raise AssertionError(f"16a /debug/timeseries: {n_samples} samples "
+                             f"of mmlspark_continuous_live_slots")
+    hbm = {k: _metric_values(metrics, f"mmlspark_device_hbm_bytes_{k}")
+           for k in ("in_use", "allocated", "reserved", "limit")}
+    if not all(v and all(0 < x <= total_mem for x in v.values())
+               for v in hbm.values()):
+        raise AssertionError(f"16a /metrics memory gauges {hbm} (card "
+                             f"total {total_mem})")
+    health = routes["healthz"][1]
+    if health["status"] != "ok":
+        raise AssertionError(f"16a /healthz: {health}")
+    # 16c: the capture holds K1's kernels and the prefill annotation
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    k1_syms = sorted({k for n in names
+                      for k in ("pa_split_kernel", "pa_mma_kernel")
+                      if k in n})
+    annotated = {n for n in names if n.startswith("continuous.")}
+    if st_p != 200 or second != 409 or not k1_syms or \
+            "continuous.prefill" not in annotated:
+        raise AssertionError(f"16c: capture {st_p}, second request "
+                             f"{second}, K1 symbols {k1_syms}, "
+                             f"annotations {sorted(annotated)}")
+    p50 = statistics.median(ticks) * 1e3 if ticks else float("nan")
+    rec = {"f32_requests": n_par, "requests": len(payloads),
+           "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+           "p50_tick_ms": p50, "ticks": len(ticks), "launches": counts,
+           "chunked_traces": chunked, "slo_windows": windows,
+           "costs": costs, "live_slot_samples": n_samples,
+           "hbm_bytes": {k: max(v.values()) for k, v in hbm.items()},
+           "profile": {"log_dir": prof["log_dir"], "bytes": trace_bytes,
+                       "events": len(trace["traceEvents"]),
+                       "k1_symbols": k1_syms,
+                       "annotations": sorted(annotated),
+                       "second_request": second,
+                       "requests": len(results_c), "burst_wall_s": wall_c}}
+    log(f"[plane front 16a/16c] f32 == phase 4's tokens over {n_par} "
+        f"traced requests; {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+class _ShadowBodies:
+    """Keeps both bodies of each joined shadow pair for 16b's numeric
+    diff (the registry itself records only match/diff)."""
+
+    def __init__(self, registry):
+        self.pairs = {}
+        self._inner = registry.shadow_result
+
+        def shadow_result(primary_id, body, from_shadow):
+            self.pairs.setdefault(primary_id, {})[
+                "shadow" if from_shadow else "primary"] = body
+            return self._inner(primary_id, body, from_shadow)
+        registry.shadow_result = shadow_result
+
+
+def phase_plane_engine(dev_info):
+    """16b: ``ServingEngine`` over the ORT-fused BERT-base (bf16, batches
+    of 32, answering each row's ``cls`` embedding) with ``bert@1`` live and
+    ``bert@2`` (the same graph and weights) a canary and a shadow, both
+    registered only through ``register_model``. 14b's rows go as one
+    request each, all parked before the engine starts, so that each drain
+    takes a full batch from the backlog (the engine's own poll timeout):
+    sequences/s is the engine's over K7, not the clients' pace, and the
+    record keeps the rows of each drain. The canary count is exactly the ``_bucket`` split's over
+    the request ids; shadow pairs and replies agree with each other and
+    with a direct ``ONNXModel.transform`` within 14b's bf16 bound; K7 runs
+    12 launches a dispatched batch; promoting ``bert@2`` retires
+    ``bert@1`` and frees its parameters on the card."""
+    import gc
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    from mmlspark_tpu_torch.models.zoo.bert_onnx import (BertOnnxConfig,
+                                                         init_bert_params)
+    from mmlspark_tpu_torch.serving.engine import ServingEngine
+    from mmlspark_tpu_torch.serving.registry import (ModelRegistry, _bucket,
+                                                     get_registry,
+                                                     set_registry)
+    _plane_reset()
+    cfg = BertOnnxConfig(**BERT_ONNX)
+    c, pb = ONNX_BERT, PLANE_BERT
+    graph = fused_bert_onnx(cfg, init_bert_params(cfg, seed=0), pooled=True)
+    ids, mask = bert_rows(c["rows"], c["seq"], cfg.vocab, c["seed"])
+    specs = {n: (np.int64, (c["seq"],))
+             for n in ("input_ids", "attention_mask")}
+
+    def model():
+        return ONNXModel(graph, feed_dict={"input_ids": "input_ids",
+                                           "attention_mask":
+                                           "attention_mask"},
+                         fetch_dict={"cls": "cls"},
+                         mini_batch_size=c["batch"],
+                         compute_dtype="bfloat16")
+
+    direct_m = model()
+    direct = direct_m.transform(DataFrame(
+        {"input_ids": ids, "attention_mask": mask}))["cls"]
+    del direct_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = 2.0 ** -4 * float(np.abs(direct).max())
+    # no canary verdict during the run (the canary count must stay
+    # exact), and room for every shadow diff of the run
+    set_registry(ModelRegistry(min_requests=10 ** 9,
+                               shadow_keep=c["rows"]))
+    registry = get_registry()
+    bodies = _ShadowBodies(registry)
+    eng = ServingEngine({}, schema={"input_ids": list,
+                                    "attention_mask": list},
+                        reply_col="cls", max_batch=c["batch"])
+    drains = []
+    read_batch = eng.source.read_batch
+
+    def counted_read(max_rows, timeout):
+        df = read_batch(max_rows, timeout)
+        if len(df):
+            drains.append(len(df))
+        return df
+    eng.source.read_batch = counted_read
+    counters, param_bytes = {}, {}
+    for v in ("1", "2"):
+        m = model()
+        kw = ({} if v == "1" else
+              dict(canary_percent=pb["canary"], shadow_percent=pb["shadow"]))
+        mv = eng.register_model(
+            "bert", v, m.transform,
+            warm_up=lambda m=m: m.warm_up(batch_sizes=[c["batch"]],
+                                          input_specs=specs), **kw)
+        if mv.state != ("live" if v == "1" else "canary"):
+            raise AssertionError(f"16b: bert@{v} is {mv.state}")
+        counters[v] = m.stage_counters
+        counters[v].reset()
+        param_bytes[v] = sum(t.numel() * t.element_size()
+                             for p in m._device_params.values()
+                             for t in p.values())
+        del m
+    base = f"http://127.0.0.1:{eng.server.port}"
+    replies = {}
+    _zero_k7_counts()
+    try:
+        def client(i):
+            try:
+                replies[i] = _post_h(
+                    eng.address,
+                    {"input_ids": ids[i].tolist(),
+                     "attention_mask": mask[i].tolist()},
+                    {"X-Mmlspark-Model": "bert",
+                     "X-Mmlspark-Tenant": f"t{i % 2}"})
+            except Exception as e:      # recorded, checked below
+                replies[i] = (None, {}, repr(e).encode())
+
+        def parked():
+            """Requests parked, and the primaries among them (a shadow
+            mirror is parked beside its primary)."""
+            n = eng.server._queue.qsize()
+            return n, n - registry.snapshot()["shadow_pending"]
+
+        # every row parked, with the shadow mirror of each that has one,
+        # four connections at a time: the listener's backlog is 5, and a
+        # connection past it is reset
+        threads, t_end = [], time.perf_counter() + 120
+        for lo in range(0, c["rows"], 4):
+            wave = [threading.Thread(target=client, args=(i,))
+                    for i in range(lo, min(lo + 4, c["rows"]))]
+            for t in wave:
+                t.start()
+            threads += wave
+            while parked()[1] < len(threads):
+                if replies or time.perf_counter() > t_end:
+                    raise AssertionError(
+                        f"16b: {parked()[1]} of {len(threads)} requests "
+                        f"parked; {dict(list(replies.items())[:4])}")
+                time.sleep(0.002)
+        n_parked = parked()[0]
+        t0 = time.perf_counter()
+        eng.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        t_end = time.perf_counter() + 60
+        while registry.snapshot()["shadow_pending"] and \
+                time.perf_counter() < t_end:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        dispatched = {v: counters[v].snapshot().get(
+            "dispatch", {"calls": 0})["calls"] for v in counters}
+        k7 = _k7_counts("16b", cfg.layers * sum(dispatched.values()))
+        snap = registry.snapshot()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        st_pr, _, promoted = _post_h(base + "/models", {
+            "action": "promote", "name": "bert", "version": "2"}, {})
+        st_re, _, retired = _post_h(base + "/models", {
+            "action": "retire", "name": "bert", "version": "1"}, {})
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = mem0 - torch.cuda.memory_allocated()
+        _, models = _get_json(base + "/models")
+    finally:
+        eng.stop()
+    got = np.zeros_like(direct)
+    rids = []
+    for i in range(c["rows"]):
+        status, hdrs, body = replies.get(i, (None, {}, b"missing"))
+        if status != 200:
+            raise AssertionError(f"16b request {i}: {status} {body[:200]!r}")
+        rids.append(hdrs["X-Request-Id"])
+        got[i] = np.asarray(json.loads(body), np.float32)
+    want_canary = sum(_bucket(r, "canary") < pb["canary"] for r in rids)
+    by_version = {mv["version"]: mv for mv in snap["models"]["bert"]}
+    if by_version["2"]["resolved_total"] != want_canary or \
+            by_version["1"]["resolved_total"] != c["rows"] - want_canary:
+        raise AssertionError(
+            f"16b: bert@2 served {by_version['2']['resolved_total']} "
+            f"requests, the split predicts {want_canary} of {c['rows']}")
+    want_shadow = sum(_bucket(r, "canary") >= pb["canary"]
+                      and _bucket(r, "shadow") < pb["shadow"] for r in rids)
+    pairs = [p for p in bodies.pairs.values()
+             if "primary" in p and "shadow" in p]
+    if len(pairs) != want_shadow or len(snap["shadow_diffs"]) != \
+            want_shadow:
+        raise AssertionError(f"16b: {len(pairs)} shadow pairs joined, "
+                             f"{len(snap['shadow_diffs'])} diffs; the "
+                             f"split predicts {want_shadow}")
+    shadow_err = max((float(np.abs(
+        np.asarray(json.loads(p["primary"]), np.float32)
+        - np.asarray(json.loads(p["shadow"]), np.float32)).max())
+        for p in pairs), default=0.0)
+    reply_err = float(np.abs(got - direct).max())
+    if not np.isfinite(got).all() or reply_err > bound or \
+            shadow_err > bound:
+        raise AssertionError(f"16b: replies off the direct transform by "
+                             f"{reply_err}, shadow pairs by {shadow_err} "
+                             f"(bound {bound})")
+    retired_body = json.loads(retired)
+    states = {mv["version"]: mv["state"]
+              for mv in models["models"]["bert"]}
+    if st_pr != 200 or st_re != 200 or not retired_body.get("drained") \
+            or states != {"1": "retired", "2": "live"} or \
+            freed < 0.9 * param_bytes["1"]:
+        raise AssertionError(f"16b: promote {st_pr}, retire {st_re} "
+                             f"{retired_body}, states {states}, freed "
+                             f"{freed} of bert@1's {param_bytes['1']} "
+                             f"parameter bytes")
+    verdicts = {}
+    for p in pairs:
+        verdicts["match" if p["primary"] == p["shadow"] else "diff"] = \
+            verdicts.get("match" if p["primary"] == p["shadow"]
+                         else "diff", 0) + 1
+    rec = {"rows": c["rows"], "batch": c["batch"], "parked": n_parked,
+           "wall_s": wall, "seq_per_s": c["rows"] / wall,
+           "model_seq_per_s": (c["rows"] + len(pairs)) / wall,
+           "drains": drains, "mean_drain_rows": sum(drains) / len(drains),
+           "canary_requests": want_canary, "shadow_pairs": len(pairs),
+           "shadow_verdicts": verdicts, "dispatched": dispatched,
+           "k7_launches": k7, "reply_max_abs_err": reply_err,
+           "shadow_max_abs_err": shadow_err, "bound": bound,
+           "param_bytes": param_bytes["1"], "freed_bytes": freed,
+           "promote": json.loads(promoted).get("promoted", {}).get("state")}
+    log(f"[plane engine 16b] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase16(params_np, single, dev_info):
+    """Phases 16a-16c. The sampler period they set and the plane's
+    singletons they fill are put back after them, so later phases' servers
+    run as they would without phase 16."""
+    import torch
+    interval = os.environ.get("MMLSPARK_TPU_TS_INTERVAL")
+    try:
+        front = phase_plane_front(params_np, single, dev_info)
+        torch.cuda.empty_cache()
+        engine = phase_plane_engine(dev_info)
+        torch.cuda.empty_cache()
+    finally:
+        if interval is None:
+            os.environ.pop("MMLSPARK_TPU_TS_INTERVAL", None)
+        else:
+            os.environ["MMLSPARK_TPU_TS_INTERVAL"] = interval
+        _plane_reset()
+    return {"16a": front, "16b": engine}
+
+
 def _phase15(params_np, single, dev_info):
     """Phases 15a-15c."""
     return {"15a": phase_decode_cb(params_np, single, dev_info),
@@ -4469,16 +5097,17 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "13" and "15": phases 1, 2, 4 and 13 (or 15); "14": phases 1, 2
+    # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14":
+    # phases 1, 2
     # and 14; "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15"}
+    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14 and 15")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -4505,7 +5134,7 @@ def main(argv=()):
             del X, y
         if "9" in only:
             _phase9(dev_info)
-        if only & {"10", "13", "15"}:
+        if only & {"10", "13", "15", "16"}:
             single = phase_parity(params_np)
         if "10" in only:
             _phase10(params_np, dev_info, single,
@@ -4519,6 +5148,8 @@ def main(argv=()):
             _phase14(dev_info, params_np)
         if "15" in only:
             _phase15(params_np, single, dev_info)
+        if "16" in only:
+            _phase16(params_np, single, dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -4532,6 +5163,7 @@ def main(argv=()):
     spec_a = phase_spec_parity(params_np, single)
     spec_b = phase_spec_bench(dev_info)
     p15 = _phase15(params_np, single, dev_info)
+    p16 = _phase16(params_np, single, dev_info)
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
     hist_recs, sass, parity, gbdt, b8c = _phase8(dev_info, X, y)
     est12a, multi12b = _phase12(dev_info, X, y, b8c)
@@ -4578,6 +5210,8 @@ def main(argv=()):
          "launches_decode_cb_15a": k_15a,
          "launches_failover_15b": k1_15b,
          "launches_async_front_15c": p15["15c"]["launches"]["k1"],
+         "launches_plane_front_16a": p16["16a"]["launches"]["k1"],
+         "plane_front_16a": p16["16a"],
          "spec_bench_13b": spec_b, "spec_parity_13a": spec_a,
          "phase_15": p15,
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
@@ -4650,12 +5284,15 @@ def main(argv=()):
     # (without stats), K8a/K8b at 9d's training
     main_rec = {"K7": infer_rec, "K8a": train_rec, "K8b": train_rec}
     k7_onnx = sum(bert14["k7_launches"].values())
+    k7_engine = p16["16b"]["k7_launches"]
     extras = {
         "K7": {"with_stats": {k: train_rec["K7 stats"][k] for k in keys},
                "launches_inference": infer["k7_launches"],
                "launches_training": train["k7_launches"],
                "launches_onnx": k7_onnx,
                "launches_onnx_by_run": bert14["k7_launches"],
+               "launches_serving_engine_16b": k7_engine,
+               "serving_engine_16b": p16["16b"],
                "onnx_infer_14b": bert14["bf16"]["k7"],
                "library_call": sdpa, "model_parity": flash_parity,
                "inference": infer},
@@ -4666,7 +5303,8 @@ def main(argv=()):
                                 f"and dV together)"}}
     for key, name, line, launches in (
             ("K7", "flash_attention", 64,
-             infer["k7_launches"] + train["k7_launches"] + k7_onnx),
+             infer["k7_launches"] + train["k7_launches"] + k7_onnx
+             + k7_engine),
             ("K8a", "flash_attention backward (dK, dV)", 230,
              train["k8a_launches"]),
             ("K8b", "flash_attention backward (dQ)", 270,

@@ -31,6 +31,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 
 import numpy as np
 
+from ..observability.tracing import propagate as _propagate
 from .residency import DeviceColumn, HostMirror, is_device_array, record_hit
 
 __all__ = ["DataFrame", "concat", "object_col"]
@@ -497,7 +498,10 @@ class DataFrame:
                 finally:
                     _IN_POOL.active = False
             ex = _shared_pool(max_workers)
-            results = list(ex.map(wrapped, parts, range(len(parts))))
+            # pool threads start with an empty context: propagate() carries
+            # the active trace and SpanTracer into each partition's call
+            results = list(ex.map(_propagate(wrapped), parts,
+                                  range(len(parts))))
         out = concat(results, npartitions=self._npartitions)
         # per-partition result sizes become the output boundaries, so uneven
         # splits (parquet row groups) survive a map_partitions round

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.residency import is_device_array, record_hit
+from ..observability import tracing as _tracing
 from ..observability.registry import counter as _metric_counter
 from ..ops.compile_cache import StageCounters
 from ..ops.padding import bucket_size, pad_axis, pad_axis_device
@@ -179,8 +180,11 @@ class BatchRunner:
         slices = batch_slices(n_rows, self.mini_batch_size)
         if self.prefetch_depth > 0 and len(slices) > 1:
             # batch k+1's coerce/pad overlaps batch k's h2d + dispatch; the
-            # depth bound caps host memory at that many prepared batches
-            return PrefetchIterator((self._prepare(sl) for sl in slices),
+            # depth bound caps host memory at that many prepared batches.
+            # The worker thread starts with an empty context: propagate()
+            # carries the active trace and SpanTracer across
+            prepare = _tracing.propagate(self._prepare)
+            return PrefetchIterator((prepare(sl) for sl in slices),
                                     depth=self.prefetch_depth)
         return (self._prepare(sl) for sl in slices)
 

@@ -2,16 +2,15 @@
 ``mmlspark_tpu/observability/events.py``).
 
 One event = one JSON object on one log line, under the
-``mmlspark_tpu_torch.events`` logger. The journal, the shed path and the
-serving loops emit through :func:`log_event`; the HTTP access lines go
-here at DEBUG, so raising the logger's level shows them without a code
-edit.
+``mmlspark_tpu_torch.events`` logger. Components emit through `log_event`
+instead of ad-hoc ``print``/silenced handlers — notably the serving
+plane's HTTP access lines (serving/server.py routes its suppressed
+``log_message`` here at DEBUG, so request errors stay diagnosable by
+raising the logger level rather than editing code).
 
 Every emit also increments ``mmlspark_events_total{level=...}`` — even
-when the logger level filters the line out — so tests and /metrics see
-event traffic without configuring logging handlers. The reference
-stamps the active trace and request ids onto each record; the port has
-no tracing spans yet (ROADMAP.md queue item 11).
+when the logger level filters the line out — so tests and /metrics can
+see event traffic without configuring logging handlers.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ import time
 from typing import Optional
 
 from .registry import counter as _counter
+from .tracing import (current_request_id as _current_request_id,
+                      current_trace_id as _current_trace_id)
 
 LOGGER_NAME = "mmlspark_tpu_torch.events"
 
@@ -41,14 +42,26 @@ class EventLog:
 
     def emit(self, event: str, level: int = logging.INFO,
              **fields: object) -> None:
-        """Log ``{"event": ..., "ts": ..., **fields}`` at ``level``. Never
-        raises: telemetry must not take down the component emitting it
-        (e.g. an HTTP handler mid-response)."""
+        """Log ``{"event": ..., "ts": ..., **fields}`` at `level`.
+
+        When a trace context is active, ``trace_id``/``request_id`` are
+        stamped onto the record (explicit fields win), so event lines join
+        against /debug/traces span trees and journal entries.
+
+        Never raises — telemetry must not take down the component
+        emitting it (e.g. an HTTP handler mid-response).
+        """
         try:
             _M_EVENTS.inc(level=logging.getLevelName(level).lower())
             if not self._logger.isEnabledFor(level):
                 return
             record = {"event": event, "ts": time.time()}
+            trace_id = _current_trace_id()
+            if trace_id is not None:
+                record["trace_id"] = trace_id
+                request_id = _current_request_id()
+                if request_id is not None:
+                    record["request_id"] = request_id
             record.update(fields)
             self._logger.log(level, "%s",
                              json.dumps(record, sort_keys=True, default=str))

@@ -1,19 +1,29 @@
 """Process-global metrics registry: Counter, Gauge, Histogram with labels
 (the port's copy of ``mmlspark_tpu/observability/registry.py``).
 
-The home of the counters that residency (``core/residency.py``), the
-batch runner (``models/runner.py``) and ``StageCounters``
-(``ops/compile_cache.py``) keep. Pure stdlib, process-global and
-default-on: an update on a cached series is one small lock plus a float
-add. Tests call :func:`reset_all`; metric objects held by modules stay
-valid (only their series are cleared). ``exposition.py`` renders it as
-Prometheus text; the JAX package's exemplars and build-info gauge belong
-to its tracing layer, which the port does not have yet.
+The unified telemetry substrate for the whole package — `StageCounters`
+(ops/compile_cache.py), `_PhaseProf` (models/gbdt/train.py) and
+`SpanTracer` (utils/profiling.py) all mirror into it, and the serving
+plane scrapes it at ``GET /metrics`` (see serving/server.py). Design
+constraints, in order:
+
+- **pure stdlib** — no prometheus_client; the container has no network.
+- **default-on** — an update on a cached series is one small lock plus a
+  float add (~100 ns); nothing here may touch torch, numpy or I/O.
+- **process-global** — one registry per process (`get_registry()`), so a
+  metric registered at import time in ops/ is visible to a scrape served
+  from serving/ without any plumbing.
+- **resettable** — tests call `reset_all()`; metric *objects* held by
+  modules stay valid (only their series are cleared), so import-time
+  registration and per-test isolation coexist.
+- **snapshot-able** — `snapshot()` returns a plain JSON-safe dict for
+  bench.py's one-shot reporter; `render()` returns Prometheus text.
 """
 
 from __future__ import annotations
 
 import bisect
+import sys
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -29,8 +39,38 @@ __all__ = [
     "gauge",
     "histogram",
     "snapshot",
+    "render",
     "reset_all",
+    "set_exemplar_provider",
+    "exemplar_provider",
+    "build_info",
+    "process_uptime_seconds",
 ]
+
+#: Wall-clock at first observability import — the process-uptime epoch
+#: reported by /healthz (observability is imported at package import, so
+#: this tracks process age for any consumer of the package).
+_PROCESS_START = time.time()
+
+#: When set (tracing.set_exemplars), histogram observations call this to
+#: capture the active trace_id as an OpenMetrics exemplar. None (the
+#: default) keeps observe() exemplar-free and the exposition byte-identical
+#: to plain Prometheus 0.0.4 text.
+_EXEMPLAR_PROVIDER: Optional[Callable[[], Optional[str]]] = None
+
+
+def set_exemplar_provider(
+        fn: Optional[Callable[[], Optional[str]]]) -> None:
+    global _EXEMPLAR_PROVIDER
+    _EXEMPLAR_PROVIDER = fn
+
+
+def exemplar_provider() -> Optional[Callable[[], Optional[str]]]:
+    return _EXEMPLAR_PROVIDER
+
+
+def process_uptime_seconds() -> float:
+    return time.time() - _PROCESS_START
 
 #: Default histogram boundaries, tuned for batch-inference latencies: the
 #: sub-millisecond region resolves per-stage host work (coerce/pad), the
@@ -104,7 +144,8 @@ class _GaugeSeries:
 
 
 class _HistogramSeries:
-    __slots__ = ("_lock", "_uppers", "_counts", "_sum", "_count")
+    __slots__ = ("_lock", "_uppers", "_counts", "_sum", "_count",
+                 "_exemplars")
 
     def __init__(self, uppers: Tuple[float, ...]) -> None:
         self._lock = threading.Lock()
@@ -112,18 +153,32 @@ class _HistogramSeries:
         self._counts = [0] * (len(uppers) + 1)  # last slot is +Inf
         self._sum = 0.0
         self._count = 0
+        #: bucket index → (trace_id, observed value); lazily allocated so
+        #: the exemplar-free hot path stays two attribute reads
+        self._exemplars: Optional[Dict[int, Tuple[str, float]]] = None
 
     def observe(self, value: float) -> None:
         # le is inclusive: a value equal to a boundary lands in that bucket
         i = bisect.bisect_left(self._uppers, value)
+        provider = _EXEMPLAR_PROVIDER
+        trace_id = provider() if provider is not None else None
         with self._lock:
             self._counts[i] += 1
             self._sum += value
             self._count += 1
+            if trace_id is not None:
+                if self._exemplars is None:
+                    self._exemplars = {}
+                self._exemplars[i] = (trace_id, value)
 
     def get(self) -> Tuple[List[int], float, int]:
         with self._lock:
             return list(self._counts), self._sum, self._count
+
+    def exemplars(self) -> Dict[int, Tuple[str, float]]:
+        """Last-observed exemplar per bucket index (+Inf = len(uppers))."""
+        with self._lock:
+            return dict(self._exemplars) if self._exemplars else {}
 
 
 class _Metric:
@@ -319,6 +374,10 @@ class MetricsRegistry:
             out[m.name] = {"type": m.kind, "help": m.help, "series": series}
         return out
 
+    def render(self) -> str:
+        from .exposition import render_prometheus
+        return render_prometheus(self)
+
     def reset(self) -> None:
         """Zero every series; registered metric objects stay valid."""
         for m in self.metrics():
@@ -353,5 +412,39 @@ def snapshot() -> Dict[str, dict]:
     return _REGISTRY.snapshot()
 
 
+def render() -> str:
+    return _REGISTRY.render()
+
+
 def reset_all() -> None:
     _REGISTRY.reset()
+
+
+def build_info() -> Gauge:
+    """Register/refresh the ``mmlspark_build_info`` identity gauge.
+
+    The standard *_build_info idiom: value 1, identity in the labels
+    (package version, torch version, device backend), so a scrape tells
+    which build and runtime it hit. torch is reported only if something
+    else already imported it (``sys.modules`` probe), and the backend is
+    ``cuda`` only once CUDA is initialized: this function never imports
+    torch or initializes CUDA itself.
+    """
+    version = torch_version = backend = "unknown"
+    try:
+        from .. import __version__ as version
+    except Exception:
+        pass
+    torch_mod = sys.modules.get("torch")
+    if torch_mod is not None:
+        torch_version = str(getattr(torch_mod, "__version__", "unknown"))
+        try:
+            backend = ("cuda" if torch_mod.cuda.is_initialized()
+                       else "cpu")
+        except Exception:
+            pass
+    g = gauge("mmlspark_build_info",
+              "Build/runtime identity (value is always 1; the labels carry "
+              "the information)", ("version", "torch", "backend"))
+    g.set(1, version=version, torch=torch_version, backend=backend)
+    return g

@@ -14,6 +14,7 @@ import random
 import time
 from typing import Callable, Optional, Tuple, Type
 
+from ..observability import tracing as _tracing
 from ..observability.registry import counter as _metric_counter
 
 __all__ = ["DEADLINE_HEADER", "Deadline", "DeadlineExceeded", "RetryPolicy",
@@ -35,10 +36,11 @@ class DeadlineExceeded(TimeoutError):
 
 
 def record_retry(site: str, attempt: int, delay: float, error: str) -> None:
-    """Account one re-attempt: bump the site counter. (The reference
-    also notes it on the active trace span; the port has no spans yet,
-    ROADMAP.md queue item 11.)"""
+    """Account one re-attempt: bump the site counter and note it on the
+    active trace span (no-ops when no span is active)."""
     _M_RETRIES.inc(site=site)
+    _tracing.add_event("retry", site=site, attempt=attempt,
+                       delay=round(delay, 6), error=error)
 
 
 class Deadline:

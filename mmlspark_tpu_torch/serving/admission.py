@@ -1,8 +1,5 @@
 """Tenant-fair admission and prefix-affine placement primitives (the
-port's copy of ``mmlspark_tpu/serving/admission.py``; the reference seeds
-``suggest_retry_after`` from its time-series store after an idle gap,
-which the port does not have yet, ROADMAP.md queue item 11, so the live
-EWMA alone answers here).
+port's copy of ``mmlspark_tpu/serving/admission.py``).
 
 Two pieces of the multi-tenant traffic plane live here, deliberately
 transport-free so they unit-test without sockets:
@@ -41,8 +38,8 @@ import time
 from collections import deque
 from typing import Callable, Dict, Iterable, List, Mapping, Optional
 
-from ..observability.registry import counter as _metric_counter
-from ..observability.registry import gauge as _metric_gauge
+from ..observability import counter as _metric_counter
+from ..observability import gauge as _metric_gauge
 
 __all__ = ["AdmissionQueue", "TenantOverBudget", "ConsistentHashRing"]
 
@@ -130,7 +127,8 @@ class AdmissionQueue:
     #: ceiling for suggested Retry-After hints (seconds)
     MAX_RETRY_AFTER = 30.0
     #: a dequeue gap beyond this is an idle period, not a drain interval:
-    #: it does not feed the EWMA
+    #: it neither feeds the EWMA nor lets a stale estimate answer
+    #: suggest_retry_after (the time-series history answers instead)
     IDLE_GAP_SECONDS = 5.0
 
     def __init__(self, maxsize: int = 0,
@@ -151,6 +149,11 @@ class AdmissionQueue:
         # drain-rate EWMA state (seconds between dequeues)
         self._last_dequeue: Optional[float] = None
         self._ewma_interval: Optional[float] = None
+        #: label value tying this queue to its ``mmlspark_queue_drain_rate``
+        #: series in the time-series store (WorkerServer sets the port);
+        #: None means no history — suggest_retry_after falls back to the
+        #: live EWMA alone
+        self.history_key: Optional[str] = None
 
     # -- weights / budgets --------------------------------------------------
     def _weight(self, tenant: str) -> float:
@@ -336,8 +339,27 @@ class AdmissionQueue:
         For a tenant shed over budget, scaled up by how far over budget
         that tenant is (its deficit), so the worst offender backs off
         hardest. ``floor`` keeps the configured static knob as a lower
-        bound. Before two dequeues have happened the hint is ``floor``."""
+        bound.
+
+        After an idle gap (or before two dequeues have ever happened)
+        the live EWMA knows nothing — the estimate is seeded from the
+        time-series store's measured ``mmlspark_queue_drain_rate``
+        history for this queue's ``history_key``, so the first 429 after
+        a lull carries a realistic hint instead of the floor. Falls back
+        to the live EWMA when the store is cold."""
         rate = self.drain_rate()
+        with self._lock:
+            last = self._last_dequeue
+        stale = (last is None
+                 or time.monotonic() - last > self.IDLE_GAP_SECONDS)
+        if rate <= 0 or stale:
+            seeded = self._history_drain_rate()
+            if seeded is not None:
+                rate = seeded
+                # adopt the seed so drain_rate()/snapshot() agree with
+                # the hint until live dequeues take over again
+                with self._lock:
+                    self._ewma_interval = 1.0 / seeded
         hint = (self._size / rate) if rate > 0 else floor
         if tenant is not None:
             with self._lock:
@@ -347,6 +369,26 @@ class AdmissionQueue:
             if budget > 0 and depth > budget:
                 hint *= depth / budget
         return round(min(max(hint, floor), self.MAX_RETRY_AFTER), 3)
+
+    def _history_drain_rate(self) -> Optional[float]:
+        """Recent measured drain rate from the time-series store (the
+        sampler records ``mmlspark_queue_drain_rate{port}`` every tick),
+        or None when unkeyed / cold / unavailable. Queried outside the
+        queue lock — the store takes its own."""
+        key = self.history_key
+        if key is None:
+            return None
+        try:
+            # lazy: observability.timeseries must stay importable without
+            # the serving plane and vice versa
+            from ..observability.timeseries import get_store
+            rate = get_store().ewma("mmlspark_queue_drain_rate",
+                                    seconds=120.0, labels={"port": key})
+        except Exception:
+            return None
+        if rate is None or rate <= 0:
+            return None
+        return float(rate)
 
     def snapshot(self) -> Dict[str, object]:
         """JSON-safe admission state for debug routes and heartbeats."""

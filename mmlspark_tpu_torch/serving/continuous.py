@@ -35,7 +35,16 @@
   (its canonical session and, when it holds written pages, their
   exported blob) and :meth:`ContinuousDecoder.restore_session` rebuilds
   it on another engine, cold (re-prefill of prompt + emitted tokens) or
-  warm (adopting the pages: nothing re-prefilled).
+  warm (adopting the pages: nothing re-prefilled);
+* **the observability plane** — each request captures its cost class,
+  trace id and span at submit (the engine's ticks run outside the
+  caller's context), so its ``prefill_chunk`` / ``session_adopt`` events
+  and the ``continuous.prefill_chunk`` span land in its trace, and the
+  cost ledger bills ``device_seconds`` (host wall around each dispatch,
+  shared by the requests that rode it) and ``kv_page_seconds`` to it.
+  The drain, the decode path's one device→host sync, runs under the
+  stall watchdog; a quantized pool's probe reaches the SLO tracker under
+  ``slo_model``.
 
 PyTorch runs eagerly, so the reference's ``lru_cache``/``jax.jit``
 program factories are plain methods here; the device work is ordered on
@@ -86,16 +95,24 @@ from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
                                       decode_window_paged,
                                       paged_scatter_rows, params_from_numpy,
                                       prefill_cache, shard_params)
-from ..observability.registry import counter as _metric_counter
-from ..observability.registry import gauge as _metric_gauge
-from ..observability.registry import histogram as _metric_histogram
+from ..observability import (charge as _ledger_charge,
+                             counter as _metric_counter,
+                             gauge as _metric_gauge,
+                             get_ledger as _get_ledger,
+                             histogram as _metric_histogram,
+                             resolve_context as _resolve_cost_ctx,
+                             watch as _watch)
+from ..observability import tracing as _tracing
+from ..observability.slo import get_tracker as _slo_tracker
 from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
                             resolve_kv_dtype)
 from ..ops.padding import bucket_size
 from ..ops.paged_attention import _bits
 from ..parallel.mesh import axis_rank, axis_size, mesh_shape
 from ..reliability.faults import get_injector as _get_injector
+from ..reliability.lock_sanitizer import new_lock
 from ..utils.device import resolve_device
+from ..utils.profiling import span as _prof_span
 from .kv_pool import (KVAutotuner, PagedKVPool, PoolExhausted,
                       prefix_hash as _prefix_hash)
 
@@ -123,6 +140,7 @@ class _Request:
                  "submitted_at", "first_token_at", "finished_at",
                  "temperature", "top_k", "top_p", "seed",
                  "prefix_key", "prefix_len", "error",
+                 "cost_cls", "cost_trace", "span",
                  "session_id", "pre_emitted", "journaled")
 
     def __init__(self, rid, prompt, max_new, temperature=0.0, top_k=0,
@@ -143,6 +161,10 @@ class _Request:
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        # cost class, trace id and span, captured at submit (the engine's
+        # ticks run outside the request's trace context)
+        self.cost_cls, self.cost_trace = _resolve_cost_ctx()
+        self.span = _tracing.current_span()
         #: durable-session identity (journal key; defaults to the rid)
         self.session_id: str = str(rid)
         #: tokens emitted by a previous incarnation of this session: a
@@ -330,6 +352,7 @@ class ContinuousDecoder:
                  autotune: bool = False,
                  kv_dtype: Optional[str] = None,
                  quant_probe: int = 64,
+                 slo_model: str = "default",
                  mesh=None, journal=None):
         #: speculative mode: the draft proposes gamma tokens a round per
         #: slot, the target verifies every slot's window in one forward
@@ -385,6 +408,8 @@ class ContinuousDecoder:
         self._kv_dtype = resolve_kv_dtype(kv_dtype)
         self._quant_probe = int(quant_probe) if self._kv_dtype else 0
         self._quant_inserts = 0
+        #: the SLO model label the quant probe reports under
+        self._slo_model = str(slo_model)
         self._dev = resolve_device(device)
         self._cfg = cfg
         self._S = int(max_slots)
@@ -467,8 +492,10 @@ class ContinuousDecoder:
                                   if self._spec else self._k)
         self._slot_req: List[Optional[_Request]] = [None] * self._S
         self._waiting: List[_Request] = []
-        self._lock = threading.Lock()          # guards _waiting/_next_rid
-        self._engine_lock = threading.Lock()   # serializes step/cancel_all
+        self._lock = new_lock(                  # guards _waiting/_next_rid
+            "serving.continuous.ContinuousDecoder._lock")
+        self._engine_lock = new_lock(           # serializes step/cancel_all
+            "serving.continuous.ContinuousDecoder._engine_lock")
         self._next_rid = 0
         self._stop = threading.Event()
         self._reset_device_state()
@@ -779,6 +806,9 @@ class ContinuousDecoder:
             self._seed[slot] = _seed64(seed)
             self.stats["sessions_adopted"] = \
                 self.stats.get("sessions_adopted", 0) + 1
+            _tracing.add_event("session_adopt", slot=slot,
+                               pages=len(adopted), extra=len(extra),
+                               written=written)
         return req
 
     # ---- admission ----
@@ -884,17 +914,21 @@ class ContinuousDecoder:
         the draft's rows (its prefill of the same ids) are empty without
         a draft."""
         padded = self._bucket(max(r.prompt.size for r in reqs))
-        k = 1 << (len(reqs) - 1).bit_length()
-        ids = np.zeros((k, padded), np.int32)
-        lengths = np.ones(k, np.int32)
-        for i, r in enumerate(reqs):
-            ids[i, :r.prompt.size] = r.prompt
-            lengths[i] = r.prompt.size
-        ids, lengths = self._h2d(ids), self._h2d(lengths)
-        logits, row_cache = prefill_cache(self._params, ids, lengths,
-                                          self._cfg, self._L, **self._tp_kw())
-        d_rows = (prefill_cache(self._d_params, ids, lengths, self._d_cfg,
-                                self._L)[1] if self._spec else [])
+        with _prof_span("continuous.prefill", requests=len(reqs),
+                        bucket=padded):
+            k = 1 << (len(reqs) - 1).bit_length()
+            ids = np.zeros((k, padded), np.int32)
+            lengths = np.ones(k, np.int32)
+            for i, r in enumerate(reqs):
+                ids[i, :r.prompt.size] = r.prompt
+                lengths[i] = r.prompt.size
+            ids, lengths = self._h2d(ids), self._h2d(lengths)
+            logits, row_cache = prefill_cache(self._params, ids, lengths,
+                                              self._cfg, self._L,
+                                              **self._tp_kw())
+            d_rows = (prefill_cache(self._d_params, ids, lengths,
+                                    self._d_cfg, self._L)[1]
+                      if self._spec else [])
         self.stats["prefills"] += 1
         _M_PREFILLS.inc()
         return logits, row_cache, d_rows
@@ -1041,8 +1075,10 @@ class ContinuousDecoder:
             # prefill rows round-trips layer 0's keys (one host sync)
             self._quant_inserts += 1
             if self._quant_inserts % self._quant_probe == 0:
-                self._kv.note_quant_error(_quant_probe(
-                    rows_t[0]["k"], kv_store_dtype(self._kv_dtype)))
+                rms = _quant_probe(rows_t[0]["k"],
+                                   kv_store_dtype(self._kv_dtype))
+                self._kv.note_quant_error(rms)
+                _slo_tracker().note_kv_quant_error(self._slo_model, rms)
         if rows_t:
             n_pages = -(-rows_t[0]["k"].shape[2] // self._page)
             page_rows = self._h2d(self._bt_host[slots, :n_pages], np.int64)
@@ -1225,9 +1261,19 @@ class ContinuousDecoder:
         req, off = self._chunking[slot]
         P = req.prompt.size
         w = min(self._chunk_budget(), P - off)
-        w_logits = self._extend(
-            self._padded_ids(req.prompt[off:off + w], self._L - off),
-            off, slot)
+        t0 = time.perf_counter()
+        # under the request's own span: the chunk span and its event land
+        # in its trace, not in whatever the engine thread carries
+        with _tracing.activate(req.span):
+            with _prof_span("continuous.prefill_chunk", slot=slot,
+                            offset=off, tokens=w):
+                w_logits = self._extend(
+                    self._padded_ids(req.prompt[off:off + w],
+                                     self._L - off), off, slot)
+            _ledger_charge("device_seconds", time.perf_counter() - t0,
+                           cls=req.cost_cls, trace_id=req.cost_trace)
+            _tracing.add_event("prefill_chunk", slot=slot, offset=off,
+                               tokens=w)
         self._kv.note_prefill_chunk(w)
         self._chunk_trace.append(w)
         off += w
@@ -1253,6 +1299,7 @@ class ContinuousDecoder:
             req.event.set()
 
     def _release_locked(self, slot: int):
+        req = self._slot_req[slot]
         self._slot_req[slot] = None
         self._active[slot] = False
         self._chunking.pop(slot, None)
@@ -1261,7 +1308,9 @@ class ContinuousDecoder:
             # the device block-table row stays stale on purpose: queued
             # ticks captured it, and later ticks see active=False, which
             # writes nothing
-            self._kv.free(pages)
+            self._kv.free(pages,
+                          cost_cls=None if req is None else req.cost_cls,
+                          cost_trace=None if req is None else req.cost_trace)
             self._slot_pages[slot] = None
             self._bt_host[slot, :] = 0
             self._maybe_compact()
@@ -1286,6 +1335,8 @@ class ContinuousDecoder:
             None if p is None else [int(remap[x]) for x in p]
             for p in self._slot_pages]
         self._upload_bt()
+        _tracing.add_event("kv_compact",
+                           pages_in_use=self._kv.pages_in_use)
 
     # ---- the decode tick ----
     def _tick(self, decode_live: List[int]) -> torch.Tensor:
@@ -1450,7 +1501,9 @@ class ContinuousDecoder:
                    and self._retirement_in_flight()):
                 self._drain_one()
         self._admit()
-        self._advance_chunks()
+        # one prefill chunk per tick, interleaved with the decode below
+        with _watch("decoder_prefill"):
+            self._advance_chunks()
         live = [i for i in range(self._S) if self._slot_req[i] is not None]
         _M_LIVE_SLOTS.set(len(live))
         if not live:
@@ -1479,9 +1532,17 @@ class ContinuousDecoder:
                     else "sampled")
             gamma = (self._tuner.gamma if self._tuner is not None
                      else self._gamma)
-            toks = self._spec_tick(gamma, mode)
+            with _watch("decoder_decode"):
+                toks = self._spec_tick(gamma, mode)
         else:
-            toks = self._tick(decode_live)
+            with _watch("decoder_decode"):
+                toks = self._tick(decode_live)
+        # one dispatch covers every live decode slot: its host wall time
+        # is shared equally by the requests that rode it
+        _get_ledger().charge_shares(
+            "device_seconds", time.perf_counter() - t0,
+            [(self._slot_req[i].cost_cls, self._slot_req[i].cost_trace, 1.0)
+             for i in decode_live])
         self._kv.note_attn_tick(
             self._attn_impl, calls=self._k,
             gather_bytes=(self._k * self._gather_bytes_tick
@@ -1520,8 +1581,16 @@ class ContinuousDecoder:
         """Copy the oldest outstanding token block to the host (the decode
         path's one device→host sync) and replay it in emission order."""
         toks_dev, snapshot = self._pending.pop(0)
-        with _M_DRAIN_SECONDS.time():
+        # the copy is the decode path's one device→host sync: the line a
+        # wedged card parks on, so the watchdog covers it
+        drain_t0 = time.perf_counter()
+        with _M_DRAIN_SECONDS.time(), _prof_span("continuous.drain"), \
+                _watch("decoder_drain"):
             toks = toks_dev.cpu().numpy()
+        _get_ledger().charge_shares(
+            "device_seconds", time.perf_counter() - drain_t0,
+            [(req.cost_cls, req.cost_trace, 1.0)
+             for _, (_, req) in snapshot.items()])
         if self._spec and toks.shape[0] > 1:
             # a spec block: k rounds of gamma + 1 lanes, -1 where nothing
             # was emitted. Both acceptance counters come from this block:
@@ -1621,8 +1690,10 @@ class ContinuousDecoder:
                 self._stop.wait(idle_sleep)
 
     def start(self) -> threading.Thread:
-        t = threading.Thread(target=self.serve_forever, daemon=True,
-                             name="continuous-decoder")
+        # the decoder thread starts with an empty context: propagate()
+        # carries the tracer and trace active at start() into it
+        t = threading.Thread(target=_tracing.propagate(self.serve_forever),
+                             daemon=True, name="continuous-decoder")
         t.start()
         return t
 

@@ -6,7 +6,9 @@ Clients POST ``{"tokens": [...], "max_new": N}`` and get ``{"tokens":
 carries each tick's new tokens and a final ``{"done": true, "tokens":
 [...]}`` event. One engine thread owns the decoder: each loop admits new
 HTTP requests, runs one engine tick, pushes stream events and answers the
-finished requests.
+finished requests. A request is submitted under its root span, so the
+decoder bills its device time and KV pages to the request's class and
+records its prefill chunks in the request's trace.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..observability import tracing as _tracing
 from .continuous import ContinuousDecoder
 from .server import StreamingReply, WorkerServer
 
@@ -107,14 +110,17 @@ class GenerationEngine:
             mn = int(body.get("max_new", self.default_max_new))
             pl = body.get("prefix_len")
             stream = bool(body.get("stream", False))
-            ticket = self.decoder.submit(
-                np.asarray(toks, np.int32), mn,
-                temperature=float(body.get("temperature", 0.0)),
-                top_k=int(body.get("top_k", 0)),
-                top_p=float(body.get("top_p", 1.0)),
-                seed=int(body.get("seed", 0)),
-                prefix_key=body.get("prefix_key"),
-                prefix_len=int(pl) if pl is not None else None)
+            # under the request's root span: the decoder captures its
+            # cost class, trace id and span at submit
+            with _tracing.activate(cached.trace_span):
+                ticket = self.decoder.submit(
+                    np.asarray(toks, np.int32), mn,
+                    temperature=float(body.get("temperature", 0.0)),
+                    top_k=int(body.get("top_k", 0)),
+                    top_p=float(body.get("top_p", 1.0)),
+                    seed=int(body.get("seed", 0)),
+                    prefix_key=body.get("prefix_key"),
+                    prefix_len=int(pl) if pl is not None else None)
         except Exception as e:
             self.server.reply_json(rid, {"error": str(e)}, status=400)
             return

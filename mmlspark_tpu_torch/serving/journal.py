@@ -56,16 +56,17 @@ import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..io.http.schema import HTTPRequestData
-from ..observability.events import log_event
-from ..observability.registry import counter as _metric_counter
-from ..observability.registry import gauge as _metric_gauge
+from ..observability import counter as _metric_counter
+from ..observability import gauge as _metric_gauge
+from ..observability import log_event
+from ..reliability.lock_sanitizer import new_lock
 
 __all__ = ["ServingJournal"]
 
 M_JOURNAL_BYTES = _metric_gauge(
     "mmlspark_journal_bytes",
     "Bytes on disk across this process's live serving journals (per-journal "
-    "values are in ServingJournal.digest())")
+    "values are in ServingJournal.digest() and the watchdog stall bundle)")
 M_JOURNAL_RECORDS = _metric_counter(
     "mmlspark_journal_records_total",
     "Journal records appended, by record type", ("type",))
@@ -76,15 +77,24 @@ M_JOURNAL_REPLAYED_SESS = _metric_counter(
     "mmlspark_journal_replayed_sessions_total",
     "Live decode sessions rehydrated from a journal (restart or /_adopt)")
 
-#: live journals in this process — feeds the bytes gauge without keeping
-#: closed journals alive. (The reference also hands their digests to the
-#: watchdog's stall bundle; the port has no watchdog yet, ROADMAP.md
-#: queue item 11.)
+#: live journals in this process — feeds the bytes gauge and the watchdog
+#: stall bundle's ``journal`` block without keeping closed journals alive
 _LIVE: "weakref.WeakSet[ServingJournal]" = weakref.WeakSet()
 
 
 def _refresh_bytes_gauge() -> None:
     M_JOURNAL_BYTES.set(float(sum(j._bytes for j in list(_LIVE))))
+
+
+def _journal_bundle_block() -> List[dict]:
+    return [j.digest() for j in list(_LIVE)]
+
+
+try:
+    from ..observability.watchdog import register_bundle_provider
+    register_bundle_provider("journal", _journal_bundle_block)
+except Exception as _exc:  # pragma: no cover - watchdog optional at import
+    log_event("journal_bundle_provider_unavailable", error=repr(_exc))
 
 
 class ServingJournal:
@@ -93,7 +103,7 @@ class ServingJournal:
     def __init__(self, path: str, fsync: bool = True):
         self.path = path
         self.fsync = fsync
-        self._lock = threading.Lock()
+        self._lock = new_lock("serving.journal.ServingJournal._lock")
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._repair_torn_tail(path)
         self._fh = open(path, "a", encoding="utf-8")
@@ -338,7 +348,8 @@ class ServingJournal:
         return self._fh.closed
 
     def digest(self) -> dict:
-        """Small JSON-able summary for the server's health digest."""
+        """Small JSON-able summary for ``/healthz`` digests and the
+        watchdog stall bundle's ``journal`` block."""
         with self._lock:
             return {
                 "path": self.path,

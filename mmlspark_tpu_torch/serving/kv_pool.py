@@ -19,7 +19,12 @@
 * **session export / adopt** — :meth:`export_session` writes one
   session's pages (values and scales) into the reference's portable blob,
   byte for byte, and :meth:`adopt_session` scatters such a blob into
-  freshly allocated pages, so either package adopts the other's blobs.
+  freshly allocated pages, so either package adopts the other's blobs;
+* **accounting** — the pool reserves its buffers' bytes with the
+  residency manager (``residency=True``, released by :meth:`close` or at
+  GC), and a page whose last reference drops charges its hold to the
+  cost ledger as ``kv_page_seconds``, under the owning request's class
+  and trace when the caller names them.
 
 Physical page 0 is the **trash page**: never allocated, the redirect
 target for inactive-row writes and for block-table entries past a row's
@@ -41,12 +46,16 @@ from __future__ import annotations
 import base64
 import hashlib
 import heapq
+import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..observability.registry import gauge as _metric_gauge
+from ..core.residency import get_residency_manager
+from ..observability import charge as _ledger_charge
+from ..observability import gauge as _metric_gauge
 from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
                             kv_store_dtype, resolve_kv_dtype)
 from ..utils.device import resolve_device
@@ -94,7 +103,8 @@ class PagedKVPool:
     shared-prefix registry."""
 
     def __init__(self, cfg, *, num_pages: int, page_size: int,
-                 kv_dtype: Optional[str] = None, device=None, tp: int = 1):
+                 kv_dtype: Optional[str] = None, device=None, tp: int = 1,
+                 residency: bool = True):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1:
@@ -122,6 +132,9 @@ class PagedKVPool:
         self._free: List[int] = list(range(1, self.num_pages))
         heapq.heapify(self._free)
         self._refs = np.zeros(self.num_pages, np.int32)
+        # page -> monotonic time it left the free heap: the cost ledger's
+        # kv_page_seconds charge when its last reference drops
+        self._alloc_t: Dict[int, float] = {}
         # phash -> (pages tuple, prefix length in tokens)
         self._prefixes: Dict[str, Tuple[Tuple[int, ...], int]] = {}
         # phash -> registration count: token-identical prefixes under two
@@ -134,6 +147,12 @@ class PagedKVPool:
                       "attn_ticks_gather": 0, "quant_error_probes": 0,
                       "quant_error_last": None, "quant_error_sum": 0.0,
                       "quant_error_max": 0.0}
+        self._reservation = None
+        if residency:
+            mgr = get_residency_manager()
+            token = mgr.reserve(self.device_bytes(), label="kv_pool")
+            self._reservation = token
+            self._finalizer = weakref.finalize(self, mgr.release, token)
 
     def _make_buffers(self):
         """Fresh zeroed per-layer buffers: ``{"k","v"}`` in the value dtype,
@@ -179,7 +198,8 @@ class PagedKVPool:
     def note_quant_error(self, rms: float) -> None:
         """Record one sampled write-time round-trip error: the relative RMS
         of ``dequantize(quantize(rows))`` against the rows a quantized
-        insert wrote."""
+        insert wrote. The engine forwards the same sample to the SLO
+        tracker under its model label."""
         rms = float(rms)
         self.stats["quant_error_probes"] += 1
         self.stats["quant_error_last"] = rms
@@ -212,6 +232,9 @@ class PagedKVPool:
                 f"({self.pages_in_use}/{self.num_pages - 1} in use)")
         pages = [heapq.heappop(self._free) for _ in range(n)]
         self._refs[pages] += 1
+        now = time.monotonic()
+        for p in pages:
+            self._alloc_t[p] = now
         self.high_water = max(self.high_water, self.pages_in_use)
         return pages
 
@@ -225,9 +248,18 @@ class PagedKVPool:
                 raise ValueError(f"incref of free page {p}")
         self._refs[list(pages)] += 1
 
-    def free(self, pages: Sequence[int]) -> None:
+    def free(self, pages: Sequence[int], *, cost_cls=None,
+             cost_trace=None) -> None:
         """Drop one reference per page; refcount-0 pages return to the
-        free heap. Freeing an already-free page raises."""
+        free heap. Freeing an already-free page raises.
+
+        Pages whose last reference drops here charge their whole hold
+        (pages x seconds since they left the free heap) to the cost
+        ledger as ``kv_page_seconds``: under ``cost_cls``/``cost_trace``
+        when the caller knows the owning request (the decoder's slot
+        release does), else the ambient trace context."""
+        held = 0.0
+        now = time.monotonic()
         for p in pages:
             p = int(p)
             if p <= 0 or p >= self.num_pages or self._refs[p] <= 0:
@@ -235,6 +267,10 @@ class PagedKVPool:
             self._refs[p] -= 1
             if self._refs[p] == 0:
                 heapq.heappush(self._free, p)
+                held += now - self._alloc_t.pop(p, now)
+        if held > 0.0:
+            _ledger_charge("kv_page_seconds", held, cls=cost_cls,
+                           trace_id=cost_trace)
 
     # -- prefix sharing ------------------------------------------------------
 
@@ -319,6 +355,8 @@ class PagedKVPool:
         self._prefixes = {
             h: (tuple(int(remap[p]) for p in pages), plen)
             for h, (pages, plen) in self._prefixes.items()}
+        self._alloc_t = {int(remap[p]): t
+                         for p, t in self._alloc_t.items()}
         self.stats["defrag_moves"] += moved
         return remap
 
@@ -456,8 +494,15 @@ class PagedKVPool:
         self._free = list(range(1, self.num_pages))
         heapq.heapify(self._free)
         self._refs[:] = 0
+        self._alloc_t.clear()
         self._prefixes.clear()
         self._prefix_regs.clear()
+
+    def close(self) -> None:
+        """Release the residency reservation early (also runs at GC)."""
+        if self._reservation is not None:
+            self._finalizer()
+            self._reservation = None
 
 
 class KVAutotuner:

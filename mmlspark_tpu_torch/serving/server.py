@@ -21,16 +21,24 @@ picks the budget), and a shed request gets ``429`` with a load-aware
 ``journal_path`` every request is journaled write-ahead
 (:class:`ServingJournal`), answered ones are marked, and a restarted
 server rehydrates its unanswered requests and live decode sessions
-(``replayed_sessions``). ``/healthz`` and ``/metrics`` (Prometheus text)
-are control routes that bypass the queue.
+(``replayed_sessions``).
+
+Every queued request opens one root span (``traceparent`` continues the
+caller's trace; the reply echoes it with the root's own span id), and
+its class (transport, route, model, tenant) feeds the SLO tracker and
+the cost ledger. ``X-Mmlspark-Model`` resolves a ``name@version``
+through the model registry at ingest, where the canary split and the
+shadow mirror happen. Control routes bypass the queue: ``/healthz``
+(degraded by a recent watchdog stall or a firing alert), ``/metrics``
+(Prometheus text), ``/debug/traces``, ``/debug/slo``, ``/debug/costs``,
+``/debug/timeseries``, ``/debug/profile`` (a ``torch.profiler`` capture
+into the watchdog's diagnostic directory), ``/debug/registry`` and
+``/models``. ``/debug/scenario`` drives the load generator, which the
+port does not have yet (ROADMAP.md queue item 33).
 
 The wire contract is the reference's, byte for byte where a client can
 see it (status lines, JSON bodies, ``text/event-stream`` SSE framing,
-``/healthz``), so one client drives either package. Left out until
-tracing is ported (ROADMAP.md queue item 11): the ``traceparent`` echo,
-the SLO tracker, cost ledger, time-series sampler and watchdog hooks;
-and, with the model registry (queue item 12), ``X-Mmlspark-Model``,
-shadow mirrors, ``/models`` and the ``/debug/*`` routes.
+``/healthz``), so one client drives either package.
 """
 
 from __future__ import annotations
@@ -49,15 +57,31 @@ from typing import Dict, List, Optional, Tuple
 
 from ..io.http.schema import (EntityData, HeaderData, HTTPRequestData,
                               HTTPResponseData, StatusLineData)
-from ..observability.events import log_event as _log_event
-from ..observability.exposition import CONTENT_TYPE as _PROM_CONTENT_TYPE
-from ..observability.exposition import render as _render_metrics
-from ..observability.registry import counter as _metric_counter
-from ..observability.registry import gauge as _metric_gauge
-from ..observability.registry import histogram as _metric_histogram
+from ..observability import (CONTENT_TYPE as _PROM_CONTENT_TYPE,
+                             build_info as _build_info,
+                             classify_route as _classify_route,
+                             counter as _metric_counter,
+                             gauge as _metric_gauge,
+                             get_ledger as _get_ledger,
+                             get_tracker as _get_tracker,
+                             get_watchdog as _get_watchdog,
+                             histogram as _metric_histogram,
+                             log_event as _log_event,
+                             process_uptime_seconds as _process_uptime,
+                             register_hbm_gauges as _register_hbm_gauges,
+                             render as _render_metrics)
+from ..observability import tracing as _tracing
+from ..observability.timeseries import (acquire_sampler as _acquire_sampler,
+                                        get_alert_engine as _get_alert_engine,
+                                        get_store as _get_ts_store,
+                                        release_sampler as _release_sampler,
+                                        render_sparklines as
+                                        _render_sparklines)
 from ..reliability.faults import get_injector as _get_injector
+from ..reliability.lock_sanitizer import new_lock
 from ..reliability.policy import Deadline
 from .admission import AdmissionQueue, TenantOverBudget
+from .registry import get_registry as _get_model_registry
 
 __all__ = ["CachedRequest", "Overloaded", "StreamingReply", "WorkerServer"]
 
@@ -76,6 +100,12 @@ _M_INFLIGHT = _metric_gauge(
     "mmlspark_serving_inflight_requests",
     "Requests accepted but not yet answered (routing-table size)",
     ("port",))
+# the object the watchdog registers per-device callbacks on: health_digest
+# sums it without touching watchdog internals
+_M_HBM_IN_USE = _metric_gauge(
+    "mmlspark_device_hbm_bytes_in_use",
+    "Device memory in use (memory_stats; backends without it expose "
+    "nothing)", ("device",))
 _M_SHED = _metric_counter(
     "mmlspark_requests_shed_total",
     "Requests rejected 429 by bounded-queue admission control")
@@ -92,12 +122,31 @@ class Overloaded(RuntimeError):
         self.retry_after = retry_after
 
 
-def _id_headers(cached: Optional["CachedRequest"]) -> List[Tuple[str, str]]:
-    """The request id a queued request's reply carries (the handle
-    ``reply`` keys on); the reference adds its ``traceparent`` here."""
-    if cached is None:
+def _entity_bytes(response) -> Optional[bytes]:
+    """Reply body bytes for the shadow diff (None for a streaming reply,
+    whose content cannot be joined: the diff records its arrival only)."""
+    entity = getattr(response, "entity", None)
+    content = getattr(entity, "content", None)
+    return content if isinstance(content, bytes) else None
+
+
+def _trace_headers(cached: Optional["CachedRequest"]
+                   ) -> List[Tuple[str, str]]:
+    """What a queued request's reply carries: the request id (the handle
+    ``reply`` keys on) and the W3C ``traceparent`` of its root span, so
+    the caller can fetch the span tree from ``/debug/traces``."""
+    if cached is None or cached.trace_span is None:
         return []
-    return [("X-Request-Id", cached.request_id)]
+    return [("X-Request-Id", cached.request_id),
+            ("traceparent", _tracing.format_traceparent(cached.trace_span))]
+
+
+def _json_response(payload: object, status: int = 200) -> HTTPResponseData:
+    """A JSON control-route reply."""
+    return HTTPResponseData(
+        headers=[HeaderData("Content-Type", "application/json")],
+        entity=EntityData.from_string(json.dumps(payload)),
+        status_line=StatusLineData(status_code=status))
 
 
 class StreamingReply:
@@ -116,7 +165,7 @@ class StreamingReply:
         self.content_type = content_type
         self._q: "queue.Queue" = queue.Queue()
         self._notify = None
-        self._lock = threading.Lock()
+        self._lock = new_lock("serving.server.StreamingReply._lock")
         self._closed = False
 
     def send(self, data) -> None:
@@ -180,10 +229,23 @@ class CachedRequest:
     #: rehydrated from the journal after a restart: the original
     #: connection is gone, the reply is journaled, not delivered
     replayed: bool = False
+    #: root span of the request's trace; None for a replayed request (its
+    #: caller's connection is gone) and for a shadow mirror
+    trace_span: Optional[object] = field(default=None, repr=False)
     #: remaining budget from ``X-Mmlspark-Deadline``: caps the park time
     deadline: Optional[Deadline] = field(default=None, repr=False)
-    #: tenant from ``X-Mmlspark-Tenant`` (the admission budget it draws on)
+    #: tenant from ``X-Mmlspark-Tenant`` (the admission budget it draws on,
+    #: and the SLO and cost class's tenant)
     tenant: str = "default"
+    #: the ``name@version`` the registry resolved ``X-Mmlspark-Model`` to;
+    #: None for an unversioned request
+    model_label: Optional[str] = None
+    #: a synthetic shadow mirror: never journaled; its reply goes to the
+    #: registry's shadow join, not to a caller
+    shadow: bool = False
+    #: monotonic enqueue time: ``get_batch`` charges the ledger's
+    #: ``queue_wait_seconds`` from it
+    enqueued_at: float = field(default_factory=time.monotonic, repr=False)
     _done: threading.Event = field(default_factory=threading.Event, repr=False)
     _response: Optional[object] = field(default=None, repr=False)
     _cbs: List[object] = field(default_factory=list, repr=False)
@@ -299,19 +361,24 @@ class _Handler(BaseHTTPRequestHandler):
                                     time.perf_counter() - t0, path=self.path)
                 return
             resp = cached.wait(ws.wait_budget(cached))
+        tspan = cached.trace_span if cached is not None else None
         if resp is None:
+            if tspan is not None:
+                tspan.end(status=504)
             self._plain(504, "serving reply timeout",
-                        headers=_id_headers(cached))
+                        headers=_trace_headers(cached))
             ws._observe_request("threaded", self.command, 504,
-                                time.perf_counter() - t0, path=self.path)
+                                time.perf_counter() - t0, path=self.path,
+                                trace_span=tspan)
             return
         if isinstance(resp, StreamingReply):
             ws._observe_request("threaded", self.command, 200,
-                                time.perf_counter() - t0, path=self.path)
+                                time.perf_counter() - t0, path=self.path,
+                                trace_span=tspan)
             self.send_response(200)
             self.send_header("Content-Type", resp.content_type)
             self.send_header("Cache-Control", "no-store")
-            for name, value in _id_headers(cached):
+            for name, value in _trace_headers(cached):
                 self.send_header(name, value)
             self.send_header("Connection", "close")
             self.end_headers()
@@ -336,14 +403,15 @@ class _Handler(BaseHTTPRequestHandler):
         payload = resp.entity.content if resp.entity else b""
         ws._observe_request("threaded", self.command,
                             resp.status_line.status_code,
-                            time.perf_counter() - t0, path=self.path)
+                            time.perf_counter() - t0, path=self.path,
+                            trace_span=tspan)
         self.send_response(resp.status_line.status_code,
                            resp.status_line.reason_phrase or None)
         sent = {h.name.lower() for h in resp.headers}
         for h in resp.headers:
             if h.name.lower() not in ("content-length", "connection"):
                 self.send_header(h.name, h.value)
-        for name, value in _id_headers(cached):
+        for name, value in _trace_headers(cached):
             if name.lower() not in sent:
                 self.send_header(name, value)
         if "content-type" not in sent and payload:
@@ -536,6 +604,8 @@ class _AsyncHTTPServer:
         try:
             resp = await asyncio.wait_for(fut, ws.wait_budget(cached))
         except asyncio.TimeoutError:
+            if cached.trace_span is not None:
+                cached.trace_span.end(status=504)
             resp = HTTPResponseData(status_line=StatusLineData(
                 status_code=504, reason_phrase="serving reply timeout"))
         return resp, cached
@@ -563,16 +633,18 @@ class _AsyncHTTPServer:
                 req, close = parsed
                 t0 = time.perf_counter()
                 resp, cached = await self._answer(req)
-                echo = _id_headers(cached)
+                tspan = cached.trace_span if cached is not None else None
+                echo = _trace_headers(cached)
                 if isinstance(resp, StreamingReply):
                     ws._observe_request("async", req.method, 200,
                                         time.perf_counter() - t0,
-                                        path=req.url)
+                                        path=req.url, trace_span=tspan)
                     await self._stream(writer, resp, echo)
                     break                      # a stream ends the connection
                 ws._observe_request("async", req.method,
                                     resp.status_line.status_code,
-                                    time.perf_counter() - t0, path=req.url)
+                                    time.perf_counter() - t0, path=req.url,
+                                    trace_span=tspan)
                 writer.write(self._render(resp, echo))
                 await writer.drain()
                 if close:
@@ -600,10 +672,12 @@ class WorkerServer:
     and serves on construction; :meth:`close` stops it.
 
     ``max_queue`` bounds the parked requests (admission sheds past it, and
-    a tenant past its weighted share first); ``shed_retry_after`` is the
-    floor of the 429's ``Retry-After``; ``journal_path`` (with
-    ``journal_fsync``) makes requests and epochs durable; ``transport``
-    is ``"threaded"`` or ``"async"``."""
+    a tenant past its weighted share first; the weights come live from the
+    model registry, so a ``/models`` tenant edit applies without a
+    restart); ``shed_retry_after`` is the floor of the 429's
+    ``Retry-After``; ``journal_path`` (with ``journal_fsync``) makes
+    requests and epochs durable; ``transport`` is ``"threaded"`` or
+    ``"async"``."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  api_path: str = "/", reply_timeout: float = 60.0,
@@ -624,13 +698,24 @@ class WorkerServer:
         #: in insertion order (a later catch-all cannot shadow these)
         self.control_routes: Dict[str, object] = {
             "/healthz": self._healthz_route,
-            "/metrics": self._metrics_route}
+            "/metrics": self._metrics_route,
+            "/debug/traces": self._debug_traces_route,
+            "/debug/slo": self._debug_slo_route,
+            "/debug/costs": self._debug_costs_route,
+            "/debug/timeseries": self._debug_timeseries_route,
+            "/debug/profile": self._debug_profile_route,
+            "/debug/registry": self._debug_registry_route,
+            "/models": self._models_route,
+        }
+        #: guards the single on-demand profiler capture slot
+        self._profile_lock = threading.Lock()
+        self._profile_active: Optional[dict] = None
+        self._profile_thread: Optional[threading.Thread] = None
         #: request_id → CachedRequest
         self._routing: Dict[str, CachedRequest] = {}
         #: epoch → {request_id: CachedRequest}
         self._history: Dict[int, Dict[str, CachedRequest]] = {}
         self._epoch = 0
-        self._started = time.monotonic()
         self._lock = threading.Lock()
         #: the durable epoch/request journal, or None
         self._journal = None
@@ -646,7 +731,9 @@ class WorkerServer:
             self.replayed_sessions = self._journal.replay_sessions()
         # the queue holds every rehydrated request up front (no consumer
         # exists yet): a journal larger than max_queue must not deadlock
-        self._queue = AdmissionQueue(max(max_queue, len(pending)))
+        self._queue = AdmissionQueue(
+            max(max_queue, len(pending)),
+            weight_fn=lambda t: _get_model_registry().tenant_weight(t))
         for rid, (epoch, request) in pending.items():
             cached = CachedRequest(rid, epoch, request, replayed=True)
             self._routing[rid] = cached
@@ -676,6 +763,23 @@ class WorkerServer:
             raise
         _M_QUEUE_DEPTH.set_function(self._queue.qsize, port=str(self.port))
         _M_INFLIGHT.set_function(self.pending_count, port=str(self.port))
+        # idempotent: (re)stamps mmlspark_build_info, and registers the
+        # memory gauges once CUDA is initialized (neither initializes it)
+        _build_info()
+        _register_hbm_gauges()
+        # the time-series sampler is process-global and refcounted: one
+        # scrape thread feeds one store however many servers run; close()
+        # releases it. The per-port sources feed the queue-saturation
+        # alert and the drain-rate history suggest_retry_after seeds its
+        # EWMA from after an idle gap.
+        self._ts_sampler = _acquire_sampler()
+        self._ts_sampler.add_source(
+            "mmlspark_queue_saturation", self._queue_saturation,
+            port=str(self.port))
+        self._ts_sampler.add_source(
+            "mmlspark_queue_drain_rate",
+            lambda: self._queue.drain_rate() or None, port=str(self.port))
+        self._queue.history_key = str(self.port)
 
     @property
     def address(self) -> str:
@@ -694,30 +798,84 @@ class WorkerServer:
     # -- telemetry ----------------------------------------------------------
     def _observe_request(self, transport: str, method: Optional[str],
                          code: int, seconds: Optional[float],
-                         path: Optional[str] = None) -> None:
+                         path: Optional[str] = None,
+                         trace_span: Optional[object] = None) -> None:
         # "/_"-prefixed paths are internal cross-worker hops: counting
         # them would bill one logical request twice
         if path is not None and path.startswith("/_"):
             return
         _M_REQUESTS.inc(transport=transport, method=method or "?",
                         code=str(code))
+        attrs = getattr(trace_span, "attrs", {}) if trace_span else {}
+        # the same admission rule as requests_total, so the SLO
+        # scorecard's totals reconcile against that counter exactly; a
+        # registry-resolved request's model is its "name@version"
+        _get_tracker().observe(transport=transport,
+                               route=_classify_route(path),
+                               model=attrs.get("model", "default"),
+                               seconds=seconds, error=code >= 500,
+                               tenant=attrs.get("tenant", "default"))
         if seconds is not None:
-            _M_REQ_LATENCY.observe(seconds, transport=transport)
+            # under an active span the histogram keeps the trace id as an
+            # exemplar (when tracing.set_exemplars is on)
+            with _tracing.activate(trace_span):
+                _M_REQ_LATENCY.observe(seconds, transport=transport)
+
+    #: a watchdog stall younger than this marks /healthz degraded
+    STALL_DEGRADED_SECONDS = 60.0
 
     def _degraded_reasons(self) -> List[str]:
         """Soft-failure signals for /healthz (advisory: the answer stays
-        200): a nearly full admission queue."""
+        200): a nearly full admission queue, a recent watchdog stall, or
+        an alert rule in its firing state."""
+        reasons = []
         maxsize = self._queue.maxsize
         if maxsize > 0 and self._queue.qsize() >= 0.8 * maxsize:
-            return [f"queue_pressure:{self._queue.qsize()}/{maxsize}"]
-        return []
+            reasons.append(
+                f"queue_pressure:{self._queue.qsize()}/{maxsize}")
+        age = _get_watchdog().last_stall_age()
+        if age is not None and age <= self.STALL_DEGRADED_SECONDS:
+            reasons.append(f"watchdog_stall:{round(age, 1)}s_ago")
+        for rule in _get_alert_engine().firing():
+            reasons.append(f"alert_firing:{rule}")
+        return reasons
+
+    def _queue_saturation(self) -> float:
+        """Admission-queue fill fraction, sampled into the store each tick
+        (the default queue-saturation alert reads this series)."""
+        maxsize = self._queue.maxsize
+        return self._queue.qsize() / maxsize if maxsize > 0 else 0.0
+
+    def _hbm_bytes_in_use(self) -> Optional[float]:
+        """Summed ``mmlspark_device_hbm_bytes_in_use`` across devices, or
+        None before the watchdog's gauges register (CUDA not initialized).
+        It rides the health digest because federation carries counters
+        and histograms only."""
+        rows = _M_HBM_IN_USE.series()
+        if not rows:
+            return None
+        total = 0.0
+        for _labels, series in rows:
+            try:
+                total += float(series.get())
+            except Exception:
+                return None
+        return total
 
     def health_digest(self) -> Dict[str, object]:
-        """Compact health fields: queue depth, in-flight count, the
+        """Compact health fields a heartbeat carries: queue depth,
+        in-flight count, open breakers (none: the port has no peer
+        breakers until the distributed plane), the age of the last
+        watchdog stall, device memory in use, the registry's versions, the
         admission queue's state and the journal's digest."""
+        age = _get_watchdog().last_stall_age()
         return {"queue_depth": self._queue.qsize(),
                 "in_flight": self.pending_count(),
+                "open_breakers": [],
+                "stall_age_seconds": None if age is None else round(age, 3),
+                "hbm_bytes_in_use": self._hbm_bytes_in_use(),
                 "degraded": bool(self._degraded_reasons()),
+                "registry": _get_model_registry().digest(),
                 "admission": self._queue.snapshot(),
                 "journal": (self._journal.digest()
                             if self._journal is not None else None)}
@@ -731,11 +889,8 @@ class WorkerServer:
                 "reasons": reasons, "transport": self.transport,
                 "port": self.port, "queued": self._queue.qsize(),
                 "pending": pending, "epoch": epoch,
-                "uptime_seconds": round(time.monotonic() - self._started, 3)}
-        return HTTPResponseData(
-            headers=[HeaderData("Content-Type", "application/json")],
-            entity=EntityData.from_string(json.dumps(body)),
-            status_line=StatusLineData(status_code=200))
+                "uptime_seconds": round(_process_uptime(), 3)}
+        return _json_response(body)
 
     def _metrics_route(self, request: HTTPRequestData) -> HTTPResponseData:
         # the Content-Type rides in resp.headers: the transports render
@@ -746,10 +901,209 @@ class WorkerServer:
                                           content_type=_PROM_CONTENT_TYPE),
             status_line=StatusLineData(status_code=200))
 
+    def _debug_traces_route(self, request: HTTPRequestData
+                            ) -> HTTPResponseData:
+        """``GET /debug/traces`` lists the flight recorder's summaries
+        (newest first, slow-kept traces ahead of the ring);
+        ``GET /debug/traces/{trace_id}`` returns one span tree, or Chrome
+        trace JSON with ``?format=chrome``."""
+        recorder = _tracing.get_flight_recorder()
+        path, _, query = request.url.partition("?")
+        trace_id = path[len("/debug/traces"):].strip("/")
+        if not trace_id:
+            return _json_response(
+                {"slow_threshold_seconds": recorder.slow_threshold,
+                 "traces": recorder.summaries()})
+        trace = recorder.get(trace_id)
+        if trace is None:
+            return _json_response({"error": "unknown trace_id",
+                                   "trace_id": trace_id}, 404)
+        if "format=chrome" in query:
+            return _json_response(trace.to_chrome())
+        return _json_response(trace.to_dict())
+
+    def _debug_slo_route(self, request: HTTPRequestData) -> HTTPResponseData:
+        """``GET /debug/slo``: the rolling SLO scorecard of every workload
+        class served, with the policy verdicts. Each render is harvested
+        into the tuning observation store (skip with ``?harvest=0``)."""
+        _, _, query = request.url.partition("?")
+        card = _get_tracker().scorecard()
+        if "harvest=0" not in query:
+            # lazy: tuning imports observability
+            from ..tuning.observations import harvest_scorecard
+            card["harvested"] = harvest_scorecard(card)
+        return _json_response(card)
+
+    def _debug_timeseries_route(self, request: HTTPRequestData
+                                ) -> HTTPResponseData:
+        """``GET /debug/timeseries``: the process's metric history (per
+        series, downsampled windows) and the alert engine's rule state.
+        Query: ``seconds`` (trailing window, default 120), ``series``
+        (comma-separated names), ``format=text`` (sparklines)."""
+        _, _, query = request.url.partition("?")
+        params: Dict[str, str] = {}
+        for part in query.split("&"):
+            key, _, value = part.partition("=")
+            if key:
+                params[key] = value
+        try:
+            seconds = float(params.get("seconds", "120"))
+        except ValueError:
+            seconds = 120.0
+        names = ([n for n in params["series"].split(",") if n]
+                 if params.get("series") else None)
+        store = _get_ts_store()
+        if params.get("format") == "text":
+            return HTTPResponseData(
+                headers=[HeaderData("Content-Type",
+                                    "text/plain; charset=utf-8")],
+                entity=EntityData.from_string(
+                    _render_sparklines(store, seconds, names=names)),
+                status_line=StatusLineData(status_code=200))
+        engine = _get_alert_engine()
+        payload = store.snapshot(seconds, names=names)
+        payload["alerts"] = engine.state()
+        payload["firing"] = engine.firing()
+        return _json_response(payload)
+
+    def _debug_costs_route(self, request: HTTPRequestData
+                           ) -> HTTPResponseData:
+        """``GET /debug/costs``: the cost ledger's per-class totals and its
+        top-K heavy hitters (each joinable to ``/debug/traces/{id}``).
+        Each render is harvested into the tuning observation store (skip
+        with ``?harvest=0``)."""
+        _, _, query = request.url.partition("?")
+        snap = _get_ledger().snapshot()
+        if "harvest=0" not in query:
+            from ..tuning.observations import harvest_costs
+            snap["harvested"] = harvest_costs(snap)
+        return _json_response(snap)
+
+    #: on-demand profiler capture length ceiling (seconds)
+    MAX_PROFILE_SECONDS = 60.0
+
+    def _debug_profile_route(self, request: HTTPRequestData
+                             ) -> HTTPResponseData:
+        """``GET /debug/profile?seconds=N``: capture a ``torch.profiler``
+        trace of host and CUDA activity for N seconds (default 3, capped at
+        :data:`MAX_PROFILE_SECONDS`) into a fresh directory under the
+        watchdog's diagnostic dir (``<log_dir>/trace.json``, Chrome trace
+        format). The capture runs on a background thread and the reply
+        returns at once with ``log_dir``; a second request while one runs
+        gets 409."""
+        _, _, query = request.url.partition("?")
+        seconds = 3.0
+        for part in query.split("&"):
+            if part.startswith("seconds="):
+                try:
+                    seconds = float(part[len("seconds="):])
+                except ValueError:
+                    return _json_response({"error": "bad seconds value"},
+                                          400)
+        seconds = min(max(seconds, 0.05), self.MAX_PROFILE_SECONDS)
+        log_dir = os.path.join(_get_watchdog().diag_dir(),
+                               f"profile_{self.port}_{int(time.time())}")
+        with self._profile_lock:
+            if self._profile_active is not None:
+                return _json_response(
+                    {"error": "profile capture already active",
+                     **self._profile_active}, 409)
+            self._profile_active = {"log_dir": log_dir, "seconds": seconds}
+
+        def _capture() -> None:
+            # lazy: the profiler imports torch, which a server serving a
+            # host-only pipeline need not pay for at construction
+            from ..utils import profiling as _profiling
+            try:
+                with _profiling.trace(log_dir):
+                    time.sleep(seconds)
+                _log_event("profile_captured", log_dir=log_dir,
+                           seconds=seconds, port=self.port)
+            except Exception as exc:
+                # the endpoint never takes the worker down
+                _log_event("profile_failed", level=logging.WARNING,
+                           log_dir=log_dir, error=repr(exc))
+            finally:
+                with self._profile_lock:
+                    self._profile_active = None
+
+        os.makedirs(log_dir, exist_ok=True)
+        t = threading.Thread(target=_capture, name="mmlspark-profile",
+                             daemon=True)
+        self._profile_thread = t
+        t.start()
+        return _json_response({"started": True, "log_dir": log_dir,
+                               "seconds": seconds})
+
+    def _models_route(self, request: HTTPRequestData) -> HTTPResponseData:
+        """``GET /models``: the registry's snapshot; ``POST /models``: an
+        admin action as a JSON body (load, promote, rollback, retire or
+        unload, tenant, check). An HTTP load is declarative: an engine
+        registers a version's handle and warm-up through
+        :meth:`ServingEngine.register_model`."""
+        registry = _get_model_registry()
+        if (request.method or "GET").upper() != "POST":
+            return _json_response(registry.snapshot())
+        try:
+            req_body = (json.loads(request.entity.string_content())
+                        if request.entity else {})
+        except ValueError:
+            return _json_response({"error": "invalid JSON body"}, 400)
+        action = str(req_body.get("action", "")).lower()
+        try:
+            if action == "load":
+                mv = registry.load(
+                    req_body["name"], req_body["version"],
+                    canary_percent=float(req_body.get("canary_percent",
+                                                      0.0)),
+                    shadow_percent=float(req_body.get("shadow_percent",
+                                                      0.0)),
+                    block=bool(req_body.get("block", True)))
+                return _json_response({"loaded": mv.snapshot()})
+            if action == "promote":
+                mv = registry.promote(req_body["name"], req_body["version"])
+                return _json_response({"promoted": mv.snapshot()})
+            if action == "rollback":
+                mv = registry.rollback(req_body["name"],
+                                       req_body.get("version"),
+                                       reason=str(req_body.get(
+                                           "reason", "manual")))
+                return _json_response({"rolled_back":
+                                       mv.snapshot() if mv else None})
+            if action in ("retire", "unload"):
+                return _json_response(registry.retire(
+                    req_body["name"], req_body["version"],
+                    drain_timeout=float(req_body.get("drain_timeout",
+                                                     5.0))))
+            if action == "tenant":
+                registry.set_tenant(req_body["tenant"],
+                                    float(req_body["weight"]))
+                return _json_response({"tenants": registry.tenants()})
+            if action == "check":
+                return _json_response({"verdicts":
+                                       registry.check_canaries()})
+        except KeyError as exc:
+            return _json_response({"error": f"missing field: {exc}"}, 400)
+        except ValueError as exc:
+            return _json_response({"error": str(exc)}, 400)
+        return _json_response({"error": f"unknown action {action!r}"}, 400)
+
+    def _debug_registry_route(self, request: HTTPRequestData
+                              ) -> HTTPResponseData:
+        """``GET /debug/registry``: the rollout state (versions, canary
+        verdicts, shadow diffs, tenant weights) and this worker's
+        admission snapshot."""
+        registry = _get_model_registry()
+        return _json_response({"registry": registry.snapshot(),
+                               "canary_verdicts": registry.check_canaries(),
+                               "admission": self._queue.snapshot()})
+
     # -- ingest -------------------------------------------------------------
     def _shed(self, tenant: str, reason: str,
               exc: Optional[BaseException] = None) -> Overloaded:
         _M_SHED.inc()
+        _get_tracker().shed(transport=self.transport, route="api",
+                            tenant=tenant)
         # backlog over the measured drain rate, scaled up for a tenant
         # over its weighted budget; shed_retry_after is the floor
         retry_after = self._queue.suggest_retry_after(
@@ -761,14 +1115,22 @@ class WorkerServer:
         return Overloaded(retry_after)
 
     def _enqueue(self, request: HTTPRequestData) -> CachedRequest:
-        deadline = None
+        # headers first: the tenant picks the admission budget and the
+        # model header the registry version that serves
+        traceparent = deadline = model_name = None
         tenant = "default"
         for h in request.headers:
             name = h.name.lower()
-            if name == "x-mmlspark-deadline":
+            if name == "traceparent":
+                traceparent = h.value
+            elif name == "x-mmlspark-deadline":
                 deadline = Deadline.from_header(h.value)
             elif name == "x-mmlspark-tenant":
+                # free-form, but the SLO tracker and the cost ledger
+                # collapse classes past MAX_CLASSES into "other"
                 tenant = h.value.strip() or "default"
+            elif name == "x-mmlspark-model":
+                model_name = h.value.strip() or None
         # admission BEFORE any journal or routing work: a full queue sheds
         # everyone, a tenant over its share sheds that tenant first
         try:
@@ -780,14 +1142,32 @@ class WorkerServer:
         injector = _get_injector()
         if injector.enabled:
             injector.fire("enqueue")
+        # one root span per logical request, minted where every ingest
+        # shape funnels through; the canary/shadow split happens here too,
+        # and the resolved "name@version" rides the root's model attribute
+        # so SLO windows and ledger classes tell candidate from incumbent
+        request_id = _tracing.new_request_id()
+        registry = _get_model_registry()
+        resolution = None
+        span_extra = {}
+        if model_name is not None:
+            resolution = registry.resolve(model_name, request_id)
+            span_extra["model"] = resolution.label
+        root = _tracing.start_trace(
+            "server.request", traceparent=traceparent,
+            request_id=request_id, method=request.method, url=request.url,
+            route=_classify_route(request.url), tenant=tenant,
+            transport=self.transport, **span_extra)
         with self._lock:
-            cached = CachedRequest(os.urandom(16).hex(), self._epoch, request,
-                                   deadline=deadline, tenant=tenant)
+            cached = CachedRequest(
+                request_id, self._epoch, request, trace_span=root,
+                deadline=deadline, tenant=tenant,
+                model_label=resolution.label if resolution else None)
         # write-ahead, before the routing-table insert: a failed append
         # errors this request out without leaking a routing entry
         if self._journal is not None:
             self._journal.record_request(cached.request_id, cached.epoch,
-                                         request)
+                                         request, trace_id=root.trace_id)
         with self._lock:
             self._routing[cached.request_id] = cached
             self._history.setdefault(cached.epoch, {})[cached.request_id] = \
@@ -802,10 +1182,51 @@ class WorkerServer:
                                                         None)
             if self._journal is not None:
                 self._journal.record_reply(cached.request_id)
+            if resolution is not None:
+                registry.note_done(resolution.label)
+                if resolution.shadow is not None:
+                    registry.note_done(resolution.shadow)
+            root.end(status=429)
             reason = ("tenant_budget" if isinstance(exc, TenantOverBudget)
                       else "queue_full")
             raise self._shed(tenant, reason, exc) from None
+        if resolution is not None and resolution.shadow is not None:
+            self._mirror_shadow(cached, resolution.shadow)
         return cached
+
+    def _mirror_shadow(self, primary: CachedRequest,
+                       shadow_label: str) -> None:
+        """Mirror an admitted request to the shadow version: a synthetic
+        request through the same queue and engine that is never journaled
+        and never answers a caller; both replies land in the registry's
+        shadow join, which diffs them."""
+        registry = _get_model_registry()
+        shadow_id = _tracing.new_request_id()
+        cached = CachedRequest(shadow_id, primary.epoch, primary.request,
+                               tenant=primary.tenant,
+                               model_label=shadow_label, shadow=True)
+        with self._lock:
+            self._routing[shadow_id] = cached
+            self._history.setdefault(cached.epoch, {})[shadow_id] = cached
+        try:
+            # best effort: a full queue drops the mirror, never the primary
+            self._queue.put_nowait(cached)
+        except queue.Full:
+            with self._lock:
+                self._routing.pop(shadow_id, None)
+                self._history.get(cached.epoch, {}).pop(shadow_id, None)
+            registry.note_done(shadow_label)
+            return
+        trace_id = (primary.trace_span.trace.trace_id
+                    if primary.trace_span is not None else None)
+        registry.shadow_begin(primary.request_id, shadow_id, shadow_label,
+                              trace_id=trace_id)
+        primary.add_done_callback(
+            lambda resp: registry.shadow_result(
+                primary.request_id, _entity_bytes(resp), from_shadow=False))
+        cached.add_done_callback(
+            lambda resp: registry.shadow_result(
+                primary.request_id, _entity_bytes(resp), from_shadow=True))
 
     def wait_budget(self, cached: CachedRequest) -> float:
         """How long a transport may park this request: ``reply_timeout``,
@@ -831,7 +1252,26 @@ class WorkerServer:
                 out.append(self._queue.get_nowait())
             except queue.Empty:
                 break
+        self._charge_queue_wait(out)
         return out
+
+    def _charge_queue_wait(self, batch) -> None:
+        """Bill each dequeued request's park time to its own class: the
+        ledger's ``queue_wait_seconds`` charge site."""
+        ledger = _get_ledger()
+        now = time.monotonic()
+        for cached in batch:
+            span = cached.trace_span
+            cls = tid = None
+            if span is not None:
+                attrs = span.attrs
+                cls = (str(attrs.get("transport", "untraced")),
+                       str(attrs.get("route", "api")),
+                       str(attrs.get("model", "default")),
+                       str(attrs.get("tenant", "default")))
+                tid = span.trace.trace_id
+            ledger.charge("queue_wait_seconds",
+                          now - cached.enqueued_at, cls=cls, trace_id=tid)
 
     def _take_answered(self, request_id: str) -> Optional[CachedRequest]:
         """Pop a parked request and mark it answered (routing table, epoch
@@ -840,15 +1280,40 @@ class WorkerServer:
             cached = self._routing.pop(request_id, None)
             if cached is not None:
                 self._history.get(cached.epoch, {}).pop(request_id, None)
-        if cached is not None and self._journal is not None:
-            self._journal.record_reply(request_id)
+        if cached is not None:
+            if cached.model_label is not None:
+                # in-flight accounting: retire()'s drain barrier opens once
+                # every resolved request of a version has answered
+                _get_model_registry().note_done(cached.model_label)
+            # a shadow mirror was never journaled: a reply record for it
+            # would orphan the journal's pairing
+            if self._journal is not None and not cached.shadow:
+                self._journal.record_reply(request_id)
         return cached
+
+    def trace_span(self, request_id: str):
+        """Root span of a still-parked request (None when unknown, answered
+        or untraced): the engine activates it to attach its spans."""
+        with self._lock:
+            cached = self._routing.get(request_id)
+        return cached.trace_span if cached is not None else None
+
+    def model_label(self, request_id: str) -> Optional[str]:
+        """The ``name@version`` of a still-parked request (None when
+        unknown or unversioned): an engine groups a drained batch by it."""
+        with self._lock:
+            cached = self._routing.get(request_id)
+        return cached.model_label if cached is not None else None
 
     def reply(self, request_id: str, response: HTTPResponseData) -> bool:
         """Route a response to the parked connection."""
         cached = self._take_answered(request_id)
         if cached is None:
             return False
+        if cached.trace_span is not None:
+            # idempotent (a 504 may have ended it); ending the root hands
+            # the trace to the flight recorder
+            cached.trace_span.end(status=response.status_line.status_code)
         cached.respond(response)
         return True
 
@@ -865,6 +1330,10 @@ class WorkerServer:
         cached = self._take_answered(request_id)
         if cached is None:
             return None
+        if cached.trace_span is not None:
+            # the trace covers accept to stream open; chunk timing belongs
+            # to the stream, which may outlive the span tree
+            cached.trace_span.end(status=200, streaming=True)
         stream = StreamingReply(content_type)
         cached.respond(stream)
         return stream
@@ -912,8 +1381,23 @@ class WorkerServer:
 
     def close(self) -> None:
         self._closed = True
+        t = self._profile_thread
+        if t is not None and t.is_alive():
+            # bounded: a capture is at most MAX_PROFILE_SECONDS of sleep
+            # plus the export; tearing down mid-export crashes the profiler
+            t.join(timeout=self.MAX_PROFILE_SECONDS + 10.0)
         _M_QUEUE_DEPTH.remove(port=str(self.port))
         _M_INFLIGHT.remove(port=str(self.port))
+        # drop this port's sampler sources, then release the refcounted
+        # sampler (its thread stops with the last server); None'd so a
+        # second close() cannot over-release
+        if self._ts_sampler is not None:
+            self._ts_sampler.remove_source("mmlspark_queue_saturation",
+                                           port=str(self.port))
+            self._ts_sampler.remove_source("mmlspark_queue_drain_rate",
+                                           port=str(self.port))
+            self._ts_sampler = None
+            _release_sampler()
         if self._aio is not None:
             self._aio.close()
         if self._httpd is not None:

@@ -20,7 +20,8 @@ import mmlspark_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 #: the scripts at the repo's root that run on the card
-ROOT_SCRIPTS = ["chip_smoke", "time_window_read", "time_hist", "time_read"]
+ROOT_SCRIPTS = ["chip_smoke", "time_window_read", "time_hist", "time_read",
+                "time_front"]
 
 
 def _port_modules():
@@ -79,7 +80,21 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.serving.admission",
                  "mmlspark_tpu_torch.serving.server",
                  "mmlspark_tpu_torch.serving.kv_pool",
-                 "mmlspark_tpu_torch.serving.continuous"):
+                 "mmlspark_tpu_torch.serving.continuous",
+                 "mmlspark_tpu_torch.reliability.lock_sanitizer",
+                 "mmlspark_tpu_torch.observability",
+                 "mmlspark_tpu_torch.observability.tracing",
+                 "mmlspark_tpu_torch.observability.slo",
+                 "mmlspark_tpu_torch.observability.ledger",
+                 "mmlspark_tpu_torch.observability.federation",
+                 "mmlspark_tpu_torch.observability.timeseries",
+                 "mmlspark_tpu_torch.observability.watchdog",
+                 "mmlspark_tpu_torch.utils.profiling",
+                 "mmlspark_tpu_torch.tuning",
+                 "mmlspark_tpu_torch.tuning.observations",
+                 "mmlspark_tpu_torch.serving.registry",
+                 "mmlspark_tpu_torch.serving.source",
+                 "mmlspark_tpu_torch.serving.engine"):
         assert want in names
 
 

@@ -12,7 +12,7 @@ fault site, a restarted server (same process or after SIGKILL)
 rehydrating its unanswered requests from the journal, and ``/metrics``
 as Prometheus text. Then the same requests go to both packages' servers:
 their status lines and bodies must be equal, and so must their header
-names, but for the ones the port leaves out (:data:`LEFT_OUT`).
+names (the ``traceparent`` echo included).
 """
 
 import http.client
@@ -41,10 +41,6 @@ from mmlspark_tpu_torch.serving.server import WorkerServer
 
 ROOT = Path(__file__).resolve().parents[1]
 TRANSPORTS = ["threaded", "async"]
-
-#: response headers the JAX server sends and the port does not: the W3C
-#: trace-context echo waits for tracing (ROADMAP.md queue item 11)
-LEFT_OUT = {"traceparent"}
 
 
 def _resp(payload, status=200):
@@ -586,7 +582,9 @@ _EXCHANGES = {
 }
 
 #: header values that differ by construction (a clock, a random id)
-_VOLATILE = {"date", "x-request-id"}
+#: headers whose values differ run to run: the request id and the trace
+#: echo carry freshly minted ids
+_VOLATILE = {"date", "x-request-id", "traceparent"}
 
 
 @pytest.mark.parametrize("transport", TRANSPORTS)
@@ -612,11 +610,11 @@ def test_same_requests_same_answers_as_the_jax_server(transport):
             (s_j, h_j, b_j), (s_p, h_p, b_p) = got["jax"], got["port"]
             assert s_p == s_j, label
             assert b_p == b_j, label
-            names_j = {k.lower() for k, _ in h_j} - LEFT_OUT
+            names_j = {k.lower() for k, _ in h_j}
             names_p = {k.lower() for k, _ in h_p}
             assert names_p == names_j, (label, names_p ^ names_j)
             vals_j = {k.lower(): v for k, v in h_j
-                      if k.lower() not in _VOLATILE | LEFT_OUT}
+                      if k.lower() not in _VOLATILE}
             vals_p = {k.lower(): v for k, v in h_p
                       if k.lower() not in _VOLATILE}
             assert vals_p == vals_j, label
