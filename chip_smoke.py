@@ -263,8 +263,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``continuous.prefill`` range, and a second capture request meanwhile
    gets 409. ``time_front.py`` times 16a's front alone in 20 s
    closed-loop bursts, for comparing trees in one call.
+17. BASELINE's image configurations on phase 11's ResNet-50 (no hand
+   kernel on this path: the resize is ``F.interpolate``, convs cuDNN) —
+   (a) #4, transfer learning: 2048 seeded uint8 BGR images, 256 × 256
+   and 240 × 320 rows alternating, through ``ImageFeaturizer``
+   (``cut_output_layers=1``, ImageNet normalization, bf16, batches of
+   512: per shape one counted ingest of the raw bytes, then the resize,
+   the channel swap and the normalization on the card, the runner
+   moving no bytes); first, in f32 on 32 rows, the logits of
+   ``cut_output_layers=0`` within 1e-5 of the largest |logit| of
+   ``ONNXModel.transform`` on the same rows prepped by hand, and the
+   features within 1e-3 of the largest |feature| of the port's CPU run;
+   then an untimed pass and 3 timed ones: images/s (median), the
+   featurizer's and the runner's stage seconds, the bf16 features within
+   2^-4 of the largest f32 |feature|; then ``LogisticRegression
+   (max_iter=200)`` on the 2048-wide features, standardized, with 10
+   labels from a seeded linear rule on them: fit seconds and train
+   accuracy above 0.9; (b) #5: ``ImageLIME`` and ``ImageSHAP``
+   (256 samples, 16-pixel cells: up to 196 superpixels) over 8 of (a)'s
+   images resized to 224, explaining the bf16 featurizer's logit of the
+   first image's top class: 2048 masked images each through the runner
+   in 4 batches of 512; each row's all-on sample scores the unmasked
+   image within 2^-4 of the largest |logit|, SHAP's Σφ = f(x) within
+   1e-6 of Σ|φ|, the card's SLIC labels (distances on the card) equal
+   the CPU's and its masked samples ``mask_image``'s bitwise, the solves
+   replayed from the explainer's draws equal its own bitwise and the
+   CPU's on the same scores (LIME within 1e-3 of the largest |coef|,
+   SHAP within 1e-2 of |f(x) − base|); seconds per explained image,
+   model rows/s, and the share of SLIC and the masks against the
+   model's.
 
-``python3 chip_smoke.py 16`` runs phases 1, 2, 4 and 16 only,
+``python3 chip_smoke.py 17`` runs phases 1, 2 and 17 only,
+``python3 chip_smoke.py 16`` phases 1, 2, 4 and 16,
 ``python3 chip_smoke.py 15`` phases 1, 2, 4 and 15,
 ``python3 chip_smoke.py 14`` phases 1, 2 and 14,
 ``python3 chip_smoke.py 13`` phases 1, 2, 4 and 13,
@@ -282,6 +312,7 @@ power limit as ``nvidia-smi --query-gpu=name,power.limit
 {...}}``. Nothing here imports JAX or the JAX package.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -3282,14 +3313,11 @@ def phase_onnx(dev_info):
     import torch
     from mmlspark_tpu_torch.core import DataFrame
     from mmlspark_tpu_torch.models.zoo.resnet import (RESNET50, ResNetConfig,
-                                                      export_resnet_onnx,
                                                       init_resnet,
                                                       resnet_apply)
     dev = torch.device("cuda")
     cfg = ONNX_BENCH
-    t0 = time.perf_counter()
-    model_bytes = export_resnet_onnx(RESNET50, seed=0)
-    export_s = time.perf_counter() - t0
+    model_bytes, export_s = _resnet50_onnx()
     X = np.random.default_rng(0).integers(0, 256, (cfg["rows"], 224, 224, 3),
                                           dtype=np.uint8)
     n32 = cfg["parity_rows"]
@@ -4999,6 +5027,321 @@ def phase_plane_engine(dev_info):
     return rec
 
 
+# ---- phase 17: BASELINE's image configurations #4 and #5 ------------------
+
+#: configuration #4 (``ImageFeaturizer`` transfer learning into
+#: ``LogisticRegression``) and #5 (``ImageLIME`` / ``ImageSHAP`` over the
+#: featurizer), on phase 11's ResNet-50 at full width
+IMAGE = dict(rows=2048, batch=512, passes=3,
+             shapes=((256, 256), (240, 320)), classes=10, max_iter=200,
+             parity_rows=32, explain_rows=8, num_samples=256, cell_size=16,
+             seed=17)
+
+
+@functools.lru_cache(maxsize=None)
+def _resnet50_onnx():
+    """(bench.py's seeded ResNet-50 ONNX bytes, export seconds): phase 11's
+    export, made once for phases 11 and 17."""
+    from mmlspark_tpu_torch.models.zoo.resnet import (RESNET50,
+                                                      export_resnet_onnx)
+    t0 = time.perf_counter()
+    data = export_resnet_onnx(RESNET50, seed=0)
+    return data, time.perf_counter() - t0
+
+
+def _image_rows(n, shapes, seed):
+    """n seeded uint8 BGR images, row i of shape ``shapes[i % len]`` (H,
+    W): a colour, a horizontal ramp and noise each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        ramp = np.linspace(0, 1, w, dtype=np.float32)[None, :, None] * \
+            rng.integers(-128, 128, 3).astype(np.float32)
+        x = rng.integers(-24, 25, (h, w, 3), dtype=np.int16) + ramp + \
+            rng.integers(0, 256, 3).astype(np.float32)
+        out.append(np.clip(x, 0, 255).astype(np.uint8))
+    return out
+
+
+def _featurizer(model_bytes, dtype, cut, batch, device=None, **kw):
+    from mmlspark_tpu_torch.models.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    return ImageFeaturizer(ONNXModel(model_bytes, device=device,
+                                     compute_dtype=dtype),
+                           cut_output_layers=cut, input_size=224,
+                           mini_batch_size=batch, **IMAGENET, **kw)
+
+
+def phase_image_featurizer(dev_info, model_bytes, imgs):
+    """17a: configuration #4. f32 checks first (cuDNN's heuristic
+    algorithm choice), then bench timing in bf16 and the linear head."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    from mmlspark_tpu_torch.core.residency import residency_stats
+    from mmlspark_tpu_torch.image import resize_uint8
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.observability import reset_all
+    cfg = IMAGE
+    dev = torch.device("cuda")
+    n32 = cfg["parity_rows"]
+    df32 = DataFrame({"image": object_col(imgs[:n32])})
+
+    # f32, cut_output_layers=0: the featurizer's logits against
+    # ONNXModel.transform on the same rows prepped by hand (the port's
+    # resize on the card one image at a time, BGR → RGB). Same card, same
+    # graph and batch: bound 1e-5 of the largest |logit| (f32 sum order)
+    logits = _featurizer(model_bytes, "float32", 0, n32).transform(
+        df32)["features"]
+    with torch.inference_mode():
+        prepped = np.stack([
+            resize_uint8(torch.from_numpy(im).to(dev), 224, 224)[
+                ..., [2, 1, 0]].cpu().numpy() for im in imgs[:n32]])
+    want = _onnx_model(model_bytes, "float32", n32).transform(
+        DataFrame({"image": prepped}))["logits"]
+    # f32, cut_output_layers=1: the card's features against the port on
+    # the CPU (its resize too): 11a's bound, 1e-3 of the largest |feature|
+    feats = _featurizer(model_bytes, "float32", 1, n32).transform(
+        df32)["features"]
+    cpu = _featurizer(model_bytes, "float32", 1, n32, device="cpu"
+                      ).transform(df32)["features"]
+    for what, a, shape in (("logits", logits, (n32, 1000)),
+                           ("features", feats, (n32, 2048))):
+        if a.shape != shape or not np.isfinite(a).all():
+            raise AssertionError(f"17a: {what} {a.shape}, finite "
+                                 f"{bool(np.isfinite(a).all())}")
+    parity = {
+        "rows": n32,
+        "logits_vs_onnx_model": float(np.abs(logits - want).max()),
+        "logits_bound": 1e-5 * float(np.abs(want).max()),
+        "features_vs_cpu": float(np.abs(feats - cpu).max()),
+        "features_bound": 1e-3 * float(np.abs(cpu).max()),
+        "max_abs_feature": float(np.abs(feats).max())}
+    if not (parity["logits_vs_onnx_model"] <= parity["logits_bound"]
+            and parity["features_vs_cpu"] <= parity["features_bound"]):
+        raise AssertionError(f"17a: f32 parity off: {parity}")
+    log(f"[image 17a] f32 parity {json.dumps(parity)}")
+
+    # bf16 at bench.py's batch: one untimed pass (cuDNN picks algorithms
+    # per shape), then timed passes over all rows, each the two shapes'
+    # ingests, the resize on the card and 4 batches of 512
+    torch.backends.cudnn.benchmark = True
+    feat = _featurizer(model_bytes, "bfloat16", 1, cfg["batch"])
+    df = DataFrame({"image": object_col(imgs)})
+    feat.transform(df)
+    torch.cuda.synchronize()
+    inner = feat.get("onnx_model")
+    inner.stage_counters.reset()
+    reset_all()
+    passes, phases, out = [], [], None
+    for _ in range(cfg["passes"]):
+        t0 = time.perf_counter()
+        out = feat.transform(df)
+        passes.append(time.perf_counter() - t0)
+        phases.append(feat.phase_seconds)
+    stages = inner.stage_counters.snapshot()
+    ingest = residency_stats()
+    F = out["features"]
+    if F.shape != (cfg["rows"], 2048) or not np.isfinite(F).all():
+        raise AssertionError(f"17a: bf16 features {F.shape}")
+    if stages["dispatch"]["calls"] != cfg["passes"] * cfg["rows"] // \
+            cfg["batch"] or stages["h2d"]["bytes"] != 0:
+        raise AssertionError(f"17a: runner stages {stages}")
+    bf_bound = 2.0 ** -4 * float(np.abs(feats).max())
+    bf_err = float(np.abs(F[:n32] - feats).max())
+    if not bf_err <= bf_bound:
+        raise AssertionError(f"17a: bf16 vs f32 features {bf_err} above "
+                             f"{bf_bound}")
+
+    # the head: LogisticRegression on the standardized float32 features
+    # (SparkML's LogisticRegression standardizes by default; the random
+    # backbone's features share a large common part that 200 Adam steps on
+    # the raw column do not get past), labels from a seeded hidden linear
+    # rule on them
+    Z = ((F - F.mean(axis=0)) / (F.std(axis=0) + 1e-6)).astype(np.float32)
+    rule = np.random.default_rng(cfg["seed"] + 1).normal(
+        0, 1, (F.shape[1], cfg["classes"]))
+    labels = np.argmax(Z.astype(np.float64) @ rule, axis=1)
+    lr_df = DataFrame({"features": Z, "label": labels})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr = LogisticRegression(max_iter=cfg["max_iter"]).fit(lr_df)
+    fit_s = time.perf_counter() - t0
+    pred = lr.transform(lr_df)["prediction"]
+    acc = float((pred == labels).mean())
+    if not acc > 0.9:
+        raise AssertionError(f"17a: train accuracy {acc} not above 0.9")
+    ips = [cfg["rows"] / p for p in passes]
+    rec = {
+        "rows": cfg["rows"], "batch": cfg["batch"], "dtype": "bfloat16",
+        "shapes": [list(s) for s in cfg["shapes"]],
+        "pass_s": passes, "images_per_s_passes": ips,
+        "images_per_s": statistics.median(ips),
+        "phase_seconds": phases,
+        "stage_seconds": {k: v["seconds"] for k, v in stages.items()},
+        "ingest_ops": ingest["h2d_ops"]["ingest"],
+        "ingest_bytes": ingest["h2d_bytes"]["ingest"],
+        "bf16_vs_f32": {"max_abs": bf_err, "bound": bf_bound},
+        "lr": {"fit_s": fit_s, "accuracy": acc, "classes": cfg["classes"],
+               "max_iter": cfg["max_iter"],
+               "label_counts": np.bincount(labels).tolist()}}
+    log(f"[image 17a] {json.dumps(rec)} | {dev_info['smi']}")
+    return {"parity_f32": parity, "bench": rec}
+
+
+def _replay_draws(draw, seg_maps, m, seed):
+    """An explainer's per-row draws, replayed from its seed in row order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [draw(m, int(s.max()) + 1, rng) for s in seg_maps]
+
+
+def phase_image_explainers(dev_info, model_bytes, imgs):
+    """17b: configuration #5, ImageLIME and ImageSHAP over the bf16
+    featurizer's logits."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame, Transformer
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    from mmlspark_tpu_torch.explainers import ImageLIME, ImageSHAP
+    from mmlspark_tpu_torch.explainers.lime import lime_states
+    from mmlspark_tpu_torch.explainers.shap import _coalitions
+    from mmlspark_tpu_torch.explainers.superpixel import (mask_image,
+                                                          slic_superpixels)
+    from mmlspark_tpu_torch.image import resize_uint8
+    cfg = IMAGE
+    n, m = cfg["explain_rows"], cfg["num_samples"]
+    with torch.inference_mode():
+        small = [resize_uint8(torch.from_numpy(im).cuda(), 224, 224)
+                 .cpu().numpy() for im in imgs[:n]]
+    frame = DataFrame({"image": object_col(small)})
+    model = _featurizer(model_bytes, "bfloat16", 0, cfg["batch"],
+                        output_col="logits")
+    fx = model.transform(frame)["logits"]
+    target = int(np.argmax(fx[0]))
+    inner = model.get("onnx_model")
+
+    class Recorder(Transformer):
+        """The featurizer, keeping the logits of every frame it scores and
+        the first row's masked samples (built on the card)."""
+        logits, first = [], []
+
+        def _transform(self, df):
+            Recorder.first.append(
+                df.device_column("image").device_array()[:m].cpu().numpy())
+            out = model.transform(df)
+            Recorder.logits.append(np.asarray(out["logits"]))
+            return out
+
+    out = {"target_class": target}
+    bound_row = 2.0 ** -4 * float(np.abs(fx).max())
+    for name, cls, draw, full in (("lime", ImageLIME, lime_states, 0),
+                                  ("shap", ImageSHAP, _coalitions, 1)):
+        kw = dict(model=Recorder(), target_col="logits",
+                  target_classes=[target], num_samples=m,
+                  cell_size=cfg["cell_size"])
+        ex = cls(**kw)
+        inner.stage_counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.transform(frame)
+        wall = time.perf_counter() - t0
+        dispatched = inner.stage_counters.snapshot()["dispatch"]["calls"]
+        if dispatched != -(-n * m // cfg["batch"]):
+            raise AssertionError(f"17b {name}: {dispatched} batches for "
+                                 f"{n * m} samples")
+        scores = Recorder.logits[-1][:, target].astype(np.float64) \
+            .reshape(n, m)
+        expl = [np.asarray(e) for e in res["explanation"]]
+        seg_maps = list(res["superpixels"])
+        # the all-on sample of each row scores the unmasked image (another
+        # batch shape, so bf16: 11b's bound)
+        row_err = float(np.abs(scores[:, full] - fx[:, target]).max())
+        if not row_err <= bound_row:
+            raise AssertionError(f"17b {name}: all-on samples {row_err} "
+                                 f"from f(x), bound {bound_row}")
+        # the card's segments and masks are the host's bit for bit (the
+        # numpy-order float64 SLIC on the CPU; mask_image on the host for
+        # the first row's samples)
+        states = _replay_draws(draw, seg_maps, m, ex.get("seed"))
+        if name == "lime":
+            for img, seg in zip(small, seg_maps):
+                if not np.array_equal(seg, slic_superpixels(
+                        img, cfg["cell_size"], device="cpu")):
+                    raise AssertionError("17b: the card's SLIC labels "
+                                         "differ from the CPU's")
+        masks = Recorder.first[-1]
+        if not all(np.array_equal(masks[j], mask_image(small[0], seg_maps[0],
+                                                       states[0][j]))
+                   for j in range(m)):
+            raise AssertionError(f"17b {name}: the card's masked samples "
+                                 f"differ from mask_image's")
+        # the solves again, on the card and on the CPU, from the same scores
+        cpu = cls(device="cpu", **kw)
+        fit = ex._fit_rows if name == "lime" else ex._solve_rows
+        fit_cpu = cpu._fit_rows if name == "lime" else cpu._solve_rows
+        card = fit(states, scores)
+        if not all(np.array_equal(a, b) for a, b in zip(card, expl)):
+            raise AssertionError(f"17b {name}: the replayed solve differs "
+                                 f"from the explainer's")
+        host = fit_cpu(states, scores)
+        rec = {"rows": n, "num_samples": m,
+               "superpixels": [int(s.max()) + 1 for s in seg_maps],
+               "wall_s": wall, "s_per_image": wall / n,
+               "phase_seconds": dict(ex.phase_seconds),
+               "model_rows_per_s": n * m / ex.phase_seconds["score"],
+               "slic_mask_share": (ex.phase_seconds["segment"]
+                                   + ex.phase_seconds["sample"]) / wall,
+               "model_share": ex.phase_seconds["score"] / wall,
+               "batches": dispatched, "all_on_vs_fx": row_err,
+               "all_on_bound": bound_row}
+        if name == "lime":
+            # ISTA in float32: within 1e-3 of the largest |coef|
+            err = max(float(np.abs(a - b).max()) for a, b in zip(card, host))
+            bound = 1e-3 * max(float(np.abs(b).max()) for b in host)
+            rec["solve_card_vs_cpu"] = {"max_abs": err, "bound": bound}
+        else:
+            # float32 normal equations of 195 unknowns from 254 weighted
+            # samples (condition ~1e4): within 1e-2 of |f(x) - base| a row
+            gaps = np.abs(scores[:, 1] - scores[:, 0])
+            errs = [float(np.abs(a - b).max()) for a, b in zip(card, host)]
+            err = max(e / g for e, g in zip(errs, gaps))
+            bound = 1e-2
+            eff = [abs(float(e.sum()) - s) / float(np.abs(e).sum())
+                   for e, s in zip(expl, scores[:, 1])]
+            if not max(eff) <= 1e-6:
+                raise AssertionError(f"17b shap: sum(phi) - f(x) {eff}")
+            rec["solve_card_vs_cpu"] = {"max_abs_over_gap": err,
+                                        "bound": bound}
+            rec["efficiency_rel_err"] = max(eff)
+        if not err <= bound:
+            raise AssertionError(f"17b {name}: card vs CPU solve "
+                                 f"{rec['solve_card_vs_cpu']}")
+        out[name] = rec
+        log(f"[image 17b] {name} {json.dumps(rec)} | {dev_info['smi']}")
+    return out
+
+
+def phase_image(dev_info):
+    """Phases 17a and 17b."""
+    import torch
+    model_bytes, export_s = _resnet50_onnx()
+    t0 = time.perf_counter()
+    imgs = _image_rows(IMAGE["rows"], IMAGE["shapes"], IMAGE["seed"])
+    log(f"[image 17] export {export_s:.2f} s, {len(imgs)} images in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        a = phase_image_featurizer(dev_info, model_bytes, imgs)
+        b = phase_image_explainers(dev_info, model_bytes, imgs)
+    finally:
+        torch.backends.cudnn.benchmark = False
+        torch.cuda.empty_cache()
+    return {"17a": a, "17b": b}
+
+
 def _phase16(params_np, single, dev_info):
     """Phases 16a-16c. The sampler period they set and the plane's
     singletons they fill are put back after them, so later phases' servers
@@ -5097,17 +5440,17 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14":
-    # phases 1, 2
-    # and 14; "9":
+    # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14"
+    # and "17": phases 1, 2 and 14 (or 17); "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
-    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16"}
+    modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
+             "17"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -5150,6 +5493,8 @@ def main(argv=()):
             _phase15(params_np, single, dev_info)
         if "16" in only:
             _phase16(params_np, single, dev_info)
+        if "17" in only:
+            phase_image(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -5175,6 +5520,7 @@ def main(argv=()):
     bert14 = _phase14(dev_info, params_np)
     del params_np
     phase_onnx(dev_info)
+    phase_image(dev_info)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"

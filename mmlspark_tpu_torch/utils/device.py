@@ -14,7 +14,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["resolve_device", "device_info"]
+__all__ = ["resolve_device", "device_info", "OnDevice"]
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -50,3 +50,30 @@ def device_info(index: int = 0) -> Tuple[str, Optional[str]]:
     if len(parts) >= 2:
         return parts[0], parts[1]
     return name, None
+
+
+class OnDevice:
+    """Mixin for pipeline stages that take ``device`` as a constructor
+    (and ``load``) keyword rather than a persisted param: ``None`` is the
+    CUDA card, resolved at construction (so it raises without a card); a
+    stage loaded inside a pipeline resolves the card on first use."""
+
+    def __init__(self, *args, device=None, **kw):
+        self._device = resolve_device(device)
+        super().__init__(*args, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        if self._device is None:
+            self._device = resolve_device(None)
+        return self._device
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        stage = super().load(path)
+        stage._device = resolve_device(device)
+        return stage
+
+    def _load_extra(self, path: str) -> None:
+        super()._load_extra(path)
+        self._device = None

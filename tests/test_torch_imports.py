@@ -94,7 +94,24 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.tuning.observations",
                  "mmlspark_tpu_torch.serving.registry",
                  "mmlspark_tpu_torch.serving.source",
-                 "mmlspark_tpu_torch.serving.engine"):
+                 "mmlspark_tpu_torch.serving.engine",
+                 "mmlspark_tpu_torch.image",
+                 "mmlspark_tpu_torch.image.schema",
+                 "mmlspark_tpu_torch.image.unroll",
+                 "mmlspark_tpu_torch.image.augment",
+                 "mmlspark_tpu_torch.image.transforms",
+                 "mmlspark_tpu_torch.io.binary",
+                 "mmlspark_tpu_torch.io.image_io",
+                 "mmlspark_tpu_torch.models.featurizer",
+                 "mmlspark_tpu_torch.models.linear",
+                 "mmlspark_tpu_torch.models.torch_model",
+                 "mmlspark_tpu_torch.explainers",
+                 "mmlspark_tpu_torch.explainers.base",
+                 "mmlspark_tpu_torch.explainers.regression",
+                 "mmlspark_tpu_torch.explainers.superpixel",
+                 "mmlspark_tpu_torch.explainers.lime",
+                 "mmlspark_tpu_torch.explainers.shap",
+                 "mmlspark_tpu_torch.explainers.ice"):
         assert want in names
 
 
@@ -223,6 +240,33 @@ def test_entry_points_default_to_cuda_and_raise(entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         build[entry]()
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["featurizer", "logistic", "linear",
+                                   "torch_model", "image_lime", "image_shap",
+                                   "lasso", "transform_resident"])
+def test_image_linear_explainer_entry_points_default_to_cuda(entry):
+    _no_cuda()
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.explainers import (ImageLIME, ImageSHAP,
+                                               batched_lasso)
+    from mmlspark_tpu_torch.image import ImageTransformer
+    from mmlspark_tpu_torch.models.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.linear import (LinearRegression,
+                                                  LogisticRegression)
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    build = {"featurizer": lambda: ImageFeaturizer(b"onnx"),
+             "logistic": LogisticRegression, "linear": LinearRegression,
+             "torch_model": lambda: TorchModel(lambda p, f: f),
+             "image_lime": ImageLIME, "image_shap": ImageSHAP,
+             "lasso": lambda: batched_lasso(np.zeros((1, 2, 1)),
+                                            np.zeros((1, 2)),
+                                            np.ones((1, 2))),
+             "transform_resident": lambda: ImageTransformer(
+                 ).transform_resident(DataFrame(
+                     {"image": np.zeros((2, 4, 4, 3), np.uint8)}))}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build[entry]()
 
 
 def test_device_info_raises_without_cuda():
