@@ -19,7 +19,12 @@ NHWC layout end to end.
 
 The device is a constructor (and :meth:`ONNXModel.load`) keyword, not a
 persisted param: ``None`` means the CUDA card(s), and raises without one.
-``quantize="int8"``, ``tuning="auto"``, ``external_data_dir`` and
+``quantize="int8"`` holds every 2-D float weight on the card as int8
+codes with a per-column scale, computed from the ``compute_dtype`` values,
+and dequantizes them on the card each batch before the graph runs
+(weight-only: activations and sums stay in ``compute_dtype``). The 8-bit
+weights of a quantized graph (QLinear* ops) are placed on the card once
+with the float params. ``tuning="auto"``, ``external_data_dir`` and
 ``weights_override`` are not ported and raise ``NotImplementedError``
 naming their ROADMAP item when set; ``mesh_sharded`` raises when a
 batch is placed.
@@ -50,7 +55,6 @@ __all__ = ["ONNXModel"]
 #: the ROADMAP item each waits for (``mesh_sharded`` raises in
 #: ``parallel.mesh.feed_placement``)
 _NOT_PORTED = {
-    "quantize": "int8 weight-only quantization (ROADMAP queue item 4)",
     "tuning": "tuning='auto' (ROADMAP queue item 4, after the tuner of "
               "item 24)",
     "external_data_dir": "ONNX external data (ROADMAP queue item 4)",
@@ -92,7 +96,10 @@ class ONNXModel(Model):
                                     doc="not ported: fine-tuned params "
                                         "layered over the initializers")
     quantize = Param(str, default="", choices=["", "int8"],
-                     doc="not ported: int8 weight-only quantization")
+                     doc="weight-only quantization: 2-D float weights live "
+                         "on the card as symmetric per-column int8 + scale "
+                         "and dequantize there each batch; activations "
+                         "stay in compute_dtype")
     prefetch_depth = Param(int, default=2,
                            doc="prepared batches coerced/padded ahead on a "
                                "background worker while the current batch "
@@ -185,7 +192,7 @@ class ONNXModel(Model):
                tuple(sorted(argmax.items())),
                tuple(sorted((k, str(v)) for k, v in normalize.items())),
                tuple(sorted((k, tuple(v)) for k, v in transpose.items())),
-               str(compute_dt))
+               str(compute_dt), self.quantize)
         if self._fn is None or self._fn_sig != sig:
             if set(fetch.values()) != set(cm.output_names):
                 # dead-node elimination from the requested outputs
@@ -214,8 +221,12 @@ class ONNXModel(Model):
                         x = x / _constant(std, x).reshape(shape)
                 return x
 
+            quantized = self.quantize == "int8"
+
             def run(params, feeds):
                 feeds = {k: prep(k, v) for k, v in feeds.items()}
+                if quantized:
+                    params = _unpack_params(params, compute_dt)
                 outs = cm(params, feeds)
                 cols = {col: outs[name] for col, name in fetch.items()}
                 for out_col, src in softmax.items():
@@ -276,8 +287,11 @@ class ONNXModel(Model):
 
     def _params_for_device(self, device: torch.device) -> dict:
         """Float params on ``device`` in ``compute_dtype`` (moved as float32,
-        cast on the device), cached per device and dtype; 4-D ones
-        ``channels_last`` on the card."""
+        cast on the device), then packed to int8 where ``quantize="int8"``
+        (:func:`_pack_params`, from the cast values, as the reference packs
+        after its cast); the 8-bit weights of a quantized graph beside
+        them. Cached per device and dtype; 4-D tensors ``channels_last`` on
+        the card."""
         key = (str(device), self.compute_dtype)
         with self._params_lock:
             # staging stays under the lock: first touch per device is
@@ -286,22 +300,34 @@ class ONNXModel(Model):
             if key not in self._device_params:
                 cm = self._ensure_converted()
                 dt = _TORCH_DTYPES[self.compute_dtype]
+                quantize = self.quantize == "int8"
                 out = {}
-                for k, v in cm.params.items():
+                for k, v in {**cm.params, **_quantized_weights(cm)}.items():
                     t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
                     if t.is_floating_point():
                         t = t.to(dt)
+                        if quantize and _quantizable(t):
+                            out[k] = _pack(t)
+                            continue
                     if device.type == "cuda" and t.ndim == 4:
                         t = t.contiguous(memory_format=torch.channels_last)
                     out[k] = t
                 self._device_params[key] = out
             return self._device_params[key]
 
+    #: params whose change invalidates the cached device params
+    _PARAM_CACHE_KEYS = ("weights_override", "quantize", "compute_dtype")
+
     def set(self, **kwargs):
         for k, what in _NOT_PORTED.items():
             if k in kwargs and kwargs[k] not in (None, "", False):
                 raise NotImplementedError(f"{k}={kwargs[k]!r}: {what} is "
                                           f"not ported yet")
+        if any(k in kwargs for k in self._PARAM_CACHE_KEYS) \
+                and getattr(self, "_device_params", None):
+            # the cached params embed the previous packing and cast
+            with self._params_lock:
+                self._device_params.clear()
         return super().set(**kwargs)
 
     # -- execution ----------------------------------------------------------
@@ -439,6 +465,49 @@ class ONNXModel(Model):
         # the device is not persisted: ``load(path, device=...)`` sets it,
         # a stage loaded inside a pipeline resolves the card on first use
         self._init_state(None)
+
+
+# -- int8 weight-only quantization ---------------------------------------------
+
+#: the smallest dimension a 2-D weight needs to be packed
+_QUANT_MIN_DIM = 16
+
+
+def _quantizable(t: torch.Tensor) -> bool:
+    """2-D float weights (the matmul bulk of transformer and MLP graphs);
+    conv kernels (4-D) and vectors stay in ``compute_dtype``."""
+    return t.ndim == 2 and t.is_floating_point() and \
+        min(t.shape) >= _QUANT_MIN_DIM
+
+
+#: 1/127 rounded to float32: the reference's jitted pack divides by the
+#: constant 127, which XLA compiles to this multiply
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def _pack(t: torch.Tensor) -> dict:
+    """Symmetric per-column int8 on ``t``'s device: ``{"q": int8 codes,
+    "s": float32 (1, columns) scales}``, codes round(t / s) half to even,
+    s = max |column| · f32(1/127) (1 for an all-zero column)."""
+    v32 = t.to(torch.float32)
+    s = torch.amax(torch.abs(v32), dim=0, keepdim=True) * _INV_127
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(v32 / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def _unpack_params(params: dict, dt: torch.dtype) -> dict:
+    """Packed weights dequantized on their device, q · s in ``dt``."""
+    return {k: (v["q"].to(dt) * v["s"].to(dt)) if isinstance(v, dict) else v
+            for k, v in params.items()}
+
+
+def _quantized_weights(cm: ConvertedModel) -> Dict[str, np.ndarray]:
+    """The 8-bit weights (rank 2 and up) of a quantized graph: integer
+    initializers are host constants of the converter, which would copy
+    these to the device on every batch."""
+    return {k: v for k, v in cm.const_params.items()
+            if v.dtype in (np.int8, np.uint8) and v.ndim >= 2}
 
 
 def _constant(values, x: torch.Tensor) -> torch.Tensor:

@@ -34,15 +34,24 @@ Design notes, as in the reference:
   float64 host constants enter the device as float32 (the reference runs
   with 64-bit types off).
 
-Ported handlers: the elementwise, unary and comparison tables, ``Clip``,
-``Dropout``, ``Cast``, ``Where``, ``MatMul``, ``Gemm``, ``Einsum``,
-``Conv``, the pools, ``BatchNormalization``, ``LayerNormalization``,
-``Softmax``, ``LogSoftmax``, the reductions, ``ArgMax``/``ArgMin``, the
-shape and data-movement ops, and the transformer ops of ORT's optimizer:
+Ported handlers: the elementwise, unary and comparison tables, the
+activations (``LeakyRelu`` ... ``ThresholdedRelu``, ``PRelu``), ``Clip``,
+``Dropout``, ``Cast``, ``CastLike``, ``BitShift``, ``Where``, ``MatMul``,
+``Gemm``, ``Einsum``, ``Conv``, ``ConvTranspose``, ``FusedConv``, the
+pools, the normalizations (batch, layer, instance, group, Lp), ``Softmax``,
+``LogSoftmax``, the reductions, ``ArgMax``/``ArgMin``, ``TopK``, the shape,
+indexing and data-movement ops, ``Resize``/``Upsample`` (the reference's
+``jax.image.resize``), the quantized ops (``QuantizeLinear``,
+``DequantizeLinear`` and the QLinear family, integer accumulation exact in
+float64 on the tensors' device), detection (``NonMaxSuppression`` on the
+host, as in the reference; ``RoiAlign``, ``GridSample``), control flow
+(``If``, ``Loop``, ``Scan``; bodies through :meth:`_Ctx.run_subgraph`),
+the ``LSTM`` and ``GRU`` cells, and the transformer ops of ORT's optimizer:
 the Gelu family (``Gelu``, ``BiasGelu``, ``FastGelu``, ``QuickGelu``),
 ``FusedMatMul``, the LayerNorm and RMSNorm contrib ops, rotary
 embeddings, the four attention ops and ``RelativePositionBias``. Any
-other op raises :class:`UnsupportedOp`.
+other op (the JAX package's ``ml_ops.py``, ``extra_ops.py`` and
+``generation_ops.py`` handlers) raises :class:`UnsupportedOp`.
 """
 
 from __future__ import annotations
@@ -79,12 +88,29 @@ ONNX_TO_TORCH = {DataType.FLOAT: torch.float32, DataType.UINT8: torch.uint8,
 
 
 class _Ctx:
-    """Per-call evaluation context: the opset and the device that tensors
-    made from host values go to."""
+    """Per-call evaluation context: the opset, the device that tensors
+    made from host values go to, and the environment of the graph being
+    evaluated (control-flow bodies read outer-scope names from it)."""
 
-    def __init__(self, opset: int, device: torch.device):
+    def __init__(self, opset: int, device: torch.device,
+                 scope_env: Optional[Dict[str, object]] = None):
         self.opset = opset
         self.device = device
+        self.scope_env = scope_env
+
+    def run_subgraph(self, graph, inputs: List) -> List:
+        """Evaluate a body graph (If/Loop/Scan): the outer scope, then the
+        body's initializers, then ``inputs`` bound positionally to
+        ``graph.inputs`` (a bound input wins over an initializer of the
+        same name, as feeds win over initializers at the top level)."""
+        env: Dict[str, object] = dict(self.scope_env or {})
+        for t in graph.initializers:
+            env[t.name] = tensor_to_numpy(t)
+        for vi, val in zip(graph.inputs, inputs):
+            env[vi.name] = val
+        env[""] = None
+        _eval_nodes(graph.nodes, env, self)
+        return [env[o.name] for o in graph.outputs]
 
 
 def _is_host(v) -> bool:
@@ -1028,9 +1054,11 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
-@register_op("Conv")
-def _conv(node, inputs, ctx):
-    x, w = _promoted(ctx, inputs[0], inputs[1])
+def _conv_raw(node, x: torch.Tensor, w: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Conv body shared by Conv, FusedConv and QLinearConv: the node's
+    strides, dilations, group and (possibly asymmetric) pads through
+    ``F.conv*d``, with an optional fused 1-D bias."""
     rank = w.ndim - 2
     if rank not in _CONV:
         raise UnsupportedOp(f"Conv rank {rank}")
@@ -1045,16 +1073,19 @@ def _conv(node, inputs, ctx):
         # F.conv* pads symmetrically only: pad the input with zeros first
         x = _pad_spatial(x, pads, 0.0)
         padding = [0] * rank
-    bias = None
-    if len(inputs) > 2 and inputs[2] is not None:
-        bias = _as_tensor(inputs[2], ctx)
+    return _CONV[rank](x, w, bias, stride=strides, padding=padding,
+                       dilation=dilations, groups=node.attr("group", 1))
+
+
+@register_op("Conv")
+def _conv(node, inputs, ctx):
+    x, w = _promoted(ctx, inputs[0], inputs[1])
+    bias = _opt_tensor(inputs, 2, ctx)
     fused = bias is not None and bias.dtype == x.dtype and bias.ndim == 1
-    out = _CONV[rank](x, w, bias if fused else None, stride=strides,
-                      padding=padding, dilation=dilations,
-                      groups=node.attr("group", 1))
+    out = _conv_raw(node, x, w, bias if fused else None)
     if bias is not None and not fused:
         out, b = _promoted(ctx, out, bias)
-        out = out + b.reshape((1, -1) + (1,) * rank)
+        out = out + b.reshape((1, -1) + (1,) * (w.ndim - 2))
     return out
 
 
@@ -1474,6 +1505,1094 @@ def _range(node, inputs, ctx):
     return np.arange(s, lim, d)
 
 
+# -- activations --------------------------------------------------------------
+# Each computes the reference's own formula, operand order included.
+
+@register_op("ThresholdedRelu")
+def _thresholded_relu(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    return torch.where(x > node.attr("alpha", 1.0), x, 0.0)
+
+
+@register_op("Shrink")
+def _shrink(node, inputs, ctx):
+    lambd, bias = node.attr("lambd", 0.5), node.attr("bias", 0.0)
+    x = _as_tensor(inputs[0], ctx)
+    return torch.where(x < -lambd, x + bias,
+                       torch.where(x > lambd, x - bias, torch.zeros_like(x)))
+
+
+@register_op("LeakyRelu")
+def _leaky(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    return torch.where(x >= 0, x, node.attr("alpha", 0.01) * x)
+
+
+@register_op("Elu")
+def _elu(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    safe = torch.where(x > 0, 0.0, x)
+    return torch.where(x > 0, x, node.attr("alpha", 1.0) * torch.expm1(safe))
+
+
+@register_op("Selu")
+def _selu(node, inputs, ctx):
+    alpha = node.attr("alpha", 1.6732632423543772)
+    gamma = node.attr("gamma", 1.0507009873554805)
+    x = _as_tensor(inputs[0], ctx)
+    return gamma * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@register_op("Celu")
+def _celu(node, inputs, ctx):
+    alpha = node.attr("alpha", 1.0)
+    x = _as_tensor(inputs[0], ctx)
+    return torch.clamp_min(x, 0.0) + alpha * torch.expm1(
+        torch.clamp_max(x, 0.0) / alpha)
+
+
+@register_op("Softplus")
+def _softplus(node, inputs, ctx):
+    x = _float(_as_tensor(inputs[0], ctx))
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+@register_op("HardSigmoid")
+def _hardsigmoid(node, inputs, ctx):
+    a, b = node.attr("alpha", 0.2), node.attr("beta", 0.5)
+    return torch.clamp(a * _as_tensor(inputs[0], ctx) + b, 0.0, 1.0)
+
+
+@register_op("HardSwish")
+def _hardswish(node, inputs, ctx):
+    # the reference's x * clip(x / 6 + 0.5, 0, 1), not F.hardswish's
+    # x * relu6(x + 3) / 6, which rounds differently
+    x = _as_tensor(inputs[0], ctx)
+    return x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+@register_op("PRelu")
+def _prelu(node, inputs, ctx):
+    x, slope = _promoted(ctx, inputs[0], inputs[1])
+    return torch.where(x >= 0, x, slope * x)
+
+
+@register_op("CastLike")
+def _castlike(node, inputs, ctx):
+    return _as_tensor(inputs[0], ctx).to(_dtype_of(inputs[1]))
+
+
+_WIDE_SHIFT = {torch.uint16, torch.uint32}
+
+
+@register_op("BitShift")
+def _bitshift(node, inputs, ctx):
+    """Logical shifts; a shift of the width or more gives 0 as in the
+    reference. PyTorch has no uint16/uint32 shift kernel, so those shift
+    in int64 and are masked back to their width; uint64 shifts its int64
+    view (a right shift masks off the sign extension)."""
+    x, y = _promoted(ctx, inputs[0], inputs[1])
+    left = node.attr("direction", "LEFT") == "LEFT"
+    if x.dtype in _WIDE_SHIFT:
+        bits = 16 if x.dtype == torch.uint16 else 32
+        xi, yi = x.to(torch.int64), y.to(torch.int64).clamp(0, bits)
+        out = (xi << yi) if left else (xi >> yi)
+        return (out & ((1 << bits) - 1)).to(x.dtype)
+    if x.dtype == torch.uint64:
+        xi, yi = x.view(torch.int64), y.view(torch.int64)
+        big = (yi < 0) | (yi >= 64)
+        yc = torch.where(big, 0, yi)
+        if left:
+            out = xi << yc
+        else:
+            keep = torch.where(yc == 0, -1, (1 << (64 - yc)) - 1)
+            out = (xi >> yc) & keep
+        return torch.where(big, 0, out).view(torch.uint64)
+    return torch.bitwise_left_shift(x, y) if left else \
+        torch.bitwise_right_shift(x, y)
+
+
+# -- indexing and shape --------------------------------------------------------
+
+@register_op("ReverseSequence")
+def _reverse_sequence(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    lens = _as_tensor(inputs[1], ctx).long()
+    batch_axis = node.attr("batch_axis", 1)
+    time_axis = node.attr("time_axis", 0)
+    # one explicit permutation to (batch, time, *rest), as the reference
+    rest = [a for a in range(x.ndim) if a not in (batch_axis, time_axis)]
+    perm = [batch_axis, time_axis] + rest
+    xt = x.permute(*perm)
+    B, T = xt.shape[0], xt.shape[1]
+    t = torch.arange(T, device=x.device)[None, :]
+    idx = torch.where(t < lens[:, None], lens[:, None] - 1 - t, t)
+    idx = idx.reshape((B, T) + (1,) * (xt.ndim - 2)).expand(xt.shape)
+    out = torch.gather(xt, 1, idx)
+    return out.permute(*np.argsort(perm).tolist())
+
+
+def _wrapped(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Indices with negative entries counted from the end, as numpy-style
+    indexing (``take_along_axis``, fancy indexing) reads them."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + dim, idx)
+
+
+@register_op("GatherElements")
+def _gather_elements(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    axis = node.attr("axis", 0) % x.ndim
+    return torch.gather(x, axis, _wrapped(_as_tensor(inputs[1], ctx),
+                                          x.shape[axis]))
+
+
+def _nd_index(x: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """The last axis of ``idx`` as a tuple of index tensors into the leading
+    axes of ``x`` (``x[tuple(moveaxis(idx, -1, 0))]``)."""
+    return tuple(_wrapped(i, x.shape[k])
+                 for k, i in enumerate(idx.unbind(-1)))
+
+
+@register_op("GatherND")
+def _gathernd(node, inputs, ctx):
+    if node.attr("batch_dims", 0):
+        raise UnsupportedOp("GatherND batch_dims")
+    x = _as_tensor(inputs[0], ctx)
+    return x[_nd_index(x, _as_tensor(inputs[1], ctx))]
+
+
+@register_op("ScatterND")
+def _scatternd(node, inputs, ctx):
+    """``x`` with the rows ``indices`` names set to ``updates`` (the
+    ``reduction`` attribute is not read, as in the reference). Repeated
+    indices leave the result undefined in ONNX and nondeterministic on
+    CUDA."""
+    x = _as_tensor(inputs[0], ctx)
+    out = x.clone()
+    out[_nd_index(x, _as_tensor(inputs[1], ctx))] = \
+        _as_tensor(inputs[2], ctx, x.dtype)
+    return out
+
+
+@register_op("TopK")
+def _topk(node, inputs, ctx):
+    """The reference's ``lax.top_k`` puts the lower index first among equal
+    values; ``torch.topk`` promises no order, so this is a stable sort."""
+    k = int(_concrete(inputs[1], "TopK k").ravel()[0])
+    x = _as_tensor(inputs[0], ctx)
+    axis = node.attr("axis", -1) % x.ndim
+    largest = node.attr("largest", 1)
+    moved = x.movedim(axis, -1)
+    vals, idx = torch.sort(moved if largest else -moved, dim=-1,
+                           descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    if not largest:
+        vals = -vals
+    return vals.movedim(-1, axis), idx.movedim(-1, axis)
+
+
+@register_op("OneHot")
+def _onehot(node, inputs, ctx):
+    idx = _as_tensor(inputs[0], ctx)
+    depth = int(np.asarray(_concrete(inputs[1], "OneHot depth")).ravel()[0])
+    values = _as_tensor(inputs[2], ctx)
+    axis = node.attr("axis", -1) % (idx.ndim + 1)
+    classes = torch.arange(depth, device=idx.device)
+    hot = (torch.remainder(idx, depth).unsqueeze(-1) == classes) \
+        .to(torch.float32).movedim(-1, axis)
+    off, on = values[0], values[1]
+    oh, span = _promoted(ctx, hot, on - off)
+    oh, off = _promoted(ctx, oh * span, off)
+    return oh + off
+
+
+@register_op("CumSum")
+def _cumsum(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    axis = int(np.asarray(_concrete(inputs[1], "CumSum axis")).ravel()[0]) \
+        % x.ndim
+    reverse = node.attr("reverse", 0)
+    out = torch.cumsum(x.flip(axis) if reverse else x, dim=axis,
+                       dtype=x.dtype)
+    if node.attr("exclusive", 0):
+        out = torch.cat([torch.zeros_like(out.narrow(axis, 0, 1)),
+                         out.narrow(axis, 0, out.shape[axis] - 1)], dim=axis)
+    return out.flip(axis) if reverse else out
+
+
+@register_op("Trilu")
+def _trilu(node, inputs, ctx):
+    k = int(np.asarray(_concrete(inputs[1], "Trilu k")).ravel()[0]) \
+        if _opt(inputs, 1) is not None else 0
+    x = _as_tensor(inputs[0], ctx)
+    return torch.tril(x, k) if node.attr("upper", 1) == 0 else \
+        torch.triu(x, k)
+
+
+@register_op("EyeLike")
+def _eyelike(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    to = node.attr("dtype")
+    dt = ONNX_TO_TORCH[to] if to is not None else x.dtype
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    cols = torch.arange(x.shape[1], device=x.device)[None, :]
+    return (rows + node.attr("k", 0) == cols).to(dt)
+
+
+@register_op("DepthToSpace")
+def _depth_to_space(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    b = node.attr("blocksize")
+    n, c, h, w = x.shape
+    if node.attr("mode", "DCR") == "DCR":
+        y = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    else:
+        y = x.reshape(n, c // (b * b), b, b, h, w).permute(0, 1, 4, 2, 5, 3)
+    return y.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register_op("SpaceToDepth")
+def _space_to_depth(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    b = node.attr("blocksize")
+    n, c, h, w = x.shape
+    y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, c * b * b, h // b, w // b)
+
+
+# -- convolution ---------------------------------------------------------------
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register_op("ConvTranspose")
+def _conv_transpose(node, inputs, ctx):
+    """ONNX ConvTranspose (weights (C_in, C_out, *k)): strides, dilations,
+    pads that shrink the output and ``output_padding`` that grows its high
+    side, with the optional bias. ``F.conv_transpose*d`` computes the
+    unpadded output, which is then cut (or zero-extended) to the padded
+    one. Grouped ones are refused as the reference refuses them, and so
+    are ``auto_pad`` and ``output_shape``, which the reference would
+    ignore."""
+    x, w = _promoted(ctx, inputs[0], inputs[1])
+    rank = w.ndim - 2
+    if rank not in _CONV_T:
+        raise UnsupportedOp(f"ConvTranspose rank {rank}")
+    if node.attr("group", 1) != 1:
+        raise UnsupportedOp("grouped ConvTranspose")
+    if node.attr("auto_pad", "NOTSET") != "NOTSET" or \
+            node.attr("output_shape") is not None:
+        raise UnsupportedOp("ConvTranspose auto_pad / output_shape")
+    strides = list(node.attr("strides", [1] * rank))
+    dilations = list(node.attr("dilations", [1] * rank))
+    pads = list(node.attr("pads", [0] * (2 * rank)))
+    out_pad = list(node.attr("output_padding", [0] * rank))
+    out = _CONV_T[rank](x, w, None, stride=strides, dilation=dilations)
+    for i in range(rank):
+        ax = 2 + i
+        full = out.shape[ax]
+        end = full - pads[i + rank] + out_pad[i]
+        if end > full:
+            grow = [0, 0] * (out.ndim - 1 - ax) + [0, end - full]
+            out = F.pad(out, grow)
+        out = out.narrow(ax, pads[i], end - pads[i])
+    bias = _opt(inputs, 2)
+    if bias is not None:
+        out, b = _promoted(ctx, out, bias)
+        out = out + b.reshape((1, -1) + (1,) * rank)
+    return out
+
+
+@register_op("FusedConv")
+def _fused_conv(node, inputs, ctx):
+    """ORT contrib ``com.microsoft.FusedConv``: Conv, the optional residual
+    ``Z``, then the activation ORT's optimizer folded in."""
+    out = _conv(node, inputs[:3], ctx)
+    if _opt(inputs, 3) is not None:
+        out, z = _promoted(ctx, out, inputs[3])
+        out = out + z
+    act = node.attr("activation", "")
+    p = [float(v) for v in node.attr("activation_params", [])]
+    if not act:
+        return out
+    if act == "Relu":
+        return torch.clamp_min(out, 0)
+    if act == "Tanh":
+        return torch.tanh(out)
+    if act == "Sigmoid":
+        return torch.sigmoid(out)
+    if act == "LeakyRelu":
+        alpha = p[0] if p else 0.01
+        return torch.where(out < 0, alpha * out, out)
+    if act == "Clip":
+        return torch.clamp(out, p[0], p[1])
+    if act == "HardSigmoid":
+        a = p[0] if len(p) > 0 else 0.2
+        b = p[1] if len(p) > 1 else 0.5
+        return torch.clamp(a * out + b, 0.0, 1.0)
+    raise UnsupportedOp(f"FusedConv activation {act!r}")
+
+
+# -- normalization -------------------------------------------------------------
+
+def _channel(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.reshape((1, -1) + (1,) * (ndim - 2))
+
+
+@register_op("InstanceNormalization")
+def _instancenorm(node, inputs, ctx):
+    x, scale, bias = _promoted(ctx, *inputs[:3])
+    eps = node.attr("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, correction=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * _channel(scale, x.ndim) \
+        + _channel(bias, x.ndim)
+
+
+@register_op("GroupNormalization")
+def _groupnorm(node, inputs, ctx):
+    """Statistics per (sample, group); ``scale``/``bias`` per channel, as
+    the reference reads them (opset 21's layout)."""
+    x, scale, bias = _promoted(ctx, *inputs[:3])
+    g = node.attr("num_groups")
+    eps = node.attr("epsilon", 1e-5)
+    n, c = x.shape[:2]
+    grouped = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, grouped.ndim))
+    mean = grouped.mean(dim=axes, keepdim=True)
+    var = grouped.var(dim=axes, correction=0, keepdim=True)
+    y = ((grouped - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return y * _channel(scale, x.ndim) + _channel(bias, x.ndim)
+
+
+@register_op("LpNormalization")
+def _lpnorm(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    axis, p = node.attr("axis", -1), node.attr("p", 2)
+    if p == 1:
+        n = torch.sum(torch.abs(x), dim=axis, keepdim=True)
+    else:
+        n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    return x / torch.clamp_min(n, 1e-12)
+
+
+OP_HANDLERS["ReduceLogSum"] = _reduce(
+    lambda x, d, k: torch.log(torch.sum(x, dim=d, keepdim=k)), 18)
+
+
+# -- resampling ----------------------------------------------------------------
+# Resize and Upsample compute ``jax.image.resize``, as the reference does:
+# half-pixel centres, a triangle (linear) or Keys cubic (a = -0.5) kernel
+# that widens when downsampling (antialiasing), one weight matrix per resized
+# axis; "nearest" picks floor((i + 0.5) * in / out). The ONNX attributes
+# ``coordinate_transformation_mode``, ``nearest_mode`` and
+# ``cubic_coeff_a`` are not read. The sizes are host values, so the weights
+# are built on the host in float32 with the reference's operation order and
+# meet the tensor on its device.
+
+_F32 = np.float32
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(_F32(0), _F32(1) - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((_F32(1.5) * x - _F32(2.5)) * x) * x + _F32(1.0)
+    out = np.where(x >= _F32(1.0),
+                   ((_F32(-0.5) * x + _F32(2.5)) * x - _F32(4.0)) * x
+                   + _F32(2.0), out)
+    return np.where(x >= _F32(2.0), _F32(0.0), out).astype(_F32)
+
+
+_RESIZE_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def _resize_weights(m: int, n: int, kernel) -> np.ndarray:
+    """The (m, n) float32 weights of one axis resized from m to n
+    (``jax.image.resize``'s ``compute_weight_mat``, translation 0,
+    antialiasing on)."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = _F32(max(inv_scale, 1.0))
+    sample_f = ((np.arange(n, dtype=_F32) + _F32(0.5)) * _F32(inv_scale)
+                - _F32(0.0) - _F32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(m, dtype=_F32)[:, None]) \
+        / kernel_scale
+    weights = kernel(x)
+    total = np.sum(weights, axis=0, keepdims=True, dtype=_F32)
+    weights = np.where(np.abs(total) > _F32(1000.0 * np.finfo(_F32).eps),
+                       weights / np.where(total != 0, total, _F32(1)),
+                       _F32(0))
+    inside = (sample_f >= _F32(-0.5)) & (sample_f <= _F32(m - 0.5))
+    return np.where(inside[None, :], weights, _F32(0)).astype(_F32)
+
+
+def _image_resize(x: torch.Tensor, sizes: Sequence[int], method: str,
+                  ctx: _Ctx) -> torch.Tensor:
+    if len(sizes) != x.ndim:
+        raise ValueError(f"resize sizes {list(sizes)} do not match the "
+                         f"input's rank {x.ndim}")
+    dims = [d for d in range(x.ndim) if x.shape[d] != sizes[d]]
+    if method == "nearest":
+        for d in dims:
+            m, n = x.shape[d], sizes[d]
+            offs = np.floor((np.arange(n, dtype=_F32) + _F32(0.5)) * _F32(m)
+                            / _F32(n)).astype(np.int64)
+            x = torch.index_select(x, d, _as_tensor(offs, ctx))
+        return x
+    kernel = _RESIZE_KERNELS[method]
+    x = _float(x)
+    for d in dims:
+        w = _as_tensor(_resize_weights(x.shape[d], sizes[d], kernel), ctx,
+                       x.dtype)
+        x = torch.matmul(x.movedim(d, -1), w).movedim(-1, d)
+    return x
+
+
+@register_op("Resize")
+def _resize(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    mode = node.attr("mode", "nearest")
+    sizes = None
+    if _opt(inputs, 3) is not None:
+        sizes = [int(s) for s in _concrete(inputs[3], "Resize sizes")]
+    elif _opt(inputs, 2) is not None:
+        scales = np.asarray(_concrete(inputs[2], "Resize scales")).ravel()
+        if scales.size:
+            sizes = [int(round(d * s)) for d, s in zip(x.shape, scales)]
+    if sizes is None:
+        raise UnsupportedOp("Resize without sizes/scales")
+    method = {"nearest": "nearest", "linear": "linear", "cubic": "cubic"}[mode]
+    return _image_resize(x, sizes, method, ctx)
+
+
+@register_op("Upsample")
+def _upsample(node, inputs, ctx):
+    x = _as_tensor(inputs[0], ctx)
+    scales = np.asarray(_concrete(inputs[1], "Upsample scales")).ravel() \
+        if len(inputs) > 1 else np.asarray(node.attr("scales"))
+    sizes = [int(round(d * s)) for d, s in zip(x.shape, scales)]
+    method = {"nearest": "nearest", "linear": "linear"}[
+        node.attr("mode", "nearest")]
+    return _image_resize(x, sizes, method, ctx)
+
+
+# -- quantized ops (QuantizeLinear family and QLinear*) ------------------------
+# The reference accumulates integer products in int32
+# (``preferred_element_type=jnp.int32``). PyTorch has no integer convolution
+# or matmul on CUDA, and a float32 one is not exact (nor free of the global
+# TF32 switches), so the accumulation runs in float64 on the tensors' own
+# device: |x - zp| <= 255 on both sides, every product is below 2^16 and
+# any sum of fewer than 2^37 of them is an integer float64 holds exactly.
+# ``torch.round`` then pins the accumulator to that integer whatever
+# algorithm cuDNN picked (an FFT one rounds). From there every op is the
+# reference's, in float32 and in its order: the accumulator to float32,
+# times the multiplier, round half to even, + zero point, saturate.
+
+def _maybe_scalar(v, what):
+    a = np.asarray(_concrete(v, what)).ravel()
+    if a.size != 1:
+        raise UnsupportedOp(f"{what} must be per-tensor (scalar), "
+                            f"got {a.size} values")
+    return a.dtype.type(a[0])
+
+
+def _exact(t: torch.Tensor, zp) -> torch.Tensor:
+    """``t - zp`` as float64 on ``t``'s device: exact for 8-bit codes."""
+    t = t.to(torch.float64)
+    return t - float(zp) if int(zp) else t
+
+
+def _int_accum_matmul(a, a_zp, b, b_zp) -> torch.Tensor:
+    """(a - a_zp) @ (b - b_zp), exactly (float64 holding integers)."""
+    return torch.round(torch.matmul(_exact(a, a_zp), _exact(b, b_zp)))
+
+
+def _saturate(y_float: torch.Tensor, zp) -> torch.Tensor:
+    """Round half to even, + zp, saturate to zp's integer type: the
+    requantization tail every QLinear op shares."""
+    zdt = np.asarray(zp).dtype
+    info = np.iinfo(zdt)
+    return torch.clamp(torch.round(y_float) + int(zp), info.min,
+                       info.max).to(_torch_dtype(zdt))
+
+
+def _requantize(acc: torch.Tensor, multiplier, y_zp) -> torch.Tensor:
+    return _saturate(acc.to(torch.float32) * multiplier, y_zp)
+
+
+def _f32(v, ctx) -> torch.Tensor:
+    return _as_tensor(v, ctx).to(torch.float32)
+
+
+@register_op("QuantizeLinear")
+def _quantize(node, inputs, ctx):
+    """round(x / scale) + zp, saturated to the zero point's type. As in
+    the reference, ``axis`` is not read (a 1-D scale broadcasts against
+    the last axis) and a missing zero point means int8 0 (ONNX: uint8)."""
+    zp = inputs[2] if _opt(inputs, 2) is not None else np.int8(0)
+    zp_t = _as_tensor(zp, ctx)
+    x, scale = _promoted(ctx, inputs[0], inputs[1])
+    info = np.iinfo(np.asarray(zp).dtype)
+    return torch.clamp(torch.round(x / scale) + zp_t.to(torch.int32),
+                       info.min, info.max).to(zp_t.dtype)
+
+
+@register_op("DequantizeLinear")
+def _dequantize(node, inputs, ctx):
+    """(x - zp) * scale in float32; ``axis`` is not read (a 1-D scale
+    broadcasts against the last axis), as in the reference."""
+    zp = inputs[2] if _opt(inputs, 2) is not None else np.int32(0)
+    x = _f32(inputs[0], ctx) - _f32(zp, ctx)
+    return functools.reduce(torch.mul, _promoted(ctx, x, inputs[1]))
+
+
+@register_op("QLinearConv")
+def _qlinear_conv(node, inputs, ctx):
+    x, x_scale, x_zp, w, w_scale, w_zp, y_scale, y_zp = inputs[:8]
+    bias = _opt(inputs, 8)
+    x_zp = _maybe_scalar(x_zp, "QLinearConv x_zero_point")
+    w_zp_a = np.asarray(_concrete(w_zp, "QLinearConv w_zero_point")).ravel()
+    if (w_zp_a != w_zp_a[0]).any():
+        raise UnsupportedOp("QLinearConv per-channel w_zero_point")
+    w = _as_tensor(w, ctx)
+    rank = w.ndim - 2
+    acc = torch.round(_conv_raw(node, _exact(_as_tensor(x, ctx), x_zp),
+                                _exact(w, w_zp_a[0])))
+    if bias is not None:       # int32, quantized with scale x_scale*w_scale
+        acc = acc + _channel(_as_tensor(bias, ctx, torch.float64), acc.ndim)
+    # w_scale may be per output channel: broadcast over (N, M, *spatial)
+    mult = (_f32(x_scale, ctx)
+            * _f32(w_scale, ctx).reshape((1, -1) + (1,) * rank)
+            / _f32(y_scale, ctx))
+    return _requantize(acc, mult, _maybe_scalar(y_zp, "QLinearConv y_zp"))
+
+
+@register_op("QLinearMatMul")
+def _qlinear_matmul(node, inputs, ctx):
+    a, a_scale, a_zp, b, b_scale, b_zp, y_scale, y_zp = inputs[:8]
+    acc = _int_accum_matmul(_as_tensor(a, ctx),
+                            _maybe_scalar(a_zp, "QLinearMatMul a_zp"),
+                            _as_tensor(b, ctx),
+                            _maybe_scalar(b_zp, "QLinearMatMul b_zp"))
+    mult = _f32(a_scale, ctx) * _f32(b_scale, ctx) / _f32(y_scale, ctx)
+    return _requantize(acc, mult, _maybe_scalar(y_zp, "QLinearMatMul y_zp"))
+
+
+@register_op("QGemm")
+def _qgemm(node, inputs, ctx):
+    """com.microsoft QGemm: quantized Gemm with an optional int32 C and an
+    optional output quantization (float32 out when y_scale is absent)."""
+    a, a_scale, a_zp, b, b_scale, b_zp = inputs[:6]
+    c, y_scale, y_zp = _opt(inputs, 6), _opt(inputs, 7), _opt(inputs, 8)
+    a, b = _as_tensor(a, ctx), _as_tensor(b, ctx)
+    if node.attr("transA", 0):
+        a = a.transpose(-1, -2)
+    if node.attr("transB", 0):
+        b = b.transpose(-1, -2)
+    acc = _int_accum_matmul(a, _maybe_scalar(a_zp, "QGemm a_zp"),
+                            b, _maybe_scalar(b_zp, "QGemm b_zp"))
+    if c is not None:          # int32, scale = alpha * a_scale * b_scale
+        acc = acc + _as_tensor(c, ctx, torch.float64)
+    alpha = torch.full((), node.attr("alpha", 1.0), dtype=torch.float32,
+                       device=acc.device)
+    sab = alpha * _f32(a_scale, ctx) * _f32(b_scale, ctx)
+    if y_scale is None:
+        return acc.to(torch.float32) * sab
+    return _requantize(acc, sab / _f32(y_scale, ctx),
+                       _maybe_scalar(y_zp, "QGemm y_zp"))
+
+
+def _qlinear_eltwise(op):
+    """com.microsoft QLinearAdd/QLinearMul: dequantize, apply, requantize
+    (the pattern ORT's quantizer emits around every ResNet skip join)."""
+    def handler(node, inputs, ctx):
+        a, a_scale, a_zp, b, b_scale, b_zp, y_scale, y_zp = inputs[:8]
+        af = (_f32(a, ctx) - float(_maybe_scalar(a_zp, "QLinear a_zp"))) \
+            * _f32(a_scale, ctx)
+        bf = (_f32(b, ctx) - float(_maybe_scalar(b_zp, "QLinear b_zp"))) \
+            * _f32(b_scale, ctx)
+        y = op(af, bf) / _f32(y_scale, ctx)
+        return _saturate(y, _maybe_scalar(y_zp, "QLinear y_zp"))
+    return handler
+
+
+OP_HANDLERS["QLinearAdd"] = _qlinear_eltwise(torch.add)
+OP_HANDLERS["QLinearMul"] = _qlinear_eltwise(torch.mul)
+
+
+@register_op("QLinearGlobalAveragePool")
+def _qlinear_gap(node, inputs, ctx):
+    x, x_scale, x_zp, y_scale, y_zp = inputs[:5]
+    if node.attr("channels_last", 0):
+        raise UnsupportedOp("QLinearGlobalAveragePool channels_last")
+    x = _as_tensor(x, ctx)
+    spatial = tuple(range(2, x.ndim))
+    # exact integer sum, then one requantization
+    acc = x.to(torch.int64).sum(dim=spatial, keepdim=True)
+    count = int(np.prod([x.shape[i] for i in spatial]))
+    mean = acc.to(torch.float32) / count \
+        - float(_maybe_scalar(x_zp, "QLinearGAP x_zp"))
+    y = mean * _f32(x_scale, ctx) / _f32(y_scale, ctx)
+    return _saturate(y, _maybe_scalar(y_zp, "QLinearGAP y_zp"))
+
+
+# -- detection ------------------------------------------------------------------
+
+def _host_array(v) -> np.ndarray:
+    """NMS's inputs on the host: its output length depends on the values,
+    so the reference computes it on concrete values too."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+@register_op("NonMaxSuppression")
+def _nms(node, inputs, ctx):
+    """Greedy NMS per (batch, class) on the host, the reference's loop:
+    a stable sort by score, the score threshold, then every box whose IoU
+    with a kept one exceeds the threshold dropped. Returns host int64
+    (selected, 3) rows (batch, class, box)."""
+    boxes = _host_array(inputs[0])
+    scores = _host_array(inputs[1])
+    max_out = (int(np.ravel(_host_array(inputs[2]))[0])
+               if _opt(inputs, 2) is not None else 0)
+    iou_thr = (float(np.ravel(_host_array(inputs[3]))[0])
+               if _opt(inputs, 3) is not None else 0.0)
+    score_thr = (float(np.ravel(_host_array(inputs[4]))[0])
+                 if _opt(inputs, 4) is not None else None)
+    center = bool(node.attr("center_point_box", 0))
+    if max_out <= 0:        # spec: "Default to 0, which means no output"
+        return np.zeros((0, 3), np.int64)
+    sel = []
+    for bi in range(scores.shape[0]):
+        for ci in range(scores.shape[1]):
+            s = scores[bi, ci]
+            order = np.argsort(-s, kind="stable")
+            if score_thr is not None:
+                order = order[s[order] > score_thr]
+            kept: list = []
+            for i in order:
+                if len(kept) >= max_out:
+                    break
+                if all(_iou(boxes[bi, i], boxes[bi, j], center) <= iou_thr
+                       for j in kept):
+                    kept.append(i)
+            sel.extend([bi, ci, int(i)] for i in kept)
+    return np.asarray(sel, np.int64).reshape(-1, 3)
+
+
+def _iou(a, b, center: bool) -> float:
+    if center:      # [x_center, y_center, w, h]
+        ay1, ax1 = a[1] - a[3] / 2, a[0] - a[2] / 2
+        ay2, ax2 = a[1] + a[3] / 2, a[0] + a[2] / 2
+        by1, bx1 = b[1] - b[3] / 2, b[0] - b[2] / 2
+        by2, bx2 = b[1] + b[3] / 2, b[0] + b[2] / 2
+    else:           # [y1, x1, y2, x2], either corner order allowed
+        ay1, ax1, ay2, ax2 = a
+        by1, bx1, by2, bx2 = b
+        ay1, ay2 = min(ay1, ay2), max(ay1, ay2)
+        ax1, ax2 = min(ax1, ax2), max(ax1, ax2)
+        by1, by2 = min(by1, by2), max(by1, by2)
+        bx1, bx2 = min(bx1, bx2), max(bx1, bx2)
+    ih = max(0.0, min(ay2, by2) - max(ay1, by1))
+    iw = max(0.0, min(ax2, bx2) - max(ax1, bx1))
+    inter = ih * iw
+    union = ((ay2 - ay1) * (ax2 - ax1) + (by2 - by1) * (bx2 - bx1) - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def _gather_hw(flat: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor,
+               W: int) -> torch.Tensor:
+    """``flat`` (R, C, H * W) read at rows ``yi`` (R, Sy) and columns ``xi``
+    (R, Sx) → (R, C, Sy, Sx)."""
+    R, C = flat.shape[:2]
+    idx = (yi[:, :, None] * W + xi[:, None, :]).reshape(R, 1, -1)
+    out = torch.gather(flat, 2, idx.expand(R, C, idx.shape[-1]))
+    return out.reshape(R, C, yi.shape[1], xi.shape[1])
+
+
+@register_op("RoiAlign")
+def _roi_align(node, inputs, ctx):
+    """torchvision-semantics RoiAlign (the ONNX spec's model), every ROI at
+    once: bilinear samples on a fixed grid per output bin, averaged or
+    maxed, in the reference's operation order."""
+    out_h = node.attr("output_height", 1)
+    out_w = node.attr("output_width", 1)
+    sr = node.attr("sampling_ratio", 0)
+    if sr <= 0:
+        # adaptive sampling counts depend on each ROI's size
+        raise UnsupportedOp("RoiAlign sampling_ratio=0 (adaptive)")
+    scale = node.attr("spatial_scale", 1.0)
+    mode = node.attr("mode", "avg")
+    half_pixel = node.attr("coordinate_transformation_mode",
+                           "half_pixel") == "half_pixel"
+    x, rois = _as_tensor(inputs[0], ctx), _as_tensor(inputs[1], ctx)
+    bidx = _as_tensor(inputs[2], ctx).long()
+    N, C, H, W = x.shape
+    R = rois.shape[0]
+    dev = x.device
+    off = 0.5 if half_pixel else 0.0
+    x1, y1, x2, y2 = (rois[:, i] * scale - off for i in range(4))
+    roi_w, roi_h = x2 - x1, y2 - y1
+    if not half_pixel:          # legacy mode clamps to min size 1
+        roi_w, roi_h = roi_w.clamp_min(1.0), roi_h.clamp_min(1.0)
+    bin_w, bin_h = roi_w / out_w, roi_h / out_h
+    iy = (torch.arange(sr, dtype=torch.float32, device=dev) + 0.5) / sr
+    gy = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None] \
+        + iy[None, :]
+    gx = torch.arange(out_w, dtype=torch.float32, device=dev)[:, None] \
+        + iy[None, :]
+    ys = (y1[:, None, None] + gy[None] * bin_h[:, None, None]).reshape(R, -1)
+    xs = (x1[:, None, None] + gx[None] * bin_w[:, None, None]).reshape(R, -1)
+
+    def axis_weights(cs, limit):
+        valid = (cs >= -1.0) & (cs <= limit)    # torchvision's zero rule
+        c = torch.clamp(cs, 0.0, limit - 1)
+        lo = torch.floor(c).to(torch.int64)
+        hi = torch.clamp_max(lo + 1, int(limit) - 1)
+        return lo, hi, c - lo, valid
+
+    y0, y1i, fy, vy = axis_weights(ys, float(H))
+    x0, x1i, fx, vx = axis_weights(xs, float(W))
+    flat = x.reshape(N, C, H * W)[bidx]                     # (R, C, H W)
+    fy_, fx_ = fy[:, None, :, None], fx[:, None, None, :]
+    v = ((_gather_hw(flat, y0, x0, W) * (1 - fy_)
+          + _gather_hw(flat, y1i, x0, W) * fy_) * (1 - fx_)
+         + (_gather_hw(flat, y0, x1i, W) * (1 - fy_)
+            + _gather_hw(flat, y1i, x1i, W) * fy_) * fx_)
+    v = v * (vy[:, None, :, None] & vx[:, None, None, :])
+    v = v.reshape(R, C, out_h, sr, out_w, sr)
+    if mode == "max":
+        return v.amax(dim=(3, 5))
+    return v.mean(dim=(3, 5))
+
+
+@register_op("GridSample")
+def _grid_sample(node, inputs, ctx):
+    """4-D GridSample in the reference's formulas (its reflection rule and
+    its corner weights), every sample at once."""
+    x = _as_tensor(inputs[0], ctx)
+    grid = _as_tensor(inputs[1], ctx, torch.float32)
+    if x.ndim != 4:
+        raise UnsupportedOp(f"GridSample rank {x.ndim} (4-D NCHW only)")
+    mode = node.attr("mode", "linear")
+    pad = node.attr("padding_mode", "zeros")
+    align = bool(node.attr("align_corners", 0))
+    if mode not in ("nearest", "linear", "bilinear"):
+        raise UnsupportedOp(f"GridSample mode {mode!r}")
+    N, C, H, W = x.shape
+    Ho, Wo = grid.shape[1], grid.shape[2]
+
+    def unnormalize(coord, size):
+        if align:
+            return (coord + 1.0) / 2.0 * (size - 1)
+        return ((coord + 1.0) * size - 1.0) / 2.0
+
+    def reflect(c, size):
+        if align:
+            span = 2.0 * (size - 1) if size > 1 else 1.0
+            c = torch.abs(torch.remainder(c, span))
+            return torch.where(c > size - 1, span - c, c)
+        span = 2.0 * size
+        c = torch.abs(torch.remainder(c + 0.5, span))
+        return torch.clamp(torch.where(c > size, span - c, c) - 0.5,
+                           0.0, size - 1)
+
+    gx = unnormalize(grid[..., 0].reshape(N, -1), W)          # (N, P)
+    gy = unnormalize(grid[..., 1].reshape(N, -1), H)
+    if pad == "reflection":
+        gx, gy = reflect(gx, W), reflect(gy, H)
+    flat = x.reshape(N, C, H * W)
+
+    def fetch(yi, xi):
+        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        idx = torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)
+        v = torch.gather(flat, 2, idx[:, None, :].expand(N, C, idx.shape[1]))
+        if pad == "zeros":
+            v = v * valid[:, None, :]
+        return v
+
+    if mode == "nearest":
+        out = fetch(torch.round(gy).to(torch.int64),
+                    torch.round(gx).to(torch.int64))
+        return out.reshape(N, C, Ho, Wo)
+    if pad == "border":
+        gx = torch.clamp(gx, 0.0, W - 1)
+        gy = torch.clamp(gy, 0.0, H - 1)
+    x0 = torch.floor(gx).to(torch.int64)
+    y0 = torch.floor(gy).to(torch.int64)
+    fx, fy = gx - x0, gy - y0
+    out = (fetch(y0, x0) * ((1 - fy) * (1 - fx))[:, None, :]
+           + fetch(y0, x0 + 1) * ((1 - fy) * fx)[:, None, :]
+           + fetch(y0 + 1, x0) * (fy * (1 - fx))[:, None, :]
+           + fetch(y0 + 1, x0 + 1) * (fy * fx)[:, None, :])
+    return out.reshape(N, C, Ho, Wo)
+
+
+# -- control flow and recurrent cells --------------------------------------------
+# The reference lowers these to lax.cond / lax.scan; the port runs them
+# eagerly. A trip count and an initial Loop condition must be host values
+# (the reference takes them concrete); a device predicate or a body's
+# termination condition never leaves the device: If evaluates both branches
+# and selects, as lax.cond's result does, and Loop masks its carry.
+
+_SUBGRAPH_OPS = frozenset({"If", "Loop", "Scan"})
+
+
+def _stacked(steps: List[torch.Tensor], probe, ctx) -> torch.Tensor:
+    """Per-step outputs stacked on a new leading axis; with no step, an
+    empty (0, *shape) tensor shaped like ``probe()``'s output."""
+    if steps:
+        return torch.stack(steps)
+    return _as_tensor(probe(), ctx)[None][:0]
+
+
+@register_op("If")
+def _if(node, inputs, ctx):
+    cond = inputs[0]
+    then_g, else_g = node.attr("then_branch"), node.attr("else_branch")
+    if _is_host(cond):
+        # a host predicate (the common exporter pattern): one branch runs
+        branch = then_g if bool(np.asarray(cond).reshape(())) else else_g
+        outs = ctx.run_subgraph(branch, [])
+        return tuple(outs) if len(outs) > 1 else outs[0]
+    pred = _as_tensor(cond, ctx).reshape(()).to(torch.bool)
+    outs = []
+    for t, e in zip(ctx.run_subgraph(then_g, []),
+                    ctx.run_subgraph(else_g, [])):
+        t, e = _as_tensor(t, ctx), _as_tensor(e, ctx)
+        if t.shape != e.shape or t.dtype != e.dtype:
+            raise UnsupportedOp(
+                f"If on a device predicate with branch outputs of other "
+                f"shapes or types ({tuple(t.shape)} {t.dtype}, "
+                f"{tuple(e.shape)} {e.dtype})")
+        outs.append(torch.where(pred, t, e))
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def _cond_is_passthrough(body) -> bool:
+    """True when the body's cond_out is an Identity chain back to cond_in —
+    the fixed-trip-count exporter pattern where termination never fires."""
+    producers = {}
+    for n in body.nodes:
+        for o in n.output:
+            producers[o] = n
+    name = body.outputs[0].name
+    cond_in = body.inputs[1].name if len(body.inputs) > 1 else None
+    for _ in range(len(body.nodes) + 1):
+        if name == cond_in:
+            return True
+        n = producers.get(name)
+        if n is None or n.op_type != "Identity":
+            return False
+        name = n.input[0]
+    return False
+
+
+@register_op("Loop")
+def _loop(node, inputs, ctx):
+    """ONNX Loop with a static trip count: body(iter_num, cond_in, v...) ->
+    (cond_out, v'..., scan_outputs...), run M times. A body-computed
+    termination condition masks the carry once it turns False (on the
+    device); a loop that can end early AND has scan outputs has no static
+    output length and is refused, as in the reference."""
+    m, cond0 = inputs[0], _opt(inputs, 1)
+    body = node.attr("body")
+    if m is None or not _is_host(m):
+        raise UnsupportedOp(
+            "Loop requires a static trip count M (data-dependent loop "
+            "termination has no static shape)")
+    trip = int(np.asarray(m).reshape(()))
+    if cond0 is not None and not _is_host(cond0):
+        raise UnsupportedOp("Loop with a device initial condition is not "
+                            "supported (static trip counts only)")
+    if cond0 is not None and not bool(np.asarray(cond0).reshape(())):
+        trip = 0  # spec: an initial cond of False runs no iteration
+    carry = [_as_tensor(v, ctx) for v in inputs[2:]]
+    n_carry = len(carry)
+    n_scan = len(body.outputs) - 1 - n_carry
+    fixed_trip = _cond_is_passthrough(body)
+    if not fixed_trip and n_scan > 0:
+        raise UnsupportedOp(
+            "Loop with data-dependent termination AND scan outputs has a "
+            "dynamic output length (no static shape)")
+
+    def run(i, vals):
+        return ctx.run_subgraph(body, [np.asarray(i, np.int64),
+                                       np.asarray(True)] + list(vals))
+
+    init = list(carry)
+    active = torch.ones((), dtype=torch.bool, device=ctx.device)
+    scans: List[List[torch.Tensor]] = [[] for _ in range(n_scan)]
+    for i in range(trip):
+        outs = run(i, carry)
+        new = [_as_tensor(v, ctx) for v in outs[1:1 + n_carry]]
+        if fixed_trip:
+            carry = new
+        else:
+            carry = [torch.where(active, v, old) for v, old in zip(new, carry)]
+            active = active & _as_tensor(outs[0], ctx,
+                                         torch.bool).reshape(())
+        for k in range(n_scan):
+            scans[k].append(_as_tensor(outs[1 + n_carry + k], ctx))
+    outs = carry + [_stacked(scans[k],
+                             lambda k=k: run(0, init)[1 + n_carry + k], ctx)
+                    for k in range(n_scan)]
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+@register_op("Scan")
+def _scan(node, inputs, ctx):
+    """ONNX Scan (forward, axis-0 scans): the body runs once a slice."""
+    body = node.attr("body")
+    n_scan_in = int(node.attr("num_scan_inputs"))
+    if node.attr("scan_input_directions") or \
+            node.attr("scan_output_directions") or \
+            node.attr("scan_input_axes") or node.attr("scan_output_axes"):
+        raise UnsupportedOp("Scan with non-default directions/axes")
+    n_state = len(inputs) - n_scan_in
+    state = [_as_tensor(v, ctx) for v in inputs[:n_state]]
+    xs = [_as_tensor(v, ctx) for v in inputs[n_state:]]
+    n_scan_out = len(body.outputs) - n_state
+    T = xs[0].shape[0] if xs else 0
+    init = list(state)
+    scans: List[List[torch.Tensor]] = [[] for _ in range(n_scan_out)]
+    for t in range(T):
+        outs = ctx.run_subgraph(body, state + [x[t] for x in xs])
+        state = [_as_tensor(v, ctx) for v in outs[:n_state]]
+        for k in range(n_scan_out):
+            scans[k].append(_as_tensor(outs[n_state + k], ctx))
+    outs = state + [_stacked(scans[k], lambda k=k: ctx.run_subgraph(
+        body, init + [x.new_zeros(x.shape[1:]) for x in xs])[n_state + k],
+        ctx)
+        for k in range(n_scan_out)]
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+_SIGMOID_TANH_ACTS = (
+    ["sigmoid", "tanh"], ["sigmoid", "tanh", "tanh"],
+    ["sigmoid", "tanh"] * 2, ["sigmoid", "tanh", "tanh"] * 2)
+
+
+def _rnn_common(node, inputs, ctx, allowed_acts=_SIGMOID_TANH_ACTS):
+    """X (T, B, I), W / R / B per direction, and the direction; only the
+    spec's default activations, no clipping and no ``sequence_lens``, as
+    in the reference. The cells run as the reference's (ONNX gate order),
+    never through cuDNN's fused RNN, whose gate layout and summation order
+    differ."""
+    X, W, R = _promoted(ctx, *inputs[:3])
+    B = _opt(inputs, 3)
+    if B is not None:
+        X, W, R, B = _promoted(ctx, X, W, R, B)
+    if _opt(inputs, 4) is not None:
+        raise UnsupportedOp("sequence_lens in recurrent ops (pad/mask "
+                            "upstream instead — static shapes)")
+    acts = node.attr("activations")
+    if acts and [a.lower() for a in acts] not in allowed_acts:
+        raise UnsupportedOp(f"{node.op_type} activations {acts} "
+                            "(spec defaults only)")
+    if node.attr("clip") is not None:
+        raise UnsupportedOp("RNN cell clipping")
+    direction = node.attr("direction", "forward")
+    if direction not in ("forward", "reverse", "bidirectional"):
+        raise UnsupportedOp(f"RNN direction {direction!r}")
+    return X, W, R, B, direction
+
+
+def _run_directions(X, W, R, B, h0s, extra0s, direction, cell):
+    """``cell`` over time for each direction → per direction (ys (T, B, H),
+    final carry)."""
+    results = []
+    for d in range(W.shape[0]):
+        reverse = (direction == "reverse") or \
+            (direction == "bidirectional" and d == 1)
+        xs = X.flip(0) if reverse else X
+        carry = (h0s[d],) + tuple(e[d] for e in extra0s)
+        Bd = B[d] if B is not None else None
+        ys = []
+        for t in range(xs.shape[0]):
+            carry, y = cell(carry, xs[t], W[d], R[d], Bd)
+            ys.append(y)
+        ys = torch.stack(ys) if ys else carry[0][None][:0]
+        results.append((ys.flip(0) if reverse else ys, carry))
+    return results
+
+
+def _initial(inputs, i, ctx, shape, like):
+    v = _opt(inputs, i)
+    return _as_tensor(v, ctx, like.dtype) if v is not None else \
+        torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+@register_op("LSTM")
+def _lstm(node, inputs, ctx):
+    """ONNX LSTM (gate order i, o, f, c; sigmoid, tanh, tanh)."""
+    X, W, R, B, direction = _rnn_common(node, inputs, ctx)
+    H = int(node.attr("hidden_size"))
+    shape = (W.shape[0], X.shape[1], H)
+    h0 = _initial(inputs, 5, ctx, shape, X)
+    c0 = _initial(inputs, 6, ctx, shape, X)
+    if _opt(inputs, 7) is not None:
+        raise UnsupportedOp("LSTM peephole weights (input P)")
+
+    def cell(carry, x, W, R, B):
+        h, c = carry
+        gates = x @ W.T + h @ R.T
+        if B is not None:
+            gates = gates + B[:4 * H] + B[4 * H:]
+        i, o, f, g = torch.split(gates, H, dim=-1)
+        i, o, f = (torch.sigmoid(v) for v in (i, o, f))
+        c_new = f * c + i * torch.tanh(g)
+        h_new = o * torch.tanh(c_new)
+        return (h_new, c_new), h_new
+
+    res = _run_directions(X, W, R, B, h0, (c0,), direction, cell)
+    Y = torch.stack([ys for ys, _ in res], dim=1)         # (T, dirs, B, H)
+    Y_h = torch.stack([carry[0] for _, carry in res], dim=0)
+    Y_c = torch.stack([carry[1] for _, carry in res], dim=0)
+    return Y, Y_h, Y_c
+
+
+@register_op("GRU")
+def _gru(node, inputs, ctx):
+    """ONNX GRU (gate order z, r, h; honours ``linear_before_reset``)."""
+    X, W, R, B, direction = _rnn_common(node, inputs, ctx)
+    H = int(node.attr("hidden_size"))
+    lbr = bool(node.attr("linear_before_reset", 0))
+    h0 = _initial(inputs, 5, ctx, (W.shape[0], X.shape[1], H), X)
+
+    def cell(carry, x, W, R, B):
+        (h,) = carry
+        wb = B[:3 * H] if B is not None else 0.0
+        rb = B[3 * H:] if B is not None else 0.0
+        gx = x @ W.T + wb                               # (B, 3H)
+        gh = h @ R.T + rb
+        zx, rx, hx = torch.split(gx, H, dim=-1)
+        zh, rh, hh = torch.split(gh, H, dim=-1)
+        z = torch.sigmoid(zx + zh)
+        r = torch.sigmoid(rx + rh)
+        if lbr:
+            # the reset after the recurrent matmul (gh already has Rbh)
+            n = torch.tanh(hx + r * hh)
+        else:
+            # the ONNX default: the reset before the recurrent matmul
+            rbh = B[5 * H:6 * H] if B is not None else 0.0
+            n = torch.tanh(hx + (r * h) @ R[2 * H:].T + rbh)
+        h_new = (1 - z) * n + z * h
+        return (h_new,), h_new
+
+    res = _run_directions(X, W, R, B, h0, (), direction, cell)
+    Y = torch.stack([ys for ys, _ in res], dim=1)
+    Y_h = torch.stack([carry[0] for _, carry in res], dim=0)
+    return Y, Y_h
+
+
 # -- the host table: nodes whose inputs are all numpy ------------------------
 
 def _np_slice(node, inputs, ctx):
@@ -1566,33 +2685,42 @@ def _to_host(out):
 
 
 def _eval_nodes(nodes, env: Dict[str, object], ctx: _Ctx) -> None:
-    """Walk a node list, writing outputs into ``env``."""
-    for node in nodes:
-        ins = [env[i] if i else None for i in node.input]
-        host = any(v is not None for v in ins) and all(
-            v is None or _is_host(v) for v in ins)
-        np_handler = NUMPY_OPS.get(node.op_type)
-        if host and np_handler is not None:
-            out = np_handler(node, ins, ctx)
-        else:
-            handler = OP_HANDLERS.get(node.op_type)
-            if handler is None:
-                raise UnsupportedOp(
-                    f"ONNX op {node.op_type!r} (node {node.name!r}) is not "
-                    f"ported to PyTorch yet; {len(OP_HANDLERS)} ops are "
-                    f"(ROADMAP queue item 3)")
-            if host:
-                # constants only: fold on the host, keep the result there
-                out = _to_host(handler(node, ins,
-                                       _Ctx(ctx.opset, torch.device("cpu"))))
+    """Walk a node list, writing outputs into ``env`` (top-level graphs and
+    control-flow bodies share it; ``ctx.scope_env`` is ``env`` meanwhile).
+    If/Loop/Scan never fold on the host: their bodies read outer-scope
+    values their inputs do not show."""
+    outer = ctx.scope_env
+    ctx.scope_env = env
+    try:
+        for node in nodes:
+            ins = [env[i] if i else None for i in node.input]
+            host = node.op_type not in _SUBGRAPH_OPS and any(
+                v is not None for v in ins) and all(
+                v is None or _is_host(v) for v in ins)
+            np_handler = NUMPY_OPS.get(node.op_type)
+            if host and np_handler is not None:
+                out = np_handler(node, ins, ctx)
             else:
-                out = handler(node, ins, ctx)
-        if isinstance(out, tuple):
-            for name, val in zip(node.output, out):
-                if name:
-                    env[name] = val
-        else:
-            env[node.output[0]] = out
+                handler = OP_HANDLERS.get(node.op_type)
+                if handler is None:
+                    raise UnsupportedOp(
+                        f"ONNX op {node.op_type!r} (node {node.name!r}) is "
+                        f"not ported to PyTorch yet; {len(OP_HANDLERS)} ops "
+                        f"are (ROADMAP queue item 3)")
+                if host:
+                    # constants only: fold on the host, keep the result there
+                    out = _to_host(handler(
+                        node, ins, _Ctx(ctx.opset, torch.device("cpu"))))
+                else:
+                    out = handler(node, ins, ctx)
+            if isinstance(out, tuple):
+                for name, val in zip(node.output, out):
+                    if name:
+                        env[name] = val
+            else:
+                env[node.output[0]] = out
+    finally:
+        ctx.scope_env = outer
 
 
 class ConvertedModel:
@@ -1656,7 +2784,7 @@ class ConvertedModel:
         outputs: the loss node becomes dead, and with it the labels input
         disappears from ``input_names``. The ancestor walk covers
         control-flow subgraph captures (If/Loop/Scan bodies read
-        outer-scope names), though no such op is ported yet.
+        outer-scope names).
         """
         unknown = [o for o in outputs if o not in
                    {n for node in self.model.graph.nodes for n in node.output}

@@ -231,8 +231,7 @@ def test_metadata_post_ops_and_unported_options(model_bytes):
                     **_kw(softmax_dict={"probs": "logits"})).transform(
         DataFrame({"image": X}))
     np.testing.assert_allclose(out["probs"].sum(axis=1), 1.0, rtol=1e-6)
-    for key, value in [("quantize", "int8"), ("tuning", "auto"),
-                       ("external_data_dir", "/d"),
+    for key, value in [("tuning", "auto"), ("external_data_dir", "/d"),
                        ("weights_override", b"npz")]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ONNXModel(model_bytes, device="cpu", **{key: value})
