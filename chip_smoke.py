@@ -320,8 +320,38 @@ Phases (any failure exits non-zero and prints no result line):
    detection and long-tail handler (Loop, Scan, LSTM, GRU at T = 64) on
    the card against the CPU, integer outputs and moved data bitwise,
    floats within 1e-5 of the largest |output| + 1e-6.
+19. a GBDT model after ``fit`` (no hand kernel but K6 in the fits) —
+   (a) BASELINE #2 past ``fit``: 8c's HIGGS-shaped 11,000,000 x 28 as a
+   2-D ``features`` column with 8c's params through ``device=None``
+   estimators: model A (50 iterations); B, 50 more from
+   ``model_string=A``: 100 trees, the first 50 bitwise A's, exactly 250
+   K6 launches and no plain call, its first new tree at A's scores through
+   K6 and the plain version the same (or a recorded tie), train AUC(B) >=
+   AUC(A); C, 50 iterations from ``init_score_col`` = A's raw margins:
+   ``base_score`` 0, 250 launches, its first tree against B's 51st (or a
+   recorded tie) and how many of the 50 agree; ``features_shap_col`` on B
+   over 65,536 rows (additive within 1e-5 * (1 + |margin|) on every row,
+   the first 1,024 within 1e-6 * max|phi| of the port's CPU TreeSHAP;
+   seconds, rows/s, the launches of the call);
+   ``B.to_onnx()`` through ``ONNXModel(device=None, compute_dtype="float32", mini_batch_size=
+   65536)`` over 1,000,000 rows (probabilities within 1e-5 of B's, labels
+   equal where |p - 0.5| > 1e-5, h2d bytes only the padded features;
+   rows/s beside ``B.transform``'s); ``B.booster.refit`` on rows
+   10,000,000 - 10,999,999 (structures bitwise, seconds; a 100,000-row
+   refit on the card within 1e-5 * max|leaf| of the CPU's);
+   ``trees_to_dataframe`` (6,300 rows, bitwise B's arrays); (b) a 7-class
+   model at 12b's shape, 20 iterations (SHAP on 8,192 rows, additive per
+   class; the SOFTMAX export through ``ONNXModel`` within 1e-5, rows
+   summing to 1 within 1e-6; a 5-iteration (n, 7) ``init_score`` fit, 5
+   K6 launches an iteration) and a ``LightGBMRegressor`` on 1,000,000
+   HIGGS rows, 20 iterations (``TreeEnsembleRegressor`` through
+   ``ONNXModel`` within 1e-5 * (1 + |y|) of its ``transform``); (c)
+   ``ml_op_cases``: the other 14 ai.onnx.ml-family handlers, one node
+   each, on the card against the CPU (integers bitwise, floats within
+   1e-5 * max|ref| + 1e-6).
 
-``python3 chip_smoke.py 18`` runs phases 1, 2 and 18 only,
+``python3 chip_smoke.py 19`` runs phases 1, 2 and 19 only,
+``python3 chip_smoke.py 18`` phases 1, 2 and 18,
 ``python3 chip_smoke.py 17`` phases 1, 2 and 17,
 ``python3 chip_smoke.py 16`` phases 1, 2, 4 and 16,
 ``python3 chip_smoke.py 15`` phases 1, 2, 4 and 15,
@@ -5741,16 +5771,95 @@ def onnx_op_cases():
     return cases
 
 
-def phase_onnx_ops(dev_info):
-    """18c: every case of ``onnx_op_cases`` on the card (params and feeds
-    as CUDA tensors) against the port on the CPU: integer outputs and moved
-    data bitwise, floats within 1e-5 * max|ref| + 1e-6."""
+def ml_op_cases():
+    """One-node graphs of the 14 ai.onnx.ml-family handlers that are not
+    tree ensembles (``onnx/ml_ops.py``), at the shapes
+    ``tests/test_torch_onnx_ml_ops.py`` uses. {name: (model bytes, feeds,
+    exact)}: ``exact`` marks float outputs that are only moved or
+    selected (bitwise on any device)."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
+                                                 make_node,
+                                                 make_tensor_value_info as vi)
+    g = np.random.default_rng(19)
+
+    def r(*shape, s=1.0):
+        return g.normal(0, s, shape).astype(np.float32)
+
+    def one(op, feeds, inits=None, outs=("y",), exact=False, ml=True,
+            **attrs):
+        node = make_node(op, list(feeds) + list(inits or {}), list(outs),
+                         domain="ai.onnx.ml" if ml else "", **attrs)
+        gr = make_graph([node], "t", [vi(k, v.dtype, list(v.shape))
+                                      for k, v in feeds.items()],
+                        [vi(o, np.float32, []) for o in outs],
+                        initializers=inits or {})
+        return (make_model(gr, opset=17, extra_opsets={"ai.onnx.ml": 3}),
+                feeds, exact)
+
+    x = r(6, 5)
+    xn = x.copy()
+    xn[::2, 1] = np.nan
+    sv = r(4, 5)
+    return {
+        "LinearClassifier": one(
+            "LinearClassifier", {"x": x}, outs=("label", "scores"),
+            coefficients=r(3, 5).ravel().tolist(),
+            intercepts=r(3).tolist(), classlabels_ints=[4, 5, 6],
+            post_transform="SOFTMAX"),
+        "LinearRegressor": one(
+            "LinearRegressor", {"x": x}, coefficients=r(2, 5).ravel()
+            .tolist(), intercepts=[0.5, -0.25], targets=2),
+        "Scaler": one("Scaler", {"x": x}, offset=r(5).tolist(),
+                      scale=r(5).tolist()),
+        "Normalizer": one("Normalizer", {"x": x}, norm="L2"),
+        "Imputer": one("Imputer", {"x": xn}, exact=True,
+                       imputed_value_floats=r(5).tolist()),
+        "Binarizer": one("Binarizer", {"x": x}, threshold=0.1),
+        "ArrayFeatureExtractor": one(
+            "ArrayFeatureExtractor", {"x": x},
+            {"idx": np.array([4, 0, 2], np.int64)}, exact=True),
+        "FeatureVectorizer": one(
+            "FeatureVectorizer", {"a": x[:, :1].copy(), "b": x[:, 1:].copy()},
+            exact=True, inputdimensions=[1, 4]),
+        "LabelEncoder": one(
+            "LabelEncoder", {"x": np.array([5, 7, 9, 7, 11], np.int64)},
+            keys_int64s=[5, 7, 11], values_floats=[0.5, 0.7, 1.1],
+            default_float=-1.0, exact=True),
+        "ZipMap": one("ZipMap", {"x": x}, exact=True,
+                      classlabels_int64s=[0, 1, 2, 3, 4]),
+        "SVMRegressor": one(
+            "SVMRegressor", {"x": x}, coefficients=r(4).tolist(),
+            support_vectors=sv.ravel().tolist(), rho=[0.3],
+            kernel_type="RBF", kernel_params=[0.4, 0.0, 3.0]),
+        "SVMClassifier": one(
+            "SVMClassifier", {"x": x}, outs=("label", "scores"),
+            classlabels_ints=[0, 1, 2], vectors_per_class=[1, 2, 1],
+            support_vectors=sv.ravel().tolist(),
+            coefficients=r(2, 4).ravel().tolist(), rho=r(3).tolist(),
+            kernel_type="POLY", kernel_params=[0.5, 1.0, 2.0]),
+        "Hardmax": one("Hardmax", {"x": np.array(
+            [[1.0, 3.0, 3.0], [2.0, 0.0, -1.0]], np.float32)}, ml=False,
+            exact=True),
+        "ScatterElements": one(
+            "ScatterElements", {"data": r(3, 4)},
+            {"idx": np.array([[0, -1], [2, 1]], np.int64),
+             "upd": r(2, 2)}, ml=False, exact=True, axis=1,
+            reduction="add"),
+    }
+
+
+def phase_onnx_ops(dev_info, cases=None, what="18c"):
+    """18c: every case of ``onnx_op_cases`` (or of ``cases``, a dict of
+    the same form) on the card (params and feeds as CUDA tensors) against
+    the port on the CPU: integer outputs and moved data bitwise, floats
+    within 1e-5 * max|ref| + 1e-6."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.onnx import convert_model
     dev = torch.device("cuda")
     rec = {}
-    for name, (data, feeds, exact) in onnx_op_cases().items():
+    for name, (data, feeds, exact) in (cases or onnx_op_cases()).items():
         cm = convert_model(data)
         t0 = time.perf_counter()
         card = cm({k: torch.from_numpy(v).to(dev)
@@ -5765,12 +5874,12 @@ def phase_onnx_ops(dev_info):
         for o, want in cpu.items():
             got, want = card[o].cpu().numpy(), want.numpy()
             if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(f"18c {name}: {o} {got.shape} "
+                raise AssertionError(f"{what} {name}: {o} {got.shape} "
                                      f"{got.dtype}, CPU {want.shape} "
                                      f"{want.dtype}")
             if want.dtype.kind != "f" or exact:
                 if not np.array_equal(got, want):
-                    raise AssertionError(f"18c {name}: {o} not bitwise the "
+                    raise AssertionError(f"{what} {name}: {o} not bitwise the "
                                          f"CPU's")
                 errs[o] = 0.0
                 continue
@@ -5778,10 +5887,10 @@ def phase_onnx_ops(dev_info):
             errs[o] = float(np.abs(got.astype(np.float64) - want)
                             .max(initial=0.0))
             if not (np.isfinite(got).all() and errs[o] <= tol):
-                raise AssertionError(f"18c {name}: {o} off the CPU by "
+                raise AssertionError(f"{what} {name}: {o} off the CPU by "
                                      f"{errs[o]} (bound {tol})")
         rec[name] = {"max_abs_err": max(errs.values()), "card_ms": card_ms}
-    log(f"[onnx ops 18c] {len(rec)} graphs on the card held to the CPU: "
+    log(f"[onnx ops {what}] {len(rec)} graphs on the card held to the CPU: "
         f"{json.dumps(rec)}")
     return rec
 
@@ -6017,6 +6126,375 @@ def phase_quant_bert(dev_info):
     return rec
 
 
+#: phase 19: BASELINE #2 (8c's HIGGS-shaped 11M x 28, 8c's params) past
+#: ``fit``; 19b at 12b's Covertype shape and on 1M HIGGS rows
+AFTERFIT = dict(iters=50, shap_rows=65_536, shap_cpu_rows=1_024,
+                onnx_rows=1_000_000, onnx_batch=65_536,
+                refit_rows=(10_000_000, 11_000_000), refit_cpu_rows=100_000,
+                multi_iters=20, multi_shap_rows=8_192, multi_onnx_rows=131_072,
+                multi_init_iters=5, reg_rows=1_000_000, reg_iters=20)
+
+
+def _k6_19(what, iters, launches):
+    """Phase 19's fits: :func:`_check_counts`, recorded under ``what``."""
+    launches[what] = _check_counts(f"19 {what}", iters)
+    return launches[what]
+
+
+def _same_arrays(what, a, b, names):
+    import numpy as np
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _shap_additive(what, phi, raw):
+    """Sum of the contributions and the expected value against the margin:
+    within 1e-5 * (1 + |margin|) on every row. Returns the worst ratio of
+    the gap to its bound."""
+    import numpy as np
+    total = phi.astype(np.float64).sum(axis=-1)
+    gap = np.abs(total - raw) / (1e-5 * (1 + np.abs(raw)))
+    if not np.isfinite(total).all() or gap.max() > 1.0:
+        raise AssertionError(f"{what}: SHAP sums off the margin by "
+                             f"{gap.max()} of the bound")
+    return float(gap.max())
+
+
+def _shap_launches(booster, X):
+    """Kernel launches of one ``shap_values`` call and its seconds under
+    the profiler: the runtime's launch calls, as :func:`_kernel_launches`
+    counts them, read off the raw events (``key_averages`` builds an
+    object for each)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            booster.shap_values(X)
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = sum(1 for e in prof.profiler.kineto_results.events()
+                   if "LaunchKernel" in e.name())
+    return launches, secs
+
+
+def _onnx_rows(model_bytes, X, fetch, batch):
+    """``ONNXModel(device=None, compute_dtype="float32")`` over ``X`` as a
+    ``features`` column: one untimed transform of a batch, then the timed
+    one. Returns (output frame, rows/s, h2d bytes of the timed pass)."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    import torch
+    m = ONNXModel(model_bytes, device=None, compute_dtype="float32",
+                  mini_batch_size=batch,
+                  feed_dict={"features": "features"}, fetch_dict=fetch)
+    m.transform(DataFrame({"features": X[:batch]}))
+    torch.cuda.synchronize()
+    m.stage_counters.reset()
+    t0 = time.perf_counter()
+    out = m.transform(DataFrame({"features": X}))
+    secs = time.perf_counter() - t0
+    snap = m.stage_counters.snapshot()
+    return out, len(X) / secs, snap.get("h2d", {}).get("bytes", 0), secs
+
+
+def _padded_feature_bytes(n, batch, width):
+    from mmlspark_tpu_torch.ops.padding import bucket_size
+    full, rest = divmod(n, batch)
+    rows = full * bucket_size(batch) + (bucket_size(rest) if rest else 0)
+    return rows * width * 4
+
+
+def phase_afterfit_higgs(dev_info):
+    """19a: BASELINE #2 past ``fit`` (see the module docstring)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import (Booster, BinMapper,
+                                                LightGBMClassifier)
+    from mmlspark_tpu_torch.models.gbdt.objectives import get_objective
+    from mmlspark_tpu_torch.models.gbdt.train import bins_on_device
+    from mmlspark_tpu_torch.models.gbdt.trees import build_tree
+    cfg = AFTERFIT
+    iters = cfg["iters"]
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    df = DataFrame({"features": X, "label": y})
+    params = dict(num_leaves=31, max_bin=255, learning_rate=0.1,
+                  min_data_in_leaf=20, num_iterations=iters)
+    launches, secs = {}, {}
+    # 1. fit A
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    A = LightGBMClassifier(**params).fit(df)
+    secs["fit_a"] = time.perf_counter() - t0
+    _k6_19("fit_a", iters, launches)
+    bA = A.booster
+    # 2. the warm start: B continues A's model string
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    B = LightGBMClassifier(model_string=bA.to_string(), **params).fit(df)
+    secs["warm_start_b"] = time.perf_counter() - t0
+    _k6_19("warm_start_b", iters, launches)
+    bB = B.booster
+    if bB.num_trees != 2 * iters or bB.best_iteration != 2 * iters:
+        raise AssertionError(f"19a B: {bB.num_trees} trees, best_iteration "
+                             f"{bB.best_iteration}")
+    _same_arrays("19a B's first trees against A", bB.truncated(iters), bA,
+                 ("feats", "thr_raw", "leaf_values", "gains", "covers"))
+    # B's first new tree at A's scores, through K6 and the plain version
+    dev = bB.device
+    mapper = BinMapper(max_bin=255, seed=0).fit(X)
+    bins = bins_on_device(mapper, X, dev)[0]
+    obj = get_objective("binary")
+    base = torch.tensor(bA.base_score, dtype=torch.float32, device=dev)
+    scores = bA.raw_score_on_device(X) - base
+    y_d = torch.as_tensor(y, dtype=torch.float32).to(dev)
+    live = torch.ones(len(y), dtype=torch.float32, device=dev)
+    g, h = obj.grad_hess(scores + base, y_d, live)
+    kw = dict(depth=5, n_bins=mapper.n_bins, lam=1e-10, alpha=0.0,
+              min_gain=0.0, min_child_weight=1e-3, min_data_in_leaf=20.0)
+    outs = {impl: [t.cpu().numpy() for t in build_tree(
+        bins, g, h, live, hist_impl=impl, **kw)]
+        for impl in ("kernel", "plain")}
+    (fk, tk, _, _, gk, _), (fp, tp, _, _, gp, _) = (outs["kernel"],
+                                                    outs["plain"])
+    first_ties = _tree_ties("19a B's first new tree", (fk, tk, gk),
+                            (fp, tp, gp))
+    first_equals_b = bool(np.array_equal(fk, bB.feats[iters]))
+    del bins, scores, g, h, y_d, live
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pA, pB = bA.predict(X), bB.predict(X)
+    secs["predict_a_b"] = time.perf_counter() - t0
+    auc_a, auc_b = _auc(y, pA), _auc(y, pB)
+    if not auc_b >= auc_a:
+        raise AssertionError(f"19a: train AUC of B {auc_b} below A's {auc_a}")
+    # 3. init_score: C starts from A's raw margins
+    margin = bA.raw_score(X).astype(np.float64)
+    dfc = DataFrame({"features": X, "label": y, "margin": margin})
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    C = LightGBMClassifier(init_score_col="margin", **params).fit(dfc)
+    secs["init_score_c"] = time.perf_counter() - t0
+    _k6_19("init_score_c", iters, launches)
+    bC = C.booster
+    if bC.base_score != 0.0 or bC.num_trees != iters:
+        raise AssertionError(f"19a C: base_score {bC.base_score}, "
+                             f"{bC.num_trees} trees")
+    c_ties = _tree_ties("19a C's first tree against B's 51st",
+                        (bC.feats[0], bC.thr_raw[0], bC.gains[0]),
+                        (bB.feats[iters], bB.thr_raw[iters],
+                         bB.gains[iters]))
+    c_agree = sum(bool(np.array_equal(bC.feats[t], bB.feats[iters + t])
+                       and np.array_equal(bC.thr_raw[t],
+                                          bB.thr_raw[iters + t]))
+                  for t in range(iters))
+    del dfc, margin, C
+    # 4. SHAP through features_shap_col
+    n_shap = cfg["shap_rows"]
+    B.set(features_shap_col="shap")
+    t0 = time.perf_counter()
+    out = B.transform(DataFrame({"features": X[:n_shap]}))
+    torch.cuda.synchronize()
+    secs["shap_transform"] = time.perf_counter() - t0
+    phi = np.stack(list(out["shap"]))
+    raw = np.stack(list(out["rawPrediction"]))[:, 1]
+    if phi.shape != (n_shap, X.shape[1] + 1) or phi.dtype != np.float32:
+        raise AssertionError(f"19a SHAP: {phi.shape} {phi.dtype}")
+    shap_gap = _shap_additive("19a SHAP", phi, raw)
+    k = cfg["shap_cpu_rows"]
+    t0 = time.perf_counter()
+    phi_cpu = Booster.from_string(bB.to_string(), device="cpu") \
+        .shap_values(X[:k])
+    secs["shap_cpu_1024"] = time.perf_counter() - t0
+    shap_err = float(np.abs(phi[:k].astype(np.float64) - phi_cpu).max())
+    if shap_err > 1e-6 * float(np.abs(phi_cpu).max()):
+        raise AssertionError(f"19a SHAP: card vs CPU {shap_err}")
+    shap_launches, secs["shap_profiled"] = _shap_launches(bB, X[:n_shap])
+    B.set(features_shap_col=None)
+    # 5. ONNX: the exported graph through ONNXModel
+    n_onnx = cfg["onnx_rows"]
+    oo, onnx_rps, h2d, secs["onnx_transform"] = _onnx_rows(
+        B.to_onnx(), X[:n_onnx], {"p": "probabilities", "label": "label"},
+        cfg["onnx_batch"])
+    t0 = time.perf_counter()
+    bt = B.transform(DataFrame({"features": X[:n_onnx]}))
+    secs["model_transform"] = time.perf_counter() - t0
+    want = np.stack(list(bt["probability"]))
+    got = np.stack(list(oo["p"]))
+    onnx_err = float(np.abs(got.astype(np.float64) - want).max())
+    if got.shape != want.shape or onnx_err > 1e-5:
+        raise AssertionError(f"19a ONNX: probabilities off by {onnx_err}")
+    labels = np.asarray(oo["label"])
+    sure = np.abs(want[:, 1] - 0.5) > 1e-5
+    if labels.dtype != np.int64 or not np.array_equal(
+            labels[sure], (want[sure, 1] > 0.5).astype(np.int64)):
+        raise AssertionError(f"19a ONNX: labels ({labels.dtype}) differ")
+    want_h2d = _padded_feature_bytes(n_onnx, cfg["onnx_batch"], X.shape[1])
+    if h2d != want_h2d:
+        raise AssertionError(f"19a ONNX: {h2d} h2d bytes, the features "
+                             f"{want_h2d}")
+    del oo, bt, got, want
+    # 6. refit on new rows
+    lo, hi = cfg["refit_rows"]
+    t0 = time.perf_counter()
+    R = bB.refit(X[lo:hi], y[lo:hi])
+    torch.cuda.synchronize()
+    secs["refit"] = time.perf_counter() - t0
+    _same_arrays("19a refit structures", R, bB,
+                 ("feats", "thr_raw", "gains", "covers"))
+    kc = cfg["refit_cpu_rows"]
+    r_card = bB.refit(X[lo:lo + kc], y[lo:lo + kc])
+    r_cpu = Booster.from_string(bB.to_string(), device="cpu").refit(
+        X[lo:lo + kc], y[lo:lo + kc])
+    refit_err = float(np.abs(r_card.leaf_values.astype(np.float64)
+                             - r_cpu.leaf_values).max())
+    if refit_err > 1e-5 * float(np.abs(r_cpu.leaf_values).max()):
+        raise AssertionError(f"19a refit: card vs CPU {refit_err}")
+    # 7. trees_to_dataframe
+    tdf = bB.trees_to_dataframe()
+    node_type = np.asarray(tdf["node_type"])
+    split = node_type != "leaf"
+    if len(tdf) != bB.num_trees * (31 + 32) or not (
+            np.array_equal(np.asarray(tdf["split_feature"])[split],
+                           bB.feats.ravel())
+            and np.array_equal(np.asarray(tdf["threshold"])[split
+                                                           & (node_type
+                                                              == "split")],
+                               bB.thr_raw.ravel()[bB.feats.ravel() >= 0]
+                               .astype(np.float64))
+            and np.array_equal(np.asarray(tdf["value"])[~split],
+                               bB.leaf_values.ravel().astype(np.float64))):
+        raise AssertionError("19a trees_to_dataframe differs from B's "
+                             "arrays")
+    rec = {"rows": len(y), "iterations": iters, "seconds": secs,
+           "k6_launches": launches, "auc_a": auc_a, "auc_b": auc_b,
+           "b_first_new_tree_ties": first_ties,
+           "b_first_new_tree_equals_kernel_rebuild": first_equals_b,
+           "c_first_tree_ties_with_b51": c_ties,
+           "c_trees_agreeing_with_b_new": c_agree,
+           "shap": {"rows": n_shap, "rows_per_s": n_shap
+                    / secs["shap_transform"],
+                    "launches": shap_launches,
+                    "launches_per_tree": shap_launches / bB.num_trees,
+                    "additivity_worst_of_bound": shap_gap,
+                    "card_vs_cpu_max_abs": shap_err},
+           "onnx": {"rows": n_onnx, "rows_per_s": onnx_rps,
+                    "model_transform_rows_per_s": n_onnx
+                    / secs["model_transform"],
+                    "prob_max_abs_err": onnx_err, "h2d_bytes": h2d},
+           "refit": {"rows": hi - lo, "card_vs_cpu_max_abs": refit_err},
+           "trees_to_dataframe_rows": len(tdf)}
+    log(f"[afterfit 19a] {json.dumps(rec)} | {dev_info['smi']}")
+    del X, y, df
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_afterfit_more(dev_info):
+    """19b: a 7-class model at 12b's Covertype shape (SHAP, SOFTMAX export,
+    an (n, 7) init_score fit) and a regressor on 1M HIGGS rows (its
+    TreeEnsembleRegressor through ``ONNXModel``)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import (LightGBMClassifier,
+                                                LightGBMRegressor)
+    cfg = AFTERFIT
+    launches, secs = {}, {}
+    n, F, K = COVTYPE["rows"], COVTYPE["features"], COVTYPE["classes"]
+    X, y = make_covtype_like(n, F, K)
+    df = DataFrame({"features": X, "label": y})
+    params = dict(objective="multiclass", num_leaves=31, max_bin=255,
+                  learning_rate=0.1)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    M = LightGBMClassifier(num_iterations=cfg["multi_iters"],
+                           **params).fit(df)
+    secs["fit_multiclass"] = time.perf_counter() - t0
+    _k6_19("multiclass", cfg["multi_iters"], launches)
+    bM = M.booster
+    ns = cfg["multi_shap_rows"]
+    t0 = time.perf_counter()
+    phi = bM.shap_values(X[:ns])
+    secs["shap_multiclass"] = time.perf_counter() - t0
+    raw = bM.raw_score(X[:ns])
+    if phi.shape != (K, ns, F + 1):
+        raise AssertionError(f"19b SHAP: {phi.shape}")
+    gap = max(_shap_additive(f"19b SHAP class {k}", phi[k], raw[:, k])
+              for k in range(K))
+    m_launches = _shap_launches(bM, X[:ns])[0]
+    no = cfg["multi_onnx_rows"]
+    oo, m_rps, _, _ = _onnx_rows(M.to_onnx(), X[:no],
+                                 {"p": "probabilities"}, cfg["onnx_batch"])
+    got = np.stack(list(oo["p"]))
+    want = bM.predict(X[:no])
+    m_err = float(np.abs(got.astype(np.float64) - want).max())
+    m_sum = float(np.abs(got.astype(np.float64).sum(axis=1) - 1).max())
+    if m_err > 1e-5 or m_sum > 1e-6:
+        raise AssertionError(f"19b ONNX: probabilities off by {m_err}, "
+                             f"row sums by {m_sum}")
+    dfi = DataFrame({"features": X, "label": y,
+                     "margin": bM.raw_score(X).astype(np.float64)})
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    I = LightGBMClassifier(num_iterations=cfg["multi_init_iters"],
+                           init_score_col="margin", **params).fit(dfi)
+    secs["fit_multiclass_init_score"] = time.perf_counter() - t0
+    _k6_19("multiclass_init_score", cfg["multi_init_iters"], launches)
+    if I.booster.num_trees != K * cfg["multi_init_iters"]:
+        raise AssertionError(f"19b init_score: {I.booster.num_trees} trees")
+    del X, y, df, dfi, oo
+    torch.cuda.empty_cache()
+    # the regressor on the first 1M HIGGS rows
+    Xh, yh = make_higgs_like(cfg["reg_rows"], GBDT["features"])
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    Rg = LightGBMRegressor(num_iterations=cfg["reg_iters"], num_leaves=31,
+                           max_bin=255).fit(DataFrame({"features": Xh,
+                                                       "label": yh}))
+    secs["fit_regressor"] = time.perf_counter() - t0
+    _k6_19("regressor", cfg["reg_iters"], launches)
+    oo, r_rps, _, _ = _onnx_rows(Rg.to_onnx(), Xh, {"v": "variable"},
+                                 cfg["onnx_batch"])
+    got = np.stack(list(oo["v"])).astype(np.float64).reshape(len(Xh), -1)[:, 0]
+    want = np.asarray(Rg.transform(DataFrame({"features": Xh}))
+                      ["prediction"], dtype=np.float64)
+    r_gap = float((np.abs(got - want) / (1e-5 * (1 + np.abs(want)))).max())
+    if r_gap > 1.0:
+        raise AssertionError(f"19b regressor ONNX: {r_gap} of the bound")
+    rec = {"multiclass": {"rows": n, "classes": K,
+                          "iterations": cfg["multi_iters"],
+                          "shap_rows": ns,
+                          "shap_rows_per_s": ns / secs["shap_multiclass"],
+                          "shap_launches": m_launches,
+                          "shap_additivity_worst_of_bound": gap,
+                          "onnx_rows_per_s": m_rps,
+                          "onnx_prob_max_abs_err": m_err,
+                          "onnx_row_sum_max_err": m_sum},
+           "regressor": {"rows": len(Xh), "iterations": cfg["reg_iters"],
+                         "onnx_rows_per_s": r_rps,
+                         "onnx_worst_of_bound": r_gap},
+           "seconds": secs, "k6_launches": launches}
+    log(f"[afterfit 19b] {json.dumps(rec)} | {dev_info['smi']}")
+    del Xh, yh, oo
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _phase19(dev_info):
+    """Phases 19a-19c."""
+    return {"19a": phase_afterfit_higgs(dev_info),
+            "19b": phase_afterfit_more(dev_info),
+            "19c": phase_onnx_ops(dev_info, ml_op_cases(), "19c")}
+
+
 def _phase18(dev_info):
     """Phases 18a-18c."""
     return {"18a": phase_quant_resnet(dev_info),
@@ -6123,17 +6601,17 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17" and "18": phases 1, 2 and 14 (or 17, 18); "9":
+    # "17", "18" and "19": phases 1, 2 and 14 (or 17, 18, 19); "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18"}
+             "17", "18", "19"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and "
-            f"18")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 "
+            f"and 19")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -6180,6 +6658,8 @@ def main(argv=()):
             phase_image(dev_info)
         if "18" in only:
             _phase18(dev_info)
+        if "19" in only:
+            _phase19(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -6207,6 +6687,8 @@ def main(argv=()):
     phase_onnx(dev_info)
     phase_image(dev_info)
     p18 = _phase18(dev_info)
+    p19 = _phase19(dev_info)
+    k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     src = "mmlspark_tpu_torch/csrc/paged_attention.cu"
@@ -6291,10 +6773,11 @@ def main(argv=()):
          "source": "mmlspark_tpu_torch/csrc/histogram.cu",
          "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
          "launches": (gbdt["k6_launches"] + est12a["k6_launches"]
-                      + multi12b["k6_launches"]),
+                      + multi12b["k6_launches"] + sum(k6_19.values())),
          "launches_train_8c": gbdt["k6_launches"],
          "launches_estimator_12a": est12a["k6_launches"],
          "launches_multiclass_12b": multi12b["k6_launches"],
+         "launches_afterfit_19": k6_19,
          **{k: hist_recs["nodes16"][k] for k in keys},
          "class_batched": {label: {k: hist_recs[label][k]
                                    for k in keys + ("singles_ms",)}
@@ -6308,7 +6791,8 @@ def main(argv=()):
          "tree_parity": parity,
          "sec_per_iter": gbdt["sec_per_iter"],
          "share_of_iter": gbdt["k6_share_of_iter"],
-         "estimator_12a": est12a, "multiclass_12b": multi12b}]
+         "estimator_12a": est12a, "multiclass_12b": multi12b,
+         "afterfit_19": p19}]
     fsrc = "mmlspark_tpu_torch/csrc/flash_attention.cu"
     fref = "mmlspark_tpu/ops/flash_attention.py"
     sdpa = "F.scaled_dot_product_attention"

@@ -12,9 +12,15 @@ A multiclass booster (``num_class`` K >= 2) stores its trees class-major,
 K an iteration, each with its leaf values in row k of a (K, 2^depth)
 array and zeros in the others; the model string records ``num_class``.
 
-Left out: TreeSHAP, ``refit``, ``trees_to_dataframe``, linear leaves and
-categorical encoders (a model string that carries either of the last
-two raises ``NotImplementedError``).
+After ``fit``: :meth:`Booster.shap_values` (path-dependent TreeSHAP in
+float64 on the booster's device, all trees' leaves batched,
+``treeshap.py``), :meth:`Booster.refit` (the trees' leaves re-estimated
+on new data, gradients and per-leaf sums on the device, no host round
+trip a tree) and :meth:`Booster.trees_to_dataframe`; ``onnx_export.py``
+writes the trees as an ai.onnx.ml graph.
+
+Left out: linear leaves and categorical encoders (a model string that
+carries either raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -28,18 +34,18 @@ import numpy as np
 import torch
 
 from ...utils.device import resolve_device
-from .trees import apply_chunked_dense, predict_leaf_indices, \
-    predict_trees_any
+from .trees import map_rows, predict_leaf_indices, predict_trees
 
 __all__ = ["Booster"]
 
 
-def _leftover(what: str, item: Optional[int] = None) -> NotImplementedError:
+def _leftover(what: str, item: Optional[int] = None,
+              heading: str = "slice-3 leftovers") -> NotImplementedError:
     """The error of a mode outside the port, naming its ROADMAP.md item
     (§1's queue number, where it has one)."""
     where = f", queue item {item}" if item else ""
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, slice-3 leftovers{where})")
+        f"{what} is not ported yet (ROADMAP.md, {heading}{where})")
 
 
 class Booster:
@@ -133,16 +139,8 @@ class Booster:
 
     # -- prediction ---------------------------------------------------------
     # thresholds and feature comparisons are float32 end to end, as in the
-    # JAX package
-    @staticmethod
-    def _x_eff(X):
-        """Dense X as float32; scipy-sparse X passes through (prediction
-        densifies it in bounded chunks)."""
-        from .binning import is_sparse
-        if is_sparse(X):
-            return X
-        return np.asarray(X, dtype=np.float32)
-
+    # JAX package; dense X crosses to the device in one pass, scipy-sparse
+    # X in bounded chunks (trees.map_rows)
     def _tree_cap(self, num_iteration: Optional[int]) -> int:
         """Trees used for a ``num_iteration`` predict cap (LightGBM
         semantics: None = the early-stopped ``best_iteration`` when one
@@ -158,17 +156,27 @@ class Booster:
         k = self.num_class if self.num_class > 1 else 1
         return min(self.num_trees, it * k)
 
-    def raw_score(self, X, num_iteration: Optional[int] = None) -> np.ndarray:
-        X = self._x_eff(X)
+    def _on_device(self, *arrays):
+        return [torch.as_tensor(np.asarray(a)).to(self.device)
+                for a in arrays]
+
+    def raw_score_on_device(self, X, num_iteration: Optional[int] = None
+                            ) -> torch.Tensor:
+        """:meth:`raw_score` as a float32 tensor on the booster's device,
+        (n,) or (n, K): the trees summed in order from zero, then
+        ``base_score`` added."""
         T = self._tree_cap(num_iteration)
         if T == 0:
-            shape = (X.shape[0], self.num_class) if self.num_class > 1 \
-                else (X.shape[0],)
-            return np.full(shape, self.base_score, dtype=np.float32)
-        out = predict_trees_any(self.feats[:T], self.thr_raw[:T],
-                                self.leaf_values[:T], X, depth=self.depth,
-                                device=self.device)
-        return np.asarray(out) + self.base_score
+            n, K = X.shape[0], self.num_class
+            return torch.full((n, K) if K > 1 else (n,), self.base_score,
+                              dtype=torch.float32, device=self.device)
+        f, t, lv = self._on_device(self.feats[:T], self.thr_raw[:T],
+                                   self.leaf_values[:T])
+        return map_rows(lambda xd: predict_trees(f, t, lv, xd, self.depth),
+                        X, self.device) + self.base_score
+
+    def raw_score(self, X, num_iteration: Optional[int] = None) -> np.ndarray:
+        return self.raw_score_on_device(X, num_iteration).cpu().numpy()
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None) -> np.ndarray:
@@ -181,15 +189,154 @@ class Booster:
         obj = get_objective(self.objective, num_class=max(self.num_class, 2))
         return obj.transform(torch.from_numpy(np.asarray(raw))).numpy()
 
+    def _leaves_on_device(self, X) -> torch.Tensor:
+        f, t = self._on_device(self.feats, self.thr_raw)
+        return map_rows(lambda xd: predict_leaf_indices(f, t, xd, self.depth),
+                        X, self.device)
+
     def predict_leaf(self, X) -> np.ndarray:
-        X = self._x_eff(X)
-        f, t = (torch.as_tensor(a).to(self.device)
-                for a in (self.feats, self.thr_raw))
-        return apply_chunked_dense(
-            lambda xd: predict_leaf_indices(
-                f, t, torch.from_numpy(xd).to(self.device),
-                depth=self.depth).cpu().numpy(),
-            X, empty_shape=(0, self.num_trees), empty_dtype=np.int32)
+        """Leaf index per (row, tree), (n, T) int32 (LightGBM
+        predictLeaf)."""
+        return self._leaves_on_device(X).cpu().numpy()
+
+    # -- TreeSHAP -----------------------------------------------------------
+    def shap_values(self, X) -> np.ndarray:
+        """Path-dependent TreeSHAP on the booster's device. Returns (n, F+1)
+        float32: per-feature contributions plus the expected value in the
+        last column (the layout LightGBM's predict_contrib emits); a
+        multiclass model gives (K, n, F+1)."""
+        from .treeshap import shap_trees
+        phi = map_rows(lambda xd: shap_trees(
+            self.feats, self.thr_raw, self.leaf_values, self.covers,
+            self.depth, self.num_class, self.base_score, xd),
+            X, self.device, dim=1)
+        out = phi if self.num_class > 1 else phi[0]
+        return out.to(torch.float32).cpu().numpy()
+
+    # -- refit (parity: LightGBM Booster.refit) -----------------------------
+    def refit(self, X, y, decay_rate: float = 0.9,
+              learning_rate: Optional[float] = None,
+              lam: Optional[float] = None,
+              sample_weight=None) -> "Booster":
+        """Adapt the model to new data without changing tree structures:
+        every tree keeps its splits, its leaf values are re-estimated on
+        ``(X, y)`` and blended ``decay * old + (1 - decay) * new``
+        (LightGBM's ``Booster.refit(decay_rate=0.9)``).
+
+        Trees refit in boosting order, each tree's gradients taken at the
+        running scores of the refitted prefix; tree t updates class t % K
+        only, and a leaf no row reaches keeps its value.
+        ``learning_rate`` / ``lam`` default to the training values in
+        ``fit_params``. On the booster's device: leaf indices, the
+        objective's gradients, per-leaf float64 sums by a scatter-add; the
+        leaf values come back once, at the end."""
+        if not 0.0 <= decay_rate <= 1.0:
+            raise ValueError(f"decay_rate must be in [0, 1], got {decay_rate}")
+        fp = getattr(self, "fit_params", None) or {}
+        if learning_rate is None:
+            learning_rate = float(fp.get("learning_rate", 0.1))
+        if lam is None:
+            lam = float(fp.get("lambda_l2", 0.0)) + 1e-10  # train's lam
+        from .objectives import get_objective
+        y = np.asarray(y, dtype=np.float64)
+        n = len(y)
+        w = (np.asarray(sample_weight, dtype=np.float64)
+             if sample_weight is not None else np.ones(n))
+        K = self.num_class if self.num_class > 1 else 1
+        obj = get_objective(self.objective, num_class=max(K, 2))
+        if obj.grad_hess is None:
+            raise NotImplementedError(
+                f"refit needs analytic gradients for {self.objective!r}")
+        dev = self.device
+        T = self.num_trees
+        n_leaf = 2 ** self.depth
+        leaves = self._leaves_on_device(X).to(torch.int64)
+        # one code path for both arities: leaf values as (T, K, L) and
+        # gradients as (n, K); binary is the K == 1 case
+        lvv = torch.as_tensor(np.ascontiguousarray(
+            self.leaf_values, dtype=np.float32)).to(dev).reshape(
+                T, K, n_leaf).clone()
+        scores = torch.full((n, K) if K > 1 else (n,), self.base_score,
+                            dtype=torch.float32, device=dev)
+        y_d = torch.as_tensor(y, dtype=torch.float32).to(dev)
+        w_d = torch.as_tensor(w, dtype=torch.float32).to(dev)
+        for t in range(T):
+            g, h = obj.grad_hess(scores, y_d, w_d)
+            k = t % K
+            li = leaves[:, t]
+            # tree t was trained for class t % K only (class-major order)
+            g = g.reshape(n, K)[:, k].to(torch.float64)
+            h = h.reshape(n, K)[:, k].to(torch.float64)
+            Gs = torch.zeros(n_leaf, dtype=torch.float64,
+                             device=dev).index_add_(0, li, g)
+            Hs = torch.zeros(n_leaf, dtype=torch.float64,
+                             device=dev).index_add_(0, li, h)
+            has = Hs > 0
+            opt = torch.where(has, -Gs / (Hs + lam) * learning_rate, 0.0)
+            blended = ((decay_rate * lvv[t, k]).to(torch.float64)
+                       + (1.0 - decay_rate) * opt).to(torch.float32)
+            # empty leaves keep their trained value (no evidence to move)
+            lvv[t, k] = torch.where(has, blended, lvv[t, k])
+            upd = lvv[t].T[li]                                  # (n, K)
+            scores = scores + (upd if K > 1 else upd[:, 0])
+        new_lv = lvv.cpu().numpy().reshape(self.leaf_values.shape)
+        out = Booster(self.depth, self.n_features, self.objective,
+                      self.base_score, self.num_class,
+                      self.feats.copy(), self.thr_raw.copy(), new_lv,
+                      self.gains.copy(), self.covers.copy(),
+                      best_iteration=self.best_iteration, device=dev)
+        out.fit_params = self.fit_params
+        return out
+
+    # -- introspection (parity: LightGBM Booster.trees_to_dataframe) --------
+    def trees_to_dataframe(self):
+        """The model as a DataFrame of one row per node: tree_index,
+        node_index (heap order), node_type (split / stub / leaf),
+        split_feature (-1 for stubs and leaves), threshold, split_gain,
+        count (training cover), class_index (-1 for structure rows),
+        value (per-class leaf outputs: a multiclass model has one leaf row
+        per class). Host numpy, vectorized."""
+        from ...core.dataframe import DataFrame
+        T = self.num_trees
+        n_leaf = 2 ** self.depth
+        n_int = n_leaf - 1
+        K = self.num_class if self.num_class > 1 else 1
+        feats = np.asarray(self.feats).reshape(T, n_int)
+        stub = feats.ravel() < 0
+
+        def nan_if(a):
+            return np.where(stub, np.nan, a)
+        internal = {
+            "tree_index": np.repeat(np.arange(T), n_int),
+            "node_index": np.tile(np.arange(n_int), T),
+            "node_type": np.where(stub, "stub", "split"),
+            "split_feature": feats.ravel(),
+            "threshold": nan_if(np.asarray(self.thr_raw).ravel()
+                                .astype(np.float64)),
+            "split_gain": nan_if(np.asarray(self.gains).ravel()
+                                 .astype(np.float64)),
+            "count": np.asarray(self.covers)[:, :n_int].ravel()
+                     .astype(np.float64),
+            "class_index": np.full(T * n_int, -1),
+            "value": np.full(T * n_int, np.nan),
+        }
+        lv = np.asarray(self.leaf_values).reshape(T, K, n_leaf)
+        leaf_cov = np.asarray(self.covers)[:, n_int:].astype(np.float64)
+        leaf = {
+            "tree_index": np.repeat(np.arange(T), K * n_leaf),
+            "node_index": np.tile(np.arange(n_int, n_int + n_leaf), T * K),
+            "node_type": np.full(T * K * n_leaf, "leaf"),
+            "split_feature": np.full(T * K * n_leaf, -1),
+            "threshold": np.full(T * K * n_leaf, np.nan),
+            "split_gain": np.full(T * K * n_leaf, np.nan),
+            "count": np.repeat(leaf_cov[:, None, :], K, axis=1).ravel(),
+            "class_index": np.tile(np.repeat(np.arange(K), n_leaf), T)
+                           if K > 1 else np.zeros(T * n_leaf, np.int64),
+            "value": lv.astype(np.float64).ravel(),
+        }
+        return DataFrame({k: np.concatenate([internal[k],
+                                             np.asarray(leaf[k])])
+                          for k in internal})
 
     # -- importances --------------------------------------------------------
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:

@@ -6,20 +6,22 @@ than two classes or ``objective="multiclass"``) and ``LightGBMRegressor``
 fit a :class:`Booster` through :func:`train` on the card, with the JAX
 package's params, defaults and output columns: ``rawPrediction``,
 ``probability`` and ``prediction`` for the classifier, ``prediction``
-for the regressor, the optional ``leaf_prediction_col``, a
-``validation_indicator_col`` whose rows drive early stopping, a weight
-column and ``feature_importances``.
+for the regressor, the optional ``leaf_prediction_col`` and
+``features_shap_col`` (TreeSHAP on the card; a multiclass model's K
+blocks of F + 1 side by side), a ``validation_indicator_col`` whose rows
+drive early stopping, a weight column, a warm start from
+``model_string`` (a model string of either package), a starting margin
+from ``init_score_col``, ``feature_importances`` and ``to_onnx``.
 
 The device is a constructor (and :meth:`_LightGBMModelBase.load`)
 keyword of the estimators and models, not a persisted param: ``None``
 means the CUDA card, and raises without one; tests pass ``"cpu"``.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
-item at ``fit`` or ``transform``: ``LightGBMRanker`` (lambdarank),
-``features_shap_col`` and ``to_onnx`` (item 21), ``parallelism`` other
-than ``"serial"`` (item 31), ``model_string`` and ``init_score_col``
-(item 20), and every option :func:`train` rejects (categorical features,
-goss/rf/dart, ``linear_tree``, ...).
+item at ``fit``: ``LightGBMRanker`` (lambdarank), ``parallelism`` other
+than ``"serial"`` (item 31), and every option :func:`train` rejects
+(categorical features, goss/rf/dart, ``linear_tree``, step checkpoints,
+...).
 """
 
 from __future__ import annotations
@@ -51,6 +53,16 @@ def _str_or_str_list(v):
         return [str(m) for m in v]
     raise TypeError(f"expected str or list of str, got "
                     f"{type(v).__name__}: {v!r}")
+
+
+def _margins(df: DataFrame, col: str) -> np.ndarray:
+    """A margin column as float64, (n,) or (n, K) (an object column of
+    per-row vectors is stacked)."""
+    a = df[col]
+    if getattr(a, "dtype", None) == object:
+        a = np.stack([np.asarray(v, dtype=np.float64) for v in a]) \
+            if len(a) else np.zeros((0,))
+    return np.asarray(a, dtype=np.float64)
 
 
 def _object_rows(a: np.ndarray) -> np.ndarray:
@@ -107,11 +119,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
     validation_indicator_col = Param(str, default=None,
                                      doc="bool column marking validation rows")
     model_string = Param(str, default=None,
-                         doc="serialized booster for warm start (not ported)")
+                         doc="serialized booster for warm start")
     leaf_prediction_col = Param(str, default=None,
                                 doc="emit leaf indices here")
     features_shap_col = Param(str, default=None,
-                              doc="emit SHAP contributions here (not ported)")
+                              doc="emit SHAP contributions here")
     checkpoint_dir = Param(str, default=None,
                            doc="directory for step-level checkpoint/resume")
     checkpoint_interval = Param(int, default=0,
@@ -137,7 +149,7 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
                              "neg/pos (LightGBM is_unbalance)")
     init_score_col = Param(str, default=None,
                            doc="per-row starting margin column (LightGBM "
-                               "initScoreCol; not ported)")
+                               "initScoreCol); predictions exclude it")
     extra_trees = Param(bool, default=False,
                         doc="extremely randomized trees: one random "
                             "threshold candidate per node x feature "
@@ -213,17 +225,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
         return df, None
 
     def _reject_unported(self) -> None:
-        """The estimator-level options outside the port; :func:`train`
+        """The estimator-level option outside the port; :func:`train`
         rejects the rest of them."""
-        if self.get_or_none("features_shap_col"):
-            raise _leftover("features_shap_col (TreeSHAP)", 21)
         if self.parallelism != "serial":
             raise _leftover(f"parallelism={self.parallelism!r} (data- and "
                             f"voting-parallel training)", 31)
-        if self.get_or_none("model_string"):
-            raise _leftover("warm start (model_string)", 20)
-        if self.get_or_none("init_score_col"):
-            raise _leftover("init_score_col", 20)
 
     def _fit_core(self, df: DataFrame, extra_params: dict) -> Booster:
         self._reject_unported()
@@ -244,9 +250,22 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
                 # the validation split's weight rows drive early stopping
                 valid_weights = [np.asarray(valid_df[self.weight_col],
                                             dtype=np.float64)]
+        init_model = None
+        ms = self.get_or_none("model_string")
+        if ms:
+            init_model = Booster.from_string(ms, device=self.device)
+        iscol = self.get_or_none("init_score_col")
+        init_score = (_margins(train_df, iscol)
+                      if iscol and iscol in train_df else None)
+        valid_init_scores = None
+        if init_score is not None and valid_sets is not None:
+            # the validation split carries its own rows of the margin
+            valid_init_scores = [_margins(valid_df, iscol)]
         return train(self._train_params(extra_params), X, y, sample_weight=w,
-                     valid_sets=valid_sets, valid_weights=valid_weights,
-                     device=self.device)
+                     valid_sets=valid_sets, init_model=init_model,
+                     init_score=init_score,
+                     valid_init_scores=valid_init_scores,
+                     valid_weights=valid_weights, device=self.device)
 
     def _model_kw(self) -> dict:
         return dict(device=self.device, features_col=self.features_col,
@@ -261,7 +280,7 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
     leaf_prediction_col = Param(str, default=None,
                                 doc="emit leaf indices here")
     features_shap_col = Param(str, default=None,
-                              doc="emit SHAP contributions here (not ported)")
+                              doc="emit SHAP contributions here")
 
     #: where prediction runs; a model loaded as a pipeline's stage (no
     #: keyword) predicts on the card
@@ -290,15 +309,16 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
         return self._booster
 
     def to_onnx(self) -> bytes:
-        """ONNX export of the booster (TreeEnsemble graph): not ported."""
-        raise _leftover("ONNX export of a booster (to_onnx)", 21)
+        """The fitted booster as a spec-compliant ONNX TreeEnsemble graph
+        (the counterpart of the reference's onnxmltools LightGBM
+        conversion), for ``ONNXModel`` or any other ONNX runtime."""
+        from .onnx_export import booster_to_onnx
+        return booster_to_onnx(self.booster)
 
     def _load_extra(self, path):
         self._booster = None
 
     def _features(self, df: DataFrame) -> np.ndarray:
-        if self.get_or_none("features_shap_col"):
-            raise _leftover("features_shap_col (TreeSHAP)", 21)
         return assemble_features(df, [self.features_col]).astype(np.float32)
 
     def _add_aux_cols(self, df: DataFrame, X: np.ndarray) -> DataFrame:
@@ -306,6 +326,15 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
         if lcol:
             df = df.with_column(lcol,
                                 _object_rows(self.booster.predict_leaf(X)))
+        scol = self.get_or_none("features_shap_col")
+        if scol:
+            shap = self.booster.shap_values(X)
+            if shap.ndim == 3:
+                shap = np.concatenate(list(shap), axis=-1)
+            vals = np.empty(len(shap), dtype=object)
+            for i, row in enumerate(shap):
+                vals[i] = row                       # float32, as the reference
+            df = df.with_column(scol, vals)
         return df
 
     def feature_importances(self, importance_type: str = "split"

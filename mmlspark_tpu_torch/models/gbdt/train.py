@@ -16,12 +16,18 @@ gradients (K, n), and every level's K histograms come from one K6 launch
 leaf values in row k of a (K, 2^depth) array, as the JAX package stores
 them, so model strings load across the two packages.
 
+A warm start (``init_model``) continues a booster: its raw scores on X,
+less its base score, start the loop on the device (computed there from X
+in chunks) and the new trees append to a copy of it. ``init_score`` starts
+the loop from a per-row margin, (n,) or (n, K), with ``base_score`` 0;
+the model's predictions exclude that margin, as LightGBM's do.
+
 Ported: ``boosting="gbdt"``, dense X, ``tree_learner="serial"``, the
 regression-family, binary and multiclass objectives, sample weights,
 ``scale_pos_weight`` / ``is_unbalance``, ``boost_from_average``,
-``bagging_fraction`` / ``bagging_freq``, ``feature_fraction`` and
-``use_quantized_grad``. Every other mode raises ``NotImplementedError``
-naming its ROADMAP leftover.
+``bagging_fraction`` / ``bagging_freq``, ``feature_fraction``,
+``use_quantized_grad``, ``init_model`` and ``init_score``. Every other
+mode raises ``NotImplementedError`` naming its ROADMAP leftover.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from ...ops.histogram import prepare_bins_columns
 from .binning import BinMapper, is_sparse
 from .booster import Booster, _leftover
 from .objectives import get_metric, get_objective
-from .trees import build_tree, predict_trees_any
+from .trees import build_tree, map_rows, predict_trees
 
 __all__ = ["train", "TrainConfig", "resolve_params", "bins_on_device"]
 
@@ -148,8 +154,7 @@ class TrainConfig:
         self.n_features = n_features
 
 
-def _reject_unported(p: Dict, X, group, init_model, mesh, init_score,
-                     valid_init_scores) -> None:
+def _reject_unported(p: Dict, X, group, mesh) -> None:
     """Raise NotImplementedError for every mode outside this slice."""
     boosting = {"gbrt": "gbdt", "random_forest": "rf"}.get(
         str(p["boosting"]).lower(), str(p["boosting"]).lower())
@@ -179,12 +184,9 @@ def _reject_unported(p: Dict, X, group, init_model, mesh, init_score,
         raise _leftover("extra_trees")
     if float(p["feature_fraction_bynode"]) != 1.0:
         raise _leftover("feature_fraction_bynode")
-    if init_model is not None:
-        raise _leftover("warm start (init_model)", 20)
-    if init_score is not None or valid_init_scores is not None:
-        raise _leftover("init_score", 20)
     if p["checkpoint_dir"]:
-        raise _leftover("step checkpoints (checkpoint_dir)", 20)
+        raise _leftover("step checkpoints (checkpoint_dir, with "
+                        "utils/checkpoint.py)", 24, "slice 5: the periphery")
 
 
 def _to_device(a: np.ndarray, dev: torch.device, dtype) -> torch.Tensor:
@@ -257,8 +259,15 @@ def train(params: Dict,
     per-set sample weights for eval metrics. The returned booster
     predicts on the same device and carries ``phase_seconds``."""
     p = resolve_params(params)
-    _reject_unported(p, X, group, init_model, mesh, init_score,
-                     valid_init_scores)
+    if init_model is not None and init_score is not None:
+        raise ValueError("init_score cannot combine with a warm-start "
+                         "model (the model already defines the margin)")
+    if init_model is not None \
+            and getattr(init_model, "is_linear", False) != bool(
+                p["linear_tree"]):
+        raise ValueError("warm start must keep the leaf model family: "
+                         "set linear_tree to match the init model")
+    _reject_unported(p, X, group, mesh)
     dev = resolve_device(device)
     X = np.asarray(X)
     if X.dtype.kind != "f":
@@ -308,22 +317,46 @@ def train(params: Dict,
     bins_cols, phase["bin_transform"], phase["upload"] = bins_on_device(
         mapper, X, dev)
 
-    # boost_from_average: the first margin is the objective's optimal
-    # constant; off (and multiclass) -> boosting starts at 0
-    base_score = obj.init_score(y, w) if p["boost_from_average"] \
-        and not is_multi else 0.0
-    booster = Booster(depth, F, objective_name, base_score, K, device=dev)
-
     # device residency, all f32 (the reference runs with x64 off); scores
     # are the DELTA from base_score, re-added for the gradients
     t0 = time.perf_counter()
+    init_trees = 0
+    if init_model is not None:
+        # the new trees append to a copy: the caller's model is left as
+        # it was
+        booster = init_model.truncated(init_model.num_trees)
+        booster.device = dev
+        base_score = booster.base_score
+        init_trees = booster.num_trees
+        scores = booster.raw_score_on_device(X) - torch.tensor(
+            base_score, dtype=torch.float32, device=dev)
+    else:
+        if init_score is not None:
+            # a per-row starting margin: boost-from-average is skipped and
+            # predictions exclude the margin (LightGBM's semantics)
+            init_arr = np.asarray(init_score, dtype=np.float64)
+            want = (n, K) if is_multi else (n,)
+            if init_arr.shape != want:
+                raise ValueError(f"init_score shape {init_arr.shape} != "
+                                 f"{want}")
+            base_score = 0.0
+            scores = _to_device(init_arr, dev, torch.float32)
+        else:
+            # boost_from_average: the first margin is the objective's
+            # optimal constant; off (and multiclass) -> boosting starts
+            # at 0
+            base_score = obj.init_score(y, w) if p["boost_from_average"] \
+                and not is_multi else 0.0
+            scores = torch.zeros((n, K) if is_multi else n,
+                                 dtype=torch.float32, device=dev)
+        booster = Booster(depth, F, objective_name, base_score, K,
+                          device=dev)
     y_d = torch.as_tensor(y, dtype=torch.float32).to(dev)
     w_d = torch.as_tensor(w, dtype=torch.float32).to(dev)
     live_d = torch.ones(n, dtype=torch.float32, device=dev)
-    scores = torch.zeros((n, K) if is_multi else n, dtype=torch.float32,
-                         device=dev)
     base32 = torch.tensor(base_score, dtype=torch.float32, device=dev)
     phase["upload"] += time.perf_counter() - t0
+    init_iters = init_trees // K
 
     build_kwargs = dict(depth=depth, n_bins=n_bins,
                         lam=float(p["lambda_l2"]) + 1e-10,
@@ -357,10 +390,19 @@ def train(params: Dict,
         if any(is_sparse(vx) for vx, _ in valid_sets):
             raise _leftover("sparse validation sets", 18)
         valid_sets = [(np.asarray(vx), vy) for vx, vy in valid_sets]
-        valid_scores = [np.full((vx.shape[0], K) if is_multi
-                                else vx.shape[0], base_score,
-                                dtype=np.float64)
-                        for vx, _vy in valid_sets]
+        if init_score is not None and valid_init_scores is None:
+            raise ValueError(
+                "init_score with valid_sets needs valid_init_scores "
+                "(one margin array per validation set): eval at margin "
+                "zero would select a wrong best_iteration")
+        if init_trees:
+            valid_scores = [booster.raw_score(vx).astype(np.float64)
+                            for vx, _vy in valid_sets]
+        else:
+            valid_scores = [np.full((vx.shape[0], K) if is_multi
+                                    else vx.shape[0], base_score,
+                                    dtype=np.float64)
+                            for vx, _vy in valid_sets]
         if valid_weights is not None:
             if len(valid_weights) != len(valid_sets):
                 raise ValueError(
@@ -374,6 +416,18 @@ def train(params: Dict,
                     raise ValueError(
                         f"valid_weights[{vi}] has {len(w_)} rows for a "
                         f"{vx_.shape[0]}-row validation set")
+        if valid_init_scores is not None:
+            if len(valid_init_scores) != len(valid_sets):
+                raise ValueError(
+                    f"valid_init_scores has {len(valid_init_scores)} "
+                    f"entries for {len(valid_sets)} valid_sets")
+            for vi, vis in enumerate(valid_init_scores):
+                vis = np.asarray(vis, dtype=np.float64)
+                if vis.shape != valid_scores[vi].shape:
+                    raise ValueError(
+                        f"valid_init_scores[{vi}] shape {vis.shape} != "
+                        f"{valid_scores[vi].shape}")
+                valid_scores[vi] = valid_scores[vi] + vis
 
     fmask_all = torch.ones(F, dtype=torch.bool, device=dev)
 
@@ -431,14 +485,15 @@ def train(params: Dict,
 
         # eval + early stopping (this iteration's trees only)
         if valid_sets:
-            new_f, new_t, new_l = (np.stack([t[i] for t in trees])
-                                   for i in range(3))
+            new_f, new_t, new_l = (torch.as_tensor(np.stack(
+                [t[i] for t in trees])).to(dev) for i in range(3))
             results = []
             per_set_log = (eval_log is not None
                            and (len(resolved) > 1 or len(valid_sets) > 1))
             for vi, (vx, vy) in enumerate(valid_sets):
-                valid_scores[vi] = valid_scores[vi] + predict_trees_any(
-                    new_f, new_t, new_l, vx, depth=depth, device=dev)
+                valid_scores[vi] = valid_scores[vi] + map_rows(
+                    lambda xd: predict_trees(new_f, new_t, new_l, xd, depth),
+                    vx, dev).cpu().numpy()
                 raw32 = torch.from_numpy(valid_scores[vi].astype(np.float32))
                 pred = obj.transform(raw32).numpy()
                 vw = (valid_weights[vi] if valid_weights is not None
@@ -465,7 +520,7 @@ def train(params: Dict,
                 best_iter = it + 1
             elif patience and (it + 1 - best_iter) >= patience:
                 booster.best_iteration = best_iter
-                final = booster.truncated(best_iter * K)
+                final = booster.truncated(init_trees + best_iter * K)
                 phase["boost"] = time.perf_counter() - t_boost
                 final.phase_seconds = phase
                 return final
@@ -499,5 +554,8 @@ def train(params: Dict,
         torch.cuda.synchronize(dev)
     phase["boost"] = time.perf_counter() - t_boost
     booster.phase_seconds = phase
-    booster.best_iteration = best_iter if valid_sets else n_iter
+    # absolute iterations, the warm start's included (the reference counts
+    # them only with valid_sets)
+    booster.best_iteration = init_iters + (best_iter if valid_sets
+                                           else n_iter)
     return booster

@@ -35,10 +35,9 @@ import torch
 
 from ...ops.histogram import bins_as_int, level_histogram, \
     level_histogram_plain
-from ...utils.device import resolve_device
 
 __all__ = ["TreeArrays", "build_tree", "predict_trees",
-           "predict_leaf_indices", "predict_trees_any", "apply_chunked_dense"]
+           "predict_leaf_indices", "map_rows"]
 
 _SCAN_BLOCK = 16
 
@@ -252,39 +251,22 @@ def predict_leaf_indices(feats, thr_raw, X, depth: int) -> torch.Tensor:
     return torch.stack(cols, dim=1).to(torch.int32)
 
 
-def apply_chunked_dense(fn, X, empty_shape, chunk: int = 1 << 16,
-                        concat_axis: int = 0,
-                        empty_dtype=np.float32) -> np.ndarray:
-    """Run ``fn(dense_f32_rows) -> np.ndarray`` over X: dense input in one
-    call; scipy-sparse input densified one ``chunk`` of rows at a time so
-    peak host memory is O(chunk x F). ``empty_shape`` is the result shape
-    for a 0-row sparse X."""
+#: rows of a scipy-sparse X densified at a time on the host; dense X
+#: crosses to the device in one pass
+SPARSE_ROWS = 1 << 16
+
+
+def map_rows(fn, X, device, dim: int = 0) -> torch.Tensor:
+    """``fn(rows)`` over the rows of X as dense float32 tensors on
+    ``device``, the results concatenated along ``dim``: dense X in one
+    pass, scipy-sparse X densified ``SPARSE_ROWS`` rows at a time so that
+    peak host memory is O(SPARSE_ROWS x F). Nothing comes back to the
+    host."""
     from .binning import is_sparse
     if not is_sparse(X):
-        return np.asarray(fn(np.asarray(X, np.float32)))
+        return fn(torch.from_numpy(np.ascontiguousarray(
+            X, dtype=np.float32)).to(device))
     X = X.tocsr()
-    chunk = max(1, chunk)
-    parts = [np.asarray(fn(X[lo:lo + chunk].toarray().astype(np.float32)))
-             for lo in range(0, X.shape[0], chunk)]
-    if not parts:
-        return np.zeros(empty_shape, empty_dtype)
-    return np.concatenate(parts, axis=concat_axis)
-
-
-def _tree_tensors(device, *arrays):
-    return [torch.as_tensor(np.asarray(a)).to(device) for a in arrays]
-
-
-def predict_trees_any(feats, thr_raw, leaf_values, X, depth: int,
-                      chunk: int = 1 << 16, device=None) -> np.ndarray:
-    """:func:`predict_trees` on ``device`` (CUDA when None) for numpy tree
-    arrays and a dense or scipy-sparse X; returns numpy."""
-    dev = resolve_device(device)
-    f, t, lv = _tree_tensors(dev, feats, thr_raw, leaf_values)
-    k_dim = lv.shape[1] if lv.dim() == 3 else None
-
-    def run(xd):
-        return predict_trees(f, t, lv, torch.from_numpy(xd).to(dev),
-                             depth).cpu().numpy()
-    return apply_chunked_dense(run, X, empty_shape=(0, k_dim) if k_dim
-                               else (0,), chunk=chunk)
+    return torch.cat([fn(torch.from_numpy(
+        X[lo:lo + SPARSE_ROWS].toarray().astype(np.float32)).to(device))
+        for lo in range(0, max(X.shape[0], 1), SPARSE_ROWS)], dim=dim)

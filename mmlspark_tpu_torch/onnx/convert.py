@@ -49,8 +49,10 @@ host, as in the reference; ``RoiAlign``, ``GridSample``), control flow
 the ``LSTM`` and ``GRU`` cells, and the transformer ops of ORT's optimizer:
 the Gelu family (``Gelu``, ``BiasGelu``, ``FastGelu``, ``QuickGelu``),
 ``FusedMatMul``, the LayerNorm and RMSNorm contrib ops, rotary
-embeddings, the four attention ops and ``RelativePositionBias``. Any
-other op (the JAX package's ``ml_ops.py``, ``extra_ops.py`` and
+embeddings, the four attention ops and ``RelativePositionBias``; and,
+from ``ml_ops.py``, the 16 handlers of the JAX package's ``ml_ops.py``
+(tree ensembles, linear models, SVMs, preprocessing, ``Hardmax``,
+``ScatterElements``). Any other op (the JAX package's ``extra_ops.py`` and
 ``generation_ops.py`` handlers) raises :class:`UnsupportedOp`.
 """
 
@@ -2841,3 +2843,9 @@ class ConvertedModel:
 
 def convert_model(model_bytes: bytes) -> ConvertedModel:
     return ConvertedModel(parse_model(model_bytes))
+
+
+# ai.onnx.ml domain handlers (tree ensembles, linear models, preprocessing)
+# register themselves on import; placed at the module's end so register_op
+# exists
+from . import ml_ops  # noqa: E402,F401

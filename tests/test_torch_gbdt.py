@@ -645,8 +645,6 @@ def test_unported_model_strings_raise():
 UNPORTED = {
     "goss": {"boosting": "goss"}, "dart": {"boosting": "dart"},
     "rf": {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
-    # multiclass trains now; its (n, K) starting margins do not
-    "multiclass": {"objective": "multiclass", "num_class": 3},
     "lambdarank": {"objective": "lambdarank"},
     "data_parallel": {"tree_learner": "data_parallel"},
     "linear_tree": {"linear_tree": True},
@@ -660,8 +658,7 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED) + ["sparse", "init_model",
-                                                     "init_score", "mesh",
+@pytest.mark.parametrize("case", sorted(UNPORTED) + ["sparse", "mesh",
                                                      "group"])
 def test_unported_options_raise(case):
     rng = np.random.default_rng(14)
@@ -670,12 +667,6 @@ def test_unported_options_raise(case):
     params, kw = {"num_iterations": 1, **UNPORTED.get(case, {})}, {}
     if case == "sparse":
         X = sp.csr_matrix(X)
-    elif case == "init_model":
-        kw = {"init_model": object()}
-    elif case == "init_score":
-        kw = {"init_score": np.zeros(50)}
-    elif case == "multiclass":
-        kw = {"init_score": np.zeros((50, 3))}
     elif case == "mesh":
         kw = {"mesh": object()}
     elif case == "group":

@@ -182,10 +182,7 @@ def test_save_load_in_a_fresh_process(tmp_path, cls, label, col):
 
 
 UNPORTED = {
-    "shap": ({"features_shap_col": "shap"}, "21"),
     "parallelism": ({"parallelism": "data_parallel"}, "31"),
-    "model_string": ({"model_string": "{}"}, "20"),
-    "init_score_col": ({"init_score_col": "target"}, "20"),
     "categorical": ({"categorical_feature": [0]}, "17"),
     "goss": ({"boosting_type": "goss"}, "14"),
     "linear_tree": ({"linear_tree": True}, "19"),
@@ -204,13 +201,6 @@ def test_unported_options_raise_at_fit(case):
 
 def test_unported_model_options_raise_at_transform():
     cols = _data(n=200, seed=5)
-    model = pest.LightGBMRegressor(device="cpu", label_col="target",
-                                   **SMALL).fit(DataFrame(cols))
-    with pytest.raises(NotImplementedError, match="queue item 21"):
-        model.to_onnx()
-    model.set(features_shap_col="shap")
-    with pytest.raises(NotImplementedError, match="queue item 21"):
-        model.transform(DataFrame(cols))
     ranker = pest.LightGBMRanker(device="cpu", label_col="target")
     with pytest.raises(NotImplementedError, match="lambdarank"):
         ranker.fit(DataFrame({**cols, "group": np.zeros(200)}))

@@ -466,7 +466,7 @@ def test_bf16_conv_keeps_bf16():
 
 
 def test_unsupported_op_raises():
-    for op in ["TreeEnsembleClassifier", "DFT", "FancyNewOp"]:
+    for op in ["RNN", "DFT", "FancyNewOp"]:
         data = O.make_model(_graph(O, [O.make_node(op, ["x"], ["y"])],
                                    {"x": A}, {}, ["y"]))
         cm = O.convert_model(data)

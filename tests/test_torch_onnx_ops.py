@@ -782,18 +782,12 @@ def test_recurrent_refusals(op, attrs, match):
 
 
 def test_handler_sets():
-    """After this slice the JAX converter's handlers the port lacks are
-    exactly the 44 of ``ml_ops.py``, ``extra_ops.py`` and
-    ``generation_ops.py`` (ROADMAP.md queue item 3)."""
+    """The JAX converter's handlers the port lacks are exactly the 28 of
+    ``extra_ops.py`` and ``generation_ops.py`` (ROADMAP.md queue item 3);
+    ``ml_ops.py``'s 16 are ported (``tests/test_torch_onnx_ml_ops.py``)."""
     from mmlspark_tpu.onnx.convert import OP_HANDLERS as jax_ops
     from mmlspark_tpu_torch.onnx.convert import OP_HANDLERS as port_ops
     left = {
-        "ml_ops": {"TreeEnsembleClassifier", "TreeEnsembleRegressor",
-                   "LinearClassifier", "LinearRegressor", "SVMClassifier",
-                   "SVMRegressor", "Scaler", "Normalizer", "Binarizer",
-                   "Imputer", "LabelEncoder", "ZipMap",
-                   "ArrayFeatureExtractor", "FeatureVectorizer", "Hardmax",
-                   "ScatterElements"},
         "extra_ops": {"ConvInteger", "MatMulInteger",
                       "DynamicQuantizeLinear", "RNN", "LRN", "LpPool",
                       "GlobalLpPool", "MaxUnpool",
@@ -806,9 +800,9 @@ def test_handler_sets():
                       "NegativeLogLikelihoodLoss"},
         "generation_ops": {"GreedySearch", "BeamSearch"}}
     assert {k: len(v) for k, v in left.items()} == {
-        "ml_ops": 16, "extra_ops": 26, "generation_ops": 2}
+        "extra_ops": 26, "generation_ops": 2}
     assert set(jax_ops) - set(port_ops) == set().union(*left.values())
-    assert len(port_ops) == 155 and not set(port_ops) - set(jax_ops)
+    assert len(port_ops) == 171 and not set(port_ops) - set(jax_ops)
 
 
 CARD_CASES = onnx_op_cases()
