@@ -349,8 +349,36 @@ Phases (any failure exits non-zero and prints no result line):
    ``ml_op_cases``: the other 14 ai.onnx.ml-family handlers, one node
    each, on the card against the CPU (integers bitwise, floats within
    1e-5 * max|ref| + 1e-6).
+20. full-sequence generation on bench.py's generation pair (the target
+   8 x 512, vocab 8192, head dim 64; the draft 2 x 128), no new kernel —
+   (a) ``distill.train_lm`` of the bf16 target with ``use_flash`` on 60
+   ``markov_sampler`` batches of 32 x 128 (a language over its first 256
+   ids), then ``distill_draft`` of the draft from it, 60 steps: the LM
+   loss falls and the KL falls below half its start, every step's
+   attention on K7 forward and K8a / K8b backward (8 of each a target
+   step; 8 K7 of the frozen teacher and 2 of each for the draft a
+   distillation step), no plain call; seconds a step; (b) the trained
+   target with the distilled and with a random draft, f32 and bf16,
+   gamma 4, 4 prompts of 16 tokens, 64 new:
+   ``generate_speculative_paged(paged_attn="kernel")`` (K1 on every
+   verify window, rounds x 8 launches, FMA body in f32, tensor-core body
+   in bf16), ``generate_speculative`` and ``generate_cached``; in f32
+   every speculative id equals ``generate_cached``'s, in bf16 the share
+   that agrees; tokens/s, acceptance and target forwards per token of
+   each; (c) ``generate_beam`` (W = 4, 16 new, without and with an eos
+   from the first run's best hypothesis) of the f32 target: ids equal
+   the CPU's, scores within 1e-5 x max|score|; (d) sampled ``generate``
+   (``use_flash``: 32 x 8 K7 launches) and ``generate_cached`` give the
+   same tokens; (e) ORT ``GreedySearch`` / ``BeamSearch`` over a
+   two-layer GPT-style decoder subgraph at the target's widths through
+   ``ONNXModel``: sequences equal the CPU's; (f) BERT-base exported with
+   external data through ``ONNXModel(external_data_dir=)``: outputs
+   bitwise the inline graph's; (g) ``extra_op_cases`` (22 of
+   ``extra_ops.py``'s handlers) on the card against the CPU, and the
+   four ``Random*`` by their law.
 
-``python3 chip_smoke.py 19`` runs phases 1, 2 and 19 only,
+``python3 chip_smoke.py 20`` runs phases 1, 2 and 20 only,
+``python3 chip_smoke.py 19`` phases 1, 2 and 19,
 ``python3 chip_smoke.py 18`` phases 1, 2 and 18,
 ``python3 chip_smoke.py 17`` phases 1, 2 and 17,
 ``python3 chip_smoke.py 16`` phases 1, 2, 4 and 16,
@@ -6488,6 +6516,649 @@ def phase_afterfit_more(dev_info):
     return rec
 
 
+# ---- phase 20: full-sequence generation -------------------------------------
+
+#: 20a: the target trains on ``markov_sampler`` batches over the first
+#: ``lang_vocab`` ids of its 8192 (a language whose every transition a few
+#: dozen steps see), then the draft distils from it on the same batches;
+#: 20b-20d: B prompts of P tokens from the same language, ``new`` tokens
+GEN20 = dict(lang_vocab=256, batch=32, seq=128, train_steps=60,
+             distill_steps=60, lr_target=1e-3, lr_draft=2e-3, B=4, P=16,
+             new=64, gamma=4, page_size=16, beam_new=16, beam_width=4,
+             sample_new=32, temperature=0.8, top_k=50)
+#: 20e: the GPT-style GreedySearch / BeamSearch decoder at the target's
+#: widths with two layers; B rows of P tokens, ``new`` tokens
+ORT_GEN = dict(layers=2, B=4, P=8, new=24, beam_new=12, beams=4,
+               max_pos=64)
+#: 20f: rows and sequence length of the BERT-base external-data check
+EXT_BERT = dict(rows=32, seq=128, batch=16, seed=20)
+
+
+def gpt_decoder_graph(V, D, H, layers, max_pos, seed=0):
+    """The GPT-style decoder subgraph of the JAX package's generation tests
+    (``tests/test_onnx_generation.py``'s ``_decoder_graph``) with ``layers``
+    attention layers, each with its residual, its fused QKV and its own
+    ``past_i`` / ``present_i`` (2, B, H, T, D / H): token + position
+    embeddings, causal and padding masks from the shapes, an untied
+    unembedding. Weights from ``seed``, scaled by 1 / sqrt(fan-in)."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx.builder import (make_graph, make_node,
+                                                 make_tensor_value_info as vi)
+    rng = np.random.default_rng(seed)
+    hd = D // H
+
+    def w(*shape):
+        return rng.normal(0, 1 / np.sqrt(shape[0]), shape).astype(np.float32)
+
+    init = {"tok_table": rng.normal(0, 0.7, (V, D)).astype(np.float32),
+            "pos_table": rng.normal(0, 0.3, (max_pos, D)).astype(np.float32),
+            "unembed": w(D, V),
+            "scale": np.array(1.0 / np.sqrt(hd), np.float32),
+            "one_f": np.array([1.0], np.float32),
+            "big_neg": np.array(-1e9, np.float32),
+            "i1": np.array(1, np.int64), "i0_idx": np.array(0, np.int64),
+            "i1_idx": np.array(1, np.int64),
+            "perm_shape": np.array([0, 0, H, hd], np.int64),
+            "merge_shape": np.array([0, 0, D], np.int64)}
+    n = make_node
+    nodes = [n("Gather", ["tok_table", "input_ids"], ["te"]),
+             n("Gather", ["pos_table", "position_ids"], ["pe"]),
+             n("Add", ["te", "pe"], ["h0"]),
+             n("Shape", ["input_ids"], ["ids_shape"]),
+             n("Gather", ["ids_shape", "i1"], ["S_"], axis=0),
+             n("Shape", ["attention_mask"], ["m_shape"]),
+             n("Gather", ["m_shape", "i1"], ["T_"], axis=0),
+             n("Sub", ["T_", "S_"], ["Ppast"]),
+             n("Unsqueeze", ["S_"], ["S_u"], axes=[0]),
+             n("Unsqueeze", ["T_"], ["T_u"], axes=[0]),
+             n("Concat", ["S_u", "T_u"], ["st"], axis=0),
+             n("Expand", ["one_f", "st"], ["ones_st"]),
+             n("Trilu", ["ones_st", "Ppast"], ["tril"], upper=0),
+             n("Sub", ["tril", "one_f"], ["tril0"]),
+             n("Mul", ["tril0", "big_neg"], ["causal_neg"]),
+             n("Sub", ["one_f", "attention_mask"], ["padm"]),
+             n("Mul", ["padm", "big_neg"], ["pad_neg"]),
+             n("Unsqueeze", ["pad_neg"], ["pad_neg4"], axes=[1, 2])]
+    for i in range(layers):
+        init[f"w_qkv{i}"] = w(D, 3 * D)
+        init[f"w_out{i}"] = w(D, D)
+        h, t = f"h{i}", f"_{i}"
+        nodes += [
+            n("MatMul", [h, f"w_qkv{i}"], ["qkv" + t]),
+            n("Split", ["qkv" + t], ["q0" + t, "k0" + t, "v0" + t], axis=-1,
+              num_outputs=3),
+            n("Reshape", ["q0" + t, "perm_shape"], ["q1" + t]),
+            n("Reshape", ["k0" + t, "perm_shape"], ["k1" + t]),
+            n("Reshape", ["v0" + t, "perm_shape"], ["v1" + t]),
+            n("Transpose", ["q1" + t], ["q" + t], perm=[0, 2, 1, 3]),
+            n("Transpose", ["k1" + t], ["kn" + t], perm=[0, 2, 1, 3]),
+            n("Transpose", ["v1" + t], ["vn" + t], perm=[0, 2, 1, 3]),
+            n("Gather", [f"past_{i}", "i0_idx"], ["kp" + t], axis=0),
+            n("Gather", [f"past_{i}", "i1_idx"], ["vp" + t], axis=0),
+            n("Concat", ["kp" + t, "kn" + t], ["K" + t], axis=2),
+            n("Concat", ["vp" + t, "vn" + t], ["Vv" + t], axis=2),
+            n("Transpose", ["K" + t], ["Kt" + t], perm=[0, 1, 3, 2]),
+            n("MatMul", ["q" + t, "Kt" + t], ["s0" + t]),
+            n("Mul", ["s0" + t, "scale"], ["s1" + t]),
+            n("Add", ["s1" + t, "causal_neg"], ["s2" + t]),
+            n("Add", ["s2" + t, "pad_neg4"], ["s3" + t]),
+            n("Softmax", ["s3" + t], ["p" + t], axis=-1),
+            n("MatMul", ["p" + t, "Vv" + t], ["ctx" + t]),
+            n("Transpose", ["ctx" + t], ["ctx1" + t], perm=[0, 2, 1, 3]),
+            n("Reshape", ["ctx1" + t, "merge_shape"], ["ctx2" + t]),
+            n("MatMul", ["ctx2" + t, f"w_out{i}"], ["ho" + t]),
+            n("Add", [h, "ho" + t], [f"h{i + 1}"]),
+            n("Unsqueeze", ["K" + t], ["K5" + t], axes=[0]),
+            n("Unsqueeze", ["Vv" + t], ["V5" + t], axes=[0]),
+            n("Concat", ["K5" + t, "V5" + t], [f"present_{i}"], axis=0)]
+    nodes.append(n("MatMul", [f"h{layers}", "unembed"], ["logits"]))
+    return make_graph(
+        nodes, "gpt_step",
+        inputs=[vi("input_ids", np.int32, ["B", "S"]),
+                vi("position_ids", np.int32, ["B", "S"]),
+                vi("attention_mask", np.float32, ["B", "T"])]
+        + [vi(f"past_{i}", np.float32, [2, "B", H, "P", hd])
+           for i in range(layers)],
+        outputs=[vi("logits", np.float32, ["B", "S", V])]
+        + [vi(f"present_{i}", np.float32, [2, "B", H, "T", hd])
+           for i in range(layers)],
+        initializers=init)
+
+
+def ort_generation_onnx(op, decoder, max_length, eos, num_beams=4,
+                        num_return=1, length_penalty=1.0):
+    """A ``GreedySearch`` or ``BeamSearch`` graph (com.microsoft,
+    ``model_type`` 0) over ``decoder``: input ``input_ids`` (B, P) int32,
+    output ``sequences`` (and ``sequences_scores`` for the beam), the
+    shape-like inputs as initializers, pad id 0."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
+                                                 make_node,
+                                                 make_tensor_value_info as vi)
+    inits = {"max_length": np.array(max_length, np.int64)}
+    out_names = ["sequences"]
+    if op == "GreedySearch":
+        names, outs = ["input_ids", "max_length"], [
+            vi("sequences", np.int32, ["B", "L"])]
+    else:
+        out_names.append("sequences_scores")
+        names = ["input_ids", "max_length", "", "num_beams",
+                 "num_return_sequences", "length_penalty"]
+        inits.update(num_beams=np.array(num_beams, np.int64),
+                     num_return_sequences=np.array(num_return, np.int64),
+                     length_penalty=np.array(length_penalty, np.float32))
+        outs = [vi("sequences", np.int32, ["B", "R", "L"]),
+                vi("sequences_scores", np.float32, ["B", "R"])]
+    node = make_node(op, names, out_names,
+                     domain="com.microsoft", decoder=decoder,
+                     eos_token_id=eos, pad_token_id=0, model_type=0)
+    g = make_graph([node], "gen",
+                   inputs=[vi("input_ids", np.int32, ["B", "P"])],
+                   outputs=outs, initializers=inits)
+    return make_model(g, extra_opsets={"com.microsoft": 1})
+
+
+def extra_op_cases():
+    """One-node graphs of the 22 handlers of the reference's
+    ``onnx/extra_ops.py`` whose output is a function of their inputs (the
+    four ``Random*`` draw from the device's own generator: 20g holds them
+    apart), at the shapes ``tests/test_torch_onnx_extra_ops.py`` uses or
+    larger. {name: (model bytes, feeds, exact)}; integer outputs bitwise."""
+    import numpy as np
+    from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
+                                                 make_node,
+                                                 make_tensor_value_info as vi)
+    g = np.random.default_rng(20)
+
+    def r(*shape, s=1.0):
+        return g.normal(0, s, shape).astype(np.float32)
+
+    def one(op, feeds, inits=None, ins=None, outs=("y",), **attrs):
+        gr = make_graph([make_node(op, list(ins or feeds), list(outs),
+                                   **attrs)], "t",
+                        [vi(k, v.dtype, list(v.shape))
+                         for k, v in feeds.items()],
+                        [vi(o, np.float32, []) for o in outs],
+                        initializers=inits or {})
+        return (make_model(gr, opset=18,
+                           extra_opsets={"com.microsoft": 1}), feeds, False)
+
+    i32 = g.integers(-2 ** 20, 2 ** 20, (2, 64)).astype(np.int32)
+    j32 = g.integers(-2 ** 20, 2 ** 20, (2, 64)).astype(np.int32)
+    cases = {op: one(op, {"a": i32, "b": j32}) for op in
+             ("BitwiseAnd", "BitwiseOr", "BitwiseXor")}
+    cases["BitwiseNot"] = one("BitwiseNot", {"a": i32})
+    x4 = r(4, 16, 12, 12)
+    cases["LRN"] = one("LRN", {"x": x4}, size=5, alpha=1e-3, beta=0.75,
+                       bias=2.0)
+    cases["MeanVarianceNormalization"] = one("MeanVarianceNormalization",
+                                             {"x": x4})
+    cases["GlobalLpPool"] = one("GlobalLpPool", {"x": x4}, p=3)
+    cases["LpPool"] = one("LpPool", {"x": x4}, kernel_shape=[3, 3],
+                          strides=[2, 2], pads=[1, 1, 1, 1], p=2)
+    pooled = r(2, 3, 4, 4)
+    flat_idx = np.stack([np.stack([
+        (np.arange(16).reshape(4, 4) // 4 * 2 * 8 + np.arange(16).reshape(
+            4, 4) % 4 * 2 + (b + c) % 2) + (b * 3 + c) * 64
+        for c in range(3)]) for b in range(2)]).astype(np.int64)
+    cases["MaxUnpool"] = one("MaxUnpool", {"x": pooled, "i": flat_idx},
+                             kernel_shape=[2, 2], strides=[2, 2])
+    a8 = g.integers(0, 256, (4, 32, 256)).astype(np.uint8)
+    b8 = g.integers(-128, 128, (256, 64)).astype(np.int8)
+    cases["MatMulInteger"] = one(
+        "MatMulInteger", {"a": a8}, {"b": b8,
+                                     "azp": np.uint8(131).reshape(()),
+                                     "bzp": g.integers(-4, 4, 64).astype(
+                                         np.int8)},
+        ins=["a", "b", "azp", "bzp"])
+    xc = g.integers(0, 256, (2, 8, 20, 20)).astype(np.uint8)
+    wc = g.integers(-128, 128, (16, 8, 3, 3)).astype(np.int8)
+    cases["ConvInteger"] = one(
+        "ConvInteger", {"x": xc}, {"w": wc, "xzp": np.uint8(7).reshape(()),
+                                   "wzp": np.int8(-2).reshape(())},
+        ins=["x", "w", "xzp", "wzp"], pads=[1, 1, 1, 1], strides=[1, 2])
+    cases["DynamicQuantizeLinear"] = one(
+        "DynamicQuantizeLinear", {"x": r(64, 33, s=3.0)},
+        outs=("y", "s", "z"))
+    T, Bt, I, H = 64, 8, 16, 32
+    cases["RNN"] = one(
+        "RNN", {"x": r(T, Bt, I)},
+        {"w": r(2, H, I, s=0.3), "r": r(2, H, H, s=0.2),
+         "b": r(2, 2 * H, s=0.1), "h0": r(2, Bt, H)},
+        ins=["x", "w", "r", "b", "", "h0"], outs=("Y", "Yh"),
+        hidden_size=H, direction="bidirectional")
+    logp = np.log(g.dirichlet(np.ones(10), size=(32,))).astype(np.float32)
+    tgt = g.integers(0, 10, 32).astype(np.int64)
+    cases["NegativeLogLikelihoodLoss"] = one(
+        "NegativeLogLikelihoodLoss", {"x": logp, "t": tgt},
+        {"w": g.random(10).astype(np.float32)}, ins=["x", "t", "w"],
+        reduction="mean", ignore_index=3)
+    cases["SoftmaxCrossEntropyLoss"] = one(
+        "SoftmaxCrossEntropyLoss",
+        {"x": r(16, 10, 6, s=2.0), "t": g.integers(0, 10, (16, 6)).astype(
+            np.int64)}, outs=("y", "lp"), reduction="sum")
+    cases["Det"] = one("Det", {"x": r(64, 4, 4)})
+    for op in ("HannWindow", "HammingWindow", "BlackmanWindow"):
+        cases[op] = one(op, {"x": np.zeros(1, np.float32)},
+                        {"n": np.array(400, np.int64)}, ins=["n"],
+                        periodic=int(op != "BlackmanWindow"))
+    sig = r(4, 1024, 1)
+    cases["DFT"] = one("DFT", {"x": sig}, onesided=1)
+    cases["STFT"] = one("STFT", {"x": sig}, {"step": np.array(160, np.int64),
+                                             "w": np.hanning(400).astype(
+                                                 np.float32)},
+                        ins=["x", "step", "w"], onesided=1)
+    cases["MelWeightMatrix"] = one(
+        "MelWeightMatrix", {"x": np.zeros(1, np.float32)},
+        {"nm": np.array(80, np.int64), "dft": np.array(400, np.int64),
+         "sr": np.array(16000, np.int64), "lo": np.array(0.0, np.float32),
+         "hi": np.array(8000.0, np.float32)},
+        ins=["nm", "dft", "sr", "lo", "hi"])
+    return cases
+
+
+def _random_ops_on_card(dev_info):
+    """20g's ``Random*`` ops on the card: the port's own generator, so held
+    by their law, not by the CPU's draws: the same graph twice gives the
+    same values; 2^20 normal draws (mean 1, scale 2) and uniform draws on
+    [2, 3) within 6 standard errors of their mean and spread, every
+    uniform inside its range."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.onnx import (convert_model, make_graph,
+                                         make_model, make_node,
+                                         make_tensor_value_info as vi)
+    n = 1 << 20
+    x = np.zeros((n,), np.float32)
+    nodes = [make_node("RandomNormal", [], ["a"], shape=[n], mean=1.0,
+                       scale=2.0, seed=7.0),
+             make_node("RandomUniformLike", ["x"], ["b"], low=2.0, high=3.0),
+             make_node("RandomNormalLike", ["x"], ["c"]),
+             make_node("RandomUniform", [], ["d"], shape=[n], seed=3.0)]
+    cm = convert_model(make_model(make_graph(
+        nodes, "rnd", [vi("x", np.float32, [n])],
+        [vi(o, np.float32, [n]) for o in "abcd"])))
+    dev = torch.device("cuda")
+    feeds = {"x": torch.from_numpy(x).to(dev)}
+    one, two = cm({}, feeds), cm({}, feeds)
+    rec = {}
+    for o, mean, std in (("a", 1.0, 2.0), ("b", 2.5, np.sqrt(1 / 12)),
+                         ("c", 0.0, 1.0), ("d", 0.5, np.sqrt(1 / 12))):
+        if not torch.equal(one[o], two[o]) or one[o].device.type != dev.type:
+            raise AssertionError(f"20g Random {o}: not a fixed draw on the "
+                                 f"card")
+        v = one[o].double()
+        m, s = float(v.mean()), float(v.std())
+        se = std / np.sqrt(n)
+        if abs(m - mean) > 6 * se or abs(s - std) > 6 * std / np.sqrt(2 * n):
+            raise AssertionError(f"20g Random {o}: mean {m}, std {s} (want "
+                                 f"{mean}, {std})")
+        rec[o] = {"mean": m, "std": s}
+    for o, lo, hi in (("b", 2.0, 3.0), ("d", 0.0, 1.0)):
+        if not bool(((one[o] >= lo) & (one[o] < hi)).all()):
+            raise AssertionError(f"20g Random {o}: outside [{lo}, {hi})")
+    log(f"[random ops 20g] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _zero_gen_counts():
+    """K1/K2 and K7/K8a/K8b launch counters and flash plain calls to 0."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain)
+    _zero_pa_counts()
+    flash_attention.launches = flash_attention.launches_dkv = 0
+    flash_attention.launches_dq = 0
+    flash_attention_plain.calls = flash_attention_bwd_plain.calls = 0
+
+
+def _flash_counts():
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain)
+    return (flash_attention.launches, flash_attention.launches_dkv,
+            flash_attention.launches_dq,
+            flash_attention_plain.calls + flash_attention_bwd_plain.calls)
+
+
+def phase_gen_training(dev_info):
+    """20a: ``distill.train_lm`` on bench.py's generation target (bf16,
+    ``use_flash``), then ``distill_draft`` of its draft from it, both on
+    ``markov_sampler`` batches: the LM loss falls and the KL falls below
+    half its start (the reference test's checks), every step's
+    attention on K7 forward and K8a / K8b backward (target: 8 of each a
+    step; distillation: the frozen teacher's 8 K7 and the draft's 2 of
+    each), no plain call; seconds a step."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo import distill
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    cfg, d_cfg = _spec_cfgs(torch.bfloat16)
+    cfg, d_cfg = cfg._replace(use_flash=True), d_cfg._replace(use_flash=True)
+    G = GEN20
+    batch_fn = distill.markov_sampler(G["lang_vocab"], G["batch"], G["seq"],
+                                      seed=3)
+    t0_np = init_transformer(cfg, seed=0)
+    rec = {}
+    # two untimed steps of each loop first: library loads, cuBLAS handles
+    distill.train_lm(t0_np, cfg, batch_fn, 2)
+    distill.distill_draft(t0_np, cfg, d_cfg, batch_fn, 2, seed=1)
+    _zero_gen_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_np, hist = distill.train_lm(t0_np, cfg, batch_fn, G["train_steps"],
+                                  learning_rate=G["lr_target"], log_every=1)
+    t_s = time.perf_counter() - t0
+    k7, k8a, k8b, plain = _flash_counts()
+    want = (G["train_steps"] * cfg.layers,) * 3
+    if (k7, k8a, k8b) != want or plain:
+        raise AssertionError(f"20a train_lm: K7/K8a/K8b {(k7, k8a, k8b)} "
+                             f"(want {want}), plain calls {plain}")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError(f"20a train_lm: losses {hist}")
+    rec["train_lm"] = {
+        "steps": G["train_steps"], "batch": G["batch"], "seq": G["seq"],
+        "lr": G["lr_target"], "loss_first": hist[0], "loss_last": hist[-1],
+        "losses": hist, "seconds": t_s, "s_per_step": t_s / len(hist),
+        "k7_launches": k7, "k8a_launches": k8a, "k8b_launches": k8b}
+    _zero_gen_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_np, d_hist = distill.distill_draft(
+        t_np, cfg, d_cfg, batch_fn, G["distill_steps"],
+        learning_rate=G["lr_draft"], seed=1)
+    d_s = time.perf_counter() - t0
+    k7d, k8ad, k8bd, plain = _flash_counts()
+    n = G["distill_steps"]
+    want = (n * (cfg.layers + d_cfg.layers), n * d_cfg.layers,
+            n * d_cfg.layers)
+    if (k7d, k8ad, k8bd) != want or plain:
+        raise AssertionError(f"20a distill_draft: K7/K8a/K8b "
+                             f"{(k7d, k8ad, k8bd)} (want {want}), plain "
+                             f"calls {plain}")
+    if not (np.isfinite(d_hist).all() and d_hist[-1] < 0.5 * d_hist[0]):
+        raise AssertionError(f"20a distill_draft: KL {d_hist}")
+    rec["distill_draft"] = {
+        "steps": n, "lr": G["lr_draft"], "kl_first": d_hist[0],
+        "kl_last": d_hist[-1], "kl": d_hist, "seconds": d_s,
+        "s_per_step": d_s / n, "k7_launches": k7d, "k8a_launches": k8ad,
+        "k8b_launches": k8bd}
+    rec["k7_launches"] = k7 + k7d
+    rec["k8a_launches"] = k8a + k8ad
+    rec["k8b_launches"] = k8b + k8bd
+    log(f"[gen training 20a] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec, t_np, d_np, batch_fn
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_gen_speculative(dev_info, t_np, d_np, batch_fn):
+    """20b: the trained target with the distilled draft and with a random
+    one (seed 1), f32 and bf16, gamma 4, 4 prompts of the training
+    language: ``generate_speculative_paged(paged_attn="kernel")`` (K1 on
+    every verify window, W = 5: the FMA body in f32, the tensor-core body
+    in bf16, rounds x 8 launches, nothing else), ``generate_speculative``
+    and ``generate_cached``. f32: both speculative loops' ids equal
+    ``generate_cached``'s; bf16: the share of tokens that agree. Each run
+    once untimed, then timed: tokens/s, acceptance, target forwards per
+    emitted token."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo import speculative as spec
+    from mmlspark_tpu_torch.models.zoo import transformer as tf
+    from mmlspark_tpu_torch.ops.paged_attention import paged_attention_window
+    G = GEN20
+    dev = torch.device("cuda")
+    prompts = batch_fn(10_000)[:G["B"], :G["P"]]
+    rec = {"B": G["B"], "P": G["P"], "new": G["new"], "gamma": G["gamma"]}
+    launches = {"fma": 0, "mma": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        cfg, d_cfg = _spec_cfgs(dtype)
+        tp = tf.params_from_numpy(t_np, cfg, dev)
+        drafts = {"distilled": tf.params_from_numpy(d_np, d_cfg, dev),
+                  "random": tf.params_from_numpy(
+                      tf.init_transformer(d_cfg, seed=1), d_cfg, dev)}
+        kw = dict(max_new_tokens=G["new"])
+        tf.generate_cached(tp, prompts, cfg, **kw)
+        ref_ids, secs = _timed(lambda: tf.generate_cached(tp, prompts, cfg,
+                                                          **kw))
+        ref_ids = ref_ids.cpu().numpy()
+        out = {"generate_cached": {"tokens_per_s": G["B"] * G["new"] / secs,
+                                   "seconds": secs}}
+        for dname, dp in drafts.items():
+            for fn_name in ("generate_speculative_paged",
+                            "generate_speculative"):
+                fn = getattr(spec, fn_name)
+                extra = (dict(page_size=G["page_size"], paged_attn="kernel")
+                         if fn_name.endswith("paged") else {})
+                fn(tp, dp, prompts, cfg, d_cfg, gamma=G["gamma"], **kw,
+                   **extra)
+                _zero_gen_counts()
+                (ids, stats), secs = _timed(lambda: fn(
+                    tp, dp, prompts, cfg, d_cfg, gamma=G["gamma"], **kw,
+                    **extra))
+                ids = ids.cpu().numpy()
+                same = float((ids[:, G["P"]:] == ref_ids[:, G["P"]:]).mean())
+                r = {"tokens_per_s": G["B"] * G["new"] / secs,
+                     "seconds": secs, "rounds": stats["rounds"],
+                     "accepted_drafts": stats["accepted_drafts"],
+                     "accepted_per_round": (stats["accepted_drafts"]
+                                            / max(stats["rounds"], 1)),
+                     "target_forwards": stats["target_forwards"],
+                     "target_forwards_per_token": (stats["target_forwards"]
+                                                   / G["new"]),
+                     "agree_with_generate_cached": same}
+                k1 = paged_attention_window.launches
+                if fn_name.endswith("paged"):
+                    b = _bodies()
+                    want = stats["rounds"] * cfg.layers
+                    body = "mma" if name == "bf16" else "fma"
+                    fma = k1 - b["mma"] - b["split"]
+                    got = b["mma"] if body == "mma" else fma
+                    if (k1 != want or got != want
+                            or paged_attention_window.launches_q):
+                        raise AssertionError(
+                            f"20b {name} {dname}: K1 {k1} launches ({b}), "
+                            f"want {want} verify windows x layers on the "
+                            f"{body} body")
+                    r.update(paged_attn_impl=stats["paged_attn_impl"],
+                             k1_launches=k1, k1_body=body)
+                    launches[body] += k1
+                elif k1:
+                    raise AssertionError(f"20b {fn_name}: {k1} K1 launches")
+                if name == "f32" and same != 1.0:
+                    raise AssertionError(
+                        f"20b f32 {dname} {fn_name}: ids differ from "
+                        f"generate_cached's ({same:.4f} agree)")
+                out[f"{fn_name} {dname}"] = r
+        rec[name] = out
+        del tp, drafts
+        torch.cuda.empty_cache()
+    rec["k1_launches_fma"] = launches["fma"]
+    rec["k1_launches_mma"] = launches["mma"]
+    log(f"[gen speculative 20b] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_gen_beam_sampling(dev_info, t_np, batch_fn):
+    """20c: ``generate_beam`` (W = 4) of the trained f32 target without and
+    with eos (the 3rd token of row 0's best hypothesis without it): ids
+    equal the port's CPU run of the same call, scores within 1e-5 x
+    max|score| of it. 20d: sampled ``generate`` (``use_flash``: K7 each
+    step, new x 8 launches) and ``generate_cached`` (temperature 0.8,
+    top-k 50, one seed) give the same tokens on the card; tokens/s of
+    each."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo import transformer as tf
+    G = GEN20
+    dev = torch.device("cuda")
+    cfg, _ = _spec_cfgs(torch.float32)
+    prompts = batch_fn(10_001)[:2, :G["P"]]
+    tp = tf.params_from_numpy(t_np, cfg, dev)
+    tc = tf.params_from_numpy(t_np, cfg, "cpu")
+    beam = {"W": G["beam_width"], "new": G["beam_new"], "B": 2}
+    eos = None
+    for label in ("no_eos", "eos"):
+        eos_id = None if label == "no_eos" else eos
+        kw = dict(max_new_tokens=G["beam_new"], num_beams=G["beam_width"],
+                  eos_id=eos_id)
+        (ids, scores), secs = _timed(lambda: tf.generate_beam(
+            tp, prompts, cfg, **kw))
+        c_ids, c_scores = tf.generate_beam(tc, prompts, cfg, **kw)
+        ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+        err = float(np.abs(scores - c_scores.numpy()).max())
+        tol = 1e-5 * float(np.abs(c_scores.numpy()).max())
+        if not np.array_equal(ids, c_ids.numpy()) or err > tol:
+            raise AssertionError(f"20c beam {label}: ids equal "
+                                 f"{np.array_equal(ids, c_ids.numpy())}, "
+                                 f"score error {err} (bound {tol})")
+        beam[label] = {"seconds": secs, "max_abs_err_scores": err,
+                       "scores": scores.tolist(),
+                       "eos_fired": bool(eos_id is not None
+                                         and (ids[:, G["P"]:] == eos).any())}
+        if eos is None:
+            # eos: the 3rd token of row 0's best hypothesis without one
+            eos = beam["eos"] = int(ids[0, G["P"] + 2])
+    del tc
+    fcfg = cfg._replace(use_flash=True)
+    prompts4 = batch_fn(10_002)[:G["B"], :G["P"]]
+    kw = dict(max_new_tokens=G["sample_new"], temperature=G["temperature"],
+              top_k=G["top_k"], seed=20)
+    tf.generate(tp, prompts4, fcfg, **dict(kw, max_new_tokens=2))
+    _zero_gen_counts()
+    a, secs_a = _timed(lambda: tf.generate(tp, prompts4, fcfg, **kw))
+    k7, _, _, plain = _flash_counts()
+    if k7 != G["sample_new"] * cfg.layers or plain:
+        raise AssertionError(f"20d generate(use_flash): {k7} K7 launches "
+                             f"(want {G['sample_new'] * cfg.layers}), plain "
+                             f"calls {plain}")
+    b, secs_b = _timed(lambda: tf.generate_cached(tp, prompts4, cfg, **kw))
+    if not torch.equal(a, b):
+        raise AssertionError("20d: sampled generate and generate_cached "
+                             "differ on the card")
+    samp = {"B": G["B"], "new": G["sample_new"], "temperature":
+            G["temperature"], "top_k": G["top_k"], "k7_launches": k7,
+            "generate_tokens_per_s": G["B"] * G["sample_new"] / secs_a,
+            "generate_cached_tokens_per_s": G["B"] * G["sample_new"] / secs_b,
+            "distinct_rows": len({tuple(r) for r in a.cpu().tolist()})}
+    del tp
+    torch.cuda.empty_cache()
+    log(f"[gen beam 20c] {json.dumps(beam)} | {dev_info['smi']}")
+    log(f"[gen sampling 20d] {json.dumps(samp)} | {dev_info['smi']}")
+    return beam, samp
+
+
+def phase_gen_ort(dev_info):
+    """20e: ORT ``GreedySearch`` and ``BeamSearch`` (W = 4) over a two-layer
+    GPT-style decoder subgraph at the target's widths (vocab 8192, d 512,
+    8 heads) through ``ONNXModel(compute_dtype="float32")`` on the card:
+    sequences (and beam scores within 1e-5 x max|score|) equal the port's
+    CPU run of the same model; seconds of each."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    from mmlspark_tpu_torch.serving.tick_profile import SPEC
+    O = ORT_GEN
+    dec = gpt_decoder_graph(SPEC["vocab"], SPEC["d_model"], SPEC["heads"],
+                            O["layers"], O["max_pos"], seed=5)
+    rng = np.random.default_rng(21)
+    ids = rng.integers(1, SPEC["vocab"], (O["B"], O["P"])).astype(np.int32)
+    eos = SPEC["vocab"] - 1
+    rec = {}
+    for op, new, fetch in (
+            ("GreedySearch", O["new"], {"seq": "sequences"}),
+            ("BeamSearch", O["beam_new"],
+             {"seq": "sequences", "score": "sequences_scores"})):
+        data = ort_generation_onnx(op, dec, O["P"] + new, eos,
+                                   num_beams=O["beams"])
+        kw = dict(feed_dict={"input_ids": "ids"}, fetch_dict=fetch,
+                  mini_batch_size=O["B"], compute_dtype="float32")
+        m = ONNXModel(data, **kw)
+        m.transform(DataFrame({"ids": ids}))
+        out, secs = _timed(lambda: m.transform(DataFrame({"ids": ids})))
+        cpu = ONNXModel(data, device="cpu", **kw).transform(
+            DataFrame({"ids": ids}))
+        got, want = np.stack(out["seq"]), np.stack(cpu["seq"])
+        r = {"seconds": secs, "new": new,
+             "generated_distinct": int(len(np.unique(got[..., O["P"]:])))}
+        if not np.array_equal(got, want):
+            raise AssertionError(f"20e {op}: card sequences differ from the "
+                                 f"CPU's")
+        if "score" in fetch:
+            s, cs = np.asarray(out["score"], np.float64), \
+                np.asarray(cpu["score"], np.float64)
+            err = float(np.abs(s - cs).max())
+            if err > 1e-5 * float(np.abs(cs).max()):
+                raise AssertionError(f"20e {op}: scores off the CPU's by "
+                                     f"{err}")
+            r["max_abs_err_scores"] = err
+        rec[op] = r
+        del m
+    torch.cuda.empty_cache()
+    log(f"[ort generation 20e] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_external_data(dev_info):
+    """20f: BERT-base (phase 14's widths, ``export_bert_onnx``) written with
+    its matrices in a sidecar file under ``build/phase20/`` and served
+    through ``ONNXModel(external_data_dir=...)`` on the card: the hidden
+    states of 32 rows bitwise those of the same export kept inline."""
+    import shutil
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    from mmlspark_tpu_torch.models.zoo import bert_onnx as pbert
+    E = EXT_BERT
+    cfg = pbert.BertOnnxConfig(**{k: BERT_ONNX[k] for k in (
+        "vocab", "layers", "d_model", "heads", "d_ff", "max_len")})
+    params = pbert.init_bert_params(cfg, seed=E["seed"])
+    ddir = os.path.join(HERE, "build", "phase20")
+    shutil.rmtree(ddir, ignore_errors=True)
+    ext = pbert.export_bert_onnx(cfg, params=params, external_data_dir=ddir)
+    inline = pbert.export_bert_onnx(cfg, params=params)
+    sidecar = os.path.getsize(os.path.join(ddir, "weights.bin"))
+    ids, mask = bert_rows(E["rows"], E["seq"], cfg.vocab, E["seed"])
+    kw = dict(feed_dict={"input_ids": "ids", "attention_mask": "mask"},
+              fetch_dict={"hidden": "last_hidden_state"},
+              mini_batch_size=E["batch"], compute_dtype="float32")
+    df = DataFrame({"ids": ids, "mask": mask})
+    got, secs = _timed(lambda: ONNXModel(ext, external_data_dir=ddir,
+                                         **kw).transform(df))
+    want = ONNXModel(inline, **kw).transform(df)
+    if not np.array_equal(np.stack(got["hidden"]), np.stack(want["hidden"])):
+        raise AssertionError("20f: the external-data graph's outputs are not "
+                             "bitwise the inline graph's")
+    rec = {"graph_bytes_external": len(ext), "graph_bytes_inline": len(inline),
+           "sidecar_bytes": sidecar, "rows": E["rows"], "seq": E["seq"],
+           "load_and_transform_s": secs}
+    shutil.rmtree(ddir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[external data 20f] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase20(dev_info):
+    """Phases 20a-20g."""
+    train, t_np, d_np, batch_fn = phase_gen_training(dev_info)
+    specs = phase_gen_speculative(dev_info, t_np, d_np, batch_fn)
+    beam, samp = phase_gen_beam_sampling(dev_info, t_np, batch_fn)
+    return {"20a": train, "20b": specs, "20c": beam, "20d": samp,
+            "20e": phase_gen_ort(dev_info),
+            "20f": phase_external_data(dev_info),
+            "20g": {**phase_onnx_ops(dev_info, extra_op_cases(), "20g"),
+                    "random": _random_ops_on_card(dev_info)}}
+
+
 def _phase19(dev_info):
     """Phases 19a-19c."""
     return {"19a": phase_afterfit_higgs(dev_info),
@@ -6601,17 +7272,17 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18" and "19": phases 1, 2 and 14 (or 17, 18, 19); "9":
+    # "17", "18", "19" and "20": phases 1, 2 and 14 (or 17, 18, 19, 20); "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19"}
+             "17", "18", "19", "20"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
-            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 "
-            f"and 19")
+            f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
+            f"19 and 20")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -6660,6 +7331,8 @@ def main(argv=()):
             _phase18(dev_info)
         if "19" in only:
             _phase19(dev_info)
+        if "20" in only:
+            _phase20(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -6688,6 +7361,7 @@ def main(argv=()):
     phase_image(dev_info)
     p18 = _phase18(dev_info)
     p19 = _phase19(dev_info)
+    p20 = _phase20(dev_info)
     k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6712,9 +7386,16 @@ def main(argv=()):
              for name in p15b for mode in ("cold", "warm")}
     k1_15b = {k: v["k1"] for k, v in k_15b.items() if v["k1"]}
     k2_15b = {k: v["k2"] for k, v in k_15b.items() if v["k2"]}
+    # phase 20's K1 launches: 20b's verify windows (W = gamma + 1) of the
+    # speculative reference loop, FMA in f32 and tensor-core in bf16
+    k1_20 = {"fma": p20["20b"]["k1_launches_fma"],
+             "mma": p20["20b"]["k1_launches_mma"]}
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
-         "replaces": f"{ref}:226", "launches": serving["k1_launches"],
+         "replaces": f"{ref}:226",
+         "launches": serving["k1_launches"] + sum(k1_20.values()),
+         "launches_serving_5": serving["k1_launches"],
+         "launches_generation_20b": k1_20, "generation_20": p20,
          "launches_decode": serving["k1_launches_decode"],
          "launches_extend": serving["k1_launches_extend"],
          "launches_split": serving["k1_launches_decode"],
@@ -6809,6 +7490,9 @@ def main(argv=()):
                "launches_onnx": k7_onnx,
                "launches_onnx_by_run": bert14["k7_launches"],
                "launches_serving_engine_16b": k7_engine,
+               "launches_generation_20": {
+                   "train_20a": p20["20a"]["k7_launches"],
+                   "generate_20d": p20["20d"]["k7_launches"]},
                "launches_quant_bert_18b": k7_quant,
                "serving_engine_16b": p16["16b"],
                "onnx_infer_14b": bert14["bf16"]["k7"],
@@ -6816,17 +7500,20 @@ def main(argv=()):
                "inference": infer},
         "K8a": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
                                 f"and dV together)",
+                "launches_generation_train_20a": p20["20a"]["k8a_launches"],
                 "training": train, "decoder_memory": dec_mem},
         "K8b": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
-                                f"and dV together)"}}
+                                f"and dV together)",
+                "launches_generation_train_20a": p20["20a"]["k8b_launches"]}}
     for key, name, line, launches in (
             ("K7", "flash_attention", 64,
              infer["k7_launches"] + train["k7_launches"] + k7_onnx
-             + k7_engine + sum(k7_quant.values())),
+             + k7_engine + sum(k7_quant.values())
+             + p20["20a"]["k7_launches"] + p20["20d"]["k7_launches"]),
             ("K8a", "flash_attention backward (dK, dV)", 230,
-             train["k8a_launches"]),
+             train["k8a_launches"] + p20["20a"]["k8a_launches"]),
             ("K8b", "flash_attention backward (dQ)", 270,
-             train["k8b_launches"])):
+             train["k8b_launches"] + p20["20a"]["k8b_launches"])):
         kernels.append({
             "name": name, "route": "cuda", "source": fsrc,
             "replaces": f"{fref}:{line}", "launches": launches,

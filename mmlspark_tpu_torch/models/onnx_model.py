@@ -24,7 +24,9 @@ codes with a per-column scale, computed from the ``compute_dtype`` values,
 and dequantizes them on the card each batch before the graph runs
 (weight-only: activations and sums stay in ``compute_dtype``). The 8-bit
 weights of a quantized graph (QLinear* ops) are placed on the card once
-with the float params. ``tuning="auto"``, ``external_data_dir`` and
+with the float params. ``external_data_dir`` names the directory of the
+sidecar files of a model saved with external data (its initializers are
+read from there, paths resolved under it). ``tuning="auto"`` and
 ``weights_override`` are not ported and raise ``NotImplementedError``
 naming their ROADMAP item when set; ``mesh_sharded`` raises when a
 batch is placed.
@@ -57,7 +59,6 @@ __all__ = ["ONNXModel"]
 _NOT_PORTED = {
     "tuning": "tuning='auto' (ROADMAP queue item 4, after the tuner of "
               "item 24)",
-    "external_data_dir": "ONNX external data (ROADMAP queue item 4)",
     "weights_override": "weights_override from ONNX fine-tuning (ROADMAP "
                         "queue items 4 and 23)",
 }
@@ -90,8 +91,8 @@ class ONNXModel(Model):
     mesh_sharded = Param(bool, default=False,
                          doc="not ported: SPMD inference over a device mesh")
     external_data_dir = Param(str, default="",
-                              doc="not ported: sidecar files of models saved "
-                                  "with external data")
+                              doc="directory holding the sidecar files of a "
+                                  "model saved with external data")
     weights_override = ComplexParam(default=None,
                                     doc="not ported: fine-tuned params "
                                         "layered over the initializers")
@@ -163,7 +164,9 @@ class ONNXModel(Model):
     # -- metadata (proto-only, no session) ----------------------------------
     def _ensure_converted(self) -> ConvertedModel:
         if self._converted is None:
-            self._converted = convert_model(self.get("model_bytes"))
+            self._converted = convert_model(
+                self.get("model_bytes"),
+                external_data_dir=self.external_data_dir or None)
         return self._converted
 
     def _fetch_map(self, cm: ConvertedModel) -> Dict[str, str]:

@@ -18,8 +18,9 @@ emits for transformer encoders, not just the clean graphs of the zoo:
 The module is numpy over the port's builder, so the same config and seed
 write the same nodes, attributes and initializers as the JAX package's.
 ``bert_reference`` recomputes the same network in pure numpy so tests can
-assert numerical parity with the converted graph. External data (weights
-spilled to a sidecar file) is not ported: ``external_data_dir`` raises.
+assert numerical parity with the converted graph. With
+``external_data_dir`` the weight matrices spill to a sidecar file, as
+torch's ``save_as_external_data`` writes them.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ...onnx.builder import (make_graph, make_model, make_node,
-                             make_tensor_value_info)
+from ...onnx.builder import (make_external_tensor, make_graph, make_model,
+                             make_node, make_tensor_value_info)
 
 __all__ = ["BertOnnxConfig", "init_bert_params", "export_bert_onnx",
            "bert_reference"]
@@ -183,18 +184,21 @@ def export_bert_onnx(cfg: BertOnnxConfig = BertOnnxConfig(), seed: int = 0,
                      params: Optional[Dict[str, np.ndarray]] = None) -> bytes:
     """Serialize the encoder as an ONNX graph in torch-exporter style.
 
-    ``external_data_dir`` (weight matrices spilled to a sidecar file) is
-    not ported and raises."""
-    if external_data_dir is not None:
-        raise NotImplementedError(
-            "export_bert_onnx(external_data_dir=...): ONNX external data is "
-            "not ported yet (ROADMAP queue item 4)")
+    With ``external_data_dir`` set, weight matrices are spilled to a sidecar
+    ``weights.bin`` (single file, offset-packed — the torch layout)."""
     p = params if params is not None else init_bert_params(cfg, seed)
     H, Dh = cfg.heads, cfg.d_model // cfg.heads
     g = _G(opset)
 
-    # parameters as initializers
-    g.inits.update(p)
+    # parameters as initializers (optionally external)
+    offset = 0
+    for k, v in p.items():
+        if external_data_dir is not None and v.ndim >= 2:
+            g.inits[k] = make_external_tensor(k, v, "weights.bin",
+                                              external_data_dir, offset)
+            offset += v.nbytes
+        else:
+            g.inits[k] = v
 
     ids, mask = "input_ids", "attention_mask"
     # embeddings: word Gather + position Slice (torch emits Slice over the

@@ -55,7 +55,8 @@ __all__ = ["TransformerConfig", "BERT_BASE", "BERT_MINI", "DECODER_MINI",
            "decode_window_ragged",
            "init_paged_cache", "paged_gather",
            "paged_scatter_rows", "decode_step_paged", "decode_window_paged",
-           "gelu"]
+           "gelu", "init_kv_cache", "decode_step", "decode_window",
+           "generate", "generate_cached", "generate_beam"]
 
 _NEG = -1e30
 
@@ -823,3 +824,367 @@ def _warp_scaled_rows(scaled, top_k, top_p):
     cutoff_idx = torch.clamp((cum < eff_p[:, None]).sum(-1), max=V - 1)
     cutoff = torch.gather(sorted_f, 1, cutoff_idx[:, None])
     return torch.where(filtered < cutoff, -math.inf, filtered)
+
+
+# ---- counter-based sampling uniforms ---------------------------------------
+# Every sampled draw of the port (this module's generators, the speculative
+# reference loops, the continuous engine) takes its uniforms from a hash of
+# (a row's seed, the absolute position of the token drawn, the draw's
+# purpose, the vocabulary lane), never from a stream with a history: a
+# restored session or a truncated speculative round redraws the same values
+# at the same positions. int64 tensors hold 32-bit values; products are
+# split into 16-bit halves so nothing ever overflows int64 (the same bits on
+# every device).
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for x in [0, 2**32) and a 32-bit constant."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer (a bijection with full avalanche)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _uniforms(seed: torch.Tensor, qpos: torch.Tensor, purpose: int,
+              n: int) -> torch.Tensor:
+    """Uniforms in (0, 1) of shape ``qpos.shape + (n,)``: lane j of row i
+    is a hash of (``seed[i]``, ``qpos[i, ...]``, ``purpose``, j), computed
+    on the device for all rows at once. ``seed`` (S,) int64 holds each
+    row's request seed; ``qpos`` (S,) or (S, m) the absolute positions of
+    the tokens the draws decide. A restored session draws the same
+    uniforms at the same positions, whatever shares its pool."""
+    seed = seed.to(torch.int64)
+    h = _fmix32((seed & _M32) ^ 0x9E3779B9)
+    h = _fmix32(h ^ ((seed >> 32) & _M32))
+    h = h.reshape(h.shape + (1,) * (qpos.dim() - 1))
+    h = _fmix32(h ^ (qpos.to(torch.int64) & _M32))
+    h = _fmix32(h ^ ((purpose * 0x27D4EB2F) & _M32))
+    lanes = _mul32(torch.arange(n, device=seed.device, dtype=torch.int64),
+                   0x9E3779B1)
+    x = _fmix32(h[..., None] ^ lanes)
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel_argmax(logits, uniform):
+    """One categorical draw per row of (S, V) logits (any scale; -inf
+    never drawn) by the Gumbel-max rule from ``uniform`` (S, V) draws."""
+    gumbel = -torch.log(-torch.log(uniform.clamp(min=1e-20)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def _row_seeds(seed: int, rows: int, device) -> torch.Tensor:
+    """The (rows,) stream keys of a batch generated under one call's
+    ``seed``: row b's key hashes (seed, b), so the rows of a batch draw
+    independently (the reference's categorical draws over a (B, V) batch
+    are independent per row) and a row's draws depend on nothing but its
+    key, the position and the purpose."""
+    s = int(seed) % (1 << 64)
+    h = _fmix32(torch.full((rows,), s & _M32, dtype=torch.int64,
+                           device=device) ^ 0x85EBCA77)
+    h = _fmix32(h ^ (s >> 32))
+    return _fmix32(h ^ torch.arange(rows, dtype=torch.int64, device=device))
+
+
+def _draws(seeds: torch.Tensor, pos, purpose: int, n: int) -> torch.Tensor:
+    """(rows, n) uniforms of every row at one absolute position ``pos``."""
+    return _uniforms(seeds, torch.full_like(seeds, int(pos)), purpose, n)
+
+
+def _sample_logits(logits, uniform, temperature: float, top_k: int,
+                   top_p: float):
+    """Greedy (temperature 0) or filtered sampling shared by the
+    generators, on (B, V) float32 logits: optional top-k truncation, then
+    nucleus (top-p) truncation over the top-k-filtered renormalized
+    distribution (the HF convention), both through
+    :func:`_warp_scaled_rows`; the draw is the Gumbel-max rule over
+    ``uniform`` (B, V). Neither filter runs when it is neutral."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    need_k = top_k > 0
+    need_p = 0.0 < top_p < 1.0
+    if need_k or need_p:
+        n = logits.shape[0]
+        logits = _warp_scaled_rows(
+            logits,
+            torch.full((n,), int(top_k) if need_k else 0, dtype=torch.int64,
+                       device=logits.device),
+            torch.full((n,), float(top_p) if need_p else 1.0,
+                       dtype=torch.float32, device=logits.device))
+    return _gumbel_argmax(logits, uniform).long()
+
+
+# ---- full-sequence generation ---------------------------------------------
+
+def _model_params(params: Dict, cfg: TransformerConfig, device) -> Dict:
+    """``params`` as the port's tensors: a tree of numpy (or jax) arrays
+    goes through :func:`params_from_numpy` onto ``device`` (None = the
+    card); a tree of tensors is used as it is, on its own device."""
+    if isinstance(params["lm_head"]["w"], torch.Tensor):
+        return params
+    return params_from_numpy(params, cfg, device)
+
+
+def _ids_on(prompt_ids, device) -> torch.Tensor:
+    """A (B, P) prompt as an int64 tensor on ``device``."""
+    if isinstance(prompt_ids, torch.Tensor):
+        return prompt_ids.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64,
+                           device=device)
+
+
+def _check_generate(cfg: TransformerConfig, ids: torch.Tensor,
+                    max_new_tokens: int, what: str) -> int:
+    """The reference's checks of every generator → the total length."""
+    if ids.ndim != 2 or ids.shape[1] < 1:
+        raise ValueError(f"{what}() needs at least one prompt token "
+                         "(an empty prompt would condition on padding)")
+    L = ids.shape[1] + int(max_new_tokens)
+    if L > cfg.max_len and cfg.position == "learned":
+        raise ValueError(f"prompt+new = {L} exceeds max_len {cfg.max_len}")
+    return L
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  device=None):
+    """Per-layer zeroed (B, H, L, hd) key/value buffers in ``cfg.dtype``
+    for incremental decoding (``device`` None = the card)."""
+    dev = resolve_device(device)
+    shape = (batch, cfg.heads, max_len, cfg.d_model // cfg.heads)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for _ in range(cfg.layers)]
+
+
+def decode_step(params: Dict, token: torch.Tensor, pos, cache,
+                cfg: TransformerConfig):
+    """One incremental decode step: ``token`` (B,) at the shared position
+    ``pos`` → (logits (B, vocab) f32, new cache). The shared-``pos`` case
+    of :func:`decode_step_ragged`: one layer loop keeps the two (and the
+    speculative verify window) identical."""
+    B = token.shape[0]
+    return decode_step_ragged(
+        params, token,
+        torch.full((B,), int(pos), dtype=torch.int64, device=token.device),
+        cache, cfg)
+
+
+def decode_window(params: Dict, tokens: torch.Tensor, pos, cache,
+                  cfg: TransformerConfig):
+    """Cached forward over a window of W tokens at ``pos..pos+W-1`` (a
+    shared start) → (logits (B, W, vocab) f32, cache with the window's K/V
+    written): the speculative verify primitive, delegating to
+    :func:`decode_window_ragged` with a uniform position vector."""
+    B = tokens.shape[0]
+    return decode_window_ragged(
+        params, tokens,
+        torch.full((B,), int(pos), dtype=torch.int64, device=tokens.device),
+        cache, cfg)
+
+
+def _window_at_(params, tokens, pos: int, cache, cfg):
+    """:func:`decode_window` at a shared start ``pos`` writing into
+    ``cache`` in place (the same layer loop, so bitwise the same logits
+    (B, W, vocab)): the generators and the speculative loops own their
+    caches."""
+    B = tokens.shape[0]
+    pos_v = torch.full((B,), int(pos), dtype=torch.int64,
+                       device=tokens.device)
+    return _window_ragged_(params, tokens, pos_v, cache, cfg, None, None)
+
+
+def generate(params: Dict, prompt_ids, cfg: TransformerConfig,
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+             eos_id: Optional[int] = None, device=None) -> torch.Tensor:
+    """Autoregressive generation from a causal config (greedy when
+    ``temperature == 0``, else sampling through :func:`_sample_logits`).
+    ``eos_id``: rows that emit it keep repeating it.
+
+    Each step runs the whole forward (:func:`transformer_apply`, K7 with
+    ``cfg.use_flash`` on the card) over the sequence padded to
+    prompt + new tokens and reads the logits at the last written position:
+    causality keeps the padding from reaching them. The draw that emits
+    position t is keyed by (row seed, t), as :func:`generate_cached`'s,
+    so the two give the same tokens. ``params``: numpy (placed on
+    ``device``, None = the card) or the port's tensors. Returns (B, P +
+    new) int64 ids on the params' device."""
+    if not cfg.causal:
+        raise ValueError("generate() needs cfg.causal=True")
+    params = _model_params(params, cfg, device)
+    dev = params["lm_head"]["w"].device
+    ids = _ids_on(prompt_ids, dev)
+    L = _check_generate(cfg, ids, max_new_tokens, "generate")
+    B, P_len = ids.shape
+    ids = F.pad(ids, (0, int(max_new_tokens)))
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    seeds = _row_seeds(seed, B, dev) if temperature > 0 else None
+    with torch.no_grad():
+        for t in range(P_len, L):
+            hidden = transformer_apply(params, ids, cfg)
+            logits = hidden[:, t - 1].float() @ params["lm_head"]["w"]
+            u = None if seeds is None else _draws(seeds, t, 0, cfg.vocab)
+            nxt = _sample_logits(logits, u, temperature, top_k, top_p)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+                done = done | (nxt == eos_id)
+            ids[:, t] = nxt
+    return ids
+
+
+def generate_cached(params: Dict, prompt_ids, cfg: TransformerConfig,
+                    max_new_tokens: int = 32, temperature: float = 0.0,
+                    seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+                    eos_id: Optional[int] = None,
+                    device=None) -> torch.Tensor:
+    """KV-cached :func:`generate`: O(L) attention per emitted token. The
+    prompt prefills the cache token by token through the same decode step
+    (prompt positions draw nothing); the draw emitting position t + 1 is
+    keyed by (row seed, t + 1), :func:`generate`'s key for that position,
+    so the two agree token for token. ``eos_id`` repeats once it fires;
+    prompt rows never take it."""
+    if not cfg.causal:
+        raise ValueError("generate_cached() needs cfg.causal=True")
+    params = _model_params(params, cfg, device)
+    dev = params["lm_head"]["w"].device
+    ids = _ids_on(prompt_ids, dev)
+    L = _check_generate(cfg, ids, max_new_tokens, "generate_cached")
+    B, P_len = ids.shape
+    ids = F.pad(ids, (0, int(max_new_tokens)))
+    cache = init_kv_cache(cfg, B, L, dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    seeds = _row_seeds(seed, B, dev) if temperature > 0 else None
+    with torch.no_grad():
+        for t in range(L - 1):
+            logits = _window_at_(params, ids[:, t:t + 1], t, cache, cfg)[:, 0]
+            if t + 1 < P_len:
+                continue            # prefill: the prompt keeps its token
+            u = None if seeds is None else _draws(seeds, t + 1, 0, cfg.vocab)
+            nxt = _sample_logits(logits, u, temperature, top_k, top_p)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+                done = done | (nxt == eos_id)
+            ids[:, t + 1] = nxt
+    return ids
+
+
+def _topk_stable(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest, descending,
+    the lower index first among equal values (a stable descending sort;
+    ``torch.topk`` promises no order on ties, and the beam pools are full
+    of -inf ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def generate_beam(params: Dict, prompt_ids, cfg: TransformerConfig,
+                  max_new_tokens: int = 32, num_beams: int = 4,
+                  length_penalty: float = 1.0,
+                  eos_id: Optional[int] = None, device=None):
+    """Beam search over the cached decoder, the reference's formulation:
+    the prompt prefills once (:func:`prefill_cache`), beams fold into the
+    batch axis (B·W cache rows), and every step is one decode step, a
+    (B, W·V) top-2W candidate pick (2W: at most W are eos extensions, so W
+    live beams survive) and a per-layer cache row reorder (an index on the
+    device). Finished hypotheses bank into a (B, W) pool scored
+    ``sum_logprob / len**length_penalty``; the answer is the best of banked
+    and live beams. Ties select as ``jax.lax.top_k`` does (lower index
+    first). With ``num_beams=1`` and no eos this is greedy
+    :func:`generate_cached`.
+
+    Returns ``(ids (B, P+max_new) int64, scores (B,) f32)``: the best
+    hypothesis per row, prompt included, padded with ``eos_id`` past its
+    end."""
+    if not cfg.causal:
+        raise ValueError("generate_beam() needs cfg.causal=True")
+    if num_beams < 1:
+        raise ValueError("num_beams must be >= 1")
+    if num_beams > cfg.vocab:
+        raise ValueError(f"num_beams {num_beams} exceeds vocab {cfg.vocab} "
+                         "(only vocab distinct first tokens exist)")
+    params = _model_params(params, cfg, device)
+    dev = params["lm_head"]["w"].device
+    ids = _ids_on(prompt_ids, dev)
+    L = _check_generate(cfg, ids, max_new_tokens, "generate_beam")
+    B, P_len = ids.shape
+    W, V, M = int(num_beams), cfg.vocab, int(max_new_tokens)
+
+    def penalize(score, length: int):
+        # len ** penalty in float32, as the reference computes it
+        return score / float(np.float32(length)
+                             ** np.float32(length_penalty))
+
+    neg = torch.tensor(-math.inf, device=dev)
+    batch_ix = torch.arange(B, device=dev)[:, None]
+    with torch.no_grad():
+        logits0, cache = prefill_cache(
+            params, ids, torch.full((B,), P_len, device=dev), cfg, L)
+        cache = [{k: c[k].repeat_interleave(W, dim=0) for k in ("k", "v")}
+                 for c in cache]
+        logp0 = torch.log_softmax(logits0.float(), dim=-1)
+        # the first step follows the loop's top-2W discipline (k0 caps at V)
+        k0 = min(2 * W, V)
+        c_scores, c_tok = _topk_stable(logp0, k0)             # (B, k0)
+        c_seqs = torch.zeros((B, k0, M), dtype=torch.int64, device=dev)
+        c_seqs[:, :, 0] = c_tok
+        fin_scores = torch.full((B, W), -math.inf, device=dev)
+        fin_seqs = torch.zeros((B, W, M), dtype=torch.int64, device=dev)
+        if eos_id is not None:
+            c_eos = c_tok == eos_id
+            bank = torch.where(c_eos, penalize(c_scores, 1), neg)
+            fin_scores, keep = _topk_stable(bank, W)
+            fin_seqs = c_seqs[batch_ix, keep]
+            live_key = torch.where(c_eos, neg, c_scores)
+        else:
+            live_key = c_scores
+        scores, pick = _topk_stable(live_key, W)
+        seqs = c_seqs[batch_ix, pick]
+        tok = c_tok[batch_ix, pick].reshape(B * W)
+        for t in range(1, M):
+            logits = _window_at_(params, tok[:, None], P_len + t - 1, cache,
+                                 cfg)[:, 0]
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            cand = scores[:, :, None] + logp.reshape(B, W, V)
+            c_scores, c_idx = _topk_stable(cand.reshape(B, W * V), 2 * W)
+            c_parent = torch.div(c_idx, V, rounding_mode="floor")
+            c_tok = c_idx % V
+            c_seqs = seqs[batch_ix, c_parent]                  # (B, 2W, M)
+            c_seqs[:, :, t] = c_tok
+            if eos_id is not None:
+                c_eos = c_tok == eos_id
+                pool_s = torch.cat(
+                    [fin_scores,
+                     torch.where(c_eos, penalize(c_scores, t + 1), neg)],
+                    dim=1)                                     # (B, 3W)
+                pool_q = torch.cat([fin_seqs, c_seqs], dim=1)
+                fin_scores, keep = _topk_stable(pool_s, W)
+                fin_seqs = pool_q[batch_ix, keep]
+                live_key = torch.where(c_eos, neg, c_scores)
+            else:
+                live_key = c_scores
+            scores, pick = _topk_stable(live_key, W)
+            parent = c_parent[batch_ix, pick]                  # (B, W)
+            seqs = c_seqs[batch_ix, pick]
+            tok = c_tok[batch_ix, pick].reshape(B * W)
+            rows = (batch_ix * W + parent).reshape(B * W)
+            cache = [{k: c[k][rows] for k in ("k", "v")} for c in cache]
+        all_s = torch.cat([fin_scores, penalize(scores, M)], dim=1)
+        all_q = torch.cat([fin_seqs, seqs], dim=1)
+        best = torch.argmax(all_s, dim=1)
+        best_seq = all_q[torch.arange(B, device=dev), best]       # (B, M)
+        best_score = all_s[torch.arange(B, device=dev), best]
+        if eos_id is not None:
+            hit = torch.cumsum((best_seq == eos_id).long(), dim=1) > 0
+            after = torch.cat([torch.zeros_like(hit[:, :1]), hit[:, :-1]],
+                              dim=1)                         # strictly after
+            best_seq = torch.where(after, torch.full_like(best_seq, eos_id),
+                                   best_seq)
+    return torch.cat([ids, best_seq], dim=1), best_score

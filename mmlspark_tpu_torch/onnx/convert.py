@@ -52,8 +52,11 @@ the Gelu family (``Gelu``, ``BiasGelu``, ``FastGelu``, ``QuickGelu``),
 embeddings, the four attention ops and ``RelativePositionBias``; and,
 from ``ml_ops.py``, the 16 handlers of the JAX package's ``ml_ops.py``
 (tree ensembles, linear models, SVMs, preprocessing, ``Hardmax``,
-``ScatterElements``). Any other op (the JAX package's ``extra_ops.py`` and
-``generation_ops.py`` handlers) raises :class:`UnsupportedOp`.
+``ScatterElements``); from ``extra_ops.py``, its 26 (DSP, the integer ops
+exact in float64, ``RNN``, losses, pools, bitwise, ``Det``, ``Random*``);
+from ``generation_ops.py``, ORT's ``GreedySearch`` and ``BeamSearch``. The
+port registers every handler of the JAX converter; any other op raises
+:class:`UnsupportedOp`.
 """
 
 from __future__ import annotations
@@ -2706,9 +2709,9 @@ def _eval_nodes(nodes, env: Dict[str, object], ctx: _Ctx) -> None:
                 handler = OP_HANDLERS.get(node.op_type)
                 if handler is None:
                     raise UnsupportedOp(
-                        f"ONNX op {node.op_type!r} (node {node.name!r}) is "
-                        f"not ported to PyTorch yet; {len(OP_HANDLERS)} ops "
-                        f"are (ROADMAP queue item 3)")
+                        f"ONNX op {node.op_type!r} (node {node.name!r}) has "
+                        f"no handler ({len(OP_HANDLERS)} ops have one, the "
+                        f"JAX converter's set)")
                 if host:
                     # constants only: fold on the host, keep the result there
                     out = _to_host(handler(
@@ -2732,13 +2735,15 @@ class ConvertedModel:
     the float initializer dict (numpy here; callers pass it placed and
     cast), so callers can cast it independently. Integer, bool and 0-d
     initializers are shape constants, axes and indices: they stay numpy in
-    ``const_params`` and fold on the host.
+    ``const_params`` and fold on the host. Initializers stored as external
+    data are read from ``external_data_dir`` (paths resolved under it).
     """
 
-    def __init__(self, model: ModelProto):
+    def __init__(self, model: ModelProto, external_data_dir=None):
         self.model = model
         g = model.graph
-        all_inits = {t.name: tensor_to_numpy(t) for t in g.initializers}
+        all_inits = {t.name: tensor_to_numpy(t, external_data_dir)
+                     for t in g.initializers}
         self.const_params: Dict[str, np.ndarray] = {
             k: v for k, v in all_inits.items()
             if v.dtype.kind in "iub" or v.ndim == 0}
@@ -2841,11 +2846,14 @@ class ConvertedModel:
         return clone
 
 
-def convert_model(model_bytes: bytes) -> ConvertedModel:
-    return ConvertedModel(parse_model(model_bytes))
+def convert_model(model_bytes: bytes,
+                  external_data_dir=None) -> ConvertedModel:
+    """``external_data_dir``: the directory holding the sidecar files of a
+    model saved with external data (torch's ``save_as_external_data``)."""
+    return ConvertedModel(parse_model(model_bytes), external_data_dir)
 
 
-# ai.onnx.ml domain handlers (tree ensembles, linear models, preprocessing)
-# register themselves on import; placed at the module's end so register_op
-# exists
-from . import ml_ops  # noqa: E402,F401
+# the ai.onnx.ml domain (tree ensembles, linear models, preprocessing), the
+# ORT generation meta-ops and the long-tail standard ops register themselves
+# on import; placed at the module's end so register_op exists
+from . import extra_ops, generation_ops, ml_ops  # noqa: E402,F401

@@ -89,7 +89,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.zoo.transformer import (TransformerConfig, _warp_scaled_rows,
+from ..models.zoo.transformer import (TransformerConfig, _gumbel_argmax,
+                                      _uniforms, _warp_scaled_rows,
                                       decode_step_paged,
                                       decode_step_ragged_inplace,
                                       decode_window_paged,
@@ -176,58 +177,10 @@ class _Request:
         self.journaled = 0
 
 
-# ---- counter-based sampling uniforms ----
-# int64 tensors holding 32-bit values; products are split into 16-bit
-# halves so nothing ever overflows int64 (the same bits on every device)
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` for x in [0, 2**32) and a 32-bit constant."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer (a bijection with full avalanche)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _uniforms(seed: torch.Tensor, qpos: torch.Tensor, purpose: int,
-              n: int) -> torch.Tensor:
-    """Uniforms in (0, 1) of shape ``qpos.shape + (n,)``: lane j of row i
-    is a hash of (``seed[i]``, ``qpos[i, ...]``, ``purpose``, j), computed
-    on the device for all rows at once. ``seed`` (S,) int64 holds each
-    row's request seed; ``qpos`` (S,) or (S, m) the absolute positions of
-    the tokens the draws decide. A restored session draws the same
-    uniforms at the same positions, whatever shares its pool."""
-    seed = seed.to(torch.int64)
-    h = _fmix32((seed & _M32) ^ 0x9E3779B9)
-    h = _fmix32(h ^ ((seed >> 32) & _M32))
-    h = h.reshape(h.shape + (1,) * (qpos.dim() - 1))
-    h = _fmix32(h ^ (qpos.to(torch.int64) & _M32))
-    h = _fmix32(h ^ ((purpose * 0x27D4EB2F) & _M32))
-    lanes = _mul32(torch.arange(n, device=seed.device, dtype=torch.int64),
-                   0x9E3779B1)
-    x = _fmix32(h[..., None] ^ lanes)
-    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
 def _seed64(seed: int) -> int:
     """A request seed as the signed int64 the device keeps."""
     s = int(seed) % (1 << 64)
     return s - (1 << 64) if s >= (1 << 63) else s
-
-
-def _gumbel_argmax(logits, uniform):
-    """One categorical draw per row of (S, V) logits (any scale; -inf
-    never drawn) by the Gumbel-max rule from ``uniform`` (S, V) draws."""
-    gumbel = -torch.log(-torch.log(uniform.clamp(min=1e-20)))
-    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
 
 
 def _sample_rows(logits, temp, top_k, top_p, uniform):

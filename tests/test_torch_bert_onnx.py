@@ -142,8 +142,29 @@ def test_dynamic_axes_and_external_data_not_ported(tmp_path):
                     {"input_ids": np.ones((B, S), np.int64),
                      "attention_mask": np.ones((B, S), np.int64)})
         assert out["last_hidden_state"].shape == (B, S, CFG.d_model)
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        pbert.export_bert_onnx(CFG, external_data_dir=str(tmp_path))
+    # external data (the name predates its port): the exporter spills the
+    # matrices into one sidecar file, written bytes for bytes as the JAX
+    # exporter writes them, and both converters read the graph back to the
+    # inline graph's outputs, bitwise
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    ext = pbert.export_bert_onnx(CFG, params=params,
+                                 external_data_dir=str(pdir))
+    jext = jbert.export_bert_onnx(CFG, params=params,
+                                  external_data_dir=str(jdir))
+    assert (pdir / "weights.bin").read_bytes() == \
+        (jdir / "weights.bin").read_bytes()
+    assert _view(O, ext) == _view(J, jext)
+    ids, mask = _io(seed=9)
+    feeds = {"input_ids": ids, "attention_mask": mask}
+    inline = _port(pbert.export_bert_onnx(CFG, params=params), feeds)
+    pm = O.convert_model(ext, external_data_dir=str(pdir))
+    got = {k: v.numpy() for k, v in pm(
+        {k: torch.from_numpy(v) for k, v in pm.params.items()},
+        {k: torch.from_numpy(v) for k, v in feeds.items()}).items()}
+    for name in inline:
+        np.testing.assert_array_equal(got[name], inline[name])
+    with pytest.raises(ValueError, match="external_data_dir"):
+        O.convert_model(ext)
 
 
 def test_fused_graph_through_both_converters():

@@ -231,14 +231,51 @@ def test_metadata_post_ops_and_unported_options(model_bytes):
                     **_kw(softmax_dict={"probs": "logits"})).transform(
         DataFrame({"image": X}))
     np.testing.assert_allclose(out["probs"].sum(axis=1), 1.0, rtol=1e-6)
-    for key, value in [("tuning", "auto"), ("external_data_dir", "/d"),
-                       ("weights_override", b"npz")]:
+    for key, value in [("tuning", "auto"), ("weights_override", b"npz")]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ONNXModel(model_bytes, device="cpu", **{key: value})
     sharded = ONNXModel(model_bytes, device="cpu", mesh_sharded=True,
                         **_kw())
     with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
         sharded.transform(DataFrame({"image": X}))
+
+
+def test_external_data_dir_loads_the_bert_graph(tmp_path):
+    """``external_data_dir``: the BERT encoder exported with its matrices
+    in a sidecar file serves through ``ONNXModel`` exactly as the inline
+    export does (outputs bitwise), and as the JAX ``ONNXModel`` serves it;
+    without the directory, or from one without the sidecar file, the
+    graph fails to load."""
+    from mmlspark_tpu.models.zoo import bert_onnx as jbert
+    from mmlspark_tpu_torch.models.zoo import bert_onnx as pbert
+    cfg = pbert.BertOnnxConfig()
+    params = pbert.init_bert_params(cfg, seed=3)
+    ext = pbert.export_bert_onnx(cfg, params=params,
+                                 external_data_dir=str(tmp_path))
+    inline = pbert.export_bert_onnx(cfg, params=params)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(1, cfg.vocab, (9, 20)).astype(np.int64)
+    mask = (np.arange(20)[None] < rng.integers(5, 21, (9, 1))).astype(
+        np.int64)
+    kw = dict(feed_dict={"input_ids": "ids", "attention_mask": "mask"},
+              fetch_dict={"hidden": "last_hidden_state"}, mini_batch_size=4)
+    got = ONNXModel(ext, device="cpu", external_data_dir=str(tmp_path),
+                    **kw).transform(DataFrame({"ids": ids, "mask": mask}))
+    want = ONNXModel(inline, device="cpu", **kw).transform(
+        DataFrame({"ids": ids, "mask": mask}))
+    np.testing.assert_array_equal(got["hidden"], want["hidden"])
+    jgot = JONNXModel(jbert.export_bert_onnx(
+        cfg, params=params, external_data_dir=str(tmp_path / "j")),
+        external_data_dir=str(tmp_path / "j"), **kw).transform(
+        JDataFrame({"ids": ids, "mask": mask}))
+    np.testing.assert_allclose(got["hidden"], np.asarray(jgot["hidden"]),
+                               **F32)
+    with pytest.raises(ValueError, match="external_data_dir"):
+        ONNXModel(ext, device="cpu", **kw).transform(
+            DataFrame({"ids": ids, "mask": mask}))
+    with pytest.raises(FileNotFoundError, match="weights.bin"):
+        ONNXModel(ext, device="cpu", external_data_dir=str(tmp_path / "x"),
+                  **kw).transform(DataFrame({"ids": ids, "mask": mask}))
 
 
 def test_no_card_raises():

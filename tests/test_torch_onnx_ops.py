@@ -782,27 +782,16 @@ def test_recurrent_refusals(op, attrs, match):
 
 
 def test_handler_sets():
-    """The JAX converter's handlers the port lacks are exactly the 28 of
-    ``extra_ops.py`` and ``generation_ops.py`` (ROADMAP.md queue item 3);
-    ``ml_ops.py``'s 16 are ported (``tests/test_torch_onnx_ml_ops.py``)."""
+    """The port registers exactly the JAX converter's 199 handlers: those
+    of ``convert.py``, ``ml_ops.py`` (``tests/test_torch_onnx_ml_ops.py``),
+    ``extra_ops.py`` (``tests/test_torch_onnx_extra_ops.py``) and
+    ``generation_ops.py`` (``tests/test_torch_onnx_generation.py``)."""
     from mmlspark_tpu.onnx.convert import OP_HANDLERS as jax_ops
     from mmlspark_tpu_torch.onnx.convert import OP_HANDLERS as port_ops
-    left = {
-        "extra_ops": {"ConvInteger", "MatMulInteger",
-                      "DynamicQuantizeLinear", "RNN", "LRN", "LpPool",
-                      "GlobalLpPool", "MaxUnpool",
-                      "MeanVarianceNormalization", "BitwiseAnd",
-                      "BitwiseOr", "BitwiseXor", "BitwiseNot", "DFT", "STFT",
-                      "HannWindow", "HammingWindow", "BlackmanWindow",
-                      "MelWeightMatrix", "Det", "RandomNormal",
-                      "RandomNormalLike", "RandomUniform",
-                      "RandomUniformLike", "SoftmaxCrossEntropyLoss",
-                      "NegativeLogLikelihoodLoss"},
-        "generation_ops": {"GreedySearch", "BeamSearch"}}
-    assert {k: len(v) for k, v in left.items()} == {
-        "extra_ops": 26, "generation_ops": 2}
-    assert set(jax_ops) - set(port_ops) == set().union(*left.values())
-    assert len(port_ops) == 171 and not set(port_ops) - set(jax_ops)
+    assert set(port_ops) == set(jax_ops)
+    assert len(port_ops) == 199
+    for name in ("extra_ops", "generation_ops", "ml_ops"):
+        assert f"mmlspark_tpu_torch.onnx.{name}" in sys.modules
 
 
 CARD_CASES = onnx_op_cases()
