@@ -377,7 +377,47 @@ Phases (any failure exits non-zero and prints no result line):
    ``extra_ops.py``'s handlers) on the card against the CPU, and the
    four ``Random*`` by their law.
 
-``python3 chip_smoke.py 20`` runs phases 1, 2 and 20 only,
+21. the rest of the GBDT trainer at full width, K6 on every level (5
+   launches an iteration, counted; no plain histogram call on the path)
+   — (a) goss, dart and rf on 8c's HIGGS shape, 50 iterations each
+   beside gbdt (rf with bagging 0.632 every iteration): each mode's
+   first tree through K6 has the splits of the same tree through the
+   plain histogram in float64 (or a recorded tie, as 8b); goss's and dart's train
+   AUC above 0.75 and within 0.05 of gbdt's, goss's root cover its
+   selection, dart's leaves no larger than gbdt's, rf's AUC above 0.6
+   and no worse than its first tree's, its raw scores within one tree's
+   range (< 5), a dart model string round-tripping to bitwise
+   predictions;
+   sec/iter of each, goss's host selection (d2h and numpy) seconds an
+   iteration; (b) monotone constraints (+1 on column 0, -1 on column 1),
+   ``path_smooth`` 10 and two overlapping interaction groups on HIGGS,
+   50 iterations: predictions monotone along a 64-point sweep of each
+   constrained column on 4,096 rows, every root-to-leaf path within one
+   group; (c) ``LightGBMClassifier.fit`` on a ``DataFrame`` of benchm-ml's
+   airline shape (10,000,000 rows: Month 12, DayofMonth 31, DayOfWeek 7,
+   UniqueCarrier 22, Origin 300 and Dest 300 categorical, DepTime and
+   Distance numeric; a seeded per-category delay rule) with
+   ``categorical_feature`` and without: AUC with it at least AUC
+   without; ``transform``'s probabilities on the first 1,000,000 rows
+   within 1e-6 of the booster's; time to model, sec/iter, the encoder's
+   host seconds; (d) the same rows one-hot encoded, a 10,000,000 x 674
+   CSR of 8 non-zeros a row, through ``train()`` with EFB: the plan's
+   bundles and bundle bins, host binning and bundling seconds, sec/iter,
+   K6 at the bundled shape (uint16, 1 and 16 nodes; ms, bound,
+   ``index_add_``'s ms); on the first 1,000,000 rows the EFB model's
+   trees have a dense model's splits, until a tree whose first
+   difference is a tie (gains within 1e-4 of the tree's largest,
+   ``_model_ties``), their leaves within 2e-3 * max|leaf| (a small
+   child's stats come by subtraction from its parent's); (e)
+   ``linear_tree`` on HIGGS, 50 iterations: the first tree's leaf
+   coefficients through K6 equal those through the plain histogram
+   within 1e-5 * max|coef|;
+   sec/iter, the seconds in
+   ``fit_linear_leaves``; ``shap_values`` and ``to_onnx`` refuse the
+   model.
+
+``python3 chip_smoke.py 21`` runs phases 1, 2 and 21 only,
+``python3 chip_smoke.py 20`` phases 1, 2 and 20,
 ``python3 chip_smoke.py 19`` phases 1, 2 and 19,
 ``python3 chip_smoke.py 18`` phases 1, 2 and 18,
 ``python3 chip_smoke.py 17`` phases 1, 2 and 17,
@@ -1718,7 +1758,8 @@ def hist_cases():
     and takes 3 slot chunks at 80) and 256 nodes on ragged rows (the
     direct body); uint16 bins, bf16-rounded stats,
     bagged-out rows, a 2-bin feature at the root and HIGGS's four
-    3-valued b-tag columns at 16 nodes (lanes of a warp on one slot)."""
+    3-valued b-tag columns at 16 nodes (lanes of a warp on one slot);
+    phase 21d's EFB bundles (``bundled_hist_cases``)."""
     import torch
     n, F, ragged = GBDT["rows"], GBDT["features"], GBDT["ragged"]
     cases = [(f"nodes{k}", n, F, k, 255, 10 + i, {})
@@ -1734,7 +1775,7 @@ def hist_cases():
         ("two_bin_feature", n, F, 1, 255, 24,
          {"few_values": (((0,), (1, 2)),)}),
         ("btag_nodes16", n, F, 16, 255, 25,
-         {"few_values": ((BTAG_COLUMNS, (0, 1, 2)),)})]
+         {"few_values": ((BTAG_COLUMNS, (0, 1, 2)),)})] + bundled_hist_cases()
 
 
 def _hist_case(dev_info, label, n, F, n_nodes, n_bins, seed,
@@ -7147,6 +7188,518 @@ def phase_external_data(dev_info):
     return rec
 
 
+# ---- phase 21: the rest of the GBDT trainer ----------------------------------
+
+#: phase 21: 50 iterations a run at 8c's params; the sweeps' rows and
+#: points; the airline shape (benchm-ml's ``airline``, 10M rows), the
+#: rows ``transform`` scores, the EFB prefix compared with a dense model
+P21 = dict(iters=50, sweep_rows=4096, sweep_points=64,
+           airline_rows=10_000_000, transform_rows=1_000_000,
+           efb_prefix=1_000_000, efb_prefix_iters=10)
+#: benchm-ml's airline columns that are categorical, with their levels
+#: (the 2007 flights' months, days, carriers and airports)
+AIRLINE_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+#: 21d's bundled bin matrix (its plan, checked there): 10M rows, six
+#: one-hot groups and two numeric columns in 8 bundles, the widest (300
+#: airports, 3 bins each, and the all-default slot) 901 bins as uint16
+BUNDLED = dict(rows=10_000_000, bundles=8, bins=901)
+
+
+def make_airline_like(n, seed=0):
+    """benchm-ml's airline rows from ``seed``: the six categorical columns
+    as integer codes 1..levels (airports drawn from a Zipf-like
+    popularity), DepTime in hhmm and Distance in miles; the label, a
+    delay of 15 minutes or more (about one flight in five), from a seeded
+    rule of per-category effects (unordered in the codes) and a later
+    departure. Returns (X (n, 8) float64, y)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, 8))
+    logit = np.zeros(n)
+    for j, (_name, k) in enumerate(AIRLINE_CATS):
+        pop = 1.0 / np.arange(1, k + 1) ** (0.9 if k >= 300 else 0.2)
+        code = rng.choice(k, size=n, p=pop / pop.sum())
+        X[:, j] = code + 1
+        logit += rng.normal(0, 0.6 if k >= 22 else 0.3, k)[code]
+    minutes = rng.integers(5 * 60, 24 * 60, n)
+    X[:, 6] = (minutes // 60) * 100 + minutes % 60
+    X[:, 7] = np.round(np.exp(rng.normal(6.4, 0.6, n)))
+    logit += 1.2 * minutes / (24 * 60) - 0.05 * np.log(X[:, 7])
+    z = logit + rng.logistic(0, 1, n)
+    return X, (z > np.quantile(z, 0.8)).astype(np.float64)
+
+
+def _airline_csr(X):
+    """21c's rows one-hot encoded: each categorical column's levels as
+    columns of 1.0, then DepTime and Distance: (n, 674) CSR, 8 stored
+    values a row."""
+    import numpy as np
+    import scipy.sparse as sp
+    n = len(X)
+    offsets = np.cumsum([0] + [k for _, k in AIRLINE_CATS])
+    cols = np.empty((n, 8), np.int32)
+    for j in range(6):
+        cols[:, j] = offsets[j] + X[:, j].astype(np.int32) - 1
+    cols[:, 6], cols[:, 7] = offsets[-1], offsets[-1] + 1
+    data = np.ones((n, 8))
+    data[:, 6:] = X[:, 6:]
+    return sp.csr_matrix((data.ravel(), cols.ravel(),
+                          np.arange(0, 8 * n + 1, 8)),
+                         shape=(n, int(offsets[-1]) + 2))
+
+
+def _gbdt_module(name):
+    import importlib
+    return importlib.import_module(f"mmlspark_tpu_torch.models.gbdt.{name}")
+
+
+class _FirstTreeVsPlain:
+    """Within the block, ``train()``'s first tree build is repeated through
+    the plain histogram on the same inputs, its g, h and count weights
+    in float64: ``kernel`` and ``plain`` hold the two builds' outputs,
+    ``args`` the build's inputs. The plain version's float32 sums are
+    no reference on the card: its ``index_add_`` adds each slot's rows
+    one atomic at a time, and at the first iteration's constant hessian
+    that drifts by 1.7e-4 of a 23,000-row slot (K6's block partials, 2e-6;
+    measured on an H100), enough to move a split; float64 sums are
+    exact to well below either. The plain build's calls are taken off
+    ``level_histogram_plain.calls`` (they are the comparison's, not the
+    path's)."""
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.ops.histogram import level_histogram_plain
+        self.mod = _gbdt_module("train")
+        self.real = real = self.mod.build_tree
+        self.kernel = self.plain = self.args = None
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            if self.kernel is None:
+                calls = level_histogram_plain.calls
+                bins, g, h, w = args[:4]
+                self.plain = real(bins, g.double(), h.double(), w.double(),
+                                  *args[4:], **{**kw, "hist_impl": "plain"})
+                level_histogram_plain.calls = calls
+                self.kernel, self.args = out, (args, kw)
+            return out
+        self.mod.build_tree = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_tree = self.real
+
+    def ties(self, what):
+        """The two first trees' splits: equal, or ties (``_tree_ties``)."""
+        k, p = ([t.cpu().numpy() for t in out]
+                for out in (self.kernel, self.plain))
+        return _tree_ties(what, (k[0], k[1], k[4]), (p[0], p[1], p[4]))
+
+
+def _k6_run(what, iters, bins_native=True):
+    """The counts of one ``train()`` since :func:`_zero_launch_counts`: 5
+    K6 launches an iteration, no plain call (and, with
+    ``bins_native``, the bins from the native loop only)."""
+    if bins_native:
+        return _check_counts(what, iters)
+    k6, plain, _native, _numpy = _launch_counts()
+    if k6 != 5 * iters or plain:
+        raise AssertionError(f"{what}: K6 launches {k6} (want {5 * iters}),"
+                             f" plain calls {plain} (want 0)")
+    return k6
+
+
+def _mode_fit(what, params, X, y, **kw):
+    """``train(device=None)`` with its K6 launches checked; returns
+    (booster, record of its seconds and launches)."""
+    from mmlspark_tpu_torch.models.gbdt import train
+    iters = params["num_iterations"]
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    b = train(params, X, y, **kw)
+    wall = time.perf_counter() - t0
+    ph = b.phase_seconds
+    rec = {"train_wall_s": wall, "sec_per_iter": ph["boost"] / iters,
+           "k6_launches": _k6_run(what, iters),
+           "phase_seconds": dict(ph)}
+    return b, rec
+
+
+HIGGS_P = dict(objective="binary", num_leaves=31, max_bin=255,
+               learning_rate=0.1, min_data_in_leaf=20)
+
+
+def phase_boosting_modes(dev_info, X, y):
+    """21a: gbdt, goss, dart and rf at 8c's shape (module docstring)."""
+    import numpy as np
+    from mmlspark_tpu_torch.models.gbdt import Booster
+    iters = P21["iters"]
+    base = {**HIGGS_P, "num_iterations": iters}
+    modes = {"gbdt": {}, "goss": {"boosting": "goss"},
+             "dart": {"boosting": "dart"},
+             "rf": {"boosting": "rf", "bagging_fraction": 0.632,
+                    "bagging_freq": 1}}
+    out, boosters = {}, {}
+    # the first train() of the process loads the kernels' library and
+    # the runtime's: warm them on a slice, untimed, as 8c does
+    _gbdt_module("train").train({**base, "num_iterations": 1},
+                                X[:1_000_000], y[:1_000_000])
+    for name, extra in modes.items():
+        with _FirstTreeVsPlain() as spy:
+            b, rec = _mode_fit(f"21a {name}", {**base, **extra}, X, y)
+        rec["first_tree_ties"] = spy.ties(f"21a {name} first tree")
+        live = spy.args[0][3]
+        rec["first_tree_rows"] = float(live.sum().item())
+        del spy
+        t0 = time.perf_counter()
+        p = b.predict(X)
+        rec["predict_s"] = time.perf_counter() - t0
+        rec["train_auc"] = _auc(y, p)
+        if b.num_trees != iters or not np.isfinite(p).all():
+            raise AssertionError(f"21a {name}: {b.num_trees} trees, finite "
+                                 f"{np.isfinite(p).all()}")
+        out[name], boosters[name] = rec, b
+        log(f"[21a {name}] {json.dumps(rec)} | {dev_info['smi']}")
+    auc0 = out["gbdt"]["train_auc"]
+    for name in ("goss", "dart"):
+        auc = out[name]["train_auc"]
+        if auc <= 0.75 or abs(auc - auc0) > 0.05:
+            raise AssertionError(f"21a {name}: train AUC {auc} (gbdt "
+                                 f"{auc0}): want > 0.75 and within 0.05")
+    # rf averages trees that all fit the starting residual: no boosting,
+    # so its guard is the average against one of its trees
+    rf = boosters["rf"]
+    out["rf"]["first_tree_auc"] = _auc(y, rf.predict(X, num_iteration=1))
+    if out["rf"]["train_auc"] <= 0.6 or \
+            out["rf"]["train_auc"] < out["rf"]["first_tree_auc"]:
+        raise AssertionError(f"21a rf: AUC {out['rf']['train_auc']}, its "
+                             f"first tree's {out['rf']['first_tree_auc']}")
+    n = len(y)
+    selected = int(np.ceil(0.2 * n) + np.ceil(0.1 * n))
+    goss = boosters["goss"]
+    if goss.covers[0][0] > selected + 1 or \
+            out["goss"]["first_tree_rows"] != selected:
+        raise AssertionError(f"21a goss: root cover {goss.covers[0][0]}, "
+                             f"rows {out['goss']['first_tree_rows']} "
+                             f"(selected {selected})")
+    ph = out["goss"]["phase_seconds"]
+    out["goss"]["host_select_s_per_iter"] = {
+        "d2h": ph["goss_d2h"] / iters, "select": ph["goss_select"] / iters}
+    dart = boosters["dart"]
+    if np.abs(dart.leaf_values).max() > \
+            np.abs(boosters["gbdt"].leaf_values).max() + 1e-6:
+        raise AssertionError("21a dart: leaves larger than gbdt's")
+    p = dart.predict(X)
+    if not np.array_equal(Booster.from_string(dart.to_string()).predict(X),
+                          p):
+        raise AssertionError("21a dart: the model string round trip "
+                             "predicts differently")
+    raw = boosters["rf"].predict(X, raw_score=True)
+    out["rf"]["raw_abs_max"] = float(np.abs(raw).max())
+    if out["rf"]["raw_abs_max"] >= 5.0:
+        raise AssertionError(f"21a rf: raw scores up to "
+                             f"{out['rf']['raw_abs_max']} (the 1/T average "
+                             f"stays within one tree's range, < 5)")
+    out["sec_per_iter_over_gbdt"] = {
+        k: out[k]["sec_per_iter"] / out["gbdt"]["sec_per_iter"]
+        for k in modes}
+    return out
+
+
+def _monotone_sweep(b, X, col, sign, points):
+    """Predictions of ``b`` along ``points`` values of column ``col``
+    (its 1st to 99th percentile) for every row of X: the worst step
+    against ``sign`` (0 when monotone)."""
+    import numpy as np
+    grid = np.quantile(X[:, col], np.linspace(0.01, 0.99, points))
+    pts = np.repeat(X, points, axis=0)
+    pts[:, col] = np.tile(grid, len(X)).astype(np.float32)
+    steps = np.diff(b.predict(pts, raw_score=True).reshape(len(X), points),
+                    axis=1) * sign
+    return float(max(0.0, -steps.min()))
+
+
+def _paths_outside_groups(b, groups):
+    """Root-to-leaf paths of ``b`` whose split features share no group."""
+    import numpy as np
+    depth, bad = b.depth, 0
+    for tree in np.asarray(b.feats):
+        for leaf in range(2 ** depth):
+            idx, used = 0, set()
+            for d in range(depth):
+                if tree[idx] >= 0:
+                    used.add(int(tree[idx]))
+                idx = 2 * idx + 1 + ((leaf >> (depth - 1 - d)) & 1)
+            bad += bool(used) and not any(used <= set(g) for g in groups)
+    return bad
+
+
+def phase_constraints(dev_info, X, y, gbdt):
+    """21b: monotone, path_smooth and interaction constraints on HIGGS."""
+    groups = [list(range(0, 16)), list(range(10, 28))]
+    params = {**HIGGS_P, "num_iterations": P21["iters"],
+              "monotone_constraints": [1, -1] + [0] * 26,
+              "path_smooth": 10.0, "interaction_constraints": groups}
+    b, rec = _mode_fit("21b constraints", params, X, y)
+    rows = X[:P21["sweep_rows"]]
+    rec["monotone_worst_step"] = {
+        "col0_increasing": _monotone_sweep(b, rows, 0, 1, P21["sweep_points"]),
+        "col1_decreasing": _monotone_sweep(b, rows, 1, -1,
+                                           P21["sweep_points"])}
+    rec["paths_outside_groups"] = _paths_outside_groups(b, groups)
+    rec["train_auc"] = _auc(y, b.predict(X))
+    rec["sec_per_iter_over_gbdt"] = rec["sec_per_iter"] / \
+        gbdt["sec_per_iter"]
+    log(f"[21b] {json.dumps(rec)} | {dev_info['smi']}")
+    if max(rec["monotone_worst_step"].values()) > 1e-6 \
+            or rec["paths_outside_groups"]:
+        raise AssertionError(f"21b: monotone steps "
+                             f"{rec['monotone_worst_step']}, "
+                             f"{rec['paths_outside_groups']} paths outside "
+                             f"the groups")
+    return rec
+
+
+def phase_linear_tree(dev_info, X, y, gbdt):
+    """21e: ``linear_tree`` on HIGGS, 50 iterations."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.gbdt.trees import (fit_linear_leaves,
+                                                      path_features)
+    iters = P21["iters"]
+    params = {**HIGGS_P, "num_iterations": iters, "linear_tree": True}
+    with _FirstTreeVsPlain() as spy:
+        b, rec = _mode_fit("21e linear_tree", params, X, y)
+    rec["first_tree_ties"] = spy.ties("21e first tree")
+    (bins, g, h, live), kw = spy.args[0][:4], spy.args[1]
+    dev = g.device
+    xd = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(dev)
+    coefs = {}
+    for impl, out in (("kernel", spy.kernel), ("plain", spy.plain)):
+        pf = path_features(out[0].cpu().numpy(), b.depth)
+        beta, _ = fit_linear_leaves(
+            xd, out[3].to(torch.int64), g, h, live,
+            torch.as_tensor(pf).to(dev), n_leaf=2 ** b.depth,
+            lam_lin=0.0, lam=1e-10)
+        coefs[impl] = beta.cpu().numpy()
+    del spy, xd, bins, g, h, live
+    torch.cuda.empty_cache()
+    # the normal equations sum in float64 on the card: two fits of the
+    # same tree part by its rounding only (1e-5 * max|coef|)
+    scale = float(np.abs(coefs["plain"]).max())
+    err = float(np.abs(coefs["kernel"] - coefs["plain"]).max())
+    stored = b.linear["coefs"][0] / np.float32(HIGGS_P["learning_rate"])
+    rec.update({
+        "first_tree_coef_max_abs_diff": err, "first_tree_coef_scale": scale,
+        "stored_vs_kernel_fit_max_abs_diff": float(np.abs(
+            stored - coefs["kernel"]).max()),
+        "linear_fit_s": rec["phase_seconds"]["linear_fit"],
+        "linear_fit_s_per_iter": rec["phase_seconds"]["linear_fit"] / iters,
+        "train_auc": _auc(y, b.predict(X)),
+        "sec_per_iter_over_gbdt": rec["sec_per_iter"] / gbdt["sec_per_iter"]})
+    refused = {}
+    for name, fn, exc in (("shap_values", lambda: b.shap_values(X[:8]),
+                           NotImplementedError),
+                          ("to_onnx", lambda: _gbdt_module(
+                              "onnx_export").booster_to_onnx(b),
+                           ValueError)):
+        try:
+            fn()
+            refused[name] = False
+        except exc:
+            refused[name] = True
+    rec["refused"] = refused
+    log(f"[21e] {json.dumps(rec)} | {dev_info['smi']}")
+    if rec["first_tree_ties"] or err > 1e-5 * scale \
+            or rec["stored_vs_kernel_fit_max_abs_diff"] > 1e-5 * scale \
+            or not all(refused.values()) or rec["train_auc"] <= 0.75:
+        raise AssertionError(f"21e: ties {rec['first_tree_ties']}, first "
+                             f"tree coefficients {err} apart (scale "
+                             f"{scale}), stored "
+                             f"{rec['stored_vs_kernel_fit_max_abs_diff']} "
+                             f"apart, refused {refused}, AUC "
+                             f"{rec['train_auc']}")
+    return rec
+
+
+def phase_categorical(dev_info, X, y, data_s):
+    """21c: the airline shape through ``LightGBMClassifier.fit``."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier
+    iters = P21["iters"]
+    df = DataFrame({"features": X, "label": y})
+    kw = dict(num_leaves=31, max_bin=255, learning_rate=0.1,
+              min_data_in_leaf=20, num_iterations=iters)
+    recs, models = {}, {}
+    for name, extra in (("categorical", {"categorical_feature":
+                                         list(range(6))}),
+                        ("numeric", {})):
+        est = LightGBMClassifier(**kw, **extra)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        fit_s = time.perf_counter() - t0
+        b = model.booster
+        ph = b.phase_seconds
+        recs[name] = {"time_to_model_s": fit_s,
+                      "sec_per_iter": ph["boost"] / iters,
+                      "k6_launches": _k6_run(f"21c {name}", iters),
+                      "phase_seconds": dict(ph),
+                      "train_auc": _auc(y, b.predict(X))}
+        models[name] = model
+    cat = recs["categorical"]
+    cat["encoder_host_s"] = cat["phase_seconds"]["cat_encode"]
+    rows = P21["transform_rows"]
+    model = models["categorical"]
+    t0 = time.perf_counter()
+    out = model.transform(DataFrame({"features": X[:rows]}))
+    cat["transform_s"] = time.perf_counter() - t0
+    prob = np.stack(out["probability"])[:, 1]
+    cat["transform_prob_max_abs_diff"] = float(np.abs(
+        prob - model.booster.predict(X[:rows])).max())
+    rec = {"rows": len(y), "positives": float(y.mean()), "data_s": data_s,
+           **recs, "auc_gain": cat["train_auc"] - recs["numeric"]["train_auc"]}
+    log(f"[21c] {json.dumps(rec)} | {dev_info['smi']}")
+    if cat["train_auc"] < recs["numeric"]["train_auc"] \
+            or cat["transform_prob_max_abs_diff"] > 1e-6:
+        raise AssertionError(f"21c: AUC {cat['train_auc']} with "
+                             f"categorical_feature vs "
+                             f"{recs['numeric']['train_auc']} without; "
+                             f"transform off by "
+                             f"{cat['transform_prob_max_abs_diff']}")
+    return rec
+
+
+def phase_efb(dev_info, X, y, hist_recs=None):
+    """21d: 21c's rows one-hot, sparse, through ``train()`` with EFB."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import train
+    iters = P21["iters"]
+    t0 = time.perf_counter()
+    csr = _airline_csr(X)
+    csr_s = time.perf_counter() - t0
+    params = {**HIGGS_P, "num_iterations": iters}
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    b = train(params, csr, y)
+    wall = time.perf_counter() - t0
+    ph = b.phase_seconds
+    plan = b.efb_plan
+    rec = {"rows": csr.shape[0], "features": csr.shape[1], "nnz": csr.nnz,
+           "csr_build_s": csr_s, "train_wall_s": wall,
+           "k6_launches": _k6_run("21d EFB", iters, bins_native=False),
+           "efb_plan": plan, "phase_seconds": dict(ph),
+           "sec_per_iter": ph["boost"] / iters,
+           "train_auc": _auc(y, b.predict(csr))}
+    if plan is None or (plan["n_bundles"], plan["n_bundle_bins"]) != (
+            BUNDLED["bundles"], BUNDLED["bins"]):
+        raise AssertionError(f"21d: plan {plan}, want {BUNDLED}")
+    # K6 at the bundled shape (8a's cases of it, when 8a ran)
+    recs = hist_recs or {}
+    rec["k6_bundled"] = {
+        label: recs.get(label) or _hist_case(dev_info, label, *shape, **opts)
+        for label, *shape, opts in bundled_hist_cases()}
+    torch.cuda.empty_cache()
+    # a prefix whose dense one-hot fits the host: EFB against dense bins
+    m = P21["efb_prefix"]
+    p = {**params, "num_iterations": P21["efb_prefix_iters"]}
+    part = csr[:m]
+    efb = train(p, part, y[:m])
+    dense = train(p, part.toarray().astype(np.float32), y[:m])
+    trees, ties = _model_ties("21d prefix", efb, dense)
+    scale = float(np.abs(dense.leaf_values[:trees]).max(initial=0.0))
+    leaf_err = float(np.abs(efb.leaf_values[:trees]
+                            - dense.leaf_values[:trees]).max(initial=0.0))
+    rec["prefix"] = {"rows": m, "iterations": p["num_iterations"],
+                     "efb_plan": efb.efb_plan, "trees_equal": trees,
+                     "tie": ties, "leaf_max_abs_diff": leaf_err,
+                     "leaf_scale": scale, "dense_bin_transform_s":
+                         dense.phase_seconds["bin_transform"]}
+    log(f"[21d] {json.dumps(rec)} | {dev_info['smi']}")
+    # each feature's default bin is the node total less its other bins,
+    # so a small child's stats carry K6's rounding of its parent's sums
+    # (2e-6 of the parent's summed |g|), divided by the child's own small
+    # hessian: 6.9e-4 of the largest leaf measured on an H100
+    if leaf_err > 2e-3 * scale or rec["train_auc"] <= 0.6:
+        raise AssertionError(f"21d: prefix leaves {leaf_err} apart (scale "
+                             f"{scale}) over {trees} equal trees, AUC "
+                             f"{rec['train_auc']}")
+    return rec
+
+
+def _model_ties(what, a, b, rel=1e-4):
+    """Two models' trees in order: equal splits, until a tree whose first
+    differing node is a tie: the two gains within ``rel`` of the tree's
+    largest gain. Two histograms of the same rows built differently (EFB
+    against dense bins: other atomic orders, the default bin by
+    subtraction) part by K6's rounding, 2e-6 of a slot's summed |g|,
+    and a gain, a small difference of G^2 / H terms, moves by about
+    2 |G / H| times that: at a deep node of a late tree 1e-3 of its own
+    size, 1e-4 of the tree's largest. The trees after it fit other
+    scores and are not compared. Returns (the equal trees, the tie's
+    record or None)."""
+    import numpy as np
+    for t in range(min(a.num_trees, b.num_trees)):
+        fa, ta, ga = a.feats[t], a.thr_raw[t], a.gains[t]
+        fb, tb, gb = b.feats[t], b.thr_raw[t], b.gains[t]
+        diff = np.nonzero((fa != fb) | (ta != tb))[0]
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        top = float(np.abs(gb).max())
+        gap = abs(float(ga[i]) - float(gb[i]))
+        tie = {"tree": t, "node": i, "a": [int(fa[i]), float(ta[i])],
+               "b": [int(fb[i]), float(tb[i])], "gain_a": float(ga[i]),
+               "gain_b": float(gb[i]), "tree_max_gain": top,
+               "gap_over_tree_max": gap / max(top, 1e-30)}
+        log(f"[{what}] {json.dumps(tie)}")
+        if gap > rel * top:
+            raise AssertionError(f"{what}: tree {t} node {i} splits differ "
+                                 f"by {gap / max(top, 1e-30):.3g} of the "
+                                 f"tree's largest gain (a tie is <= {rel})")
+        return t, tie
+    return min(a.num_trees, b.num_trees), None
+
+
+def bundled_hist_cases():
+    """K6 at 21d's bundled shape (8a's cases too): uint16 bins carried as
+    int16, 901 bundle bins, 8 bundles of 10M rows, 1 and 16 nodes."""
+    import torch
+    return [(f"bundled_nodes{k}", BUNDLED["rows"], BUNDLED["bundles"], k,
+             BUNDLED["bins"], 30 + k, {"bin_dtype": torch.int16})
+            for k in (1, 16)]
+
+
+def _phase21(dev_info, hist_recs=None):
+    """Phases 21a-21e; the HIGGS matrix is made once for a, b and e, the
+    airline rows once for c and d."""
+    import torch
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    modes = phase_boosting_modes(dev_info, X, y)
+    torch.cuda.empty_cache()
+    cons = phase_constraints(dev_info, X, y, modes["gbdt"])
+    lin = phase_linear_tree(dev_info, X, y, modes["gbdt"])
+    t0 = time.perf_counter()
+    X, y = make_airline_like(P21["airline_rows"])
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cat = phase_categorical(dev_info, X, y, data_s)
+    torch.cuda.empty_cache()
+    efb = phase_efb(dev_info, X, y, hist_recs)
+    del X, y
+    torch.cuda.empty_cache()
+    launches = {**{f"21a {k}": modes[k]["k6_launches"]
+                   for k in ("gbdt", "goss", "dart", "rf")},
+                "21b": cons["k6_launches"],
+                **{f"21c {k}": cat[k]["k6_launches"]
+                   for k in ("categorical", "numeric")},
+                "21d": efb["k6_launches"], "21e": lin["k6_launches"]}
+    return {"21a": modes, "21b": cons, "21c": cat, "21d": efb, "21e": lin,
+            "k6_launches": launches}
+
+
 def _phase20(dev_info):
     """Phases 20a-20g."""
     train, t_np, d_np, batch_fn = phase_gen_training(dev_info)
@@ -7272,17 +7825,18 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18", "19" and "20": phases 1, 2 and 14 (or 17, 18, 19, 20); "9":
+    # "17", "18", "19", "20" and "21": phases 1, 2 and 14 (or 17, ..., 21);
+    # "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20"}
+             "17", "18", "19", "20", "21"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19 and 20")
+            f"19, 20 and 21")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -7333,6 +7887,8 @@ def main(argv=()):
             _phase19(dev_info)
         if "20" in only:
             _phase20(dev_info)
+        if "21" in only:
+            _phase21(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -7362,6 +7918,7 @@ def main(argv=()):
     p18 = _phase18(dev_info)
     p19 = _phase19(dev_info)
     p20 = _phase20(dev_info)
+    p21 = _phase21(dev_info, hist_recs)
     k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7454,11 +8011,15 @@ def main(argv=()):
          "source": "mmlspark_tpu_torch/csrc/histogram.cu",
          "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
          "launches": (gbdt["k6_launches"] + est12a["k6_launches"]
-                      + multi12b["k6_launches"] + sum(k6_19.values())),
+                      + multi12b["k6_launches"] + sum(k6_19.values())
+                      + sum(p21["k6_launches"].values())),
          "launches_train_8c": gbdt["k6_launches"],
          "launches_estimator_12a": est12a["k6_launches"],
          "launches_multiclass_12b": multi12b["k6_launches"],
          "launches_afterfit_19": k6_19,
+         "launches_trainer_21": p21["k6_launches"],
+         "bundled_21d": {label: {k: hist_recs[label][k] for k in keys}
+                         for label, *_ in bundled_hist_cases()},
          **{k: hist_recs["nodes16"][k] for k in keys},
          "class_batched": {label: {k: hist_recs[label][k]
                                    for k in keys + ("singles_ms",)}
@@ -7473,7 +8034,7 @@ def main(argv=()):
          "sec_per_iter": gbdt["sec_per_iter"],
          "share_of_iter": gbdt["k6_share_of_iter"],
          "estimator_12a": est12a, "multiclass_12b": multi12b,
-         "afterfit_19": p19}]
+         "afterfit_19": p19, "trainer_21": p21}]
     fsrc = "mmlspark_tpu_torch/csrc/flash_attention.cu"
     fref = "mmlspark_tpu/ops/flash_attention.py"
     sdpa = "F.scaled_dot_product_attention"

@@ -19,8 +19,16 @@ on new data, gradients and per-leaf sums on the device, no host round
 trip a tree) and :meth:`Booster.trees_to_dataframe`; ``onnx_export.py``
 writes the trees as an ai.onnx.ml graph.
 
-Left out: linear leaves and categorical encoders (a model string that
-carries either raises ``NotImplementedError``).
+A model trained with ``categorical_feature`` carries its
+``CategoricalEncoder`` (``cat_encoder``): every prediction path rewrites
+the raw matrix into the trees' rank space first (:meth:`Booster._x_eff`),
+so SHAP values of such a model are in that space, as the JAX package's.
+A ``linear_tree`` model carries per-leaf ridge coefficients over each
+leaf's path features (``linear``: ``coefs`` (T, 2^D, D+1), ``pf`` (T,
+2^D, D)); prediction evaluates them, and ``leaf_values`` hold the bias as
+the constant view. TreeSHAP and ``refit`` refuse a linear model, as the
+JAX package's do. :meth:`Booster.scale_trees` is dart's re-weighting of
+dropped trees.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import numpy as np
 import torch
 
 from ...utils.device import resolve_device
-from .trees import map_rows, predict_leaf_indices, predict_trees
+from .trees import (map_rows, predict_leaf_indices, predict_trees,
+                    predict_trees_linear)
 
 __all__ = ["Booster"]
 
@@ -83,8 +92,16 @@ class Booster:
         #: training hyperparams (learning_rate, lambda_l2); serialized
         self.fit_params = None
         #: host seconds of the training phases (bin_fit, bin_transform,
-        #: upload, boost), stamped by train(); not serialized
+        #: upload, boost, and the modes' own), stamped by train(); not
+        #: serialized
         self.phase_seconds = None
+        #: label-ordered categorical encoder (categorical.py), applied to
+        #: raw X before every prediction path when set
+        self.cat_encoder = None
+        #: linear leaves: {"coefs": (T, 2^D, D+1), "pf": (T, 2^D, D)} or
+        #: None for constant-leaf models
+        self._lin_base = None
+        self._lin_pending: List[tuple] = []
 
     # -- bookkeeping --------------------------------------------------------
     _FIELDS = ("feats", "thr_raw", "leaf_values", "gains", "covers")
@@ -96,6 +113,13 @@ class Booster:
                     [self._base[name]] + [np.asarray(p[i])[None]
                                           for p in self._pending])
             self._pending = []
+        if self._lin_pending:
+            parts = {k: [np.asarray(p[i])[None] for p in self._lin_pending]
+                     for i, k in enumerate(("coefs", "pf"))}
+            base = self._lin_base or {k: v[0][:0] for k, v in parts.items()}
+            self._lin_base = {k: np.concatenate([base[k]] + parts[k])
+                              for k in parts}
+            self._lin_pending = []
 
     def __getattr__(self, name):
         if name in Booster._FIELDS:
@@ -104,38 +128,71 @@ class Booster:
         raise AttributeError(name)
 
     @property
+    def is_linear(self) -> bool:
+        """True for linear-leaf models (LightGBM ``linear_tree``)."""
+        return self._lin_base is not None or bool(self._lin_pending)
+
+    @property
+    def linear(self):
+        self._materialize()
+        return self._lin_base
+
+    @property
     def num_trees(self) -> int:
         return len(self._base["feats"]) + len(self._pending)
 
-    def append_tree(self, feat, thr_raw, leaf_value, gain, cover):
+    def append_tree(self, feat, thr_raw, leaf_value, gain, cover,
+                    coefs=None, pf=None):
+        if (coefs is None) != (pf is None) \
+                or ((coefs is None) and self.is_linear) \
+                or (coefs is not None and self.num_trees
+                    and not self.is_linear):
+            raise ValueError("a booster is linear for all trees or none")
         self._pending.append((feat, thr_raw, leaf_value, gain, cover))
+        if coefs is not None:
+            self._lin_pending.append((coefs, pf))
+
+    def scale_trees(self, idx, factor: float) -> None:
+        """Multiply the leaf outputs of trees ``idx`` in place (dart's
+        k / (k + 1) re-weighting of dropped trees); linear leaves scale
+        their whole coefficient vector (the output is linear in it)."""
+        self._materialize()
+        idx = np.asarray(idx, dtype=np.int64)
+        self._base["leaf_values"][idx] *= np.float32(factor)
+        if self._lin_base is not None:
+            self._lin_base["coefs"][idx] *= np.float32(factor)
+
+    def _like(self, arrays, best_iteration, lin=None) -> "Booster":
+        """A booster of this one's kind over ``arrays`` (the five tree
+        fields in order), with its encoder and fit params."""
+        b = Booster(self.depth, self.n_features, self.objective,
+                    self.base_score, self.num_class, *arrays,
+                    best_iteration=best_iteration, device=self.device)
+        b.cat_encoder = self.cat_encoder  # trees split in the encoded space
+        b.fit_params = self.fit_params
+        b._lin_base = lin
+        return b
 
     def truncated(self, n_trees: int) -> "Booster":
         """Model truncated to the first n_trees (early-stopping cutoff);
-        arrays are copied, not viewed."""
-        b = Booster(self.depth, self.n_features, self.objective,
-                    self.base_score, self.num_class,
-                    self.feats[:n_trees].copy(), self.thr_raw[:n_trees].copy(),
-                    self.leaf_values[:n_trees].copy(),
-                    self.gains[:n_trees].copy(),
-                    self.covers[:n_trees].copy(), best_iteration=n_trees,
-                    device=self.device)
-        b.fit_params = self.fit_params
-        return b
+        arrays are copied, not viewed (dart's ``scale_trees`` mutates the
+        live stack in place)."""
+        lin = self.linear
+        return self._like(
+            [getattr(self, f)[:n_trees].copy() for f in self._FIELDS],
+            n_trees, lin and {k: v[:n_trees].copy() for k, v in lin.items()})
 
     def merge(self, other: "Booster") -> "Booster":
         """Concatenate trees (parity: mergeBooster)."""
         assert self.depth == other.depth and self.num_class == other.num_class
-        merged = Booster(
-            self.depth, self.n_features, self.objective, self.base_score,
-            self.num_class,
-            np.concatenate([self.feats, other.feats]),
-            np.concatenate([self.thr_raw, other.thr_raw]),
-            np.concatenate([self.leaf_values, other.leaf_values]),
-            np.concatenate([self.gains, other.gains]),
-            np.concatenate([self.covers, other.covers]), device=self.device)
-        merged.fit_params = self.fit_params
-        return merged
+        if self.is_linear != other.is_linear:
+            raise ValueError("cannot merge a linear-tree booster with a "
+                             "constant-leaf booster")
+        a, b = self.linear, other.linear
+        return self._like(
+            [np.concatenate([getattr(self, f), getattr(other, f)])
+             for f in self._FIELDS], -1,
+            a and {k: np.concatenate([a[k], b[k]]) for k in a})
 
     # -- prediction ---------------------------------------------------------
     # thresholds and feature comparisons are float32 end to end, as in the
@@ -160,20 +217,46 @@ class Booster:
         return [torch.as_tensor(np.asarray(a)).to(self.device)
                 for a in arrays]
 
+    def _x_eff(self, X):
+        """Raw matrix -> the space the trees split in (categorical columns
+        replaced by their label-ordered ranks). scipy-sparse X passes
+        through (prediction densifies it in bounded chunks)."""
+        from .binning import is_sparse
+        if is_sparse(X):
+            if self.cat_encoder is not None:
+                raise ValueError("categorical encoding and sparse features "
+                                 "cannot combine (rank-encode before "
+                                 "sparsifying, or pass dense input)")
+            return X
+        if self.cat_encoder is not None:
+            X = self.cat_encoder.transform(np.asarray(X))
+        return X
+
     def raw_score_on_device(self, X, num_iteration: Optional[int] = None
                             ) -> torch.Tensor:
         """:meth:`raw_score` as a float32 tensor on the booster's device,
         (n,) or (n, K): the trees summed in order from zero, then
         ``base_score`` added."""
+        X = self._x_eff(X)
         T = self._tree_cap(num_iteration)
         if T == 0:
             n, K = X.shape[0], self.num_class
             return torch.full((n, K) if K > 1 else (n,), self.base_score,
                               dtype=torch.float32, device=self.device)
-        f, t, lv = self._on_device(self.feats[:T], self.thr_raw[:T],
-                                   self.leaf_values[:T])
-        return map_rows(lambda xd: predict_trees(f, t, lv, xd, self.depth),
-                        X, self.device) + self.base_score
+        f, t = self._on_device(self.feats[:T], self.thr_raw[:T])
+        if self.is_linear:
+            c, pf = self._on_device(self.linear["coefs"][:T],
+                                    self.linear["pf"][:T])
+
+            def fn(xd):
+                return predict_trees_linear(f, t, c, pf, xd, self.depth,
+                                            self.num_class)
+        else:
+            lv, = self._on_device(self.leaf_values[:T])
+
+            def fn(xd):
+                return predict_trees(f, t, lv, xd, self.depth)
+        return map_rows(fn, X, self.device) + self.base_score
 
     def raw_score(self, X, num_iteration: Optional[int] = None) -> np.ndarray:
         return self.raw_score_on_device(X, num_iteration).cpu().numpy()
@@ -190,6 +273,7 @@ class Booster:
         return obj.transform(torch.from_numpy(np.asarray(raw))).numpy()
 
     def _leaves_on_device(self, X) -> torch.Tensor:
+        X = self._x_eff(X)
         f, t = self._on_device(self.feats, self.thr_raw)
         return map_rows(lambda xd: predict_leaf_indices(f, t, xd, self.depth),
                         X, self.device)
@@ -204,8 +288,15 @@ class Booster:
         """Path-dependent TreeSHAP on the booster's device. Returns (n, F+1)
         float32: per-feature contributions plus the expected value in the
         last column (the layout LightGBM's predict_contrib emits); a
-        multiclass model gives (K, n, F+1)."""
+        multiclass model gives (K, n, F+1). A categorical model's values
+        are in its rank space; a linear model raises (LightGBM rejects
+        predict_contrib for linear_tree models too)."""
         from .treeshap import shap_trees
+        if self.is_linear:
+            raise NotImplementedError(
+                "TreeSHAP over linear leaves is not defined (LightGBM "
+                "rejects predict_contrib for linear_tree models too)")
+        X = self._x_eff(X)
         phi = map_rows(lambda xd: shap_trees(
             self.feats, self.thr_raw, self.leaf_values, self.covers,
             self.depth, self.num_class, self.base_score, xd),
@@ -230,6 +321,10 @@ class Booster:
         ``fit_params``. On the booster's device: leaf indices, the
         objective's gradients, per-leaf float64 sums by a scatter-add; the
         leaf values come back once, at the end."""
+        if self.is_linear:
+            raise NotImplementedError(
+                "refit re-estimates constant leaf values; linear leaves "
+                "need a full linear refit (retrain instead)")
         if not 0.0 <= decay_rate <= 1.0:
             raise ValueError(f"decay_rate must be in [0, 1], got {decay_rate}")
         fp = getattr(self, "fit_params", None) or {}
@@ -280,13 +375,9 @@ class Booster:
             upd = lvv[t].T[li]                                  # (n, K)
             scores = scores + (upd if K > 1 else upd[:, 0])
         new_lv = lvv.cpu().numpy().reshape(self.leaf_values.shape)
-        out = Booster(self.depth, self.n_features, self.objective,
-                      self.base_score, self.num_class,
-                      self.feats.copy(), self.thr_raw.copy(), new_lv,
-                      self.gains.copy(), self.covers.copy(),
-                      best_iteration=self.best_iteration, device=dev)
-        out.fit_params = self.fit_params
-        return out
+        return self._like([self.feats.copy(), self.thr_raw.copy(), new_lv,
+                           self.gains.copy(), self.covers.copy()],
+                          self.best_iteration)
 
     # -- introspection (parity: LightGBM Booster.trees_to_dataframe) --------
     def trees_to_dataframe(self):
@@ -353,14 +444,20 @@ class Booster:
     # -- persistence (parity: saveToString / loadFromString) ----------------
     def to_string(self) -> str:
         buf = io.BytesIO()
-        np.savez_compressed(buf, feats=self.feats, thr_raw=self.thr_raw,
-                            leaf_values=self.leaf_values, gains=self.gains,
-                            covers=self.covers)
+        arrays = dict(feats=self.feats, thr_raw=self.thr_raw,
+                      leaf_values=self.leaf_values, gains=self.gains,
+                      covers=self.covers)
+        if self.is_linear:
+            arrays["lin_coefs"] = self.linear["coefs"]
+            arrays["lin_pf"] = self.linear["pf"]
+        np.savez_compressed(buf, **arrays)
         meta = {"depth": self.depth, "n_features": self.n_features,
                 "objective": self.objective, "base_score": self.base_score,
                 "num_class": self.num_class,
                 "best_iteration": self.best_iteration,
                 "arrays": base64.b64encode(buf.getvalue()).decode("ascii")}
+        if self.cat_encoder is not None:
+            meta["cat_encoder"] = self.cat_encoder.to_dict()
         if self.fit_params is not None:
             meta["fit_params"] = self.fit_params
         return json.dumps(meta)
@@ -373,14 +470,16 @@ class Booster:
         buf = io.BytesIO(base64.b64decode(meta["arrays"]))
         with np.load(buf) as z:
             arrays = {k: z[k] for k in z.files}
-        if "lin_coefs" in arrays:
-            raise _leftover("a linear-tree model (linear_tree)", 19)
-        if "cat_encoder" in meta:
-            raise _leftover("a model with categorical features", 17)
         b = Booster(meta["depth"], meta["n_features"], meta["objective"],
                     meta["base_score"], meta["num_class"],
                     arrays["feats"], arrays["thr_raw"],
                     arrays["leaf_values"], arrays["gains"],
                     arrays["covers"], meta["best_iteration"], device=device)
+        if "lin_coefs" in arrays:
+            b._lin_base = {"coefs": arrays["lin_coefs"],
+                           "pf": arrays["lin_pf"]}
+        if "cat_encoder" in meta:
+            from .categorical import CategoricalEncoder
+            b.cat_encoder = CategoricalEncoder.from_dict(meta["cat_encoder"])
         b.fit_params = meta.get("fit_params")
         return b

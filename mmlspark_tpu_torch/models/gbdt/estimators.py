@@ -11,7 +11,14 @@ for the regressor, the optional ``leaf_prediction_col`` and
 blocks of F + 1 side by side), a ``validation_indicator_col`` whose rows
 drive early stopping, a weight column, a warm start from
 ``model_string`` (a model string of either package), a starting margin
-from ``init_score_col``, ``feature_importances`` and ``to_onnx``.
+from ``init_score_col``, ``feature_importances`` and ``to_onnx``. Every
+boosting mode and option of :func:`train` reaches it from the params:
+``boosting_type`` (gbdt, goss, dart, rf), ``categorical_feature``,
+``monotone_constraints``, ``interaction_constraints``, ``path_smooth``,
+``cat_smooth``, ``min_data_per_group``, ``linear_tree`` and
+``linear_lambda``; a sparse ``features`` column (scipy rows) trains on
+its CSR matrix. The models' ``transform`` applies the booster's
+categorical encoder and linear leaves (``Booster.predict``).
 
 The device is a constructor (and :meth:`_LightGBMModelBase.load`)
 keyword of the estimators and models, not a persisted param: ``None``
@@ -20,8 +27,7 @@ means the CUDA card, and raises without one; tests pass ``"cpu"``.
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
 item at ``fit``: ``LightGBMRanker`` (lambdarank), ``parallelism`` other
 than ``"serial"`` (item 31), and every option :func:`train` rejects
-(categorical features, goss/rf/dart, ``linear_tree``, step checkpoints,
-...).
+(``extra_trees``, ``feature_fraction_bynode``, step checkpoints).
 """
 
 from __future__ import annotations
@@ -130,10 +136,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
                                 doc="iterations between checkpoints (0 = off)")
     categorical_feature = Param((list, int), default=[],
                                 doc="feature-vector indices treated as "
-                                    "categorical (not ported)")
+                                    "categorical (label-ordered ranks)")
     enable_bundle = Param(bool, default=True,
                           doc="EFB: bundle mutually-exclusive sparse "
-                              "features (sparse input is not ported)")
+                              "features (LightGBM enable_bundle; active "
+                              "on sparse features columns)")
     max_conflict_rate = Param(float, default=0.0,
                               doc="EFB conflict budget as a fraction of "
                                   "rows (0 = lossless bundling)")

@@ -627,20 +627,25 @@ def test_reference_multiclass_model_predicts_in_port():
 
 
 def test_unported_model_strings_raise():
+    """Model strings of the modes once refused here, a categorical model
+    and a linear-tree model written by the JAX package, now load into the
+    port and predict as the JAX package's (the port's own tests of those
+    modes: tests/test_torch_gbdt_categorical.py and _linear.py)."""
     X, y, _ = make_data(n=300, seed=13)
-    bj = jtrain({**BASE, "objective": "binary", "num_iterations": 2}, X, y)
-    meta = json.loads(bj.to_string())
-    meta["cat_encoder"] = {}
-    with pytest.raises(NotImplementedError, match="categorical"):
-        PBooster.from_string(json.dumps(meta), device="cpu")
-    lin = bj.truncated(2)
-    lin._lin_base = {"coefs": np.zeros((2, 8, 4), np.float32),
-                     "pf": np.zeros((2, 8, 3), np.int32)}
-    with pytest.raises(NotImplementedError, match="linear"):
-        PBooster.from_string(lin.to_string(), device="cpu")
+    X[:, 2] = np.floor(np.abs(X[:, 2]) * 3)
+    for extra in ({"categorical_feature": [2]}, {"linear_tree": True}):
+        bj = jtrain({**BASE, "objective": "binary", "num_iterations": 2,
+                     **extra}, X, y)
+        bp = PBooster.from_string(bj.to_string(), device="cpu")
+        assert bp.is_linear == bj.is_linear
+        assert (bp.cat_encoder is None) == (bj.cat_encoder is None)
+        _same_predictions(bj, bp, X)
+        assert PBooster.from_string(bp.to_string(),
+                                    device="cpu").to_string() == \
+            bp.to_string()
 
 
-# -- what the slice leaves out ------------------------------------------------
+# -- what the port leaves out, and the modes it took in since ----------------
 
 UNPORTED = {
     "goss": {"boosting": "goss"}, "dart": {"boosting": "dart"},
@@ -656,11 +661,18 @@ UNPORTED = {
     "ff_bynode": {"feature_fraction_bynode": 0.5},
     "checkpoints": {"checkpoint_dir": "/nonexistent"},
 }
+#: cases of UNPORTED that the port trains now (ROADMAP items
+#: 14 and 16-19)
+PORTED_SINCE = {"goss", "dart", "rf", "linear_tree", "categorical",
+                "monotone", "path_smooth", "interaction", "sparse"}
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED) + ["sparse", "mesh",
                                                      "group"])
 def test_unported_options_raise(case):
+    """Options outside the port raise NotImplementedError naming their
+    ROADMAP item; the ones ported since train as the JAX package does
+    (the same trees)."""
     rng = np.random.default_rng(14)
     X = rng.normal(size=(50, 3))
     y = (X[:, 0] > 0).astype(np.float64)
@@ -671,6 +683,10 @@ def test_unported_options_raise(case):
         kw = {"mesh": object()}
     elif case == "group":
         kw = {"group": np.array([50])}
+    if case in PORTED_SINCE:
+        _same_trees(jtrain(params, X, y),
+                    ptrain(params, X, y, device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptrain(params, X, y, device="cpu", **kw)
 

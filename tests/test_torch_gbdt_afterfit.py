@@ -21,7 +21,6 @@ to the caller's init model (the port appends to a copy), and without
 its ``predict`` drops the new trees (the port counts the init model's
 iterations too, as the JAX package does with ``valid_sets``)."""
 
-import json
 
 import numpy as np
 import pytest
@@ -525,8 +524,12 @@ def test_what_stays_unported_raises():
     with pytest.raises(NotImplementedError, match="queue item 24"):
         ptrain({"objective": "regression", "num_iterations": 1,
                 "checkpoint_dir": "/nonexistent"}, X, y, device="cpu")
-    meta = json.loads(jtrain({"objective": "regression",
-                              "num_iterations": 1}, X, y).to_string())
-    meta["cat_encoder"] = {}
-    with pytest.raises(NotImplementedError, match="queue item 17"):
-        PBooster.from_string(json.dumps(meta), device="cpu")
+    # a categorical model string (queue item 17, ported since) loads and
+    # predicts as the JAX package's
+    Xc = X.copy()
+    Xc[:, 0] = np.floor(np.abs(Xc[:, 0]) * 3)
+    bj = jtrain({"objective": "regression", "num_iterations": 1,
+                 "categorical_feature": [0]}, Xc, y)
+    bp = PBooster.from_string(bj.to_string(), device="cpu")
+    np.testing.assert_allclose(bp.predict(Xc), np.asarray(bj.predict(Xc)),
+                               rtol=1e-5, atol=1e-6)

@@ -7,7 +7,8 @@ prediction tolerance), and the same ``feature_importances``; the
 validation column drives early stopping as it does there; save/load
 goes through the port's serializer and predicts the same in a fresh
 process; every option the port leaves out raises
-``NotImplementedError`` naming its ROADMAP.md item."""
+``NotImplementedError`` naming its ROADMAP.md item, and the boosting
+modes and options ported since fit as the JAX estimator's."""
 
 import json
 import os
@@ -190,9 +191,30 @@ UNPORTED = {
 }
 
 
+#: cases of UNPORTED that fit now (ROADMAP items 14, 16, 17
+#: and 19)
+PORTED_SINCE = {"categorical", "goss", "linear_tree", "monotone"}
+
+
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_options_raise_at_fit(case):
+    """An option outside the port raises naming its ROADMAP item at
+    ``fit``; the ones ported since fit as the JAX estimator does (the
+    same columns)."""
     params, item = UNPORTED[case]
+    if case in PORTED_SINCE:
+        cols = _data()
+        if case == "categorical":
+            cols["features"][:, 0] = np.floor(np.abs(cols["features"][:, 0])
+                                              * 4)
+        mj, mp, oj, op = _fit_both(jest.LightGBMClassifier,
+                                   pest.LightGBMClassifier, cols,
+                                   label_col="binary", weight_col="weight",
+                                   **{**SMALL, **params})
+        _same_columns(oj, op, ["probability", "rawPrediction"],
+                      ["prediction"])
+        np.testing.assert_array_equal(mp.booster.feats, mj.booster.feats)
+        return
     est = pest.LightGBMClassifier(device="cpu", label_col="binary",
                                   **{**SMALL, **params})
     with pytest.raises(NotImplementedError, match=f"queue item {item}\\b"):
