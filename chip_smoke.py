@@ -379,7 +379,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 21. the rest of the GBDT trainer at full width, K6 on every level (5
    launches an iteration, counted; no plain histogram call on the path)
-   — (a) goss, dart and rf on 8c's HIGGS shape, 50 iterations each
+   — (a) goss, dart and rf on 8c's HIGGS shape, 25 iterations each
    beside gbdt (rf with bagging 0.632 every iteration): each mode's
    first tree through K6 has the splits of the same tree through the
    plain histogram in float64 (or a recorded tie, as 8b); goss's and dart's train
@@ -391,7 +391,7 @@ Phases (any failure exits non-zero and prints no result line):
    sec/iter of each, goss's host selection (d2h and numpy) seconds an
    iteration; (b) monotone constraints (+1 on column 0, -1 on column 1),
    ``path_smooth`` 10 and two overlapping interaction groups on HIGGS,
-   50 iterations: predictions monotone along a 64-point sweep of each
+   25 iterations: predictions monotone along a 64-point sweep of each
    constrained column on 4,096 rows, every root-to-leaf path within one
    group; (c) ``LightGBMClassifier.fit`` on a ``DataFrame`` of benchm-ml's
    airline shape (10,000,000 rows: Month 12, DayofMonth 31, DayOfWeek 7,
@@ -409,14 +409,55 @@ Phases (any failure exits non-zero and prints no result line):
    difference is a tie (gains within 1e-4 of the tree's largest,
    ``_model_ties``), their leaves within 2e-3 * max|leaf| (a small
    child's stats come by subtraction from its parent's); (e)
-   ``linear_tree`` on HIGGS, 50 iterations: the first tree's leaf
+   ``linear_tree`` on HIGGS, 25 iterations: the first tree's leaf
    coefficients through K6 equal those through the plain histogram
    within 1e-5 * max|coef|;
    sec/iter, the seconds in
    ``fit_linear_leaves``; ``shap_values`` and ``to_onnx`` refuse the
    model.
 
-``python3 chip_smoke.py 21`` runs phases 1, 2 and 21 only,
+22. the last serial GBDT options and ONNX fine-tuning at full width —
+   (a) ``LightGBMRanker.fit`` on a ``DataFrame`` at MSLR-WEB30K's
+   published shape (136 features; 18,919 queries of about 120 documents,
+   the largest 1,251, about 2.26M rows, as its Fold1 training split;
+   labels 0-4 from a seeded rule at MSLR's label shares), 50 iterations,
+   K6 on every level (5 launches an iteration): the lambdarank
+   gradients on the card (float64, groups bucketed by size) against the
+   plain version on 256 queries, the largest among them, within 1e-12
+   of max|g| (tied and rounded scores); the first tree through K6 has
+   the plain float64 histogram's splits or a recorded tie; the held-out
+   fifth of queries' mean NDCG@10 above the first tree's; ``transform``
+   gives the raw scores; sec/iter, the gradients' seconds an iteration,
+   K6 at this shape (1 and 16 nodes; ms, bound, ``index_add_``'s ms);
+   (b) ``extra_trees`` with ``feature_fraction_bynode`` 0.5 on 8c's
+   HIGGS shape, 50 iterations beside gbdt: the threefry draws on the
+   card bitwise the CPU's, every split's bin the node's drawn candidate
+   (below its feature's ``feat_bins``) and its feature in the node's
+   drawn subset, the first tree as the plain histogram's, train AUC above
+   0.75 and within 0.05 of gbdt's; (c) step checkpoints on HIGGS's first
+   1,000,000 rows: 25 iterations with ``checkpoint_interval`` 5, then a
+   50-iteration call on the same directory resumes at 25 and saves at
+   50, its first 25 trees the checkpoint's, its splits an uninterrupted
+   run's up to a recorded tie (``_model_ties``) and its leaves within
+   2e-3 * max|leaf|; (d) ``ONNXEstimator.fit`` of the fused BERT-base
+   (12 layers, d 768, vocabulary 30522, seeded params) with a CLS
+   ``MatMul`` + ``Add`` head and a graph-carried
+   ``SoftmaxCrossEntropyLoss``, float32, 2,048 rows of 128 ids (a
+   seeded marker-token rule), batch 32, Adam lr 5e-5, one epoch of 64
+   steps: the first step's loss and every gradient through K7 / K8a /
+   K8b against the decomposed graph (``export_bert_onnx(opset=17)``,
+   dense attention) on the card (1e-5 relative; 1e-4 of each tensor's
+   max|g|), 12 K7, 12 K8a and 12 K8b launches a step and no dense
+   attention, the mean loss of the last 8 steps below the first 8's, the
+   fitted ``ONNXModel`` (``weights_override``) serving 256 rows within
+   1e-5 of a direct forward and unlike the base graph; seconds a step,
+   sequences/s, peak memory; (e) the same with ``lora_rank`` 8, 32
+   steps: the base params bitwise unchanged, only the adapters in the
+   optimizer, the override the adapted matrices, serving as in (d)
+   (its losses recorded, not held).
+
+``python3 chip_smoke.py 22`` runs phases 1, 2 and 22 only,
+``python3 chip_smoke.py 21`` phases 1, 2 and 21,
 ``python3 chip_smoke.py 20`` phases 1, 2 and 20,
 ``python3 chip_smoke.py 19`` phases 1, 2 and 19,
 ``python3 chip_smoke.py 18`` phases 1, 2 and 18,
@@ -3644,7 +3685,7 @@ VIT_B16 = dict(image_size=224, patch=16, d_model=768, heads=12, layers=12,
                d_ff=3072, num_classes=1000)
 
 
-def fused_bert_onnx(cfg, params, pooled=False):
+def fused_bert_onnx(cfg, params, pooled=False, head=None):
     """The ORT-optimized form of ``export_bert_onnx``'s encoder, written with
     the port's builder from the same params (``init_bert_params``):
     ``EmbedLayerNormalization`` (word + position embeddings, LayerNorm,
@@ -3656,7 +3697,12 @@ def fused_bert_onnx(cfg, params, pooled=False):
     and erf-GELU, so it computes the same network as ``export_bert_onnx``;
     no segment embedding (those inputs are empty, as ORT allows).
     ``pooled=True`` adds the sentence embedding a serving graph answers
-    with, ``cls`` = ``last_hidden_state[:, 0, :]`` (a ``Gather``)."""
+    with, ``cls`` = ``last_hidden_state[:, 0, :]`` (a ``Gather``).
+    ``head=(w, b)`` ((d, C), (C,)) makes it a classifier to fine-tune: the
+    CLS row through ``MatMul`` + ``Add`` is ``logits``, and a
+    ``SoftmaxCrossEntropyLoss`` against the ``labels`` input (int64,
+    (batch,)) is the graph-carried mean ``loss``; the outputs are then
+    ``logits`` and ``loss``."""
     import numpy as np
     from mmlspark_tpu_torch.onnx.builder import (make_graph, make_model,
                                                  make_node,
@@ -3696,17 +3742,29 @@ def fused_bert_onnx(cfg, params, pooled=False):
     nodes.append(make_node("Identity", [x], ["last_hidden_state"]))
     outputs = [make_tensor_value_info("last_hidden_state", np.float32,
                                       ("batch", "seq", cfg.d_model))]
-    if pooled:
+    if pooled or head is not None:
         inits["cls_index"] = np.array(0, np.int64)
         nodes.append(make_node("Gather", ["last_hidden_state", "cls_index"],
                                ["cls"], axis=1))
         outputs.append(make_tensor_value_info("cls", np.float32,
                                               ("batch", cfg.d_model)))
+    inputs = [make_tensor_value_info(n, np.int64, ("batch", "seq"))
+              for n in ("input_ids", "attention_mask")]
+    if head is not None:
+        inits["head.w"] = np.asarray(head[0], np.float32)
+        inits["head.b"] = np.asarray(head[1], np.float32)
+        nodes += [make_node("MatMul", ["cls", "head.w"], ["head.mm"]),
+                  make_node("Add", ["head.mm", "head.b"], ["logits"]),
+                  make_node("SoftmaxCrossEntropyLoss", ["logits", "labels"],
+                            ["loss"], reduction="mean")]
+        outputs = [make_tensor_value_info("logits", np.float32,
+                                          ("batch", len(head[1]))),
+                   make_tensor_value_info("loss", np.float32, ())]
+        inputs.append(make_tensor_value_info("labels", np.int64,
+                                             ("batch",)))
     graph = make_graph(
-        nodes, "bert_encoder_ort",
-        inputs=[make_tensor_value_info(n, np.int64, ("batch", "seq"))
-                for n in ("input_ids", "attention_mask")],
-        outputs=outputs, initializers=inits)
+        nodes, "bert_encoder_ort", inputs=inputs, outputs=outputs,
+        initializers=inits)
     return make_model(graph, opset=17, extra_opsets={"com.microsoft": 1})
 
 
@@ -7190,10 +7248,10 @@ def phase_external_data(dev_info):
 
 # ---- phase 21: the rest of the GBDT trainer ----------------------------------
 
-#: phase 21: 50 iterations a run at 8c's params; the sweeps' rows and
+#: phase 21: 25 iterations a run at 8c's params; the sweeps' rows and
 #: points; the airline shape (benchm-ml's ``airline``, 10M rows), the
 #: rows ``transform`` scores, the EFB prefix compared with a dense model
-P21 = dict(iters=50, sweep_rows=4096, sweep_points=64,
+P21 = dict(iters=25, sweep_rows=4096, sweep_points=64,
            airline_rows=10_000_000, transform_rows=1_000_000,
            efb_prefix=1_000_000, efb_prefix_iters=10)
 #: benchm-ml's airline columns that are categorical, with their levels
@@ -7461,7 +7519,7 @@ def phase_constraints(dev_info, X, y, gbdt):
 
 
 def phase_linear_tree(dev_info, X, y, gbdt):
-    """21e: ``linear_tree`` on HIGGS, 50 iterations."""
+    """21e: ``linear_tree`` on HIGGS, 25 iterations."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.models.gbdt.trees import (fit_linear_leaves,
@@ -7672,6 +7730,590 @@ def bundled_hist_cases():
             for k in (1, 16)]
 
 
+#: phase 22: (a) MSLR-WEB30K's published shape (136 features; Fold1's
+#: training split, three fifths of its 31,531 queries and 3,771,125 rows)
+#: with a fifth more queries held out; (b) and (c) on 8c's HIGGS shape
+#: (c on its first million rows); (d) and (e) BERT-base fine-tuning at
+#: BERT's published GLUE settings (seq 128, batch 32, Adam lr 5e-5)
+P22 = dict(queries=18_919, held_out=3_784, features=136, mean_docs=120,
+           max_docs=1_251, iters=50, grad_groups=256, ckpt_rows=1_000_000,
+           ckpt_first=25, ckpt_interval=5, bert_rows=2_048, bert_seq=128,
+           bert_batch=32, lr=5e-5, lora_rows=1_024, lora_rank=8,
+           serve_rows=256, markers=16)
+
+
+def make_mslr_like(n_queries, seed=0):
+    """MSLR-WEB30K-shaped rows from ``seed``: query sizes lognormal with
+    mean P22["mean_docs"], one query of P22["max_docs"] documents (the
+    published largest); 136 standard-normal float32 features; relevance
+    0-4 from a per-query offset plus a rule over 12 features, cut at
+    MSLR's label shares (52%, 31%, 13%, 3%, 1%). Returns (X, y, query id
+    per row, query sizes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(np.log(P22["mean_docs"]) - 0.245,
+                                           0.7, n_queries)),
+                    1, P22["max_docs"]).astype(np.int64)
+    sizes[rng.integers(min(n_queries, P22["queries"]))] = P22["max_docs"]
+    n = int(sizes.sum())
+    F = P22["features"]
+    X = rng.standard_normal((n, F), dtype=np.float32)
+    w = np.zeros(F, np.float32)
+    w[rng.choice(F, 12, replace=False)] = rng.normal(0, 1, 12)
+    z = (X @ w) / np.sqrt(12.0) + np.repeat(rng.normal(0, 0.5, n_queries),
+                                            sizes) + rng.normal(0, 0.7, n)
+    y = np.searchsorted(np.quantile(z, [0.52, 0.83, 0.96, 0.99]),
+                        z).astype(np.float64)
+    return X, y, np.repeat(np.arange(n_queries), sizes), sizes
+
+
+def _ndcg_at10(y, p, sizes):
+    """Mean NDCG@10 over the queries with a relevant document (ties in
+    score keep document order)."""
+    import numpy as np
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    vals = []
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        yy, pp = y[lo:hi], p[lo:hi]
+        k = min(10, hi - lo)
+        disc = 1.0 / np.log2(np.arange(2, k + 2))
+        ideal = ((2.0 ** np.sort(yy)[::-1][:k] - 1) * disc).sum()
+        if ideal > 0:
+            top = np.argsort(-pp, kind="stable")[:k]
+            vals.append(((2.0 ** yy[top] - 1) * disc).sum() / ideal)
+    return float(np.mean(vals))
+
+
+def _rank_grads_vs_plain(X_sizes, y, seed):
+    """22a's gradient check: 256 training queries, the largest among
+    them, on the card against the plain version on the host, at
+    iteration 0's tied scores and at scores rounded to 0.01 (ties inside
+    groups). Returns the worst errors over max|g| and max|h|."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.gbdt.lambdarank import (
+        LambdarankPlan, lambdarank_grad, lambdarank_grad_plain)
+    sizes = X_sizes
+    rng = np.random.default_rng(seed)
+    big = int(np.argmax(sizes))
+    rest = np.delete(np.arange(len(sizes)), big)
+    pick = np.sort(np.concatenate([[big], rng.choice(
+        rest, P22["grad_groups"] - 1, replace=False)]))
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    rows = np.concatenate([np.arange(offs[q], offs[q + 1]) for q in pick])
+    gs, yy = sizes[pick], y[rows]
+    plan = LambdarankPlan(gs, yy, torch.device("cuda"))
+    out = {"groups": len(pick), "rows": int(len(rows)),
+           "largest": int(gs.max())}
+    for name, s in (("tied", np.zeros(len(rows))),
+                    ("rounded", np.round(rng.normal(0, 1, len(rows)), 2))):
+        gd, hd = (t.cpu().numpy() for t in lambdarank_grad(
+            torch.from_numpy(s).cuda(), plan))
+        gp, hp = lambdarank_grad_plain(s, yy, gs)
+        eg = float(np.abs(gd - gp).max() / np.abs(gp).max())
+        eh = float(np.abs(hd - hp).max() / np.abs(hp).max())
+        out[name] = {"g_err_over_max": eg, "h_err_over_max": eh}
+        if not (eg <= 1e-12 and eh <= 1e-12):
+            raise AssertionError(f"22a grads ({name}): card vs plain "
+                                 f"{eg:.3g} / {eh:.3g} of max (want <= "
+                                 f"1e-12)")
+    return out
+
+
+def phase_ranker(dev_info):
+    """22a: ``LightGBMRanker.fit`` at MSLR-WEB30K's shape (module
+    docstring)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import LightGBMRanker
+    from mmlspark_tpu_torch.models.gbdt.lambdarank import (LambdarankPlan,
+                                                           lambdarank_grad)
+    Q, iters = P22["queries"], P22["iters"]
+    t0 = time.perf_counter()
+    X, y, qid, sizes = make_mslr_like(Q + P22["held_out"], seed=22)
+    n_tr = int(sizes[:Q].sum())
+    rec = {"rows": n_tr, "queries": Q, "features": P22["features"],
+           "held_out_rows": int(len(y) - n_tr),
+           "data_s": time.perf_counter() - t0,
+           "grads": _rank_grads_vs_plain(sizes[:Q], y[:n_tr], 5)}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    plan = LambdarankPlan(sizes[:Q], y[:n_tr], dev)
+    rec["grad_plan_s"] = time.perf_counter() - t0
+    s = torch.randn(n_tr, device=dev)
+    rec["grad_s_per_iter"] = _cuda_ms([lambda: lambdarank_grad(s, plan)],
+                                      3) / 1e3
+    rec["grad_pair_elements"] = plan.pair_elements()
+    del plan, s
+    torch.cuda.empty_cache()
+    df = DataFrame({"features": X[:n_tr], "label": y[:n_tr],
+                    "group": qid[:n_tr]})
+    est = LightGBMRanker(device=None, num_iterations=iters, **{
+        k: v for k, v in HIGGS_P.items() if k != "objective"})
+    _zero_launch_counts()
+    with _FirstTreeVsPlain() as spy:
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        rec["fit_s"] = time.perf_counter() - t0
+    rec["k6_launches"] = _check_counts("22a", iters)
+    rec["first_tree_ties"] = spy.ties("22a first tree")
+    del spy
+    b = model.booster
+    ph = b.phase_seconds
+    rec["sec_per_iter"] = ph["boost"] / iters
+    rec["phase_seconds"] = dict(ph)
+    Xh, yh, sh = X[n_tr:], y[n_tr:], sizes[Q:]
+    rec["ndcg10_held_out"] = _ndcg_at10(yh, b.predict(Xh, raw_score=True),
+                                        sh)
+    rec["ndcg10_first_tree"] = _ndcg_at10(
+        yh, b.predict(Xh, raw_score=True, num_iteration=1), sh)
+    if b.num_trees != iters or \
+            rec["ndcg10_held_out"] <= rec["ndcg10_first_tree"]:
+        raise AssertionError(f"22a: {b.num_trees} trees, held-out NDCG@10 "
+                             f"{rec['ndcg10_held_out']} (first tree "
+                             f"{rec['ndcg10_first_tree']})")
+    out = model.transform(DataFrame({"features": Xh[:1000]}))
+    if not np.array_equal(np.asarray(out["prediction"]),
+                          b.predict(Xh[:1000], raw_score=True).astype(
+                              np.float64)):
+        raise AssertionError("22a: transform's prediction is not the raw "
+                             "score")
+    del df, model, b, out
+    torch.cuda.empty_cache()
+    rec["k6"] = {f"nodes{k}": _hist_case(dev_info, f"ranker_nodes{k}", n_tr,
+                                         P22["features"], k, 255, 40 + k)
+                 for k in (1, 16)}
+    log(f"[22a] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+class _BuildRecorder:
+    """Within the block, every ``build_tree`` call of ``train()`` keeps
+    its key, ``feat_bins`` and (feats, thr_bin) outputs (K6's builds, on
+    the card)."""
+
+    def __enter__(self):
+        self.mod = _gbdt_module("train")
+        self.real = real = self.mod.build_tree
+        self.calls = []
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            self.calls.append((kw.get("rng"), kw.get("feat_bins"),
+                               out[0], out[1]))
+            return out
+        self.mod.build_tree = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_tree = self.real
+
+
+def _check_draws(what, calls, F, depth, ff_bynode):
+    """Every recorded tree against its own key's draws: each split's bin
+    is the node's drawn candidate for the split feature (so below the
+    feature's ``feat_bins``), and the feature is in the node's drawn
+    subset of round(F * ff_bynode). Returns the nodes checked."""
+    import torch
+    from mmlspark_tpu_torch.utils import prng
+    kk = max(1, int(round(F * ff_bynode)))
+    checked = 0
+    for t, (key, feat_bins, feats, thr) in enumerate(calls):
+        bin_hi = (feat_bins - 1).clamp_min(1).long()
+        for d in range(depth):
+            m, off = 2 ** d, 2 ** d - 1
+            f = feats[off:off + m].long()
+            b = thr[off:off + m].long()
+            live = f >= 0
+            fc = f.clamp_min(0)
+            u = prng.uniform(prng.fold_in(key, 2 * d), (m, F))
+            r = torch.minimum((u * bin_hi[None]).long(), bin_hi[None] - 1)
+            cand = r.gather(1, fc[:, None])[:, 0]
+            u = prng.uniform(prng.fold_in(key, 2 * d + 1), (m, F))
+            subset = u >= torch.topk(u, kk, dim=1).values[:, -1:]
+            in_subset = subset.gather(1, fc[:, None])[:, 0]
+            below = b < feat_bins.long()[fc]
+            bad = live & ~((b == cand) & in_subset & below)
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"{what}: tree {t} level {d}: {int(bad.sum())} splits "
+                    f"off their node's draws")
+            checked += int(live.sum())
+    return checked
+
+
+def phase_extra_trees(dev_info, X, y):
+    """22b: ``extra_trees`` with ``feature_fraction_bynode`` 0.5 on 8c's
+    HIGGS shape beside gbdt (module docstring)."""
+    import torch
+    from mmlspark_tpu_torch.utils import prng
+    draws = 0
+    for seed in (0, 1, 2 ** 31 - 1):
+        kc, kh = prng.PRNGKey(seed, "cuda"), prng.PRNGKey(seed)
+        for d in (0, 3, 999_999):
+            fc, fh = prng.fold_in(kc, d), prng.fold_in(kh, d)
+            for shape in ((1, 28), (16, 28), (64, 136)):
+                uc, uh = prng.uniform(fc, shape), prng.uniform(fh, shape)
+                if not torch.equal(uc.cpu().view(torch.int32),
+                                   uh.view(torch.int32)):
+                    raise AssertionError(f"22b: threefry draws of seed "
+                                         f"{seed}, data {d} differ between "
+                                         f"the card and the CPU")
+                draws += uc.numel()
+        if not torch.equal(prng.split(kc, 7).cpu(), prng.split(kh, 7)):
+            raise AssertionError("22b: split keys differ card vs CPU")
+    iters = P22["iters"]
+    base = {**HIGGS_P, "num_iterations": iters}
+    gb, grec = _mode_fit("22b gbdt", base, X, y)
+    rec = {"threefry_draws_compared": draws,
+           "gbdt": {"sec_per_iter": grec["sec_per_iter"],
+                    "train_auc": _auc(y, gb.predict(X))}}
+    del gb
+    params = {**base, "extra_trees": True, "feature_fraction_bynode": 0.5}
+    with _FirstTreeVsPlain() as spy, _BuildRecorder() as recd:
+        b, r = _mode_fit("22b", params, X, y)
+    rec.update(sec_per_iter=r["sec_per_iter"], k6_launches=r["k6_launches"],
+               gbdt_k6_launches=grec["k6_launches"],
+               phase_seconds=r["phase_seconds"],
+               first_tree_ties=spy.ties("22b first tree"),
+               nodes_checked=_check_draws("22b", recd.calls, X.shape[1],
+                                          5, 0.5),
+               train_auc=_auc(y, b.predict(X)))
+    del spy, recd
+    auc0 = rec["gbdt"]["train_auc"]
+    if rec["train_auc"] <= 0.75 or abs(rec["train_auc"] - auc0) > 0.05:
+        raise AssertionError(f"22b: train AUC {rec['train_auc']} (gbdt "
+                             f"{auc0}): want > 0.75 and within 0.05")
+    log(f"[22b] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_checkpoints(dev_info, X, y):
+    """22c: step checkpoints on HIGGS's first million rows (module
+    docstring)."""
+    import shutil
+    import numpy as np
+    from mmlspark_tpu_torch.models.gbdt import Booster
+    from mmlspark_tpu_torch.utils.checkpoint import TrainingCheckpointer
+    n, first = P22["ckpt_rows"], P22["ckpt_first"]
+    Xs, ys = X[:n], y[:n]
+    d = os.path.join(HERE, "build", "phase22_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    p = {**HIGGS_P, "checkpoint_dir": d,
+         "checkpoint_interval": P22["ckpt_interval"]}
+    _b1, r1 = _mode_fit("22c first call", {**p, "num_iterations": first},
+                        Xs, ys)
+    ck = TrainingCheckpointer(d)
+    step, files = ck.latest()
+    meta = TrainingCheckpointer.read_json(files["meta.json"])
+    text = TrainingCheckpointer.read_text(files["booster.txt"])
+    if step != first or meta["completed_iterations"] != first:
+        raise AssertionError(f"22c: the first call left step {step}, meta "
+                             f"{meta}")
+    iters = P22["iters"]
+    _zero_launch_counts()
+    b2 = _gbdt_module("train").train({**p, "num_iterations": iters}, Xs, ys)
+    # the resumed call trains only the iterations after the checkpoint
+    k6_resumed = _check_counts("22c resumed", iters - first)
+    r2 = {"sec_per_iter": b2.phase_seconds["boost"] / (iters - first)}
+    step2, files2 = ck.latest()
+    meta2 = TrainingCheckpointer.read_json(files2["meta.json"])
+    saved = Booster.from_string(text)
+    if step2 != iters or meta2["completed_iterations"] != iters or \
+            b2.num_trees != iters:
+        raise AssertionError(f"22c: resumed call left step {step2}, meta "
+                             f"{meta2}, {b2.num_trees} trees")
+    for name in ("feats", "thr_raw", "leaf_values", "gains", "covers"):
+        if not np.array_equal(getattr(b2, name)[:first],
+                              getattr(saved, name)):
+            raise AssertionError(f"22c: the resumed model's first {first} "
+                                 f"trees' {name} are not the checkpoint's")
+    b3, r3 = _mode_fit("22c uninterrupted", {**HIGGS_P,
+                                              "num_iterations": iters},
+                       Xs, ys)
+    equal, tie = _model_ties("22c resumed vs uninterrupted", b3, b2)
+    scale = float(np.abs(b3.leaf_values).max())
+    leaf_err = float(np.abs(b2.leaf_values[:equal]
+                            - b3.leaf_values[:equal]).max()) if equal else 0.0
+    if leaf_err > 2e-3 * scale:
+        raise AssertionError(f"22c: leaves {leaf_err} apart over {equal} "
+                             f"equal trees (scale {scale})")
+    shutil.rmtree(d, ignore_errors=True)
+    rec = {"rows": n, "resumed_at": meta["completed_iterations"],
+           "saved_at": meta2["completed_iterations"],
+           "equal_trees": equal, "tie": tie, "leaf_err": leaf_err,
+           "leaf_scale": scale,
+           "sec_per_iter": {"first": r1["sec_per_iter"],
+                            "resumed": r2["sec_per_iter"],
+                            "uninterrupted": r3["sec_per_iter"]},
+           "k6_launches": r1["k6_launches"] + k6_resumed + r3["k6_launches"]}
+    log(f"[22c] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def glue_like_rows(n, seq, vocab, seed):
+    """A GLUE-shaped sentence classification set from ``seed``: right-
+    padded rows of ``seq`` ids (lengths 32 ... seq), the first id one of
+    P22["markers"] marker tokens, the rest uniform over the vocabulary;
+    the label is 1 for the first half of the markers. Returns (ids,
+    mask, labels), int64."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1000, vocab, (n, seq)).astype(np.int64)
+    marker = rng.integers(0, P22["markers"], n)
+    ids[:, 0] = 100 + marker
+    lens = rng.integers(32, seq + 1, n)
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int64)
+    ids = ids * mask
+    return ids, mask, (marker < P22["markers"] // 2).astype(np.int64)
+
+
+class _TimedLog(list):
+    """An ``eval_log`` that notes the clock at each append."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = []
+
+    def append(self, x):
+        self.t.append(time.perf_counter())
+        super().append(x)
+
+
+def _flash_step_counts(what, steps):
+    """K7 / K8a / K8b since ``_zero_gen_counts``: 12 of each a step (one
+    per layer), no plain call and no dense attention on the card."""
+    from mmlspark_tpu_torch.onnx import convert
+    k7, k8a, k8b, plain = _flash_counts()
+    want = 12 * steps
+    dense = dict(convert.dense_on_cuda)
+    if (k7, k8a, k8b) != (want, want, want) or plain or dense:
+        raise AssertionError(f"{what}: K7/K8a/K8b {k7}/{k8a}/{k8b} (want "
+                             f"{want} each), {plain} plain calls, dense "
+                             f"attention on the card {dense}")
+    return {"k7": k7, "k8a": k8a, "k8b": k8b}
+
+
+def _bert_parity(cfg, params, head, clf, feeds):
+    """22d's first step: the fused classifier's loss and gradients
+    (``value_and_grad``: K7 forward, K8a/K8b backward) against the same
+    params through the decomposed graph (``export_bert_onnx(opset=17)``,
+    dense attention) with the head in torch, on the card."""
+    import torch
+    from mmlspark_tpu_torch.models.zoo.bert_onnx import export_bert_onnx
+    from mmlspark_tpu_torch.onnx import convert, convert_model
+    from mmlspark_tpu_torch.onnx import train as T
+    dev = torch.device("cuda")
+    cm = convert_model(clf)
+    _zero_gen_counts()
+    convert.dense_on_cuda.clear()
+    loss_f, grads = T.value_and_grad(cm, output="loss")(cm.params, feeds)
+    torch.cuda.synchronize()
+    counts = _flash_step_counts("22d first step", 1)
+    dec = convert_model(export_bert_onnx(cfg, opset=17, params=params))
+    P = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+         for k, v in dec.params.items()}
+    W, bb = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in head)
+    ft = {k: torch.from_numpy(v).to(dev) for k, v in feeds.items()}
+    hid = dec(P, {k: ft[k] for k in ("input_ids", "attention_mask")})
+    loss_d = torch.nn.functional.cross_entropy(
+        hid["last_hidden_state"][:, 0] @ W + bb, ft["labels"])
+    lf, ld = float(loss_f), float(loss_d.detach())
+    names = list(P)
+    gd = dict(zip(names + ["head.w", "head.b"], torch.autograd.grad(
+        loss_d, [P[k] for k in names] + [W, bb])))
+    for i in range(cfg.layers):
+        for s in ("w", "b"):
+            gd[f"l{i}.qkv.{s}"] = torch.cat(
+                [gd[f"l{i}.{n}.{s}"] for n in "qkv"], dim=-1)
+    rel = abs(lf - ld) / abs(ld)
+    worst = 0.0
+    for k, g in grads.items():
+        err = float((g - gd[k]).abs().max())
+        top = float(gd[k].abs().max())
+        worst = max(worst, err / max(top, 1e-30))
+        if err > 1e-4 * top:
+            raise AssertionError(f"22d: gradient of {k} off by {err} (max "
+                                 f"|g| {top})")
+    if rel > 1e-5:
+        raise AssertionError(f"22d: first-step loss {lf} vs the "
+                             f"decomposed graph's {ld}")
+    del P, grads, gd, hid
+    torch.cuda.empty_cache()
+    return {"loss_fused": lf, "loss_decomposed": ld,
+            "loss_rel_err": rel, "grad_err_over_max": worst,
+            "launches": counts}
+
+
+def _served(what, model, cm, frame, ids, mask, base_logits=None):
+    """``model.transform`` of ``frame`` on the card against a direct
+    forward with its ``weights_override`` layered over the graph's
+    params; returns (logits, max error over max |logits|)."""
+    import io
+    import numpy as np
+    import torch
+    out = np.stack(list(model.transform(frame)["logits"]))
+    with np.load(io.BytesIO(model.get("weights_override"))) as z:
+        ov = {k: z[k] for k in z.files}
+    params = {k: torch.from_numpy(np.asarray(v)).cuda()
+              for k, v in {**cm.params, **ov}.items()}
+    with torch.no_grad():
+        ref = cm.pruned(["logits"])(params, {
+            "input_ids": torch.from_numpy(ids).cuda(),
+            "attention_mask": torch.from_numpy(mask).cuda()})["logits"]
+    ref = ref.cpu().numpy()
+    err = float(np.abs(out - ref).max() / np.abs(ref).max())
+    if err > 1e-5 or not np.isfinite(out).all():
+        raise AssertionError(f"{what}: served logits {err:.3g} of max off a "
+                             f"direct forward with the override")
+    if base_logits is not None and np.array_equal(out, base_logits):
+        raise AssertionError(f"{what}: served logits equal the base graph's")
+    return out, err
+
+
+def phase_onnx_finetune(dev_info):
+    """22d and 22e: ``ONNXEstimator.fit`` of the fused BERT-base, full and
+    LoRA (module docstring)."""
+    import io
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.models.onnx_estimator import ONNXEstimator
+    from mmlspark_tpu_torch.models.onnx_model import ONNXModel
+    from mmlspark_tpu_torch.models.zoo.bert_onnx import (BertOnnxConfig,
+                                                         init_bert_params)
+    from mmlspark_tpu_torch.onnx import convert, convert_model
+    from mmlspark_tpu_torch.onnx import train as T
+    cfg = BertOnnxConfig(**BERT_ONNX)
+    params = init_bert_params(cfg, seed=22)
+    rng = np.random.default_rng(22)
+    head = (rng.normal(0, 0.02, (cfg.d_model, 2)).astype(np.float32),
+            np.zeros(2, np.float32))
+    t0 = time.perf_counter()
+    clf = fused_bert_onnx(cfg, params, head=head)
+    build_s = time.perf_counter() - t0
+    bs, seq = P22["bert_batch"], P22["bert_seq"]
+    ids, mask, labels = glue_like_rows(P22["bert_rows"], seq, cfg.vocab, 22)
+    parity = _bert_parity(cfg, params, head, clf, {
+        "input_ids": ids[:bs], "attention_mask": mask[:bs],
+        "labels": labels[:bs]})
+    del params
+    cm = convert_model(clf)
+    feed = {"input_ids": "ids", "attention_mask": "mask"}
+    srv = P22["serve_rows"]
+    serve = DataFrame({"ids": ids[:srv], "mask": mask[:srv]})
+    base_logits = np.stack(list(ONNXModel(
+        clf, device=None, feed_dict=feed, fetch_dict={"logits": "logits"}
+    ).transform(serve)["logits"]))
+    out = {"22d": {"parity": parity, "graph_build_s": build_s}}
+    for part, rows, extra in (("22d", P22["bert_rows"], {}),
+                              ("22e", P22["lora_rows"],
+                               {"lora_rank": P22["lora_rank"]})):
+        steps = rows // bs
+        log_ = _TimedLog()
+        est = ONNXEstimator(clf, device=None, eval_log=log_, feed_dict=feed,
+                            fetch_dict={"logits": "logits"},
+                            loss_output="loss", label_input="labels",
+                            batch_size=bs, learning_rate=P22["lr"],
+                            epochs=1, seed=22, **extra)
+        frame = DataFrame({"ids": ids[:rows], "mask": mask[:rows],
+                           "label": labels[:rows]})
+        seen = {}
+        real = T.make_lora_train_step
+
+        def spy(*a, **kw):
+            # 22e's base params and optimizer, as the estimator's LoRA
+            # step gets them
+            step, init = real(*a, **kw)
+
+            def step2(base, lora, state, feeds):
+                if "base" not in seen:
+                    seen.update(base=base, state=state, snap={
+                        k: v.clone() for k, v in base.items()})
+                return step(base, lora, state, feeds)
+            return step2, init
+        T.make_lora_train_step = spy
+        try:
+            _zero_gen_counts()
+            convert.dense_on_cuda.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = est.fit(frame)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            T.make_lora_train_step = real
+        launches = _flash_step_counts(f"{part} fit", steps)
+        losses = np.array(log_, dtype=np.float64)
+        first, last = losses[:8].mean(), losses[-8:].mean()
+        step_s = (log_.t[-1] - log_.t[0]) / (len(log_.t) - 1)
+        rec = {"steps": len(losses), "fit_s": fit_s, "s_per_step": step_s,
+               "sequences_per_s": bs / step_s,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "loss_first8": first, "loss_last8": last,
+               "launches": launches}
+        # full fine-tuning must learn; LoRA's adapters start at a zero
+        # delta and move by lr a step, so only its losses are recorded
+        if len(losses) != steps or not np.isfinite(losses).all() or \
+                (part == "22d" and not last < first):
+            raise AssertionError(f"{part}: {len(losses)} steps (want "
+                                 f"{steps}), loss {first} -> {last}")
+        if part == "22e":
+            targets = T.lora_targets(cm, P22["lora_rank"])
+            with np.load(io.BytesIO(model.get("weights_override"))) as z:
+                names = sorted(z.files)
+            trained = [p for g in seen["state"].optimizer.param_groups
+                       for p in g["params"]]
+            adapters = [t for ab in seen["state"].leaves.values()
+                        for t in ab.values()]
+            same = all(torch.equal(seen["base"][k], seen["snap"][k])
+                       for k in seen["snap"])
+            if names != targets or not same or len(trained) != \
+                    len(adapters) or any(a is not b for a, b in
+                                         zip(trained, adapters)):
+                raise AssertionError(f"22e: override names {len(names)} "
+                                     f"(targets {len(targets)}), base "
+                                     f"unchanged {same}, {len(trained)} "
+                                     f"tensors trained")
+            rec.update(adapted_matrices=len(targets), adapter_params=sum(
+                t.numel() for t in adapters), base_unchanged=same)
+            del seen["base"], seen["snap"], seen["state"]
+        _, rec["served_err_over_max"] = _served(part, model, cm, serve,
+                                                ids[:srv], mask[:srv],
+                                                base_logits)
+        out[part] = {**out.get(part, {}), **rec}
+        log(f"[{part}] {json.dumps(out[part])} | {dev_info['smi']}")
+        del model, est
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase22(dev_info):
+    """Phases 22a-22e; the HIGGS matrix is made once for b and c."""
+    import torch
+    rank = phase_ranker(dev_info)
+    torch.cuda.empty_cache()
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    extra = phase_extra_trees(dev_info, X, y)
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoints(dev_info, X, y)
+    del X, y
+    torch.cuda.empty_cache()
+    bert = phase_onnx_finetune(dev_info)
+    launches = {"22a": rank["k6_launches"],
+                "22b": extra["k6_launches"] + extra["gbdt_k6_launches"],
+                "22c": ckpt["k6_launches"]}
+    flash = {part: {k: bert[part]["launches"][k] for k in ("k7", "k8a",
+                                                          "k8b")}
+             for part in ("22d", "22e")}
+    flash["22d first step"] = bert["22d"]["parity"]["launches"]
+    return {"22a": rank, "22b": extra, "22c": ckpt, "22d": bert["22d"],
+            "22e": bert["22e"], "k6_launches": launches,
+            "flash_launches": flash}
+
+
 def _phase21(dev_info, hist_recs=None):
     """Phases 21a-21e; the HIGGS matrix is made once for a, b and e, the
     airline rows once for c and d."""
@@ -7832,11 +8474,11 @@ def main(argv=()):
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21"}
+             "17", "18", "19", "20", "21", "22"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20 and 21")
+            f"19, 20, 21 and 22")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -7889,6 +8531,8 @@ def main(argv=()):
             _phase20(dev_info)
         if "21" in only:
             _phase21(dev_info)
+        if "22" in only:
+            _phase22(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -7919,6 +8563,7 @@ def main(argv=()):
     p19 = _phase19(dev_info)
     p20 = _phase20(dev_info)
     p21 = _phase21(dev_info, hist_recs)
+    p22 = _phase22(dev_info)
     k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -8012,12 +8657,17 @@ def main(argv=()):
          "replaces": "mmlspark_tpu/ops/pallas_kernels.py:124",
          "launches": (gbdt["k6_launches"] + est12a["k6_launches"]
                       + multi12b["k6_launches"] + sum(k6_19.values())
-                      + sum(p21["k6_launches"].values())),
+                      + sum(p21["k6_launches"].values())
+                      + sum(p22["k6_launches"].values())),
          "launches_train_8c": gbdt["k6_launches"],
          "launches_estimator_12a": est12a["k6_launches"],
          "launches_multiclass_12b": multi12b["k6_launches"],
          "launches_afterfit_19": k6_19,
          "launches_trainer_21": p21["k6_launches"],
+         "launches_rank_regularizers_checkpoints_22": p22["k6_launches"],
+         "ranker_22a": {label: {k: p22["22a"]["k6"][label][k]
+                                for k in keys + ("shape",)}
+                        for label in p22["22a"]["k6"]},
          "bundled_21d": {label: {k: hist_recs[label][k] for k in keys}
                          for label, *_ in bundled_hist_cases()},
          **{k: hist_recs["nodes16"][k] for k in keys},
@@ -8034,7 +8684,9 @@ def main(argv=()):
          "sec_per_iter": gbdt["sec_per_iter"],
          "share_of_iter": gbdt["k6_share_of_iter"],
          "estimator_12a": est12a, "multiclass_12b": multi12b,
-         "afterfit_19": p19, "trainer_21": p21}]
+         "afterfit_19": p19, "trainer_21": p21,
+         "ranker_regularizers_checkpoints_22": {
+             k: p22[k] for k in ("22a", "22b", "22c")}}]
     fsrc = "mmlspark_tpu_torch/csrc/flash_attention.cu"
     fref = "mmlspark_tpu/ops/flash_attention.py"
     sdpa = "F.scaled_dot_product_attention"
@@ -8044,6 +8696,9 @@ def main(argv=()):
     k7_onnx = sum(bert14["k7_launches"].values())
     k7_engine = p16["16b"]["k7_launches"]
     k7_quant = {k: p18["18b"][k]["k7_launches"] for k in ("bf16", "int8")}
+    # phase 22's ONNX fine-tuning: the parity step, 22d's and 22e's fits
+    fl22 = p22["flash_launches"]
+    k22 = {k: sum(v[k] for v in fl22.values()) for k in ("k7", "k8a", "k8b")}
     extras = {
         "K7": {"with_stats": {k: train_rec["K7 stats"][k] for k in keys},
                "launches_inference": infer["k7_launches"],
@@ -8055,6 +8710,9 @@ def main(argv=()):
                    "train_20a": p20["20a"]["k7_launches"],
                    "generate_20d": p20["20d"]["k7_launches"]},
                "launches_quant_bert_18b": k7_quant,
+               "launches_onnx_finetune_22": {k: v["k7"]
+                                             for k, v in fl22.items()},
+               "onnx_finetune_22": {k: p22[k] for k in ("22d", "22e")},
                "serving_engine_16b": p16["16b"],
                "onnx_infer_14b": bert14["bf16"]["k7"],
                "library_call": sdpa, "model_parity": flash_parity,
@@ -8062,19 +8720,26 @@ def main(argv=()):
         "K8a": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
                                 f"and dV together)",
                 "launches_generation_train_20a": p20["20a"]["k8a_launches"],
+                "launches_onnx_finetune_22": {k: v["k8a"]
+                                              for k, v in fl22.items()},
                 "training": train, "decoder_memory": dec_mem},
         "K8b": {"library_call": f"autograd backward of {sdpa} (dQ, dK "
                                 f"and dV together)",
-                "launches_generation_train_20a": p20["20a"]["k8b_launches"]}}
+                "launches_generation_train_20a": p20["20a"]["k8b_launches"],
+                "launches_onnx_finetune_22": {k: v["k8b"]
+                                              for k, v in fl22.items()}}}
     for key, name, line, launches in (
             ("K7", "flash_attention", 64,
              infer["k7_launches"] + train["k7_launches"] + k7_onnx
              + k7_engine + sum(k7_quant.values())
-             + p20["20a"]["k7_launches"] + p20["20d"]["k7_launches"]),
+             + p20["20a"]["k7_launches"] + p20["20d"]["k7_launches"]
+             + k22["k7"]),
             ("K8a", "flash_attention backward (dK, dV)", 230,
-             train["k8a_launches"] + p20["20a"]["k8a_launches"]),
+             train["k8a_launches"] + p20["20a"]["k8a_launches"]
+             + k22["k8a"]),
             ("K8b", "flash_attention backward (dQ)", 270,
-             train["k8b_launches"] + p20["20a"]["k8b_launches"])):
+             train["k8b_launches"] + p20["20a"]["k8b_launches"]
+             + k22["k8b"])):
         kernels.append({
             "name": name, "route": "cuda", "source": fsrc,
             "replaces": f"{fref}:{line}", "launches": launches,

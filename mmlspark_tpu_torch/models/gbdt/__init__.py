@@ -8,10 +8,11 @@ apply it through the pipeline API."""
 from .binning import BinMapper
 from .booster import Booster
 from .estimators import (LightGBMClassificationModel, LightGBMClassifier,
-                         LightGBMRanker, LightGBMRegressionModel,
-                         LightGBMRegressor)
+                         LightGBMRanker, LightGBMRankerModel,
+                         LightGBMRegressionModel, LightGBMRegressor)
 from .train import train
 
 __all__ = ["BinMapper", "Booster", "train", "LightGBMClassifier",
            "LightGBMClassificationModel", "LightGBMRegressor",
-           "LightGBMRegressionModel", "LightGBMRanker"]
+           "LightGBMRegressionModel", "LightGBMRanker",
+           "LightGBMRankerModel"]

@@ -24,10 +24,15 @@ The device is a constructor (and :meth:`_LightGBMModelBase.load`)
 keyword of the estimators and models, not a persisted param: ``None``
 means the CUDA card, and raises without one; tests pass ``"cpu"``.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
-item at ``fit``: ``LightGBMRanker`` (lambdarank), ``parallelism`` other
-than ``"serial"`` (item 31), and every option :func:`train` rejects
-(``extra_trees``, ``feature_fraction_bynode``, step checkpoints).
+``extra_trees``, ``feature_fraction_bynode`` and step checkpoints
+(``checkpoint_dir``, ``checkpoint_interval``) pass through to
+:func:`train`. ``LightGBMRanker`` fits lambdarank over the query runs of
+its ``group_col`` (contiguous runs of one id; an id that reappears after
+another raises ValueError), and its model's ``prediction`` is the raw
+score.
+
+Not ported: ``parallelism`` other than ``"serial"`` raises
+``NotImplementedError`` naming ROADMAP.md's item 31 at ``fit``.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from .booster import Booster, _leftover
 from .train import train
 
 __all__ = ["LightGBMClassifier", "LightGBMRegressor", "LightGBMRanker",
-           "LightGBMClassificationModel", "LightGBMRegressionModel"]
+           "LightGBMClassificationModel", "LightGBMRegressionModel",
+           "LightGBMRankerModel"]
 
 
 def _str_or_str_list(v):
@@ -238,7 +244,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
             raise _leftover(f"parallelism={self.parallelism!r} (data- and "
                             f"voting-parallel training)", 31)
 
-    def _fit_core(self, df: DataFrame, extra_params: dict) -> Booster:
+    def _fit_core(self, df: DataFrame, extra_params: dict,
+                  group_col: Optional[str] = None) -> Booster:
         self._reject_unported()
         train_df, valid_df = self._split_valid(df)
         X = assemble_features(train_df, [self.features_col])
@@ -257,6 +264,20 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
                 # the validation split's weight rows drive early stopping
                 valid_weights = [np.asarray(valid_df[self.weight_col],
                                             dtype=np.float64)]
+        group = None
+        if group_col is not None:
+            gcol = np.asarray(train_df[group_col])
+            # lambdarank reads contiguous runs; a group id reappearing
+            # after another would silently mix queries
+            boundaries = np.flatnonzero(gcol[1:] != gcol[:-1]) + 1
+            starts = np.concatenate([[0], boundaries, [len(gcol)]])
+            run_ids = gcol[starts[:-1]]
+            if len(np.unique(run_ids)) != len(run_ids):
+                raise ValueError(
+                    f"group column {group_col!r} is not contiguous: the same "
+                    "group id appears in separate runs; sort the DataFrame by "
+                    "group first")
+            group = np.diff(starts)
         init_model = None
         ms = self.get_or_none("model_string")
         if ms:
@@ -269,7 +290,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol):
             # the validation split carries its own rows of the margin
             valid_init_scores = [_margins(valid_df, iscol)]
         return train(self._train_params(extra_params), X, y, sample_weight=w,
-                     valid_sets=valid_sets, init_model=init_model,
+                     group=group, valid_sets=valid_sets,
+                     init_model=init_model,
                      init_score=init_score,
                      valid_init_scores=valid_init_scores,
                      valid_weights=valid_weights, device=self.device)
@@ -419,9 +441,19 @@ class LightGBMRegressionModel(_LightGBMModelBase):
 
 
 class LightGBMRanker(Estimator, _LightGBMParams, HasPredictionCol):
-    """Lambdarank over query groups: not ported (``fit`` raises)."""
+    """Lambdarank over the query runs of ``group_col``."""
     group_col = Param(str, default="group", doc="query-group column")
     evaluate_at = Param((list, int), default=[5], doc="NDCG@k positions")
 
-    def _fit(self, df: DataFrame):
-        raise _leftover("LightGBMRanker (lambdarank)")
+    def _fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        booster = self._fit_core(df, {"objective": "lambdarank"},
+                                 group_col=self.group_col)
+        return LightGBMRankerModel(booster, **self._model_kw())
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    def _transform(self, df: DataFrame) -> DataFrame:
+        X = self._features(df)
+        pred = self.booster.predict(X, raw_score=True).astype(np.float64)
+        return self._add_aux_cols(df.with_column(self.prediction_col, pred),
+                                  X)

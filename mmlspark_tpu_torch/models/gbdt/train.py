@@ -53,9 +53,26 @@ in chunks) and the new trees append to a copy of it. ``init_score`` starts
 the loop from a per-row margin, (n,) or (n, K), with ``base_score`` 0;
 the model's predictions exclude that margin, as LightGBM's do.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: lambdarank, data- and voting-parallel training, ``extra_trees``,
-``feature_fraction_bynode`` and step checkpoints.
+``extra_trees`` and ``feature_fraction_bynode`` draw each level's
+candidate bins and feature subsets from the JAX package's threefry keys
+(:mod:`...utils.prng`): ``PRNGKey(seed)`` folded with the absolute
+iteration, split into one key a class for multiclass, so a seed grows the
+same trees in both packages.
+
+``objective="lambdarank"`` with ``group`` (the document counts of
+contiguous query runs) computes the LambdaRank gradients on the device in
+float64 (:mod:`.lambdarank`, the groups bucketed by size once per run)
+and casts them to float32 after the sample weights, as the reference
+does on the host.
+
+Step checkpoints (``checkpoint_dir``, ``checkpoint_interval``) save the
+booster through :class:`...utils.checkpoint.TrainingCheckpointer` in the
+JAX package's layout; a call on a directory with a checkpoint resumes
+from its newest step and trains the remaining iterations.
+
+Not ported: data- and voting-parallel training (``tree_learner`` other
+than serial, ``mesh=``) raise ``NotImplementedError`` naming ROADMAP.md's
+slice-6 item.
 """
 
 from __future__ import annotations
@@ -67,12 +84,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...utils import prng
+from ...utils.checkpoint import TrainingCheckpointer
 from ...utils.device import resolve_device
 from ...ops.histogram import prepare_bins_columns
 from .binning import BinMapper, is_sparse
 from .booster import Booster, _leftover
 from .bundling import FeatureBundler
 from .categorical import CategoricalEncoder
+from .lambdarank import LambdarankPlan, lambdarank_grad
 from .objectives import get_metric, get_objective
 from .trees import (BundleTables, build_tree, fit_linear_leaves, map_rows,
                     path_features, predict_trees, predict_trees_linear)
@@ -185,20 +205,11 @@ class TrainConfig:
         self.n_features = n_features
 
 
-def _reject_unported(p: Dict, group, mesh) -> None:
-    """Raise NotImplementedError for every mode outside the port."""
-    if p["objective"] == "lambdarank" or group is not None:
-        raise _leftover("lambdarank")
+def _reject_unported(p: Dict, mesh) -> None:
+    """Raise NotImplementedError for the modes outside the port."""
     if mesh is not None or p["tree_learner"] != "serial":
         raise _leftover(f"tree_learner={p['tree_learner']!r} / mesh= "
                         f"(data- and voting-parallel training, slice 6)", 31)
-    if p["extra_trees"]:
-        raise _leftover("extra_trees")
-    if float(p["feature_fraction_bynode"]) != 1.0:
-        raise _leftover("feature_fraction_bynode")
-    if p["checkpoint_dir"]:
-        raise _leftover("step checkpoints (checkpoint_dir, with "
-                        "utils/checkpoint.py)", 24, "slice 5: the periphery")
 
 
 def _boosting(p: Dict) -> str:
@@ -252,6 +263,10 @@ def _check_modes(p: Dict, boosting: str, sparse_X: bool, init_model) -> None:
                              "(set path_smooth=0)")
     if float(p["path_smooth"]) < 0.0:
         raise ValueError("path_smooth must be >= 0")
+    ffbn = float(p["feature_fraction_bynode"])
+    if not 0.0 < ffbn <= 1.0:
+        raise ValueError(f"feature_fraction_bynode must be in (0, 1], "
+                         f"got {ffbn}")
 
 
 def _constraints(p: Dict, F: int, cat_encoder, dev) -> Dict:
@@ -389,6 +404,14 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _save_step(ckpt: TrainingCheckpointer, step: int, booster: Booster
+               ) -> None:
+    """One step checkpoint in the reference's layout: the model string
+    and the completed iteration count."""
+    ckpt.save(step, {"booster.txt": booster.to_string(),
+                     "meta.json": {"completed_iterations": step}})
+
+
 def _goss_select(gabs: np.ndarray, a: float, b: float,
                  rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
     """GOSS on the host, with the JAX package's numpy calls: the top
@@ -449,6 +472,27 @@ def train(params: Dict,
     p = resolve_params(params)
     boosting = _boosting(p)
     linear_tree = bool(p["linear_tree"])
+    _reject_unported(p, mesh)
+    sparse_X = is_sparse(X)
+    _check_modes(p, boosting, sparse_X, init_model)
+    dev = resolve_device(device)
+    # step checkpoints: a directory holding one resumes from its newest
+    # step, as a warm start from the saved booster
+    ckpt = None
+    resumed_iters = 0
+    if p["checkpoint_dir"] and init_score is not None:
+        # a checkpoint holds only the booster: a resume could not rebuild
+        # the margin-adjusted scores
+        raise ValueError("init_score cannot combine with step checkpoints")
+    if p["checkpoint_dir"]:
+        ckpt = TrainingCheckpointer(str(p["checkpoint_dir"]))
+        latest = ckpt.latest()
+        if latest is not None:
+            _, files = latest
+            meta = TrainingCheckpointer.read_json(files["meta.json"])
+            resumed_iters = int(meta["completed_iterations"])
+            init_model = Booster.from_string(TrainingCheckpointer.read_text(
+                files["booster.txt"]), device=dev)
     if init_model is not None and init_score is not None:
         raise ValueError("init_score cannot combine with a warm-start "
                          "model (the model already defines the margin)")
@@ -456,10 +500,6 @@ def train(params: Dict,
             and getattr(init_model, "is_linear", False) != linear_tree:
         raise ValueError("warm start must keep the leaf model family: "
                          "set linear_tree to match the init model")
-    _reject_unported(p, group, mesh)
-    sparse_X = is_sparse(X)
-    _check_modes(p, boosting, sparse_X, init_model)
-    dev = resolve_device(device)
     if sparse_X:
         # stays sparse: the binned matrix is the only dense artifact
         X = X.tocsr()
@@ -477,6 +517,10 @@ def train(params: Dict,
     objective_name = p["objective"]
     num_class = int(p["num_class"])
     is_multi = objective_name in ("multiclass", "softmax")
+    is_rank = objective_name == "lambdarank"
+    if is_rank and group is None:
+        raise ValueError("objective='lambdarank' needs group= (the "
+                         "document count of each contiguous query run)")
     if is_multi and num_class < 2:
         raise ValueError(f"the multiclass objective needs num_class >= 2, "
                          f"got {num_class}")
@@ -569,7 +613,7 @@ def train(params: Dict,
             # optimal constant; off (and multiclass) -> boosting starts
             # at 0
             base_score = obj.init_score(y, w) if p["boost_from_average"] \
-                and not is_multi else 0.0
+                and not (is_multi or is_rank) else 0.0
             scores = torch.zeros((n, K) if is_multi else n,
                                  dtype=torch.float32, device=dev)
         booster = Booster(depth, F, objective_name, base_score, K,
@@ -600,14 +644,45 @@ def train(params: Dict,
         build_kwargs.update(
             bundles=BundleTables.from_bundler(bundler, dev),
             n_bundle_bins=int(bundler.n_bundle_bins))
+    # extra_trees / feature_fraction_bynode: the reference's threefry
+    # keys, one a tree (a class)
+    draws = bool(p["extra_trees"]) or float(p["feature_fraction_bynode"]) < 1
+    if draws:
+        build_kwargs.update(extra_trees=bool(p["extra_trees"]),
+                            ff_bynode=float(p["feature_fraction_bynode"]))
+    if p["extra_trees"]:
+        # each feature's populated bins, the missing bin included: the
+        # candidate bin is drawn within the feature's own range
+        build_kwargs["feat_bins"] = torch.tensor(
+            [len(b) + 1 for b in mapper.upper_bounds], dtype=torch.int32,
+            device=dev)
+    rank_plan = None
+    if is_rank:
+        t0 = time.perf_counter()
+        rank_plan = LambdarankPlan(group, y, dev, n=n)
+        w64 = torch.as_tensor(w, dtype=torch.float64).to(dev)
+        phase["rank_plan"] = time.perf_counter() - t0
     booster.fit_params = {"learning_rate": float(p["learning_rate"]),
                           "lambda_l2": float(p["lambda_l2"])}
     lr = float(p["learning_rate"])
     rng = np.random.default_rng(int(p["seed"]))
-    n_iter = max(0, int(p["num_iterations"]))
+    n_iter = max(0, int(p["num_iterations"]) - resumed_iters)
+    ckpt_iv = int(p["checkpoint_interval"]) if ckpt is not None else 0
+    it_keys = None
+    if draws:
+        # every iteration's key in one hash: fold_in(PRNGKey(seed),
+        # absolute iteration), then split into one key a class
+        it_keys = prng.fold_in(prng.PRNGKey(int(p["seed"]), device=dev),
+                               torch.arange(resumed_iters,
+                                            resumed_iters + n_iter,
+                                            device=dev))
+        if is_multi:
+            it_keys = prng.fold_in(it_keys[:, None, :],
+                                   torch.arange(K, device=dev))
     # rf has no shrinkage: each tree enters at 1/T, so the sum is the
     # forest's average
-    rf_scale = 1.0 / max(1, n_iter) if boosting == "rf" else None
+    rf_scale = 1.0 / max(1, int(p["num_iterations"])) \
+        if boosting == "rf" else None
 
     def _stack_pred(feats_a, thr_a, leaf_a, Xq, coefs_a=None, pf_a=None):
         """A stack of trees' summed outputs for Xq (a device tensor, or
@@ -734,7 +809,7 @@ def train(params: Dict,
     # fused/deferred fast path: nothing in an iteration reads a tree on
     # the host, so iterations queue back to back on the card
     defer = (boosting != "dart" and not linear_tree and not valid_sets
-             and not callbacks)
+             and not callbacks and ckpt is None)
     pending: List[Tuple] = []
     t_boost = time.perf_counter()
     for it in range(n_iter):
@@ -766,7 +841,13 @@ def train(params: Dict,
         elif boosting == "rf":
             scores_for_grad = (init_d if init_d is not None
                                else torch.full_like(scores, base_score))
-        g_d, h_d = obj.grad_hess(scores_for_grad, y_d, w_d)
+        if is_rank:
+            # float64 on the device; weighted, then float32 as the
+            # reference casts its host gradients
+            g64, h64 = lambdarank_grad(scores_for_grad, rank_plan)
+            g_d, h_d = (g64 * w64).float(), (h64 * w64).float()
+        else:
+            g_d, h_d = obj.grad_hess(scores_for_grad, y_d, w_d)
 
         # goss / bagging / feature sampling: live_it is the 0/1 row
         # membership (counts, covers), gh_w also carries goss's
@@ -793,7 +874,8 @@ def train(params: Dict,
         else:
             g, h = g_d * gh_w, h_d * gh_w
         feats, thr_bin, leaf_val, node_rel, gains, covers = build_tree(
-            bins_cols, g, h, live_it, feature_mask=fmask, **build_kwargs)
+            bins_cols, g, h, live_it, feature_mask=fmask,
+            rng=None if it_keys is None else it_keys[it], **build_kwargs)
         new_coefs = new_pf = None
         if linear_tree:
             # one ridge model per leaf over its path features, per class
@@ -894,13 +976,19 @@ def train(params: Dict,
                     best_model = booster.truncated(init_trees + best_iter * K)
             elif patience and (it + 1 - best_iter) >= patience:
                 booster.best_iteration = best_iter
-                return _finish(best_model if best_model is not None
-                               else booster.truncated(
-                                   init_trees + best_iter * K))
+                final = (best_model if best_model is not None
+                         else booster.truncated(init_trees + best_iter * K))
+                if ckpt is not None:
+                    # marked complete (the full budget): a rerun on the
+                    # directory returns this booster, not a resumed one
+                    _save_step(ckpt, int(p["num_iterations"]), final)
+                return _finish(final)
         if callbacks:
             scores_np = scores.cpu().numpy().astype(np.float64) + base_score
             for cb in callbacks:
                 cb(it, booster, scores_np)
+        if ckpt_iv and (it + 1) % ckpt_iv == 0:
+            _save_step(ckpt, resumed_iters + it + 1, booster)
 
     if pending:
         # materialize the deferred tree arrays: one host transfer per chunk
@@ -927,12 +1015,16 @@ def train(params: Dict,
                                 gains_all[t], covers_all[t])
     else:
         _sync(dev)
+    if ckpt is not None and n_iter > 0:
+        _save_step(ckpt, resumed_iters + n_iter, booster)
     if patience and best_model is not None:
         # dart reaching the budget without the patience branch firing:
         # only the snapshot reproduces best_score
         return _finish(best_model)
-    # absolute iterations, the warm start's included (the reference counts
-    # them only with valid_sets)
-    booster.best_iteration = init_iters + (best_iter if valid_sets
-                                           else n_iter)
+    if not (valid_sets and n_iter == 0):
+        # absolute iterations, the warm start's included (the reference
+        # counts them only with valid_sets); a finished checkpointed run
+        # rerun with valid_sets keeps its restored best_iteration
+        booster.best_iteration = init_iters + (best_iter if valid_sets
+                                               else n_iter)
     return _finish(booster)

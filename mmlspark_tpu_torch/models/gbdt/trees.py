@@ -26,14 +26,19 @@ and EFB bundles (the level's histogram built in bundle space by K6 at
 Linear leaves (``linear_tree``) fit a ridge model per leaf over the
 leaf's path features after the tree is built (:func:`fit_linear_leaves`).
 
+``extra_trees`` (one random candidate bin per node x feature) and
+``feature_fraction_bynode`` (a random feature subset per node) draw from
+the JAX package's threefry stream (:mod:`...utils.prng`, bit for bit
+``jax.random``), keyed per level as the reference keys them, so both
+packages grow the same randomized trees.
+
 Prefix sums over the bin axis (:func:`_prefix_sum`) and reductions
 (:func:`_reduce_sum`) associate their adds as the reference's XLA
 lowerings of ``jnp.cumsum`` and ``jnp.sum`` do, so that split gains
 computed from the same histogram are bit-identical to the reference's.
 
-Left out (the JAX package has them): extra_trees' candidate masks and
-feature_fraction_bynode's per-node draws (both from ``jax.random``),
-voting-parallel splits and the data-parallel ``psum``.
+Left out (the JAX package has them): voting-parallel splits and the
+data-parallel ``psum`` (slice 6).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from ...ops.histogram import bins_as_int, level_histogram, \
     level_histogram_plain
+from ...utils import prng
 
 __all__ = ["TreeArrays", "BundleTables", "build_tree", "predict_trees",
            "predict_leaf_indices", "map_rows", "path_features",
@@ -206,7 +212,7 @@ def _find_splits(hist, *args, **kw):
 
 def _prefix_gains(cs, lam, min_gain, min_child_weight, min_data_in_leaf,
                   feature_mask, monotone=None, bounds=None, path_smooth=0.0,
-                  parent_value=None):
+                  parent_value=None, cand_mask=None):
     """Prefix sums ``cs`` (nodes, F, B, 3) of a level's histogram ->
     masked split gains (nodes, F, B); invalid candidates are -inf.
     ``feature_mask`` may be (F,) or (nodes, F). ``monotone`` (F,) in
@@ -214,8 +220,10 @@ def _prefix_gains(cs, lam, min_gain, min_child_weight, min_data_in_leaf,
     whose bound-clamped child values violate the feature's direction.
     With ``path_smooth > 0`` the gains are taken at the smoothed child
     outputs (``parent_value`` (nodes,), each node's own smoothed output).
-    Python-float hyperparameters act as f32 values, as the reference's
-    traced scalars do (torch rounds a scalar to the tensor's dtype)."""
+    ``cand_mask`` (nodes, F, B) restricts the threshold candidates
+    (extra_trees' one drawn bin per node x feature). Python-float
+    hyperparameters act as f32 values, as the reference's traced scalars
+    do (torch rounds a scalar to the tensor's dtype)."""
     GL, HL, CL = cs.unbind(-1)
     Gt, Ht, Ct = GL[..., -1:], HL[..., -1:], CL[..., -1:]
     GR, HR, CR = Gt - GL, Ht - HL, Ct - CL
@@ -242,6 +250,8 @@ def _prefix_gains(cs, lam, min_gain, min_child_weight, min_data_in_leaf,
     if feature_mask is not None:
         fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None, :]
         valid = valid & fm[:, :, None]
+    if cand_mask is not None:
+        valid = valid & cand_mask
     if monotone is not None:
         lo, hi = (b[:, None, None] for b in bounds)
         vL = _clip(-GL / (HL + lam), lo, hi)
@@ -292,7 +302,10 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                n_bundle_bins: int = 0,
                monotone: Optional[torch.Tensor] = None,
                path_smooth: float = 0.0,
-               ic_groups: Optional[torch.Tensor] = None):
+               ic_groups: Optional[torch.Tensor] = None,
+               rng: Optional[torch.Tensor] = None,
+               extra_trees: bool = False, ff_bynode: float = 1.0,
+               feat_bins: Optional[torch.Tensor] = None):
     """Grow one depth-``depth`` tree on the tensors' device, or one tree
     per class when g and h have a class axis.
 
@@ -314,12 +327,19 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     node's output toward its parent's. ``ic_groups``: (G, F) bool, the
     allowed feature groups of LightGBM's interaction_constraints (a
     branch only combines features that share a group; features in no
-    group are never used).
+    group are never used). ``rng``: the tree's threefry key (2,), or
+    one key a class (K, 2) (:mod:`...utils.prng`), for the per-level
+    draws of ``extra_trees`` (one candidate bin per node x feature,
+    uniform over the feature's ``feat_bins`` (F,) populated bins, the
+    missing bin included) and ``ff_bynode`` < 1 (each node keeps the top
+    ``round(F * ff_bynode)`` draws of the features its mask allows).
 
     Returns (feat, thr_bin, leaf_value, node_rel, gains, covers), all on
     the device: (2^D-1,) int32, (2^D-1,) int32, (2^D,) f32, (n,) int32
     leaf index per row, (2^D-1,) f32, (2^(D+1)-1,) f32; with (K, n) g/h
     each gains a leading class axis of K."""
+    if (extra_trees or ff_bynode < 1.0) and rng is None:
+        raise ValueError("extra_trees / ff_bynode < 1 need an rng key")
     if hist_impl not in ("kernel", "plain"):
         raise ValueError(f"hist_impl must be 'kernel' or 'plain', got "
                          f"{hist_impl!r}")
@@ -353,6 +373,15 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if ic_groups is not None:
         compat = torch.ones((K, ic_groups.shape[0]), dtype=torch.bool,
                             device=dev)
+    draws = None
+    if extra_trees or ff_bynode < 1.0:
+        # every level's draws at once (uniform(fold_in(key, 2d)) for the
+        # candidate bins, 2d + 1 for the feature subsets): a draw of
+        # (n_nodes, F) is the first n_nodes rows of the same key's draw at
+        # the bottom level's (2^(depth-1), F), element for element
+        keys = rng.to(dev).reshape(-1, 2).expand(K, 2)   # one per class
+        draws = prng.uniform(prng.fold_in(keys[:, None, :], torch.arange(
+            2 * depth, device=dev)), (2 ** (depth - 1), F))
     leaf_stats = None
     for d in range(depth):
         n_nodes = 2 ** d
@@ -365,6 +394,19 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         if bundles is not None:
             hist = _debundle(hist, bundles, n_bins)
         level_cover = hist[:, 0, :, 2].sum(dim=-1)       # counts per node
+        # the level's draws: keys fold in the level, so every level redraws
+        cand = None
+        if extra_trees:
+            # one candidate bin per node x feature, within the feature's
+            # own populated range (feat_bins, the missing bin included)
+            u = draws[:, 2 * d, :n_nodes].reshape(m, F)
+            bin_hi = (feat_bins - 1).clamp_min(1)[None, :] \
+                if feat_bins is not None else torch.full(
+                    (1, F), max(n_bins - 1, 1), dtype=torch.int32,
+                    device=dev)
+            r = torch.minimum((u * bin_hi).to(torch.int32), bin_hi - 1)
+            cand = torch.arange(n_bins, device=dev)[None, None, :] \
+                == r[:, :, None]
         fm_level = feature_mask
         if compat is not None:
             allowed = (compat[:, :, None] & ic_groups[None, :, :]).any(dim=1)
@@ -372,6 +414,18 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 allowed = allowed & (fm_level if fm_level.dim() == 2
                                      else fm_level[None, :])
             fm_level = allowed                           # (m, F)
+        if ff_bynode < 1.0:
+            # each node keeps the top draws among the features its mask
+            # allows (the masked ones draw -1)
+            kk = max(1, int(round(F * ff_bynode)))
+            u = draws[:, 2 * d + 1, :n_nodes].reshape(m, F)
+            fm_b = None
+            if fm_level is not None:
+                fm_b = fm_level if fm_level.dim() == 2 else fm_level[None, :]
+                u = torch.where(fm_b, u, -1.0)
+            kth = torch.topk(u, kk, dim=1).values[:, -1:]
+            node_mask = u >= kth
+            fm_level = node_mask if fm_b is None else node_mask & fm_b
         node_val = None
         if pp is not None:
             # each node's own smoothed output: the raw optimum over its
@@ -387,7 +441,7 @@ def build_tree(bins_cols: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                                     bounds=(lo, hi) if lo is not None
                                     else None,
                                     path_smooth=path_smooth,
-                                    parent_value=node_val)
+                                    parent_value=node_val, cand_mask=cand)
         left, total = _chosen(cs, bf, bb)
         if d == depth - 1:
             # bottom-level leaf stats from the last histogram: left child =

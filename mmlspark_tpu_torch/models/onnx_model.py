@@ -26,10 +26,12 @@ and dequantizes them on the card each batch before the graph runs
 weights of a quantized graph (QLinear* ops) are placed on the card once
 with the float params. ``external_data_dir`` names the directory of the
 sidecar files of a model saved with external data (its initializers are
-read from there, paths resolved under it). ``tuning="auto"`` and
-``weights_override`` are not ported and raise ``NotImplementedError``
-naming their ROADMAP item when set; ``mesh_sharded`` raises when a
-batch is placed.
+read from there, paths resolved under it). ``weights_override`` (an npz
+of fine-tuned params, as ``ONNXEstimator.fit`` writes it) is layered
+over the graph's initializers before they are placed; a name the graph
+does not have raises ValueError. ``tuning="auto"`` is not ported and
+raises ``NotImplementedError`` naming its ROADMAP item when set;
+``mesh_sharded`` raises when a batch is placed.
 """
 
 from __future__ import annotations
@@ -59,8 +61,6 @@ __all__ = ["ONNXModel"]
 _NOT_PORTED = {
     "tuning": "tuning='auto' (ROADMAP queue item 4, after the tuner of "
               "item 24)",
-    "weights_override": "weights_override from ONNX fine-tuning (ROADMAP "
-                        "queue items 4 and 23)",
 }
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -94,8 +94,9 @@ class ONNXModel(Model):
                               doc="directory holding the sidecar files of a "
                                   "model saved with external data")
     weights_override = ComplexParam(default=None,
-                                    doc="not ported: fine-tuned params "
-                                        "layered over the initializers")
+                                    doc="npz of fine-tuned params layered "
+                                        "over the initializers (set by "
+                                        "ONNXEstimator.fit)")
     quantize = Param(str, default="", choices=["", "int8"],
                      doc="weight-only quantization: 2-D float weights live "
                          "on the card as symmetric per-column int8 + scale "
@@ -305,7 +306,8 @@ class ONNXModel(Model):
                 dt = _TORCH_DTYPES[self.compute_dtype]
                 quantize = self.quantize == "int8"
                 out = {}
-                for k, v in {**cm.params, **_quantized_weights(cm)}.items():
+                for k, v in {**self._effective_params(cm),
+                             **_quantized_weights(cm)}.items():
                     t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
                     if t.is_floating_point():
                         t = t.to(dt)
@@ -317,6 +319,22 @@ class ONNXModel(Model):
                     out[k] = t
                 self._device_params[key] = out
             return self._device_params[key]
+
+    def _effective_params(self, cm: ConvertedModel) -> dict:
+        """The graph's initializers with the ``weights_override`` npz
+        layered on top."""
+        ov = self.get_or_none("weights_override")
+        if not ov:
+            return cm.params
+        import io
+        with np.load(io.BytesIO(ov)) as z:
+            override = {k: z[k] for k in z.files}
+        unknown = sorted(set(override) - set(cm.params))
+        if unknown:
+            raise ValueError(
+                f"weights_override names unknown params {unknown[:5]} "
+                "(the override must come from this graph's fine-tune)")
+        return {**cm.params, **override}
 
     #: params whose change invalidates the cached device params
     _PARAM_CACHE_KEYS = ("weights_override", "quantize", "compute_dtype")

@@ -659,20 +659,24 @@ UNPORTED = {
     "interaction": {"interaction_constraints": [[0, 1]]},
     "extra_trees": {"extra_trees": True},
     "ff_bynode": {"feature_fraction_bynode": 0.5},
-    "checkpoints": {"checkpoint_dir": "/nonexistent"},
+    "checkpoints": {"checkpoint_interval": 1},      # + a tmp_path dir
 }
-#: cases of UNPORTED that the port trains now (ROADMAP items
-#: 14 and 16-19)
+#: cases of UNPORTED that the port trains now (ROADMAP items 14 and
+#: 16-19; head E and item 24's step checkpoints)
 PORTED_SINCE = {"goss", "dart", "rf", "linear_tree", "categorical",
-                "monotone", "path_smooth", "interaction", "sparse"}
+                "monotone", "path_smooth", "interaction", "sparse",
+                "lambdarank", "extra_trees", "ff_bynode", "checkpoints",
+                "group"}
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED) + ["sparse", "mesh",
                                                      "group"])
-def test_unported_options_raise(case):
+def test_unported_options_raise(case, tmp_path):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP item; the ones ported since train as the JAX package does
-    (the same trees)."""
+    (the same trees). lambdarank trains on one query of all rows; a
+    ``group`` with another objective is ignored, as by the JAX package;
+    each package checkpoints into its own directory."""
     rng = np.random.default_rng(14)
     X = rng.normal(size=(50, 3))
     y = (X[:, 0] > 0).astype(np.float64)
@@ -681,11 +685,15 @@ def test_unported_options_raise(case):
         X = sp.csr_matrix(X)
     elif case == "mesh":
         kw = {"mesh": object()}
-    elif case == "group":
+    elif case in ("group", "lambdarank"):
         kw = {"group": np.array([50])}
     if case in PORTED_SINCE:
-        _same_trees(jtrain(params, X, y),
-                    ptrain(params, X, y, device="cpu"))
+        pj, pp = params, params
+        if case == "checkpoints":
+            pj = {**params, "checkpoint_dir": str(tmp_path / "jax")}
+            pp = {**params, "checkpoint_dir": str(tmp_path / "port")}
+        _same_trees(jtrain(pj, X, y, **kw),
+                    ptrain(pp, X, y, device="cpu", **kw))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptrain(params, X, y, device="cpu", **kw)

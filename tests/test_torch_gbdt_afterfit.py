@@ -520,10 +520,13 @@ def test_warm_start_and_init_score_errors(case):
 
 
 def test_what_stays_unported_raises():
+    """Data-parallel training (queue item 31) still raises; step
+    checkpoints (item 24's ``TrainingCheckpointer``) are ported, held by
+    ``tests/test_torch_gbdt_checkpoint.py``."""
     X, y = _data(n=100, seed=26, kind="regression")
-    with pytest.raises(NotImplementedError, match="queue item 24"):
+    with pytest.raises(NotImplementedError, match="queue item 31"):
         ptrain({"objective": "regression", "num_iterations": 1,
-                "checkpoint_dir": "/nonexistent"}, X, y, device="cpu")
+                "tree_learner": "data_parallel"}, X, y, device="cpu")
     # a categorical model string (queue item 17, ported since) loads and
     # predicts as the JAX package's
     Xc = X.copy()

@@ -222,10 +222,19 @@ def test_unported_options_raise_at_fit(case):
 
 
 def test_unported_model_options_raise_at_transform():
+    """``LightGBMRanker`` (once refused) fits lambdarank over the query
+    runs of ``group`` as the JAX ranker does: the same trees and raw-score
+    predictions."""
     cols = _data(n=200, seed=5)
-    ranker = pest.LightGBMRanker(device="cpu", label_col="target")
-    with pytest.raises(NotImplementedError, match="lambdarank"):
-        ranker.fit(DataFrame({**cols, "group": np.zeros(200)}))
+    cols["group"] = np.repeat(np.arange(20), 10)
+    cols["relevance"] = np.clip(np.round(cols["target"]), 0, 3)
+    mj, mp, oj, op = _fit_both(jest.LightGBMRanker, pest.LightGBMRanker,
+                               cols, label_col="relevance", **SMALL)
+    _same_columns(oj, op, [], [])
+    np.testing.assert_array_equal(mp.booster.feats, mj.booster.feats)
+    np.testing.assert_allclose(np.asarray(op["prediction"]),
+                               np.asarray(oj["prediction"]), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_device_none_means_the_card():

@@ -231,9 +231,28 @@ def test_metadata_post_ops_and_unported_options(model_bytes):
                     **_kw(softmax_dict={"probs": "logits"})).transform(
         DataFrame({"image": X}))
     np.testing.assert_allclose(out["probs"].sum(axis=1), 1.0, rtol=1e-6)
-    for key, value in [("tuning", "auto"), ("weights_override", b"npz")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ONNXModel(model_bytes, device="cpu", **{key: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ONNXModel(model_bytes, device="cpu", tuning="auto")
+    # weights_override (ported): an npz of changed params layered over
+    # the initializers serves as the JAX ONNXModel serves it
+    import io
+    from mmlspark_tpu_torch.onnx import convert_model
+    params = convert_model(model_bytes).params
+    name = sorted(k for k, v in params.items() if v.ndim == 2)[0]
+    buf = io.BytesIO()
+    np.savez(buf, **{name: params[name] * 1.5})
+    ov = buf.getvalue()
+    want = JONNXModel(model_bytes, weights_override=ov, **_kw()).transform(
+        JDataFrame({"image": X}))
+    got = ONNXModel(model_bytes, device="cpu", weights_override=ov,
+                    **_kw()).transform(DataFrame({"image": X}))
+    np.testing.assert_allclose(np.stack(list(got["logits"])),
+                               np.stack(list(want["logits"])), rtol=1e-5,
+                               atol=1e-5)
+    plain = ONNXModel(model_bytes, device="cpu", **_kw()).transform(
+        DataFrame({"image": X}))
+    assert not np.allclose(np.stack(list(got["logits"])),
+                           np.stack(list(plain["logits"])))
     sharded = ONNXModel(model_bytes, device="cpu", mesh_sharded=True,
                         **_kw())
     with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
