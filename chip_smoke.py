@@ -404,7 +404,7 @@ Phases (any failure exits non-zero and prints no result line):
    CSR of 8 non-zeros a row, through ``train()`` with EFB: the plan's
    bundles and bundle bins, host binning and bundling seconds, sec/iter,
    K6 at the bundled shape (uint16, 1 and 16 nodes; ms, bound,
-   ``index_add_``'s ms); on the first 1,000,000 rows the EFB model's
+   ``index_add_``'s ms); on the first 250,000 rows the EFB model's
    trees have a dense model's splits, until a tree whose first
    difference is a tie (gains within 1e-4 of the tree's largest,
    ``_model_ties``), their leaves within 2e-3 * max|leaf| (a small
@@ -455,8 +455,48 @@ Phases (any failure exits non-zero and prints no result line):
    steps: the base params bitwise unchanged, only the adapters in the
    optimizer, the override the adapted matrices, serving as in (d)
    (its losses recorded, not held).
+23. the tuner and the periphery that computed with jax (no hand kernel:
+   matmuls, gathers, ``index_add_`` and batched solves on the card) —
+   (a) ``VowpalWabbitClassifier`` (logistic, 18 bits, minibatches of 64,
+   2 passes) at LIBSVM rcv1.binary's shape (677,399 rows over 47,236
+   features, 20-150 non-zeros a row, a planted sparse linear rule; its
+   20,242-row split held out): over the first 65,536 rows the card's
+   weights within 1e-4 of the largest |weight| of the port's CPU run and
+   its held-out AUC within 0.002 of the CPU run's; the whole set's
+   held-out AUC at least 0.9; rows/s, ms and
+   kernel launches a minibatch step (``torch.profiler``); the featurizer
+   over 100,000 raw rows (host seconds), indices bitwise the plain
+   murmur3 loop's on 1,000; the contextual bandit on 65,536 events of 4
+   arms, its scores on the first 8,192 within 1e-4 of the largest |score|
+   of the CPU run's and the best arm found on 90% of events; (b) ``KNN`` at ANN-benchmarks'
+   sift-128-euclidean shape (1,000,000 x 128 corpus, 10,000 queries, k
+   100, a seeded Gaussian mixture): on 256 queries every returned id
+   within 1e-5 (||q||^2 + max ||c||^2) of the true k-th squared distance
+   (float64) and recall@100 at least 0.999; queries/s, the query chunk,
+   peak memory; (c) ``SAR`` (jaccard, decay 30 days, support 4) at
+   MovieLens-1M's shape (6,040 users, 3,706 items, 1,000,209 ratings over
+   three years): the item similarity bitwise the CPU's, 100,000 pairs'
+   scores within 1e-4 of a float64 product, ``recommend_for_all_users
+   (k=10)`` free of seen items; fit and scoring seconds; (d)
+   ``AccessAnomaly`` (rank 10, 25 iterations, implicit) on two tenants of
+   10,000 users x 2,000 resources and 500,000 accesses clustered by
+   department: 10,000 test pairs' scores within 1e-3 (1 + max |score|) of
+   the port's CPU run from the same initial factors, seen pairs' mean
+   below cross-department pairs'; ALS seconds an iteration, the fit's
+   host seconds; (e) ``ONNXModel(tuning="auto")`` on phase 11's ResNet-50
+   (bf16, batches of 256 by default) with 2,048 rows as partitions of 37,
+   129, 511 and 1,371 over an
+   observation store in a temporary directory: the cold store runs
+   ``measured_sweep`` within ``probe_budget()`` probes and writes
+   observations, a second model on the persisted store decides every
+   partition without probing, both within phase 11's bf16 bound (2^-4 of
+   the largest |logit|) of the untuned model; images/s of each call,
+   recorded, not held. Each sub-phase logs its wall seconds, host share
+   (one minus the profiled device-busy share of its main call) and peak
+   memory.
 
-``python3 chip_smoke.py 22`` runs phases 1, 2 and 22 only,
+``python3 chip_smoke.py 23`` runs phases 1, 2 and 23 only,
+``python3 chip_smoke.py 22`` phases 1, 2 and 22,
 ``python3 chip_smoke.py 21`` phases 1, 2 and 21,
 ``python3 chip_smoke.py 20`` phases 1, 2 and 20,
 ``python3 chip_smoke.py 19`` phases 1, 2 and 19,
@@ -7253,7 +7293,7 @@ def phase_external_data(dev_info):
 #: rows ``transform`` scores, the EFB prefix compared with a dense model
 P21 = dict(iters=25, sweep_rows=4096, sweep_points=64,
            airline_rows=10_000_000, transform_rows=1_000_000,
-           efb_prefix=1_000_000, efb_prefix_iters=10)
+           efb_prefix=250_000, efb_prefix_iters=10)
 #: benchm-ml's airline columns that are categorical, with their levels
 #: (the 2007 flights' months, days, carriers and airports)
 AIRLINE_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
@@ -8290,6 +8330,695 @@ def phase_onnx_finetune(dev_info):
     return out
 
 
+# phase 23: the tuner and the periphery that computed with jax (no hand
+# kernel on these paths: matmuls, gathers, index_add_, torch.linalg.solve)
+P23 = dict(
+    # 23a: LIBSVM rcv1.binary's shape (677,399 rows, 47,236 features; its
+    # 20,242-row split held out), 20-150 non-zeros a row
+    vw_rows=677_399, vw_features=47_236, vw_nnz=(20, 150), vw_bits=18,
+    vw_batch=64, vw_passes=2, vw_held_out=20_242, vw_parity_rows=65_536,
+    vw_profile_steps=256, feat_rows=100_000, feat_check_rows=1_000,
+    cb_events=65_536, cb_actions=4, cb_segments=16, cb_cpu_events=8_192,
+    # 23b: ANN-benchmarks' sift-128-euclidean shape (SIFT1M)
+    knn_corpus=1_000_000, knn_dim=128, knn_queries=10_000, knn_k=100,
+    knn_check=256, knn_centers=1_000,
+    # 23c: MovieLens-1M's shape (GroupLens ml-1m README)
+    sar_users=6_040, sar_items=3_706, sar_ratings=1_000_209,
+    sar_pairs=100_000,
+    # 23d: two tenants, each 10,000 users x 2,000 resources, 500,000 accesses
+    aa_tenants=2, aa_users=10_000, aa_res=2_000, aa_accesses=500_000,
+    aa_depts=8, aa_bridges=64, aa_rank=10, aa_iters=25, aa_test=10_000,
+    # 23e: phase 11's 2,048 rows as four partitions, in batches of 256 by
+    # default (the converter keeps a batch's every intermediate until the
+    # graph ends, so four concurrent partitions at 512 peaked at 72 GB)
+    tune_parts=(37, 129, 511, 1371), tune_batch=256)
+
+
+def _dev23():
+    import torch
+    return torch.device("cuda")
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): (result,
+    wall s, device-busy s, kernel launches). Busy is the device events'
+    summed time (kernels, copies and fills on one stream, so they do not
+    overlap); the CPU ops that launched them carry the same time as their
+    self device time and are not counted again. Busy is None (not
+    measured) when launches were recorded but no device event: CUPTI
+    dropped them (seen once, on a one-launch window late in a full run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in ev if e.device_type == DeviceType.CUDA) / 1e6
+    launches = sum(e.count for e in ev if "LaunchKernel" in e.key)
+    if launches and not busy:
+        busy = None
+    return out, wall, busy, launches
+
+
+def _share(wall, busy):
+    return {"wall_s": wall, "device_busy_s": busy,
+            "host_share": (1.0 - busy / wall) if busy is not None
+            and wall > 0 else None}
+
+
+def _peak_gb():
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def rcv1_like(n, n_feat, nnz, seed, w=None):
+    """``n`` rows of an rcv1-shaped sparse set from ``seed``: 20-150
+    non-zeros a row over ``n_feat`` features, popularity ~ u^3 (a Zipf-like
+    tail), positive values L2-normalized per row; label 1 where a planted
+    sparse linear rule (``w`` over the 100 most frequent features, drawn
+    when None) is positive. Returns (rows of (uint32 ids, float32 values),
+    labels, w)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(nnz[0], nnz[1] + 1, n)
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    idx = (n_feat * rng.random(int(off[-1])) ** 3).astype(np.uint32)
+    val = rng.exponential(1.0, int(off[-1]))
+    val = (val / np.sqrt(np.repeat(np.add.reduceat(val * val, off[:-1]),
+                                   lens))).astype(np.float32)
+    if w is None:
+        w = np.zeros(n_feat)
+        w[:100] = rng.normal(0, 1, 100)
+    y = (np.add.reduceat(w[idx] * val, off[:-1]) > 0).astype(np.float64)
+    rows = list(zip(np.split(idx, off[1:-1]), np.split(val, off[1:-1])))
+    return rows, y, w
+
+
+def _vw_launches_per_step(rows, steps):
+    """Launches and device-busy time of ``steps`` minibatch steps of 23a's
+    fit (the first minibatches, logistic, no l1/l2), by ``torch.profiler``."""
+    import torch
+    from mmlspark_tpu_torch.vw import learners as L
+    dev = _dev23()
+    B = P23["vw_batch"]
+    idx, val = L.pad_sparse(rows[:steps * B])
+    idx = torch.from_numpy(idx).to(dev).long().view(steps, B, -1)
+    val = torch.from_numpy(val).to(dev).view(steps, B, -1)
+    y = torch.ones(steps, B, device=dev)
+    sw = torch.ones(steps, B, device=dev)
+    w = torch.zeros(1 << P23["vw_bits"], device=dev)
+    G = torch.full_like(w, 1e-12)
+
+    def run():
+        return L.train_passes(w, G, idx, val, y, sw, loss="logistic",
+                              tau=0.5, n_passes=1, lr=0.5, l1=0.0, l2=0.0,
+                              power_t=0.5)
+    run()                                       # warm
+    n, wall, busy, launches = _profiled(run)
+    return {"steps": n, "launches_per_step": launches / n,
+            "ms_per_step": wall * 1e3 / n,
+            "device_busy_ms_per_step": None if busy is None
+            else busy * 1e3 / n, **_share(wall, busy),
+            "K": int(idx.shape[-1]), "B": B} if n else {}
+
+
+def _featurizer_rows(n, seed):
+    """Raw string and numeric columns: two categoricals, a text column of
+    3-12 tokens from a 5,000-word vocabulary, a float and an int column."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(5000)], dtype=object)
+    toks = rng.integers(0, 5000, (n, 12))
+    lens = rng.integers(3, 13, n)
+    text = np.array([" ".join(words[toks[i, :lens[i]]]) for i in range(n)],
+                    dtype=object)
+    return DataFrame({
+        "site": np.array([f"site{i}" for i in rng.integers(0, 1000, n)],
+                         dtype=object),
+        "device": np.array([f"dev{i}" for i in rng.integers(0, 50, n)],
+                           dtype=object),
+        "text": text,
+        "price": np.round(rng.lognormal(1.0, 1.0, n), 2),
+        "count": rng.integers(0, 5, n)})
+
+
+def _featurizer_plain(df, rows, bits):
+    """The indices of ``rows`` by the plain murmur3 loop (sum_collisions
+    off: each column's features in order, zeros skipped)."""
+    import numpy as np
+    from mmlspark_tpu_torch.vw.murmur import _murmur3_32_py
+    mask = (1 << bits) - 1
+    seeds = {c: _murmur3_32_py(c.encode("utf-8"), 0) for c in df.columns}
+    out = []
+    for r in rows:
+        idx = []
+        for c in df.columns:
+            v = df[c][r]
+            if isinstance(v, str):
+                for t in (v.split() if c == "text" else [v]):
+                    idx.append(_murmur3_32_py(
+                        (c + "\x1f" + t).encode("utf-8"), seeds[c]) & mask)
+            elif v != 0:
+                idx.append(seeds[c] & mask)
+        out.append(np.asarray(idx, np.uint32))
+    return out
+
+
+def _bandit_events(n, k, segments, seed):
+    """Logged bandit events: a shared context of one of ``segments`` user
+    segments plus two noise features, ``k`` arms with one feature each;
+    arm (segment % k) costs 0, the others 1 (plus noise); the logged arm is
+    uniform, logged with probability 1/k."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.vw.featurizer import NUM_BITS_KEY, sparse_column
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, segments, n)
+    noise = rng.integers(1000, 2000, (n, 2))
+    shared = [(np.array([100 + seg[i], *noise[i]], np.uint32),
+               np.array([1.0, 0.5, 0.5], np.float32)) for i in range(n)]
+    arms = [(np.array([200 + a], np.uint32), np.ones(1, np.float32))
+            for a in range(k)]
+    chosen = rng.integers(0, k, n)
+    cost = (chosen != seg % k).astype(np.float32) + \
+        rng.normal(0, 0.05, n).astype(np.float32)
+    df = DataFrame({"shared": sparse_column(shared),
+                    "features": sparse_column([arms] * n),
+                    "chosenAction": chosen + 1, "label": cost,
+                    "probability": np.full(n, 1.0 / k, np.float32)})
+    return df.with_column_metadata("features", {NUM_BITS_KEY: 18}), seg % k
+
+
+def phase_vw(dev_info):
+    """23a: VowpalWabbit at rcv1.binary's shape on the card."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.vw import (VowpalWabbitClassifier,
+                                       VowpalWabbitContextualBandit,
+                                       VowpalWabbitFeaturizer)
+    from mmlspark_tpu_torch.vw.featurizer import sparse_column
+    p = P23
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows, y, w = rcv1_like(p["vw_rows"], p["vw_features"], p["vw_nnz"], 23)
+    held, hy, _ = rcv1_like(p["vw_held_out"], p["vw_features"], p["vw_nnz"],
+                            24, w)
+    data_s = time.perf_counter() - t0
+    kw = dict(num_bits=p["vw_bits"], mini_batch=p["vw_batch"],
+              num_passes=p["vw_passes"], loss_function="logistic")
+    hdf = DataFrame({"features": sparse_column(held)})
+
+    # the first 65,536 rows on the card and on the CPU: weights within
+    # 1e-4 of the largest |weight| (float32 scatter-adds of up to 64 rows'
+    # duplicates in another order each step; the steps do not amplify it)
+    # and held-out AUCs within 0.002
+    n0 = p["vw_parity_rows"]
+    sub = DataFrame({"features": sparse_column(rows[:n0]), "label": y[:n0]})
+    m_card = VowpalWabbitClassifier(**kw).fit(sub)
+    t0 = time.perf_counter()
+    m_cpu = VowpalWabbitClassifier(device="cpu", **kw).fit(sub)
+    cpu_fit_s = time.perf_counter() - t0
+    w_card, w_cpu = m_card.get("weights"), m_cpu.get("weights")
+    w_err = float(np.abs(w_card - w_cpu).max())
+    w_tol = 1e-4 * float(np.abs(w_cpu).max())
+    sub_auc = [_auc(hy, m.transform(hdf)["rawPrediction"])
+               for m in (m_card, m_cpu)]
+    if not (np.isfinite(w_card).all() and w_err <= w_tol
+            and abs(sub_auc[0] - sub_auc[1]) <= 0.002):
+        raise AssertionError(f"23a: card weights {w_err} from the CPU's "
+                             f"(bound {w_tol}), held-out AUCs {sub_auc}")
+
+    # the whole set on the card (timed): held-out AUC at least 0.9
+    df = DataFrame({"features": sparse_column(rows), "label": y})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = VowpalWabbitClassifier(**kw).fit(df)
+    fit_s = time.perf_counter() - t0
+    auc_card = _auc(hy, card.transform(hdf)["rawPrediction"])
+    if not auc_card >= 0.9:
+        raise AssertionError(f"23a: held-out AUC {auc_card}; want >= 0.9")
+    steps = card.train_steps
+    prof = _vw_launches_per_step(rows, p["vw_profile_steps"])
+    learner = {"rows": p["vw_rows"], "K": int(max(len(r[0]) for r in rows)),
+               "steps": steps, "fit_s": fit_s,
+               "phase_seconds": card.phase_seconds,
+               "rows_per_s": p["vw_rows"] * p["vw_passes"]
+               / card.phase_seconds["train"],
+               "ms_per_step": card.phase_seconds["train"] * 1e3 / steps,
+               "profile": prof, "auc": auc_card,
+               "parity_rows": n0, "parity_max_abs_err": w_err,
+               "parity_bound": w_tol, "parity_auc": sub_auc,
+               "parity_cpu_fit_s": cpu_fit_s, "data_s": data_s,
+               "peak_gb": _peak_gb()}
+    log(f"[23a vw] {json.dumps(learner)} | {dev_info['smi']}")
+
+    # the featurizer over 100,000 raw rows (host work), indices bitwise the
+    # plain murmur3 loop's on the first 1,000
+    fdf = _featurizer_rows(p["feat_rows"], 25)
+    feat = VowpalWabbitFeaturizer(input_cols=list(fdf.columns),
+                                  string_split_cols=["text"],
+                                  num_bits=p["vw_bits"],
+                                  sum_collisions=False)
+    t0 = time.perf_counter()
+    out = feat.transform(fdf)["features"]
+    feat_s = time.perf_counter() - t0
+    nchk = p["feat_check_rows"]
+    for r, want in enumerate(_featurizer_plain(fdf, range(nchk),
+                                               p["vw_bits"])):
+        if not np.array_equal(out[r][0], want):
+            raise AssertionError(f"23a: featurizer row {r} indices differ "
+                                 f"from the plain murmur3 loop")
+    featurizer = {"rows": p["feat_rows"], "host_s": feat_s,
+                  "rows_per_s": p["feat_rows"] / feat_s,
+                  "checked_rows": nchk}
+    log(f"[23a featurizer] {json.dumps(featurizer)}")
+
+    # the contextual bandit on 65,536 events of 4 arms, fitted on the card
+    # and on the CPU; the CPU model scores the first 8,192 events (the
+    # crossing is host work, the same for both)
+    cdf, best = _bandit_events(p["cb_events"], p["cb_actions"],
+                               p["cb_segments"], 26)
+    cbk = dict(num_passes=2, epsilon=0.05)
+    t0 = time.perf_counter()
+    cb_card = VowpalWabbitContextualBandit(**cbk).fit(cdf)
+    cb_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o_card = cb_card.transform(cdf)
+    cb_pred_s = time.perf_counter() - t0
+    nc = min(p["cb_cpu_events"], p["cb_events"])
+    o_cpu = VowpalWabbitContextualBandit(device="cpu", **cbk).fit(
+        cdf).transform(cdf.take(np.arange(nc)))
+    s_card = np.stack(list(o_card["scores"][:nc]))
+    s_cpu = np.stack(list(o_cpu["scores"]))
+    s_err = float(np.abs(s_card - s_cpu).max())
+    s_tol = 1e-4 * float(np.abs(s_cpu).max()) + 1e-6
+    gap = np.sort(s_cpu, axis=1)
+    clear = (gap[:, 1] - gap[:, 0]) > 2 * s_tol
+    agree = float((o_card["prediction"] - 1 == best).mean())
+    if not (s_err <= s_tol and np.array_equal(
+            o_card["prediction"][:nc][clear], o_cpu["prediction"][clear])
+            and agree > 0.9):
+        raise AssertionError(f"23a: bandit scores {s_err} from the CPU's "
+                             f"(bound {s_tol}), best arm found on "
+                             f"{agree} of events")
+    bandit = {"events": p["cb_events"], "actions": p["cb_actions"],
+              "fit_s": cb_fit_s, "predict_s": cb_pred_s,
+              "cpu_compared_events": nc,
+              "scores_max_abs_err": s_err, "bound": s_tol,
+              "best_arm_share": agree}
+    log(f"[23a bandit] {json.dumps(bandit)}")
+    return {"learner": learner, "featurizer": featurizer, "bandit": bandit}
+
+
+def phase_knn(dev_info):
+    """23b: exact KNN at SIFT1M's shape on the card."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.nn import KNN
+    from mmlspark_tpu_torch.nn.knn import D2_BUDGET_BYTES, brute_force_knn
+    p = P23
+    dev = _dev23()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n, d = p["knn_corpus"], p["knn_dim"]
+    centers = torch.rand(p["knn_centers"], d, generator=gen, device=dev) * 120
+
+    def draw(m):
+        a = torch.randint(0, p["knn_centers"], (m,), generator=gen,
+                          device=dev)
+        x = centers[a] + 15 * torch.randn(m, d, generator=gen, device=dev)
+        return x.clamp_(min=0).cpu().numpy()
+    X, Q = draw(n), draw(p["knn_queries"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = KNN(k=p["knn_k"]).fit(DataFrame({"features": X}))
+    fit_s = time.perf_counter() - t0
+    qdf = DataFrame({"features": Q})
+    model.transform(DataFrame({"features": Q[:8]}))     # places the corpus
+    out, wall, busy, launches = _profiled(
+        lambda: model.transform(qdf)["output"])
+    peak = _peak_gb()
+    corpus = model._device_corpus()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, dist = brute_force_knn(corpus, Q, p["knn_k"])
+    search_s = time.perf_counter() - t0
+
+    # 256 queries against a float64 brute force: each returned id's true
+    # squared distance at most the true k-th's plus 1e-5 (||q||^2 + max
+    # ||c||^2) (float32 rounding of the three-term sum), recall@100 >= 0.999
+    m = p["knn_check"]
+    C64 = corpus.double()
+    q64 = torch.from_numpy(Q[:m]).to(dev).double()
+    d2 = (q64 * q64).sum(1)[:, None] + (C64 * C64).sum(1)[None, :] \
+        - 2.0 * q64 @ C64.T
+    kth = d2.kthvalue(p["knn_k"], dim=1).values
+    ids = torch.from_numpy(idx[:m]).to(dev)
+    got = d2.gather(1, ids)
+    tol = 1e-5 * ((q64 * q64).sum(1) + (C64 * C64).sum(1).max())
+    over = float((got - kth[:, None] - tol[:, None]).max())
+    true_top = torch.topk(-d2, p["knn_k"], dim=1).indices
+    recall = float(np.mean([len(set(a) & set(b)) / p["knn_k"] for a, b in
+                            zip(ids.cpu().tolist(), true_top.cpu().tolist())]))
+    del C64, d2
+    served = [[r["value"] for r in row] for row in out[:m]]
+    if not (over <= 0 and recall >= 0.999 and served == idx[:m].tolist()
+            and np.isfinite(dist).all()):
+        raise AssertionError(f"23b: {over} past the k-th distance bound, "
+                             f"recall@{p['knn_k']} {recall}")
+    rec = {"corpus": n, "dim": d, "queries": p["knn_queries"],
+           "k": p["knn_k"], "fit_s": fit_s,
+           "transform": {**_share(wall, busy), "launches": launches,
+                         "queries_per_s": p["knn_queries"] / wall},
+           "search_s": search_s,
+           "search_queries_per_s": p["knn_queries"] / search_s,
+           "chunk_queries": max(1, D2_BUDGET_BYTES // (4 * n)),
+           "peak_gb": peak, "recall_at_k": recall,
+           "worst_over_bound": over, "checked_queries": m}
+    torch.cuda.empty_cache()
+    log(f"[23b knn] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def movielens_like(n_users, n_items, n_ratings, seed):
+    """``n_ratings`` distinct (user, item) ratings 1-5 with timestamps over
+    three years from ``seed``: lognormal user activity, Zipf-like item
+    popularity (MovieLens-1M's shape)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pu = rng.lognormal(0.0, 1.0, n_users)
+    pi = 1.0 / np.arange(1, n_items + 1) ** 0.9
+    pi = pi[rng.permutation(n_items)]
+    m = int(n_ratings * 1.6)
+    u = rng.choice(n_users, m, p=pu / pu.sum())
+    i = rng.choice(n_items, m, p=pi / pi.sum())
+    _, first = np.unique(u * n_items + i, return_index=True)
+    if len(first) < n_ratings:
+        raise AssertionError("movielens_like: too few distinct pairs")
+    keep = np.sort(first)[:n_ratings]
+    return {"user": u[keep], "item": i[keep],
+            "rating": rng.integers(1, 6, n_ratings).astype(np.float64),
+            "timestamp": 956_703_932 + rng.uniform(0, 3 * 365 * 86400,
+                                                   n_ratings)}
+
+
+def phase_sar(dev_info):
+    """23c: SAR at MovieLens-1M's shape on the card."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.recommendation import SAR
+    p = P23
+    dev = _dev23()
+    cols = movielens_like(p["sar_users"], p["sar_items"], p["sar_ratings"],
+                          23)
+    kw = dict(similarity_function="jaccard", time_col="timestamp",
+              time_decay_coeff=30, support_threshold=4)
+    torch.cuda.reset_peak_memory_stats()
+    model, wall, busy, launches = _profiled(
+        lambda: SAR(**kw).fit(DataFrame(dict(cols))))
+    t0 = time.perf_counter()
+    cpu = SAR(device="cpu", **kw).fit(DataFrame(dict(cols)))
+    cpu_fit_s = time.perf_counter() - t0
+    S = model.get("item_similarity")
+    if not np.array_equal(S, cpu.get("item_similarity")):
+        raise AssertionError("23c: the card's item similarity is not "
+                             "bitwise the CPU's (exact co-occurrence "
+                             "counts)")
+    # scores at 100,000 pairs against a float64 product: within 1e-4 of the
+    # float64 score + 1e-6 (a sum of 3,706 non-negative float32 terms;
+    # n * eps = 2.2e-4 is its worst case)
+    rng = np.random.default_rng(27)
+    pairs = {"user": rng.integers(0, p["sar_users"], p["sar_pairs"]),
+             "item": rng.integers(0, p["sar_items"], p["sar_pairs"])}
+    t0 = time.perf_counter()
+    got = model.transform(DataFrame(dict(pairs)))["prediction"]
+    score_s = time.perf_counter() - t0
+    A64 = torch.from_numpy(model.get("user_affinity")).to(dev).double()
+    S64 = torch.from_numpy(S).to(dev).double()
+    ref = (A64 @ S64)[torch.from_numpy(pairs["user"]).to(dev),
+                      torch.from_numpy(pairs["item"]).to(dev)].cpu().numpy()
+    err = np.abs(got - ref) - (1e-4 * np.abs(ref) + 1e-6)
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(k=10)
+    rec_s = time.perf_counter() - t0
+    A = model.get("user_affinity")
+    lists = list(recs["recommendations"])
+    if not (float(err.max()) <= 0 and len(lists) == p["sar_users"]
+            and all(len(r) <= 10 and all(A[u, i] == 0 for i in r)
+                    for u, r in enumerate(lists))):
+        raise AssertionError(f"23c: scores {float(err.max())} past the "
+                             f"bound, or seen items recommended")
+    rec = {"users": p["sar_users"], "items": p["sar_items"],
+           "ratings": p["sar_ratings"],
+           "fit": {**_share(wall, busy), "launches": launches},
+           "cpu_fit_s": cpu_fit_s, "score_pairs_s": score_s,
+           "recommend_all_k10_s": rec_s, "peak_gb": _peak_gb(),
+           "similarity_nonzero": int((S > 0).sum()),
+           "scores_worst_over_bound": float(err.max())}
+    log(f"[23c sar] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def access_logs(tenants, n_users, n_res, n_acc, depts, bridges, seed):
+    """Access logs clustered by department, as ``cyber/dataset.py``'s
+    generator clusters them: each user and resource belongs to one of
+    ``depts`` departments and accesses stay inside it, but for
+    ``bridges`` cross-department accesses a tenant (one connected
+    component). Returns (columns, {tenant: (user dept, res dept)})."""
+    import numpy as np
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    rng = np.random.default_rng(seed)
+    cols = {"tenant": [], "user": [], "res": [], "likelihood": []}
+    depts_of = {}
+    for t in range(tenants):
+        ud = rng.integers(0, depts, n_users)
+        rd = rng.integers(0, depts, n_res)
+        order = np.argsort(rd, kind="stable")
+        counts = np.bincount(rd, minlength=depts)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        u = rng.integers(0, n_users, n_acc)
+        pick = (rng.random(n_acc) * counts[ud[u]]).astype(np.int64)
+        r = order[starts[ud[u]] + pick]
+        bu = rng.integers(0, n_users, bridges)
+        u[:bridges] = bu
+        r[:bridges] = order[starts[(ud[bu] + 1) % depts]
+                            + rng.integers(0, counts[(ud[bu] + 1) % depts])]
+        cols["tenant"] += [f"tenant{t}"] * n_acc
+        cols["user"] += [f"u{x}" for x in u]
+        cols["res"] += [f"r{x}" for x in r]
+        cols["likelihood"].append(rng.integers(1, 10, n_acc).astype(float))
+        depts_of[f"tenant{t}"] = (ud, rd)
+    return ({"tenant": object_col(cols["tenant"]),
+             "user": object_col(cols["user"]),
+             "res": object_col(cols["res"]),
+             "likelihood": np.concatenate(cols["likelihood"])}, depts_of)
+
+
+def phase_access_anomaly(dev_info):
+    """23d: AccessAnomaly's ALS on the card, two tenants."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    from mmlspark_tpu_torch.cyber import AccessAnomaly
+    p = P23
+    cols, depts = access_logs(p["aa_tenants"], p["aa_users"], p["aa_res"],
+                              p["aa_accesses"], p["aa_depts"],
+                              p["aa_bridges"], 23)
+    kw = dict(rank_param=p["aa_rank"], max_iter=p["aa_iters"], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AccessAnomaly(**kw).fit(DataFrame(dict(cols)))
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = AccessAnomaly(device="cpu", **kw).fit(DataFrame(dict(cols)))
+    cpu_fit_s = time.perf_counter() - t0
+    # 10,000 test pairs: half seen (scored without the history rule), half
+    # across departments and unseen
+    rng = np.random.default_rng(28)
+    half = p["aa_test"] // 2
+    seen_rows = rng.choice(len(cols["user"]), half, replace=False)
+    tenant = rng.integers(0, p["aa_tenants"], half)
+    cu, cr = [], []
+    for t in range(p["aa_tenants"]):
+        ud, rd = depts[f"tenant{t}"]
+        k = int((tenant == t).sum())
+        u = rng.integers(0, p["aa_users"], 4 * k)
+        r = rng.integers(0, p["aa_res"], 4 * k)
+        far = np.flatnonzero(ud[u] != rd[r])[:k]
+        cu += [f"u{x}" for x in u[far]]
+        cr += [f"r{x}" for x in r[far]]
+    test = DataFrame({
+        "tenant": object_col(list(cols["tenant"][seen_rows])
+                             + [f"tenant{t}" for t in sorted(tenant)]),
+        "user": object_col(list(cols["user"][seen_rows]) + cu),
+        "res": object_col(list(cols["res"][seen_rows]) + cr)})
+    scores = []
+    for m in (model, cpu):
+        m.set(preserve_history=False)
+        s = m.transform(test)["anomaly_score"]
+        scores.append(np.array([np.nan if v is None else v for v in s]))
+    card, ref = scores
+    fin = np.isfinite(ref)
+    # z-scores from factors solved through cuBLAS / cuSOLVER and through the
+    # CPU's BLAS / LAPACK (sums of 2,000 or 10,000 float32 terms, 25
+    # alternating ridge solves): within 1e-3 (1 + max |score|)
+    tol = 1e-3 * (1.0 + float(np.abs(ref[fin]).max()))
+    err = float(np.abs(card[fin] - ref[fin]).max())
+    seen_mean = float(np.nanmean(card[:half]))
+    cross = card[half:]
+    cross_mean = float(np.mean(cross[np.isfinite(cross)]))
+    if not (np.array_equal(np.isfinite(card), fin) and fin.mean() > 0.99
+            and err <= tol and seen_mean < cross_mean):
+        raise AssertionError(f"23d: scores {err} from the CPU's (bound "
+                             f"{tol}); seen mean {seen_mean}, cross-"
+                             f"department mean {cross_mean}")
+    als_iters = p["aa_iters"] * p["aa_tenants"]
+    rec = {"tenants": p["aa_tenants"], "users": p["aa_users"],
+           "resources": p["aa_res"], "accesses": p["aa_accesses"],
+           "rank": p["aa_rank"], "iters": p["aa_iters"], "fit_s": fit_s,
+           "phase_seconds": model.phase_seconds,
+           "als_s_per_iter": model.phase_seconds["als"] / als_iters,
+           "cpu_fit_s": cpu_fit_s, "cpu_phase_seconds": cpu.phase_seconds,
+           "host_share": model.phase_seconds["host"] / fit_s,
+           "scores_max_abs_err": err, "bound": tol,
+           "seen_mean": seen_mean, "cross_mean": cross_mean,
+           "peak_gb": _peak_gb()}
+    log(f"[23d access anomaly] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+class _ProbeRunner:
+    """A measured-sweep probe: the frame through a copy of ``model`` set to
+    one candidate config (``run_and_drain`` is all ``measured_sweep``
+    calls)."""
+
+    def __init__(self, model, df, m, d, ladder):
+        self.model = model.copy({"mini_batch_size": m, "prefetch_depth": d,
+                                 "buckets": list(ladder or []),
+                                 "tuning": ""})
+        self.df = df
+
+    def run_and_drain(self, n_rows):
+        return self.model.transform(self.df)
+
+
+def phase_tuning(dev_info):
+    """23e: ``tuning="auto"`` on phase 11's ResNet-50 through ONNXModel."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.tuning import (ObservationStore, measured_sweep,
+                                           probe_budget, resolve_tuning,
+                                           set_store)
+    from mmlspark_tpu_torch.tuning.cost_model import M_PROBES
+    p = P23
+    model_bytes, _ = _resnet50_onnx()
+    parts = list(p["tune_parts"])
+    X = np.random.default_rng(29).integers(0, 256, (sum(parts), 224, 224, 3),
+                                           dtype=np.uint8)
+    df = DataFrame({"image": X}, partition_sizes=parts)
+    hist = {n: 1 for n in parts}
+    d = tempfile.mkdtemp(prefix="tuning23_")
+    torch.cuda.reset_peak_memory_stats()
+    batch = p["tune_batch"]
+    try:
+        base = _onnx_model(model_bytes, "bfloat16", batch)
+        set_store(ObservationStore(d))
+        base.transform(df)                      # warm: cuDNN, the params
+        t0 = time.perf_counter()
+        plain = base.transform(df)["logits"]
+        plain_s = time.perf_counter() - t0
+        # cold: a fresh store in a temporary directory
+        store = ObservationStore(d + "/store")
+        set_store(store)
+        cold = _onnx_model(model_bytes, "bfloat16", batch, tuning="auto")
+        sig = cold.tuning_signature()
+        if resolve_tuning(sig, "default", hist, store=store) is not None:
+            raise AssertionError("23e: the fresh store is not cold")
+        before = M_PROBES.labels().get()
+        t0 = time.perf_counter()
+        decision = measured_sweep(
+            lambda m, dd, ladder: _ProbeRunner(cold, df, m, dd, ladder),
+            sum(parts), sig=sig, histogram=hist, store=store,
+            defaults=(batch, 2))
+        sweep_s = time.perf_counter() - t0
+        probes = M_PROBES.labels().get() - before
+        t0 = time.perf_counter()
+        cold_out = cold.transform(df)["logits"]
+        cold_s = time.perf_counter() - t0
+        rows_written = len(store)
+        # warm: a second model on the store as persisted, no probe
+        warm_store = ObservationStore(d + "/store")
+        set_store(warm_store)
+        warm = _onnx_model(model_bytes, "bfloat16", batch, tuning="auto")
+        picks = {n: warm._resolve_tuning({n: 1}) for n in parts}
+        before = M_PROBES.labels().get()
+        t0 = time.perf_counter()
+        warm_out = warm.transform(df)["logits"]
+        warm_s = time.perf_counter() - t0
+        _, wall, busy, launches = _profiled(
+            lambda: warm.transform(df)["logits"])
+        warm_probes = M_PROBES.labels().get() - before
+    finally:
+        set_store(None)
+        shutil.rmtree(d, ignore_errors=True)
+    # phase 11's bf16 bound: 2^-4 of the largest |logit|
+    bound = 2.0 ** -4 * float(np.abs(plain).max())
+    errs = [float(np.abs(o - plain).max()) for o in (cold_out, warm_out)]
+    if not (0 < probes <= probe_budget() and rows_written >= probes
+            and warm_probes == 0 and all(v is not None
+                                         for v in picks.values())
+            and max(errs) <= bound and np.isfinite(warm_out).all()):
+        raise AssertionError(f"23e: {probes} probes (budget "
+                             f"{probe_budget()}), warm probes {warm_probes}, "
+                             f"decisions {picks}, errors {errs} (bound "
+                             f"{bound})")
+    n = sum(parts)
+    rec = {"partitions": parts, "probes": int(probes),
+           "budget": probe_budget(),
+           "sweep_s": sweep_s, "store_rows": rows_written,
+           "decision": decision.as_dict(), "fit": decision.details,
+           "warm_decisions": {str(k): v.as_dict() for k, v in picks.items()},
+           "images_per_s": {"untuned": n / plain_s, "cold_call": n / cold_s,
+                            "cold_with_sweep": n / (sweep_s + cold_s),
+                            "warm_call": n / warm_s},
+           "warm_profile": {**_share(wall, busy), "launches": launches},
+           "max_abs_vs_untuned": errs, "bound": bound,
+           "peak_gb": _peak_gb()}
+    log(f"[23e tuning] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase23(dev_info):
+    """Phases 23a-23e, each sub-phase's wall seconds beside it."""
+    import torch
+    out, secs = {}, {}
+    for key, fn in (("23a", phase_vw), ("23b", phase_knn),
+                    ("23c", phase_sar), ("23d", phase_access_anomaly),
+                    ("23e", phase_tuning)):
+        t0 = time.perf_counter()
+        out[key] = fn(dev_info)
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["wall_s"] = secs
+    log(f"[23] wall seconds {json.dumps(secs)}")
+    return out
+
+
 def _phase22(dev_info):
     """Phases 22a-22e; the HIGGS matrix is made once for b and c."""
     import torch
@@ -8467,18 +9196,19 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18", "19", "20" and "21": phases 1, 2 and 14 (or 17, ..., 21);
+    # "17", "18", "19", "20", "21", "22" and "23": phases 1, 2 and 14 (or
+    # 17, ..., 23);
     # "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21", "22"}
+             "17", "18", "19", "20", "21", "22", "23"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20, 21 and 22")
+            f"19, 20, 21, 22 and 23")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -8533,6 +9263,8 @@ def main(argv=()):
             _phase21(dev_info)
         if "22" in only:
             _phase22(dev_info)
+        if "23" in only:
+            _phase23(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -8564,6 +9296,7 @@ def main(argv=()):
     p20 = _phase20(dev_info)
     p21 = _phase21(dev_info, hist_recs)
     p22 = _phase22(dev_info)
+    _phase23(dev_info)
     k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -49,7 +49,7 @@ __all__ = ["Booster"]
 
 
 def _leftover(what: str, item: Optional[int] = None,
-              heading: str = "slice-3 leftovers") -> NotImplementedError:
+              heading: str = "Slice 6 leftovers") -> NotImplementedError:
     """The error of a mode outside the port, naming its ROADMAP.md item
     (§1's queue number, where it has one)."""
     where = f", queue item {item}" if item else ""

@@ -29,9 +29,10 @@ sidecar files of a model saved with external data (its initializers are
 read from there, paths resolved under it). ``weights_override`` (an npz
 of fine-tuned params, as ``ONNXEstimator.fit`` writes it) is layered
 over the graph's initializers before they are placed; a name the graph
-does not have raises ValueError. ``tuning="auto"`` is not ported and
-raises ``NotImplementedError`` naming its ROADMAP item when set;
-``mesh_sharded`` raises when a batch is placed.
+does not have raises ValueError. ``tuning="auto"`` consults the
+observation store (:mod:`..tuning.cost_model`) at transform and warm-up
+for ``(mini_batch_size, prefetch_depth, ladder)``; ``mesh_sharded``
+raises when a batch is placed.
 """
 
 from __future__ import annotations
@@ -54,14 +55,6 @@ from ..utils.device import resolve_device
 from .runner import BatchRunner, StagingSlabPool
 
 __all__ = ["ONNXModel"]
-
-#: params set away from their default that the port does not run yet, and
-#: the ROADMAP item each waits for (``mesh_sharded`` raises in
-#: ``parallel.mesh.feed_placement``)
-_NOT_PORTED = {
-    "tuning": "tuning='auto' (ROADMAP queue item 4, after the tuner of "
-              "item 24)",
-}
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -118,7 +111,12 @@ class ONNXModel(Model):
                         "empty = next-power-of-two. Warm-up and the runner "
                         "derive every padded shape through the same ladder")
     tuning = Param(str, default="", choices=["", "auto"],
-                   doc="not ported: measurement-driven tuning")
+                   doc="'auto' consults the measurement-driven tuning store "
+                       "(MMLSPARK_TPU_TUNING_DIR) at transform/warm_up: the "
+                       "fitted cost model picks mini_batch_size, "
+                       "prefetch_depth and the bucket ladder for the "
+                       "observed row counts; a cold store keeps the "
+                       "defaults and this run's measurements train it")
 
     def __init__(self, model_bytes: Optional[bytes] = None, device=None,
                  **kw):
@@ -139,6 +137,8 @@ class ONNXModel(Model):
         self._params_lock = threading.Lock()
         self._counters = StageCounters()
         self._staging: Dict[str, StagingSlabPool] = {}
+        self._tuning_sig: Optional[str] = None
+        self._tuning_decisions: Dict[tuple, object] = {}
 
     @classmethod
     def load(cls, path: str, device=None) -> "ONNXModel":
@@ -161,6 +161,44 @@ class ONNXModel(Model):
         instrumentation, cumulative over every transform/warm_up on this
         instance."""
         return self._counters
+
+    # -- tuning --------------------------------------------------------------
+    def tuning_signature(self) -> str:
+        """Stable identity for the observation store: content hash of the
+        graph plus the knobs that change its cost profile (the JAX
+        package's format, so both packages name a graph alike)."""
+        sig = getattr(self, "_tuning_sig", None)
+        if sig is None:
+            from ..onnx.proto import model_content_digest
+            mb = self.get_or_none("model_bytes") or b""
+            h = model_content_digest(bytes(mb))[:16]
+            sig = f"onnx:{h}:{self.compute_dtype}:{self.quantize or 'fp'}"
+            self._tuning_sig = sig
+        return sig
+
+    def _resolve_tuning(self, histogram: Dict[int, int]):
+        """The store's pick for this histogram (None = off or cold store).
+        Resolved sig-wide (placement "default"): one vocabulary serves every
+        card, so warm-up and every partition agree on the ladder."""
+        if self.get_or_none("tuning") != "auto":
+            return None
+        key = tuple(sorted(histogram.items()))
+        if key not in self._tuning_decisions:
+            from ..tuning.cost_model import resolve_tuning
+            self._tuning_decisions[key] = resolve_tuning(
+                self.tuning_signature(), "default", histogram,
+                defaults=(self.mini_batch_size, self.prefetch_depth))
+        return self._tuning_decisions[key]
+
+    def _runner_config(self, n_rows: int):
+        """Effective ``(mini_batch_size, prefetch_depth, ladder)``: the
+        params unless ``tuning="auto"`` found a measured pick."""
+        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        decision = self._resolve_tuning({int(n_rows): 1})
+        if decision is None:
+            return self.mini_batch_size, self.prefetch_depth, ladder
+        return (decision.mini_batch_size, decision.prefetch_depth,
+                decision.buckets)
 
     # -- metadata (proto-only, no session) ----------------------------------
     def _ensure_converted(self) -> ConvertedModel:
@@ -340,15 +378,16 @@ class ONNXModel(Model):
     _PARAM_CACHE_KEYS = ("weights_override", "quantize", "compute_dtype")
 
     def set(self, **kwargs):
-        for k, what in _NOT_PORTED.items():
-            if k in kwargs and kwargs[k] not in (None, "", False):
-                raise NotImplementedError(f"{k}={kwargs[k]!r}: {what} is "
-                                          f"not ported yet")
         if any(k in kwargs for k in self._PARAM_CACHE_KEYS) \
                 and getattr(self, "_device_params", None):
             # the cached params embed the previous packing and cast
             with self._params_lock:
                 self._device_params.clear()
+        if kwargs and getattr(self, "_tuning_decisions", None) is not None:
+            # any reconfiguration may change the model signature or the
+            # defaults the tuner compares against
+            self._tuning_decisions.clear()
+            self._tuning_sig = None
         return super().set(**kwargs)
 
     # -- execution ----------------------------------------------------------
@@ -404,14 +443,16 @@ class ONNXModel(Model):
                     device_prepped=input_name in self.transpose_dict)
             return out
 
-        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        mbs, depth, ladder = self._runner_config(len(part))
         runner = BatchRunner(fn, params, coerce, placement.device,
                              shards=placement.shards,
-                             mini_batch_size=self.mini_batch_size,
-                             prefetch_depth=self.prefetch_depth,
+                             mini_batch_size=mbs,
+                             prefetch_depth=depth,
                              counters=self._counters,
                              staging=self._staging_for(placement.device),
-                             buckets=ladder)
+                             buckets=ladder,
+                             model_sig=self.tuning_signature(),
+                             placement_key=str(placement.key))
         if self.output_device:
             # keep outputs resident: no drain — the sink (DataFrame.to_host
             # or a downstream device stage) decides when to cross back
@@ -454,7 +495,9 @@ class ONNXModel(Model):
         ``transpose_dict``) or when the declared shape is symbolic.
         ``background=True`` warms on a daemon thread and returns it;
         otherwise returns ``{"buckets", "compiles", "seconds",
-        "placements"}`` (``compiles``: buckets run).
+        "placements"}`` (``compiles``: buckets run). With
+        ``tuning="auto"`` and a decision in the store, exactly the chosen
+        vocabulary runs.
         """
         cm = self._ensure_converted()
         fn = self._ensure_fn()
@@ -463,6 +506,10 @@ class ONNXModel(Model):
                                     overrides=input_specs)
         sizes = [int(b) for b in (batch_sizes or [self.mini_batch_size])]
         ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        decision = self._resolve_tuning({s: 1 for s in sizes})
+        if decision is not None:
+            sizes = list(decision.warm_up_sizes) or sizes
+            ladder = decision.buckets
         return warm_up_model(self, fn, specs, sizes, background=background,
                              buckets=ladder)
 

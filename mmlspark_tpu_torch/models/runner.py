@@ -19,8 +19,14 @@ One partition's rows go through a graph in padded batches:
 A resident input (a ``torch.Tensor`` feed: a slice of a device column)
 is padded on its device and moves no bytes. Every stage is counted in
 :class:`~..ops.compile_cache.StageCounters` (coerce / pad / h2d /
-dispatch / d2h). The JAX package's tuning hooks (``tuning="auto"``) are
-not ported.
+dispatch / d2h).
+
+Tuning: every batch is noted per padded bucket (rows, batches, seconds,
+prep seconds) and the drain harvests the samples into the observation
+store under ``model_sig`` (:func:`~..tuning.observations.harvest_samples`);
+with ``tuning="auto"`` the first run consults the store through
+:func:`~..tuning.cost_model.resolve_tuning` and applies its pick. The
+port runs no compile step, so a sample's ``compiles`` is always 0.
 """
 
 from __future__ import annotations
@@ -123,7 +129,9 @@ class BatchRunner:
                  mini_batch_size: int = 64, prefetch_depth: int = 2,
                  counters: Optional[StageCounters] = None,
                  staging: Optional[StagingSlabPool] = None,
-                 buckets: Optional[Tuple[int, ...]] = None):
+                 buckets: Optional[Tuple[int, ...]] = None,
+                 tuning: str = "", model_sig: Optional[str] = None,
+                 placement_key: str = "default"):
         self.fn = fn
         self.params = params
         self.coerce = coerce
@@ -143,12 +151,68 @@ class BatchRunner:
             raise ValueError(
                 f"mini_batch_size={self.mini_batch_size} exceeds the "
                 f"largest bucket {self.buckets[-1]} of the ladder")
+        if tuning not in ("", "auto"):
+            raise ValueError(f"tuning must be '' or 'auto', got {tuning!r}")
+        self.tuning = tuning
+        self.model_sig = model_sig
+        self.placement_key = str(placement_key)
+        self._tuned = False           # "auto" resolved the store already
+        self.decision = None          # the applied TuningDecision, if any
+        self._samples: Dict[int, Dict[str, float]] = {}
+
+    # -- tuning: consult the observation store, harvest samples back ---------
+    def _resolve_auto(self, n_rows: int) -> None:
+        """``tuning="auto"``: on the first run, fit the observation store
+        for this model signature and apply the picked config. A cold store
+        is not an error: the defaults stand and this run's harvest becomes
+        the data a later process decides from."""
+        self._tuned = True
+        from ..tuning.cost_model import resolve_tuning
+        decision = resolve_tuning(
+            self.model_sig or "anonymous", self.placement_key,
+            {int(n_rows): 1},
+            defaults=(self.mini_batch_size, self.prefetch_depth))
+        if decision is None:
+            return
+        self.decision = decision
+        self.mini_batch_size = max(1, decision.mini_batch_size)
+        self.prefetch_depth = max(0, decision.prefetch_depth)
+        self.buckets = decision.buckets
+
+    def _note_sample(self, padded: int, b: int, *, seconds: float,
+                     prep_seconds: float) -> None:
+        s = self._samples.setdefault(
+            int(padded), {"rows": 0, "batches": 0, "seconds": 0.0,
+                          "prep_seconds": 0.0, "compile_seconds": 0.0,
+                          "compiles": 0})
+        s["rows"] += int(b)
+        s["batches"] += 1
+        s["seconds"] += float(seconds)
+        s["prep_seconds"] += float(prep_seconds)
+
+    def _flush_samples(self) -> None:
+        """Emit the accumulated per-bucket samples as observations (at
+        drain time, as the JAX package's runner does)."""
+        if not self._samples or self.model_sig is None:
+            self._samples.clear()
+            return
+        from ..tuning.observations import harvest_samples
+        samples = [dict(bucket=k, **v)
+                   for k, v in sorted(self._samples.items())]
+        self._samples.clear()
+        harvest_samples(
+            self.model_sig, self.placement_key,
+            {"mini_batch_size": self.mini_batch_size,
+             "prefetch_depth": self.prefetch_depth,
+             "buckets": None if self.buckets is None else list(self.buckets)},
+            samples)
 
     # -- host side: coerce + pad (runs on the prefetch worker) ---------------
     def _prepare(self, sl: slice):
         """``(padded feeds, names fed from device tensors, rows, padded
-        rows)`` of one batch."""
+        rows, prep seconds)`` of one batch."""
         c = self.counters
+        t_prep = time.perf_counter()
         with c.timer("coerce"):
             feeds = self.coerce(sl)
         b = padded = 0
@@ -174,7 +238,8 @@ class BatchRunner:
                     padded_feeds[name] = buf
                 else:
                     padded_feeds[name] = pad_axis(arr, padded)
-        return padded_feeds, resident, b, padded
+        return (padded_feeds, resident, b, padded,
+                time.perf_counter() - t_prep)
 
     def _prepared_batches(self, n_rows: int):
         slices = batch_slices(n_rows, self.mini_batch_size)
@@ -200,6 +265,8 @@ class BatchRunner:
         them once. Without it the outputs stay on the device.
         """
         c = self.counters
+        if self.tuning == "auto" and not self._tuned:
+            self._resolve_auto(n_rows)
         cuda = self.device.type == "cuda"
         compute = torch.cuda.current_stream(self.device) if cuda else None
         copier = torch.cuda.Stream(self.device) if cuda else None
@@ -212,7 +279,7 @@ class BatchRunner:
         while True:
             t0 = time.perf_counter()
             try:
-                feeds_host, device_fed, b, padded = next(it)
+                feeds_host, device_fed, b, padded, prep_s = next(it)
             except StopIteration:
                 break
             if prefetching:
@@ -243,7 +310,9 @@ class BatchRunner:
                         feeds[k].record_stream(compute)
             t0 = time.perf_counter()
             outs = self.fn(self.params, feeds)
-            c.add("dispatch", time.perf_counter() - t0)
+            elapsed = time.perf_counter() - t0
+            c.add("dispatch", elapsed)
+            self._note_sample(padded, b, seconds=elapsed, prep_seconds=prep_s)
             if self.staging is not None:
                 # a slab may only circulate once its copy has finished
                 # reading it: wait on the copy (not the compute)
@@ -260,15 +329,23 @@ class BatchRunner:
               ) -> List[Tuple[Dict[str, np.ndarray], int]]:
         """Wait once for every pending output copy; returns host arrays.
         The wait includes whatever compute is still running, so ``d2h``
-        seconds are where the device time of a host-fed run settles."""
+        seconds are where the device time of a host-fed run settles; they
+        are spread over the buckets' samples by row share before the
+        samples are harvested."""
         if not pending:
+            self._flush_samples()
             return []
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         host = [{k: v.numpy() for k, v in outs.items()} for outs, _ in pending]
         nbytes = sum(a.nbytes for outs in host for a in outs.values())
-        self.counters.add("d2h", time.perf_counter() - t0, nbytes)
+        elapsed = time.perf_counter() - t0
+        self.counters.add("d2h", elapsed, nbytes)
+        total_rows = sum(s["rows"] for s in self._samples.values()) or 1
+        for s in self._samples.values():
+            s["seconds"] += elapsed * (s["rows"] / total_rows)
+        self._flush_samples()
         return [(outs, b) for outs, (_, b) in zip(host, pending)]
 
     def run_and_drain(self, n_rows: int

@@ -24,8 +24,10 @@ and load keep the params (an npz pytree) and a module-level function of
 this package by import path; other callables are transient (re-set
 ``apply_fn`` after loading). ``device`` is a constructor (and ``load``)
 keyword, not a param: ``None`` is the CUDA card and raises without one.
-``tuning="auto"`` and ``mesh_sharded`` raise ``NotImplementedError``;
-as the port's ``ONNXModel``, partitions go round-robin over the local
+``tuning="auto"`` consults the observation store as ``ONNXModel`` does,
+under the signature ``torch:<apply_fn path>:<compute_dtype>``;
+``mesh_sharded`` raises ``NotImplementedError``; as the port's
+``ONNXModel``, partitions go round-robin over the local
 cards when the device names no index (the JAX package's ``pin_devices``
 is not a param here).
 """
@@ -93,7 +95,10 @@ class TorchModel(Model):
                     doc="custom padding-bucket ladder (sorted batch sizes); "
                         "empty = next-power-of-two")
     tuning = Param(str, default="", choices=["", "auto"],
-                   doc="not ported: measurement-driven tuning")
+                   doc="'auto' consults the measurement-driven tuning store "
+                       "(MMLSPARK_TPU_TUNING_DIR): the fitted cost model "
+                       "picks mini_batch_size, prefetch_depth and the "
+                       "bucket ladder; a cold store keeps the defaults")
 
     def __init__(self, apply_fn: Optional[Callable] = None,
                  model_params=None, device=None, **kw):
@@ -111,6 +116,7 @@ class TorchModel(Model):
         self._params_lock = threading.Lock()
         self._counters = StageCounters()
         self._staging: Dict[str, StagingSlabPool] = {}
+        self._tuning_decisions: Dict[tuple, object] = {}
 
     @classmethod
     def load(cls, path: str, device=None) -> "TorchModel":
@@ -135,18 +141,52 @@ class TorchModel(Model):
         return self._counters
 
     def set(self, **kwargs):
-        if kwargs.get("tuning") == "auto":
-            raise NotImplementedError(
-                "tuning='auto' is not ported yet: it waits for "
-                "tuning/cost_model.py (ROADMAP queue item 24)")
         out = super().set(**kwargs)
-        # any reconfiguration drops the batch function and the cached
-        # device params (under the lock, as ONNXModel)
+        # any reconfiguration drops the batch function, the cached device
+        # params (under the lock, as ONNXModel) and the tuning decisions
         if kwargs and hasattr(self, "_params_lock"):
             self._fn = None
             with self._params_lock:
                 self._device_params = {}
+        if kwargs and getattr(self, "_tuning_decisions", None) is not None:
+            self._tuning_decisions.clear()
         return out
+
+    # -- tuning --------------------------------------------------------------
+    def tuning_signature(self) -> str:
+        """Stable identity for the observation store: the apply_fn's
+        import path (a module's class path) plus the compute dtype."""
+        fn = self.get_or_none("apply_fn")
+        if isinstance(fn, torch.nn.Module):
+            fn = type(fn)
+        name = (f"{getattr(fn, '__module__', '?')}."
+                f"{getattr(fn, '__qualname__', repr(fn))}" if fn is not None
+                else "unset")
+        return f"torch:{name}:{self.compute_dtype}"
+
+    def _resolve_tuning(self, histogram: Dict[int, int]):
+        """The store's pick for this histogram (None = off or cold store);
+        resolved sig-wide so warm-up and every partition share one ladder,
+        from rows of the single-device layout (``mesh_sharded`` is not
+        ported)."""
+        if self.get_or_none("tuning") != "auto":
+            return None
+        key = (tuple(sorted(histogram.items())), "single")
+        if key not in self._tuning_decisions:
+            from ..tuning.cost_model import resolve_tuning
+            self._tuning_decisions[key] = resolve_tuning(
+                self.tuning_signature(), "default", histogram,
+                defaults=(self.mini_batch_size, self.prefetch_depth),
+                mesh_shape="single")
+        return self._tuning_decisions[key]
+
+    def _runner_config(self, n_rows: int):
+        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        decision = self._resolve_tuning({int(n_rows): 1})
+        if decision is None:
+            return self.mini_batch_size, self.prefetch_depth, ladder
+        return (decision.mini_batch_size, decision.prefetch_depth,
+                decision.buckets)
 
     # -- the batch function ----------------------------------------------
     def _ensure_fn(self):
@@ -250,14 +290,16 @@ class TorchModel(Model):
                     dev[sl] if dev is not None else part[col_name][sl])
             return out
 
-        ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        mbs, depth, ladder = self._runner_config(len(part))
         runner = BatchRunner(fn, params, coerce, placement.device,
                              shards=placement.shards,
-                             mini_batch_size=self.mini_batch_size,
-                             prefetch_depth=self.prefetch_depth,
+                             mini_batch_size=mbs,
+                             prefetch_depth=depth,
                              counters=self._counters,
                              staging=self._staging_for(placement.device),
-                             buckets=ladder)
+                             buckets=ladder,
+                             model_sig=self.tuning_signature(),
+                             placement_key=str(placement.key))
         pending = runner.run_and_drain(len(part))
         if not pending:
             return part
@@ -280,6 +322,10 @@ class TorchModel(Model):
                  for name, (dt, shape) in input_specs.items()}
         sizes = [int(b) for b in (batch_sizes or [self.mini_batch_size])]
         ladder = tuple(self.buckets) if self.get_or_none("buckets") else None
+        decision = self._resolve_tuning({s: 1 for s in sizes})
+        if decision is not None:
+            sizes = list(decision.warm_up_sizes) or sizes
+            ladder = decision.buckets
         return warm_up_model(self, fn, specs, sizes, background=background,
                              buckets=ladder)
 

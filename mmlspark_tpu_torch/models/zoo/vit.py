@@ -6,8 +6,8 @@ ships CNN image models consumed by ``ImageFeaturizer``
 (``cntk/ImageFeaturizer.scala:100-108``); a ViT exercises the SAME
 cut-layer surface (outputs named ``feat``/``logits``, the featurizer's
 defaults) with a transformer body. In the port the graph runs through
-``ONNXModel``; the featurizer, int8 weight-only quantization and
-fine-tuning wait for ROADMAP queue items 4, 5 and 23.
+``ONNXModel``, and through the ported featurizer, int8 weight-only
+quantization and fine-tuning (ROADMAP queue items 5, 4 and 23).
 
 The export mirrors how torch serializes ViTs: patchify is a strided
 ``Conv`` + ``Reshape`` + ``Transpose``, the class token ``Expand``s over

@@ -1,15 +1,23 @@
-/* The port's native host loop: quantile binning of a dense float matrix.
+/* The port's native host loops: quantile binning of a dense float matrix,
+ * and VW's feature hashing and sparse padding.
  *
- * A copy of the `bin_columns` loop of the JAX package's
- * native/fastpath.cpp (the loop itself is unchanged, so its bins are
- * bitwise the same), bound through a plain C entry point and ctypes
- * instead of the CPython/numpy C API: building it needs g++ alone, no
- * Python or numpy headers. The package's other native loops (murmur3,
- * pad_sparse, parse_libsvm, stack_rows) are not copied until a ported
- * path needs them.
+ * Copies of the `bin_columns`, `murmur3`, `murmur3_batch` and `pad_sparse`
+ * loops of the JAX package's native/fastpath.cpp (the loops themselves are
+ * unchanged, so their outputs are bitwise the same), bound through plain C
+ * entry points and ctypes instead of the CPython/numpy C API: building
+ * them needs g++ alone, no Python or numpy headers. The Python wrappers
+ * (native/__init__.py) flatten object rows into offsets plus flat arrays.
+ * The package's other native loops (parse_libsvm, stack_rows) are not
+ * copied until a ported path needs them.
  *
  *   mmlspark_bin_columns(X[n,F] f32|f64, bounds[F,L] f64, lengths[F] i64,
  *                        out[n,F] u8|u16)
+ *   mmlspark_murmur3(data, len, seed) -> u32
+ *   mmlspark_murmur3_batch(flat bytes, offsets[n+1] i64, n, seed, mask,
+ *                          out[n] u32)
+ *   mmlspark_pad_sparse(idx flat i64, idx offsets[n+1], val flat f32,
+ *                       val offsets[n+1], n, K, idx_out[n,K] i32,
+ *                       val_out[n,K] f32)
  *
  * Per element: out = searchsorted(bounds_j[:lengths_j], x, "left") + 1,
  * NaN -> 0 (the missing bin). This is the dataset-construction loop
@@ -24,6 +32,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 // numpy's index type, kept so the loop reads as it does in the JAX package
@@ -129,7 +138,70 @@ static void bin_columns_loop(const XT* x, const double* bounds,
   }
 }
 
+static inline uint32_t rotl32(uint32_t x, int8_t r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+/* MurmurHash3 x86_32, as the JAX package's loop computes it. */
+static uint32_t murmur3_32(const uint8_t* data, size_t len, uint32_t seed) {
+  const uint32_t c1 = 0xcc9e2d51u, c2 = 0x1b873593u;
+  uint32_t h = seed;
+  const size_t nblocks = len / 4;
+  for (size_t i = 0; i < nblocks; i++) {
+    uint32_t k;
+    std::memcpy(&k, data + 4 * i, 4);
+    k *= c1; k = rotl32(k, 15); k *= c2;
+    h ^= k; h = rotl32(h, 13); h = h * 5 + 0xe6546b64u;
+  }
+  const uint8_t* tail = data + nblocks * 4;
+  uint32_t k1 = 0;
+  switch (len & 3) {
+    case 3: k1 ^= (uint32_t)tail[2] << 16; [[fallthrough]];
+    case 2: k1 ^= (uint32_t)tail[1] << 8;  [[fallthrough]];
+    case 1: k1 ^= (uint32_t)tail[0];
+            k1 *= c1; k1 = rotl32(k1, 15); k1 *= c2; h ^= k1;
+  }
+  h ^= (uint32_t)len;
+  h ^= h >> 16; h *= 0x85ebca6bu; h ^= h >> 13; h *= 0xc2b2ae35u; h ^= h >> 16;
+  return h;
+}
+
 extern "C" {
+
+uint32_t mmlspark_murmur3(const uint8_t* data, int64_t len, uint32_t seed) {
+  return murmur3_32(data, (size_t)len, seed);
+}
+
+/* Item i is flat[offsets[i] : offsets[i + 1]]; out[i] = hash & mask. */
+void mmlspark_murmur3_batch(const uint8_t* flat, const int64_t* offsets,
+                            int64_t n, uint32_t seed, uint32_t mask,
+                            uint32_t* out) {
+  for (int64_t i = 0; i < n; i++)
+    out[i] = murmur3_32(flat + offsets[i],
+                        (size_t)(offsets[i + 1] - offsets[i]), seed) & mask;
+}
+
+/* Row r's indices are idx[ioff[r] : ioff[r + 1]] and its values
+ * val[voff[r] : voff[r + 1]]; each row fills min(len idx, len val, K)
+ * slots of its K (a malformed row is clamped, never read past its
+ * values), the indices cast to int32 as the JAX package's loop casts
+ * them. The caller zeroes the outputs (padding: index 0, value 0). */
+void mmlspark_pad_sparse(const int64_t* idx, const int64_t* ioff,
+                         const float* val, const int64_t* voff, int64_t n,
+                         int64_t K, int32_t* idx_out, float* val_out) {
+  for (int64_t r = 0; r < n; r++) {
+    int64_t k = ioff[r + 1] - ioff[r];
+    int64_t kv = voff[r + 1] - voff[r];
+    if (kv < k) k = kv;
+    if (k > K) k = K;
+    const int64_t* si = idx + ioff[r];
+    const float* sv = val + voff[r];
+    for (int64_t j = 0; j < k; j++) {
+      idx_out[r * K + j] = (int32_t)si[j];
+      val_out[r * K + j] = sv[j];
+    }
+  }
+}
 
 /* Returns 0, or 1 when a length is outside [1, L]. x_f64: X is float64
  * (else float32); out_u16: out is uint16 (else uint8). All arrays are

@@ -81,16 +81,16 @@ class ServingEngine:
                  transport: str = "threaded",
                  warm_up: Optional[Callable[[], object]] = None,
                  device_ingest: Optional[list] = None,
-                 tuning: str = ""):
+                 tuning: str = "", tuned_models: Optional[list] = None):
         self.transform_fn = transform_fn
         self.warm_up = warm_up
         if tuning not in ("", "auto"):
             raise ValueError(f"tuning must be '' or 'auto', got {tuning!r}")
-        if tuning == "auto":
-            raise NotImplementedError(
-                "tuning='auto': the cost model (tuning/cost_model.py) is "
-                "not ported yet (ROADMAP.md queue item 24)")
+        #: "auto" switches every model in ``tuned_models`` to store-driven
+        #: tuning before warm-up, so the served pipeline runs (and its
+        #: warm-up runs) the measured config, not the param defaults
         self.tuning = tuning
+        self.tuned_models = list(tuned_models or [])
         self.schema = schema
         self.reply_col = reply_col
         #: columns staged device-resident right after parse, so every stage
@@ -165,6 +165,13 @@ class ServingEngine:
                 for key, idxs in rows.items()]
 
     def start(self) -> "ServingEngine":
+        if self.tuning == "auto":
+            for m in self.tuned_models:
+                try:
+                    m.set(tuning="auto")
+                except Exception:
+                    _log.error("model %r rejected tuning='auto':\n%s",
+                               getattr(m, "uid", m), traceback.format_exc())
         if self.warm_up is not None:
             try:
                 self.warm_up()

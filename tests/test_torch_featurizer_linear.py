@@ -377,8 +377,10 @@ def test_torch_model_save_load_and_refusals(tmp_path):
     m.save(str(tmp_path / "ref"))
     with pytest.raises(ValueError, match="refusing"):
         TorchModel.load(str(tmp_path / "ref"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 24"):
-        m.set(tuning="auto")
+    # tuning="auto" is ported: the model accepts it, and takes it back
+    m.set(tuning="auto")
+    assert m.get("tuning") == "auto"
+    m.set(tuning="")
     with pytest.raises(NotImplementedError, match="mesh"):
         TorchModel(_torch_mlp, params, device="cpu", mesh_sharded=True,
                    feed_dict={"input": "feats"}).transform(pdf)

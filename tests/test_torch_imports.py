@@ -111,7 +111,26 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.explainers.superpixel",
                  "mmlspark_tpu_torch.explainers.lime",
                  "mmlspark_tpu_torch.explainers.shap",
-                 "mmlspark_tpu_torch.explainers.ice"):
+                 "mmlspark_tpu_torch.explainers.ice",
+                 "mmlspark_tpu_torch.tuning.cost_model",
+                 "mmlspark_tpu_torch.vw",
+                 "mmlspark_tpu_torch.vw.murmur",
+                 "mmlspark_tpu_torch.vw.featurizer",
+                 "mmlspark_tpu_torch.vw.learners",
+                 "mmlspark_tpu_torch.vw.bandit",
+                 "mmlspark_tpu_torch.nn",
+                 "mmlspark_tpu_torch.nn.balltree",
+                 "mmlspark_tpu_torch.nn.knn",
+                 "mmlspark_tpu_torch.recommendation",
+                 "mmlspark_tpu_torch.recommendation.sar",
+                 "mmlspark_tpu_torch.recommendation.ranking",
+                 "mmlspark_tpu_torch.cyber",
+                 "mmlspark_tpu_torch.cyber.features",
+                 "mmlspark_tpu_torch.cyber.complement_access",
+                 "mmlspark_tpu_torch.cyber.dataset",
+                 "mmlspark_tpu_torch.cyber.access_anomaly",
+                 "mmlspark_tpu_torch.isolationforest",
+                 "mmlspark_tpu_torch.isolationforest.iforest"):
         assert want in names
 
 
@@ -214,9 +233,14 @@ def _no_cuda():
 @pytest.mark.parametrize("entry", ["resolve_device", "init_paged_cache",
                                    "pool", "decoder", "engine",
                                    "quant_cache", "quant_pool",
-                                   "quant_decoder"])
+                                   "quant_decoder", "vw_learner",
+                                   "knn_model", "sar", "access_anomaly"])
 def test_entry_points_default_to_cuda_and_raise(entry):
     _no_cuda()
+    from mmlspark_tpu_torch.cyber import AccessAnomaly
+    from mmlspark_tpu_torch.nn import KNNModel
+    from mmlspark_tpu_torch.recommendation import SAR
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
     from mmlspark_tpu_torch.models.zoo.transformer import (
         TransformerConfig, init_paged_cache, init_transformer)
     from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
@@ -236,7 +260,9 @@ def test_entry_points_default_to_cuda_and_raise(entry):
              "quant_pool": lambda: PagedKVPool(cfg, num_pages=4, page_size=4,
                                                kv_dtype="fp8"),
              "quant_decoder": lambda: ContinuousDecoder(
-                 init_transformer(cfg), cfg, kv_dtype="int8")}
+                 init_transformer(cfg), cfg, kv_dtype="int8"),
+             "vw_learner": VowpalWabbitClassifier, "knn_model": KNNModel,
+             "sar": SAR, "access_anomaly": AccessAnomaly}
     with pytest.raises(RuntimeError, match="CUDA"):
         build[entry]()
     assert resolve_device("cpu").type == "cpu"

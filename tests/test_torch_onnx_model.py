@@ -231,8 +231,9 @@ def test_metadata_post_ops_and_unported_options(model_bytes):
                     **_kw(softmax_dict={"probs": "logits"})).transform(
         DataFrame({"image": X}))
     np.testing.assert_allclose(out["probs"].sum(axis=1), 1.0, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ONNXModel(model_bytes, device="cpu", tuning="auto")
+    # tuning="auto" is ported: accepted at construction
+    assert ONNXModel(model_bytes, device="cpu",
+                     tuning="auto").get("tuning") == "auto"
     # weights_override (ported): an npz of changed params layered over
     # the initializers serves as the JAX ONNXModel serves it
     import io

@@ -27,8 +27,8 @@
   couple of bf16 roundings), and each package's int8 outputs within that
   file's own bound of its full-precision ones (0.05 · max|full|); the
   toggling and save/load cases. That file's ``weights_override`` case
-  waits for ROADMAP queue item 23 (``weights_override`` still raises in
-  the port).
+  (ported with ROADMAP queue item 23) is held against the JAX
+  ``ONNXModel`` in ``tests/test_torch_onnx_model.py``.
 * The ORT-fused BERT (``chip_smoke.fused_bert_onnx``, the graph phase 18b
   runs at BERT-base's widths) at a small width with ``quantize="int8"``:
   the port's hidden states within 1e-5 · max|ref| + 1e-6 of the JAX
