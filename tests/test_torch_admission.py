@@ -13,9 +13,12 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.serving import admission as ref_adm
 from mmlspark_tpu_torch.serving import admission as port_adm
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 
 class _Item:

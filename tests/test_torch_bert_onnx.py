@@ -41,6 +41,8 @@ from mmlspark_tpu_torch.models.onnx_model import ONNXModel
 from mmlspark_tpu_torch.models.zoo import bert_onnx as pbert
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

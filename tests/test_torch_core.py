@@ -33,6 +33,8 @@ from mmlspark_tpu_torch.models.runner import StagingSlabPool
 from mmlspark_tpu_torch.observability import reset_all
 from mmlspark_tpu_torch.ops.padding import pad_axis_device
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 CPU = make_put("cpu")
 
 

@@ -31,6 +31,8 @@ from mmlspark_tpu_torch.ops.compile_cache import warm_up_jitted as p_warm
 from mmlspark_tpu_torch.tuning import cost_model as pcm
 from mmlspark_tpu_torch.tuning import observations as pobs
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 CPU = torch.device("cpu")
 
 

@@ -30,6 +30,8 @@ from mmlspark_tpu_torch.isolationforest import (IsolationForest,
 from test_torch_knn_sar import _vec_col
 from test_torch_vw import jax_saved_into_port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def _frames(cols):
     return JDF(dict(cols)), PDF(dict(cols))

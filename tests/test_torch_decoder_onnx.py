@@ -30,6 +30,8 @@ from mmlspark_tpu.models.zoo import transformer as jtf
 from mmlspark_tpu_torch.models.zoo import decoder_onnx as pdec
 from mmlspark_tpu_torch.models.zoo import transformer as ptf
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 KW = dict(vocab=97, layers=2, d_model=32, heads=4, max_len=16, d_ff=64,
           causal=True, norm="rmsnorm", position="rope")
 JCFG = jtf.TransformerConfig(dtype=jnp.float32, **KW)

@@ -29,6 +29,8 @@ from mmlspark_tpu_torch.models.zoo import distill as pdist
 from mmlspark_tpu_torch.models.zoo import speculative as ps
 from mmlspark_tpu_torch.models.zoo import transformer as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 _T = dict(vocab=64, layers=2, d_model=64, heads=4, d_ff=128, max_len=128,
           causal=True, norm="rmsnorm", position="rope")
 _D = dict(_T, layers=1, d_model=32, heads=2, d_ff=64)

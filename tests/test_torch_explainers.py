@@ -44,6 +44,8 @@ from mmlspark_tpu_torch.models.onnx_model import ONNXModel
 from mmlspark_tpu_torch.models.zoo import resnet as pres
 from mmlspark_tpu_torch.observability import reset_all
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 SOLVE = 1e-4
 F32 = dict(rtol=1e-5, atol=1e-5)
 

@@ -20,6 +20,8 @@ from mmlspark_tpu.onnx.convert import convert_model
 torch = pytest.importorskip("torch")
 import torch.nn as nn  # noqa: E402
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def _export(model, args, **kw):
     install_onnx_shim()

@@ -45,6 +45,8 @@ from mmlspark_tpu_torch.models.torch_model import TorchModel
 from mmlspark_tpu_torch.models.zoo import resnet as pres
 from mmlspark_tpu_torch.observability import reset_all
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
 LIN = dict(rtol=1e-5, atol=1e-5)

@@ -22,6 +22,8 @@ from mmlspark_tpu.ops.flash_attention import flash_attention as ref_flash
 from mmlspark_tpu.ops.flash_attention import flash_attention_with_stats as ref_stats
 from mmlspark_tpu_torch.ops import flash_attention as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 

@@ -30,6 +30,8 @@ from mmlspark_tpu_torch.models.gbdt import train as ptrain
 from mmlspark_tpu_torch.models.gbdt import trees as ptrees
 from mmlspark_tpu_torch.ops.histogram import prepare_bins_columns
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 BASE = {"num_iterations": 10, "num_leaves": 8, "max_bin": 64,
         "min_data_in_leaf": 5}
 

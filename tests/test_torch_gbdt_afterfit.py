@@ -25,6 +25,7 @@ iterations too, as the JAX package does with ``valid_sets``)."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from mmlspark_tpu.core import DataFrame as JDataFrame
 from mmlspark_tpu.models.gbdt import estimators as jest
@@ -39,6 +40,8 @@ from mmlspark_tpu_torch.models.gbdt import train as ptrain
 from mmlspark_tpu_torch.models.gbdt.onnx_export import booster_to_onnx
 from mmlspark_tpu_torch.onnx import convert_model as pconvert
 from mmlspark_tpu_torch.onnx import parse_model
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 BASE = {"num_iterations": 8, "num_leaves": 8, "max_bin": 32,
         "min_data_in_leaf": 5}

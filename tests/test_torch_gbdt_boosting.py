@@ -18,6 +18,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.core import DataFrame as JDataFrame
 from mmlspark_tpu.models.gbdt import estimators as jest
@@ -29,6 +30,8 @@ from mmlspark_tpu_torch.models.gbdt import Booster as PBooster
 from mmlspark_tpu_torch.models.gbdt import estimators as pest
 from mmlspark_tpu_torch.models.gbdt import train as ptrain
 from test_torch_gbdt import _same_predictions, _same_trees, make_data
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 # the train modules (the port package's ``train`` attribute is the
 # function)

@@ -17,6 +17,7 @@ package's refusals."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from mmlspark_tpu.core import DataFrame as JDataFrame
 from mmlspark_tpu.models.gbdt import estimators as jest
@@ -30,6 +31,8 @@ from mmlspark_tpu_torch.models.gbdt import train as ptrain
 from mmlspark_tpu_torch.models.gbdt.categorical import \
     CategoricalEncoder as PEnc
 from test_torch_gbdt import _same_predictions, _same_trees
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 BASE = {"num_iterations": 8, "num_leaves": 8, "max_bin": 64,
         "min_data_in_leaf": 5, "seed": 3}

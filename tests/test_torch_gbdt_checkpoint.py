@@ -10,6 +10,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.models.gbdt.train import train as jtrain
 from mmlspark_tpu.utils.checkpoint import \
@@ -19,6 +20,8 @@ from mmlspark_tpu_torch.models.gbdt.train import train as ptrain
 from mmlspark_tpu_torch.utils.checkpoint import TrainingCheckpointer
 
 from test_torch_gbdt import BASE, _same_trees, make_data
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 CK = {**BASE, "objective": "binary", "checkpoint_interval": 3}
 

@@ -30,6 +30,8 @@ from mmlspark_tpu_torch.models.gbdt import trees as ptrees
 from mmlspark_tpu_torch.ops.histogram import prepare_bins_columns
 from test_torch_gbdt import _same_predictions, _same_trees, make_data
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 BASE = {"num_iterations": 8, "num_leaves": 8, "max_bin": 64,
         "min_data_in_leaf": 5, "seed": 3}
 

@@ -26,6 +26,8 @@ from mmlspark_tpu_torch.core import DataFrame, Pipeline
 from mmlspark_tpu_torch.core.schema import get_label_metadata
 from mmlspark_tpu_torch.models.gbdt import estimators as pest
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = {"num_iterations": 6, "num_leaves": 8, "max_bin": 32,
          "min_data_in_leaf": 5}

@@ -37,6 +37,8 @@ from mmlspark_tpu_torch.models.gbdt import trees as ptrees
 from mmlspark_tpu_torch.models.gbdt.onnx_export import booster_to_onnx
 from test_torch_gbdt import _same_predictions, _same_trees
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 BASE = {"objective": "regression", "num_iterations": 10, "num_leaves": 7,
         "learning_rate": 0.2, "seed": 3}
 

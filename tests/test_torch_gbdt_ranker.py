@@ -24,6 +24,8 @@ from mmlspark_tpu_torch.models.gbdt.train import train as ptrain
 
 from test_torch_gbdt import BASE, _same_trees
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 RANK = {**BASE, "objective": "lambdarank", "num_iterations": 6}
 
 

@@ -17,6 +17,8 @@ from mmlspark_tpu_torch.utils import prng
 from test_torch_gbdt import (BASE, MULTI, _same_trees, make_data,
                              make_multiclass)
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 SMALL = {**BASE, "num_iterations": 6}
 
 

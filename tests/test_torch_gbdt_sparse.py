@@ -44,6 +44,8 @@ from test_torch_gbdt import _same_predictions, _same_trees
 from test_torch_histogram import H100, _block_ranges, _plan_emulation, \
     _within_bound
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def make_sparse(n=600, f=12, density=0.25, seed=0, nan_frac=0.0):
     rng = np.random.default_rng(seed)

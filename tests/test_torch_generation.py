@@ -18,6 +18,8 @@ from mmlspark_tpu.models.zoo import transformer as ref_tf
 from mmlspark_tpu_torch.models.zoo.transformer import TransformerConfig
 from mmlspark_tpu_torch.serving.generation import GenerationEngine
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 REF_CFG = ref_tf.TransformerConfig(vocab=128, layers=2, d_model=64, heads=4,
                                    d_ff=128, max_len=64, causal=True,
                                    norm="rmsnorm", position="rope",

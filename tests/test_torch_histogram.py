@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from mmlspark_tpu.ops.pallas_kernels import level_histogram_pallas
 from mmlspark_tpu_torch.ops import histogram as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 SHAPES = [(700, 5, 1, 16),      # root level, ragged row count
           (1024, 3, 4, 32),     # mid level
           (333, 2, 8, 256),     # full default bin budget

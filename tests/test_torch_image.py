@@ -48,6 +48,8 @@ from mmlspark_tpu_torch.io import read_binary_files, read_images
 from mmlspark_tpu_torch.models.runner import StagingSlabPool
 from mmlspark_tpu_torch.observability import reset_all
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 TENSOR = dict(rtol=0, atol=1e-6)
 MEAN, STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
 

@@ -18,6 +18,8 @@ import torch
 
 import mmlspark_tpu_torch
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 #: the scripts at the repo's root that run on the card
 ROOT_SCRIPTS = ["chip_smoke", "time_window_read", "time_hist", "time_read",

@@ -12,11 +12,14 @@ import json
 import warnings
 
 import pytest
+import torch
 
 from mmlspark_tpu.io.http import schema as ref_schema
 from mmlspark_tpu.serving.journal import ServingJournal as RefJournal
 from mmlspark_tpu_torch.io.http import schema as port_schema
 from mmlspark_tpu_torch.serving.journal import ServingJournal as PortJournal
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 PACKAGES = {"jax": (RefJournal, ref_schema), "port": (PortJournal,
                                                       port_schema)}

@@ -27,6 +27,8 @@ from mmlspark_tpu_torch.models.zoo.transformer import _topk_stable
 from mmlspark_tpu_torch.nn.knn import topk_stable
 from test_torch_vw import jax_saved_into_port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def _vec_col(X):
     col = np.empty(len(X), dtype=object)

@@ -17,6 +17,8 @@ from mmlspark_tpu.serving import kv_pool as ref
 from mmlspark_tpu_torch.models.zoo.transformer import TransformerConfig
 from mmlspark_tpu_torch.serving import kv_pool as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 REF_CFG = RefCfg(vocab=128, layers=2, d_model=64, heads=4, d_ff=128,
                  max_len=64, causal=True, norm="rmsnorm", position="rope",
                  dtype=jnp.float32)

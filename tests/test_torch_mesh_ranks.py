@@ -18,6 +18,8 @@ from mmlspark_tpu_torch.parallel.mesh import (axis_group, axis_rank,
                                               axis_size, mesh_shape)
 from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 #: the tiny f32 decoder of ``tests/test_mesh_parity.py:44-46``
 CFG = tf.TransformerConfig(vocab=128, layers=2, d_model=64, heads=4,
                            d_ff=128, max_len=96, causal=True,

@@ -9,11 +9,14 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu import native as jnative
 from mmlspark_tpu.models.gbdt import binning as jbin
 from mmlspark_tpu_torch import native
 from mmlspark_tpu_torch.models.gbdt import binning as pbin
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 
 def _matrix(dtype, n=3000, f=6, seed=0):

@@ -31,6 +31,8 @@ from mmlspark_tpu.onnx import proto as jproto
 from mmlspark_tpu_torch.onnx import proto as pproto
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 EXACT = dict(rtol=0, atol=0)
 ELEM = dict(rtol=1e-6, atol=1e-7)
 SUM = dict(rtol=1e-5, atol=1e-5)

@@ -36,6 +36,8 @@ from mmlspark_tpu_torch.onnx import convert as pconv
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention_plain
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 MS = {"domain": "com.microsoft"}
 
 

@@ -33,6 +33,8 @@ import mmlspark_tpu_torch.onnx as O
 from mmlspark_tpu.onnx.convert import UnsupportedOp as JaxUnsupported
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def _model(nodes, feeds, outs, inits=None, opset=18):
     g = O.make_graph(

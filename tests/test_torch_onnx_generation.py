@@ -28,6 +28,8 @@ import mmlspark_tpu_torch.onnx as O
 from mmlspark_tpu.onnx.convert import UnsupportedOp as JaxUnsupported
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 V, D, H = 8, 8, 2
 HD = D // H
 MAXP = 16

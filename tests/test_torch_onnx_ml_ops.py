@@ -39,6 +39,8 @@ from mmlspark_tpu_torch.models.gbdt.onnx_export import booster_to_onnx
 from mmlspark_tpu_torch.models.onnx_model import ONNXModel
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

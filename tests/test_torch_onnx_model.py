@@ -34,6 +34,8 @@ from mmlspark_tpu_torch.observability import reset_all
 from mmlspark_tpu_torch.onnx import proto as pproto
 from mmlspark_tpu_torch.ops.padding import bucket_size
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
 MEAN, STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]

@@ -44,6 +44,8 @@ import mmlspark_tpu_torch.onnx as O
 from mmlspark_tpu.onnx.convert import UnsupportedOp as JaxUnsupported
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

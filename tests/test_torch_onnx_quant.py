@@ -60,6 +60,8 @@ from mmlspark_tpu_torch.models.zoo.resnet import (ResNetConfig,
 from mmlspark_tpu_torch.onnx.convert import UnsupportedOp
 from mmlspark_tpu_torch.onnx.proto import parse_model
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))

@@ -32,6 +32,8 @@ from mmlspark_tpu_torch.onnx.convert import convert_model as pconvert
 
 from test_onnx_train import mlp_with_loss, toy_data
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 sys.path.insert(0, __file__.rsplit("/tests/", 1)[0])
 from chip_smoke import fused_bert_onnx  # noqa: E402
 

@@ -20,6 +20,8 @@ from mmlspark_tpu.ops import paged_attention as ref_pa
 from mmlspark_tpu_torch.models.zoo import transformer as port_tf
 from mmlspark_tpu_torch.ops import paged_attention as port_pa
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

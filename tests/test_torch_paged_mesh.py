@@ -49,6 +49,8 @@ import test_torch_mesh_ranks as ranks
 from test_torch_paged_attention import (STORES, _bf16_window_emulation,
                                         _rounding_inputs)
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 #: bf16 outputs round one f32 value each: at most one bf16 ulp apart
 BF16 = dict(rtol=2.0 ** -7, atol=1e-6)

@@ -23,6 +23,8 @@ from mmlspark_tpu.serving.continuous import ContinuousDecoder as RefDecoder
 from mmlspark_tpu_torch.models.zoo import transformer as port_tf
 from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 WIDTHS = dict(vocab=128, layers=2, d_model=64, heads=4, d_ff=128,
               max_len=64, causal=True, norm="rmsnorm", position="rope")
 REF_CFG = ref_tf.TransformerConfig(dtype=jnp.float32, **WIDTHS)

@@ -11,6 +11,8 @@ import torch
 
 from mmlspark_tpu_torch.utils import prng
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 SEEDS = [0, 1, 2 ** 31 - 1]
 DATA = [0, 3, 999_999, 10 ** 6]
 SHAPES = [(1, 28), (16, 136), (64, 3)]

@@ -30,6 +30,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import mmlspark_tpu.serving.engine as r_engine
 import mmlspark_tpu_torch.serving.engine as p_engine
@@ -37,6 +38,8 @@ from mmlspark_tpu.models.onnx_model import ONNXModel as JONNXModel
 from mmlspark_tpu_torch.models.onnx_model import ONNXModel
 from mmlspark_tpu_torch.models.zoo import resnet as pres
 from test_torch_tracing_slo import PKGS, assert_same, reset_plane
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 PKGS["jax"].engine, PKGS["port"].engine = r_engine, p_engine
 

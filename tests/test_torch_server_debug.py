@@ -42,6 +42,8 @@ from mmlspark_tpu_torch.serving.server import WorkerServer
 from mmlspark_tpu_torch.utils import profiling
 from test_torch_tracing_slo import PKGS, reset_plane
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 REF_CFG = ref_tf.TransformerConfig(vocab=128, layers=2, d_model=64, heads=4,
                                    d_ff=128, max_len=64, causal=True,
                                    norm="rmsnorm", position="rope",

@@ -30,6 +30,7 @@ import urllib.request
 from pathlib import Path
 
 import pytest
+import torch
 
 from mmlspark_tpu.io.http import schema as ref_schema
 from mmlspark_tpu.reliability import get_injector as ref_injector
@@ -38,6 +39,8 @@ from mmlspark_tpu_torch.io.http.schema import (EntityData, HTTPResponseData,
                                                StatusLineData)
 from mmlspark_tpu_torch.reliability import get_injector
 from mmlspark_tpu_torch.serving.server import WorkerServer
+
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
 
 ROOT = Path(__file__).resolve().parents[1]
 TRANSPORTS = ["threaded", "async"]

@@ -35,6 +35,8 @@ from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
 from mmlspark_tpu_torch.serving.journal import ServingJournal
 from mmlspark_tpu_torch.serving.kv_pool import PagedKVPool, PoolExhausted
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 WIDTHS = dict(vocab=128, layers=2, d_model=64, heads=4, d_ff=128,
               max_len=64, causal=True, norm="rmsnorm", position="rope")
 REF_CFG = ref_tf.TransformerConfig(dtype=jnp.float32, **WIDTHS)

@@ -32,6 +32,8 @@ from mmlspark_tpu_torch.serving import kv_pool as port_pool
 from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
 from mmlspark_tpu_torch.serving.generation import GenerationEngine
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 _TINY = dict(vocab=128, layers=2, d_model=64, heads=4, d_ff=128, max_len=64,
              causal=True, norm="rmsnorm", position="rope")
 _DRAFT = dict(_TINY, layers=1, d_model=32, heads=2, d_ff=64)

@@ -33,6 +33,8 @@ from mmlspark_tpu.io.http import schema as r_schema
 from mmlspark_tpu_torch.io.http import schema as p_schema
 from test_torch_tracing_slo import PKGS, assert_same, reset_plane
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 for _name, _mods in {"jax": (r_fed, r_wd, r_adm, r_journal, r_schema),
                      "port": (p_fed, p_wd, p_adm, p_journal,
                               p_schema)}.items():

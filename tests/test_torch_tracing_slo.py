@@ -48,6 +48,8 @@ import mmlspark_tpu_torch.serving.registry as p_registry
 import mmlspark_tpu_torch.tuning.observations as p_tobs
 from mmlspark_tpu_torch.utils import profiling
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 PKGS = {
     "jax": SimpleNamespace(obs=r_obs, tracing=r_tracing, slo=r_slo,
                            ledger=r_ledger, ts=r_ts, locks=r_locks,

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 from mmlspark_tpu.models.zoo import transformer as ref
 from mmlspark_tpu_torch.models.zoo import transformer as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 REF_CFG = ref.TransformerConfig(vocab=128, layers=2, d_model=64, heads=4,
                                 d_ff=128, max_len=96, causal=True,
                                 norm="rmsnorm", position="rope",

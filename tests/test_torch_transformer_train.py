@@ -25,6 +25,8 @@ from mmlspark_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_bwd_plain,
                                                     flash_attention_plain)
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 WIDTH = dict(vocab=64, layers=2, d_model=64, heads=2, d_ff=128, max_len=64)
 DECODER = dict(causal=True, norm="rmsnorm", position="rope")

@@ -27,6 +27,8 @@ from mmlspark_tpu_torch.core import DataFrame
 from mmlspark_tpu_torch.models.onnx_model import ONNXModel
 from mmlspark_tpu_torch.models.zoo import vit as pvit
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 KW = dict(image_size=32, patch=8, d_model=64, heads=4, layers=2, d_ff=128,
           num_classes=5)
 

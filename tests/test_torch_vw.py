@@ -30,6 +30,8 @@ from mmlspark_tpu_torch.core import DataFrame as PDF
 from mmlspark_tpu_torch.vw import learners as PL
 from mmlspark_tpu_torch.vw.murmur import _murmur3_32_py, murmur3_32
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 LOSSES = {"squared": "reg", "quantile": "reg", "logistic": "clf",
           "hinge": "clf"}
 

@@ -27,6 +27,8 @@ from mmlspark_tpu.models.zoo import transformer as ref
 from mmlspark_tpu_torch.models.zoo import transformer as port
 from mmlspark_tpu_torch.serving import continuous
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 _KW = dict(vocab=64, layers=3, d_model=32, heads=4, d_ff=64, max_len=128,
            causal=True)
 TOL = dict(rtol=1e-5, atol=1e-5)

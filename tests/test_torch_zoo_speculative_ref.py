@@ -29,6 +29,8 @@ from mmlspark_tpu.models.zoo import transformer as ref
 from mmlspark_tpu_torch.models.zoo import speculative as ps
 from mmlspark_tpu_torch.models.zoo import transformer as port
 
+torch.set_num_threads(1)  # one a worker: README, "Testing & benchmarks"
+
 
 def cfg_pair(position="rope", vocab=64):
     t = dict(vocab=vocab, d_model=32, heads=4, layers=3, d_ff=64,
