@@ -394,13 +394,13 @@ Phases (any failure exits non-zero and prints no result line):
    25 iterations: predictions monotone along a 64-point sweep of each
    constrained column on 4,096 rows, every root-to-leaf path within one
    group; (c) ``LightGBMClassifier.fit`` on a ``DataFrame`` of benchm-ml's
-   airline shape (10,000,000 rows: Month 12, DayofMonth 31, DayOfWeek 7,
+   airline shape (5,000,000 rows of its 10M: Month 12, DayofMonth 31, DayOfWeek 7,
    UniqueCarrier 22, Origin 300 and Dest 300 categorical, DepTime and
    Distance numeric; a seeded per-category delay rule) with
    ``categorical_feature`` and without: AUC with it at least AUC
    without; ``transform``'s probabilities on the first 1,000,000 rows
    within 1e-6 of the booster's; time to model, sec/iter, the encoder's
-   host seconds; (d) the same rows one-hot encoded, a 10,000,000 x 674
+   host seconds; (d) the same rows one-hot encoded, a 5,000,000 x 674
    CSR of 8 non-zeros a row, through ``train()`` with EFB: the plan's
    bundles and bundle bins, host binning and bundling seconds, sec/iter,
    K6 at the bundled shape (uint16, 1 and 16 nodes; ms, bound,
@@ -493,9 +493,33 @@ Phases (any failure exits non-zero and prints no result line):
    the largest |logit|) of the untuned model; images/s of each call,
    recorded, not held. Each sub-phase logs its wall seconds, host share
    (one minus the profiled device-busy share of its main call) and peak
-   memory.
+   memory;
+24. the AutoML training pipeline (no hand kernel of its own: K6 under
+   the learners; sizes in ``P24``): (a) ``TrainClassifier`` on an
+   Adult-shaped frame (32,561 rows, UCI Adult's 6 numeric and 8 string
+   columns at its level counts, 24.08% ">50K" drawn from a fixed logistic
+   function of the columns), once with the default LogisticRegression and
+   once with LightGBMClassifier (K6), each scored by
+   ``ComputeModelStatistics`` / ``ComputePerInstanceStatistics`` on a
+   quarter held out and held to the same code with ``device="cpu"``: the
+   logistic AUC within 1e-4 and its predictions equal but where the CPU's
+   probability is within 1e-4 of 1/2, LightGBM's AUC within 5e-3 (K6's
+   atomics), both above 0.8; (b) ``TuneHyperparameters`` over
+   LightGBMClassifier on the first 1,000,000 rows of phase 8's HIGGS set
+   (8 trials over num_leaves, learning_rate, min_data_in_leaf and
+   feature_fraction; AUC): full at parallelism 4 and 1 (the same best
+   params, best AUCs within 5e-3), halving (num_iterations 4 to 64,
+   factor 4) and tpe (4 startup trials), each best AUC above 0.75;
+   trials/s, seconds and K6 launches a trial; ``FindBestModel`` over the
+   three best models on the tuners' validation rows picks the highest
+   AUC, which equals its tuner's; (c) ``TextFeaturizer`` then
+   ``TrainClassifier(LogisticRegression)`` on 20,000 generated reviews
+   (20-200 tokens over a Zipf vocabulary of 50,000 words, ratings 1-5
+   cut at 3): features bitwise the CPU run's on 1,000 rows, AUC within
+   1e-4 of the CPU's and above 0.8; the featurizers' host seconds.
 
-``python3 chip_smoke.py 23`` runs phases 1, 2 and 23 only,
+``python3 chip_smoke.py 24`` runs phases 1, 2 and 24 only,
+``python3 chip_smoke.py 23`` phases 1, 2 and 23,
 ``python3 chip_smoke.py 22`` phases 1, 2 and 22,
 ``python3 chip_smoke.py 21`` phases 1, 2 and 21,
 ``python3 chip_smoke.py 20`` phases 1, 2 and 20,
@@ -1755,17 +1779,25 @@ def phase_spec_bench(dev_info):
     return rec
 
 
+_HIGGS = {}
+
+
 def make_higgs_like(n, f=28, seed=0):
     """The repo's HIGGS-shaped generator (``scripts/bench_gbdt_higgs.py``):
     53% positives, standard-normal features, a correlated shift on the
-    positives."""
+    positives. Generated once per (n, f, seed) and handed out as copies:
+    phases 8, 19, 21, 22 and 24 use the same 11M rows, ~9 s of host work
+    to draw."""
     import numpy as np
-    rng = np.random.default_rng(seed)
-    y = (rng.random(n) < 0.53).astype(np.float64)
-    X = rng.normal(0, 1, (n, f)).astype(np.float32)
-    shift = (0.3 * rng.normal(1, 0.2, f)).astype(np.float32)
-    X[y == 1] += shift
-    return X, y
+    if (n, f, seed) not in _HIGGS:
+        rng = np.random.default_rng(seed)
+        y = (rng.random(n) < 0.53).astype(np.float64)
+        X = rng.normal(0, 1, (n, f)).astype(np.float32)
+        shift = (0.3 * rng.normal(1, 0.2, f)).astype(np.float32)
+        X[y == 1] += shift
+        _HIGGS[(n, f, seed)] = (X, y)
+    X, y = _HIGGS[(n, f, seed)]
+    return X.copy(), y.copy()
 
 
 def _auc(y, p):
@@ -7289,16 +7321,18 @@ def phase_external_data(dev_info):
 # ---- phase 21: the rest of the GBDT trainer ----------------------------------
 
 #: phase 21: 25 iterations a run at 8c's params; the sweeps' rows and
-#: points; the airline shape (benchm-ml's ``airline``, 10M rows), the
+#: points; the airline shape (benchm-ml's ``airline``, 10M rows; 5M since
+#: phase 24 joined the script, to keep it within its time limit), the
 #: rows ``transform`` scores, the EFB prefix compared with a dense model
 P21 = dict(iters=25, sweep_rows=4096, sweep_points=64,
-           airline_rows=10_000_000, transform_rows=1_000_000,
+           airline_rows=5_000_000, transform_rows=1_000_000,
            efb_prefix=250_000, efb_prefix_iters=10)
 #: benchm-ml's airline columns that are categorical, with their levels
 #: (the 2007 flights' months, days, carriers and airports)
 AIRLINE_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
                 ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
-#: 21d's bundled bin matrix (its plan, checked there): 10M rows, six
+#: 21d's bundled bin matrix (its plan, checked there; K6's bundled
+#: cases time it at the airline set's full 10M rows): six
 #: one-hot groups and two numeric columns in 8 bundles, the widest (300
 #: airports, 3 bins each, and the all-default slot) 901 bins as uint16
 BUNDLED = dict(rows=10_000_000, bundles=8, bins=901)
@@ -9003,6 +9037,412 @@ def phase_tuning(dev_info):
     return rec
 
 
+#: phase 24: the AutoML training pipeline over the ported learners
+P24 = dict(
+    # 24a: UCI Adult's adult.data shape (32,561 rows; 6 numeric and 8
+    # string columns, the strings' level counts with "?" counted as a
+    # level; 24.08% ">50K"). The numeric columns are drawn standardized:
+    # the default LogisticRegression (full-batch Adam at lr 0.1, as in the
+    # JAX package) does not scale its inputs
+    adult_rows=32_561, adult_pos=0.2408, adult_test=0.25,
+    adult_levels=(("workclass", 9), ("education", 16),
+                  ("marital-status", 7), ("occupation", 15),
+                  ("relationship", 6), ("race", 5), ("sex", 2),
+                  ("native-country", 42)),
+    # LightGBM at 10 iterations of learning rate 0.3: the CPU's fit of
+    # the same model costs ~0.9 s an iteration at this width
+    adult_iters=10, adult_lr=0.3, lr_auc_floor=0.8, gbdt_auc_floor=0.8,
+    # K6 adds a slot's g and h with float32 atomics in an order that
+    # changes from run to run, the CPU's plain version with index_add_
+    # (2.04e-6 against 1.7e-4 of a slot, PERF.md §6), so a near-tied gain
+    # (the one-hot columns tie often) picks another split and the two
+    # models may part after a few trees (mean |dp| 0.017 in one run, 1.5e-7
+    # in the next, at 30 iterations): the card's LightGBM AUC is held within
+    # 5e-3 of the CPU's on the 8,140 test rows (they differed by 1.1e-3 and
+    # by 0), the floor below catching a model that learns nothing
+    gbdt_auc_tol=5e-3, lr_auc_tol=1e-4,
+    # a logistic-regression prediction may flip only where the CPU's
+    # probability is this close to 1/2 (float32 sums in another order)
+    lr_margin=1e-4,
+    # 24b: the first 1,000,000 rows of phase 8's HIGGS-shaped set, 28
+    # features; 8 trials a search; full and tpe at 16 iterations a trial;
+    # a tenth of the rows validates (a trial's host statistics cost ~1 s
+    # per 200,000 rows)
+    higgs_rows=1_000_000, trials=8, trial_iters=16, tpe_startup=4,
+    train_fraction=0.9,
+    halving=(4, 64, 4), higgs_auc_floor=0.75,
+    # 24c: generated book reviews, 20-200 tokens over a Zipf vocabulary of
+    # 50,000 words, ratings 1-5 thresholded at 3
+    reviews=20_000, vocab=50_000, tokens=(20, 200), zipf=1.07,
+    # the logistic regression takes an L2 penalty, as the notebook's does
+    text_features=1 << 12, text_reg=0.01, text_check_rows=1_000,
+    text_auc_floor=0.8)
+
+
+def adult_like(n, seed=24):
+    """An Adult-shaped frame's columns: the six numeric columns, the
+    eight string columns at Adult's level counts, and ``income`` drawn
+    from a fixed logistic function of them (logistic noise, cut at the
+    share of ">50K")."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cols, z = {}, np.zeros(n)
+    for name in ("age", "fnlwgt", "education-num", "capital-gain",
+                 "capital-loss", "hours-per-week"):
+        cols[name] = rng.normal(0, 1, n)
+        z += rng.normal(0, 0.6) * cols[name] if name != "fnlwgt" else 0.0
+    for name, k in P24["adult_levels"]:
+        levels = np.array([f"{name}-{i}" for i in range(k - 1)] + ["?"],
+                          dtype=object)
+        p = rng.dirichlet(np.full(k, 0.7))
+        idx = rng.choice(k, n, p=p)
+        cols[name] = levels[idx]
+        z += rng.normal(0, 0.8, k)[idx]
+    s = z + rng.logistic(0, 1, n)
+    cut = np.quantile(s, 1 - P24["adult_pos"])
+    cols["income"] = np.where(s > cut, ">50K", "<=50K").astype(object)
+    return cols
+
+
+def _split(df, frac, seed):
+    import numpy as np
+    sh = df.shuffle(seed)
+    n_test = int(round(frac * len(df)))
+    return (sh.take(np.arange(n_test, len(df))), sh.take(np.arange(n_test)))
+
+
+def _stats(model, test, label):
+    """(AUC, accuracy, scored frame, stats and per-row seconds) of a
+    trained wrapper on ``test``."""
+    from mmlspark_tpu_torch.train import (ComputeModelStatistics,
+                                          ComputePerInstanceStatistics)
+    t0 = time.perf_counter()
+    scored = model.transform(test)
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = ComputeModelStatistics(label_col=label).transform(scored)
+    per = ComputePerInstanceStatistics(label_col=label).transform(scored)
+    stats_s = time.perf_counter() - t0
+    import numpy as np
+    if not np.isfinite(per["log_loss"]).all():
+        raise AssertionError("24: non-finite per-row log loss")
+    return (float(st["AUC"][0]), float(st["accuracy"][0]), scored,
+            {"score_s": score_s, "statistics_s": stats_s,
+             "mean_log_loss": float(np.mean(per["log_loss"]))})
+
+
+def _k6_counts(what):
+    """K6 launches since :func:`_zero_launch_counts`; none may be plain."""
+    k6, plain, _native, _numpy = _launch_counts()
+    if k6 == 0 or plain:
+        raise AssertionError(f"{what}: K6 launches {k6} (want > 0), plain "
+                             f"calls {plain} (want 0)")
+    return k6
+
+
+def phase_train_adult(dev_info):
+    """24a: ``TrainClassifier`` on an Adult-shaped frame, the default
+    LogisticRegression and LightGBMClassifier (K6), each scored by
+    ComputeModelStatistics / ComputePerInstanceStatistics, against the
+    same port code with ``device="cpu"``."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.train import TrainClassifier
+    p = P24
+    df = DataFrame(adult_like(p["adult_rows"]))
+    train, test = _split(df, p["adult_test"], 24)
+    # Featurize's host seconds alone (TrainClassifier runs it again)
+    t0 = time.perf_counter()
+    fm = Featurize([c for c in df.columns if c != "income"]).fit(train)
+    width = len(fm.transform(train)["features"][0])
+    featurize_s = time.perf_counter() - t0
+    rec = {"rows": p["adult_rows"], "train_rows": len(train),
+           "feature_width": width, "featurize_host_s": featurize_s}
+    runs, bad = {}, []
+    for name, make in (
+            ("logistic", lambda dev: TrainClassifier(label_col="income",
+                                                     device=dev)),
+            ("lightgbm", lambda dev: TrainClassifier(
+                model=LightGBMClassifier(device=dev,
+                                         num_iterations=p["adult_iters"],
+                                         learning_rate=p["adult_lr"]),
+                label_col="income"))):
+        out = {}
+        for dev in (None, "cpu"):
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            model = make(dev).fit(train)
+            fit_s = time.perf_counter() - t0
+            k6 = _launch_counts()[0] if dev is None else None
+            if dev is None and name == "lightgbm":
+                k6 = _k6_counts("24a lightgbm")
+            auc, acc, scored, st = _stats(model, test, "income")
+            out["card" if dev is None else "cpu"] = dict(
+                fit_s=fit_s, auc=auc, accuracy=acc, k6_launches=k6, **st,
+                prob=np.stack(list(scored["probability"]))[:, 1],
+                pred=np.asarray(scored["prediction"]))
+        card, cpu = out["card"], out["cpu"]
+        d_auc = abs(card["auc"] - cpu["auc"])
+        dp = np.abs(card["prob"] - cpu["prob"])
+        flips = card["pred"] != cpu["pred"]
+        near = np.abs(cpu["prob"] - 0.5) <= p["lr_margin"]
+        if name == "logistic":
+            if d_auc > p["lr_auc_tol"] or (flips & ~near).any() or \
+                    card["k6_launches"]:
+                bad.append(
+                    f"24a logistic: AUC {card['auc']} vs CPU {cpu['auc']} "
+                    f"(bound {p['lr_auc_tol']}), {int(flips.sum())} "
+                    f"predictions differ ({int((flips & ~near).sum())} away "
+                    f"from 1/2), K6 launches {card['k6_launches']} (want 0)")
+            floor = p["lr_auc_floor"]
+        else:
+            if d_auc > p["gbdt_auc_tol"]:
+                bad.append(f"24a lightgbm: AUC {card['auc']} vs CPU "
+                           f"{cpu['auc']} (bound {p['gbdt_auc_tol']})")
+            floor = p["gbdt_auc_floor"]
+        if min(card["auc"], cpu["auc"]) <= floor:
+            bad.append(f"24a {name}: AUC {card['auc']} / CPU {cpu['auc']} "
+                       f"at or under {floor}")
+        for side in (card, cpu):
+            side.pop("prob")
+            side.pop("pred")
+        runs[name] = {"card": card, "cpu": cpu, "auc_diff": d_auc,
+                      "mean_abs_dp": float(dp.mean()),
+                      "max_abs_dp": float(dp.max()),
+                      "predictions_differ": int(flips.sum())}
+    rec.update(runs)
+    rec["k6_launches"] = runs["lightgbm"]["card"]["k6_launches"]
+    log(f"[24a train adult] {json.dumps(rec)} | {dev_info['smi']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def _tune(strategy, par, train_df, p, **kw):
+    """One ``TuneHyperparameters`` search over LightGBMClassifier on the
+    card: (tuner, best model, record)."""
+    from mmlspark_tpu_torch.automl import (RandomSpace, RangeHyperParam,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier
+    space = RandomSpace(
+        {"num_leaves": RangeHyperParam(15, 63, is_int=True),
+         "learning_rate": RangeHyperParam(0.05, 0.3, is_log=True),
+         "min_data_in_leaf": RangeHyperParam(20, 200, is_int=True),
+         "feature_fraction": RangeHyperParam(0.5, 1.0)}, seed=24)
+    tuner = TuneHyperparameters(
+        model=LightGBMClassifier(num_iterations=p["trial_iters"]),
+        search_space=space, number_of_iterations=p["trials"],
+        evaluation_metric="AUC", parallelism=par, seed=24,
+        train_fraction=p["train_fraction"],
+        search_strategy=strategy, **kw)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    best = tuner.fit(train_df)
+    wall = time.perf_counter() - t0
+    k6 = _k6_counts(f"24b {strategy} x{par}")
+    fits = {"full": p["trials"], "tpe": p["trials"]}.get(strategy)
+    if strategy == "halving":
+        lo, hi, eta = p["halving"]
+        fits, n, r = 0, p["trials"], lo
+        while r < hi and n > 1:
+            fits, n, r = fits + n, max(1, n // eta), min(hi, r * eta)
+        fits += n
+    rec = {"strategy": strategy, "parallelism": par, "trials": fits,
+           "wall_s": wall, "trials_per_s": fits / wall,
+           "s_per_trial": wall / fits, "k6_launches": k6,
+           "k6_per_trial": k6 / fits, "best_auc": tuner.best_metric,
+           "best_params": tuner.best_params}
+    return tuner, best, rec
+
+
+def phase_tune_higgs(dev_info):
+    """24b: TuneHyperparameters over LightGBMClassifier at HIGGS's width:
+    full at parallelism 4 and 1, halving, tpe; FindBestModel over the
+    three best models on the tuners' own validation rows."""
+    import numpy as np
+    from mmlspark_tpu_torch.automl import FindBestModel
+    from mmlspark_tpu_torch.core import DataFrame
+    p = P24
+    t0 = time.perf_counter()
+    X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    X, y = X[:p["higgs_rows"]].copy(), y[:p["higgs_rows"]].copy()
+    data_s = time.perf_counter() - t0
+    df = DataFrame({"features": X, "label": y})
+    recs, best = {}, {}
+    for key, strategy, par, kw in (
+            ("full x4", "full", 4, {}), ("full x1", "full", 1, {}),
+            ("halving", "halving", 4, dict(
+                min_resource=p["halving"][0], max_resource=p["halving"][1],
+                halving_factor=p["halving"][2])),
+            ("tpe", "tpe", 4, dict(tpe_startup_trials=p["tpe_startup"]))):
+        tuner, model, recs[key] = _tune(strategy, par, df, p, **kw)
+        best[key] = model
+        log(f"[24b {key}] {json.dumps(recs[key])}")
+    log(f"[24b searches] {json.dumps(recs)} | {dev_info['smi']}")
+    a, b = recs["full x4"], recs["full x1"]
+    if a["best_params"] != b["best_params"] or \
+            abs(a["best_auc"] - b["best_auc"]) > p["gbdt_auc_tol"]:
+        raise AssertionError(f"24b: full search at parallelism 4 picked "
+                             f"{a['best_params']} ({a['best_auc']}), at 1 "
+                             f"{b['best_params']} ({b['best_auc']})")
+    for key, r in recs.items():
+        if r["best_auc"] <= p["higgs_auc_floor"]:
+            raise AssertionError(f"24b {key}: best AUC {r['best_auc']} at "
+                                 f"or under {p['higgs_auc_floor']}")
+    # the tuners' validation rows: the same shuffle and cut
+    n_train = int(round(p["train_fraction"] * len(df)))
+    valid = df.shuffle(24).take(np.arange(n_train, len(df)))
+    names = ["full x4", "halving", "tpe"]
+    t0 = time.perf_counter()
+    res = FindBestModel([best[k] for k in names],
+                        evaluation_metric="AUC").fit(valid)
+    find_s = time.perf_counter() - t0
+    metrics = [m for _i, m in res.get("all_model_metrics")]
+    pick = names[int(np.argmax(metrics))]
+    if res.get("best_model") is not best[pick] or any(
+            abs(m - recs[k]["best_auc"]) > 1e-12
+            for k, m in zip(names, metrics)):
+        raise AssertionError(f"24b FindBestModel: metrics {metrics} against "
+                             f"the tuners' {[recs[k]['best_auc'] for k in names]}"
+                             f", picked another model than {pick}")
+    out = {"rows": len(df), "features": X.shape[1], "data_s": data_s,
+           "searches": recs, "find_best": {"metrics": dict(zip(names,
+                                                                metrics)),
+                                           "picked": pick, "s": find_s},
+           "k6_launches": sum(r["k6_launches"] for r in recs.values())}
+    log(f"[24b tune higgs] {json.dumps({k: v for k, v in out.items() if k != 'searches'})} | {dev_info['smi']}")
+    return out
+
+
+def _syllable_words(n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    syl = np.array([c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+                   + ["th", "sh", "er", "an", "on", "in", "st", "ng"])
+    words, seen = [], set()
+    while len(words) < n:
+        w = "".join(syl[rng.integers(0, len(syl), rng.integers(1, 4))])
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return np.array(words, dtype=object)
+
+
+def reviews_like(n, seed=24):
+    """Book-review-shaped text: each review 20-200 tokens drawn from a
+    Zipf vocabulary, a 1-5 rating from the sentiment of its words plus
+    noise (the rating shares of a review corpus), ``label`` = rating > 3."""
+    import numpy as np
+    p = P24
+    rng = np.random.default_rng(seed)
+    words = _syllable_words(p["vocab"], seed)
+    prob = 1.0 / np.arange(1, p["vocab"] + 1) ** p["zipf"]
+    prob /= prob.sum()
+    # 500 sentiment-bearing words among ranks 20-2,000 (a review's
+    # "great", "boring": common words)
+    sentiment = np.zeros(p["vocab"])
+    cue = rng.choice(np.arange(20, 2_000), 500, replace=False)
+    sentiment[cue] = rng.normal(0, 1, 500)
+    lens = rng.integers(p["tokens"][0], p["tokens"][1] + 1, n)
+    ids = rng.choice(p["vocab"], int(lens.sum()), p=prob)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    text = np.empty(n, dtype=object)
+    score = np.empty(n)
+    for i in range(n):
+        seg = ids[starts[i]:starts[i + 1]]
+        text[i] = " ".join(words[seg])
+        hits = sentiment[seg]
+        score[i] = hits.sum() / np.sqrt(max(1, np.count_nonzero(hits)))
+    score += rng.normal(0, 0.3, n)
+    rating = 1 + np.searchsorted(np.quantile(score, [0.08, 0.17, 0.32, 0.55]),
+                                 score)
+    return {"text": text, "rating": rating,
+            "label": (rating > 3).astype(np.int64)}
+
+
+def phase_text_pipeline(dev_info):
+    """24c: TextFeaturizer -> TrainClassifier(LogisticRegression) on
+    20,000 generated reviews; the card's fit against the CPU's on the same
+    features."""
+    import numpy as np
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.train import TrainClassifier
+    p = P24
+    t0 = time.perf_counter()
+    cols = reviews_like(p["reviews"])
+    data_s = time.perf_counter() - t0
+    df = DataFrame({"text": cols["text"], "label": cols["label"]})
+    train, test = _split(df, 0.25, 24)
+    t0 = time.perf_counter()
+    tfm = TextFeaturizer(input_col="text", output_col="features",
+                         num_features=p["text_features"]).fit(train)
+    fit_text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ftrain = tfm.transform(train).select(["features", "label"])
+    ftest = tfm.transform(test).select(["features", "label"])
+    text_s = time.perf_counter() - t0
+    k = p["text_check_rows"]
+    head = tfm.transform(train.head(k))["features"]
+    if not all(np.array_equal(a, b) for a, b in zip(head,
+                                                    ftrain["features"][:k])):
+        raise AssertionError("24c: features of the first rows differ "
+                             "between two transforms")
+    out = {}
+    for dev in (None, "cpu"):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        model = TrainClassifier(model=LogisticRegression(
+            device=dev, reg_param=p["text_reg"]),
+                                label_col="label").fit(ftrain)
+        fit_s = time.perf_counter() - t0
+        auc, acc, _scored, st = _stats(model, ftest, "label")
+        feats = model.get("featurizer").transform(
+            ftest.head(k))["features"]
+        out["card" if dev is None else "cpu"] = dict(
+            fit_s=fit_s, auc=auc, accuracy=acc, **st,
+            k6_launches=_launch_counts()[0], features=feats)
+    card, cpu = out["card"], out["cpu"]
+    same = all(np.array_equal(a, b) for a, b in zip(card.pop("features"),
+                                                    cpu.pop("features")))
+    d_auc = abs(card["auc"] - cpu["auc"])
+    tokens = int(sum(len(t.split()) for t in cols["text"]))
+    rec = {"reviews": p["reviews"], "tokens": tokens, "data_s": data_s,
+           "text_featurizer_fit_host_s": fit_text_s,
+           "text_featurizer_transform_host_s": text_s,
+           "tokens_per_host_s": tokens / (fit_text_s + text_s),
+           "positive_share": float(np.mean(cols["label"])),
+           "card": card, "cpu": cpu, "auc_diff": d_auc}
+    log(f"[24c text] {json.dumps(rec)} | {dev_info['smi']}")
+    if not same or d_auc > p["lr_auc_tol"] or \
+            min(card["auc"], cpu["auc"]) <= p["text_auc_floor"]:
+        raise AssertionError(f"24c: features bitwise {same}; AUC "
+                             f"{card['auc']} vs CPU {cpu['auc']} (within "
+                             f"{p['lr_auc_tol']}, above "
+                             f"{p['text_auc_floor']})")
+    return rec
+
+
+def _phase24(dev_info):
+    """Phases 24a-24c, each sub-phase's wall seconds beside it."""
+    import torch
+    out, secs = {}, {}
+    for key, fn in (("24a", phase_train_adult), ("24b", phase_tune_higgs),
+                    ("24c", phase_text_pipeline)):
+        t0 = time.perf_counter()
+        out[key] = fn(dev_info)
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["wall_s"] = secs
+    out["k6_launches"] = {"24a": out["24a"]["k6_launches"],
+                          "24b": out["24b"]["k6_launches"]}
+    log(f"[24] wall seconds {json.dumps(secs)}")
+    return out
+
+
 def _phase23(dev_info):
     """Phases 23a-23e, each sub-phase's wall seconds beside it."""
     import torch
@@ -9196,19 +9636,19 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18", "19", "20", "21", "22" and "23": phases 1, 2 and 14 (or
-    # 17, ..., 23);
+    # "17", "18", "19", "20", "21", "22", "23" and "24": phases 1, 2 and
+    # 14 (or 17, ..., 24);
     # "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21", "22", "23"}
+             "17", "18", "19", "20", "21", "22", "23", "24"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20, 21, 22 and 23")
+            f"19, 20, 21, 22, 23 and 24")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -9265,6 +9705,8 @@ def main(argv=()):
             _phase22(dev_info)
         if "23" in only:
             _phase23(dev_info)
+        if "24" in only:
+            _phase24(dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -9297,6 +9739,7 @@ def main(argv=()):
     p21 = _phase21(dev_info, hist_recs)
     p22 = _phase22(dev_info)
     _phase23(dev_info)
+    p24 = _phase24(dev_info)
     k6_19 = {**p19["19a"]["k6_launches"], **p19["19b"]["k6_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -9391,13 +9834,15 @@ def main(argv=()):
          "launches": (gbdt["k6_launches"] + est12a["k6_launches"]
                       + multi12b["k6_launches"] + sum(k6_19.values())
                       + sum(p21["k6_launches"].values())
-                      + sum(p22["k6_launches"].values())),
+                      + sum(p22["k6_launches"].values())
+                      + sum(p24["k6_launches"].values())),
          "launches_train_8c": gbdt["k6_launches"],
          "launches_estimator_12a": est12a["k6_launches"],
          "launches_multiclass_12b": multi12b["k6_launches"],
          "launches_afterfit_19": k6_19,
          "launches_trainer_21": p21["k6_launches"],
          "launches_rank_regularizers_checkpoints_22": p22["k6_launches"],
+         "launches_automl_24": p24["k6_launches"],
          "ranker_22a": {label: {k: p22["22a"]["k6"][label][k]
                                 for k in keys + ("shape",)}
                         for label in p22["22a"]["k6"]},

@@ -48,6 +48,7 @@ trainer, are added in f32). The plain version sums in row order.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -61,6 +62,9 @@ __all__ = ["level_histogram", "level_histogram_plain",
 
 #: bin dtypes the kernel takes -> bytes per bin (uint16 travels as int16)
 _BIN_DTYPES = {torch.uint8: 1, torch.int16: 2}
+#: the counters' read-modify-write under threads that fit at once (the
+#: tuner's trials)
+_COUNT_LOCK = threading.Lock()
 
 
 def prepare_bins_columns(xb, device=None) -> torch.Tensor:
@@ -119,7 +123,8 @@ def level_histogram_plain(bins_cols, node_rel, g, h, w_count, n_nodes: int,
     class's histogram computed as one single-class call computes it.
     Never counted as a launch; ``level_histogram_plain.calls`` counts
     calls."""
-    level_histogram_plain.calls += 1
+    with _COUNT_LOCK:
+        level_histogram_plain.calls += 1
     if g.dim() == 1:
         return _plain_one(bins_cols, node_rel, g, h, w_count, n_nodes,
                           n_bins, stats_dtype)
@@ -428,7 +433,8 @@ def level_histogram(bins_cols, node_rel, g, h, w_count, n_nodes: int,
     if err != 0:
         msg = lib.mmlspark_hist_error_string(err).decode()
         raise RuntimeError(f"level histogram kernel launch failed: {msg}")
-    level_histogram.launches += 1
+    with _COUNT_LOCK:
+        level_histogram.launches += 1
     return out
 
 

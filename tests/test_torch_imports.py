@@ -132,7 +132,26 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.cyber.dataset",
                  "mmlspark_tpu_torch.cyber.access_anomaly",
                  "mmlspark_tpu_torch.isolationforest",
-                 "mmlspark_tpu_torch.isolationforest.iforest"):
+                 "mmlspark_tpu_torch.isolationforest.iforest",
+                 "mmlspark_tpu_torch.featurize",
+                 "mmlspark_tpu_torch.featurize.text",
+                 "mmlspark_tpu_torch.featurize.tokenizer",
+                 "mmlspark_tpu_torch.featurize.value_indexer",
+                 "mmlspark_tpu_torch.featurize.clean_missing",
+                 "mmlspark_tpu_torch.featurize.data_conversion",
+                 "mmlspark_tpu_torch.featurize.count_selector",
+                 "mmlspark_tpu_torch.featurize.featurize",
+                 "mmlspark_tpu_torch.train",
+                 "mmlspark_tpu_torch.train.metrics",
+                 "mmlspark_tpu_torch.train.train",
+                 "mmlspark_tpu_torch.automl",
+                 "mmlspark_tpu_torch.automl.hyperparam",
+                 "mmlspark_tpu_torch.automl.tpe",
+                 "mmlspark_tpu_torch.automl.tune",
+                 "mmlspark_tpu_torch.stages",
+                 "mmlspark_tpu_torch.stages.misc",
+                 "mmlspark_tpu_torch.exploratory",
+                 "mmlspark_tpu_torch.exploratory.balance"):
         assert want in names
 
 
@@ -236,7 +255,8 @@ def _no_cuda():
                                    "pool", "decoder", "engine",
                                    "quant_cache", "quant_pool",
                                    "quant_decoder", "vw_learner",
-                                   "knn_model", "sar", "access_anomaly"])
+                                   "knn_model", "sar", "access_anomaly",
+                                   "train_classifier", "train_regressor"])
 def test_entry_points_default_to_cuda_and_raise(entry):
     _no_cuda()
     from mmlspark_tpu_torch.cyber import AccessAnomaly
@@ -248,6 +268,7 @@ def test_entry_points_default_to_cuda_and_raise(entry):
     from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
     from mmlspark_tpu_torch.serving.generation import GenerationEngine
     from mmlspark_tpu_torch.serving.kv_pool import PagedKVPool
+    from mmlspark_tpu_torch.train import TrainClassifier, TrainRegressor
     from mmlspark_tpu_torch.utils.device import resolve_device
     cfg = TransformerConfig(vocab=16, layers=1, d_model=8, heads=2, d_ff=16,
                             max_len=16, causal=True, norm="rmsnorm",
@@ -264,7 +285,9 @@ def test_entry_points_default_to_cuda_and_raise(entry):
              "quant_decoder": lambda: ContinuousDecoder(
                  init_transformer(cfg), cfg, kv_dtype="int8"),
              "vw_learner": VowpalWabbitClassifier, "knn_model": KNNModel,
-             "sar": SAR, "access_anomaly": AccessAnomaly}
+             "sar": SAR, "access_anomaly": AccessAnomaly,
+             "train_classifier": TrainClassifier,
+             "train_regressor": TrainRegressor}
     with pytest.raises(RuntimeError, match="CUDA"):
         build[entry]()
     assert resolve_device("cpu").type == "cpu"
