@@ -261,10 +261,13 @@ class Watchdog:
 
     def stop(self) -> None:
         self._stop.set()
-        t = self._thread
+        # under the lock: ``_register`` publishes the scan thread and
+        # starts it under the same lock, so this never sees (and joins) a
+        # thread another thread has made but not yet started
+        with self._lock:
+            t, self._thread = self._thread, None
         if t is not None:
             t.join(timeout=2 * self.interval + 1.0)
-            self._thread = None
 
     def last_stall_age(self) -> Optional[float]:
         """Seconds since the most recent stall, or None — the /healthz

@@ -17,6 +17,8 @@ bundle's blocks, journal bytes with the ``trace`` field, and the
 """
 
 import json
+import threading
+import time
 
 import pytest
 import torch
@@ -310,6 +312,33 @@ def test_disabled_watch_is_the_shared_noop_in_both():
         a, b = wd.watch("x"), pkg.wd.watch("y")
         return a is b, a is pkg.wd._NULL_WATCH
     assert assert_same(run) == (True, True)
+
+
+def test_stop_while_a_watch_starts_the_scan_thread(monkeypatch):
+    """``stop()`` racing the first watch: a thread that enters a watch
+    makes the scan thread and starts it; a ``stop()`` (``reset_watchdog``)
+    in between must not join a thread that is not started yet. The
+    start is held open until ``stop()`` has been called, then delayed,
+    so the race lands every time."""
+    made, go = threading.Event(), threading.Event()
+    real = threading.Thread
+
+    class SlowStart(real):
+        def start(self):
+            made.set()
+            go.wait(5)
+            time.sleep(0.2)
+            super().start()
+
+    monkeypatch.setattr(p_wd.threading, "Thread", SlowStart)
+    wd = p_wd.Watchdog(enabled=True, interval=3600.0)
+    entered = real(target=lambda: wd.watch("decoder_drain").__enter__())
+    entered.start()
+    assert made.wait(5)
+    go.set()
+    wd.stop()                       # joins the started scan thread
+    entered.join(5)
+    assert wd._thread is None and not entered.is_alive()
 
 
 def _memory_series():
