@@ -505,7 +505,7 @@ Phases (any failure exits non-zero and prints no result line):
    logistic AUC within 1e-4 and its predictions equal but where the CPU's
    probability is within 1e-4 of 1/2, LightGBM's AUC within 5e-3 (K6's
    atomics), both above 0.8; (b) ``TuneHyperparameters`` over
-   LightGBMClassifier on the first 1,000,000 rows of phase 8's HIGGS set
+   LightGBMClassifier on the first 500,000 rows of phase 8's HIGGS set
    (8 trials over num_leaves, learning_rate, min_data_in_leaf and
    feature_fraction; AUC): full at parallelism 4 and 1 (the same best
    params, best AUCs within 5e-3), halving (num_iterations 4 to 64,
@@ -517,8 +517,28 @@ Phases (any failure exits non-zero and prints no result line):
    (20-200 tokens over a Zipf vocabulary of 50,000 words, ratings 1-5
    cut at 3): features bitwise the CPU run's on 1,000 rows, AUC within
    1e-4 of the CPU's and above 0.8; the featurizers' host seconds.
+25. the HTTP client layer and the web services (host work, and K1 under
+   the served model; sizes in ``P25``): (a) HTTP on the port's own
+   server: a f32 ``GenerationEngine`` over phase 5's model (16 slots,
+   threaded transport) answers 64 rows of phase 5's prompt sizes
+   (32/128/384 tokens, 64 new) sent by ``SimpleHTTPTransformer`` (JSON
+   in, ``AsyncHTTPClient`` at concurrency 16, JSON out) and 16 more by
+   ``SingleThreadedHTTPClient``; every row's tokens equal an in-process
+   ``ContinuousDecoder``'s with the same settings, no error column is
+   set, K1's launches split by body against the engine's attention
+   calls; rows/s, client seconds a row (p50, max), the server's requests
+   by code; (b) ``SimpleDetectAnomalies``' local median/MAD detector on
+   1,000 series x 2,016 points (a week at the Numenta Anomaly
+   Benchmark's 5-minute cadence; synthesized, even-length groups) on the
+   card, scores bitwise and flags equal to ``device="cpu"``'s; seconds
+   of host grouping, device and result dicts; (c) the standard-library
+   transport: ``TextSentiment`` over 10,000 rows against an in-process
+   mock service at concurrency 16 (every answer 200 and as the mock
+   means it), then 500 rows with the mock answering 429 +
+   ``Retry-After: 0`` to every other call: every row completes; rows/s.
 
-``python3 chip_smoke.py 24`` runs phases 1, 2 and 24 only,
+``python3 chip_smoke.py 25`` runs phases 1, 2 and 25 only,
+``python3 chip_smoke.py 24`` phases 1, 2 and 24,
 ``python3 chip_smoke.py 23`` phases 1, 2 and 23,
 ``python3 chip_smoke.py 22`` phases 1, 2 and 22,
 ``python3 chip_smoke.py 21`` phases 1, 2 and 21,
@@ -9064,11 +9084,12 @@ P24 = dict(
     # a logistic-regression prediction may flip only where the CPU's
     # probability is this close to 1/2 (float32 sums in another order)
     lr_margin=1e-4,
-    # 24b: the first 1,000,000 rows of phase 8's HIGGS-shaped set, 28
-    # features; 8 trials a search; full and tpe at 16 iterations a trial;
-    # a tenth of the rows validates (a trial's host statistics cost ~1 s
-    # per 200,000 rows)
-    higgs_rows=1_000_000, trials=8, trial_iters=16, tpe_startup=4,
+    # 24b: the first 500,000 rows of phase 8's HIGGS-shaped set (1,000,000
+    # until phase 25 joined the script, to keep it within its time
+    # limit), 28 features; 8 trials a search; full and tpe at 16
+    # iterations a trial; a tenth of the rows validates (a trial's host
+    # statistics cost ~1 s per 200,000 rows)
+    higgs_rows=500_000, trials=8, trial_iters=16, tpe_startup=4,
     train_fraction=0.9,
     halving=(4, 64, 4), higgs_auc_floor=0.75,
     # 24c: generated book reviews, 20-200 tokens over a Zipf vocabulary of
@@ -9426,6 +9447,332 @@ def phase_text_pipeline(dev_info):
     return rec
 
 
+#: phase 25: HTTP on the port's own server (25a, phase 5's FULL model in
+#: f32 at phase 5's engine settings), the local anomaly detector at the
+#: Numenta Anomaly Benchmark's week of 5-minute points (25b), and the
+#: standard-library transport against an in-process mock (25c)
+P25 = dict(slots=16, max_len=1024, page_size=16, prefill_chunk=256,
+           steps_per_dispatch=4, sizes=(32, 128, 384), max_new=64,
+           async_rows=64, single_rows=16, concurrency=16,
+           series=1000, points=2016, sentiment_rows=10_000,
+           shed_rows=500)
+
+
+def _served_codes():
+    """The port server's answered requests by status code so far."""
+    from mmlspark_tpu_torch.serving import server as srv
+    out = {}
+    for labels, series in srv._M_REQUESTS.series():
+        out[labels["code"]] = out.get(labels["code"], 0) + int(series.get())
+    return out
+
+
+def _timed_handler(times):
+    """``advanced_handler`` with each request's client seconds kept."""
+    from mmlspark_tpu_torch.io.http.clients import advanced_handler
+    inner = advanced_handler(timeout=600.0)
+    lock = threading.Lock()
+
+    def handle(session, request):
+        t0 = time.perf_counter()
+        try:
+            return inner(session, request)
+        finally:
+            with lock:
+                times.append(time.perf_counter() - t0)
+    return handle
+
+
+def _http_rows(df_cls, obj, rows, concurrency, url, times):
+    from mmlspark_tpu_torch.io.http import (JSONInputParser,
+                                            SimpleHTTPTransformer)
+    t = SimpleHTTPTransformer(input_col="req", output_col="reply",
+                              error_col="error", concurrency=concurrency,
+                              timeout=600.0,
+                              input_parser=JSONInputParser(url=url),
+                              handler=_timed_handler(times))
+    return t.transform(df_cls({"req": obj(rows)}))
+
+
+def phase_http_generation(params_np, dev_info):
+    """25a: the port's HTTP client layer in front of the port's own
+    generation server, f32 at full width; each row's tokens against an
+    in-process ``ContinuousDecoder`` with the same settings."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    from mmlspark_tpu_torch.serving.generation import GenerationEngine
+    c = P25
+    cfg = _full_cfg(torch.float32)
+    rng = np.random.default_rng(25)
+    n_rows = c["async_rows"] + c["single_rows"]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab,
+                                             c["sizes"][i % 3])]
+               for i in range(n_rows)]
+    rows = [{"tokens": p, "max_new": c["max_new"]} for p in prompts]
+    settings = dict(max_slots=c["slots"], max_len=c["max_len"],
+                    page_size=c["page_size"],
+                    prefill_chunk=c["prefill_chunk"],
+                    steps_per_dispatch=c["steps_per_dispatch"])
+    eng = GenerationEngine(params_np, cfg, transport="threaded", **settings)
+    times = {"async": [], "single": []}
+    try:
+        eng.start()
+        st, _ = _post(eng.address, {"tokens": [1, 2, 3], "max_new": 4})
+        assert st == 200
+        dec = eng.decoder
+        torch.cuda.synchronize()
+        stats0 = dict(dec._kv.stats)
+        chunks0, hits0 = len(dec._chunk_trace), dec.stats["prefix_hits"]
+        codes0 = _served_codes()
+        _zero_pa_counts()
+        t0 = time.perf_counter()
+        out_a = _http_rows(DataFrame, object_col, rows[:c["async_rows"]],
+                           c["concurrency"], eng.address, times["async"])
+        t1 = time.perf_counter()
+        out_s = _http_rows(DataFrame, object_col, rows[c["async_rows"]:], 1,
+                           eng.address, times["single"])
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        launches = _launch_split(
+            "25a f32", dec._kv.stats["attn_ticks_kernel"]
+            - stats0["attn_ticks_kernel"], len(dec._chunk_trace) - chunks0,
+            dec.stats["prefix_hits"] - hits0, cfg.layers, True)
+        codes = {k: v - codes0.get(k, 0) for k, v in _served_codes().items()
+                 if v - codes0.get(k, 0)}
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    got = [r["tokens"] if r else None for r in
+           list(out_a["reply"]) + list(out_s["reply"])]
+    errs = [e for e in list(out_a["error"]) + list(out_s["error"])
+            if e is not None]
+    if errs:
+        raise AssertionError(f"25a: {len(errs)} rows errored, first "
+                             f"{errs[0]}")
+    ref = ContinuousDecoder(params_np, cfg, **settings)
+    reqs = [ref.submit(np.asarray(p), c["max_new"]) for p in prompts]
+    _drive(ref, reqs)
+    ref.flush()
+    want = [ref.result(r, timeout=1) for r in reqs]
+    del ref
+    torch.cuda.empty_cache()
+    bad = [i for i in range(n_rows) if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"25a f32: rows {bad[:8]} (of {len(bad)}) "
+                             f"differ from the in-process decoder, first "
+                             f"{got[bad[0]]} vs {want[bad[0]]}")
+    if codes != {"200": n_rows}:
+        raise AssertionError(f"25a: the server answered {codes}, want "
+                             f"{n_rows} x 200")
+    every = sorted(times["async"] + times["single"])
+    rec = {"rows": n_rows, "async_rows": c["async_rows"],
+           "single_rows": c["single_rows"],
+           "concurrency": c["concurrency"], "max_new": c["max_new"],
+           "async_rows_per_s": c["async_rows"] / (t1 - t0),
+           "single_rows_per_s": c["single_rows"] / (t2 - t1),
+           "async_wall_s": t1 - t0, "single_wall_s": t2 - t1,
+           "tok_per_s_async": c["async_rows"] * c["max_new"] / (t1 - t0),
+           "client_s_p50": statistics.median(every),
+           "client_s_max": every[-1],
+           "client_s_p50_async": statistics.median(times["async"]),
+           "client_s_p50_single": statistics.median(times["single"]),
+           "server_codes": codes, "launches": launches}
+    log(f"[25a http generation] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def nab_week_like(series, points, seed=25):
+    """``series`` synthetic series of ``points`` 5-minute values (a daily
+    cycle, noise, a level each series, ~0.2% spikes), as the group /
+    timestamp / value columns ``SimpleDetectAnomalies`` reads."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(points)
+    day = np.sin(2 * np.pi * t / 288.0)                   # 288 points a day
+    level = rng.uniform(10, 1000, (series, 1))
+    vals = level * (1 + 0.2 * day) + rng.standard_normal(
+        (series, points)) * level * 0.05
+    spikes = rng.random((series, points)) < 0.002
+    vals[spikes] += level.repeat(points, 1)[spikes] * rng.uniform(
+        0.5, 2.0, spikes.sum())
+    groups = np.repeat(np.array([f"s{i:04d}" for i in range(series)],
+                                dtype=object), points)
+    return groups, np.tile(t * 300, series), vals.reshape(-1)
+
+
+def phase_local_anomaly(dev_info):
+    """25b: ``SimpleDetectAnomalies`` without a url on the card against
+    the port's plain path (``device="cpu"``) on the same frame."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.services import SimpleDetectAnomalies
+    c = P25
+    groups, ts, vals = nab_week_like(c["series"], c["points"])
+    df = DataFrame({"group": groups, "timestamp": ts, "value": vals})
+    runs = {}
+    for name, device in (("card", None), ("card_warm", None),
+                         ("cpu", "cpu")):
+        t = SimpleDetectAnomalies(device=device, output_col="an",
+                                  error_col="err")
+        t0 = time.perf_counter()
+        out = t.transform(df)
+        wall = time.perf_counter() - t0
+        an = out["an"]
+        runs[name] = {"wall_s": wall, **t.phase_seconds,
+                      "scores": np.fromiter((d["score"] for d in an),
+                                            np.float32, len(an)),
+                      "flags": np.fromiter((d["isAnomaly"] for d in an),
+                                           bool, len(an))}
+        del out, an
+    card, cpu = runs["card_warm"], runs["cpu"]
+    for key in ("card", "card_warm"):
+        r = runs[key]
+        if not np.array_equal(r["scores"].view(np.int32),
+                              cpu["scores"].view(np.int32)) or \
+                not np.array_equal(r["flags"], cpu["flags"]):
+            diff = int((r["scores"].view(np.int32)
+                        != cpu["scores"].view(np.int32)).sum())
+            raise AssertionError(f"25b {key}: {diff} scores differ from "
+                                 f"device='cpu'")
+    n_flag = int(card["flags"].sum())
+    if not 0 < n_flag < len(vals) // 50:
+        raise AssertionError(f"25b: {n_flag} of {len(vals)} rows flagged")
+    torch.cuda.empty_cache()
+    rec = {"rows": len(vals), "series": c["series"],
+           "points": c["points"], "flagged": n_flag,
+           **{name: {k: v for k, v in r.items()
+                     if k not in ("scores", "flags")}
+              for name, r in runs.items()}}
+    log(f"[25b local anomaly] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _sentiment_mock(shed):
+    """An in-process text-sentiment service shaped as the JAX tests' mock
+    (``tests/test_services.py``): the key header checked, the document's
+    id, sentiment and text length answered; with ``shed``, every other call answers 429
+    + ``Retry-After: 0``. Returns (server, counts)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    counts = {"calls": 0, "429": 0, "200": 0, "bad": 0}
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # headers and body leave in two writes: without TCP_NODELAY the
+        # body waits out the client's delayed ACK
+        disable_nagle_algorithm = True
+
+        def log_message(self, *a):
+            pass
+
+        def _reply(self, code, obj, headers=()):
+            out = json.dumps(obj).encode()
+            self.send_response(code)
+            for k, v in headers:
+                self.send_header(k, v)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(n))
+            with lock:
+                counts["calls"] += 1
+                shed_now = shed and counts["calls"] % 2 == 1
+                if shed_now:
+                    counts["429"] += 1
+            if shed_now:
+                return self._reply(429, {"error": "slow down"},
+                                   [("Retry-After", "0")])
+            docs = body.get("documents") or []
+            if self.path != "/text/sentiment" or len(docs) != 1 or \
+                    self.headers.get("Ocp-Apim-Subscription-Key") != \
+                    "secret" or not docs[0].get("text"):
+                with lock:
+                    counts["bad"] += 1
+                return self._reply(400, {"error": "unexpected request"})
+            doc = docs[0]
+            with lock:
+                counts["200"] += 1
+            self._reply(200, {"documents": [
+                {"id": doc["id"], "sentiment": "positive"
+                 if "good" in doc["text"] else "negative",
+                 "confidenceScores": {"positive": len(doc["text"])}}]})
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, args=(0.05,),
+                     daemon=True).start()
+    return httpd, counts
+
+
+def _sentiment_run(n, shed):
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.core.dataframe import object_col
+    from mmlspark_tpu_torch.services import TextSentiment
+    texts = [f"{'good' if i % 3 else 'bad'} review {i}" for i in range(n)]
+    httpd, counts = _sentiment_mock(shed)
+    try:
+        t = TextSentiment(url=f"http://127.0.0.1:{httpd.server_address[1]}"
+                              "/text/sentiment", output_col="out",
+                          error_col="err", concurrency=P25["concurrency"])
+        t.set_scalar_param("subscription_key", "secret")
+        t.set_vector_param("text", "txt")
+        t0 = time.perf_counter()
+        out = t.transform(DataFrame({"txt": object_col(texts)}))
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    what = "25c shed" if shed else "25c"
+    errs = [e for e in out["err"] if e is not None]
+    if errs:
+        raise AssertionError(f"{what}: {len(errs)} rows errored, first "
+                             f"{errs[0]}")
+    for i, (o, text) in enumerate(zip(out["out"], texts)):
+        want = "positive" if "good" in text else "negative"
+        if o is None or o.get("sentiment") != want or \
+                o.get("confidenceScores") != {"positive": len(text)}:
+            raise AssertionError(f"{what}: row {i} came back {o}")
+    if counts["200"] != n or counts["bad"]:
+        raise AssertionError(f"{what}: the mock counted {counts}")
+    if shed and counts["429"] < n // 2:
+        raise AssertionError(f"{what}: only {counts['429']} calls shed")
+    return {"rows": n, "wall_s": wall, "rows_per_s": n / wall, **counts}
+
+
+def phase_http_transport(dev_info):
+    """25c: the standard-library transport on the card machine's Python,
+    host only."""
+    rec = {"plain": _sentiment_run(P25["sentiment_rows"], False),
+           "shed_every_other": _sentiment_run(P25["shed_rows"], True),
+           "concurrency": P25["concurrency"]}
+    log(f"[25c http transport] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def _phase25(params_np, dev_info):
+    """Phases 25a-25c, each sub-phase's wall seconds beside it."""
+    out, secs = {}, {}
+    for key, fn in (("25a", lambda: phase_http_generation(params_np,
+                                                          dev_info)),
+                    ("25b", lambda: phase_local_anomaly(dev_info)),
+                    ("25c", lambda: phase_http_transport(dev_info))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t0
+    out["wall_s"] = secs
+    log(f"[25] wall seconds {json.dumps(secs)}")
+    return out
+
+
 def _phase24(dev_info):
     """Phases 24a-24c, each sub-phase's wall seconds beside it."""
     import torch
@@ -9636,19 +9983,19 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18", "19", "20", "21", "22", "23" and "24": phases 1, 2 and
-    # 14 (or 17, ..., 24);
+    # "17", "18", "19", "20", "21", "22", "23", "24" and "25": phases 1, 2
+    # and 14 (or 17, ..., 25);
     # "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21", "22", "23", "24"}
+             "17", "18", "19", "20", "21", "22", "23", "24", "25"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20, 21, 22, 23 and 24")
+            f"19, 20, 21, 22, 23, 24 and 25")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -9707,6 +10054,8 @@ def main(argv=()):
             _phase23(dev_info)
         if "24" in only:
             _phase24(dev_info)
+        if "25" in only:
+            _phase25(params_np, dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -9730,6 +10079,7 @@ def main(argv=()):
     train_rec = flash_recs["train bfloat16"]
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
     bert14 = _phase14(dev_info, params_np)
+    p25 = _phase25(params_np, dev_info)
     del params_np
     phase_onnx(dev_info)
     phase_image(dev_info)
@@ -9768,11 +10118,14 @@ def main(argv=()):
     # speculative reference loop, FMA in f32 and tensor-core in bf16
     k1_20 = {"fma": p20["20b"]["k1_launches_fma"],
              "mma": p20["20b"]["k1_launches_mma"]}
+    k1_25 = p25["25a"]["launches"]["k1"]
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226",
-         "launches": serving["k1_launches"] + sum(k1_20.values()),
+         "launches": serving["k1_launches"] + sum(k1_20.values()) + k1_25,
          "launches_serving_5": serving["k1_launches"],
+         "launches_http_generation_25a": p25["25a"]["launches"],
+         "http_services_25": p25,
          "launches_generation_20b": k1_20, "generation_20": p20,
          "launches_decode": serving["k1_launches_decode"],
          "launches_extend": serving["k1_launches_extend"],

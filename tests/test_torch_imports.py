@@ -151,18 +151,42 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.stages",
                  "mmlspark_tpu_torch.stages.misc",
                  "mmlspark_tpu_torch.exploratory",
-                 "mmlspark_tpu_torch.exploratory.balance"):
+                 "mmlspark_tpu_torch.exploratory.balance",
+                 "mmlspark_tpu_torch.utils.async_utils",
+                 "mmlspark_tpu_torch.io.http",
+                 "mmlspark_tpu_torch.io.http.clients",
+                 "mmlspark_tpu_torch.io.http.parsers",
+                 "mmlspark_tpu_torch.io.http.http_transformer",
+                 "mmlspark_tpu_torch.io.ws",
+                 "mmlspark_tpu_torch.io.powerbi",
+                 "mmlspark_tpu_torch.services",
+                 "mmlspark_tpu_torch.services.base",
+                 "mmlspark_tpu_torch.services.anomaly",
+                 "mmlspark_tpu_torch.services.text",
+                 "mmlspark_tpu_torch.services.translate",
+                 "mmlspark_tpu_torch.services.vision",
+                 "mmlspark_tpu_torch.services.face",
+                 "mmlspark_tpu_torch.services.form",
+                 "mmlspark_tpu_torch.services.search",
+                 "mmlspark_tpu_torch.services.geospatial",
+                 "mmlspark_tpu_torch.services.mvad",
+                 "mmlspark_tpu_torch.services.audio",
+                 "mmlspark_tpu_torch.services.speech",
+                 "mmlspark_tpu_torch.services.speech_streaming"):
         assert want in names
 
 
 def test_imports_load_no_jax_and_no_reference_package():
+    """... nor ``requests``: the port's HTTP clients are the standard
+    library's, and the card's machine has no ``requests``."""
     code = (
         "import importlib, json, sys\n"
         f"for name in {_port_modules()!r} + {ROOT_SCRIPTS!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) or\n"
-        "             m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"
+        "             m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.') or\n"
+        "             m == 'requests' or m.startswith('requests.'))\n"
         "print(json.dumps(bad))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(ROOT),
            "HOME": os.environ.get("HOME", "/tmp")}
@@ -256,7 +280,8 @@ def _no_cuda():
                                    "quant_cache", "quant_pool",
                                    "quant_decoder", "vw_learner",
                                    "knn_model", "sar", "access_anomaly",
-                                   "train_classifier", "train_regressor"])
+                                   "train_classifier", "train_regressor",
+                                   "simple_detect_anomalies"])
 def test_entry_points_default_to_cuda_and_raise(entry):
     _no_cuda()
     from mmlspark_tpu_torch.cyber import AccessAnomaly
@@ -268,6 +293,7 @@ def test_entry_points_default_to_cuda_and_raise(entry):
     from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
     from mmlspark_tpu_torch.serving.generation import GenerationEngine
     from mmlspark_tpu_torch.serving.kv_pool import PagedKVPool
+    from mmlspark_tpu_torch.services import SimpleDetectAnomalies
     from mmlspark_tpu_torch.train import TrainClassifier, TrainRegressor
     from mmlspark_tpu_torch.utils.device import resolve_device
     cfg = TransformerConfig(vocab=16, layers=1, d_model=8, heads=2, d_ff=16,
@@ -287,7 +313,9 @@ def test_entry_points_default_to_cuda_and_raise(entry):
              "vw_learner": VowpalWabbitClassifier, "knn_model": KNNModel,
              "sar": SAR, "access_anomaly": AccessAnomaly,
              "train_classifier": TrainClassifier,
-             "train_regressor": TrainRegressor}
+             "train_regressor": TrainRegressor,
+             "simple_detect_anomalies": lambda: SimpleDetectAnomalies(
+                 device=None)}
     with pytest.raises(RuntimeError, match="CUDA"):
         build[entry]()
     assert resolve_device("cpu").type == "cpu"
