@@ -379,7 +379,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 21. the rest of the GBDT trainer at full width, K6 on every level (5
    launches an iteration, counted; no plain histogram call on the path)
-   — (a) goss, dart and rf on 8c's HIGGS shape, 25 iterations each
+   — (a) goss, dart and rf on 8c's HIGGS shape (the first 2,750,000 of
+   its rows, in (b) and (e) too), 25 iterations each
    beside gbdt (rf with bagging 0.632 every iteration): each mode's
    first tree through K6 has the splits of the same tree through the
    plain histogram in float64 (or a recorded tie, as 8b); goss's and dart's train
@@ -394,13 +395,13 @@ Phases (any failure exits non-zero and prints no result line):
    25 iterations: predictions monotone along a 64-point sweep of each
    constrained column on 4,096 rows, every root-to-leaf path within one
    group; (c) ``LightGBMClassifier.fit`` on a ``DataFrame`` of benchm-ml's
-   airline shape (5,000,000 rows of its 10M: Month 12, DayofMonth 31, DayOfWeek 7,
+   airline shape (2,500,000 rows of its 10M: Month 12, DayofMonth 31, DayOfWeek 7,
    UniqueCarrier 22, Origin 300 and Dest 300 categorical, DepTime and
    Distance numeric; a seeded per-category delay rule) with
    ``categorical_feature`` and without: AUC with it at least AUC
    without; ``transform``'s probabilities on the first 1,000,000 rows
    within 1e-6 of the booster's; time to model, sec/iter, the encoder's
-   host seconds; (d) the same rows one-hot encoded, a 5,000,000 x 674
+   host seconds; (d) the same rows one-hot encoded, a 2,500,000 x 674
    CSR of 8 non-zeros a row, through ``train()`` with EFB: the plan's
    bundles and bundle bins, host binning and bundling seconds, sec/iter,
    K6 at the bundled shape (uint16, 1 and 16 nodes; ms, bound,
@@ -505,7 +506,7 @@ Phases (any failure exits non-zero and prints no result line):
    logistic AUC within 1e-4 and its predictions equal but where the CPU's
    probability is within 1e-4 of 1/2, LightGBM's AUC within 5e-3 (K6's
    atomics), both above 0.8; (b) ``TuneHyperparameters`` over
-   LightGBMClassifier on the first 500,000 rows of phase 8's HIGGS set
+   LightGBMClassifier on the first 250,000 rows of phase 8's HIGGS set
    (8 trials over num_leaves, learning_rate, min_data_in_leaf and
    feature_fraction; AUC): full at parallelism 4 and 1 (the same best
    params, best AUCs within 5e-3), halving (num_iterations 4 to 64,
@@ -536,8 +537,36 @@ Phases (any failure exits non-zero and prints no result line):
    mock service at concurrency 16 (every answer 200 and as the mock
    means it), then 500 rows with the mock answering 429 +
    ``Retry-After: 0`` to every other call: every row completes; rows/s.
+26. the distributed serving plane (``serving/distributed.py``: a driver
+   registry and three ``DistributedWorker``s in one process, a
+   ``ServingCluster``; sizes in ``P26``) with the port's decoders behind
+   ``adopt_handler`` and ``session_exporter``, phase 4's FULL model:
+   (a) warm drain: worker-0's bf16 ``ContinuousDecoder`` (16 slots)
+   runs 16 sessions (seeded prompts of 128-448 tokens, 64 new each) for
+   24 steps, then ``drain_worker("worker-0")`` checkpoints every live
+   session and ships its page blob over ``/_adopt`` to worker-1, whose
+   decoder restores each one warm: every session's tokens equal an
+   uninterrupted decoder's, the adopter prefills nothing and launches
+   only the split decode body, the adopted pages and scales equal the
+   blob byte for byte, worker-0 is gone from the routing table; bf16
+   pages (K1), then int8 (K2); blob bytes raw and as JSON, the drain's
+   seconds, ms an adopted session; (b) cold kill: worker-1's f32
+   decoder journals 4 sessions into worker-1's server journal, its
+   heartbeats stop without a goodbye, the driver's sweeper (1 s) calls
+   the worker dead and the cluster replays the journal onto worker-2's
+   decoder over ``/_adopt``, which re-prefills each session: f32 tokens
+   equal the uninterrupted decoder's; seconds from the last heartbeat
+   to the verdict and to the adoption, re-prefill chunks, launches by
+   body; (c) bench.py's scenario phase: ``run_scenario`` of ``smoke``,
+   then ``decode-kill``, each against a fresh 3-worker cluster behind
+   ``cluster_echo_engine`` (5 ms a batch of 16): the scorecard
+   reconciles exactly with the driver's federated ``/debug/cluster``,
+   no arrival is lost, ``decode-kill`` loses no session and recovers at
+   least one, ``/debug/scenario`` on a worker answers "running" during
+   the run; counts, open-loop p50/p99 and fairness error (host numbers).
 
-``python3 chip_smoke.py 25`` runs phases 1, 2 and 25 only,
+``python3 chip_smoke.py 26`` runs phases 1, 2 and 26 only,
+``python3 chip_smoke.py 25`` phases 1, 2 and 25,
 ``python3 chip_smoke.py 24`` phases 1, 2 and 24,
 ``python3 chip_smoke.py 23`` phases 1, 2 and 23,
 ``python3 chip_smoke.py 22`` phases 1, 2 and 22,
@@ -7342,11 +7371,14 @@ def phase_external_data(dev_info):
 
 #: phase 21: 25 iterations a run at 8c's params; the sweeps' rows and
 #: points; the airline shape (benchm-ml's ``airline``, 10M rows; 5M since
-#: phase 24 joined the script, to keep it within its time limit), the
-#: rows ``transform`` scores, the EFB prefix compared with a dense model
+#: phase 24 joined the script, 2.5M since phase 26 did, to keep it within
+#: its time limit), the
+#: rows ``transform`` scores, the EFB prefix compared with a dense model;
+#: the HIGGS rows 21a, 21b and 21e fit (the first 2.75M of phase 8's
+#: 11M since phase 26 joined the script, for the same reason)
 P21 = dict(iters=25, sweep_rows=4096, sweep_points=64,
-           airline_rows=5_000_000, transform_rows=1_000_000,
-           efb_prefix=250_000, efb_prefix_iters=10)
+           airline_rows=2_500_000, transform_rows=1_000_000,
+           efb_prefix=250_000, efb_prefix_iters=10, higgs_rows=2_750_000)
 #: benchm-ml's airline columns that are categorical, with their levels
 #: (the 2007 flights' months, days, carriers and airports)
 AIRLINE_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
@@ -9084,12 +9116,12 @@ P24 = dict(
     # a logistic-regression prediction may flip only where the CPU's
     # probability is this close to 1/2 (float32 sums in another order)
     lr_margin=1e-4,
-    # 24b: the first 500,000 rows of phase 8's HIGGS-shaped set (1,000,000
-    # until phase 25 joined the script, to keep it within its time
-    # limit), 28 features; 8 trials a search; full and tpe at 16
+    # 24b: the first 250,000 rows of phase 8's HIGGS-shaped set (1,000,000
+    # until phase 25 joined the script, 500,000 until phase 26 did, to
+    # keep it within its time limit), 28 features; 8 trials a search; full and tpe at 16
     # iterations a trial; a tenth of the rows validates (a trial's host
     # statistics cost ~1 s per 200,000 rows)
-    higgs_rows=500_000, trials=8, trial_iters=16, tpe_startup=4,
+    higgs_rows=250_000, trials=8, trial_iters=16, tpe_startup=4,
     train_fraction=0.9,
     halving=(4, 64, 4), higgs_auc_floor=0.75,
     # 24c: generated book reviews, 20-200 tokens over a Zipf vocabulary of
@@ -9758,6 +9790,399 @@ def phase_http_transport(dev_info):
     return rec
 
 
+# ---- phase 26: the distributed serving plane ---------------------------------
+
+#: phase 26 at FULL's widths. 26a: worker-0's decoder holds ``sessions``
+#: sessions (seeded prompts of ``prompt`` tokens, ``new`` new tokens each)
+#: and is drained to worker-1 after ``steps`` steps; 26b: worker-1's f32
+#: decoder journals ``kill_sessions`` sessions, and its heartbeats stop
+#: ``kill_steps`` steps after the last prompt's prefill, its prompts prefilled in chunks of
+#: ``kill_chunk`` (so the cold restore re-prefills through K1's extends);
+#: ``liveness`` (s) is the driver's sweep
+#: interval there (a dead verdict after 3 of them without a heartbeat),
+#: ``heartbeat`` the workers'; 26c: bench.py's scenario phase
+#: (``bench.py:866-905``) on the port
+P26 = dict(sessions=16, prompt=(128, 448), new=64, steps=24,
+           max_slots=16, max_len=512, page_size=16, prefill_chunk=512,
+           kill_sessions=4, kill_prompt=(64, 256), kill_new=32,
+           kill_steps=8, kill_chunk=128, liveness=1.0, heartbeat=0.1,
+           scenarios=("smoke", "decode-kill"), service_s=0.005, batch=16)
+
+
+def _p26_prompts(n, lo, hi, vocab, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def _p26_engine(params_np, cfg, kv_dtype=None, **kw):
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    c = P26
+    kw.setdefault("prefill_chunk", c["prefill_chunk"])
+    return ContinuousDecoder(params_np, cfg, kv_dtype=kv_dtype,
+                             max_slots=c["max_slots"], max_len=c["max_len"],
+                             page_size=c["page_size"], **kw)
+
+
+def _p26_uninterrupted(params_np, cfg, kv_dtype, prompts, new, **kw):
+    import torch
+    eng = _p26_engine(params_np, cfg, kv_dtype, **kw)
+    reqs = [eng.submit(p, new) for p in prompts]
+    _drive(eng, reqs)
+    eng.flush()
+    out = [eng.session_result(r, timeout=1) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _adopting_handler(worker, eng, adopted):
+    """``worker``'s ``/_adopt`` on ``eng``: each session restored warm
+    (with its page blob) or cold; the restores' seconds (the stream
+    synchronized) go into ``adopted["restore_s"]``."""
+    import torch
+
+    def handler(payload):
+        entries = payload.get("sessions") or []
+        t0 = time.perf_counter()
+        for entry in entries:
+            req = eng.restore_session(entry["session"],
+                                      kv_blob=entry.get("kv"))
+            adopted["reqs"].append((req, entry.get("kv")))
+        torch.cuda.synchronize()
+        adopted["restore_s"] += time.perf_counter() - t0
+        adopted["at"] = time.time()
+        return {"ok": True, "adopted": len(entries),
+                "mode": payload.get("mode", "cold"),
+                "worker": worker.worker_id}
+    return handler
+
+
+def _b64_raw(s):
+    return len(s) * 3 // 4 - s[-2:].count("=")
+
+
+def _warm_drain(params_np, dev_info, kv_dtype, name, jdir):
+    """26a for one page dtype: the drain of worker-0's live sessions to
+    worker-1's decoder over ``/_adopt``. Returns its record."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.serving.distributed import ServingCluster
+    c = P26
+    cfg = _full_cfg(torch.bfloat16)
+    prompts = _p26_prompts(c["sessions"], *c["prompt"], cfg.vocab, 26)
+    want = _p26_uninterrupted(params_np, cfg, kv_dtype, prompts, c["new"])
+    cluster = ServingCluster(3, reply_timeout=60.0, journal_dir=jdir)
+    try:
+        src = _p26_engine(params_np, cfg, kv_dtype)
+        reqs = [src.submit(p, c["new"], session_id=f"26a-{name}-{i}")
+                for i, p in enumerate(prompts)]
+        for _ in range(c["steps"]):
+            src.step()
+        if not all(r.tokens and not r.done for r in reqs):
+            raise AssertionError(f"26a {name}: not every session decoding "
+                                 f"after {c['steps']} steps")
+        dst = _p26_engine(params_np, cfg, kv_dtype)
+        exported = {"s": 0.0, "entries": []}
+
+        def exporter():
+            t0 = time.perf_counter()
+            out = [src.checkpoint_session(r) for r in reqs]
+            exported["s"] = time.perf_counter() - t0
+            exported["entries"] = out
+            return out
+
+        adopted = {"reqs": [], "restore_s": 0.0}
+        w0, w1 = cluster.worker("worker-0"), cluster.worker("worker-1")
+        w0.session_exporter = exporter
+        w1.adopt_handler = _adopting_handler(w1, dst, adopted)
+        prefills0 = dst.stats["prefills"]
+        t0 = time.perf_counter()
+        out = cluster.drain_worker("worker-0", target_id="worker-1")
+        drain_s = time.perf_counter() - t0
+        entries = exported["entries"]
+        if out.get("adopted") != len(reqs) or out.get("mode") != "warm" or \
+                any(e["kv"] is None for e in entries):
+            raise AssertionError(f"26a {name}: drain answered {out}")
+        if "worker-0" in cluster.driver.routing_table() or \
+                [w.worker_id for w in cluster.workers] != \
+                ["worker-1", "worker-2"]:
+            raise AssertionError(f"26a {name}: worker-0 still routed")
+        # the adopted pages, before any step writes the next position
+        for req, blob in adopted["reqs"]:
+            _blob_bytes_equal(f"26a {name} adopt", blob, dst._kv,
+                              dst._slot_pages[dst._slot_of(req)]
+                              [:blob["n_pages"]])
+        raw = sum(_b64_raw(e["kv"]["data"][i][k]) for e in entries
+                  for i in range(len(e["kv"]["data"]))
+                  for k in e["kv"]["data"][i])
+        wire = len(json.dumps({"sessions": entries, "mode": "warm",
+                               "from": "worker-0"}))
+        positions = sum(e["kv"]["length"] for e in entries)
+        del src, entries, exported["entries"]
+        torch.cuda.synchronize()
+        _zero_pa_counts()
+        stats0 = dict(dst._kv.stats)
+        chunks0 = len(dst._chunk_trace)
+        got_reqs = [r for r, _ in adopted["reqs"]]
+        _drive(dst, got_reqs)
+        dst.flush()
+        got = [dst.session_result(r, timeout=1) for r in got_reqs]
+        launches = _launch_split(
+            f"26a {name}", dst._kv.stats["attn_ticks_kernel"]
+            - stats0["attn_ticks_kernel"],
+            len(dst._chunk_trace) - chunks0, 0, cfg.layers, False)
+        prefills = dst.stats["prefills"] - prefills0
+        del dst
+    finally:
+        cluster.close()
+        torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(got, want)]
+    if not all(same):
+        raise AssertionError(f"26a {name}: {same.count(False)} of "
+                             f"{len(same)} sessions part from the "
+                             f"uninterrupted decoder's tokens")
+    if prefills != 0 or launches["extends"] != 0:
+        raise AssertionError(f"26a {name}: the adopting decoder prefilled "
+                             f"({prefills} prefills)")
+    rec = {"pages": name, "sessions": len(reqs),
+           "prompt_tokens": [int(p.size) for p in prompts],
+           "positions_shipped": positions, "blob_bytes_raw": raw,
+           "blob_bytes_json": wire,
+           "bytes_per_position": raw / positions,
+           "drain_s": drain_s, "export_s": exported["s"],
+           "restore_s": adopted["restore_s"],
+           "ms_per_adopted_session": drain_s * 1e3 / len(reqs),
+           "restore_ms_per_session": adopted["restore_s"] * 1e3 / len(reqs),
+           "identical_sessions": len(same), "reprefills": prefills,
+           "launches_after_adopt": launches, "routing_after":
+           ["worker-1", "worker-2"]}
+    log(f"[26a {name}] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_cluster_failover(params_np, dev_info):
+    """26a (bf16, then int8 pages) and 26b (f32)."""
+    import shutil
+    jdir = os.path.join(HERE, "build", "phase26")
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.makedirs(jdir)
+    out = {}
+    for name, kv in (("bf16", None), ("int8", "int8")):
+        _zero_pa_counts()
+        out[name] = _warm_drain(params_np, dev_info, kv, name,
+                                os.path.join(jdir, f"a-{name}"))
+    out["f32_kill"] = _cold_kill(params_np, dev_info,
+                                 os.path.join(jdir, "b"))
+    return out
+
+
+def _cold_kill(params_np, dev_info, jdir):
+    """26b: worker-1's f32 decoder journals its sessions into worker-1's
+    server journal; its heartbeats stop without a goodbye; the driver's
+    sweeper declares it dead and the cluster replays the journal onto
+    worker-2's decoder over ``/_adopt``, a cold restore (re-prefill)."""
+    import torch
+    from mmlspark_tpu_torch.serving.distributed import ServingCluster
+    c = P26
+    cfg = _full_cfg(torch.float32)
+    prompts = _p26_prompts(c["kill_sessions"], *c["kill_prompt"], cfg.vocab,
+                           126)
+    chunk = {"prefill_chunk": c["kill_chunk"]}
+    want = _p26_uninterrupted(params_np, cfg, None, prompts, c["kill_new"],
+                              **chunk)
+    os.makedirs(jdir)
+    cluster = ServingCluster(3, reply_timeout=60.0,
+                             liveness_interval=c["liveness"],
+                             heartbeat_interval=c["heartbeat"],
+                             journal_dir=jdir)
+    try:
+        # as after 26a: worker-0 leaves (an empty drain), so worker-2 is
+        # the survivor the dead worker's sessions go to
+        cluster.drain_worker("worker-0")
+        verdict = {}
+        # ahead of the cluster's own callback, which does the reassignment
+        cluster.driver._dead_callbacks.insert(
+            0, lambda wid, info: verdict.setdefault(
+                wid, (time.time(), info["last_seen"])))
+        w1, w2 = cluster.worker("worker-1"), cluster.worker("worker-2")
+        src = _p26_engine(params_np, cfg, journal=w1.server._journal,
+                          **chunk)
+        reqs = [src.submit(p, c["kill_new"], session_id=f"26b-{i}")
+                for i, p in enumerate(prompts)]
+        # every prompt's chunks, then kill_steps decode steps
+        for _ in range(400):
+            if all(r.tokens for r in reqs):
+                break
+            src.step()
+        for _ in range(c["kill_steps"]):
+            src.step()
+        if not all(r.tokens and not r.done for r in reqs):
+            raise AssertionError("26b: not every session decoding")
+        dst = _p26_engine(params_np, cfg, **chunk)
+        adopted = {"reqs": [], "restore_s": 0.0}
+        w2.adopt_handler = _adopting_handler(w2, dst, adopted)
+        emitted = {r.session_id: len(r.tokens) for r in reqs}
+        t_stop = time.time()
+        w1._hb_stop.set()
+        w1._hb_thread.join(timeout=5)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and \
+                len(adopted["reqs"]) < len(reqs):
+            time.sleep(0.02)
+        got_reqs = [r for r, _ in adopted["reqs"]]
+        if len(got_reqs) != len(reqs) or "worker-1" not in verdict:
+            raise AssertionError(f"26b: {len(got_reqs)} of {len(reqs)} "
+                                 f"sessions reassigned; verdict {verdict}")
+        t_dead, last_seen = verdict["worker-1"]
+        t_adopt = adopted["at"]
+        del src
+        torch.cuda.synchronize()
+        _zero_pa_counts()
+        stats0 = dict(dst._kv.stats)
+        chunks0 = len(dst._chunk_trace)
+        prefills0 = dst.stats["prefills"]
+        _drive(dst, got_reqs)
+        dst.flush()
+        by_id = {r.session_id: dst.session_result(r, timeout=1)
+                 for r in got_reqs}
+        got = [by_id[f"26b-{i}"] for i in range(len(reqs))]
+        chunks = len(dst._chunk_trace) - chunks0
+        launches = _launch_split(
+            "26b", dst._kv.stats["attn_ticks_kernel"]
+            - stats0["attn_ticks_kernel"], chunks, 0, cfg.layers, True)
+        rec = {"sessions": len(reqs),
+               "prompt_tokens": [int(p.size) for p in prompts],
+               "emitted_at_kill": emitted,
+               "heartbeat_stop_to_dead_s": t_dead - t_stop,
+               "last_heartbeat_to_dead_s": t_dead - last_seen,
+               "last_heartbeat_to_adopt_s": t_adopt - last_seen,
+               "restore_s": adopted["restore_s"],
+               "reprefill_chunks": chunks,
+               "prefills": dst.stats["prefills"] - prefills0,
+               "launches": launches,
+               "routing_after": sorted(cluster.driver.routing_table())}
+        del dst
+    finally:
+        cluster.close()
+        torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(got, want)]
+    tokens = sum(len(w) for w in want)
+    rec["identical_sessions"] = same.count(True)
+    rec["identical_token_share"] = sum(
+        x == y for a, b in zip(got, want) for x, y in zip(a, b)) / tokens
+    if not all(same):
+        rec["divergence"] = _divergence_gaps(
+            params_np, cfg, prompts, got, want)
+        raise AssertionError(f"26b: f32 cold restore parts from the "
+                             f"uninterrupted decoder: {json.dumps(rec)}")
+    if "worker-1" in rec["routing_after"] or rec["reprefill_chunks"] < 1:
+        raise AssertionError(f"26b: {json.dumps(rec)}")
+    log(f"[26b] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
+def phase_cluster_harness(dev_info):
+    """26c: bench.py's scenario phase on the port: each of ``P26``'s
+    scenarios against a fresh 3-worker cluster behind the echo engine;
+    host numbers."""
+    import threading as _threading
+    from mmlspark_tpu_torch.loadgen import (cluster_echo_engine,
+                                            get_scenario, run_scenario)
+    from mmlspark_tpu_torch.observability.federation import (
+        FEDERATION_INTERVAL_ENV)
+    from mmlspark_tpu_torch.serving.distributed import ServingCluster
+    c = P26
+    prior = os.environ.get(FEDERATION_INTERVAL_ENV)
+    os.environ[FEDERATION_INTERVAL_ENV] = "0"   # federate every heartbeat
+    out = {}
+    try:
+        for name in c["scenarios"]:
+            cluster = ServingCluster(3, reply_timeout=10.0, max_queue=256)
+            stop = _threading.Event()
+            engine = cluster_echo_engine(cluster, stop,
+                                         service_s=c["service_s"],
+                                         batch=c["batch"])
+            live = []
+            url = cluster.workers[0].server.address + "debug/scenario"
+
+            def poll():
+                # a few reads early in the run, then quiet: each GET is a
+                # served request, and one landing in the scenario's
+                # quiesced window would break its exact reconciliation
+                while len(live) < 3 and not stop.is_set():
+                    try:
+                        _, snap = _get_json(url, timeout=5)
+                        if snap.get("state") == "running" and \
+                                snap.get("scenario") == name:
+                            live.append(snap)
+                    except OSError:
+                        pass
+                    time.sleep(0.1)
+
+            poller = _threading.Thread(target=poll, daemon=True)
+            poller.start()
+            t0 = time.perf_counter()
+            try:
+                card = run_scenario(get_scenario(name), cluster,
+                                    closed_loop_n=20, mesh_shape="single")
+            finally:
+                stop.set()
+                engine.join(timeout=2.0)
+                poller.join(timeout=6.0)
+                cluster.close()
+            cl, sess = card["cluster"] or {}, card["sessions"]
+            rec = {"wall_s": time.perf_counter() - t0,
+                   "arrivals": card["arrivals"], "ok": card["ok"],
+                   "shed": card["shed"], "errors": card["errors"],
+                   "lost": card["lost"], "goodput_rps": card["goodput_rps"],
+                   "open_loop_latency_ms": card["latency_ms"],
+                   "closed_loop_latency_ms":
+                   card["closed_loop"]["latency_ms"],
+                   "fairness_error": card["fairness_error"],
+                   "retry": card["retry"], "cluster": cl,
+                   "sessions": sess, "debug_scenario_running_reads":
+                   len(live), "note": "host numbers (echo engine, no "
+                                      "device work)"}
+            if cl.get("reconciled") is not True or card["lost"] != 0 or \
+                    card["ok"] + card["shed"] + card["errors"] != \
+                    card["arrivals"] or not live:
+                raise AssertionError(f"26c {name}: {json.dumps(rec)}")
+            if name == "decode-kill" and (
+                    sess is None or sess["lost"] != 0
+                    or sess["recovered"] < 1):
+                raise AssertionError(f"26c {name}: sessions {sess}")
+            out[name] = rec
+            log(f"[26c {name}] {json.dumps(rec)} | {dev_info['smi']}")
+    finally:
+        if prior is None:
+            os.environ.pop(FEDERATION_INTERVAL_ENV, None)
+        else:
+            os.environ[FEDERATION_INTERVAL_ENV] = prior
+    return out
+
+
+def _phase26(params_np, dev_info):
+    """Phases 26a-26c, each sub-phase's wall seconds beside it."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    failover = phase_cluster_failover(params_np, dev_info)
+    secs["26a+26b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["26c"] = phase_cluster_harness(dev_info)
+    secs["26c"] = time.perf_counter() - t0
+    out["26a"] = {k: failover[k] for k in ("bf16", "int8")}
+    out["26b"] = failover["f32_kill"]
+    out["wall_s"] = secs
+    out["launches"] = {
+        "26a bf16": failover["bf16"]["launches_after_adopt"],
+        "26a int8": failover["int8"]["launches_after_adopt"],
+        "26b f32": failover["f32_kill"]["launches"]}
+    log(f"[26] wall seconds {json.dumps(secs)}")
+    return out
+
+
 def _phase25(params_np, dev_info):
     """Phases 25a-25c, each sub-phase's wall seconds beside it."""
     out, secs = {}, {}
@@ -9835,6 +10260,7 @@ def _phase21(dev_info, hist_recs=None):
     airline rows once for c and d."""
     import torch
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    X, y = X[:P21["higgs_rows"]], y[:P21["higgs_rows"]]
     modes = phase_boosting_modes(dev_info, X, y)
     torch.cuda.empty_cache()
     cons = phase_constraints(dev_info, X, y, modes["gbdt"])
@@ -9983,19 +10409,19 @@ def main(argv=()):
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
     # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
-    # "17", "18", "19", "20", "21", "22", "23", "24" and "25": phases 1, 2
-    # and 14 (or 17, ..., 25);
+    # "17", "18", "19", "20", "21", "22", "23", "24", "25" and "26": phases
+    # 1, 2 and 14 (or 17, ..., 26);
     # "9":
     # phases 1, 2 and 9; "8":
     # phases 1, 2 and 8; "7": phases 1, 2, phase 3's K3/K4 cases and 7;
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21", "22", "23", "24", "25"}
+             "17", "18", "19", "20", "21", "22", "23", "24", "25", "26"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20, 21, 22, 23, 24 and 25")
+            f"19, 20, 21, 22, 23, 24, 25 and 26")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -10056,6 +10482,8 @@ def main(argv=()):
             _phase24(dev_info)
         if "25" in only:
             _phase25(params_np, dev_info)
+        if "26" in only:
+            _phase26(params_np, dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -10080,6 +10508,7 @@ def main(argv=()):
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
     bert14 = _phase14(dev_info, params_np)
     p25 = _phase25(params_np, dev_info)
+    p26 = _phase26(params_np, dev_info)
     del params_np
     phase_onnx(dev_info)
     phase_image(dev_info)
@@ -10119,11 +10548,20 @@ def main(argv=()):
     k1_20 = {"fma": p20["20b"]["k1_launches_fma"],
              "mma": p20["20b"]["k1_launches_mma"]}
     k1_25 = p25["25a"]["launches"]["k1"]
+    # phase 26's failover paths, each counted from zero after the hand-off:
+    # 26a's adopting decoders (bf16 pages: K1; int8: K2; decode only, the
+    # split body) and 26b's cold restore (f32: re-prefill chunks on the
+    # FMA body, then decode on the split body)
+    l26 = p26["launches"]
+    k1_26 = {"26a bf16": l26["26a bf16"], "26b f32": l26["26b f32"]}
+    k2_26 = {"26a int8": l26["26a int8"]}
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226",
-         "launches": serving["k1_launches"] + sum(k1_20.values()) + k1_25,
+         "launches": (serving["k1_launches"] + sum(k1_20.values()) + k1_25
+                      + sum(v["k1"] for v in k1_26.values())),
          "launches_serving_5": serving["k1_launches"],
+         "launches_cluster_failover_26": k1_26, "cluster_26": p26,
          "launches_http_generation_25a": p25["25a"]["launches"],
          "http_services_25": p25,
          "launches_generation_20b": k1_20, "generation_20": p20,
@@ -10143,7 +10581,10 @@ def main(argv=()):
          **{k: recs["K1"]["decode"][k] for k in keys}, **recs["K1"]},
         {"name": "paged_attention_window (k_scale/v_scale)", "route": "cuda",
          "source": src, "replaces": f"{ref}:404",
-         "launches": q8["k2_launches"], "launches_fp8_run": f8["k2_launches"],
+         "launches": (q8["k2_launches"]
+                      + sum(v["k2"] for v in k2_26.values())),
+         "launches_fp8_run": f8["k2_launches"],
+         "launches_cluster_failover_26": k2_26,
          "launches_decode": q8["k2_launches_decode"],
          "launches_extend": q8["k2_launches_extend"],
          "launches_fp8_run_decode": f8["k2_launches_decode"],

@@ -14,23 +14,30 @@ card of its own; gloo on the CPU, and when ranks share a card (NCCL
 refuses two ranks on one device, while gloo all-reduces CUDA tensors
 through the host).
 
-The reference's TCP rendezvous helper (``coordinator_rendezvous``) is not
-ported: a launcher here hands every rank the address itself
-(:mod:`mmlspark_tpu_torch.parallel.launch`).
+:func:`coordinator_rendezvous` is the control-plane bootstrap for ranks
+that are not started by one launcher: a driver hands every connecting
+worker the coordinator's ``host:port`` (``tcp://`` + it is the
+``init_method`` :func:`initialize` takes). No data crosses its sockets.
+:mod:`mmlspark_tpu_torch.parallel.launch` hands its ranks the address
+itself and needs none of it.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import socket
+import threading
+import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["initialize", "is_initialized", "world_info", "find_open_port",
-           "choose_backend", "rank_device", "shutdown"]
+           "choose_backend", "rank_device", "shutdown",
+           "coordinator_rendezvous"]
 
 
 def find_open_port() -> int:
@@ -118,3 +125,58 @@ def shutdown() -> None:
     """Leave the world (a no-op outside one)."""
     if is_initialized():
         dist.destroy_process_group()
+
+
+def coordinator_rendezvous(role: str, driver_host: str, driver_port: int,
+                           num_workers: int, timeout_s: float = 120.0) -> str:
+    """Control-plane rendezvous: workers learn the coordinator address.
+
+    ``role='driver'`` hosts a listener that hands every connecting worker the
+    coordinator address (its own host + a fresh port) and returns it;
+    ``role='worker'`` connects and reads it. The reference's text protocol
+    of host:port exchange, used only to bootstrap the process group.
+    """
+    if role == "driver":
+        coord_port = find_open_port()
+        payload = json.dumps({"coordinator": f"{driver_host}:{coord_port}",
+                              "num_workers": num_workers}).encode()
+        # bind in the caller so an EADDRINUSE (port raced away between the
+        # probe and here) surfaces to the driver instead of being swallowed
+        # in a daemon thread while workers spin to timeout
+        srv = socket.socket()
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((driver_host, driver_port))
+        srv.listen(num_workers)
+        srv.settimeout(timeout_s)
+
+        def serve():
+            served = 0
+            try:
+                while served < num_workers:
+                    conn, _ = srv.accept()
+                    with conn:
+                        conn.sendall(payload)
+                    served += 1
+            except OSError:
+                pass  # timeout or close; workers report their own timeout
+            finally:
+                srv.close()
+
+        # run-once bootstrap: serves exactly num_workers payloads, then
+        # exits (a supervised restart would re-listen on a closed socket)
+        threading.Thread(target=serve, daemon=True).start()
+        return f"{driver_host}:{coord_port}"
+    # worker
+    deadline = time.monotonic() + timeout_s
+    last_err: Optional[Exception] = None
+    while time.monotonic() < deadline:
+        try:
+            with socket.create_connection((driver_host, driver_port),
+                                          timeout=5) as s:
+                data = s.recv(4096)
+            return json.loads(data.decode())["coordinator"]
+        except OSError as e:
+            last_err = e
+            time.sleep(0.25)
+    raise TimeoutError(f"rendezvous with {driver_host}:{driver_port} timed "
+                       f"out after {timeout_s}s") from last_err

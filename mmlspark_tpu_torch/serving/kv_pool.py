@@ -60,7 +60,8 @@ from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
                             kv_store_dtype, resolve_kv_dtype)
 from ..utils.device import resolve_device
 
-__all__ = ["PagedKVPool", "PoolExhausted", "KVAutotuner", "prefix_hash"]
+__all__ = ["PagedKVPool", "PoolExhausted", "KVAutotuner", "prefix_hash",
+           "AFFINITY_HEADER", "affinity_headers"]
 
 #: numpy's names for the pool dtypes: the session blob's ``value_dtype``
 #: and ``scale_dtype`` strings, as the reference writes them
@@ -86,6 +87,20 @@ def prefix_hash(tokens: Sequence[int]) -> str:
     h = hashlib.sha1()
     h.update(np.asarray(tokens, np.int64).tobytes())
     return h.hexdigest()
+
+
+#: request header carrying a prefix-affinity key: clients stamp it with
+#: :func:`prefix_hash` of their shared prompt prefix and the distributed
+#: forwarder (serving/distributed.py) consistent-hashes it to the worker
+#: whose pool already holds those pages
+AFFINITY_HEADER = "X-Mmlspark-Prefix"
+
+
+def affinity_headers(tokens: Sequence[int]) -> List[Tuple[str, str]]:
+    """The routing header a session should attach so its requests land on
+    the worker owning its shared-prefix pages — same hash the pool keys
+    the prefix registry by, so routing affinity and page sharing agree."""
+    return [(AFFINITY_HEADER, prefix_hash(tokens))]
 
 
 class PoolExhausted(RuntimeError):

@@ -31,10 +31,11 @@ through the model registry at ingest, where the canary split and the
 shadow mirror happen. Control routes bypass the queue: ``/healthz``
 (degraded by a recent watchdog stall or a firing alert), ``/metrics``
 (Prometheus text), ``/debug/traces``, ``/debug/slo``, ``/debug/costs``,
-``/debug/timeseries``, ``/debug/profile`` (a ``torch.profiler`` capture
-into the watchdog's diagnostic directory), ``/debug/registry`` and
-``/models``. ``/debug/scenario`` drives the load generator, which the
-port does not have yet (ROADMAP.md queue item 33).
+``/debug/scenario`` (the live progress of the load generator's
+scenario, ``loadgen.progress``), ``/debug/timeseries``,
+``/debug/profile`` (a ``torch.profiler`` capture into the watchdog's
+diagnostic directory), ``/debug/registry`` and ``/models``.
+``/healthz`` also names every peer whose circuit breaker is open.
 
 The wire contract is the reference's, byte for byte where a client can
 see it (status lines, JSON bodies, ``text/event-stream`` SSE framing,
@@ -77,6 +78,7 @@ from ..observability.timeseries import (acquire_sampler as _acquire_sampler,
                                         release_sampler as _release_sampler,
                                         render_sparklines as
                                         _render_sparklines)
+from ..reliability.breaker import open_breakers as _open_breakers
 from ..reliability.faults import get_injector as _get_injector
 from ..reliability.lock_sanitizer import new_lock
 from ..reliability.policy import Deadline
@@ -695,13 +697,15 @@ class WorkerServer:
         self.shed_retry_after = shed_retry_after
         self._closed = False
         #: path prefix → fn(HTTPRequestData) -> HTTPResponseData, matched
-        #: in insertion order (a later catch-all cannot shadow these)
+        #: in insertion order: the telemetry routes come first, so a later
+        #: catch-all (the distributed forwarder's "/") cannot shadow them
         self.control_routes: Dict[str, object] = {
             "/healthz": self._healthz_route,
             "/metrics": self._metrics_route,
             "/debug/traces": self._debug_traces_route,
             "/debug/slo": self._debug_slo_route,
             "/debug/costs": self._debug_costs_route,
+            "/debug/scenario": self._debug_scenario_route,
             "/debug/timeseries": self._debug_timeseries_route,
             "/debug/profile": self._debug_profile_route,
             "/debug/registry": self._debug_registry_route,
@@ -826,9 +830,11 @@ class WorkerServer:
 
     def _degraded_reasons(self) -> List[str]:
         """Soft-failure signals for /healthz (advisory: the answer stays
-        200): a nearly full admission queue, a recent watchdog stall, or
-        an alert rule in its firing state."""
+        200): open circuits to peers, a nearly full admission queue, a
+        recent watchdog stall, or an alert rule in its firing state."""
         reasons = []
+        for peer in _open_breakers():
+            reasons.append(f"breaker_open:{peer}")
         maxsize = self._queue.maxsize
         if maxsize > 0 and self._queue.qsize() >= 0.8 * maxsize:
             reasons.append(
@@ -863,15 +869,15 @@ class WorkerServer:
         return total
 
     def health_digest(self) -> Dict[str, object]:
-        """Compact health fields a heartbeat carries: queue depth,
-        in-flight count, open breakers (none: the port has no peer
-        breakers until the distributed plane), the age of the last
-        watchdog stall, device memory in use, the registry's versions, the
-        admission queue's state and the journal's digest."""
+        """Compact health fields the distributed heartbeat carries to the
+        driver registry (serving/distributed.py): queue depth, in-flight
+        count, the peers whose circuit breakers are open, the age of the
+        last watchdog stall, device memory in use, the registry's
+        versions, the admission queue's state and the journal's digest."""
         age = _get_watchdog().last_stall_age()
         return {"queue_depth": self._queue.qsize(),
                 "in_flight": self.pending_count(),
-                "open_breakers": [],
+                "open_breakers": sorted(_open_breakers()),
                 "stall_age_seconds": None if age is None else round(age, 3),
                 "hbm_bytes_in_use": self._hbm_bytes_in_use(),
                 "degraded": bool(self._degraded_reasons()),
@@ -978,6 +984,16 @@ class WorkerServer:
             from ..tuning.observations import harvest_costs
             snap["harvested"] = harvest_costs(snap)
         return _json_response(snap)
+
+    def _debug_scenario_route(self, request: HTTPRequestData
+                              ) -> HTTPResponseData:
+        """``GET /debug/scenario``: live progress of the scenario the
+        loadgen harness is driving (sent/done/ok/shed/error counts and,
+        once finished, the scorecard summary); the idle state when no
+        scenario has run in this process."""
+        # lazy: loadgen is a client of the serving plane, not a part of it
+        from ..loadgen.progress import get_progress
+        return _json_response(get_progress().snapshot())
 
     #: on-demand profiler capture length ceiling (seconds)
     MAX_PROFILE_SECONDS = 60.0

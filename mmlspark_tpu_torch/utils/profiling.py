@@ -30,7 +30,6 @@ import json
 import os
 import threading
 import time
-from typing import Callable, TypeVar
 
 import torch
 from torch._C._profiler import _ExperimentalConfig
@@ -40,45 +39,11 @@ __all__ = ["trace", "annotate", "StopWatch", "SpanTracer", "span",
 
 from ..observability import histogram as _metric_histogram
 from ..observability import tracing as _tracing
-
-T = TypeVar("T")
+from .shared import StopWatch  # re-export: the reference-style wall timer
 
 #: the Chrome-trace file :func:`trace` writes inside its ``log_dir``
 TRACE_FILE = "trace.json"
 
-
-class StopWatch:
-    """Accumulating wall-clock timer (reference: ``core/utils/StopWatch.scala``)."""
-
-    def __init__(self):
-        self.elapsed_ns = 0
-        self._start = None
-
-    def start(self) -> None:
-        self._start = time.perf_counter_ns()
-
-    def stop(self) -> None:
-        if self._start is not None:
-            self.elapsed_ns += time.perf_counter_ns() - self._start
-            self._start = None
-
-    def measure(self, fn: Callable[[], T]) -> T:
-        self.start()
-        try:
-            return fn()
-        finally:
-            self.stop()
-
-    def __enter__(self):
-        self.start()
-        return self
-
-    def __exit__(self, *exc):
-        self.stop()
-
-    @property
-    def elapsed_s(self) -> float:
-        return self.elapsed_ns / 1e9
 
 _M_SPANS = _metric_histogram(
     "mmlspark_span_seconds",

@@ -172,7 +172,21 @@ def test_every_port_module_is_listed():
                  "mmlspark_tpu_torch.services.mvad",
                  "mmlspark_tpu_torch.services.audio",
                  "mmlspark_tpu_torch.services.speech",
-                 "mmlspark_tpu_torch.services.speech_streaming"):
+                 "mmlspark_tpu_torch.services.speech_streaming",
+                 "mmlspark_tpu_torch.reliability.breaker",
+                 "mmlspark_tpu_torch.reliability.loops",
+                 "mmlspark_tpu_torch.utils",
+                 "mmlspark_tpu_torch.utils.fault",
+                 "mmlspark_tpu_torch.utils.shared",
+                 "mmlspark_tpu_torch.serving",
+                 "mmlspark_tpu_torch.serving.distributed",
+                 "mmlspark_tpu_torch.serving.__main__",
+                 "mmlspark_tpu_torch.loadgen",
+                 "mmlspark_tpu_torch.loadgen.arrivals",
+                 "mmlspark_tpu_torch.loadgen.progress",
+                 "mmlspark_tpu_torch.loadgen.scorecard",
+                 "mmlspark_tpu_torch.loadgen.scenarios",
+                 "mmlspark_tpu_torch.loadgen.sessions"):
         assert want in names
 
 
