@@ -321,7 +321,9 @@ Phases (any failure exits non-zero and prints no result line):
    the card against the CPU, integer outputs and moved data bitwise,
    floats within 1e-5 of the largest |output| + 1e-6.
 19. a GBDT model after ``fit`` (no hand kernel but K6 in the fits) —
-   (a) BASELINE #2 past ``fit``: 8c's HIGGS-shaped 11,000,000 x 28 as a
+   (a) BASELINE #2 past ``fit``: the first 2,750,000 rows of 8c's
+   HIGGS-shaped 11,000,000 x 28 (all of them until phase 27 joined the
+   script, to keep it within its time limit) as a
    2-D ``features`` column with 8c's params through ``device=None``
    estimators: model A (50 iterations); B, 50 more from
    ``model_string=A``: 100 trees, the first 50 bitwise A's, exactly 250
@@ -337,7 +339,7 @@ Phases (any failure exits non-zero and prints no result line):
    65536)`` over 1,000,000 rows (probabilities within 1e-5 of B's, labels
    equal where |p - 0.5| > 1e-5, h2d bytes only the padded features;
    rows/s beside ``B.transform``'s); ``B.booster.refit`` on rows
-   10,000,000 - 10,999,999 (structures bitwise, seconds; a 100,000-row
+   1,750,000 - 2,749,999 (structures bitwise, seconds; a 100,000-row
    refit on the card within 1e-5 * max|leaf| of the CPU's);
    ``trees_to_dataframe`` (6,300 rows, bitwise B's arrays); (b) a 7-class
    model at 12b's shape, 20 iterations (SHAP on 8,192 rows, additive per
@@ -395,13 +397,14 @@ Phases (any failure exits non-zero and prints no result line):
    25 iterations: predictions monotone along a 64-point sweep of each
    constrained column on 4,096 rows, every root-to-leaf path within one
    group; (c) ``LightGBMClassifier.fit`` on a ``DataFrame`` of benchm-ml's
-   airline shape (2,500,000 rows of its 10M: Month 12, DayofMonth 31, DayOfWeek 7,
+   airline shape (1,250,000 rows of its 10M, 2,500,000 until phase 27
+   joined the script: Month 12, DayofMonth 31, DayOfWeek 7,
    UniqueCarrier 22, Origin 300 and Dest 300 categorical, DepTime and
    Distance numeric; a seeded per-category delay rule) with
    ``categorical_feature`` and without: AUC with it at least AUC
    without; ``transform``'s probabilities on the first 1,000,000 rows
    within 1e-6 of the booster's; time to model, sec/iter, the encoder's
-   host seconds; (d) the same rows one-hot encoded, a 2,500,000 x 674
+   host seconds; (d) the same rows one-hot encoded, a 1,250,000 x 674
    CSR of 8 non-zeros a row, through ``train()`` with EFB: the plan's
    bundles and bundle bins, host binning and bundling seconds, sec/iter,
    K6 at the bundled shape (uint16, 1 and 16 nodes; ms, bound,
@@ -419,19 +422,21 @@ Phases (any failure exits non-zero and prints no result line):
 
 22. the last serial GBDT options and ONNX fine-tuning at full width —
    (a) ``LightGBMRanker.fit`` on a ``DataFrame`` at MSLR-WEB30K's
-   published shape (136 features; 18,919 queries of about 120 documents,
-   the largest 1,251, about 2.26M rows, as its Fold1 training split;
+   published shape (136 features; queries of about 120 documents, the
+   largest 1,251, as its Fold1 training split, whose 18,919 queries and
+   about 2.26M rows are cut to a quarter of the queries for the time limit;
    labels 0-4 from a seeded rule at MSLR's label shares), 50 iterations,
    K6 on every level (5 launches an iteration): the lambdarank
    gradients on the card (float64, groups bucketed by size) against the
-   plain version on 256 queries, the largest among them, within 1e-12
+   plain version on 128 queries (256 until phase 27 joined the script),
+   the largest among them, within 1e-12
    of max|g| (tied and rounded scores); the first tree through K6 has
    the plain float64 histogram's splits or a recorded tie; the held-out
    fifth of queries' mean NDCG@10 above the first tree's; ``transform``
    gives the raw scores; sec/iter, the gradients' seconds an iteration,
    K6 at this shape (1 and 16 nodes; ms, bound, ``index_add_``'s ms);
    (b) ``extra_trees`` with ``feature_fraction_bynode`` 0.5 on 8c's
-   HIGGS shape, 50 iterations beside gbdt: the threefry draws on the
+   HIGGS shape (its first 2,750,000 rows), 50 iterations beside gbdt: the threefry draws on the
    card bitwise the CPU's, every split's bin the node's drawn candidate
    (below its feature's ``feat_bins``) and its feature in the node's
    drawn subset, the first tree as the plain histogram's, train AUC above
@@ -506,7 +511,7 @@ Phases (any failure exits non-zero and prints no result line):
    logistic AUC within 1e-4 and its predictions equal but where the CPU's
    probability is within 1e-4 of 1/2, LightGBM's AUC within 5e-3 (K6's
    atomics), both above 0.8; (b) ``TuneHyperparameters`` over
-   LightGBMClassifier on the first 250,000 rows of phase 8's HIGGS set
+   LightGBMClassifier on the first 125,000 rows of phase 8's HIGGS set
    (8 trials over num_leaves, learning_rate, min_data_in_leaf and
    feature_fraction; AUC): full at parallelism 4 and 1 (the same best
    params, best AUCs within 5e-3), halving (num_iterations 4 to 64,
@@ -523,8 +528,8 @@ Phases (any failure exits non-zero and prints no result line):
    server: a f32 ``GenerationEngine`` over phase 5's model (16 slots,
    threaded transport) answers 64 rows of phase 5's prompt sizes
    (32/128/384 tokens, 64 new) sent by ``SimpleHTTPTransformer`` (JSON
-   in, ``AsyncHTTPClient`` at concurrency 16, JSON out) and 16 more by
-   ``SingleThreadedHTTPClient``; every row's tokens equal an in-process
+   in, ``AsyncHTTPClient`` at concurrency 16, JSON out) and 4 more by
+   ``SingleThreadedHTTPClient`` (16 until phase 27 joined the script); every row's tokens equal an in-process
    ``ContinuousDecoder``'s with the same settings, no error column is
    set, K1's launches split by body against the engine's attention
    calls; rows/s, client seconds a row (p50, max), the server's requests
@@ -533,9 +538,11 @@ Phases (any failure exits non-zero and prints no result line):
    Benchmark's 5-minute cadence; synthesized, even-length groups) on the
    card, scores bitwise and flags equal to ``device="cpu"``'s; seconds
    of host grouping, device and result dicts; (c) the standard-library
-   transport: ``TextSentiment`` over 10,000 rows against an in-process
+   transport: ``TextSentiment`` over 5,000 rows (10,000 until phase 27
+   joined the script) against an in-process
    mock service at concurrency 16 (every answer 200 and as the mock
-   means it), then 500 rows with the mock answering 429 +
+   means it), then 250 rows (500 until phase 27 joined the script) with
+   the mock answering 429 +
    ``Retry-After: 0`` to every other call: every row completes; rows/s.
 26. the distributed serving plane (``serving/distributed.py``: a driver
    registry and three ``DistributedWorker``s in one process, a
@@ -564,8 +571,40 @@ Phases (any failure exits non-zero and prints no result line):
    no arrival is lost, ``decode-kill`` loses no session and recovers at
    least one, ``/debug/scenario`` on a worker answers "running" during
    the run; counts, open-loop p50/p99 and fairness error (host numbers).
+27. the main path on a dp2 x tp2 mesh — four gloo rank processes sharing
+   the card (bench.py:765-860's dp x tp mesh at 4 chips; on a machine
+   with four cards the ranks take one each, over NCCL), each computing
+   the device rows of its slots of a dp shard for its 6 of 12 heads, the
+   page pool replicated over dp (every shard's fresh rows gathered and
+   written on each replica); the single-device yardsticks first, in this
+   process. (a) FULL in f32 on phase 4's engine (4 slots, 2 a shard):
+   every rank's greedy tokens equal phase 4's over ``PARITY_NEW``; FULL
+   in bf16, 16 slots (8 a shard), phase 6's mix (64 new): all ranks
+   agree on every token and hit the prefix; K5a only, once a layer per
+   attention call, the decode steps on the split body and the extends on
+   the tensor-core body as the chunk trace and prefix hits say, K1/K2
+   never; the two dp replicas of each tp rank hold bitwise-equal pages
+   off trash page 0; bench.py's record keys (tokens/s and p50 tick
+   beside the single-device engine on the same mix), the dp exchange
+   timed alone (host ms of one mount's gather and of a dispatch's join)
+   and the exchanges a tick; (b) int8 pages on phase 4's engine: the
+   first 4 tokens equal phase 4's int8 ones (bench.py's horizon), K5b
+   only, replicas' codes and scales bitwise equal; (c) 13b's target and
+   draft at gamma 2: f32 tokens equal the single-device speculative
+   engine's over ``PARITY_NEW``, K5a on the FMA body; bf16 on the same
+   engine and prompts, the verify windows on K5a's tensor-core body, the
+   ranks agree;
+   (d) ``GenerationEngine(mesh=)``: 16 HTTP requests to rank 0 (phase
+   5's twelve and four more, the prefix owner first), all 200, f32 tokens
+   equal the in-process single-device decoder's; then a session
+   exported from the tp = 2 pool once it has emitted 4 tokens or more
+   (the checkpoint drains the pipeline first; every rank the same
+   blob, its pages the ranks' shards concatenated by head, bitwise) is
+   adopted warm by a single-device decoder here: 0 re-prefills, its f32
+   tokens phase 4's.
 
-``python3 chip_smoke.py 26`` runs phases 1, 2 and 26 only,
+``python3 chip_smoke.py 27`` runs phases 1, 2, 4 and 27 only,
+``python3 chip_smoke.py 26`` phases 1, 2 and 26,
 ``python3 chip_smoke.py 25`` phases 1, 2 and 25,
 ``python3 chip_smoke.py 24`` phases 1, 2 and 24,
 ``python3 chip_smoke.py 23`` phases 1, 2 and 23,
@@ -6376,9 +6415,9 @@ def phase_quant_bert(dev_info):
 
 #: phase 19: BASELINE #2 (8c's HIGGS-shaped 11M x 28, 8c's params) past
 #: ``fit``; 19b at 12b's Covertype shape and on 1M HIGGS rows
-AFTERFIT = dict(iters=50, shap_rows=65_536, shap_cpu_rows=1_024,
-                onnx_rows=1_000_000, onnx_batch=65_536,
-                refit_rows=(10_000_000, 11_000_000), refit_cpu_rows=100_000,
+AFTERFIT = dict(rows=2_750_000, iters=50, shap_rows=65_536,
+                shap_cpu_rows=1_024, onnx_rows=1_000_000, onnx_batch=65_536,
+                refit_rows=(1_750_000, 2_750_000), refit_cpu_rows=100_000,
                 multi_iters=20, multi_shap_rows=8_192, multi_onnx_rows=131_072,
                 multi_init_iters=5, reg_rows=1_000_000, reg_iters=20)
 
@@ -6472,6 +6511,7 @@ def phase_afterfit_higgs(dev_info):
     cfg = AFTERFIT
     iters = cfg["iters"]
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
+    X, y = X[:cfg["rows"]], y[:cfg["rows"]]
     df = DataFrame({"features": X, "label": y})
     params = dict(num_leaves=31, max_bin=255, learning_rate=0.1,
                   min_data_in_leaf=20, num_iterations=iters)
@@ -7377,7 +7417,7 @@ def phase_external_data(dev_info):
 #: the HIGGS rows 21a, 21b and 21e fit (the first 2.75M of phase 8's
 #: 11M since phase 26 joined the script, for the same reason)
 P21 = dict(iters=25, sweep_rows=4096, sweep_points=64,
-           airline_rows=2_500_000, transform_rows=1_000_000,
+           airline_rows=1_250_000, transform_rows=1_000_000,
            efb_prefix=250_000, efb_prefix_iters=10, higgs_rows=2_750_000)
 #: benchm-ml's airline columns that are categorical, with their levels
 #: (the 2007 flights' months, days, carriers and airports)
@@ -7857,12 +7897,17 @@ def bundled_hist_cases():
 
 
 #: phase 22: (a) MSLR-WEB30K's published shape (136 features; Fold1's
-#: training split, three fifths of its 31,531 queries and 3,771,125 rows)
-#: with a fifth more queries held out; (b) and (c) on 8c's HIGGS shape
-#: (c on its first million rows); (d) and (e) BERT-base fine-tuning at
-#: BERT's published GLUE settings (seq 128, batch 32, Adam lr 5e-5)
-P22 = dict(queries=18_919, held_out=3_784, features=136, mean_docs=120,
-           max_docs=1_251, iters=50, grad_groups=256, ckpt_rows=1_000_000,
+#: training split has three fifths of its 31,531 queries, 18,919, and
+#: 3,771,125 rows; a quarter of those queries since phase 27 joined the
+#: script, to keep it within its time limit) with a fifth more queries held
+#: out;
+#: (b) and (c) on 8c's HIGGS shape (b on its first 2,750,000 rows since
+#: phase 27 joined, c on its first million); (d) and (e) BERT-base
+#: fine-tuning at BERT's published GLUE settings (seq 128, batch 32, Adam
+#: lr 5e-5)
+P22 = dict(queries=4_730, held_out=946, features=136, mean_docs=120,
+           max_docs=1_251, iters=50, grad_groups=128, extra_rows=2_750_000,
+           ckpt_rows=1_000_000,
            ckpt_first=25, ckpt_interval=5, bert_rows=2_048, bert_seq=128,
            bert_batch=32, lr=5e-5, lora_rows=1_024, lora_rank=8,
            serve_rows=256, markers=16)
@@ -7911,8 +7956,8 @@ def _ndcg_at10(y, p, sizes):
 
 
 def _rank_grads_vs_plain(X_sizes, y, seed):
-    """22a's gradient check: 256 training queries, the largest among
-    them, on the card against the plain version on the host, at
+    """22a's gradient check: ``P22["grad_groups"]`` training queries, the
+    largest among them, on the card against the plain version on the host, at
     iteration 0's tied scores and at scores rounded to 0.01 (ties inside
     groups). Returns the worst errors over max|g| and max|h|."""
     import numpy as np
@@ -9485,9 +9530,9 @@ def phase_text_pipeline(dev_info):
 #: standard-library transport against an in-process mock (25c)
 P25 = dict(slots=16, max_len=1024, page_size=16, prefill_chunk=256,
            steps_per_dispatch=4, sizes=(32, 128, 384), max_new=64,
-           async_rows=64, single_rows=16, concurrency=16,
-           series=1000, points=2016, sentiment_rows=10_000,
-           shed_rows=500)
+           async_rows=64, single_rows=4, concurrency=16,
+           series=1000, points=2016, sentiment_rows=5_000,
+           shed_rows=250)
 
 
 def _served_codes():
@@ -10163,6 +10208,505 @@ def phase_cluster_harness(dev_info):
     return out
 
 
+# phase 27: the main path on a dp2 x tp2 mesh of four gloo ranks sharing
+# the card (bench.py:765-860's _multichip_generation_phase at 4 chips)
+P27 = dict(dp=2, tp=2, slots=16, max_len=1024, page_size=16,
+           prefill_chunk=256, steps_per_dispatch=4, requests=16,
+           spec_gamma=2)
+
+
+def _p27_payloads(vocab):
+    """27d's 16 requests: phase 5's twelve (the prefix owner at index 9,
+    an SSE stream last) and four more prompts of 32, 128, 384 and 48
+    tokens, ``PARITY_NEW`` new tokens each."""
+    import numpy as np
+    payloads = _serving_payloads(vocab, PARITY_NEW)
+    rng = np.random.default_rng(27)
+    payloads += [{"tokens": [int(t) for t in rng.integers(0, vocab, n)],
+                  "max_new": PARITY_NEW} for n in (32, 128, 384, 48)]
+    return payloads
+
+
+def _pool_digests(eng, pages=None):
+    """sha1 of every layer's buffers, as bytes: off trash page 0, or of
+    ``pages`` in order."""
+    import hashlib
+    import torch
+    idx = None if pages is None else torch.as_tensor(pages).to(eng._dev)
+    out = []
+    for c in eng._kv.buffers:
+        out.append({k: hashlib.sha1(
+            (b.view(torch.uint8)[1:] if idx is None
+             else b.view(torch.uint8)[idx]).contiguous().cpu().numpy()
+            .tobytes()).hexdigest() for k, b in c.items()})
+    return out
+
+
+def _p27_counts(eng, stats0, chunks0, hits0):
+    """An engine run's attention calls, prefill chunks and prefix hits
+    since the given marks, and the (K1, K2, K5a, K5b) launches and K5
+    bodies since the last zeroing."""
+    return {"calls": (eng._kv.stats["attn_ticks_kernel"]
+                      - stats0["attn_ticks_kernel"]),
+            "gather_bytes": (eng._kv.stats["gather_bytes"]
+                             - stats0["gather_bytes"]),
+            "chunks": len(eng._chunk_trace) - chunks0,
+            "hits": eng.stats["prefix_hits"] - hits0,
+            "launches": list(_pa_counts()), "bodies": _bodies("window")}
+
+
+def _p27_drain(eng, reqs):
+    for _ in range(2000):
+        if all(r.done for r in reqs):
+            break
+        eng.step()
+    eng.flush()
+    return [eng.result(r, timeout=1) for r in reqs]
+
+
+def _p27_parity(params_np, cfg, mesh, kv_dtype=None, draft=None):
+    """27a's f32 and 27b's int8 runs (27c's f32 and bf16 ones with
+    ``draft``, a (params, cfg) pair at gamma P27["spec_gamma"]): phase
+    4's engine (4 slots, 2 a dp shard) on the parity prompts,
+    ``PARITY_NEW`` tokens each."""
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    kw = ({} if draft is None else
+          {"draft_params": draft[0], "draft_cfg": draft[1],
+           "gamma": P27["spec_gamma"]})
+    eng = ContinuousDecoder(params_np, cfg, kv_dtype=kv_dtype, mesh=mesh,
+                            **kw, **PARITY)
+    _zero_pa_counts()
+    toks = _p27_drain(eng, [eng.submit(p, PARITY_NEW)
+                            for p in _parity_prompts(cfg.vocab)])
+    rec = {"tokens": toks, **_p27_counts(eng, {"attn_ticks_kernel": 0,
+                                                "gather_bytes": 0}, 0, 0),
+           "slot_axis": eng._slot_axis,
+           "rows": [eng._rows.start, eng._rows.stop],
+           "verify_windows": eng.stats.get("spec_verify_windows", 0),
+           "digests": _pool_digests(eng)}
+    if draft is not None:
+        rec["tokens_per_round_slot"] = (eng.stats["spec_emitted"]
+                                        / eng.stats["spec_round_slots"])
+    return rec
+
+
+def _p27_serve(params_np, cfg, mesh):
+    """27a's bf16 run: phase 6's mix through a 16-slot engine (8 a dp
+    shard on the mesh, ``mesh=None`` the single-device yardstick):
+    tokens, tokens/s, p50 tick, the K5 launches by body, dp exchanges a
+    tick, and the pool's digests."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.parallel.mesh import gather_rows_many
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    eng = ContinuousDecoder(
+        params_np, cfg, mesh=mesh, max_slots=P27["slots"],
+        max_len=P27["max_len"], page_size=P27["page_size"],
+        prefill_chunk=P27["prefill_chunk"],
+        steps_per_dispatch=P27["steps_per_dispatch"])
+    warm = eng.submit([1, 2, 3], 4)     # cuBLAS handles, allocator
+    while not warm.done:
+        eng.step()
+    eng.tick_seconds.clear()
+    stats0, hits0 = dict(eng._kv.stats), eng.stats["prefix_hits"]
+    chunks0 = len(eng._chunk_trace)
+    gathers0 = gather_rows_many.calls
+    _zero_pa_counts()
+    reqs, wall = _serve_mix(eng, np.random.default_rng(3), cfg.vocab,
+                            [32, 128, 384] * 3, 64)
+    ticks = list(eng.tick_seconds)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    rec = {"tokens": [eng.result(r, timeout=1) for r in reqs],
+           **_p27_counts(eng, stats0, chunks0, hits0),
+           "tok_per_s": n_tok / wall, "n_tokens": n_tok, "wall_s": wall,
+           "p50_tick_ms": statistics.median(ticks) * 1e3,
+           "ticks": len(ticks),
+           "dp_exchanges": gather_rows_many.calls - gathers0,
+           "digests": _pool_digests(eng) if mesh is not None else None}
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _host_wall_ms(fn, reps):
+    """Host wall ms a call of ``fn`` (each ending in its own wait), over
+    ``reps`` calls after a warm-up; the card synchronized at both ends."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _p27_exchange(mesh, cfg):
+    """The dp exchange alone at 27a's bf16 decode step: one mount's
+    gather of a shard's 8 rows (k_new and v_new of its 6 heads, block
+    table of 64 pages, pos, active) and the dispatch's join of 8 rows of
+    k = 4 tokens and the four state vectors (``tok``, ``pos``, ``active``,
+    ``remaining``); host ms a call."""
+    import torch
+    from mmlspark_tpu_torch.parallel.mesh import gather_rows_many
+    from mmlspark_tpu_torch.utils.device import resolve_device
+    dev = resolve_device()
+    n = P27["slots"] // P27["dp"]
+    h, hd = cfg.heads // P27["tp"], cfg.d_model // cfg.heads
+    kv = [torch.zeros(n, h, 1, hd, dtype=torch.bfloat16, device=dev)
+          for _ in range(2)]
+    meta = [torch.zeros(n, P27["max_len"] // P27["page_size"],
+                        dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev)]
+    join = [torch.zeros(n, P27["steps_per_dispatch"], dtype=torch.int32,
+                        device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev)]
+    mount = _host_wall_ms(lambda: gather_rows_many(kv + meta, mesh, "dp"), 100)
+    joined = _host_wall_ms(lambda: gather_rows_many(join, mesh, "dp"), 100)
+    per_tick = cfg.layers * P27["steps_per_dispatch"] * mount + joined
+    return {"mount_gather_ms": mount, "join_gather_ms": joined,
+            "ms_per_tick": per_tick}
+
+
+def _p27_http(params_np, cfg, mesh, payloads):
+    """27d: ``GenerationEngine(mesh=)``: rank 0 answers ``payloads`` over
+    HTTP (the prefix owner first, the other 15 at once), the other ranks
+    follow. Rank 0's (status, body) replies."""
+    from mmlspark_tpu_torch.serving.generation import GenerationEngine
+    eng = GenerationEngine(
+        params_np, cfg, mesh=mesh, max_slots=P27["slots"],
+        max_len=P27["max_len"], page_size=P27["page_size"],
+        prefill_chunk=P27["prefill_chunk"],
+        steps_per_dispatch=P27["steps_per_dispatch"])
+    replies = {}
+    eng.start()
+    try:
+        if eng.leader:
+            def client(i):
+                try:
+                    st, body = _post(eng.address, payloads[i])
+                    replies[i] = (st, body.decode())
+                except Exception as e:   # recorded, checked in the parent
+                    replies[i] = (None, repr(e))
+            client(9)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(payloads)) if i != 9]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+    finally:
+        eng.stop()
+    return {"leader": eng.leader,
+            "replies": [replies.get(i) for i in range(len(payloads))]
+            if eng.leader else None}
+
+
+def _p27_failover(params_np, cfg, mesh):
+    """27d's failover: the parity prompts on phase 4's engine over the
+    mesh; the 300-token session is checkpointed once it has emitted 4
+    tokens (its pages exported from the tp = 2 pool, heads gathered),
+    then the engine runs to the end. The blob (rank 0's; every rank's
+    sha1), this rank's shard digests of the blob's pages, and the
+    uninterrupted tokens."""
+    import hashlib
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    eng = ContinuousDecoder(params_np, cfg, mesh=mesh, **PARITY)
+    reqs = [eng.submit(p, PARITY_NEW) for p in _parity_prompts(cfg.vocab)]
+    req = reqs[2]
+    for _ in range(400):
+        if len(req.tokens) >= 4:
+            break
+        eng.step()
+    ck = eng.checkpoint_session(req)
+    n = ck["kv"]["n_pages"]
+    shard = _pool_digests(eng, eng._slot_pages[eng._slot_of(req)][:n])
+    _p27_drain(eng, reqs)
+    blob = json.dumps(ck, sort_keys=True).encode()
+    return {"checkpoint": ck if dist.get_rank() == 0 else None,
+            "checkpoint_sha1": hashlib.sha1(blob).hexdigest(),
+            "shard_digests": shard, "emitted_at_export": len(
+                ck["session"]["emitted"]),
+            "uninterrupted": eng.session_result(req)}
+
+
+def _p27_rank(mesh):
+    """One rank of phase 27: the f32 full-width model (seed 0, its tp
+    shard) and 13b's target and draft (seeds 0 and 1); 27a's f32 and bf16
+    runs, 27b's int8 run, the dp exchange timed alone, 27c's speculative
+    runs, 27d's HTTP front and failover export."""
+    import torch
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    from mmlspark_tpu_torch.parallel.mesh import axis_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    secs = {}
+
+    def lap(name):
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    cfg = _full_cfg(torch.float32)
+    params_np = init_transformer(cfg, seed=0)
+    lap("init")
+    out = {"dp": axis_rank(mesh, "dp"), "tp": axis_rank(mesh, "tp"),
+           "backend": dist.get_backend(),
+           "a_f32": _p27_parity(params_np, cfg, mesh)}
+    lap("27a f32")
+    out["b_int8"] = _p27_parity(params_np, cfg, mesh, "int8")
+    lap("27b int8")
+    bf16 = _full_cfg(torch.bfloat16)
+    out["a_bf16"] = _p27_serve(params_np, bf16, mesh)
+    out["exchange"] = _p27_exchange(mesh, bf16)
+    lap("27a bf16")
+    out["d_http"] = _p27_http(params_np, cfg, mesh, _p27_payloads(cfg.vocab))
+    lap("27d http")
+    out["d_failover"] = _p27_failover(params_np, cfg, mesh)
+    lap("27d failover")
+    del params_np
+    t_cfg, d_cfg = _spec_cfgs(torch.float32)
+    t_np, d_np = init_transformer(t_cfg, 0), init_transformer(d_cfg, 1)
+    out["c_f32"] = _p27_parity(t_np, t_cfg, mesh, draft=(d_np, d_cfg))
+    t16, d16 = _spec_cfgs(torch.bfloat16)
+    out["c_bf16"] = _p27_parity(t_np, t16, mesh, draft=(d_np, d16))
+    lap("27c")
+    out["wall_s"] = secs
+    return out
+
+
+def _p27_http_reference(params_np, cfg, payloads):
+    """27d's yardstick: the in-process single-device f32 decoder on the
+    same requests (the prefix owner drained first, as the front's client
+    sends it), greedy tokens per request."""
+    import torch
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    eng = ContinuousDecoder(
+        params_np, cfg, max_slots=P27["slots"], max_len=P27["max_len"],
+        page_size=P27["page_size"], prefill_chunk=P27["prefill_chunk"],
+        steps_per_dispatch=P27["steps_per_dispatch"])
+
+    def submit(p):
+        return eng.submit(p["tokens"], p["max_new"],
+                          prefix_key=p.get("prefix_key"),
+                          prefix_len=p.get("prefix_len"))
+
+    want = {9: _p27_drain(eng, [submit(payloads[9])])[0]}
+    rest = [i for i in range(len(payloads)) if i != 9]
+    want.update(zip(rest, _p27_drain(eng, [submit(payloads[i])
+                                           for i in rest])))
+    del eng
+    torch.cuda.empty_cache()
+    return [want[i] for i in range(len(payloads))]
+
+
+def _reply_tokens(payload, body):
+    """The tokens of one reply: the JSON body, or an SSE stream's final
+    event (its streamed tokens must add up to it)."""
+    if not payload.get("stream"):
+        return json.loads(body)["tokens"]
+    events = [json.loads(line[6:]) for line in body.split("\n\n")
+              if line.startswith("data: ")]
+    final = events[-1]
+    streamed = [t for e in events[:-1] for t in e.get("tokens", [])]
+    if not final.get("done") or streamed != final["tokens"]:
+        raise AssertionError(f"27d stream: final event {final}, streamed "
+                             f"{streamed}")
+    return final["tokens"]
+
+
+def _p27_k5(what, r, layers, quant=False, mma=False):
+    """One rank's K1/K2/K5 launches in a run: only K5a (K5b when
+    ``quant``), one a layer per attention call; the decode steps on the
+    split body; the extends (chunks, prefix suffixes, verify windows) on
+    the tensor-core body when ``mma`` (bf16), else on the FMA body (f32:
+    neither body counter moves)."""
+    k1, k2, k5a, k5b = r["launches"]
+    b = r["bodies"]
+    q = "q_" if quant else ""
+    extend = r["chunks"] + r["hits"] + r.get("verify_windows", 0)
+    steps = r["calls"] - extend
+    want_split = steps * layers
+    want_mma = extend * layers if mma else 0
+    mine, other = (k5b, k5a) if quant else (k5a, k5b)
+    if k1 or k2 or other or mine != r["calls"] * layers or \
+            b[q + "split"] != want_split or b[q + "mma"] != want_mma or \
+            r["gather_bytes"]:
+        raise AssertionError(
+            f"{what}: (K1, K2, K5a, K5b) {r['launches']}, bodies {b}; want "
+            f"{r['calls']} calls x {layers} layers of "
+            f"{'K5b' if quant else 'K5a'}, {want_split} split, {want_mma} "
+            f"tensor-core ({steps} decode steps, {extend} extends and "
+            f"windows)")
+    return {"launches": mine, "split": b[q + "split"], "mma": b[q + "mma"],
+            "decode_steps": steps, "extends": extend}
+
+
+def _p27_replicas(what, res, key):
+    """The two dp replicas of each tp rank hold the same pool bytes (every
+    buffer of every layer, off trash page 0)."""
+    by = {(r["dp"], r["tp"]): r[key]["digests"] for r in res}
+    for t in range(P27["tp"]):
+        if by[(0, t)] != by[(1, t)]:
+            raise AssertionError(f"{what}: tp rank {t}'s dp replicas hold "
+                                 f"different pages")
+    if by[(0, 0)] == by[(0, 1)]:
+        raise AssertionError(f"{what}: the tp ranks hold the same pages")
+
+
+def phase_mesh_dp(params_np, single, dev_info):
+    """27a-27d: the serving path on a dp2 x tp2 mesh of four rank
+    processes, over gloo when they share the one card (NCCL when each has
+    a card of its own; see the module docstring). The single-device
+    yardsticks run here first; ``single`` is phase 4's tokens."""
+    import base64
+    import hashlib
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models.zoo.transformer import init_transformer
+    from mmlspark_tpu_torch.parallel.launch import run_ranks
+    from mmlspark_tpu_torch.serving.continuous import ContinuousDecoder
+    t0 = time.perf_counter()
+    cfg, bf16 = _full_cfg(torch.float32), _full_cfg(torch.bfloat16)
+    _zero_pa_counts()
+    yard = _p27_serve(params_np, bf16, None)
+    payloads = _p27_payloads(cfg.vocab)
+    want_http = _p27_http_reference(params_np, cfg, payloads)
+    t_cfg, d_cfg = _spec_cfgs(torch.float32)
+    t_np, d_np = init_transformer(t_cfg, 0), init_transformer(d_cfg, 1)
+    want_spec, _ = _spec_parity_run(t_np, t_cfg, d_np, d_cfg, None,
+                                    P27["spec_gamma"])
+    del t_np, d_np
+    torch.cuda.empty_cache()
+    yard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = run_ranks(_p27_rank, P27["dp"] * P27["tp"], device="cuda",
+                    axes={"dp": P27["dp"], "tp": P27["tp"]}, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L = cfg.layers
+    k5 = {}
+    for r in res:
+        who = f"rank dp{r['dp']} tp{r['tp']}"
+        rows = [2 * r["dp"], 2 * r["dp"] + 2]
+        if r["a_f32"]["slot_axis"] != "dp" or r["a_f32"]["rows"] != rows:
+            raise AssertionError(f"27a {who}: slot axis "
+                                 f"{r['a_f32']['slot_axis']}, rows "
+                                 f"{r['a_f32']['rows']}")
+        if r["a_f32"]["tokens"] != single[None]:
+            raise AssertionError(f"27a f32 {who}: tokens "
+                                 f"{r['a_f32']['tokens']}, single device "
+                                 f"{single[None]}")
+        if r["a_bf16"]["tokens"] != res[0]["a_bf16"]["tokens"]:
+            raise AssertionError(f"27a bf16 {who}: tokens differ from rank "
+                                 f"0's")
+        if r["a_bf16"]["hits"] < 1:
+            raise AssertionError(f"27a bf16 {who}: no prefix hit")
+        head = [t[:4] for t in r["b_int8"]["tokens"]]
+        if head != [t[:4] for t in single["int8"]]:
+            raise AssertionError(f"27b int8 {who}: first 4 tokens {head}, "
+                                 f"single device {single['int8']}")
+        if r["c_f32"]["tokens"] != want_spec:
+            raise AssertionError(f"27c f32 {who}: tokens "
+                                 f"{r['c_f32']['tokens']}, single-device "
+                                 f"speculative engine {want_spec}")
+        if r["c_bf16"]["tokens"] != res[0]["c_bf16"]["tokens"] or \
+                r["c_bf16"]["verify_windows"] < 1:
+            raise AssertionError(f"27c bf16 {who}: tokens differ from rank "
+                                 f"0's, or no verify window ran")
+        k5[who] = {
+            "27a f32": _p27_k5(f"27a f32 {who}", r["a_f32"], L),
+            "27a bf16": _p27_k5(f"27a bf16 {who}", r["a_bf16"], L, mma=True),
+            "27b int8": _p27_k5(f"27b int8 {who}", r["b_int8"], L,
+                                quant=True),
+            "27c f32": _p27_k5(f"27c f32 {who}", r["c_f32"], t_cfg.layers),
+            "27c bf16": _p27_k5(f"27c bf16 {who}", r["c_bf16"],
+                                t_cfg.layers, mma=True)}
+    for key in ("a_f32", "a_bf16", "b_int8"):
+        _p27_replicas(f"27 {key}", res, key)
+    # 27d: the front's replies, then the failover
+    lead = [r for r in res if r["d_http"]["leader"]]
+    if len(lead) != 1 or (lead[0]["dp"], lead[0]["tp"]) != (0, 0):
+        raise AssertionError(f"27d: leaders {[r['d_http'] for r in lead]}")
+    replies = lead[0]["d_http"]["replies"]
+    for i, (p, rep) in enumerate(zip(payloads, replies)):
+        if rep is None or rep[0] != 200:
+            raise AssertionError(f"27d request {i} answered {rep}")
+        got = _reply_tokens(p, rep[1])
+        if got != want_http[i]:
+            raise AssertionError(f"27d request {i}: tokens {got}, the "
+                                 f"in-process decoder's {want_http[i]}")
+    fo = [r["d_failover"] for r in res]
+    ck = next(f["checkpoint"] for f in fo if f["checkpoint"] is not None)
+    if len({f["checkpoint_sha1"] for f in fo}) != 1:
+        raise AssertionError("27d: the ranks exported different blobs")
+    blob = ck["kv"]
+    h = cfg.heads // P27["tp"]
+    for r in res:
+        for li, layer in enumerate(r["d_failover"]["shard_digests"]):
+            for key, digest in layer.items():
+                raw = np.frombuffer(base64.b64decode(blob["data"][li][key]),
+                                    np.uint8).reshape(blob["n_pages"],
+                                                      cfg.heads, -1)
+                mine = raw[:, r["tp"] * h:(r["tp"] + 1) * h]
+                if hashlib.sha1(np.ascontiguousarray(mine).tobytes()
+                                ).hexdigest() != digest:
+                    raise AssertionError(
+                        f"27d: blob layer {li} {key}, heads of tp rank "
+                        f"{r['tp']}, differ from the rank's shard")
+    t_adopt = time.perf_counter()
+    eng = ContinuousDecoder(params_np, cfg, **PARITY)
+    req = eng.restore_session(ck["session"], blob)
+    _p27_drain(eng, [req])
+    adopt_s = time.perf_counter() - t_adopt
+    adopted = eng.session_result(req)
+    prefills = eng.stats["prefills"]
+    del eng
+    torch.cuda.empty_cache()
+    if prefills or adopted != single[None][2] or any(
+            f["uninterrupted"] != single[None][2] for f in fo):
+        raise AssertionError(f"27d failover: {prefills} re-prefills, "
+                             f"adopted {adopted}, uninterrupted "
+                             f"{[f['uninterrupted'] for f in fo]}, single "
+                             f"device {single[None][2]}")
+    r0 = res[0]
+    rec = {
+        "mesh_shape": "dp2xtp2", "ranks": len(res),
+        "backend": r0["backend"], "cards": torch.cuda.device_count(),
+        "tok_per_sec": r0["a_bf16"]["tok_per_s"],
+        "tok_per_sec_single_chip": yard["tok_per_s"],
+        "p50_tick_ms": r0["a_bf16"]["p50_tick_ms"],
+        "p50_tick_ms_single_chip": yard["p50_tick_ms"],
+        "collective_ms_per_tick_est": max(
+            0.0, r0["a_bf16"]["p50_tick_ms"] - yard["p50_tick_ms"]),
+        "token_parity_vs_single_chip": (r0["a_bf16"]["tokens"]
+                                        == yard["tokens"]),
+        "f32_token_parity_vs_single_chip": True,
+        "int8_horizon_tokens": 4, "spec_gamma": P27["spec_gamma"],
+        "spec_tokens_per_round_slot_f32": r0["c_f32"][
+            "tokens_per_round_slot"],
+        "dp_exchange": {**r0["exchange"],
+                        "exchanges_per_tick": (r0["a_bf16"]["dp_exchanges"]
+                                               / r0["a_bf16"]["ticks"])},
+        "http_requests": len(payloads), "http_200": len(payloads),
+        "failover": {"blob_pages": blob["n_pages"],
+                     "emitted_at_export": fo[0]["emitted_at_export"],
+                     "re_prefills": prefills, "adopt_and_finish_s": adopt_s},
+        "k5_by_rank": k5,
+        "rank_wall_s": {f"dp{r['dp']}tp{r['tp']}": r["wall_s"] for r in res},
+        "wall_s": {"yardsticks": yard_s, "ranks": ranks_s,
+                   "checks_and_adopt": time.perf_counter() - t0}}
+    log(f"[27] {json.dumps(rec)} | {dev_info['smi']}")
+    return rec
+
+
 def _phase26(params_np, dev_info):
     """Phases 26a-26c, each sub-phase's wall seconds beside it."""
     out, secs = {}, {}
@@ -10237,7 +10781,8 @@ def _phase22(dev_info):
     rank = phase_ranker(dev_info)
     torch.cuda.empty_cache()
     X, y = make_higgs_like(GBDT["rows"], GBDT["features"])
-    extra = phase_extra_trees(dev_info, X, y)
+    n = P22["extra_rows"]
+    extra = phase_extra_trees(dev_info, X[:n], y[:n])
     torch.cuda.empty_cache()
     ckpt = phase_checkpoints(dev_info, X, y)
     del X, y
@@ -10408,7 +10953,8 @@ def main(argv=()):
         log(f"chip_smoke: the port package is not next to this script ({e})")
         return 2
     # "python3 chip_smoke.py 10": only phase 10 and what it needs (1, 2,
-    # 4); "13", "15" and "16": phases 1, 2, 4 and 13 (or 15, 16); "14",
+    # 4); "13", "15", "16" and "27": phases 1, 2, 4 and 13 (or 15, 16,
+    # 27); "14",
     # "17", "18", "19", "20", "21", "22", "23", "24", "25" and "26": phases
     # 1, 2 and 14 (or 17, ..., 26);
     # "9":
@@ -10417,11 +10963,12 @@ def main(argv=()):
     # "3": phases 1, 2 and 3; a partial run prints no result and exits 3
     only = set(argv)
     modes = {"3", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16",
-             "17", "18", "19", "20", "21", "22", "23", "24", "25", "26"}
+             "17", "18", "19", "20", "21", "22", "23", "24", "25", "26",
+             "27"}
     if not only <= modes:
         log(f"chip_smoke: unknown phases {sorted(only - modes)}; the "
             f"arguments are 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, "
-            f"19, 20, 21, 22, 23, 24, 25 and 26")
+            f"19, 20, 21, 22, 23, 24, 25, 26 and 27")
         return 2
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -10448,7 +10995,7 @@ def main(argv=()):
             del X, y
         if "9" in only:
             _phase9(dev_info)
-        if only & {"10", "13", "15", "16"}:
+        if only & {"10", "13", "15", "16", "27"}:
             single = phase_parity(params_np)
         if "10" in only:
             _phase10(params_np, dev_info, single,
@@ -10484,6 +11031,8 @@ def main(argv=()):
             _phase25(params_np, dev_info)
         if "26" in only:
             _phase26(params_np, dev_info)
+        if "27" in only:
+            phase_mesh_dp(params_np, single, dev_info)
         log(f"[done] partial run of phases {sorted(only)}, "
             f"{time.perf_counter() - t_start:.1f} s; no result")
         return 3
@@ -10506,6 +11055,7 @@ def main(argv=()):
     infer_rec = flash_recs["infer bfloat16"]
     train_rec = flash_recs["train bfloat16"]
     win, mesh_par, serve, tp2 = _phase10(params_np, dev_info, single, q8)
+    p27 = phase_mesh_dp(params_np, single, dev_info)
     bert14 = _phase14(dev_info, params_np)
     p25 = _phase25(params_np, dev_info)
     p26 = _phase26(params_np, dev_info)
@@ -10555,6 +11105,11 @@ def main(argv=()):
     l26 = p26["launches"]
     k1_26 = {"26a bf16": l26["26a bf16"], "26b f32": l26["26b f32"]}
     k2_26 = {"26a int8": l26["26a int8"]}
+    # phase 27's K5 launches on its four ranks, each counted from zero
+    k5a_27 = sum(v["launches"] for runs in p27["k5_by_rank"].values()
+                 for k, v in runs.items() if k != "27b int8")
+    k5b_27 = sum(runs["27b int8"]["launches"]
+                 for runs in p27["k5_by_rank"].values())
     kernels = [
         {"name": "paged_attention_window", "route": "cuda", "source": src,
          "replaces": f"{ref}:226",
@@ -10606,7 +11161,11 @@ def main(argv=()):
          **{k: recs["K4"]["int8 read"][k] for k in keys}, **recs["K4"]},
         {"name": "paged_attention_window (mesh=)", "route": "cuda",
          "source": src, "replaces": f"{ref}:297",
-         "launches": serve["mesh"]["k5a_launches"],
+         "launches": serve["mesh"]["k5a_launches"] + k5a_27,
+         "launches_dp2xtp2_27": {who: {k: v for k, v in runs.items()
+                                       if k != "27b int8"}
+                                 for who, runs in p27["k5_by_rank"].items()},
+         "mesh_dp2xtp2_27": p27,
          "launches_decode": serve["mesh"]["k5a_launches_decode"],
          "launches_extend": serve["mesh"]["k5a_launches_extend"],
          "launches_mesh_parity_f32": mesh_par["f32"]["k5a"],
@@ -10616,7 +11175,10 @@ def main(argv=()):
          **{k: win["K5a"]["decode"][k] for k in keys}, **win["K5a"]},
         {"name": "paged_attention_window (mesh=, k_scale/v_scale)",
          "route": "cuda", "source": src, "replaces": f"{ref}:461",
-         "launches": mesh_par["int8"]["k5b"] + mesh_par["fp8"]["k5b"],
+         "launches": (mesh_par["int8"]["k5b"] + mesh_par["fp8"]["k5b"]
+                      + k5b_27),
+         "launches_dp2xtp2_int8_27b": {
+             who: runs["27b int8"] for who, runs in p27["k5_by_rank"].items()},
          "launches_int8_run": mesh_par["int8"]["k5b"],
          "launches_fp8_run": mesh_par["fp8"]["k5b"],
          "launches_split": (mesh_par["int8"]["split"]

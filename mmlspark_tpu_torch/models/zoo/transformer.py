@@ -27,6 +27,12 @@ pages. The layer math is the same; the head count comes from the
 weights, and after each row-parallel projection (``out``, ``w2``) one
 ``all_reduce`` (sum) runs on the ``tp`` group, whatever its size, before
 the bias is added once. The logits are then the same bits on every rank.
+With ``slot_axis="dp"`` on the paged decode functions the rows shard
+too: each rank passes its ``B / dp`` rows (tokens, positions, block-table
+rows, ``active``) and gets their logits, while the page pool replicates
+over ``dp``; the fresh K/V rows of every dp shard are gathered and
+written on every replica (the kernel path in the mount, the gather path
+in its writeback).
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ from ...ops.flash_attention import flash_attention
 from ...ops.kv_quant import (SCALE_DTYPE, dequantize_kv, kv_store_dtype,
                              quantize_kv)
 from ...ops.paged_attention import (_bits, _check_mesh_axes, _check_mount,
-                                    paged_attention_window)
-from ...parallel.mesh import axis_group
+                                    _gather_fresh, paged_attention_window)
+from ...parallel.mesh import axis_group, axis_size
 from ...utils.device import resolve_device
 
 __all__ = ["TransformerConfig", "BERT_BASE", "BERT_MINI", "DECODER_MINI",
@@ -322,12 +328,14 @@ def _ffn_residual(h, lp, cfg, ctx, B, S, group=None):
 def _mesh_group(mesh, cfg: TransformerConfig, B: int, slot_axis=None,
                 head_axis=None):
     """The ``tp`` group the layer loop reduces over (None without a mesh
-    or a head axis), after checking that the mesh divides the heads and
-    shards no slots."""
+    or a head axis), after checking that the mesh names both axes and
+    divides the heads. ``B`` is this rank's rows: with ``slot_axis`` the
+    global batch is ``B`` times the axis size."""
     if mesh is None:
         return None
-    _check_mount(mesh, B, cfg.heads, slot_axis, head_axis)
     _check_mesh_axes(mesh, slot_axis, head_axis)
+    rows = B * (1 if slot_axis is None else axis_size(mesh, slot_axis))
+    _check_mount(mesh, rows, cfg.heads, slot_axis, head_axis)
     return None if head_axis is None else axis_group(mesh, head_axis)
 
 
@@ -672,12 +680,20 @@ def paged_scatter_rows(cache_pages, rows, block_tables, page_size: int):
     return cache_pages
 
 
-def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
-                     page_size: int, active):
-    """Scatter the freshly written positions ``wpos`` (B, W) of an updated
-    gathered cache back into the pools, in place. Inactive rows (and only
-    they) are redirected to trash page 0. Quantized pools get the
-    quantized codes and their scales."""
+def _fresh_rows(new_cache, wpos):
+    """The freshly written positions ``wpos`` (B, W) of an updated gathered
+    cache: per layer ``{"k","v"}`` (B, W, H, hd)."""
+    B, W = wpos.shape
+    rows = torch.arange(B, device=wpos.device)[:, None].expand(B, W)
+    return [{kk: nc[kk][rows, :, wpos.long()] for kk in ("k", "v")}
+            for nc in new_cache]
+
+
+def _write_fresh(cache_pages, fresh, block_tables, wpos, page_size: int,
+                 active):
+    """Write :func:`_fresh_rows`' values into the pools at ``wpos``
+    through ``block_tables``, in place; inactive rows go to trash page
+    0."""
     B, W = wpos.shape
     wpos = wpos.long()
     phys = torch.gather(block_tables.long(), 1,
@@ -686,14 +702,33 @@ def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
         phys = torch.where(active[:, None], phys, torch.zeros_like(phys))
     pf = phys.reshape(-1)
     of = (wpos % page_size).reshape(-1)
-    rows = torch.arange(B, device=wpos.device)[:, None].expand(B, W)
-    for c, nc in zip(cache_pages, new_cache):
+    for c, fc in zip(cache_pages, fresh):
         for kk in ("k", "v"):
-            vals = nc[kk][rows, :, wpos]                    # (B, W, H, hd)
+            vals = fc[kk]                                   # (B, W, H, hd)
             H, hd = vals.shape[2], vals.shape[3]
             _write_rows(c, kk, (pf, slice(None), of),
                         vals.reshape(B * W, H, hd))
     return cache_pages
+
+
+def _paged_writeback(cache_pages, new_cache, block_tables, wpos,
+                     page_size: int, active, mesh=None, slot_axis=None):
+    """Scatter the freshly written positions ``wpos`` (B, W) of an updated
+    gathered cache back into the pools, in place. Inactive rows (and only
+    they) are redirected to trash page 0. Quantized pools get the
+    quantized codes and their scales. With ``slot_axis`` (this rank's
+    rows over ``dp``, the pool replicated over it) every dp shard's fresh
+    rows, block-table rows, positions and ``active`` are gathered in one
+    collective (``ops.paged_attention._gather_fresh``) and all of
+    them written."""
+    fresh = _fresh_rows(new_cache, wpos)
+    flat = [fc[kk] for fc in fresh for kk in ("k", "v")]
+    (*flat, block_tables, wpos), active = _gather_fresh(
+        flat + [block_tables, wpos], active, mesh, slot_axis)
+    fresh = [{"k": flat[2 * i], "v": flat[2 * i + 1]}
+             for i in range(len(fresh))]
+    return _write_fresh(cache_pages, fresh, block_tables, wpos, page_size,
+                        active)
 
 
 def _decode_window_paged_kernel(params: Dict, tokens: torch.Tensor,
@@ -761,7 +796,9 @@ def decode_step_paged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     ``cache_pages`` its head shard: the kernel path reads through
     K5a/K5b, the gather path gathers the rank's heads, and both reduce
     over the ``tp`` group. ``head_axis=None`` means replicated weights
-    and heads (no reduce)."""
+    and heads (no reduce). ``slot_axis`` (``"dp"``) makes ``tokens``,
+    ``pos``, ``block_tables`` and ``active`` this rank's rows; both paths
+    then write every dp shard's fresh rows into the replicated pool."""
     if _check_impl(impl) == "kernel":
         logits, pages = _decode_window_paged_kernel(
             params, tokens[:, None], pos, cache_pages, block_tables, cfg,
@@ -773,7 +810,8 @@ def decode_step_paged(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     logits, new = decode_step_ragged(params, tokens, pos, gathered, cfg,
                                      active, group)
     pages = _paged_writeback(cache_pages, new, block_tables,
-                             pos.long()[:, None], page_size, active)
+                             pos.long()[:, None], page_size, active, mesh,
+                             slot_axis)
     return logits, pages
 
 
@@ -799,7 +837,7 @@ def decode_window_paged(params: Dict, tokens: torch.Tensor,
     logits, new = decode_window_ragged(params, tokens, pos, gathered, cfg,
                                        active, group)
     pages = _paged_writeback(cache_pages, new, block_tables, wpos,
-                             page_size, active)
+                             page_size, active, mesh, slot_axis)
     return logits, pages
 
 

@@ -79,12 +79,21 @@ by the rules of :func:`~mmlspark_tpu_torch.ops.kv_quant.quantize_kv`.
 
 The mesh mount (``mesh=``): JAX mounts the kernel with ``shard_map``
 over global arrays; the port runs one process per rank, so the caller
-passes its RANK-LOCAL q / k_new / v_new and its head shard of the pools
-(every rank of a ``tp`` group holds ``H / tp`` heads of every page). The
-window op then reads through K5a/K5b and writes the fresh rows with
-:func:`_pool_write_rows` / :func:`_pool_write_rows_quant` outside the
-kernel, bytes identical to the fused scatter's; the read-only op runs
-K3/K4 on the shard. No collective runs inside either.
+passes its RANK-LOCAL q / k_new / v_new — its ``B / dp`` rows when
+``slot_axis`` names the ``dp`` axis, its ``H / tp`` heads over
+``head_axis`` — with those rows' block-table rows, ``pos`` and
+``active``, and its head shard of the pools (every rank of a ``tp``
+group holds ``H / tp`` heads of every page; the pools replicate over
+``dp``). The window op reads the rank's rows through K5a/K5b, then
+writes the fresh rows with :func:`_pool_write_rows` /
+:func:`_pool_write_rows_quant` outside the kernel, bytes identical to
+the fused scatter's. With rows over ``dp`` every replica must write
+EVERY shard's rows, so first one
+:func:`~mmlspark_tpu_torch.parallel.mesh.gather_rows_many` over the dp
+group brings in k_new, v_new, the block-table rows, ``pos`` and
+``active`` (the all-gather GSPMD inserts before the JAX package's
+``_pool_write_rows``); that is the only collective here. The read-only
+op runs K3/K4 on the rank's rows and heads as they are.
 
 Page-size rule on Hopper: none. The kernels tile the logical key space
 in 32-key tiles and look each key's page up on its own, so any
@@ -100,7 +109,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel.mesh import axis_size, mesh_shape
+from ..parallel.mesh import axis_size, gather_rows_many, mesh_shape
 from .kv_quant import SCALE_DTYPE, quantize_kv
 
 __all__ = ["paged_attention", "paged_attention_plain",
@@ -330,11 +339,32 @@ def _pool_write_rows_quant(pool, scales, rows, block_tables, pos, active):
     return pool, scales
 
 
-def _mount_writes(k_new, v_new, pools, block_tables, pos, active):
+def _gather_fresh(tensors, active, mesh, slot_axis):
+    """What a write into a pool replicated over ``slot_axis`` needs: every
+    dp shard's ``tensors`` (rows on dim 0: the fresh K/V rows, the
+    block-table rows, the positions) and ``active`` (None: every row
+    live), gathered in one collective. Without a slot axis of size > 1
+    they are returned as given. Returns (tensors, active)."""
+    if slot_axis is None or axis_size(mesh, slot_axis) == 1:
+        return list(tensors), active
+    act = (torch.ones(tensors[0].shape[0], dtype=torch.bool,
+                      device=tensors[0].device)
+           if active is None else active.to(torch.bool))
+    *got, act = gather_rows_many(list(tensors) + [act], mesh, slot_axis)
+    return got, act
+
+
+def _mount_writes(k_new, v_new, pools, block_tables, pos, active, mesh=None,
+                  slot_axis=None):
     """The mesh mount's page writes after the window read: the K and V
     rows (codes and scales when ``pools`` holds scale pools too) at one
     set of (page, offset) slots — :func:`_pool_write_rows(_quant)
-    <_pool_write_rows>` for K and for V, with the slots computed once."""
+    <_pool_write_rows>` for K and for V, with the slots computed once.
+    With ``slot_axis`` (rows over ``dp``) every dp shard's rows are
+    gathered first (:func:`_gather_fresh`) and all of them written: each
+    replica of the pool receives the same bytes."""
+    (k_new, v_new, block_tables, pos), active = _gather_fresh(
+        [k_new, v_new, block_tables, pos], active, mesh, slot_axis)
     pf, of = _row_slots(block_tables, pos, k_new.shape[2], pools[0].shape[2],
                         active)
     if len(pools) == 4:
@@ -363,18 +393,14 @@ def _check_mount(mesh, B: int, H: int, slot_axis, head_axis):
 
 
 def _check_mesh_axes(mesh, slot_axis, head_axis) -> None:
-    """What the port's mount takes: a head axis the mesh names, and no
-    slot sharding (rows over ``dp`` need the fresh rows of every dp shard
-    on every replica: ROADMAP.md, slice 6 leftovers)."""
+    """What the port's mount takes: a slot axis and a head axis that the
+    mesh names (either may be None), and not the same axis twice."""
     names = tuple(mesh.mesh_dim_names or ())
     for name in (slot_axis, head_axis):
         if name is not None and name not in names:
             raise ValueError(f"mesh {mesh_shape(mesh)} has no axis {name!r}")
-    if slot_axis is not None and axis_size(mesh, slot_axis) > 1:
-        raise NotImplementedError(
-            f"slot sharding over {slot_axis}={axis_size(mesh, slot_axis)} "
-            f"is not ported to mmlspark_tpu_torch yet (queued in "
-            f"ROADMAP.md, 'Slice 6 leftovers')")
+    if slot_axis is not None and slot_axis == head_axis:
+        raise ValueError(f"slot_axis and head_axis are both {slot_axis!r}")
 
 
 def _library():
@@ -667,16 +693,18 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
     :func:`_fused_window` says; anything the kernel does not take
     raises.
 
-    With ``mesh=`` (a ``DeviceMesh``; heads over ``head_axis``) the
-    arguments are this rank's: its heads of q / k_new / v_new and its
-    head shard of the pools. The attention then runs READ-ONLY (K5a, or
-    K5b with scales, counted in ``.launches_window`` /
+    With ``mesh=`` (a ``DeviceMesh``; heads over ``head_axis``, rows over
+    ``slot_axis``) the arguments are this rank's: its rows and heads of
+    q / k_new / v_new, those rows' ``block_tables`` / ``pos`` /
+    ``active``, and its head shard of the pools. The attention then runs
+    READ-ONLY (K5a, or K5b with scales, counted in ``.launches_window`` /
     ``.launches_window_q`` and by body, as :func:`_window_read` says; the
-    window-read plain version on the CPU)
-    and the fresh rows are written after it by :func:`_pool_write_rows`
-    / :func:`_pool_write_rows_quant`, the same bytes the fused scatter
-    writes; inactive rows write trash page 0. ``slot_axis`` of size > 1
-    raises NotImplementedError."""
+    window-read plain version on the CPU) and the fresh rows are written
+    after it by :func:`_pool_write_rows` / :func:`_pool_write_rows_quant`,
+    the same bytes the fused scatter writes; inactive rows write trash
+    page 0. With ``slot_axis`` of size > 1 every dp shard's rows are
+    gathered first and all of them written (:func:`_mount_writes`), so
+    the pool's dp replicas stay equal; ctx holds this rank's rows."""
     _check(q, k_pages, v_pages, block_tables, pos, k_new=k_new, v_new=v_new,
            k_scale=k_scale, v_scale=v_scale)
     B, H, W, hd = q.shape
@@ -691,7 +719,7 @@ def paged_attention_window(q, k_new, v_new, k_pages, v_pages, block_tables,
         _check_mesh_axes(mesh, slot_axis, head_axis)
         ctx = _window_read(q, k_new, v_new, k_pages, v_pages, bt, pos,
                            float(scale), k_scale, v_scale)
-        _mount_writes(k_new, v_new, pools, bt, pos, active)
+        _mount_writes(k_new, v_new, pools, bt, pos, active, mesh, slot_axis)
         return (ctx,) + pools
     wlo, whi = write_range(pos, W, page, active)
     ctx = _fused_window(q, k_new, v_new, k_pages, v_pages, bt, pos, wlo, whi,
@@ -742,10 +770,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     :func:`_split_workspace`, one query a block at W = 1 and groups of 4
     at W > 1); anything the kernel does not take raises.
 
-    With ``mesh=`` the arguments are this rank's head shard (q's heads
-    and the pools' heads over ``head_axis``); the sweep runs on the shard
-    as it is, with no collective. ``slot_axis`` of size > 1 raises
-    NotImplementedError."""
+    With ``mesh=`` the arguments are this rank's: q's rows over
+    ``slot_axis`` and heads over ``head_axis``, those rows' block tables
+    and lengths, and the pools' heads over ``head_axis``; the sweep runs
+    on them as they are, with no collective (it writes nothing)."""
     _check(q, k_pages, v_pages, block_tables, lengths, k_scale=k_scale,
            v_scale=v_scale)
     if mesh is not None:

@@ -37,7 +37,7 @@ import torch.distributed as dist
 
 __all__ = ["initialize", "is_initialized", "world_info", "find_open_port",
            "choose_backend", "rank_device", "shutdown",
-           "coordinator_rendezvous"]
+           "broadcast_object", "coordinator_rendezvous"]
 
 
 def find_open_port() -> int:
@@ -125,6 +125,19 @@ def shutdown() -> None:
     """Leave the world (a no-op outside one)."""
     if is_initialized():
         dist.destroy_process_group()
+
+
+def broadcast_object(obj):
+    """Rank 0's picklable host object on every rank of the world; the
+    other ranks' ``obj`` is ignored. A world of one returns ``obj``. Only
+    objects this program pickled are unpickled: the ranks of one
+    world's. Over NCCL the object crosses through the calling thread's
+    current card."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def coordinator_rendezvous(role: str, driver_host: str, driver_port: int,

@@ -13,6 +13,10 @@ dims, one rank per mesh point, over the group that
 serving path names ``("tp",)`` or ``("dp", "tp")``; the helpers below
 read an axis's size, this rank's index on it and its process group, and
 treat an axis the mesh does not name as size 1.
+
+:func:`gather_rows_many` is the dp exchange: slots shard over ``dp`` while
+the page pool replicates over it, so every replica needs every shard's
+fresh rows (GSPMD inserts that all-gather in the JAX package).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.distributed as dist
 
 __all__ = ["local_devices", "device_for_partition", "feed_placement",
            "Placement", "make_mesh", "mesh_shape", "axis_size",
-           "axis_rank", "axis_group"]
+           "axis_rank", "axis_group", "gather_rows", "gather_rows_many"]
 
 
 def local_devices() -> List[torch.device]:
@@ -129,3 +133,68 @@ def mesh_shape(mesh) -> str:
         return "single"
     return "x".join(f"{name}{int(mesh.size(i))}"
                     for i, name in enumerate(mesh.mesh_dim_names))
+
+
+def gather_rows(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-gather ``t`` along dim 0 over ``axis``'s group: the result holds
+    every rank's rows in axis order (rank ``i``'s at ``[i * n, (i + 1) *
+    n)``), bytes identical to the senders' bytes, on every rank of the
+    group. :func:`gather_rows_many` of one tensor."""
+    return gather_rows_many([t], mesh, axis)[0]
+
+
+def gather_rows_many(tensors, mesh, axis: str) -> List[torch.Tensor]:
+    """:func:`gather_rows` of several tensors that share their leading dim
+    (one device), in ONE collective. An axis of size 1 returns the
+    tensors themselves.
+
+    Each rank's rows travel as raw bytes, the tensors packed side by
+    side, so any dtype crosses bit for bit. One code path per backend:
+
+    * NCCL (every rank on a card of its own):
+      ``all_gather_into_tensor``;
+    * gloo (the CPU, or ranks that share a card): gloo takes CUDA tensors
+      in ``broadcast`` and ``all_reduce`` only, so each rank writes its
+      rows into a zero-filled buffer and the buffer is all-reduced under
+      an integer view of its bytes. ``x + 0`` is ``x`` in integer
+      arithmetic, so -0.0 and NaN payloads survive the sum exactly.
+
+    Each call counts one in ``gather_rows_many.calls``."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return list(tensors)
+    if any(t.dim() < 1 for t in tensors):
+        raise ValueError("gather_rows needs tensors with a leading dim")
+    group = axis_group(mesh, axis)
+    m = tensors[0].shape[0]
+    parts = [t.contiguous().reshape(-1).view(torch.uint8).reshape(m, -1)
+             for t in tensors]
+    rows = torch.cat(parts, dim=1)
+    if rows.shape[1] % 4 == 0:
+        rows = rows.view(torch.int32)
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        out = torch.empty((n * m, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        dist.all_gather_into_tensor(out, rows, group=group)
+    elif backend == "gloo":
+        out = torch.zeros((n * m, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        r = axis_rank(mesh, axis)
+        out[r * m:(r + 1) * m] = rows
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    else:
+        raise ValueError(f"gather_rows has no path for backend {backend!r}")
+    gather_rows_many.calls += 1
+    out = out.view(torch.uint8)
+    got, off = [], 0
+    for t, p in zip(tensors, parts):
+        w = p.shape[1]
+        got.append(out[:, off:off + w].contiguous().view(t.dtype).reshape(
+            (n * m,) + tuple(t.shape[1:])))
+        off += w
+    return got
+
+
+#: calls since the last reset
+gather_rows_many.calls = 0

@@ -51,15 +51,29 @@ program factories are plain methods here; the device work is ordered on
 one CUDA stream and the host only waits at a drain (one device→host copy
 per drained block) or when it uploads host state.
 
-**Tensor-parallel serving** (``mesh=``, a ``DeviceMesh`` naming ``"tp"``,
-or ``("dp", "tp")`` with dp = 1): one process per rank, every rank
-running this same engine with the same ``submit``/``step`` calls in the
-same order. The host scheduler is deterministic, so every rank keeps the
-same block tables; each rank holds its ``shard_params`` slice of the
-weights and its ``heads / tp`` shard of the pool, and the layer loop
-all-reduces over the ``tp`` group after each row-parallel projection, so
-every rank computes the same logits and tokens. Slot sharding over
-``dp > 1`` is not ported.
+**Serving on a mesh** (``mesh=``, a ``DeviceMesh`` naming ``"tp"``,
+``"dp"`` or both, as the JAX engine's): one process per rank, every
+rank running this same engine with the same ``submit``/``step`` calls
+in the same order. Heads shard over ``tp``: each rank holds its
+``shard_params`` slice of the weights and its ``heads / tp`` shard of
+the pool, and the layer loop all-reduces over the ``tp`` group after
+each row-parallel projection. Slots shard over ``dp`` when ``dp > 1``
+divides ``max_slots`` (else the rows replicate): each rank computes the
+device rows of its own ``max_slots / dp`` slots, while the page pool
+replicates over ``dp`` (the mount writes every dp shard's fresh rows on
+every replica, :func:`~mmlspark_tpu_torch.ops.paged_attention.paged_attention_window`).
+Each dispatch ends with one all-gather of every dp shard's tokens and
+slot state, so every rank holds the same slot table, waiting queue and
+page allocation. Prefills and chunked-prefill extends (one B = 1 row)
+replicate over ``dp``, as in the JAX engine. With a draft, the draft is
+replicated (every rank holds its weights and runs it on its own rows)
+and the verify windows run through the mount.
+
+No host decision reads a rank's own clock: admission, chunking,
+prefill-ahead staging, the drains, ``_maybe_compact`` and the
+:class:`KVAutotuner` read the queue, the slot table, the pool and the
+drained tokens, which are the same on every rank; the clocks feed only
+the ledger, the metrics and ``tick_seconds``.
 
 Greedy decoding is the parity-tested mode: each request's tokens equal
 the reference's ``generate_cached`` on its prompt alone, with or without
@@ -109,7 +123,8 @@ from ..ops.kv_quant import (dequantize_kv, kv_store_dtype, quantize_kv,
                             resolve_kv_dtype)
 from ..ops.padding import bucket_size
 from ..ops.paged_attention import _bits
-from ..parallel.mesh import axis_rank, axis_size, mesh_shape
+from ..parallel.mesh import (axis_rank, axis_size, gather_rows_many,
+                             mesh_shape)
 from ..reliability.faults import get_injector as _get_injector
 from ..reliability.lock_sanitizer import new_lock
 from ..utils.device import resolve_device
@@ -269,17 +284,16 @@ class ContinuousDecoder:
     of this rank's heads).
 
     ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``, over a
-    world from ``parallel.distributed.initialize``) serves tensor
-    parallel: heads over ``"tp"``; every rank must run the same calls.
-    A ``"dp"`` axis larger than 1 raises NotImplementedError.
+    world from ``parallel.distributed.initialize``) serves on a mesh:
+    heads over ``"tp"``, slots over ``"dp"`` (see the module docstring);
+    every rank must run the same calls.
 
     ``draft_params`` (a numpy param tree) with ``draft_cfg`` turns on
     speculative decoding at ``gamma`` draft tokens a round (the draft
-    causal, dense, on the target's vocabulary); ``autotune=True`` runs
-    the :class:`KVAutotuner`, which walks gamma up to ``max(gamma, 8)``
-    (every slot's pages and the draft pool are sized for that ceiling),
-    the chunk budget and the pipeline depth. Speculation on a mesh is not
-    ported (NotImplementedError).
+    causal, dense, on the target's vocabulary; replicated on a mesh);
+    ``autotune=True`` runs the :class:`KVAutotuner`, which walks gamma up
+    to ``max(gamma, 8)`` (every slot's pages and the draft pool are sized
+    for that ceiling), the chunk budget and the pipeline depth.
 
     ``prefill_ahead`` (rows, 0 = off) stages waiting prefills on the
     device while the pool is full; ``journal`` (a
@@ -310,16 +324,6 @@ class ContinuousDecoder:
         #: speculative mode: the draft proposes gamma tokens a round per
         #: slot, the target verifies every slot's window in one forward
         self._spec = draft_params is not None
-        if self._spec and mesh is not None:
-            raise NotImplementedError(
-                "speculative decoding on a mesh is not ported to "
-                "mmlspark_tpu_torch yet (queued in ROADMAP.md, 'Slice 6 "
-                "leftovers', item 27)")
-        if mesh is not None and axis_size(mesh, "dp") > 1:
-            raise NotImplementedError(
-                f"slot sharding over dp={axis_size(mesh, 'dp')} is not "
-                f"ported to mmlspark_tpu_torch yet (queued in ROADMAP.md, "
-                f"'Slice 6 leftovers')")
         if prefill_ahead < 0:
             raise ValueError("prefill_ahead must be >= 0")
         if not cfg.causal:
@@ -364,6 +368,10 @@ class ContinuousDecoder:
         #: the SLO model label the quant probe reports under
         self._slo_model = str(slo_model)
         self._dev = resolve_device(device)
+        if self._dev.type == "cuda" and self._dev.index is None:
+            # the card this thread has now (a rank's, on a mesh), by
+            # index: an engine thread started later starts on card 0
+            self._dev = torch.device("cuda", torch.cuda.current_device())
         self._cfg = cfg
         self._S = int(max_slots)
         self._L = int(max_len)
@@ -380,13 +388,21 @@ class ContinuousDecoder:
         #: gamma + 1 positions even when fewer remain before max_new
         self._Lc = self._L + (self._gamma_max + 1 if self._spec else 0)
         self._attn_impl = paged_attn
-        #: the mesh, its head axis ("tp" when the mesh names one; no slot
-        #: axis is sharded here), and its shape string ("tp2")
+        #: the mesh, its head axis ("tp" when the mesh names one), its
+        #: slot axis ("dp" when dp > 1 divides the slots: the JAX rules,
+        #: JAX continuous.py:683-697) and its shape string ("dp2xtp2")
         self._mesh = mesh
         self._head_axis = ("tp" if mesh is not None
                            and "tp" in (mesh.mesh_dim_names or ())
                            else None)
+        dp = axis_size(mesh, "dp")
+        self._slot_axis = "dp" if dp > 1 and self._S % dp == 0 else None
         self._mesh_shape = mesh_shape(mesh)
+        #: the slots whose device rows this rank computes (all of them
+        #: unless slots shard over dp)
+        n_rows = self._S // dp if self._slot_axis else self._S
+        lo = axis_rank(mesh, "dp") * n_rows if self._slot_axis else 0
+        self._rows = slice(lo, lo + n_rows)
         tp = axis_size(mesh, "tp")
         if self._head_axis is not None:
             params = shard_params(params, cfg, axis_rank(mesh, "tp"), tp)
@@ -415,7 +431,7 @@ class ContinuousDecoder:
                 f"({self._P_max} pages + the trash page)")
         self._kv = PagedKVPool(cfg, num_pages=int(kv_pages),
                                page_size=self._page, kv_dtype=self._kv_dtype,
-                               device=self._dev, tp=tp)
+                               device=self._dev, mesh=mesh)
         self._chunk = int(prefill_chunk)
         self._tuner = (KVAutotuner(gamma=self._gamma,
                                    gamma_max=self._gamma_max,
@@ -1078,11 +1094,34 @@ class ContinuousDecoder:
         return ids
 
     def _tp_kw(self) -> dict:
-        """The mesh arguments of the model calls: heads only (a slot axis
-        is never sharded here, and an extend's one row could not be)."""
+        """The mesh arguments of the replicated model calls (prefills and
+        extends): heads only (an extend's one row cannot split over
+        dp)."""
         if self._mesh is None:
             return {}
         return {"mesh": self._mesh, "head_axis": self._head_axis}
+
+    def _rows_kw(self) -> dict:
+        """The mesh arguments of the decode and verify calls, which run
+        on this rank's rows: heads, and slots when they shard over dp."""
+        if self._mesh is None:
+            return {}
+        return {**self._tp_kw(), "slot_axis": self._slot_axis}
+
+    def _join_rows(self, block, tok, pos, active, remaining):
+        """End of a dispatch: this rank's (n_steps, rows) token block and
+        its rows' decode state → every slot's, on every rank. With slots
+        over dp one all-gather brings in every shard's rows (the tokens,
+        ``tok``, ``pos``, ``active`` and ``remaining``); otherwise the rows
+        are every slot's already. Stores the state; returns the (n_steps, S) block."""
+        if self._slot_axis is not None:
+            block_t, tok, pos, active, remaining = gather_rows_many(
+                [block.T, tok, pos, active, remaining], self._mesh,
+                self._slot_axis)
+            block = block_t.T
+        self._tok, self._pos = tok, pos
+        self._active, self._remaining = active, remaining
+        return block
 
     def _extend(self, ids: np.ndarray, start: int, slot: int):
         """Window forward over one slot's pages (prefix suffix or prefill
@@ -1293,22 +1332,27 @@ class ContinuousDecoder:
 
     # ---- the decode tick ----
     def _tick(self, decode_live: List[int]) -> torch.Tensor:
-        """k paged decode steps over every slot; retirement (remaining,
-        eos) runs on the device inside the loop, so a slot that finishes
-        mid-dispatch stops advancing. Returns the (k, S) token block."""
+        """k paged decode steps over this rank's slots (every slot unless
+        slots shard over dp); retirement (remaining, eos) runs on the
+        device inside the loop, so a slot that finishes mid-dispatch stops
+        advancing. Returns the (k, S) token block of every slot
+        (:meth:`_join_rows`)."""
         sample = any(self._slot_req[i].temperature > 0.0
                      for i in decode_live)
-        tok, pos = self._tok, self._pos
-        active, remaining = self._active, self._remaining
+        r = self._rows
+        tok, pos = self._tok[r], self._pos[r]
+        active, remaining = self._active[r], self._remaining[r]
+        temp, topk, topp, seed = (self._temp[r], self._topk[r],
+                                  self._topp[r], self._seed[r])
+        bt = self._bt[r]
         toks = []
         for _ in range(self._k):
             logits, _ = decode_step_paged(
-                self._params, tok, pos, self._kv.buffers, self._bt,
+                self._params, tok, pos, self._kv.buffers, bt,
                 self._cfg, page_size=self._page, length=self._Lc,
-                active=active, impl=self._attn_impl, **self._tp_kw())
+                active=active, impl=self._attn_impl, **self._rows_kw())
             # the emitted token sits at pos + 1
-            nxt = self._pick(logits, self._temp, self._topk, self._topp,
-                             self._seed, pos + 1, sample)
+            nxt = self._pick(logits, temp, topk, topp, seed, pos + 1, sample)
             nxt = torch.where(active, nxt, tok)
             pos = torch.where(active, pos + 1, pos)
             remaining = torch.where(active, remaining - 1, remaining)
@@ -1318,28 +1362,29 @@ class ContinuousDecoder:
             active = active & ~fin
             tok = nxt
             toks.append(nxt)
-        self._tok, self._pos = tok, pos
-        self._active, self._remaining = active, remaining
-        return torch.stack(toks)
+        return self._join_rows(torch.stack(toks), tok, pos, active,
+                               remaining)
 
     # ---- the speculative tick ----
     def _warm_logp(self, lg: torch.Tensor, warp: bool) -> torch.Tensor:
-        """Log-probabilities of (S, V) or (S, W, V) logits at each row's
-        temperature, after the row's top-k/top-p warp when ``warp`` (the
-        same warp for target and draft: the rejection test is exact only
-        under a shared warp)."""
-        t = self._temp.clamp(min=1e-6).reshape(
+        """Log-probabilities of this rank's (rows, V) or (rows, W, V)
+        logits at each row's temperature, after the row's top-k/top-p warp
+        when ``warp`` (the same warp for target and draft: the rejection
+        test is exact only under a shared warp)."""
+        r = self._rows
+        t = self._temp[r].clamp(min=1e-6).reshape(
             (lg.shape[0],) + (1,) * (lg.dim() - 1))
         scaled = lg.float() / t
+        topk, topp = self._topk[r], self._topp[r]
         if warp:
             if lg.dim() == 2:
-                scaled = _warp_scaled_rows(scaled, self._topk, self._topp)
+                scaled = _warp_scaled_rows(scaled, topk, topp)
             else:
                 s_, w_, v_ = scaled.shape
                 scaled = _warp_scaled_rows(
                     scaled.reshape(s_ * w_, v_),
-                    self._topk.repeat_interleave(w_),
-                    self._topp.repeat_interleave(w_)).reshape(s_, w_, v_)
+                    topk.repeat_interleave(w_),
+                    topp.repeat_interleave(w_)).reshape(s_, w_, v_)
         return torch.log_softmax(scaled, dim=-1)
 
     def _spec_tick(self, gamma: int, mode: str) -> torch.Tensor:
@@ -1359,22 +1404,29 @@ class ContinuousDecoder:
         draws from its slot's generator in a fixed order. Emission stops
         at eos, inclusive. Returns the (k (gamma + 1), S) block, -1 on
         lanes not emitted; rejected lanes' K/V is overwritten before any
-        query reads it."""
+        query reads it. On a mesh every round runs on this rank's slots:
+        the draft (replicated) over their rows of the draft pool, the
+        verify window through the mount, the acceptance on their rows;
+        :meth:`_join_rows` then brings in every dp shard's emissions."""
         dev = self._dev
         sample = mode != "greedy"
         warp = mode == "warped"
-        seed = self._seed
+        r = self._rows
+        seed = self._seed[r]
         V = self._cfg.vocab
         idx = torch.arange(gamma + 1, device=dev)
-        temp = self._temp
-        tok, pos = self._tok, self._pos
-        active, remaining = self._active, self._remaining
+        temp = self._temp[r]
+        tok, pos = self._tok[r], self._pos[r]
+        active, remaining = self._active[r], self._remaining[r]
+        bt = self._bt[r]
+        # views: the draft's in-place writes land in the whole pool
+        d_cache = [{kk: c[kk][r] for kk in ("k", "v")} for c in self._d_cache]
         emits = []
         for _ in range(self._k):
             t, props, d_logps = tok, [], []
             for i in range(gamma + 1):
                 lg = decode_step_ragged_inplace(self._d_params, t, pos + i,
-                                                self._d_cache, self._d_cfg,
+                                                d_cache, self._d_cfg,
                                                 active)
                 if i == gamma:          # this step only wrote its K/V
                     break
@@ -1391,8 +1443,9 @@ class ContinuousDecoder:
             drafts = torch.stack(props, dim=1)                    # (S, g)
             w_logits, _ = decode_window_paged(
                 self._params, torch.cat([tok[:, None], drafts], dim=1), pos,
-                self._kv.buffers, self._bt, self._cfg, page_size=self._page,
-                length=self._Lc, active=active, impl=self._attn_impl)
+                self._kv.buffers, bt, self._cfg, page_size=self._page,
+                length=self._Lc, active=active, impl=self._attn_impl,
+                **self._rows_kw())
             self.stats["spec_verify_windows"] = (
                 self.stats.get("spec_verify_windows", 0) + 1)
             greedy = torch.argmax(w_logits, dim=-1).to(torch.int32)
@@ -1430,9 +1483,8 @@ class ContinuousDecoder:
             last = cand.gather(1, (cnt - 1).clamp(min=0).long()[:, None])
             tok = torch.where(cnt > 0, last[:, 0], tok)
             emits.append(emit.T)
-        self._tok, self._pos = tok, pos
-        self._active, self._remaining = active, remaining
-        return torch.cat(emits, dim=0)
+        return self._join_rows(torch.cat(emits, dim=0), tok, pos, active,
+                               remaining)
 
     def step(self) -> int:
         """One engine tick; returns the number of live slots stepped."""
@@ -1616,12 +1668,20 @@ class ContinuousDecoder:
             req.event.set()
         return cancelled
 
+    def bind_thread(self) -> None:
+        """Make the engine's card the calling thread's current device (a
+        thread starts on card 0; collectives over NCCL take the current
+        device's)."""
+        if self._dev.type == "cuda":
+            torch.cuda.set_device(self._dev)
+
     def serve_forever(self, idle_sleep: float = 0.002,
                       max_failures: int = 3,
                       failure_backoff: float = 0.05):
         """Engine loop with crash containment: a failing step() backs off
         exponentially; after ``max_failures`` in a row every in-flight
         request is cancelled and the loop keeps serving."""
+        self.bind_thread()
         failures = 0
         while not self._stop.is_set():
             try:

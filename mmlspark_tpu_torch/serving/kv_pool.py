@@ -31,14 +31,19 @@ target for inactive-row writes and for block-table entries past a row's
 allocation. The pool is host bookkeeping plus a handle to the device
 buffers; the caller serializes access.
 
-**Tensor parallelism** (``tp > 1``, the JAX ``sharding=`` argument): a
-rank's pool holds its ``heads / tp`` heads of every page, ``(num_pages,
+**Tensor parallelism** (``mesh=`` with a ``tp`` axis of size ``tp > 1``,
+the JAX ``sharding=`` argument): a rank's pool holds its ``heads / tp`` heads of every page, ``(num_pages,
 heads / tp, page_size, hd)``. The page dimension stays a shared arena:
 every rank runs the same allocations, so alloc/free, block tables, CoW
 and ``compact()`` are the same host bookkeeping on every rank.
 ``device_bytes`` and ``bytes_per_position`` report this shard;
 ``device_bytes_global`` and ``bytes_per_position_global`` all ``tp``
-shards together.
+shards together. Such a pool moves sessions whole: :meth:`PagedKVPool.export_session` gathers the heads of
+every ``tp`` rank into the reference's head-complete blob (its pages are
+the ranks' shards concatenated by head, byte for byte), and
+:meth:`PagedKVPool.adopt_session` keeps this rank's heads of such a
+blob. Over a ``dp`` axis the pool replicates: every replica runs the
+same allocations and writes.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 from ..core.residency import get_residency_manager
 from ..observability import charge as _ledger_charge
 from ..observability import gauge as _metric_gauge
+from ..parallel.mesh import axis_rank, axis_size, gather_rows
 from ..ops.kv_quant import (SCALE_DTYPE, kv_bytes_per_position,
                             kv_store_dtype, resolve_kv_dtype)
 from ..utils.device import resolve_device
@@ -118,20 +124,26 @@ class PagedKVPool:
     shared-prefix registry."""
 
     def __init__(self, cfg, *, num_pages: int, page_size: int,
-                 kv_dtype: Optional[str] = None, device=None, tp: int = 1,
-                 residency: bool = True):
+                 kv_dtype: Optional[str] = None, device=None,
+                 residency: bool = True, mesh=None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
-        if tp < 1 or cfg.heads % tp:
+        tp = axis_size(mesh, "tp")
+        if cfg.heads % tp:
             raise ValueError(f"heads {cfg.heads} not divisible by tp={tp}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
-        #: head shards the pool's heads are split into (1 = all heads)
-        self.tp = int(tp)
+        #: head shards the pool's heads are split into: the size of the
+        #: mesh's "tp" axis (1 = all heads; None or no such axis)
+        self.tp = tp
+        #: the mesh whose "tp" axis the session calls gather heads over,
+        #: and this rank's index on that axis
+        self._mesh = mesh
+        self.tp_rank = axis_rank(mesh, "tp")
         #: heads this pool holds: its shard of cfg.heads
         self.heads = cfg.heads // self.tp
         hd = cfg.d_model // cfg.heads
@@ -378,7 +390,8 @@ class PagedKVPool:
     # -- session export / adopt ----------------------------------------------
 
     def _layout(self) -> dict:
-        """The blob fields an adopting pool must match."""
+        """The blob fields an adopting pool must match: the head-complete
+        page shape, whatever shard this pool holds."""
         return {
             "page_size": self.page_size,
             "kv_dtype": self.kv_dtype,
@@ -386,15 +399,19 @@ class PagedKVPool:
             "scale_dtype": (_NP_NAMES[self.scale_dtype]
                             if self.scale_dtype is not None else None),
             "layers": int(self.cfg.layers),
-            "page_shape": [int(x) for x in self._shape[1:]],
+            "page_shape": [self.cfg.heads] + [int(x)
+                                              for x in self._shape[2:]],
         }
 
-    def _check_unsharded(self, what: str) -> None:
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"{what} of a head-sharded pool (tp={self.tp}) is not ported "
-                f"to mmlspark_tpu_torch yet (queued in ROADMAP.md, 'Slice 6 "
-                f"leftovers')")
+    def _head_complete(self, raw: torch.Tensor) -> torch.Tensor:
+        """This rank's (n, H / tp, ...) uint8 page bytes of one buffer →
+        every rank's, (n, H, ...) concatenated by head in rank order: ONE
+        all-gather over the ``tp`` group (the identity at tp = 1)."""
+        if self.tp == 1:
+            return raw
+        parts = gather_rows(raw[None], self._mesh, "tp")
+        return parts.transpose(0, 1).reshape(
+            (raw.shape[0], self.tp * raw.shape[1]) + tuple(raw.shape[2:]))
 
     def export_session(self, pages: Sequence[int], *, length: int) -> dict:
         """Serialize one session's KV pages into the reference's portable,
@@ -405,16 +422,29 @@ class PagedKVPool:
         ride along per layer under the same indices. ``length`` is the
         number of positions the pages hold. Each buffer's pages are
         gathered as raw bytes (one gather per buffer), and all of them
-        cross to the host in ONE copy."""
-        self._check_unsharded("session export")
+        cross to the host in ONE copy.
+
+        A head-sharded pool (``tp > 1``) exports on every rank of its
+        ``tp`` group together: the buffers' page bytes cross the group in
+        one all-gather and every rank returns the same head-complete blob,
+        whose pages are the ranks' shards concatenated by head, bitwise
+        (not bitwise a single-device export: the tp all-reduce orders the
+        sums of later layers differently)."""
         pages = [int(p) for p in pages]
         idx = torch.as_tensor(pages, dtype=torch.int64).to(self.device)
-        flat, sizes = [], []
-        for c in self.buffers:
-            for buf in c.values():
-                b = buf.view(torch.uint8)[idx].reshape(-1)
-                flat.append(b)
-                sizes.append(b.numel())
+        shards = [buf.view(torch.uint8)[idx] for c in self.buffers
+                  for buf in c.values()]
+        if self.tp > 1 and shards:
+            # one collective: every buffer's (n, H / tp, row) bytes side
+            # by side under the head axis
+            n, h = shards[0].shape[:2]
+            cat = torch.cat([b.reshape(n, h, -1) for b in shards], dim=2)
+            whole = self._head_complete(cat)
+            cuts = np.cumsum([0] + [b[0, 0].numel() for b in shards])
+            shards = [whole[:, :, cuts[i]:cuts[i + 1]]
+                      for i in range(len(shards))]
+        flat = [b.reshape(-1) for b in shards]
+        sizes = [b.numel() for b in flat]
         host = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.uint8)
         data, off, i = [], 0, 0
         for c in self.buffers:
@@ -438,8 +468,9 @@ class PagedKVPool:
         quantization mode must agree) before it allocates, and
         ``PoolExhausted`` — with nothing leaked — when the pool lacks the
         pages; any later failure frees what it allocated. The blob's bytes
-        cross to the device in one copy."""
-        self._check_unsharded("session adopt")
+        cross to the device in one copy. A head-sharded pool keeps this
+        rank's heads of the head-complete blob (heads ``[r * H / tp, (r +
+        1) * H / tp)`` for ``tp`` rank ``r``); no collective runs."""
         if blob.get("v") != 1:
             raise ValueError(f"unknown session blob version {blob.get('v')}")
         want = self._layout()
@@ -451,15 +482,19 @@ class PagedKVPool:
         pages = self.alloc(n)
         try:
             chunks, shapes = [], []
+            h0 = self.tp_rank * self.heads
             for c, entry in zip(self.buffers, blob["data"]):
                 for key, buf in c.items():
                     raw = np.frombuffer(base64.b64decode(entry[key]), np.uint8)
-                    shape = (n,) + tuple(buf.view(torch.uint8).shape[1:])
-                    if raw.size != int(np.prod(shape)):
+                    row = tuple(buf.view(torch.uint8).shape[2:])
+                    whole = (n, self.cfg.heads) + row
+                    if raw.size != int(np.prod(whole)):
                         raise ValueError(
                             f"session blob {key!r}: {raw.size} bytes, want "
-                            f"{int(np.prod(shape))}")
-                    chunks.append(raw)
+                            f"{int(np.prod(whole))}")
+                    shape = (n, self.heads) + row
+                    chunks.append(raw.reshape(whole)[
+                        :, h0:h0 + self.heads].reshape(-1))
                     shapes.append(shape)
             if len(shapes) != sum(len(c) for c in self.buffers):
                 raise ValueError("session blob: missing layers or buffers")

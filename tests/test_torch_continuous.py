@@ -197,21 +197,25 @@ def test_submit_validation(params):
             eng.submit(*args, **kw)
 
 
-@pytest.mark.parametrize("kw", [{"draft_params": {},
+@pytest.mark.parametrize("kw", [{"draft_params": "params",
                                  "mesh": ranks.StubMesh(tp=1)},
                                 {"mesh": ranks.StubMesh(dp=2, tp=1)},
                                 {"prefill_ahead": 1}, {"prefill_ahead": 2},
                                 {"journal": object()}])
 def test_unported_options_raise(params, kw):
-    """The options still unported raise NotImplementedError naming their
-    ROADMAP item; prefill-ahead and the journal, ported since, build."""
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(params, **kw)
-        return
+    """Options once unported build now: speculation on a mesh and slots
+    over dp (ROADMAP items 27 and 25; a stub mesh as rank 0 sees it, no
+    collective at construction), prefill-ahead and the journal."""
+    if kw.get("draft_params") == "params":
+        kw = {**kw, "draft_params": params, "draft_cfg": CFG}
     eng = _engine(params, **kw)
     assert eng._stage_cap == kw.get("prefill_ahead", 0)
     assert eng._journal is kw.get("journal")
+    assert eng._spec == ("draft_params" in kw)
+    if "mesh" in kw:
+        dp = kw["mesh"].size(0) if "dp" in kw["mesh"].mesh_dim_names else 1
+        assert eng._slot_axis == ("dp" if dp > 1 else None)
+        assert eng._rows == slice(0, 2 // dp)
 
 
 def test_unported_session_calls_raise(params):

@@ -15,8 +15,10 @@ interpret mode on the conftest's 8 host devices), as
   4-token horizon (``tests/test_mesh_parity.py:208``);
 * a mid-stream ``compact()`` keeps the survivor's reference tokens;
 * ``shard_params`` slices concatenate back to the full weights bitwise;
-  a mesh that does not divide the heads raises ValueError, a dp > 1
-  mesh NotImplementedError;
+  a mesh that does not divide the heads raises ValueError;
+* a dp-only ("dp",) = (2,) mesh (slots over dp, no head axis) gives the
+  JAX dp engine's tokens, ``generate_cached``'s and the single-device
+  engine's, and its two replicas' pools are bitwise equal (the dp x tp cases: ``tests/test_torch_mesh_dp.py``);
 * a one-rank ("dp", "tp") = (1, 1) mesh (the collective on a group of
   one) gives the single-device engine's tokens and pages bit for bit.
 
@@ -68,10 +70,10 @@ def _generate(params, prompt, n):
     return [int(t) for t in np.asarray(ids)[0, len(prompt):]]
 
 
-def _ref_engine(params, ps, max_new, **kw):
-    mesh = Mesh(np.array(jax.devices()[:2]), ("tp",))
-    eng = RefDecoder(params, REF_CFG, max_slots=4, max_len=64, mesh=mesh,
-                     paged_attn="kernel", **kw)
+def _ref_engine(params, ps, max_new, axis="tp", max_slots=4, **kw):
+    mesh = Mesh(np.array(jax.devices()[:2]), (axis,))
+    eng = RefDecoder(params, REF_CFG, max_slots=max_slots, max_len=64,
+                     mesh=mesh, paged_attn="kernel", **kw)
     reqs = [eng.submit(p, max_new_tokens=max_new) for p in ps]
     while any(r is not None for r in eng._slot_req) or eng._waiting:
         eng.step()
@@ -160,10 +162,35 @@ def test_tp2_indivisible_heads_raise(tp2):
         port_tf.shard_params(ranks.tf.init_transformer(CFG), CFG, 0, 3)
 
 
-def test_dp_mesh_raises_not_implemented(params):
-    with pytest.raises(NotImplementedError, match="Slice 6 leftovers"):
-        ContinuousDecoder(params, CFG, device="cpu",
-                          mesh=ranks.StubMesh(dp=2, tp=1))
+def test_dp_mesh_raises_not_implemented(params, reference):
+    """Once a refusal, now the dp-only parity: each rank computes its two
+    of four slots, and both replicas give the JAX engine's tokens on a
+    ("dp",) = (2,) mesh, ``generate_cached``'s and the single-device
+    engine's, and its pools; with three slots (dp does not divide them)
+    every rank computes every row, as the JAX engine's rule says, and
+    gives the JAX three-slot dp engine's tokens."""
+    ps = _prompts()
+    want = reference["generate"]
+    assert _ref_engine(params, ps, 10, axis="dp") == want
+    odd = _ref_engine(params, ps, 10, axis="dp", max_slots=3)
+    assert odd == want
+    res = run_ranks(ranks.dp_only_engine, 2, args=(params, ps),
+                    device="cpu", axes={"dp": 2}, threads=1, timeout=300)
+    assert [r["dp"] for r in res] == [0, 1]
+    for r in res:
+        assert r["mesh_shape"] == "dp2"
+        assert r["mesh"]["slot_axis"] == "dp"
+        assert r["single"]["slot_axis"] is None
+        assert r["mesh"]["tokens"] == want
+        assert r["single"]["tokens"] == want
+        assert r["odd"]["tokens"] == odd
+        assert r["odd"]["slot_axis"] is None and r["odd"]["rows"] == [0, 3]
+    for li, (a, b) in enumerate(zip(res[0]["mesh"]["layers"],
+                                    res[1]["mesh"]["layers"])):
+        for key in ("k", "v"):
+            assert np.array_equal(a[key][1:], b[key][1:]), (li, key)
+            assert np.array_equal(a[key][1:],
+                                  res[0]["single"]["layers"][li][key][1:])
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4])

@@ -217,3 +217,22 @@ def test_compact_remaps_scales_with_pages(kv_dtype):
                 t.view(torch.uint8).float()
             for new, old in zip((1, 2, 3), b):
                 assert bool((v[new] == old).all()), (kk, new, old)
+
+
+def test_head_sharded_pool_adopts_its_heads():
+    """A pool on a tp = 2 mesh (rank 0's view) holds heads 0-1 and adopts
+    those heads of a head-complete blob, bitwise."""
+    import test_torch_mesh_ranks as ranks
+    src = port.PagedKVPool(CFG, num_pages=8, page_size=4, device="cpu")
+    for c in src.buffers:
+        for buf in c.values():
+            buf.copy_(torch.randn(buf.shape, generator=torch.Generator()
+                                  .manual_seed(3)).to(buf.dtype))
+    blob = src.export_session(src.alloc(2), length=5)
+    meshed = port.PagedKVPool(CFG, num_pages=8, page_size=4, device="cpu",
+                              mesh=ranks.StubMesh(tp=2))
+    assert meshed.tp == 2 and meshed.heads == 2 and meshed.tp_rank == 0
+    pages = meshed.adopt_session(blob)
+    for c_src, c_m in zip(src.buffers, meshed.buffers):
+        for kk in c_src:
+            assert torch.equal(c_m[kk][pages], c_src[kk][[1, 2], :2])

@@ -822,17 +822,27 @@ def test_mount_rejects_indivisible_axes():
 
 
 def test_mount_refuses_slot_sharding_and_unknown_axes():
+    """Slot sharding, once refused, now mounts: the read-only op (no
+    collective) on dp rank 0's rows of a dp = 2 mesh equals those rows of
+    the unmounted read. Unknown axes, and one axis named for both, still
+    raise ValueError."""
     act, pools, bt = _case(4, jnp.float32, None)
     q, kp, vp = _to_torch(act[0]), _to_torch(pools[0]), _to_torch(pools[1])
     lens = torch.from_numpy(LENGTHS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pa.paged_attention(q, kp, vp, torch.from_numpy(bt), lens,
-                                mesh=ranks.StubMesh(dp=2, tp=1),
-                                slot_axis="dp",
-                                head_axis="tp")
+    bt = torch.from_numpy(bt)
+    whole = port_pa.paged_attention(q, kp, vp, bt, lens)
+    n = B // 2
+    mine = port_pa.paged_attention(q[:n].contiguous(), kp, vp, bt[:n],
+                                   lens[:n], mesh=ranks.StubMesh(dp=2, tp=1),
+                                   slot_axis="dp", head_axis="tp")
+    assert torch.equal(mine, whole[:n])
     with pytest.raises(ValueError, match="no axis"):
-        port_pa.paged_attention(q, kp, vp, torch.from_numpy(bt), lens,
+        port_pa.paged_attention(q, kp, vp, bt, lens,
                                 mesh=ranks.StubMesh(tp=1), head_axis="heads")
+    with pytest.raises(ValueError, match="both"):
+        port_pa.paged_attention(q, kp, vp, bt, lens,
+                                mesh=ranks.StubMesh(dp=2), slot_axis="dp",
+                                head_axis="dp")
 
 
 def test_mesh_helpers_without_a_world():

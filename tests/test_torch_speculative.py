@@ -568,10 +568,21 @@ def test_generation_engine_with_a_draft(params):
 
 
 def test_spec_on_a_mesh_raises(params):
+    """Once a refusal, now speculation on a ("dp",) = (2,) mesh: the draft
+    replicated, each rank's verify windows over its own slots; every rank
+    gives the plain greedy tokens and ran the same rounds."""
     import test_torch_mesh_ranks as ranks
-    with pytest.raises(NotImplementedError, match="item 27"):
-        ContinuousDecoder(params, CFG, device="cpu", draft_params=params,
-                          draft_cfg=CFG, mesh=ranks.StubMesh(tp=1))
+    from mmlspark_tpu_torch.parallel.launch import run_ranks
+    d_params, _ = _drafts(params)["weak"]
+    rng = np.random.default_rng(71)
+    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (5, 9, 13)]
+    res = run_ranks(ranks.spec_dp_engine, 2, args=(params, d_params, prompts),
+                    device="cpu", axes={"dp": 2}, threads=1, timeout=300)
+    for rank, r in enumerate(res):
+        assert r["slot_axis"] == "dp" and r["rows"] == [2 * rank,
+                                                        2 * rank + 2]
+        assert r["tokens"] == [_want(params, p, 8) for p in prompts]
+        assert r["windows"] == res[0]["windows"] > 0
 
 
 def test_jax_draft_params_accepted(params):
